@@ -1,0 +1,116 @@
+"""Where the port's time goes on the card: one full-width video-QA request
+under ``torch.profiler``.
+
+    python3 scripts/torch_trace.py [--new-tokens 16] [--trace out.json]
+
+Builds the full-width model (random bf16 weights, seed 0), warms it up with
+one ``mm_infer``, then profiles the stages of a request on 32 uint8 frames
+(480x640): preprocess + encode, prefill with the first token, and prefill
+with ``--new-tokens`` tokens. For each it prints the wall time, the
+device-busy time (union of kernel intervals), the device's idle share, and
+the kernels with the most device time. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals, in microseconds."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--trace", default="", help="write a chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("FAILED: needs a CUDA card", flush=True)
+        return 1
+
+    from ufvideo_tpu_torch import mm_infer, model_init
+    from ufvideo_tpu_torch.api import _assemble_input_ids
+    from ufvideo_tpu_torch.configs import UFVideoConfig
+    from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    rt, _, tok = model_init(cfg=UFVideoConfig(), device=dev, seed=0)
+    frames = np.random.default_rng(0).integers(0, 256, (32, 480, 640, 3), dtype=np.uint8)
+    question = "What happens in this video?"
+    mm_infer(frames, question, rt, tok, max_new_tokens=4)  # build + warm up
+    torch.cuda.synchronize()
+
+    ids = _assemble_input_ids(question, 1, "<video>", tok)
+    sync = torch.cuda.synchronize
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("stage:encode"):
+            pixels = siglip_preprocess_device(
+                torch.from_numpy(frames).to(dev), rt.cfg.compute_dtype)
+            feats = rt.encode_video(pixels[None])
+            sync()
+        with record_function("stage:prefill"):
+            rt.generate(ids, feats, max_new_tokens=1)
+            sync()
+        with record_function("stage:prefill+decode"):
+            toks, _, _ = rt.generate(ids, feats, max_new_tokens=args.new_tokens)
+            sync()
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in events if e.name.startswith("stage:") and e.device_type == cpu}
+    kernels = [e for e in events
+               if e.device_type == cuda and not e.name.startswith("stage:")]
+    out = {"card": smi, "generated": len(toks)}
+    for stage, (s, e) in ranges.items():
+        inside = [(k.time_range.start, k.time_range.end) for k in kernels
+                  if s <= k.time_range.start < e]
+        busy = _busy_us(inside)
+        by_name = defaultdict(float)
+        for k in kernels:
+            if s <= k.time_range.start < e:
+                by_name[k.name] += k.time_range.end - k.time_range.start
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        wall = e - s
+        out[stage] = {
+            "wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / wall if wall else None,
+            "kernels": len(inside),
+            "top_ms": {n[:70]: round(t / 1e3, 3) for n, t in top},
+        }
+    print(json.dumps(out, indent=1), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

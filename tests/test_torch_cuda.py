@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain PyTorch versions, in bf16,
+on the card. Skipped on a machine without CUDA; imports no JAX, so the
+file runs on the card's machine:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+Tolerances: bf16 operands with f32 accumulation on both sides, the output
+rounded to bf16 once at other places in the sum (one bf16 step is
+2^-8..2^-7 of a value). An element may differ by 1e-2 of its row's RMS
+(the last axis: one head's output, one token's residual) plus 2e-2 (2.5
+bf16 steps) of itself, the whole tensor by 1e-2 in relative Frobenius norm:
+a limit scaled to the output, so a dropped key chunk or a length mask off
+by one key fails even where outputs are small. The block rounds four
+intermediates to bf16 (LN output, qkv, attention, MLP hidden), each of which
+may land one bf16 step apart on the two sides, so its elements get 5e-2 of
+the row's RMS (the unfused cuBLAS / SDPA block needs 2.3e-2 against the same
+plain version on an H100).
+"""
+
+import pytest
+import torch
+
+from ufvideo_tpu_torch.ops.decode_attention import (
+    ragged_decode_attention,
+    ragged_decode_attention_plain,
+)
+from ufvideo_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from ufvideo_tpu_torch.ops.hiera_block import fused_hiera_block, fused_hiera_block_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    return torch.device("cuda")
+
+
+def _assert_close(got, want, row_rel=1e-2, rtol=2e-2, rel=1e-2):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    err = (got - want).abs()
+    row_rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    excess = err - (row_rel * row_rms + rtol * want.abs() + 1e-6)
+    need = float(((err - rtol * want.abs()) / row_rms.clamp_min(1e-30)).max())
+    assert float(excess.max()) <= 0, f"needs {need:.3e}*rms(row)"
+    rel_fro = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    assert rel_fro <= rel, f"relative Frobenius error {rel_fro:.3e}"
+
+
+def _randn(dev, *shape, seed=0, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (scale * torch.randn(*shape, generator=g, device=dev)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,d,causal,lens,masked",
+    [
+        (2, 300, 300, 8, 2, 128, True, [300, 170], False),
+        (1, 100, 450, 4, 4, 64, True, [450], False),
+        (2, 129, 200, 2, 1, 72, False, [200, 77], True),
+    ],
+)
+def test_flash_kernel_matches_plain(dev, b, sq, skv, hq, hkv, d, causal, lens, masked):
+    q = _randn(dev, b, sq, hq, d, seed=1)
+    k = _randn(dev, b, skv, hkv, d, seed=2)
+    v = _randn(dev, b, skv, hkv, d, seed=3)
+    kv_lens = torch.tensor(lens, device=dev)
+    kv_mask = None
+    if masked:
+        g = torch.Generator(device=dev).manual_seed(4)
+        kv_mask = torch.rand(b, skv, generator=g, device=dev) > 0.3
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, kv_lens=kv_lens, kv_mask=kv_mask)
+    want = flash_attention_plain(q, k, v, causal=causal, kv_lens=kv_lens, kv_mask=kv_mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_close(got, want)
+
+
+def test_decode_kernel_matches_plain(dev):
+    q = _randn(dev, 3, 4, 7, 128, seed=5)
+    kc = _randn(dev, 3, 4, 640, 128, seed=6)
+    vc = _randn(dev, 3, 4, 640, 128, seed=7)
+    lens = torch.tensor([640, 1, 333], device=dev)
+    got = ragged_decode_attention(q, kc, vc, lens)
+    want = ragged_decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
+def _block_params(dev, c, mlp):
+    vec = lambda m, seed: (1.0 + _randn(dev, m, seed=seed, scale=0.1).float()).to(torch.bfloat16)
+    return (
+        vec(c, 10), _randn(dev, c, seed=11, scale=0.1),
+        _randn(dev, c, 3 * c, seed=12, scale=c ** -0.5), _randn(dev, 3 * c, seed=13, scale=0.1),
+        _randn(dev, c, c, seed=14, scale=c ** -0.5), _randn(dev, c, seed=15, scale=0.1),
+        vec(c, 16), _randn(dev, c, seed=17, scale=0.1),
+        _randn(dev, c, mlp, seed=18, scale=c ** -0.5), _randn(dev, mlp, seed=19, scale=0.1),
+        _randn(dev, mlp, c, seed=20, scale=mlp ** -0.5), _randn(dev, c, seed=21, scale=0.1),
+    )
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu_exact"])
+def test_hiera_kernel_matches_plain(dev, act):
+    n, s, c, heads, hd, mlp = 3, 100, 144, 2, 72, 576
+    params = _block_params(dev, c, mlp)
+    x = _randn(dev, n, s, c, seed=22)
+    got = fused_hiera_block(x, params, heads, hd, act=act)
+    want = fused_hiera_block_plain(x, params, heads, hd, act=act)
+    torch.cuda.synchronize()
+    _assert_close(got, want, row_rel=5e-2)
+
+
+def test_hiera_kernel_attention_part_matches_plain(dev):
+    """The residual stream hides the attention part: with the MLP's output
+    zeroed and the projection the identity, block(x) - x is the window
+    attention's output (x small, so its bf16 rounding hides nothing)."""
+    n, s, c, heads, hd, mlp = 3, 100, 144, 2, 72, 576
+    p = list(_block_params(dev, c, mlp))
+    p[4] = torch.eye(c, device=dev, dtype=torch.bfloat16)
+    p[5] = p[11] = torch.zeros(c, device=dev, dtype=torch.bfloat16)
+    p[10] = torch.zeros_like(p[10])
+    x = _randn(dev, n, s, c, seed=22, scale=1e-2)
+    got = fused_hiera_block(x, tuple(p), heads, hd, act="gelu_tanh")
+    want = fused_hiera_block_plain(x, tuple(p), heads, hd, act="gelu_tanh")
+    torch.cuda.synchronize()
+    _assert_close(got.float() - x.float(), want.float() - x.float(), row_rel=5e-2)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = _randn(dev, 1, 8, 2, 16).float()
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        ragged_decode_attention(
+            _randn(dev, 1, 1, 9, 16), *(_randn(dev, 1, 1, 8, 16),) * 2,
+            torch.tensor([8], device=dev),
+        )
+    odd = _randn(dev, 1, 8, 2, 20)  # head dim not a multiple of 8
+    with pytest.raises(ValueError):
+        flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError):
+        ragged_decode_attention(odd, odd, odd, torch.tensor([8], device=dev))
+    shifted = _randn(dev, 1, 8 * 2 * 16 + 1)[:, 1:].view(1, 8, 2, 16)  # 2-byte offset
+    with pytest.raises(ValueError):
+        flash_attention(shifted, shifted, shifted)

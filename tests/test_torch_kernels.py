@@ -1,0 +1,178 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+On CPU tensors each wrapper runs its plain PyTorch version, so these tests
+hold that version against (a) the Pallas kernel in interpret mode and (b)
+the XLA reference next to it, on the same numpy inputs in float32.
+Tolerance 2e-5: the same float32 math summed in another order (the JAX side
+runs at "highest" matmul precision, conftest.py). The CUDA kernels
+themselves run only on the card: tests/test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ufvideo_tpu.ops import hiera_block as jhb
+from ufvideo_tpu.ops.attention import decode_attention as j_decode_attention
+from ufvideo_tpu.ops.attention import xla_attention as j_xla_attention
+from ufvideo_tpu.ops.decode_attention import ragged_decode_attention as j_ragged
+from ufvideo_tpu.ops.flash_attention import flash_attention as j_flash
+from ufvideo_tpu_torch.ops import attention as t_attention
+from ufvideo_tpu_torch.ops.decode_attention import (
+    ragged_decode_attention,
+    ragged_decode_attention_plain,
+)
+from ufvideo_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from ufvideo_tpu_torch.ops.hiera_block import fused_hiera_block, fused_hiera_block_plain
+
+ATOL = 2e-5
+
+
+def _qkv(seed, b, sq, skv, hq, hkv, d):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.standard_normal((b, sq, hq, d)).astype(np.float32),
+        rng.standard_normal((b, skv, hkv, d)).astype(np.float32),
+        rng.standard_normal((b, skv, hkv, d)).astype(np.float32),
+    )
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.asarray(x)) for x in xs]
+
+
+FLASH_CASES = [
+    # b, sq, skv, hq, hkv, d, causal, kv_lens, use kv_mask
+    pytest.param(1, 256, 256, 4, 2, 32, True, [200], False, id="gqa-causal-lens"),
+    pytest.param(2, 256, 256, 4, 1, 32, True, [256, 131], False, id="b2-ragged-lens"),
+    pytest.param(1, 128, 256, 2, 2, 32, True, None, False, id="sq-lt-skv"),
+    pytest.param(2, 128, 256, 4, 2, 16, False, [256, 190], True, id="kv-mask"),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,lens,use_mask", FLASH_CASES)
+def test_flash_plain_matches_pallas_and_xla(b, sq, skv, hq, hkv, d, causal, lens, use_mask):
+    q, k, v = _qkv(0, b, sq, skv, hq, hkv, d)
+    kv_lens = None if lens is None else np.asarray(lens, np.int32)
+    kv_mask = None
+    if use_mask:
+        kv_mask = np.random.default_rng(1).random((b, skv)) > 0.3
+    got = flash_attention(
+        *_t(q, k, v), causal=causal,
+        kv_lens=None if kv_lens is None else torch.from_numpy(kv_lens),
+        kv_mask=None if kv_mask is None else torch.from_numpy(kv_mask),
+    ).numpy()
+    jargs = dict(
+        causal=causal,
+        kv_lens=None if kv_lens is None else jnp.asarray(kv_lens),
+        kv_mask=None if kv_mask is None else jnp.asarray(kv_mask),
+    )
+    pallas = np.asarray(j_flash(*map(jnp.asarray, (q, k, v)), interpret=True, **jargs))
+    mask = None
+    if kv_mask is not None:
+        mask = jnp.broadcast_to(jnp.asarray(kv_mask)[:, None, :], (b, sq, skv))
+    xla = np.asarray(
+        j_xla_attention(
+            *map(jnp.asarray, (q, k, v)), causal=causal, kv_lens=jargs["kv_lens"], mask=mask
+        )
+    )
+    # rows past kv_lens see only padding: the Pallas kernel computes them
+    # too, so compare every row
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(got, xla, atol=ATOL, rtol=ATOL)
+
+
+def test_attention_dispatch_and_plain_agree():
+    q, k, v = _qkv(3, 1, 64, 64, 4, 2, 16)
+    lens = torch.tensor([50], dtype=torch.int32)
+    a = t_attention.attention(*_t(q, k, v), causal=True, kv_lens=lens)
+    p = t_attention.attention(*_t(q, k, v), causal=True, kv_lens=lens, use_kernel=False)
+    torch.testing.assert_close(a, p, atol=0, rtol=0)
+    assert flash_attention.launches == 0  # CPU tensors never reach a kernel
+
+
+def test_fully_masked_rows_are_zero():
+    """The m_safe / l >= 1e-30 clamp: a row with no visible key gives 0."""
+    q, k, v = _qkv(4, 1, 8, 8, 2, 2, 8)
+    out = flash_attention_plain(*_t(q, k, v), kv_lens=torch.tensor([0]))
+    assert torch.count_nonzero(out) == 0
+    want = np.asarray(j_xla_attention(*map(jnp.asarray, (q, k, v)), kv_lens=jnp.asarray([0])))
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "b,hkv,g,d,s,lens",
+    [
+        pytest.param(2, 2, 4, 32, 256, [256, 85], id="ragged"),
+        pytest.param(1, 4, 7, 16, 384, [300], id="qwen-groups"),
+    ],
+)
+def test_decode_plain_matches_pallas_and_xla(b, hkv, g, d, s, lens):
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((b, hkv, g, d)).astype(np.float32)
+    kc = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    vc = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    lens = np.asarray(lens, np.int32)
+    got = ragged_decode_attention(*_t(q, kc, vc, lens)).numpy()
+    pallas = np.asarray(j_ragged(*map(jnp.asarray, (q, kc, vc, lens)), interpret=True))
+    xla = np.asarray(
+        j_decode_attention(
+            jnp.asarray(q).reshape(b, 1, hkv * g, d), jnp.asarray(kc), jnp.asarray(vc),
+            jnp.asarray(lens),
+        )
+    ).reshape(b, hkv, g, d)
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(got, xla, atol=ATOL, rtol=ATOL)
+    via_api = t_attention.decode_attention(
+        torch.from_numpy(q).reshape(b, 1, hkv * g, d), *_t(kc, vc, lens)
+    )
+    torch.testing.assert_close(via_api.reshape(b, hkv, g, d), torch.from_numpy(got))
+
+
+def _block_params(seed, c, heads, hd, mlp):
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)
+    hw = heads * hd
+    return (
+        1.0 + 0.1 * n(c), 0.1 * n(c),
+        c ** -0.5 * n(c, 3 * hw), 0.1 * n(3 * hw),
+        hw ** -0.5 * n(hw, c), 0.1 * n(c),
+        1.0 + 0.1 * n(c), 0.1 * n(c),
+        c ** -0.5 * n(c, mlp), 0.1 * n(mlp),
+        mlp ** -0.5 * n(mlp, c), 0.1 * n(c),
+    )
+
+
+@pytest.mark.parametrize(
+    "n,s,c,heads,act",
+    [
+        pytest.param(16, 16, 64, 2, "gelu_exact", id="multi-window-groups"),
+        pytest.param(4, 64, 48, 2, "gelu_exact", id="gw2"),
+        pytest.param(2, 49, 32, 2, "gelu_tanh", id="siglip-like"),
+    ],
+)
+def test_hiera_block_plain_matches_pallas_and_reference(n, s, c, heads, act):
+    hd = c // heads
+    x = np.random.default_rng(6).standard_normal((n, s, c)).astype(np.float32)
+    params = _block_params(7, c, heads, hd, 4 * c)
+    got = fused_hiera_block(
+        torch.from_numpy(x), tuple(_t(*params)), heads, hd, act=act, eps=1e-6
+    ).numpy()
+    jp = tuple(map(jnp.asarray, params))
+    ref = np.asarray(jhb._reference(jnp.asarray(x), jp, heads, hd, hd, act, 1e-6))
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+    pallas = np.asarray(
+        jhb.fused_hiera_block(jnp.asarray(x), jp, heads, hd, 0, True, act, 1e-6)
+    )
+    # gelu_exact: the TPU kernel's A-S erf is within 1.5e-7 of erf
+    np.testing.assert_allclose(got, pallas, atol=1e-4, rtol=1e-4)
+
+
+def test_hiera_plain_is_what_the_wrapper_runs_on_cpu():
+    x = torch.randn(2, 16, 32, generator=torch.Generator().manual_seed(0))
+    params = tuple(_t(*_block_params(8, 32, 2, 16, 64)))
+    a = fused_hiera_block(x, params, 2, 16, act="gelu_tanh")
+    b = fused_hiera_block_plain(x, params, 2, 16, act="gelu_tanh")
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert fused_hiera_block.launches == 0

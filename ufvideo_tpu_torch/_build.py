@@ -1,0 +1,105 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface (``ufvideo_tpu_torch/_build/<name>-<hash>.so``) and
+loaded with ``ctypes``. The hash covers the source, every ``csrc/*.cuh`` and
+the compiler flags, so an edited source is rebuilt on its next use. Sources
+that need a build are compiled in parallel, one ``nvcc`` each. A failed
+build raises with the compiler's output; nothing falls back to another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+KERNEL_SOURCES = ("flash_attention", "decode_attention", "hiera_block")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
+    """Compile every named source whose library is missing, all at once.
+    Returns the wall seconds of each compile (0.0 for an up-to-date one);
+    the ptxas report of each build is kept beside its library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    seconds: Dict[str, float] = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            time.perf_counter(), tmp, out,
+        )
+    failures = []
+    for name, (proc, t0, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.ufv_error_string.argtypes = [ctypes.c_int]
+        lib.ufv_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a kernel entry returned a CUDA error."""
+    if code != 0:
+        msg = lib.ufv_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

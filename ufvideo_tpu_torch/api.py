@@ -1,0 +1,259 @@
+"""Public inference API: ``model_init`` and ``mm_infer`` (mirrors
+``ufvideo_tpu/api.py``, video / image / text QA path).
+
+Entry points run on the card by default: ``model_init(device="cuda")``
+raises when CUDA is missing, and the caller passes ``device="cpu"`` to run
+on the CPU (the plain versions of the kernels). Region inputs, the
+``[SEG]`` paths and SAM2, checkpoint loading, streaming and batched serving
+come with later slices and raise ``NotImplementedError`` naming their
+ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .configs import UFVideoConfig
+from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
+from .mm_utils import tokenizer_multimodal_token, trim_at_stop_strings
+from .models.generate import greedy_generate
+from .models.ufvideo import UFVideoModel
+from .splicing import plan_splice
+from .tokenization import SpecialIds, byte_tokenizer_with_ids
+
+_SEG_ITEM = "ROADMAP.md queue 1 item 1 ([SEG] segmentation through SAM2)"
+_REGION_ITEM = "ROADMAP.md queue 1 item 2 (region encoder)"
+
+
+class UFVideoRuntime:
+    """Owns the composite model, its config, token ids and device."""
+
+    def __init__(self, cfg: UFVideoConfig, model: UFVideoModel, ids: SpecialIds,
+                 device: torch.device):
+        self.cfg = cfg
+        self.model = model
+        self.ids = ids
+        self.device = torch.device(device)
+
+    def encode_video(self, pixels) -> torch.Tensor:
+        """[B, T, H, W, 3] SigLIP-preprocessed frames → video tokens."""
+        return self.model.encode_video(torch.as_tensor(pixels, device=self.device))
+
+    def generate(
+        self,
+        input_ids: List[int],
+        video_feats: Optional[torch.Tensor],
+        max_new_tokens: int = 128,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        seed: int = 0,
+        stop_sequences: tuple = (),
+    ):
+        """Decode one sample. Returns (generated ids, hidden states of the
+        steps that produced them [N, hidden], splice plan)."""
+        out, plan = self.generate_batch(
+            [input_ids], video_feats, max_new_tokens=max_new_tokens,
+            do_sample=do_sample, temperature=temperature, top_p=top_p,
+            seed=seed, stop_sequences=stop_sequences,
+        )
+        tokens, hidden = out[0]
+        return tokens, hidden, plan
+
+    @torch.no_grad()
+    def generate_batch(
+        self,
+        input_ids_list: Sequence[List[int]],
+        video_feats: Optional[torch.Tensor],  # [B, V, D] or None
+        max_new_tokens: int = 128,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        seed: int = 0,
+        stop_sequences: tuple = (),
+    ):
+        """Decode B samples together. Returns a list of (ids, hidden
+        [N, hidden]) per sample, plus the shared splice plan."""
+        cfg = self.cfg
+        b = len(input_ids_list)
+        plan = plan_splice(
+            list(input_ids_list),
+            num_video_tokens=video_feats.shape[1] if video_feats is not None else 0,
+            region_token_counts=[[] for _ in range(b)],
+            region_token_id=self.ids.region,
+            max_seq_len=cfg.budget.max_seq_len,
+            region_stride=cfg.region.region_token_num,
+        )
+        dev = self.device
+        embeds = self.model.splice_embeds(
+            torch.as_tensor(plan.text_ids, device=dev),
+            torch.as_tensor(plan.src_kind, device=dev),
+            torch.as_tensor(plan.src_idx, device=dev),
+            video_feats,
+        )
+        # prefill only up to the 256-rounded true length, not the budget
+        real_len = int(max(plan.seq_lens))
+        trim = min((real_len + 255) // 256 * 256, cfg.budget.max_seq_len)
+        generator = None
+        if do_sample:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(seed)
+        res = greedy_generate(
+            self.model.llm,
+            embeds[:, :trim],
+            torch.as_tensor(plan.seq_lens, device=dev),
+            max_new_tokens=max_new_tokens,
+            stop_ids=(self.ids.eos,),
+            cache_max_len=trim + max_new_tokens,
+            vocab_size=cfg.llm.vocab_size,
+            do_sample=do_sample,
+            temperature=temperature,
+            top_p=top_p,
+            generator=generator,
+            stop_sequences=tuple(tuple(s) for s in stop_sequences),
+        )
+        gen_lens = res.gen_lens.tolist()
+        tokens = res.tokens.tolist()
+        out = [(tokens[i][: gen_lens[i]], res.hidden[i, : gen_lens[i]]) for i in range(b)]
+        return out, plan
+
+
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "model_init: CUDA is not available on this machine; the port runs "
+            "on the card by default. Pass device='cpu' to run on the CPU."
+        )
+    return device
+
+
+def model_init(
+    model_path: Optional[str] = None,
+    *,
+    cfg: Optional[UFVideoConfig] = None,
+    device="cuda",
+    seed: int = 0,
+    tokenizer_path: Optional[str] = None,
+):
+    """Build (runtime, processor, tokenizer). With ``model_path`` None the
+    weights are random, drawn on ``device`` from ``seed`` with the JAX
+    package's initialiser distributions, and the tokenizer is the offline
+    byte tokenizer."""
+    device = _check_device(device)
+    if model_path or tokenizer_path:
+        raise NotImplementedError(
+            "checkpoint and HF tokenizer loading: ROADMAP.md queue 1 item 6 (checkpoints)"
+        )
+    cfg = cfg or UFVideoConfig()
+    tokenizer, ids = byte_tokenizer_with_ids()
+    cfg = cfg.replace(
+        region_token_id=ids.region,
+        seg_token_id=ids.seg,
+        temporal_token_start_id=ids.temporal_start,
+    )
+    model = UFVideoModel.empty(cfg, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model.reset_parameters(gen)
+    return UFVideoRuntime(cfg, model, ids, device), None, tokenizer
+
+
+def _assemble_input_ids(instruct, choice, modal_token, tokenizer):
+    """Prompt assembly (choices 1 / 2 / 3) → multimodal-tokenized ids."""
+    if choice in (1, 2):
+        if isinstance(instruct, str):
+            content = f"{modal_token}\n{instruct}" if choice == 1 else instruct
+            message = [{"role": "user", "content": content}]
+        else:
+            # list-form instructs get the modal token under both choices
+            message = [dict(m) for m in instruct]
+            message[0]["content"] = f"{modal_token}\n" + message[0]["content"]
+    elif choice == 3:
+        roles = {"human": "user", "gpt": "assistant"}
+        message = [
+            {"role": roles.get(s["from"], s["from"]), "content": s["value"]}
+            for s in instruct
+        ]
+    else:
+        raise ValueError(f"unknown choice {choice}")
+    prompt = tokenizer.apply_chat_template(message, tokenize=False, add_generation_prompt=True)
+    return tokenizer_multimodal_token(prompt, tokenizer, modal_token)
+
+
+def _encode_video_input(model: UFVideoRuntime, image_or_video, modal: str):
+    """Vision encode for one sample: uint8 input is resized and normalized
+    on the device; the image modal repeats its frame over the frame
+    budget."""
+    if modal == "text":
+        return None
+    cfg = model.cfg
+    pixels = torch.as_tensor(np.ascontiguousarray(image_or_video), device=model.device)
+    if pixels.dtype == torch.uint8:
+        from .ops.image_pipeline import siglip_preprocess_device
+
+        pixels = siglip_preprocess_device(pixels, out_dtype=cfg.compute_dtype)
+    elif pixels.dtype == torch.float32 and cfg.compute_dtype == torch.bfloat16:
+        pixels = pixels.to(torch.bfloat16)
+    if modal == "image":
+        pixels = pixels[:1].expand((cfg.budget.num_frames,) + tuple(pixels.shape[1:]))
+    return model.encode_video(pixels[None])
+
+
+def mm_infer(
+    image_or_video,
+    instruct,
+    model: UFVideoRuntime,
+    tokenizer,
+    modal: str = "video",
+    masks=None,
+    ann_indices=None,
+    frame=None,
+    choice: int = 1,
+    images_sam=None,
+    label_size=None,
+    seg: bool = False,
+    **kwargs,
+):
+    """Reference-compatible inference entry, path A (generate → text).
+
+    image_or_video: [T, H, W, 3] frames (numpy or tensor, NHWC), uint8 raw
+    or float preprocessed. Returns ``(text, {"output": ids, "pred_masks":
+    []})``, or the dict alone when ``seg`` is set."""
+    if masks is not None or frame is not None:
+        raise NotImplementedError(f"region inputs: {_REGION_ITEM}")
+    if images_sam is not None:
+        raise NotImplementedError(f"SAM2 mask decoding: {_SEG_ITEM}")
+    modal_token = {
+        "image": DEFAULT_IMAGE_TOKEN, "video": DEFAULT_VIDEO_TOKEN, "text": ""
+    }[modal]
+    input_ids = _assemble_input_ids(instruct, choice, modal_token, tokenizer)
+    if model.ids.seg in input_ids:
+        raise NotImplementedError(f"[SEG] in the input (path B): {_SEG_ITEM}")
+
+    video_feats = _encode_video_input(model, image_or_video, modal)
+
+    do_sample = bool(kwargs.get("do_sample", False))
+    temperature = kwargs.get("temperature")
+    temperature = float(0.2 if temperature is None else temperature) if do_sample else 1.0
+    stop_strings = kwargs.get("stop_strings") or []
+    stop_sequences = tuple(
+        tuple(tokenizer(s, add_special_tokens=False).input_ids) for s in stop_strings
+    )
+    tokens, _hidden, _ = model.generate(
+        input_ids, video_feats,
+        max_new_tokens=int(kwargs.get("max_new_tokens", 1024)),
+        do_sample=do_sample, temperature=temperature,
+        top_p=float(kwargs.get("top_p", 0.9)),
+        stop_sequences=stop_sequences, seed=int(kwargs.get("seed", 0)),
+    )
+    output_text = tokenizer.decode(tokens, skip_special_tokens=True).strip()
+    if stop_strings:
+        output_text = trim_at_stop_strings(output_text, stop_strings).strip()
+    out = {"output": tokens, "pred_masks": []}
+    if seg:
+        return out
+    return output_text, out

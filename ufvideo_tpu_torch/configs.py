@@ -1,0 +1,182 @@
+"""Typed configuration for the video-QA path (SigLIP + STC-v35 projector +
+Qwen2), mirroring ``ufvideo_tpu/configs.py`` with torch dtypes.
+
+Only the fields this package implements are here: the SAM2, quantisation,
+speculative-decoding and chunked-prefill settings come with the slices that
+port them (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class SiglipVisionConfig:
+    """SigLIP-SO400M-patch14-384 vision tower."""
+
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_layers: int = 27
+    num_heads: int = 16
+    image_size: int = 384
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-6
+    # feature tap hidden_states[-2]: the final encoder layer never runs
+    select_layer: int = -2
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size * self.grid_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def num_encode_layers(self) -> int:
+        """Encoder layers executed for the feature tap (26 for -2)."""
+        if self.select_layer >= 0:
+            raise ValueError("select_layer must be negative")
+        return self.num_layers + 1 + self.select_layer
+
+
+@dataclass(frozen=True)
+class Qwen2Config:
+    """Qwen2-7B-Instruct LLM dims."""
+
+    vocab_size: int = 152064
+    hidden_size: int = 3584
+    num_layers: int = 28
+    num_heads: int = 28
+    num_kv_heads: int = 4
+    head_dim: int = 128
+    intermediate_size: int = 18944
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1_000_000.0
+    max_position_embeddings: int = 32768
+    eos_token_id: int = 151645  # <|im_end|>
+    pad_token_id: int = 151643  # <|endoftext|>
+
+    @property
+    def padded_vocab_size(self) -> int:
+        """Embedding / lm_head rows, rounded up to a multiple of 256."""
+        return _round_up(self.vocab_size, 256)
+
+
+@dataclass(frozen=True)
+class ProjectorConfig:
+    """STC-v35 connector: RegStage(4) → Conv3d (2,2,2) stride 2 pad 0 →
+    RegStage(4) → 2-layer MLP readout."""
+
+    projector_type: str = "stc_connector_v35"
+    encoder_hidden_size: int = 1152
+    hidden_size: int = 3584
+    depth: int = 4
+    mlp_depth: int = 2
+    downsample: Tuple[int, int, int] = (2, 2, 2)  # (t, h, w)
+
+    def token_grid(self, num_frames: int, vis_grid: int) -> Tuple[int, int, int]:
+        """Output grid (t, h, w); padding 0, so dims floor-divide."""
+        if self.projector_type != "stc_connector_v35":
+            raise NotImplementedError(
+                f"projector {self.projector_type!r}: only stc_connector_v35 "
+                "is ported (ROADMAP.md queue 1)"
+            )
+        dt, dh, dw = self.downsample
+        return (
+            (num_frames - dt) // dt + 1,
+            (vis_grid - dh) // dh + 1,
+            (vis_grid - dw) // dw + 1,
+        )
+
+    def num_video_tokens(self, num_frames: int, vis_grid: int) -> int:
+        t, h, w = self.token_grid(num_frames, vis_grid)
+        return t * h * w
+
+
+@dataclass(frozen=True)
+class RegionEncoderConfig:
+    """Mask-pooled region tokens. Only ``region_token_num`` (the splice
+    plan's region stride) is used until the region slice is ported."""
+
+    encoder_hidden_size: int = 1152
+    hidden_size: int = 3584
+    depth: int = 2
+    region_token_num: int = 4
+    mask_shape: int = 112
+
+
+@dataclass(frozen=True)
+class MultimodalBudget:
+    """Static token budgets every sequence is padded to."""
+
+    max_seq_len: int = 4096
+    max_text_len: int = 2048
+    max_regions: int = 8
+    max_objects: int = 8
+    max_new_tokens: int = 1024
+    num_frames: int = 32
+    num_frames_sam: int = 4
+
+
+@dataclass(frozen=True)
+class UFVideoConfig:
+    vision: SiglipVisionConfig = field(default_factory=SiglipVisionConfig)
+    llm: Qwen2Config = field(default_factory=Qwen2Config)
+    projector: ProjectorConfig = field(default_factory=ProjectorConfig)
+    region: RegionEncoderConfig = field(default_factory=RegionEncoderConfig)
+    budget: MultimodalBudget = field(default_factory=MultimodalBudget)
+
+    # token ids filled in from the tokenizer by model_init
+    region_token_id: int = -1
+    seg_token_id: int = -1
+    temporal_token_start_id: int = -1
+
+    # bf16 compute and storage; LayerNorm / RMSNorm / softmax in float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def num_video_tokens(self) -> int:
+        return self.projector.num_video_tokens(
+            self.budget.num_frames, self.vision.grid_size
+        )
+
+    def replace(self, **kw) -> "UFVideoConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def tiny_config() -> UFVideoConfig:
+    """Miniature config for tests: the dims of ``ufvideo_tpu`` tiny_config."""
+    return UFVideoConfig(
+        vision=SiglipVisionConfig(
+            hidden_size=32, intermediate_size=64, num_layers=3, num_heads=2,
+            image_size=56, patch_size=14,
+        ),
+        llm=Qwen2Config(
+            vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+            num_kv_heads=2, head_dim=16, intermediate_size=128,
+            eos_token_id=2, pad_token_id=0,
+        ),
+        projector=ProjectorConfig(encoder_hidden_size=32, hidden_size=64),
+        region=RegionEncoderConfig(encoder_hidden_size=32, hidden_size=64),
+        budget=MultimodalBudget(
+            max_seq_len=128, max_text_len=64, max_regions=2, max_objects=2,
+            max_new_tokens=8, num_frames=4, num_frames_sam=2,
+        ),
+        compute_dtype=torch.float32,
+        param_dtype=torch.float32,
+    )

@@ -1,0 +1,37 @@
+"""Token conventions the video-QA path needs (a copy of the parts of
+``ufvideo_tpu/constants.py`` it uses: same sentinel ids, same special-token
+order, so prompts tokenize identically in both packages)."""
+
+IGNORE_INDEX = -100
+
+# Modal sentinel ids, interleaved into input_ids by the multimodal tokenizer.
+IMAGE_TOKEN_INDEX = -200
+VIDEO_TOKEN_INDEX = -201
+AUDIO_TOKEN_INDEX = -202
+
+DEFAULT_IMAGE_TOKEN = "<image>"
+DEFAULT_VIDEO_TOKEN = "<video>"
+DEFAULT_AUDIO_TOKEN = "<audio>"
+
+MODAL_INDEX_MAP = {
+    "<image>": IMAGE_TOKEN_INDEX,
+    "<video>": VIDEO_TOKEN_INDEX,
+    "<audio>": AUDIO_TOKEN_INDEX,
+}
+
+TEMPORAL_TOKEN_FORMAT = "<TEMP-{:03d}>"
+NUM_TEMPORAL_TOKENS = 100
+
+REGION_TOKEN = "<region>"
+SEG_TOKEN = "[SEG]"
+
+
+def temporal_tokens() -> list:
+    """The 100 ``<TEMP-000>..<TEMP-099>`` temporal grounding tokens."""
+    return [TEMPORAL_TOKEN_FORMAT.format(i) for i in range(NUM_TEMPORAL_TOKENS)]
+
+
+def extra_special_tokens() -> list:
+    """Tokens added on top of the base LLM vocabulary, in order: <region>,
+    the 100 temporal tokens, then [SEG]."""
+    return [REGION_TOKEN, *temporal_tokens(), SEG_TOKEN]

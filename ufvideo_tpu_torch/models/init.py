@@ -1,0 +1,44 @@
+"""Random initialisation with the distributions of the flax initialisers
+the JAX package uses (the values differ: the generators differ)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# stddev of a standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal (±2σ) with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    tmp = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    torch.nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+    return t.copy_(tmp)
+
+
+@torch.no_grad()
+def normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> torch.Tensor:
+    """flax ``normal(std)`` (and ``nn.Embed``'s default, std 1/sqrt(features))."""
+    tmp = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    tmp.normal_(0.0, std, generator=gen)
+    return t.copy_(tmp)
+
+
+@torch.no_grad()
+def linear_(layer: torch.nn.Linear, gen: torch.Generator) -> None:
+    """nn.Dense defaults: lecun_normal kernel, zero bias."""
+    lecun_normal_(layer.weight, layer.weight.shape[1], gen)
+    if layer.bias is not None:
+        layer.bias.zero_()
+
+
+@torch.no_grad()
+def norm_(layer, gen: torch.Generator = None) -> None:
+    """LayerNorm / RMSNorm defaults: unit scale, zero bias."""
+    layer.weight.fill_(1.0)
+    if getattr(layer, "bias", None) is not None:
+        layer.bias.zero_()

@@ -1,0 +1,69 @@
+"""Composite UFVideo model for video QA: SigLIP tower + STC-v35 projector +
+Qwen2 LM (mirrors ``ufvideo_tpu/models/ufvideo.py`` ``encode_video`` /
+``splice_embeds``). The region encoder, the ``[SEG]`` text head and SAM2
+come with later slices (ROADMAP.md)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs import UFVideoConfig
+from ..splicing import apply_splice
+from .projector import STCConnector
+from .qwen2 import Qwen2LM
+from .siglip import SiglipVisionTower
+
+
+class UFVideoModel(nn.Module):
+    def __init__(self, cfg: UFVideoConfig):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.param_dtype
+        self.vision = SiglipVisionTower(cfg.vision, dtype=dt, act="gelu_tanh")
+        self.projector = STCConnector(cfg.projector, dtype=dt)
+        self.llm = Qwen2LM(cfg.llm, dtype=dt)
+
+    @classmethod
+    def empty(cls, cfg: UFVideoConfig, device) -> "UFVideoModel":
+        """Uninitialised, frozen parameters on ``device`` (built on the meta
+        device first, so no memory is filled twice)."""
+        with torch.device("meta"):
+            model = cls(cfg)
+        return model.to_empty(device=device).eval().requires_grad_(False)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """Random init with the JAX package's initialiser distributions."""
+        self.vision.reset_parameters(gen)
+        self.projector.reset_parameters(gen)
+        self.llm.reset_parameters(gen)
+
+    def set_use_kernels(self, flag: bool) -> None:
+        """Route every kernel call to its CUDA kernel (True, the default;
+        CPU tensors still take the plain versions) or to the plain PyTorch
+        version on any device (False)."""
+        for m in self.modules():
+            if hasattr(m, "use_kernels"):
+                m.use_kernels = flag
+
+    @torch.no_grad()
+    def encode_video(self, pixels: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, 3] frames → [B, V, hidden] video tokens."""
+        b, t, h, w, c = pixels.shape
+        feats = self.vision(pixels.reshape(b * t, h, w, c))
+        feats = feats.reshape(b, t, feats.shape[1], feats.shape[2])
+        return self.projector(feats)
+
+    @torch.no_grad()
+    def splice_embeds(
+        self,
+        text_ids: torch.Tensor,  # [B, T] sentinel-free ids
+        src_kind: torch.Tensor,  # [B, S]
+        src_idx: torch.Tensor,  # [B, S]
+        video_feats: Optional[torch.Tensor],
+        region_feats: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        text_embeds = self.llm.embed(text_ids)
+        return apply_splice(text_embeds, video_feats, region_feats, src_kind, src_idx)

@@ -1,0 +1,131 @@
+"""Fill the port's modules from the JAX package's parameter tree.
+
+``params`` is the output of
+``jax.tree.map(np.asarray, UFVideoModel(cfg).init_params(key))`` — nested
+dicts of numpy arrays — so this module needs no JAX. Layout changes:
+
+- flax ``Dense`` kernels are [in, out]; ``nn.Linear.weight`` is [out, in].
+- SigLIP and Qwen2 layers are scan-stacked on a leading layer axis.
+- Qwen2's ``self_attn_qkv_proj`` is already the fused [q | k | v] matrix.
+- SigLIP's encoder layers keep [in, out] (the kernel's layout).
+- ``patch_embedding_kernel`` [p, p, 3, C] becomes a [C, p·p·3] matmul.
+- Conv kernels [kh, kw, (kt,) in, out] become torch [out, in, (kt,) kh, kw].
+- ``embed_tokens`` / ``lm_head`` keep their padded vocab rows.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .models.projector import RegBottleneck, STCConnector
+from .models.qwen2 import Qwen2LM
+from .models.siglip import SiglipVisionTower
+from .models.ufvideo import UFVideoModel
+
+
+@torch.no_grad()
+def _set(dst: torch.Tensor, src) -> None:
+    src = torch.from_numpy(np.array(src))  # a writable copy
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
+    dst.copy_(src.to(dtype=dst.dtype))
+
+
+def _dense(lin: torch.nn.Linear, p: Dict[str, Any]) -> None:
+    _set(lin.weight, np.asarray(p["kernel"]).T)
+    if lin.bias is not None:
+        _set(lin.bias, p["bias"])
+
+
+def _ln(ln, p: Dict[str, Any]) -> None:
+    _set(ln.weight, p["scale"])
+    if "bias" in p:
+        _set(ln.bias, p["bias"])
+
+
+def load_siglip(tower: SiglipVisionTower, p: Dict[str, Any]) -> None:
+    k = np.asarray(p["patch_embedding_kernel"])  # [p, p, 3, C]
+    _set(tower.patch_embedding.weight, k.reshape(-1, k.shape[-1]).T)
+    _set(tower.patch_embedding.bias, p["patch_embedding_bias"])
+    _set(tower.position_embedding, p["position_embedding"])
+    lp = p["layers"]
+    for i, layer in enumerate(tower.layers):
+        pick = lambda *path: _pick(lp, path)[i]
+        _set(layer.ln1_scale, pick("layer_norm1", "scale"))
+        _set(layer.ln1_bias, pick("layer_norm1", "bias"))
+        _set(layer.qkv_kernel, pick("self_attn", "qkv_proj", "kernel"))
+        _set(layer.qkv_bias, pick("self_attn", "qkv_proj", "bias"))
+        _set(layer.out_kernel, pick("self_attn", "out_proj", "kernel"))
+        _set(layer.out_bias, pick("self_attn", "out_proj", "bias"))
+        _set(layer.ln2_scale, pick("layer_norm2", "scale"))
+        _set(layer.ln2_bias, pick("layer_norm2", "bias"))
+        _set(layer.fc1_kernel, pick("mlp", "fc1", "kernel"))
+        _set(layer.fc1_bias, pick("mlp", "fc1", "bias"))
+        _set(layer.fc2_kernel, pick("mlp", "fc2", "kernel"))
+        _set(layer.fc2_bias, pick("mlp", "fc2", "bias"))
+
+
+def _pick(tree, path):
+    for key in path:
+        tree = tree[key]
+    return np.asarray(tree)
+
+
+def _conv1x1(lin: torch.nn.Linear, p) -> None:
+    k = np.asarray(p["kernel"])  # [1, 1, in, out]
+    _set(lin.weight, k[0, 0].T)
+    if lin.bias is not None:
+        _set(lin.bias, p["bias"])
+
+
+def _bottleneck(blk: RegBottleneck, p) -> None:
+    _conv1x1(blk.conv1, p["conv1"])
+    _ln(blk.conv1_ln, p["conv1_ln"])
+    _set(blk.conv2.weight, np.asarray(p["conv2"]["kernel"]).transpose(3, 2, 0, 1))
+    _ln(blk.conv2_ln, p["conv2_ln"])
+    _conv1x1(blk.se_fc1, p["se_fc1"])
+    _conv1x1(blk.se_fc2, p["se_fc2"])
+    _conv1x1(blk.conv3, p["conv3"])
+    _ln(blk.conv3_ln, p["conv3_ln"])
+    if blk.downsample is not None:
+        _conv1x1(blk.downsample, p["downsample"])
+        _ln(blk.downsample_ln, p["downsample_ln"])
+
+
+def load_projector(proj: STCConnector, p: Dict[str, Any]) -> None:
+    for stage, name in ((proj.s1, "s1"), (proj.s2, "s2")):
+        for i, blk in enumerate(stage.blocks):
+            _bottleneck(blk, p[name][f"b{i + 1}"])
+    k = np.asarray(p["sampler"]["kernel"])  # [kt, kh, kw, in, out]
+    _set(proj.sampler.weight, k.transpose(4, 3, 0, 1, 2))
+    _set(proj.sampler.bias, p["sampler"]["bias"])
+    for i, fc in enumerate(proj.readout):
+        _dense(fc, p["readout"][f"fc{2 * i}"])
+
+
+def load_qwen2(lm: Qwen2LM, p: Dict[str, Any]) -> None:
+    _set(lm.embed_tokens.weight, p["embed_tokens"]["embedding"])
+    _ln(lm.norm, p["norm"])
+    _set(lm.lm_head.weight, np.asarray(p["lm_head"]["kernel"]).T)
+    lp = p["layers"]
+    for i, layer in enumerate(lm.layers):
+        pick = lambda *path: _pick(lp, path)[i]
+        _set(layer.input_layernorm.weight, pick("input_layernorm", "scale"))
+        _set(layer.post_attention_layernorm.weight, pick("post_attention_layernorm", "scale"))
+        _set(layer.qkv_proj.weight, pick("self_attn_qkv_proj", "kernel").T)
+        _set(layer.qkv_proj.bias, pick("self_attn_qkv_proj", "bias"))
+        _set(layer.o_proj.weight, pick("self_attn_o_proj", "kernel").T)
+        _set(layer.gate_proj.weight, pick("mlp_gate_proj", "kernel").T)
+        _set(layer.up_proj.weight, pick("mlp_up_proj", "kernel").T)
+        _set(layer.down_proj.weight, pick("mlp_down_proj", "kernel").T)
+
+
+def load_jax_params(model: UFVideoModel, params: Dict[str, Any]) -> UFVideoModel:
+    """Copy the JAX param tree (numpy leaves) into ``model``; returns it."""
+    load_siglip(model.vision, params["vision"])
+    load_projector(model.projector, params["projector"])
+    load_qwen2(model.llm, params["llm"])
+    return model
