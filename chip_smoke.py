@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels and drive its video-QA path on one GPU.
+"""Build the port's CUDA kernels and drive its video-QA and [SEG]
+segmentation paths on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
@@ -18,8 +19,14 @@ Phases, each printed as it runs; any failure exits non-zero:
      outputs finite; the video tokens, the final prefill hidden state and
      the logits of the first decode steps through the kernels against the
      plain versions, and their greedy tokens.
-Then one JSON line per kernel, the card line, and the last line
-{"ok": true, "device": {...}}.
+  4. [SEG]: on the same model, mm_infer with a [SEG] in the input (a
+     choice-3 conversation), 32 video frames and 4 uint8 frames for SAM2
+     Hiera-L at full width, one object; launch counts read around that one
+     call and held to what the code predicts; masks [4, 480, 640] boolean;
+     stage timings; the SAM2 kernel path against the plain path on the same
+     [SEG] embedding (FPN level-2 features, low-res mask logits, mask IoU).
+Then one JSON line with every kernel (launches = QA call + [SEG] call), the
+card line, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -40,6 +47,9 @@ N_TIMED = 20
 # kernel path vs plain path at full width; the run before this check read
 # cosines of 0.9998 (video tokens, prefill hidden states) on an H100
 PATH_COS = 0.999
+# low-res mask logits of the [SEG] path, kernel path vs plain path: they sit
+# behind 48 Hiera blocks, the memory attention and the mask decoder
+SEG_COS = 0.99
 
 
 def log(msg: str) -> None:
@@ -128,6 +138,76 @@ def check_close(name, got, want, row_rel=REL, fatal=True):
     return max_abs
 
 
+def bench(timer, label, kernel, plain, library, nbytes_, flops, row_rel=REL):
+    """One shape of one kernel: check against the plain version, then time
+    kernel / plain / library beside the bound."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = check_close(label, got, want, row_rel=row_rel)
+    del got, want
+    t_b, by = bound_ms(nbytes_, flops)
+    return dict(shape=label, max_abs_err=err, ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+                library_ms=timer.ms(library) if library else None, bound_ms=t_b, bound_by=by)
+
+
+def log_shapes(k):
+    for e in k.get("shapes", ()):
+        lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+        log(f"    {e['shape']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+
+
+# tokens of the mask decoder at full width: 6 output tokens (object score,
+# IoU, 4 masks) + the padded empty point prompt's 2, + the [SEG] embedding
+# on the prompted frame 0 only
+MASK_DECODER_TOKENS = (9, 8)
+
+
+def mask_decoder_shapes(tokens=MASK_DECODER_TOKENS, image_tokens=4096):
+    """(Sq, Skv, head dim) of the mask decoder's attentions, 8 heads each:
+    the tokens on themselves at the full width of 256, tokens on the image
+    and the image on the tokens at the halved width of 128."""
+    return [s for t in tokens for s in ((t, t, 32), (t, image_tokens, 16), (image_tokens, t, 16))]
+
+
+def flash_sam_shapes(dev, timer, gen):
+    """flash_attention at the shapes SAM2 gives it at full width: a Hiera
+    global block, memory self-attention, memory cross-attention on the
+    first tracked frame (slot 0 valid, slots 1-6 and all but the first
+    pointer's 4 tokens masked), and the mask decoder's small attentions on
+    the prompted and on the tracked frames."""
+    from ufvideo_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    import torch.nn.functional as F
+
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
+    out = []
+    shapes = {
+        "Hiera global block q=k=v [4,4096,8,72]": (4, 4096, 4096, 8, 72, None),
+        "memory self-attention [1,4096,1,256]": (1, 4096, 4096, 1, 256, None),
+        "memory cross-attention q [1,4096,1,256] k/v [1,28736,1,256] kv_mask 4100 valid":
+            (1, 4096, 7 * 4096 + 64, 1, 256, 4100),
+    }
+    for sq, skv, d in mask_decoder_shapes():
+        shapes[f"mask decoder q [1,{sq},8,{d}] k/v [1,{skv},8,{d}]"] = (1, sq, skv, 8, d, None)
+    for label, (b, sq, skv, h, d, n_valid) in shapes.items():
+        q, k, v = mk(b, sq, h, d), mk(b, skv, h, d), mk(b, skv, h, d)
+        mask = None
+        if n_valid is not None:
+            mask = torch.zeros(b, skv, dtype=torch.bool, device=dev)
+            mask[:, :4096] = True
+            mask[:, 7 * 4096:7 * 4096 + (n_valid - 4096)] = True
+        seen = skv if n_valid is None else n_valid
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        am = None if mask is None else mask[:, None, None, :]
+        out.append(bench(
+            timer, f"flash_attention [{label}]",
+            lambda: flash_attention(q, k, v, kv_mask=mask),
+            lambda: flash_attention_plain(q, k, v, kv_mask=mask),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am),
+            nbytes(q, q) + 2 * b * seen * h * d * 2, 4 * b * h * sq * seen * d))
+    return out
+
+
 def kernel_flash(dev, timer, gen):
     from ufvideo_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     import torch.nn.functional as F
@@ -167,7 +247,8 @@ def kernel_flash(dev, timer, gen):
                 replaces="ufvideo_tpu/ops/flash_attention.py:274",
                 max_abs_err=max(errs), tol=tol_text(REL), ms=ms, plain_ms=plain,
                 bound_ms=t_b, bound_by=by, library_ms=lib,
-                shape="q [1,2816,28,128] k/v [1,2816,4,128] causal kv_lens [2770]")
+                shape="q [1,2816,28,128] k/v [1,2816,4,128] causal kv_lens [2770]",
+                shapes=flash_sam_shapes(dev, timer, gen))
 
 
 def kernel_decode(dev, timer, gen):
@@ -207,22 +288,151 @@ def kernel_decode(dev, timer, gen):
                 shape="q [1,4,7,128] cache [1,4,2944,128] lens [2771]")
 
 
+def block_params(dev, gen, c, mlp, cin=None, front_extra=0):
+    """Random parameters of one block: (ln1_s, ln1_b, wfront [cin, 3c +
+    front_extra], bfront, wproj [c, c], bproj, ln2_s, ln2_b, w1, b1, w2, b2)."""
+    bf = torch.bfloat16
+    cin = cin or c
+    rn = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
+    nf = 3 * c + front_extra
+    return (
+        (1 + 0.1 * rn(cin)).to(bf), (0.1 * rn(cin)).to(bf),
+        (rn(cin, nf) * cin ** -0.5).to(bf), (0.1 * rn(nf)).to(bf),
+        (rn(c, c) * c ** -0.5).to(bf), (0.1 * rn(c)).to(bf),
+        (1 + 0.1 * rn(c)).to(bf), (0.1 * rn(c)).to(bf),
+        (rn(c, mlp) * c ** -0.5).to(bf), (0.1 * rn(mlp)).to(bf),
+        (rn(mlp, c) * mlp ** -0.5).to(bf), (0.1 * rn(c)).to(bf),
+    )
+
+
+def lib_tail(shortcut, att, params, approximate="none"):
+    """Library yardstick of a block's tail: cuBLAS GEMMs, fused LN / GELU."""
+    import torch.nn.functional as F
+
+    wp, bp, l2s, l2b, w1, b1, w2, b2 = params
+    n, s, c = shortcut.shape
+    x1 = shortcut + torch.addmm(bp, att.reshape(n * s, -1), wp).reshape(n, s, c)
+    h = F.layer_norm(x1, (c,), l2s, l2b, 1e-6).reshape(n * s, c)
+    h = F.gelu(torch.addmm(b1, h, w1), approximate=approximate)
+    return x1 + torch.addmm(b2, h, w2).reshape(n, s, c)
+
+
+def hiera_shapes(dev, timer, gen):
+    """fused_hiera_block at the four windowed-block shapes of Hiera-L on 4
+    frames (gelu_exact, head dim 72, MLP 4C)."""
+    from ufvideo_tpu_torch.ops.hiera_block import fused_hiera_block, fused_hiera_block_plain
+    import torch.nn.functional as F
+
+    out = []
+    for n, s, c, heads in ((4096, 64, 144, 2), (4096, 16, 288, 4), (64, 256, 576, 8),
+                           (64, 64, 1152, 16)):
+        hd, mlp = 72, 4 * c
+        params = block_params(dev, gen, c, mlp)
+        x = torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
+        (l1s, l1b, wq, bq) = params[:4]
+
+        def unfused():
+            h = F.layer_norm(x, (c,), l1s, l1b, 1e-6)
+            qkv = torch.addmm(bq, h.reshape(n * s, c), wq).reshape(n, s, 3, heads, hd)
+            o = F.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4).unbind(0))
+            return lib_tail(x, o.transpose(1, 2).reshape(n, s, c), params[4:])
+
+        rows = n * s
+        flops = 2 * rows * (3 * c * c + c * c + 2 * c * mlp) + 4 * n * heads * s * s * hd
+        out.append(bench(
+            timer, f"fused_hiera_block [Hiera x [{n},{s},{c}] {heads} heads, gelu_exact]",
+            lambda: fused_hiera_block(x, params, heads, hd, act="gelu_exact"),
+            lambda: fused_hiera_block_plain(x, params, heads, hd, act="gelu_exact"),
+            unfused, nbytes(x, x, *params), flops, row_rel=BLOCK_REL))
+    return out
+
+
+def kernel_ln_matmul(dev, timer, gen):
+    from ufvideo_tpu_torch.ops.hiera_block import fused_ln_matmul, fused_ln_matmul_plain
+    import torch.nn.functional as F
+
+    n, s, c, d = 4, 4096, 576, 1728
+    l1s, l1b, w, b = block_params(dev, gen, c, 8)[:4]
+    x = torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
+    e = bench(
+        timer, f"fused_ln_matmul [x [{n},{s},{c}] w [{c},{d}]]",
+        lambda: fused_ln_matmul(x, l1s, l1b, w, b),
+        lambda: fused_ln_matmul_plain(x, l1s, l1b, w, b),
+        lambda: torch.addmm(b, F.layer_norm(x, (c,), l1s, l1b, 1e-6).reshape(n * s, c), w),
+        nbytes(x, w, l1s, l1b, b) + n * s * d * 2, 2 * n * s * c * d)
+    return dict(name="fused_ln_matmul", route="cuda",
+                source="ufvideo_tpu_torch/csrc/hiera_block.cu",
+                replaces="ufvideo_tpu/ops/hiera_block.py:695", tol=tol_text(REL), **e)
+
+
+def kernel_block_tail(dev, timer, gen):
+    from ufvideo_tpu_torch.ops.hiera_block import fused_block_tail, fused_block_tail_plain
+
+    n, s, c, mlp = 4, 4096, 576, 2304
+    params = block_params(dev, gen, c, mlp)[4:]
+    mk = lambda: torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
+    shortcut, att = mk(), mk()
+    e = bench(
+        timer, f"fused_block_tail [shortcut, att [{n},{s},{c}] MLP {mlp}, gelu_exact]",
+        lambda: fused_block_tail(shortcut, att, params),
+        lambda: fused_block_tail_plain(shortcut, att, params),
+        lambda: lib_tail(shortcut, att, params),
+        nbytes(shortcut, att, shortcut, *params), 2 * n * s * (c * c + 2 * c * mlp),
+        row_rel=BLOCK_REL)
+    return dict(name="fused_block_tail", route="cuda",
+                source="ufvideo_tpu_torch/csrc/hiera_block.cu",
+                replaces="ufvideo_tpu/ops/hiera_block.py:819", tol=tol_text(BLOCK_REL), **e)
+
+
+def kernel_qpool(dev, timer, gen):
+    """fused_qpool_block at Hiera-L's three stage transitions on 4 frames."""
+    from ufvideo_tpu_torch.ops.hiera_block import fused_qpool_block, fused_qpool_block_plain
+    import torch.nn.functional as F
+
+    shapes = []
+    for n, s, cin, heads in ((4096, 64, 144, 4), (4096, 16, 288, 8), (64, 256, 576, 16)):
+        cout, hd, mlp = 2 * cin, 72, 8 * cin
+        hw, ws, sq = heads * hd, int(s ** 0.5), s // 4
+        params = block_params(dev, gen, cout, mlp, cin=cin, front_extra=cout)
+        x = torch.randn(n, s, cin, generator=gen, device=dev).to(torch.bfloat16)
+        (l1s, l1b, wf, bf_) = params[:4]
+
+        def pool(v):
+            v6 = v.reshape(n, ws // 2, 2, ws // 2, 2, v.shape[-1])
+            return v6.amax(dim=4).amax(dim=2).reshape(n, sq, v.shape[-1])
+
+        def unfused():
+            h = F.layer_norm(x, (cin,), l1s, l1b, 1e-6)
+            fr = torch.addmm(bf_, h.reshape(n * s, cin), wf).reshape(n, s, -1)
+            q = pool(fr[..., :hw]).reshape(n, sq, heads, hd).transpose(1, 2)
+            k = fr[..., hw:2 * hw].reshape(n, s, heads, hd).transpose(1, 2)
+            v = fr[..., 2 * hw:3 * hw].reshape(n, s, heads, hd).transpose(1, 2)
+            o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(n, sq, hw)
+            return lib_tail(pool(fr[..., 3 * hw:]), o, params[4:])
+
+        flops = (2 * n * s * cin * (3 * hw + cout) + 4 * n * heads * sq * s * hd
+                 + 2 * n * sq * (hw * cout + 2 * cout * mlp))
+        shapes.append(bench(
+            timer, f"fused_qpool_block [x [{n},{s},{cin}] -> [{n},{sq},{cout}] {heads} heads]",
+            lambda: fused_qpool_block(x, params, heads, hd, (2, 2)),
+            lambda: fused_qpool_block_plain(x, params, heads, hd, (2, 2)),
+            unfused, nbytes(x, *params) + n * sq * cout * 2, flops, row_rel=BLOCK_REL))
+    first, rest = shapes[0], shapes[1:]
+    first["max_abs_err"] = max(e["max_abs_err"] for e in shapes)
+    return dict(name="fused_qpool_block", route="cuda",
+                source="ufvideo_tpu_torch/csrc/hiera_block.cu",
+                replaces="ufvideo_tpu/ops/hiera_block.py:1078", tol=tol_text(BLOCK_REL),
+                shapes=rest, **first)
+
+
 def kernel_hiera(dev, timer, gen):
     from ufvideo_tpu_torch.ops.hiera_block import fused_hiera_block, fused_hiera_block_plain
     import torch.nn.functional as F
 
     n, s, c, heads, hd, mlp = 32, 729, 1152, 16, 72, 4304
     bf = torch.bfloat16
-    rn = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
-    params = (
-        (1 + 0.1 * rn(c)).to(bf), (0.1 * rn(c)).to(bf),
-        (rn(c, 3 * c) * c ** -0.5).to(bf), (0.1 * rn(3 * c)).to(bf),
-        (rn(c, c) * c ** -0.5).to(bf), (0.1 * rn(c)).to(bf),
-        (1 + 0.1 * rn(c)).to(bf), (0.1 * rn(c)).to(bf),
-        (rn(c, mlp) * c ** -0.5).to(bf), (0.1 * rn(mlp)).to(bf),
-        (rn(mlp, c) * mlp ** -0.5).to(bf), (0.1 * rn(c)).to(bf),
-    )
-    x = rn(n, s, c).to(bf)
+    params = block_params(dev, gen, c, mlp)
+    x = torch.randn(n, s, c, generator=gen, device=dev).to(bf)
     got = fused_hiera_block(x, params, heads, hd, act="gelu_tanh", eps=1e-6)
     want = fused_hiera_block_plain(x, params, heads, hd, act="gelu_tanh", eps=1e-6)
     torch.cuda.synchronize()
@@ -253,10 +463,7 @@ def kernel_hiera(dev, timer, gen):
         h = F.layer_norm(x, (c,), l1s, l1b, 1e-6)
         qkv = torch.addmm(bq, h.reshape(rows, c), wq).reshape(n, s, 3, heads, hd)
         o = F.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4).unbind(0))
-        x1 = x + torch.addmm(bp, o.transpose(1, 2).reshape(rows, c), wp).reshape(n, s, c)
-        h = F.layer_norm(x1, (c,), l2s, l2b, 1e-6).reshape(rows, c)
-        h = F.gelu(torch.addmm(b1, h, w1), approximate="tanh")
-        return x1 + torch.addmm(b2, h, w2).reshape(n, s, c)
+        return lib_tail(x, o.transpose(1, 2).reshape(n, s, c), params[4:], "tanh")
 
     lib = timer.ms(unfused)
     want = fused_hiera_block_plain(x, params, heads, hd, act="gelu_tanh", eps=1e-6)
@@ -267,7 +474,8 @@ def kernel_hiera(dev, timer, gen):
                 replaces="ufvideo_tpu/ops/hiera_block.py:435",
                 max_abs_err=err, tol=tol_text(BLOCK_REL), ms=ms, plain_ms=plain,
                 bound_ms=t_b, bound_by=by, library_ms=lib,
-                shape="x [32,729,1152] 16 heads x 72, MLP 4304, gelu_tanh")
+                shape="x [32,729,1152] 16 heads x 72, MLP 4304, gelu_tanh",
+                shapes=hiera_shapes(dev, timer, gen))
 
 
 # ------------------------------------------------------------------ path --
@@ -287,8 +495,7 @@ def run_path(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), max_new_tokens=
     from ufvideo_tpu_torch.models.qwen2 import make_kv_cache
     from ufvideo_tpu_torch.splicing import plan_splice
 
-    wrappers = {"fused_hiera_block": fused_hiera_block, "flash_attention": flash_attention,
-                "ragged_decode_attention": ragged_decode_attention}
+    wrappers = all_wrappers()
     t0 = time.perf_counter()
     rt, _, tok = model_init(cfg=cfg, device=dev, seed=seed)
     torch.cuda.synchronize()
@@ -316,9 +523,9 @@ def run_path(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), max_new_tokens=
     log(f"  mm_infer: {e2e * 1e3:.1f} ms end to end, {len(out['output'])} tokens, "
         f"peak {peak:.2f} GiB; launches {launches}")
     log(f"  text: {text[:80]!r}")
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"{k} was never launched on the main path")
+    for k in ("fused_hiera_block", "flash_attention", "ragged_decode_attention"):
+        if launches[k] <= 0:
+            fail(f"{k} was never launched on the QA path")
 
     # stage timings, outside the counted run
     ids = _assemble_input_ids(question, 1, "<video>", tok)
@@ -411,6 +618,169 @@ def run_path(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), max_new_tokens=
         fail("kernel path and plain path disagree at full width")
     if flips:
         fail(f"greedy tokens differ beyond a near tie at decode steps {flips}")
+    return launches, rt, tok
+
+
+def all_wrappers():
+    from ufvideo_tpu_torch.ops import decode_attention, flash_attention, hiera_block
+
+    return {
+        "fused_hiera_block": hiera_block.fused_hiera_block,
+        "flash_attention": flash_attention.flash_attention,
+        "ragged_decode_attention": decode_attention.ragged_decode_attention,
+        "fused_ln_matmul": hiera_block.fused_ln_matmul,
+        "fused_block_tail": hiera_block.fused_block_tail,
+        "fused_qpool_block": hiera_block.fused_qpool_block,
+    }
+
+
+def expected_seg_launches(cfg, n_sam_frames: int, chunk: int = 8) -> dict:
+    """Kernel launches of one path-B [SEG] request, from the configuration:
+    SigLIP layers + Hiera blocks by routing for each encode chunk; flash for
+    the LLM's layers, the global blocks, two attentions per memory-attention
+    layer per tracked frame and the mask decoder's seven per frame."""
+    from ufvideo_tpu_torch.models.sam2.hiera import Hiera
+
+    with torch.device("meta"):
+        routes = [b.route for b in Hiera(cfg.sam.hiera, torch.bfloat16).blocks]
+    chunks = -(-n_sam_frames // chunk)
+    n = {r: routes.count(r) * chunks for r in ("block", "qpool", "split")}
+    return {
+        "fused_hiera_block": cfg.vision.num_encode_layers + n["block"],
+        "fused_qpool_block": n["qpool"],
+        "fused_ln_matmul": n["split"],
+        "fused_block_tail": n["split"],
+        "flash_attention": (cfg.llm.num_layers + n["split"]
+                            + (n_sam_frames - 1) * cfg.sam.mem_attn_layers * 2
+                            + n_sam_frames * 7),
+        "ragged_decode_attention": 0,
+    }
+
+
+def iou(a: torch.Tensor, b: torch.Tensor) -> float:
+    union = float((a | b).sum())
+    return float((a & b).sum()) / union if union else 1.0
+
+
+def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4,
+            label_size=(480, 640)):
+    from ufvideo_tpu_torch import mm_infer
+    from ufvideo_tpu_torch.models.sam2.common import ProjAttention
+    from ufvideo_tpu_torch.models.sam2.video import (
+        encode_video_frames, init_on_first_frame, masks_to_video_res,
+        propagate_video, track_frame)
+    from ufvideo_tpu_torch.ops.image_pipeline import sam_preprocess_device
+
+    cfg = rt.cfg
+    wrappers = all_wrappers()
+    rng = np.random.default_rng(seed + 1)
+    frames = rng.integers(0, 256, frame_shape, dtype=np.uint8)
+    images_sam = rng.integers(0, 256, (sam_frames,) + tuple(frame_shape[1:]), dtype=np.uint8)
+    conv = [{"from": "human", "value": "<video>\nPlease segment the cat."},
+            {"from": "gpt", "value": "It is [SEG]."}]
+    call = lambda f, im: mm_infer(f, conv, rt, tok, modal="video", choice=3, images_sam=im,
+                                  label_size=label_size, seg=True)
+    # warm-up, outside the counted run; it also records the shapes the mask
+    # decoder's attentions take, which phase 2 must have held
+    seen, hooks = set(), []
+    for m in rt.model.sam.sam_mask_decoder.modules():
+        if isinstance(m, ProjAttention):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a: seen.add((a[0].shape[1], a[1].shape[1],
+                                         mod.q_proj.out_features // mod.num_heads))))
+    call(frames[::-1], images_sam[::-1])
+    for h in hooks:
+        h.remove()
+    log(f"  mask decoder attention shapes (Sq, Skv, head dim): {sorted(seen)}")
+    if seen != set(mask_decoder_shapes()):
+        fail("the mask decoder's attention shapes are not the ones phase 2 held "
+             f"({sorted(mask_decoder_shapes())})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = call(frames, images_sam)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  mm_infer [SEG]: {e2e * 1e3:.1f} ms end to end, peak {peak:.2f} GiB; "
+        f"launches {launches}")
+    want = expected_seg_launches(cfg, sam_frames)
+    log(f"  launches predicted from the configuration: {want}")
+    if launches != want:
+        fail("launch counts of the [SEG] request differ from the prediction")
+    masks = out["pred_masks"]
+    if len(masks) != 1 or masks[0].shape != (sam_frames,) + tuple(label_size) \
+            or masks[0].dtype != np.bool_:
+        fail(f"pred_masks: {[(m.shape, m.dtype) for m in masks]}")
+    log(f"  masks {masks[0].shape} bool, foreground share per frame "
+        f"{[round(float(m.mean()), 4) for m in masks[0]]}")
+
+    # stage timings and the kernel path against the plain path, on the
+    # [SEG] embedding of the kernel path's LLM forward
+    from ufvideo_tpu_torch.api import _assemble_input_ids, _encode_video_input
+
+    sam = rt.model.sam
+    sync_t = lambda: (torch.cuda.synchronize(), time.perf_counter())[1]
+    ids = _assemble_input_ids(conv, 3, "<video>", tok)
+    t0 = sync_t()
+    hidden, plan = rt.forward_hidden_states(ids, _encode_video_input(rt, frames, "video"))
+    pos = [int(plan.text_pos_map[0][i]) - 1 for i, t in enumerate(ids) if t == rt.ids.seg]
+    emb = rt.model.seg_embeddings(hidden[0, pos])[:, None, :]
+    t1 = sync_t()
+    images = sam_preprocess_device(torch.from_numpy(images_sam).to(dev), cfg.compute_dtype)
+    t2 = sync_t()
+    feats = encode_video_frames(sam, images)
+    t3 = sync_t()
+    state, low0 = init_on_first_frame(sam, feats, emb)
+    t4 = sync_t()
+    lows, per_frame = [low0], []
+    for fi in range(1, sam_frames):
+        ta = sync_t()
+        state, low = track_frame(sam, state, fi, feats.s0[fi], feats.s1[fi], feats.s2[fi],
+                                 feats.pos2, num_frames=sam_frames)
+        per_frame.append((sync_t() - ta) * 1e3)
+        lows.append(low)
+    t5 = sync_t()
+    low_k = torch.stack(lows)
+    masks_k = masks_to_video_res(low_k, *label_size)
+    t6 = sync_t()
+    log(f"  stages: video encode + LLM forward + [SEG] head {(t1 - t0) * 1e3:.1f} ms "
+        f"(prompt {int(plan.seq_lens[0])} tokens), SAM preprocess {(t2 - t1) * 1e3:.1f} ms, "
+        f"Hiera + FPN encode of {sam_frames} frames {(t3 - t2) * 1e3:.1f} ms, frame-0 "
+        f"conditioning {(t4 - t3) * 1e3:.1f} ms, tracked frames "
+        f"{[round(x, 1) for x in per_frame]} ms, upsample {(t6 - t5) * 1e3:.1f} ms")
+    if not torch.isfinite(low_k).all():
+        fail("non-finite low-res mask logits")
+    # same inputs, weights and kernels: the staged run must reproduce the
+    # entry point's masks bit for bit, so that the comparison with the plain
+    # path below covers what mm_infer returned
+    if not np.array_equal(masks_k[:, 0].cpu().numpy(), masks[0]):
+        fail("the staged run's masks differ from those mm_infer returned")
+
+    rt.model.set_use_kernels(False)
+    feats_p = encode_video_frames(sam, images)
+    low_p = propagate_video(sam, feats_p, emb)
+    # the memory path alone: plain propagation on the kernel path's features
+    low_pk = propagate_video(sam, feats, emb)
+    rt.model.set_use_kernels(True)
+    torch.cuda.synchronize()
+    cos_f = cosine(feats.s2, feats_p.s2)
+    cos_low = [cosine(a, b) for a, b in zip(low_k, low_p)]
+    cos_mem = [cosine(a, b) for a, b in zip(low_k, low_pk)]
+    masks_p = masks_to_video_res(low_p, *label_size)
+    ious = [iou(a, b) for a, b in zip(masks_k[:, 0], masks_p[:, 0])]
+    log(f"  kernel vs plain path: FPN level-2 features cosine {cos_f:.5f} (tolerance >= "
+        f"{PATH_COS}); low-res mask logits cosine per frame "
+        f"{[round(c, 5) for c in cos_low]} (tolerance >= {SEG_COS}; on the same features "
+        f"{[round(c, 5) for c in cos_mem]}); mask IoU per frame "
+        f"{[round(x, 4) for x in ious]} (reported, not gated: random weights leave "
+        "logits near the threshold)")
+    if cos_f < PATH_COS or min(cos_low) < SEG_COS:
+        fail("SAM2 kernel path and plain path disagree at full width")
     return launches
 
 
@@ -454,11 +824,13 @@ def main() -> int:
     gen.manual_seed(args.seed)
     timer = Timer(dev)
     kernels = [kernel_hiera(dev, timer, gen), kernel_flash(dev, timer, gen),
-               kernel_decode(dev, timer, gen)]
+               kernel_decode(dev, timer, gen), kernel_ln_matmul(dev, timer, gen),
+               kernel_block_tail(dev, timer, gen), kernel_qpool(dev, timer, gen)]
     for k in kernels:
         log(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_by']}) at {k['shape']}")
+        log_shapes(k)
     del timer
     torch.cuda.empty_cache()
 
@@ -469,9 +841,16 @@ def main() -> int:
     log("phase 3: full-width mm_infer on the card")
     from ufvideo_tpu_torch.configs import UFVideoConfig
 
-    launches = run_path(dev, args.seed, UFVideoConfig())
+    launches, rt, tok = run_path(dev, args.seed, UFVideoConfig())
+    log("phase 4: full-width [SEG] segmentation on the card")
+    seg_launches = run_seg(dev, args.seed, rt, tok)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        # each path's counts were read around its own call, from zero;
+        # "launches" is derived: their sum over the two paths
+        k["launches_qa"], k["launches_seg"] = launches[k["name"]], seg_launches[k["name"]]
+        k["launches"] = k["launches_qa"] + k["launches_seg"]
+        if k["launches"] <= 0:
+            fail(f"{k['name']} was launched on neither path")
         k["check"] = "ok"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,14 +1,18 @@
 """Where the port's time goes on the card: one full-width video-QA request
-under ``torch.profiler``.
+and one full-width ``[SEG]`` segmentation request under ``torch.profiler``.
 
     python3 scripts/torch_trace.py [--new-tokens 16] [--trace out.json]
 
 Builds the full-width model (random bf16 weights, seed 0), warms it up with
 one ``mm_infer``, then profiles the stages of a request on 32 uint8 frames
 (480x640): preprocess + encode, prefill with the first token, and prefill
-with ``--new-tokens`` tokens. For each it prints the wall time, the
-device-busy time (union of kernel intervals), the device's idle share, and
-the kernels with the most device time. Needs one CUDA card.
+with ``--new-tokens`` tokens; then those of a ``[SEG]`` request (a ``[SEG]``
+in the input, 4 uint8 frames for SAM2 Hiera-L, one object): the LLM's
+forward with the ``[SEG]`` head, SAM preprocess + Hiera + FPN encode,
+frame-0 conditioning, the tracked frames, and the mask upsampling. For each
+it prints the wall time, the device-busy time (union of kernel intervals),
+the device's idle share, and the kernels with the most device time. Needs
+one CUDA card.
 """
 
 from __future__ import annotations
@@ -54,7 +58,10 @@ def main() -> int:
     from ufvideo_tpu_torch import mm_infer, model_init
     from ufvideo_tpu_torch.api import _assemble_input_ids
     from ufvideo_tpu_torch.configs import UFVideoConfig
-    from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
+    from ufvideo_tpu_torch.models.sam2.video import (
+        encode_video_frames, init_on_first_frame, masks_to_video_res, track_frame)
+    from ufvideo_tpu_torch.ops.image_pipeline import (
+        sam_preprocess_device, siglip_preprocess_device)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -66,9 +73,16 @@ def main() -> int:
     frames = np.random.default_rng(0).integers(0, 256, (32, 480, 640, 3), dtype=np.uint8)
     question = "What happens in this video?"
     mm_infer(frames, question, rt, tok, max_new_tokens=4)  # build + warm up
+    images_sam = np.random.default_rng(1).integers(0, 256, (4, 480, 640, 3), dtype=np.uint8)
+    conv = [{"from": "human", "value": "<video>\nPlease segment the cat."},
+            {"from": "gpt", "value": "It is [SEG]."}]
+    mm_infer(frames, conv, rt, tok, choice=3, images_sam=images_sam, label_size=(480, 640),
+             seg=True)
     torch.cuda.synchronize()
 
     ids = _assemble_input_ids(question, 1, "<video>", tok)
+    seg_ids = _assemble_input_ids(conv, 3, "<video>", tok)
+    sam = rt.model.sam
     sync = torch.cuda.synchronize
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("stage:encode"):
@@ -81,6 +95,31 @@ def main() -> int:
             sync()
         with record_function("stage:prefill+decode"):
             toks, _, _ = rt.generate(ids, feats, max_new_tokens=args.new_tokens)
+            sync()
+        with record_function("stage:seg llm forward + [SEG] head"):
+            hidden, plan = rt.forward_hidden_states(seg_ids, feats)
+            pos = [int(plan.text_pos_map[0][i]) - 1
+                   for i, t in enumerate(seg_ids) if t == rt.ids.seg]
+            emb = rt.model.seg_embeddings(hidden[0, pos])[:, None, :]
+            sync()
+        with record_function("stage:seg sam preprocess + hiera + fpn"):
+            images = sam_preprocess_device(
+                torch.from_numpy(images_sam).to(dev), rt.cfg.compute_dtype)
+            sfeats = encode_video_frames(sam, images)
+            sync()
+        with record_function("stage:seg frame-0 conditioning"):
+            state, low = init_on_first_frame(sam, sfeats, emb)
+            sync()
+        lows = [low]
+        with record_function("stage:seg tracked frames"):
+            for fi in range(1, images_sam.shape[0]):
+                state, low = track_frame(sam, state, fi, sfeats.s0[fi], sfeats.s1[fi],
+                                         sfeats.s2[fi], sfeats.pos2,
+                                         num_frames=images_sam.shape[0])
+                lows.append(low)
+            sync()
+        with record_function("stage:seg upsample"):
+            masks_to_video_res(torch.stack(lows), 480, 640).cpu()
             sync()
     if args.trace:
         prof.export_chrome_trace(args.trace)

@@ -25,7 +25,16 @@ from ufvideo_tpu_torch.ops.decode_attention import (
     ragged_decode_attention_plain,
 )
 from ufvideo_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from ufvideo_tpu_torch.ops.hiera_block import fused_hiera_block, fused_hiera_block_plain
+from ufvideo_tpu_torch.ops.hiera_block import (
+    fused_block_tail,
+    fused_block_tail_plain,
+    fused_hiera_block,
+    fused_hiera_block_plain,
+    fused_ln_matmul,
+    fused_ln_matmul_plain,
+    fused_qpool_block,
+    fused_qpool_block_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,13 +69,21 @@ def _randn(dev, *shape, seed=0, scale=1.0):
         (2, 300, 300, 8, 2, 128, True, [300, 170], False),
         (1, 100, 450, 4, 4, 64, True, [450], False),
         (2, 129, 200, 2, 1, 72, False, [200, 77], True),
+        (2, 200, 200, 8, 8, 72, False, None, False),  # Hiera global block
+        (1, 150, 150, 1, 1, 256, False, None, False),  # memory self-attention
+        (2, 70, 333, 1, 1, 256, False, None, True),  # memory cross-attention
+        (1, 7, 300, 8, 8, 32, False, None, False),  # mask decoder, tokens to image
+        (1, 300, 7, 8, 8, 16, False, None, False),  # mask decoder, image to tokens
+        (1, 9, 9, 8, 8, 32, False, None, False),  # mask decoder, tokens on themselves
+        (1, 8, 4096, 8, 8, 16, False, None, False),  # mask decoder at full width
+        (1, 4096, 9, 8, 8, 16, False, None, False),
     ],
 )
 def test_flash_kernel_matches_plain(dev, b, sq, skv, hq, hkv, d, causal, lens, masked):
     q = _randn(dev, b, sq, hq, d, seed=1)
     k = _randn(dev, b, skv, hkv, d, seed=2)
     v = _randn(dev, b, skv, hkv, d, seed=3)
-    kv_lens = torch.tensor(lens, device=dev)
+    kv_lens = None if lens is None else torch.tensor(lens, device=dev)
     kv_mask = None
     if masked:
         g = torch.Generator(device=dev).manual_seed(4)
@@ -77,6 +94,27 @@ def test_flash_kernel_matches_plain(dev, b, sq, skv, hq, hkv, d, causal, lens, m
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     _assert_close(got, want)
+
+
+def test_flash_kernel_skips_fully_masked_chunks(dev):
+    """SAM2's memory bank on the first tracked frame: slot 0 valid, slots
+    1-6 (whole 128-key chunks) and most pointer tokens masked."""
+    hw, slots, ptr = 256, 7, 64
+    skv = slots * hw + ptr
+    q = _randn(dev, 2, hw, 1, 256, seed=1)
+    k = _randn(dev, 2, skv, 1, 256, seed=2)
+    v = _randn(dev, 2, skv, 1, 256, seed=3)
+    kv_mask = torch.zeros(2, skv, dtype=torch.bool, device=dev)
+    kv_mask[:, :hw] = True
+    kv_mask[:, slots * hw:slots * hw + 4] = True
+    got = flash_attention(q, k, v, kv_mask=kv_mask)
+    want = flash_attention_plain(q, k, v, kv_mask=kv_mask)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    # nothing visible at all: zeros, not NaN
+    none = flash_attention(q, k, v, kv_mask=torch.zeros_like(kv_mask))
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(none) == 0
 
 
 def test_decode_kernel_matches_plain(dev):
@@ -129,6 +167,84 @@ def test_hiera_kernel_attention_part_matches_plain(dev):
     _assert_close(got.float() - x.float(), want.float() - x.float(), row_rel=5e-2)
 
 
+# Hiera-L's windowed blocks at full width, few windows: (tokens, C, heads)
+HIERA_SHAPES = [(64, 144, 2), (16, 288, 4), (256, 576, 8), (64, 1152, 16)]
+
+
+@pytest.mark.parametrize("s,c,heads", HIERA_SHAPES)
+def test_hiera_kernel_at_hiera_shapes(dev, s, c, heads):
+    params = _block_params(dev, c, 4 * c)
+    x = _randn(dev, 5, s, c, seed=23)
+    before = fused_hiera_block.launches
+    got = fused_hiera_block(x, params, heads, 72, act="gelu_exact")
+    want = fused_hiera_block_plain(x, params, heads, 72, act="gelu_exact")
+    torch.cuda.synchronize()
+    assert fused_hiera_block.launches == before + 1
+    _assert_close(got, want, row_rel=5e-2)
+
+
+def test_ln_matmul_kernel_matches_plain(dev):
+    n, s, c, d = 2, 300, 576, 1728
+    x = _randn(dev, n, s, c, seed=30)
+    ln_s = (1.0 + _randn(dev, c, seed=31, scale=0.1).float()).to(torch.bfloat16)
+    ln_b = _randn(dev, c, seed=32, scale=0.1)
+    w, b = _randn(dev, c, d, seed=33, scale=c ** -0.5), _randn(dev, d, seed=34, scale=0.1)
+    before = fused_ln_matmul.launches
+    got = fused_ln_matmul(x, ln_s, ln_b, w, b)
+    want = fused_ln_matmul_plain(x, ln_s, ln_b, w, b)
+    torch.cuda.synchronize()
+    assert fused_ln_matmul.launches == before + 1
+    assert got.shape == (n, s, d)
+    _assert_close(got, want)
+
+
+def _tail_params(dev, a, c, mlp):
+    p = _block_params(dev, c, mlp)
+    return (_randn(dev, a, c, seed=40, scale=a ** -0.5),) + p[5:]
+
+
+@pytest.mark.parametrize("a,c", [(576, 576), (144, 288)])
+def test_block_tail_kernel_matches_plain(dev, a, c):
+    n, s, mlp = 2, 300, 4 * c
+    shortcut, att = _randn(dev, n, s, c, seed=41), _randn(dev, n, s, a, seed=42)
+    params = _tail_params(dev, a, c, mlp)
+    before = fused_block_tail.launches
+    got = fused_block_tail(shortcut, att, params, act="gelu_exact")
+    want = fused_block_tail_plain(shortcut, att, params, act="gelu_exact")
+    torch.cuda.synchronize()
+    assert fused_block_tail.launches == before + 1
+    _assert_close(got, want, row_rel=5e-2)
+
+
+def _qpool_params(dev, cin, cout, heads, hd):
+    hw = heads * hd
+    p = _block_params(dev, cout, 4 * cout)
+    vec = (1.0 + _randn(dev, cin, seed=50, scale=0.1).float()).to(torch.bfloat16)
+    return (
+        vec, _randn(dev, cin, seed=51, scale=0.1),
+        _randn(dev, cin, 3 * hw + cout, seed=52, scale=cin ** -0.5),
+        _randn(dev, 3 * hw + cout, seed=53, scale=0.1),
+        _randn(dev, hw, cout, seed=54, scale=hw ** -0.5),
+    ) + p[5:]
+
+
+# Hiera-L's three stage transitions at full width: (tokens, Cin, Cout, heads)
+QPOOL_SHAPES = [(64, 144, 288, 4), (16, 288, 576, 8), (256, 576, 1152, 16)]
+
+
+@pytest.mark.parametrize("s,cin,cout,heads", QPOOL_SHAPES)
+def test_qpool_kernel_matches_plain(dev, s, cin, cout, heads):
+    params = _qpool_params(dev, cin, cout, heads, 72)
+    x = _randn(dev, 5, s, cin, seed=55)
+    before = fused_qpool_block.launches
+    got = fused_qpool_block(x, params, heads, 72, (2, 2), act="gelu_exact")
+    want = fused_qpool_block_plain(x, params, heads, 72, (2, 2), act="gelu_exact")
+    torch.cuda.synchronize()
+    assert fused_qpool_block.launches == before + 1
+    assert got.shape == (5, s // 4, cout)
+    _assert_close(got, want, row_rel=5e-2)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = _randn(dev, 1, 8, 2, 16).float()
     with pytest.raises(TypeError):
@@ -146,3 +262,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     shifted = _randn(dev, 1, 8 * 2 * 16 + 1)[:, 1:].view(1, 8, 2, 16)  # 2-byte offset
     with pytest.raises(ValueError):
         flash_attention(shifted, shifted, shifted)
+    wide = _randn(dev, 1, 8, 1, 264)  # head dim above 256
+    with pytest.raises(ValueError):
+        flash_attention(wide, wide, wide)
+    x32 = _randn(dev, 2, 16, 32).float()
+    with pytest.raises(TypeError):
+        fused_ln_matmul(x32, x32[0, 0], x32[0, 0], x32[0, :, :24].T.contiguous(), x32[0, 0, :16])
+    x = _randn(dev, 2, 15, 16)  # 15 tokens are no square window
+    with pytest.raises(ValueError):
+        fused_qpool_block(x, _qpool_params(dev, 16, 32, 1, 16), 1, 16)

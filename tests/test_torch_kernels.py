@@ -24,7 +24,16 @@ from ufvideo_tpu_torch.ops.decode_attention import (
     ragged_decode_attention_plain,
 )
 from ufvideo_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from ufvideo_tpu_torch.ops.hiera_block import fused_hiera_block, fused_hiera_block_plain
+from ufvideo_tpu_torch.ops.hiera_block import (
+    fused_block_tail,
+    fused_block_tail_plain,
+    fused_hiera_block,
+    fused_hiera_block_plain,
+    fused_ln_matmul,
+    fused_ln_matmul_plain,
+    fused_qpool_block,
+    fused_qpool_block_plain,
+)
 
 ATOL = 2e-5
 
@@ -81,6 +90,28 @@ def test_flash_plain_matches_pallas_and_xla(b, sq, skv, hq, hkv, d, causal, lens
     # too, so compare every row
     np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=ATOL)
     np.testing.assert_allclose(got, xla, atol=ATOL, rtol=ATOL)
+
+
+def test_flash_plain_kv_mask_with_fully_masked_trailing_chunks():
+    """SAM2's first tracked frame: of the memory slots only the first holds
+    anything, so whole trailing chunks of keys are masked (and a few object
+    pointer tokens at the very end are valid again). Head dim 32; against
+    ``xla_attention`` with the same mask."""
+    b, sq, slot, slots, ptrs, h, d = 2, 64, 64, 4, 8, 2, 32
+    skv = slot * slots + ptrs
+    q, k, v = _qkv(9, b, sq, skv, h, h, d)
+    kv_mask = np.zeros((b, skv), bool)
+    kv_mask[:, :slot] = True  # the conditioning frame's slot
+    kv_mask[:, slot * slots:slot * slots + 2] = True  # its pointer tokens
+    got = flash_attention_plain(*_t(q, k, v), kv_mask=torch.from_numpy(kv_mask)).numpy()
+    mask = jnp.broadcast_to(jnp.asarray(kv_mask)[:, None, :], (b, sq, skv))
+    want = np.asarray(j_xla_attention(*map(jnp.asarray, (q, k, v)), mask=mask))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+    # the masked keys carry no weight at all: their values do not matter
+    v2 = v.copy()
+    v2[:, ~kv_mask[0]] = 1e4
+    again = flash_attention_plain(*_t(q, k, v2), kv_mask=torch.from_numpy(kv_mask)).numpy()
+    np.testing.assert_array_equal(got, again)
 
 
 def test_attention_dispatch_and_plain_agree():
@@ -176,3 +207,128 @@ def test_hiera_plain_is_what_the_wrapper_runs_on_cpu():
     b = fused_hiera_block_plain(x, params, 2, 16, act="gelu_tanh")
     torch.testing.assert_close(a, b, atol=0, rtol=0)
     assert fused_hiera_block.launches == 0
+
+
+def _rand(seed):
+    rng = np.random.default_rng(seed)
+    return lambda *s: rng.standard_normal(s).astype(np.float32)
+
+
+def test_ln_matmul_plain_matches_pallas_and_reference():
+    """LN1 -> qkv front of a global block. Tolerance 1e-5, the JAX
+    package's own for this kernel in interpret mode."""
+    n = _rand(10)
+    x = 0.5 * n(4, 64, 96)
+    ln_s, ln_b, w, b = 1.0 + 0.1 * n(96), 0.1 * n(96), 96 ** -0.5 * n(96, 192), 0.1 * n(192)
+    got = fused_ln_matmul(*_t(x, ln_s, ln_b, w, b), eps=1e-6)
+    assert got.shape == (4, 64, 192)
+    torch.testing.assert_close(
+        got, fused_ln_matmul_plain(*_t(x, ln_s, ln_b, w, b), eps=1e-6), atol=0, rtol=0
+    )
+    jargs = tuple(map(jnp.asarray, (x, ln_s, ln_b, w, b)))
+    ref = np.asarray(jhb._ln_matmul_reference(*jargs, 1e-6))
+    pallas = np.asarray(jhb.fused_ln_matmul(*jargs, True))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-5, rtol=1e-5)
+    assert fused_ln_matmul.launches == 0
+
+
+def _tail_params(n, a, c, mlp):
+    return (
+        a ** -0.5 * n(a, c), 0.1 * n(c), 1.0 + 0.1 * n(c), 0.1 * n(c),
+        c ** -0.5 * n(c, mlp), 0.1 * n(mlp), mlp ** -0.5 * n(mlp, c), 0.1 * n(c),
+    )
+
+
+@pytest.mark.parametrize(
+    "a,c,act",
+    [
+        pytest.param(96, 96, "gelu_exact", id="global-block"),
+        pytest.param(128, 96, "gelu_exact", id="attention-wider-than-c"),
+        pytest.param(64, 64, "gelu_tanh", id="gelu-tanh"),
+    ],
+)
+def test_block_tail_plain_matches_pallas_and_reference(a, c, act):
+    """proj + residual -> LN2 -> MLP + residual. Tolerance 1e-4 (as for the
+    whole block above: the interpret-mode kernel sums in another order and
+    its A-S erf is within 1.5e-7 of erf)."""
+    n = _rand(11)
+    shortcut, att = 0.5 * n(4, 64, c), 0.5 * n(4, 64, a)
+    params = _tail_params(n, a, c, 2 * c)
+    got = fused_block_tail(*_t(shortcut, att), tuple(_t(*params)), act=act, eps=1e-6)
+    torch.testing.assert_close(
+        got, fused_block_tail_plain(*_t(shortcut, att), tuple(_t(*params)), act=act, eps=1e-6),
+        atol=0, rtol=0,
+    )
+    jp = tuple(map(jnp.asarray, params))
+    ref = np.asarray(jhb._tail_reference(jnp.asarray(shortcut), jnp.asarray(att), jp, act, 1e-6))
+    pallas = np.asarray(
+        jhb.fused_block_tail(jnp.asarray(shortcut), jnp.asarray(att), jp, True, act, 1e-6)
+    )
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-4, rtol=1e-4)
+    assert fused_block_tail.launches == 0
+
+
+@pytest.mark.parametrize(
+    "n_win,ws,cin,cout,heads",
+    [
+        pytest.param(8, 4, 32, 64, 1, id="s16-to-4-one-head"),
+        pytest.param(8, 4, 32, 64, 2, id="s16-to-4-two-heads"),
+        pytest.param(16, 8, 64, 128, 4, id="s64-to-16-four-heads"),
+        pytest.param(2, 16, 48, 96, 4, id="s256-to-64"),
+        pytest.param(4, 2, 32, 64, 2, id="s4-to-1"),
+    ],
+)
+def test_qpool_block_plain_matches_pallas_and_reference(n_win, ws, cin, cout, heads):
+    """A stage-transition block: the 2x2 max-pool of q and of the projected
+    shortcut inside each window, pooled queries on unpooled keys. Tolerance
+    1e-4 absolute and relative (float32 sums in another order)."""
+    hd = cout // heads
+    hw = heads * hd
+    n = _rand(12)
+    x = 0.5 * n(n_win, ws * ws, cin)
+    params = (
+        1.0 + 0.1 * n(cin), 0.1 * n(cin),
+        cin ** -0.5 * n(cin, 3 * hw + cout), 0.1 * n(3 * hw + cout),
+    ) + _tail_params(n, hw, cout, 4 * cout)
+    got = fused_qpool_block(torch.from_numpy(x), tuple(_t(*params)), heads, hd, (2, 2))
+    assert got.shape == (n_win, ws * ws // 4, cout)
+    torch.testing.assert_close(
+        got, fused_qpool_block_plain(torch.from_numpy(x), tuple(_t(*params)), heads, hd, (2, 2)),
+        atol=0, rtol=0,
+    )
+    jp = tuple(map(jnp.asarray, params))
+    ref = np.asarray(jhb._qpool_reference(jnp.asarray(x), jp, heads, hd, hd, (2, 2)))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+    pallas = np.asarray(
+        jhb.fused_qpool_block(jnp.asarray(x), jp, heads, hd, 0, (2, 2), interpret=True)
+    )
+    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-4, rtol=1e-4)
+    assert fused_qpool_block.launches == 0
+
+
+def test_qpool_pool_order_is_row_major_inside_a_window():
+    """Pooled token (i, j) of a window is the max over its rows 2i, 2i+1 and
+    columns 2j, 2j+1. With a zero attention projection and a zero MLP the
+    block returns the pooled shortcut projection, written out here by
+    explicit loops."""
+    ws, cin, cout, heads = 4, 8, 16, 2
+    hw = cout
+    n = _rand(13)
+    x = torch.from_numpy(n(3, ws * ws, cin))
+    z = torch.zeros
+    wf, bf = torch.from_numpy(n(cin, 3 * hw + cout)), torch.from_numpy(n(3 * hw + cout))
+    params = (
+        torch.ones(cin), z(cin), wf, bf,
+        z(hw, cout), z(cout), torch.ones(cout), z(cout),
+        z(cout, 32), z(32), z(32, cout), z(cout),
+    )
+    sc = fused_ln_matmul_plain(x, params[0], params[1], wf, bf)[..., 3 * hw:]
+    want = torch.empty(3, 4, cout)
+    for i in range(2):
+        for j in range(2):
+            rows = [(2 * i + di) * ws + 2 * j + dj for di in (0, 1) for dj in (0, 1)]
+            want[:, 2 * i + j] = sc[:, rows].amax(dim=1)
+    got = fused_qpool_block_plain(x, params, heads, cout // heads, (2, 2))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -83,14 +83,20 @@ def test_mm_infer_stop_strings_match_jax(runtimes):
 
 
 def test_unported_inputs_raise(runtimes):
+    """Region inputs still wait for their slice; ``images_sam`` and a
+    ``[SEG]`` in the input are served (tests/test_torch_seg.py holds their
+    masks against JAX) and, with nothing to segment, give no masks."""
     _, (rt, tok) = runtimes
     frames = np.zeros((4, 56, 56, 3), np.float32)
     with pytest.raises(NotImplementedError, match="region"):
         mm_infer(frames, "x", rt, tok, masks=np.zeros((1, 8, 8)), frame=frames[:1])
-    with pytest.raises(NotImplementedError, match="SAM2"):
-        mm_infer(frames, "x", rt, tok, images_sam=np.zeros((2, 8, 8, 3)))
-    with pytest.raises(NotImplementedError, match="SEG"):
-        mm_infer(frames, "Segment [SEG].", rt, tok)
+    # no [SEG] among the generated tokens: SAM2 is never reached
+    _, out = mm_infer(frames, "x", rt, tok, images_sam=np.zeros((2, 128, 128, 3), np.float32),
+                      max_new_tokens=2)
+    assert rt.ids.seg not in out["output"] and out["pred_masks"] == []
+    # [SEG] in the input but no frames to segment
+    out = mm_infer(frames, "Segment [SEG].", rt, tok)
+    assert out == {"output": None, "pred_masks": [], "gt_masks": None}
 
 
 def test_model_init_is_seeded():

@@ -1,12 +1,13 @@
 """Public inference API: ``model_init`` and ``mm_infer`` (mirrors
-``ufvideo_tpu/api.py``, video / image / text QA path).
+``ufvideo_tpu/api.py``: video / image / text QA, and ``[SEG]`` video
+segmentation through SAM2, whether the model generates the ``[SEG]`` token
+or finds it in the input).
 
 Entry points run on the card by default: ``model_init(device="cuda")``
 raises when CUDA is missing, and the caller passes ``device="cpu"`` to run
-on the CPU (the plain versions of the kernels). Region inputs, the
-``[SEG]`` paths and SAM2, checkpoint loading, streaming and batched serving
-come with later slices and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+on the CPU (the plain versions of the kernels). Region inputs, checkpoint
+loading, streaming and batched serving come with later slices and raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ import torch
 from .configs import UFVideoConfig
 from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
 from .mm_utils import tokenizer_multimodal_token, trim_at_stop_strings
-from .models.generate import greedy_generate
+from .models.generate import forward_hidden, greedy_generate
+from .models.sam2.video import encode_video_frames, masks_to_video_res, propagate_video
 from .models.ufvideo import UFVideoModel
 from .splicing import plan_splice
 from .tokenization import SpecialIds, byte_tokenizer_with_ids
 
-_SEG_ITEM = "ROADMAP.md queue 1 item 1 ([SEG] segmentation through SAM2)"
 _REGION_ITEM = "ROADMAP.md queue 1 item 2 (region encoder)"
 
 
@@ -41,6 +42,29 @@ class UFVideoRuntime:
     def encode_video(self, pixels) -> torch.Tensor:
         """[B, T, H, W, 3] SigLIP-preprocessed frames → video tokens."""
         return self.model.encode_video(torch.as_tensor(pixels, device=self.device))
+
+    def _splice_plan(self, input_ids_list, video_feats):
+        """Splice plan + spliced input embeddings for a batch of id lists."""
+        cfg = self.cfg
+        plan = plan_splice(
+            list(input_ids_list),
+            num_video_tokens=video_feats.shape[1] if video_feats is not None else 0,
+            region_token_counts=[[] for _ in input_ids_list],
+            region_token_id=self.ids.region,
+            max_seq_len=cfg.budget.max_seq_len,
+            region_stride=cfg.region.region_token_num,
+        )
+        dev = self.device
+        embeds = self.model.splice_embeds(
+            torch.as_tensor(plan.text_ids, device=dev),
+            torch.as_tensor(plan.src_kind, device=dev),
+            torch.as_tensor(plan.src_idx, device=dev),
+            video_feats,
+        )
+        # run only up to the 256-rounded true length, not the budget
+        real_len = int(max(plan.seq_lens))
+        trim = min((real_len + 255) // 256 * 256, cfg.budget.max_seq_len)
+        return plan, embeds[:, :trim]
 
     def generate(
         self,
@@ -79,31 +103,16 @@ class UFVideoRuntime:
         [N, hidden]) per sample, plus the shared splice plan."""
         cfg = self.cfg
         b = len(input_ids_list)
-        plan = plan_splice(
-            list(input_ids_list),
-            num_video_tokens=video_feats.shape[1] if video_feats is not None else 0,
-            region_token_counts=[[] for _ in range(b)],
-            region_token_id=self.ids.region,
-            max_seq_len=cfg.budget.max_seq_len,
-            region_stride=cfg.region.region_token_num,
-        )
         dev = self.device
-        embeds = self.model.splice_embeds(
-            torch.as_tensor(plan.text_ids, device=dev),
-            torch.as_tensor(plan.src_kind, device=dev),
-            torch.as_tensor(plan.src_idx, device=dev),
-            video_feats,
-        )
-        # prefill only up to the 256-rounded true length, not the budget
-        real_len = int(max(plan.seq_lens))
-        trim = min((real_len + 255) // 256 * 256, cfg.budget.max_seq_len)
+        plan, embeds = self._splice_plan(input_ids_list, video_feats)
+        trim = embeds.shape[1]
         generator = None
         if do_sample:
             generator = torch.Generator(device=dev)
             generator.manual_seed(seed)
         res = greedy_generate(
             self.model.llm,
-            embeds[:, :trim],
+            embeds,
             torch.as_tensor(plan.seq_lens, device=dev),
             max_new_tokens=max_new_tokens,
             stop_ids=(self.ids.eos,),
@@ -119,6 +128,50 @@ class UFVideoRuntime:
         tokens = res.tokens.tolist()
         out = [(tokens[i][: gen_lens[i]], res.hidden[i, : gen_lens[i]]) for i in range(b)]
         return out, plan
+
+    @torch.no_grad()
+    def forward_hidden_states(self, input_ids: List[int], video_feats):
+        """One full forward of one sample. Returns (final-layer hidden
+        states [1, S, hidden], splice plan)."""
+        plan, embeds = self._splice_plan([input_ids], video_feats)
+        hidden = forward_hidden(
+            self.model.llm, embeds, torch.as_tensor(plan.seq_lens, device=self.device)
+        )
+        return hidden, plan
+
+    # -------------------- SAM2 --------------------
+
+    @torch.no_grad()
+    def segment_video(
+        self,
+        images_sam,  # [T, S, S, 3] SAM-preprocessed floats, or raw uint8 [T, H, W, 3]
+        seg_embeddings: torch.Tensor,  # [n_obj, sam_out_dim]
+        out_height: int,
+        out_width: int,
+    ) -> np.ndarray:
+        """``[SEG]`` embeddings → boolean masks [n_obj, T, H, W]: frames
+        through Hiera + FPN, frame 0 conditioned on the embeddings, the rest
+        propagated through the memory, low-res logits upsampled and
+        thresholded at 0."""
+        images = torch.as_tensor(np.ascontiguousarray(images_sam), device=self.device)
+        if images.dtype == torch.uint8:
+            from .ops.image_pipeline import sam_preprocess_device
+
+            images = sam_preprocess_device(images, out_dtype=self.cfg.compute_dtype)
+        sam = self.model.sam
+        feats = encode_video_frames(sam, images)
+        low = propagate_video(sam, feats, seg_embeddings[:, None, :])
+        masks = masks_to_video_res(low, out_height, out_width)
+        return masks.permute(1, 0, 2, 3).cpu().numpy()
+
+    def _seg_masks(self, seg_hidden: torch.Tensor, images_sam, label_size) -> list:
+        """Hidden states behind ``[SEG]`` tokens → one [T, H, W] mask stack
+        per token."""
+        embeds = self.model.seg_embeddings(seg_hidden)
+        size = self.cfg.sam.hiera.image_size
+        h, w = label_size if label_size is not None else (size, size)
+        m = self.segment_video(images_sam, embeds, h, w)
+        return [m[i] for i in range(m.shape[0])]
 
 
 def _check_device(device) -> torch.device:
@@ -218,23 +271,39 @@ def mm_infer(
     seg: bool = False,
     **kwargs,
 ):
-    """Reference-compatible inference entry, path A (generate → text).
+    """Reference-compatible inference entry.
 
     image_or_video: [T, H, W, 3] frames (numpy or tensor, NHWC), uint8 raw
-    or float preprocessed. Returns ``(text, {"output": ids, "pred_masks":
-    []})``, or the dict alone when ``seg`` is set."""
+    or float preprocessed. ``images_sam``: the frames SAM2 segments
+    ([T, S, S, 3] preprocessed floats or raw uint8), ``label_size`` the
+    (height, width) of the masks.
+
+    Path A (no ``[SEG]`` in the input): generate, then segment one object per
+    generated ``[SEG]`` from the hidden state of the step that produced it.
+    Returns ``(text, {"output": ids, "pred_masks": [...]})``, or the dict
+    alone when ``seg`` is set. Path B (``[SEG]`` in the input, choice 3): one
+    forward, the hidden state at the position before each ``[SEG]``; returns
+    ``{"output": None, "pred_masks": [...], "gt_masks": masks}``."""
     if masks is not None or frame is not None:
         raise NotImplementedError(f"region inputs: {_REGION_ITEM}")
-    if images_sam is not None:
-        raise NotImplementedError(f"SAM2 mask decoding: {_SEG_ITEM}")
     modal_token = {
         "image": DEFAULT_IMAGE_TOKEN, "video": DEFAULT_VIDEO_TOKEN, "text": ""
     }[modal]
     input_ids = _assemble_input_ids(instruct, choice, modal_token, tokenizer)
-    if model.ids.seg in input_ids:
-        raise NotImplementedError(f"[SEG] in the input (path B): {_SEG_ITEM}")
-
     video_feats = _encode_video_input(model, image_or_video, modal)
+
+    if model.ids.seg in input_ids:
+        # path B: hidden state at the position before each input [SEG]
+        hidden, plan = model.forward_hidden_states(input_ids, video_feats)
+        seg_positions = [
+            int(plan.text_pos_map[0][ti]) - 1
+            for ti, t in enumerate(input_ids) if t == model.ids.seg
+        ]
+        seg_positions = [p for p in seg_positions if p >= 0]
+        pred_masks = []
+        if seg_positions and images_sam is not None:
+            pred_masks = model._seg_masks(hidden[0, seg_positions], images_sam, label_size)
+        return {"output": None, "pred_masks": pred_masks, "gt_masks": masks}
 
     do_sample = bool(kwargs.get("do_sample", False))
     temperature = kwargs.get("temperature")
@@ -243,7 +312,7 @@ def mm_infer(
     stop_sequences = tuple(
         tuple(tokenizer(s, add_special_tokens=False).input_ids) for s in stop_strings
     )
-    tokens, _hidden, _ = model.generate(
+    tokens, hidden, _ = model.generate(
         input_ids, video_feats,
         max_new_tokens=int(kwargs.get("max_new_tokens", 1024)),
         do_sample=do_sample, temperature=temperature,
@@ -253,7 +322,19 @@ def mm_infer(
     output_text = tokenizer.decode(tokens, skip_special_tokens=True).strip()
     if stop_strings:
         output_text = trim_at_stop_strings(output_text, stop_strings).strip()
-    out = {"output": tokens, "pred_masks": []}
+    out = {"output": tokens, "pred_masks": seg_masks_of_generation(
+        model, tokens, hidden, images_sam, label_size)}
     if seg:
         return out
     return output_text, out
+
+
+def seg_masks_of_generation(model: UFVideoRuntime, tokens, hidden: torch.Tensor,
+                            images_sam, label_size) -> list:
+    """Path A's post-hoc ``[SEG]`` extraction: one mask stack per generated
+    ``[SEG]`` token, from the hidden state of the decode step that produced
+    it (``hidden[i]`` is behind ``tokens[i]``)."""
+    seg_steps = [i for i, t in enumerate(tokens) if t == model.ids.seg]
+    if not seg_steps or images_sam is None:
+        return []
+    return model._seg_masks(hidden[seg_steps], images_sam, label_size)

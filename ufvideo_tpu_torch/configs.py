@@ -1,9 +1,12 @@
-"""Typed configuration for the video-QA path (SigLIP + STC-v35 projector +
-Qwen2), mirroring ``ufvideo_tpu/configs.py`` with torch dtypes.
+"""Typed configuration for the video-QA and ``[SEG]`` segmentation paths
+(SigLIP + STC-v35 projector + Qwen2 + SAM2 Hiera-L), mirroring
+``ufvideo_tpu/configs.py`` with torch dtypes.
 
-Only the fields this package implements are here: the SAM2, quantisation,
-speculative-decoding and chunked-prefill settings come with the slices that
-port them (ROADMAP.md queue 1).
+Only the fields this package implements are here: the quantisation,
+speculative-decoding, chunked-prefill and loss settings come with the
+slices that port them (ROADMAP.md queue 1). ``SAM2HieraConfig`` has no
+``head_pad``: padding each head to 128 lanes is a TPU layout, and this
+package always runs the native head dim.
 """
 
 from __future__ import annotations
@@ -120,6 +123,60 @@ class RegionEncoderConfig:
 
 
 @dataclass(frozen=True)
+class SAM2HieraConfig:
+    """Hiera-Large image-encoder trunk."""
+
+    embed_dim: int = 144
+    num_heads: int = 2
+    stages: Tuple[int, ...] = (2, 6, 36, 4)
+    global_att_blocks: Tuple[int, ...] = (23, 33, 43)
+    window_pos_embed_bkg_spatial_size: Tuple[int, int] = (7, 7)
+    window_spec: Tuple[int, ...] = (8, 4, 16, 8)
+    dim_mul: float = 2.0
+    head_mul: float = 2.0
+    q_stride: Tuple[int, int] = (2, 2)
+    patch_kernel: int = 7
+    patch_stride: int = 4
+    patch_padding: int = 3
+    mlp_ratio: float = 4.0
+    image_size: int = 1024
+
+
+@dataclass(frozen=True)
+class SAM2Config:
+    """SAM2 hiera-large video model."""
+
+    hiera: SAM2HieraConfig = field(default_factory=SAM2HieraConfig)
+    # FPN neck
+    fpn_dim: int = 256
+    fpn_backbone_channels: Tuple[int, ...] = (1152, 576, 288, 144)
+    fpn_top_down_levels: Tuple[int, ...] = (2, 3)
+    scalp: int = 1  # drop the lowest-resolution level
+    # memory attention
+    mem_attn_layers: int = 4
+    mem_attn_dim: int = 256
+    mem_attn_dff: int = 2048
+    mem_attn_num_heads: int = 1
+    mem_attn_rope_theta: float = 10000.0
+    mem_attn_rope_feat_sizes: Tuple[int, int] = (32, 32)
+    mem_attn_kv_in_dim: int = 64
+    # memory encoder
+    mem_dim: int = 64
+    num_maskmem: int = 7
+    max_obj_ptrs_in_encoder: int = 16
+    # SAM heads
+    sam_embed_dim: int = 256
+    sam_image_embedding_size: int = 64  # 1024 / 16
+    num_multimask_outputs: int = 3
+    iou_head_depth: int = 3
+    iou_head_hidden_dim: int = 256
+    pred_obj_scores: bool = True
+    # propagation
+    sigmoid_scale_for_mem_enc: float = 20.0
+    sigmoid_bias_for_mem_enc: float = -10.0
+
+
+@dataclass(frozen=True)
 class MultimodalBudget:
     """Static token budgets every sequence is padded to."""
 
@@ -138,12 +195,16 @@ class UFVideoConfig:
     llm: Qwen2Config = field(default_factory=Qwen2Config)
     projector: ProjectorConfig = field(default_factory=ProjectorConfig)
     region: RegionEncoderConfig = field(default_factory=RegionEncoderConfig)
+    sam: SAM2Config = field(default_factory=SAM2Config)
     budget: MultimodalBudget = field(default_factory=MultimodalBudget)
 
     # token ids filled in from the tokenizer by model_init
     region_token_id: int = -1
     seg_token_id: int = -1
     temporal_token_start_id: int = -1
+
+    # width of the [SEG] text head's output (SAM2's prompt embedding)
+    sam_out_dim: int = 256
 
     # bf16 compute and storage; LayerNorm / RMSNorm / softmax in float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -173,10 +234,28 @@ def tiny_config() -> UFVideoConfig:
         ),
         projector=ProjectorConfig(encoder_hidden_size=32, hidden_size=64),
         region=RegionEncoderConfig(encoder_hidden_size=32, hidden_size=64),
+        sam=SAM2Config(
+            hiera=SAM2HieraConfig(
+                embed_dim=16, num_heads=1, stages=(1, 2, 1, 1),
+                global_att_blocks=(2,), window_spec=(4, 2, 4, 2),
+                image_size=128,
+            ),
+            fpn_backbone_channels=(128, 64, 32, 16),
+            fpn_dim=32,
+            mem_attn_layers=1,
+            mem_attn_dim=32,
+            mem_attn_dff=64,
+            mem_attn_kv_in_dim=16,
+            mem_dim=16,
+            sam_embed_dim=32,
+            sam_image_embedding_size=8,
+            iou_head_hidden_dim=32,
+        ),
         budget=MultimodalBudget(
             max_seq_len=128, max_text_len=64, max_regions=2, max_objects=2,
             max_new_tokens=8, num_frames=4, num_frames_sam=2,
         ),
+        sam_out_dim=32,
         compute_dtype=torch.float32,
         param_dtype=torch.float32,
     )

@@ -1,6 +1,7 @@
 // Online-softmax attention forward for one (batch, head, 64-row query tile),
-// shared by csrc/flash_attention.cu (Qwen2 prefill) and csrc/hiera_block.cu
-// (SigLIP / Hiera window attention).
+// shared by csrc/flash_attention.cu (Qwen2 prefill, Hiera global blocks,
+// SAM2 memory attention) and csrc/hiera_block.cu (SigLIP / Hiera window
+// attention, pooled queries against a whole window).
 //
 // Replaces the TPU kernel ufvideo_tpu/ops/flash_attention.py flash_attention
 // (_kernel). Same math: scores = (q . k) * scale in f32, masked to
@@ -19,9 +20,15 @@
 // fetched from shared memory by ldmatrix (V transposed on the fly); the
 // score accumulators are re-packed in registers as the A operand of P.V.
 // Only the K/V tile loads need block-wide barriers. Whole K/V tiles past
-// kv_lens[b] or above the causal diagonal are never loaded. Head dims 64 /
-// 80 / 128 are template instances; a head dim below the instance (72 for
-// SigLIP) is zero-padded in shared memory. Not yet used: wgmma, TMA, a
+// kv_lens[b] or above the causal diagonal are never loaded, and a tile
+// whose keys are all zero in kv_mask (an empty SAM2 memory slot is 4096 such
+// keys) is skipped after one block-wide vote. Head dims 64 / 80 / 128 / 256
+// are template instances; a head dim below the instance (72 for SigLIP and
+// Hiera) is zero-padded in shared memory. At head dim 256 (SAM2 memory
+// attention) the output accumulator alone is 128 registers a thread, so the
+// tile is narrowed: 32 keys a step instead of 64 (16 score registers
+// instead of 32) and the Q fragments are re-read from shared memory at each
+// k-step instead of living in 64 registers. Not yet used: wgmma, TMA, a
 // cp.async pipeline for the K/V tiles.
 #pragma once
 
@@ -109,26 +116,26 @@ struct AttnArgs {
 };
 
 constexpr int kAttBQ = 64;
-constexpr int kAttBK = 64;
 constexpr int kAttThreads = 128;  // 4 warps x 16 query rows
 
 template <int DP>
 struct AttnSmem {
   static constexpr int LDH = DP + 8;  // bf16 row stride: 16-byte aligned, odd in 16 B
-  static constexpr size_t tile = size_t(64) * LDH * 2;
-  static constexpr size_t bytes = 3 * tile;  // Q, K, V
+  static constexpr int BK = DP > 128 ? 32 : 64;  // keys per step
+  static constexpr bool QREG = DP <= 128;        // Q fragments live in registers
+  static constexpr size_t bytes = size_t(kAttBQ + 2 * BK) * LDH * 2;  // Q, K, V
 };
 
-// Copy a 64-row tile (row stride `rs` elements) into shared memory with
+// Copy a ROWS-row tile (row stride `rs` elements) into shared memory with
 // row stride DP + 8, zero-filling rows >= rows_valid and columns >= D. Rows
 // are read as 16-byte vectors: attention_forward requires D and every
 // stride to be multiples of 8 and the base pointers 16-byte aligned.
-template <int DP>
+template <int DP, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long rs,
                                           int rows_valid, int D) {
   constexpr int LDH = DP + 8;
   constexpr int CH = DP / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += kAttThreads) {
+  for (int i = threadIdx.x; i < ROWS * CH; i += kAttThreads) {
     const int r = i / CH, c = (i % CH) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid && c < D)
@@ -140,13 +147,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
 template <int DP>
 __global__ void __launch_bounds__(kAttThreads) flash_fwd_kernel(AttnArgs a) {
   constexpr int LDH = AttnSmem<DP>::LDH;
+  constexpr int BK = AttnSmem<DP>::BK;
+  constexpr bool QREG = AttnSmem<DP>::QREG;
   constexpr int KQ = DP / 16;      // k-steps of Q.K^T
   constexpr int ND = DP / 8;       // 8-column blocks of the output
-  constexpr int NS = kAttBK / 8;   // 8-column blocks of the score tile
+  constexpr int NS = BK / 8;       // 8-column blocks of the score tile
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + 64 * LDH;
-  bf16* Vs = Ks + 64 * LDH;
+  bf16* Ks = Qs + kAttBQ * LDH;
+  bf16* Vs = Ks + BK * LDH;
 
   const int q0 = blockIdx.x * kAttBQ;
   const int h = blockIdx.y;
@@ -163,17 +172,18 @@ __global__ void __launch_bounds__(kAttThreads) flash_fwd_kernel(AttnArgs a) {
     kv_end = min(kv_end, q_last + offset + 1);
   }
 
-  load_tile<DP>(Qs, a.q + b * a.q_sb + (long long)q0 * a.q_ss + h * a.q_sh, a.q_ss,
-                min(kAttBQ, a.Sq - q0), a.D);
+  load_tile<DP, kAttBQ>(Qs, a.q + b * a.q_sb + (long long)q0 * a.q_ss + h * a.q_sh,
+                        a.q_ss, min(kAttBQ, a.Sq - q0), a.D);
   __syncthreads();
 
   const int r0 = warp * 16;  // this warp's query-row band
   const int row_lo = q0 + r0 + g, row_hi = row_lo + 8;
-  uint32_t qf[KQ][4];
+  const bf16* qfrag = Qs + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
+  uint32_t qf[QREG ? KQ : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KQ; ++kk)
-    ldmatrix_x4(qf[kk], Qs + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + kk * 16 +
-                            (lane >> 4) * 8);
+    for (int kk = 0; kk < KQ; ++kk) ldmatrix_x4(qf[kk], qfrag + kk * 16);
+  }
 
   float o[ND][4];
 #pragma unroll
@@ -182,26 +192,40 @@ __global__ void __launch_bounds__(kAttThreads) flash_fwd_kernel(AttnArgs a) {
 
   const bf16* kbase = a.k + b * a.k_sb + hk * a.k_sh;
   const bf16* vbase = a.v + b * a.v_sb + hk * a.v_sh;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kAttBK) {
-    __syncthreads();  // previous K/V tile fully consumed
-    const int rows = min(kAttBK, a.Skv - kv0);
-    load_tile<DP>(Ks, kbase + (long long)kv0 * a.k_ss, a.k_ss, rows, a.D);
-    load_tile<DP>(Vs, vbase + (long long)kv0 * a.v_ss, a.v_ss, rows, a.D);
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
+    // one vote of the block: does kv_mask keep any key of this tile? The
+    // vote is also the barrier after which the previous K/V tile is free.
+    int live = 1;
+    if (a.kv_mask) {
+      live = 0;
+      if (tid < BK && kv0 + tid < kv_len)
+        live = a.kv_mask[(long long)b * a.Skv + kv0 + tid] != 0;
+    }
+    if (!__syncthreads_or(live)) continue;  // fully masked: m, l, o untouched
+    const int rows = min(BK, a.Skv - kv0);
+    load_tile<DP, BK>(Ks, kbase + (long long)kv0 * a.k_ss, a.k_ss, rows, a.D);
+    load_tile<DP, BK>(Vs, vbase + (long long)kv0 * a.v_ss, a.v_ss, rows, a.D);
     __syncthreads();
 
-    // S[16, 64] = Q[16, DP] . K[64, DP]^T
+    // S[16, BK] = Q[16, DP] . K[BK, DP]^T
     float s[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+        qa[0] = qf[kk][0]; qa[1] = qf[kk][1]; qa[2] = qf[kk][2]; qa[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(qa, qfrag + kk * 16);
+      }
 #pragma unroll
       for (int j2 = 0; j2 < NS / 2; ++j2) {
         uint32_t kf[4];
         ldmatrix_x4(kf, Ks + (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * LDH + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * j2], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * j2 + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16(s[2 * j2], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * j2 + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -250,9 +274,9 @@ __global__ void __launch_bounds__(kAttThreads) flash_fwd_kernel(AttnArgs a) {
       o[j][3] *= corr_hi;
     }
 
-    // O[16, DP] += P[16, 64] . V[64, DP]; P re-packed from the score registers
+    // O[16, DP] += P[16, BK] . V[BK, DP]; P re-packed from the score registers
 #pragma unroll
-    for (int kk = 0; kk < kAttBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[4];
       pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
       pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
@@ -297,7 +321,7 @@ inline cudaError_t launch_flash(const AttnArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Dispatch on head dim: 64, 80 (SigLIP's 72 padded) or 128.
+// Dispatch on head dim: 64, 80 (SigLIP's and Hiera's 72 padded), 128 or 256.
 inline cudaError_t attention_forward(const AttnArgs& a, cudaStream_t stream) {
   if (a.B <= 0 || a.Sq <= 0 || a.Hq <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0)
     return cudaErrorInvalidValue;
@@ -310,6 +334,7 @@ inline cudaError_t attention_forward(const AttnArgs& a, cudaStream_t stream) {
   if (a.D <= 64) return launch_flash<64>(a, stream);
   if (a.D <= 80) return launch_flash<80>(a, stream);
   if (a.D <= 128) return launch_flash<128>(a, stream);
+  if (a.D <= 256) return launch_flash<256>(a, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,13 +1,26 @@
-// One whole pre-LN transformer block (SigLIP encoder layer; Hiera windowed
-// block) as a short sequence of hand-written launches, with a plain C
-// interface for ctypes.
+// The pre-LN transformer blocks of SigLIP and Hiera as short sequences of
+// hand-written launches, with a plain C interface for ctypes. Four entry
+// points, each replacing one TPU kernel of ufvideo_tpu/ops/hiera_block.py:
 //
-// Replaces ufvideo_tpu/ops/hiera_block.py fused_hiera_block (_forward /
-// _kernel / _block_body): LN1 (f32) -> qkv -> multi-head attention inside
-// each window -> proj + residual -> LN2 (f32) -> fc1 -> GELU -> fc2 +
-// residual, with the math of hiera_block._reference: f32 statistics, bf16
-// operands with f32 accumulation, f32 softmax, probabilities cast to bf16
-// before P.V, each product rounded to bf16 before its residual add.
+//   hiera_block_bf16  fused_hiera_block (_forward / _kernel / _block_body):
+//                     LN1 (f32) -> qkv -> multi-head attention inside each
+//                     window -> proj + residual -> LN2 (f32) -> fc1 -> GELU
+//                     -> fc2 + residual (math of _reference);
+//   ln_matmul_bf16    fused_ln_matmul (_ln_matmul_forward): LN (f32) ->
+//                     matmul + bias, the front of a global block;
+//   block_tail_bf16   fused_block_tail (_tail_forward): proj + residual ->
+//                     LN2 -> fc1 -> GELU -> fc2 + residual, the tail of a
+//                     global block after the flash kernel;
+//   qpool_block_bf16  fused_qpool_block (_qpool_forward): LN1 -> [qkv |
+//                     shortcut projection] -> 2x2 max-pool of q and of the
+//                     shortcut inside each window -> attention of the pooled
+//                     queries on the window's unpooled keys -> the tail.
+//
+// Common math: f32 LayerNorm statistics, bf16 operands with f32
+// accumulation, f32 softmax, probabilities cast to bf16 before P.V, each
+// product rounded to bf16 before its residual add. The TPU kernels' window
+// grouping, block-diagonal score mask, bf16 exp2 softmax and lane padding
+// are layout devices of that chip and are not carried over.
 //
 // Bound on an H100: at the SigLIP shape (32 frames x 729 tokens, C 1152,
 // MLP 4304) one block is ~711 GFLOP of matrix products plus ~78 GFLOP of
@@ -19,9 +32,16 @@
 // residual add from registers, so each intermediate makes one trip through
 // memory; the attention shares
 // attention_tile.cuh with the flash kernel (head dim 72 zero-padded to 80
-// in shared memory, one window per batch entry). Not yet used: wgmma, TMA,
-// fusing LN into the GEMM prologue.
+// in shared memory, one window per batch entry). Hiera's windowed blocks
+// (16 / 64 / 256 tokens a window, C 144..1152) have the same ratio of
+// operations to bytes per token and are bound by operations too; their
+// 16-token windows fill a quarter of the 64-row query tile, the rest is
+// masked. The q-pool block adds one elementwise pass (pool_kernel) and
+// runs the attention with Sq = S/4 queries against S keys per window. Not
+// yet used: wgmma, TMA, fusing LN into the GEMM prologue.
 #include "attention_tile.cuh"
+
+#include <initializer_list>
 
 namespace {
 
@@ -206,7 +226,101 @@ cudaError_t layernorm(const bf16* x, const float* g, const float* b, bf16* y, in
   return cudaGetLastError();
 }
 
+// dst[(n*Sq + oy*(ws/sx) + ox), c] = max over the sy x sx patch of
+// src[(n*ws*ws + (oy*sy+dy)*ws + ox*sx+dx) * ld + col0 + c]: the window-
+// interior max-pool (tokens are row-major inside a window). One thread per
+// 8-column vector of one output row; D % 8 == 0.
+__global__ void __launch_bounds__(256) pool_kernel(
+    const bf16* __restrict__ src, bf16* __restrict__ dst, long long out_rows, int ws, int sy,
+    int sx, long long ld, int col0, int D) {
+  const int vecs = D / 8;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= out_rows * vecs) return;
+  const long long r = i / vecs;
+  const int c = int(i % vecs) * 8;
+  const int qw = ws / sx, sq = (ws / sy) * qw;
+  const long long n = r / sq;
+  const int oy = int(r % sq) / qw, ox = int(r % sq) % qw;
+  float m[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) m[e] = -INFINITY;
+  for (int dy = 0; dy < sy; ++dy)
+    for (int dx = 0; dx < sx; ++dx) {
+      const long long row = n * ws * ws + (long long)(oy * sy + dy) * ws + ox * sx + dx;
+      const uint4 v = *reinterpret_cast<const uint4*>(src + row * ld + col0 + c);
+      const bf16* h = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) m[e] = fmaxf(m[e], __bfloat162float(h[e]));
+    }
+  uint4 o;
+  bf16* oh = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) oh[e] = __float2bfloat16(m[e]);  // exact: a max of bf16 values
+  *reinterpret_cast<uint4*>(dst + r * D + c) = o;
+}
+
+cudaError_t pool(const bf16* src, bf16* dst, long long out_rows, int ws, int sy, int sx,
+                 long long ld, int col0, int D, cudaStream_t st) {
+  const long long total = out_rows * (D / 8);
+  pool_kernel<<<unsigned((total + 255) / 256), 256, 0, st>>>(src, dst, out_rows, ws, sy, sx,
+                                                             ld, col0, D);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The shared tail of every block: x1 = R + bf16(A . wproj + bproj);
+// xn = LN2(x1); hmid = GELU(xn . w1 + b1); out = x1 + bf16(hmid . w2 + b2).
+// A [rows, a_dim], R / x1 / xn / out [rows, C], hmid [rows, mlp].
+cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const float* bproj,
+                       const float* ln2_s, const float* ln2_b, const bf16* w1,
+                       const float* b1, const bf16* w2, const float* b2, bf16* x1, bf16* xn,
+                       bf16* hmid, bf16* out, int rows, int C, int a_dim, int mlp, int act,
+                       float eps, cudaStream_t st) {
+  cudaError_t e;
+  if ((e = gemm<ACT_NONE, true>(A, wproj, bproj, R, x1, rows, C, a_dim, st))) return e;
+  if ((e = layernorm(x1, ln2_s, ln2_b, xn, rows, C, eps, st))) return e;
+  if (act == ACT_GELU_TANH)
+    e = gemm<ACT_GELU_TANH, false>(xn, w1, b1, nullptr, hmid, rows, mlp, C, st);
+  else
+    e = gemm<ACT_GELU_EXACT, false>(xn, w1, b1, nullptr, hmid, rows, mlp, C, st);
+  if (e) return e;
+  return gemm<ACT_NONE, true>(hmid, w2, b2, x1, out, rows, C, mlp, st);
+}
+
+// Non-causal attention of Sq queries on Skv keys in each of N windows, q /
+// k / v given by base pointer and row stride (elements), heads packed along
+// a row; o [N * Sq, heads * head_dim] contiguous.
+cudaError_t window_attention(const bf16* q, long long q_ld, const bf16* k, const bf16* v,
+                             long long kv_ld, bf16* o, int N, int Sq, int Skv, int heads,
+                             int head_dim, cudaStream_t st) {
+  const int hw = heads * head_dim;
+  ufv::AttnArgs a;
+  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.kv_lens = nullptr;
+  a.kv_mask = nullptr;
+  a.B = N; a.Sq = Sq; a.Skv = Skv; a.Hq = heads; a.Hkv = heads; a.D = head_dim;
+  a.q_sb = (long long)Sq * q_ld; a.q_ss = q_ld; a.q_sh = head_dim;
+  a.k_sb = a.v_sb = (long long)Skv * kv_ld;
+  a.k_ss = a.v_ss = kv_ld;
+  a.k_sh = a.v_sh = head_dim;
+  a.o_sb = (long long)Sq * hw; a.o_ss = hw; a.o_sh = head_dim;
+  a.scale = 1.0f / sqrtf(float(head_dim));
+  a.causal = 0;
+  return ufv::attention_forward(a, st);
+}
+
+bool all_aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return true;
+}
+
+bool act_ok(int act) { return act == ACT_GELU_TANH || act == ACT_GELU_EXACT; }
+
+const float* f32(const void* p) { return static_cast<const float*>(p); }
+const bf16* b16(const void* p) { return static_cast<const bf16*>(p); }
+bf16* b16(void* p) { return static_cast<bf16*>(p); }
 
 }  // namespace
 
@@ -233,50 +347,87 @@ extern "C" int hiera_block_bf16(
     int head_dim, int mlp, int act, float eps, void* stream) {
   const int rows = N * S;
   const int hw = heads * head_dim;
-  if (rows <= 0 || C % 8 || head_dim % 8 || mlp % 8 || head_dim > 128 ||
-      (act != ACT_GELU_TANH && act != ACT_GELU_EXACT))
+  if (rows <= 0 || C % 8 || head_dim % 8 || mlp % 8 || head_dim > 128 || !act_ok(act))
     return int(cudaErrorInvalidValue);
-  const void* mats[] = {x, wqkv, wproj, w1, w2, xn, qkv, att, x1, hmid};
-  for (const void* p : mats)
-    if (!aligned16(p)) return int(cudaErrorMisalignedAddress);
+  if (!all_aligned16({x, out, wqkv, wproj, w1, w2, xn, qkv, att, x1, hmid}))
+    return int(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* X = static_cast<const bf16*>(x);
-  bf16* XN = static_cast<bf16*>(xn);
-  bf16* QKV = static_cast<bf16*>(qkv);
-  bf16* ATT = static_cast<bf16*>(att);
-  bf16* X1 = static_cast<bf16*>(x1);
-  bf16* HM = static_cast<bf16*>(hmid);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  bf16* QKV = b16(qkv);
 
-  UFV_TRY(layernorm(X, f(ln1_s), f(ln1_b), XN, rows, C, eps, st));
-  UFV_TRY((gemm<ACT_NONE, false>(XN, w(wqkv), f(bqkv), nullptr, QKV, rows, 3 * hw, C, st)));
+  UFV_TRY(layernorm(b16(x), f32(ln1_s), f32(ln1_b), b16(xn), rows, C, eps, st));
+  UFV_TRY((gemm<ACT_NONE, false>(b16(xn), b16(wqkv), f32(bqkv), nullptr, QKV, rows, 3 * hw,
+                                 C, st)));
+  UFV_TRY(window_attention(QKV, 3LL * hw, QKV + hw, QKV + 2 * hw, 3LL * hw, b16(att), N, S,
+                           S, heads, head_dim, st));
+  UFV_TRY(block_tail(b16(att), b16(x), b16(wproj), f32(bproj), f32(ln2_s), f32(ln2_b),
+                     b16(w1), f32(b1), b16(w2), f32(b2), b16(x1), b16(xn), b16(hmid),
+                     b16(out), rows, C, hw, mlp, act, eps, st));
+  return 0;
+}
 
-  ufv::AttnArgs a;
-  a.q = QKV;
-  a.k = QKV + hw;
-  a.v = QKV + 2 * hw;
-  a.o = ATT;
-  a.kv_lens = nullptr;
-  a.kv_mask = nullptr;
-  a.B = N; a.Sq = S; a.Skv = S; a.Hq = heads; a.Hkv = heads; a.D = head_dim;
-  a.q_sb = a.k_sb = a.v_sb = (long long)S * 3 * hw;
-  a.q_ss = a.k_ss = a.v_ss = 3LL * hw;
-  a.q_sh = a.k_sh = a.v_sh = head_dim;
-  a.o_sb = (long long)S * hw;
-  a.o_ss = hw;
-  a.o_sh = head_dim;
-  a.scale = 1.0f / sqrtf(float(head_dim));
-  a.causal = 0;
-  UFV_TRY(ufv::attention_forward(a, st));
+// out [rows, D] = bf16(LN(x [rows, C]) . w [C, D] + b). Scratch xn [rows, C].
+extern "C" int ln_matmul_bf16(const void* x, const void* ln_s, const void* ln_b,
+                              const void* w, const void* b, void* xn, void* out, int rows,
+                              int C, int D, float eps, void* stream) {
+  if (rows <= 0 || C % 8 || D % 8) return int(cudaErrorInvalidValue);
+  if (!all_aligned16({x, w, xn, out})) return int(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  UFV_TRY(layernorm(b16(x), f32(ln_s), f32(ln_b), b16(xn), rows, C, eps, st));
+  UFV_TRY((gemm<ACT_NONE, false>(b16(xn), b16(w), f32(b), nullptr, b16(out), rows, D, C, st)));
+  return 0;
+}
 
-  UFV_TRY((gemm<ACT_NONE, true>(ATT, w(wproj), f(bproj), X, X1, rows, C, hw, st)));
-  UFV_TRY(layernorm(X1, f(ln2_s), f(ln2_b), XN, rows, C, eps, st));
-  if (act == ACT_GELU_TANH)
-    UFV_TRY((gemm<ACT_GELU_TANH, false>(XN, w(w1), f(b1), nullptr, HM, rows, mlp, C, st)));
-  else
-    UFV_TRY((gemm<ACT_GELU_EXACT, false>(XN, w(w1), f(b1), nullptr, HM, rows, mlp, C, st)));
-  UFV_TRY((gemm<ACT_NONE, true>(HM, w(w2), f(b2), X1, static_cast<bf16*>(out), rows, C,
-                                mlp, st)));
+// shortcut, out [rows, C]; att [rows, A]; wproj [A, C], w1 [C, mlp], w2
+// [mlp, C]. Scratch x1, xn [rows, C], hmid [rows, mlp].
+extern "C" int block_tail_bf16(
+    const void* shortcut, const void* att, void* out, const void* wproj, const void* bproj,
+    const void* ln2_s, const void* ln2_b, const void* w1, const void* b1, const void* w2,
+    const void* b2, void* x1, void* xn, void* hmid, int rows, int C, int A, int mlp, int act,
+    float eps, void* stream) {
+  if (rows <= 0 || C % 8 || A % 8 || mlp % 8 || !act_ok(act))
+    return int(cudaErrorInvalidValue);
+  if (!all_aligned16({shortcut, att, out, wproj, w1, w2, x1, xn, hmid}))
+    return int(cudaErrorMisalignedAddress);
+  UFV_TRY(block_tail(b16(att), b16(shortcut), b16(wproj), f32(bproj), f32(ln2_s),
+                     f32(ln2_b), b16(w1), f32(b1), b16(w2), f32(b2), b16(x1), b16(xn),
+                     b16(hmid), b16(out), rows, C, A, mlp, act, eps,
+                     static_cast<cudaStream_t>(stream)));
+  return 0;
+}
+
+// x [N, ws*ws, Cin] -> out [N, Sq, Cout], Sq = (ws/sy) * (ws/sx). wfront
+// [Cin, 3*H*hd + Cout] = [q heads | k heads | v heads | shortcut proj],
+// wproj [H*hd, Cout], w1 [Cout, mlp], w2 [mlp, Cout]. Scratch (bf16): xn
+// [N*S, Cin], front [N*S, 3*H*hd + Cout], qp [N*Sq, H*hd], sc [N*Sq, Cout],
+// att [N*Sq, H*hd], x1, xm [N*Sq, Cout], hmid [N*Sq, mlp].
+extern "C" int qpool_block_bf16(
+    const void* x, void* out, const void* ln1_s, const void* ln1_b, const void* wfront,
+    const void* bfront, const void* wproj, const void* bproj, const void* ln2_s,
+    const void* ln2_b, const void* w1, const void* b1, const void* w2, const void* b2,
+    void* xn, void* front, void* qp, void* sc, void* att, void* x1, void* xm, void* hmid,
+    int N, int ws, int sy, int sx, int Cin, int Cout, int heads, int head_dim, int mlp,
+    int act, float eps, void* stream) {
+  if (N <= 0 || ws <= 0 || sy <= 0 || sx <= 0 || ws % sy || ws % sx || Cin % 8 || Cout % 8 ||
+      head_dim % 8 || mlp % 8 || head_dim > 128 || !act_ok(act))
+    return int(cudaErrorInvalidValue);
+  if (!all_aligned16({x, out, wfront, wproj, w1, w2, xn, front, qp, sc, att, x1, xm, hmid}))
+    return int(cudaErrorMisalignedAddress);
+  const int S = ws * ws, Sq = (ws / sy) * (ws / sx);
+  const int rows = N * S, qrows = N * Sq;
+  const int hw = heads * head_dim;
+  const int F = 3 * hw + Cout;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* FR = b16(front);
+
+  UFV_TRY(layernorm(b16(x), f32(ln1_s), f32(ln1_b), b16(xn), rows, Cin, eps, st));
+  UFV_TRY((gemm<ACT_NONE, false>(b16(xn), b16(wfront), f32(bfront), nullptr, FR, rows, F,
+                                 Cin, st)));
+  UFV_TRY(pool(FR, b16(qp), qrows, ws, sy, sx, F, 0, hw, st));
+  UFV_TRY(pool(FR, b16(sc), qrows, ws, sy, sx, F, 3 * hw, Cout, st));
+  UFV_TRY(window_attention(b16(qp), hw, FR + hw, FR + 2 * hw, F, b16(att), N, Sq, S, heads,
+                           head_dim, st));
+  UFV_TRY(block_tail(b16(att), b16(sc), b16(wproj), f32(bproj), f32(ln2_s), f32(ln2_b),
+                     b16(w1), f32(b1), b16(w2), f32(b2), b16(x1), b16(xm), b16(hmid),
+                     b16(out), qrows, Cout, hw, mlp, act, eps, st));
   return 0;
 }

@@ -139,3 +139,16 @@ def greedy_generate(
         done = now_done
         step += 1
     return GenerateResult(tokens=tokens, gen_lens=gen_lens, hidden=hiddens)
+
+
+@torch.no_grad()
+def forward_hidden(
+    model: Qwen2LM, input_embeds: torch.Tensor, seq_lens: torch.Tensor
+) -> torch.Tensor:
+    """One full forward returning final-layer hidden states [B, S, hidden]
+    (the path for a ``[SEG]`` that is already in the input)."""
+    b, s, _ = input_embeds.shape
+    positions = torch.arange(s, device=input_embeds.device).expand(b, s)
+    seq_lens = seq_lens.to(device=input_embeds.device, dtype=torch.int32)
+    hidden, _ = model.backbone(input_embeds, positions, seq_lens, None, None, "train")
+    return hidden

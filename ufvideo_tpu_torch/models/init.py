@@ -42,3 +42,28 @@ def norm_(layer, gen: torch.Generator = None) -> None:
     layer.weight.fill_(1.0)
     if getattr(layer, "bias", None) is not None:
         layer.bias.zero_()
+
+
+@torch.no_grad()
+def reset_tree_(root: torch.nn.Module, gen: torch.Generator) -> None:
+    """Walk a module tree and give every layer its flax default: dense and
+    convolution kernels lecun_normal with zero bias (a transposed
+    convolution's fan-in is kh·kw·in, as flax counts it), norms unit scale
+    and zero bias; a module's own bare parameters come from its
+    ``reset_own_parameters``."""
+    nn = torch.nn
+    for m in root.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            lecun_normal_(m.weight, m.weight[0].numel(), gen)
+        elif isinstance(m, nn.ConvTranspose2d):
+            lecun_normal_(m.weight, m.weight.numel() // m.weight.shape[1], gen)
+        elif isinstance(getattr(m, "kernel", None), nn.Parameter):  # [in, out] holder
+            lecun_normal_(m.kernel, m.kernel.shape[0], gen)
+        elif isinstance(getattr(m, "scale", None), nn.Parameter):
+            m.scale.fill_(1.0)
+        elif isinstance(getattr(m, "weight", None), nn.Parameter) and m.weight.dim() == 1:
+            m.weight.fill_(1.0)  # LayerNorm
+        if isinstance(getattr(m, "bias", None), nn.Parameter):
+            m.bias.zero_()
+        if hasattr(m, "reset_own_parameters"):
+            m.reset_own_parameters(gen)

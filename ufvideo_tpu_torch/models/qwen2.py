@@ -1,15 +1,19 @@
 """Qwen2 language model (mirrors ``ufvideo_tpu/models/qwen2.py``).
 
 Layers are an ``nn.ModuleList`` walked by a Python loop; the KV cache is
-one [L, B, Hkv, S, D] tensor per k and v, updated in place. Two modes:
+one [L, B, Hkv, S, D] tensor per k and v, updated in place. Three modes:
 
   - ``prefill``: causal forward over the prompt that writes k/v into the
     cache (attention: ``ops.flash_attention``).
   - ``decode``: one token per sequence against the cache, written at
     ``cache_len`` (attention: ``ops.ragged_decode_attention``).
 
-The ``train`` and ``verify`` modes, quantised layers, ring attention and
-LoRA come with later slices (ROADMAP.md). The vocabulary is padded to a
+  - ``train``: one causal forward over the whole sequence with no cache
+    (attention: ``ops.flash_attention`` with ``kv_lens``): the single
+    forward behind ``[SEG]`` hidden states when ``[SEG]`` is in the input.
+
+The ``verify`` mode, quantised layers, ring attention and LoRA come with
+later slices (ROADMAP.md). The vocabulary is padded to a
 multiple of 256; logits of padding ids are masked at sampling time.
 """
 
@@ -84,8 +88,8 @@ class Qwen2DecoderLayer(nn.Module):
         sin: torch.Tensor,
         seq_lens: torch.Tensor,  # [B]
         cache_len: torch.Tensor,  # [B]
-        k_cache: torch.Tensor,  # [B, Hkv, Smax, D], updated in place
-        v_cache: torch.Tensor,
+        k_cache: Optional[torch.Tensor],  # [B, Hkv, Smax, D], updated in place
+        v_cache: Optional[torch.Tensor],
         mode: str,
     ) -> torch.Tensor:
         cfg = self.cfg
@@ -100,9 +104,10 @@ class Qwen2DecoderLayer(nn.Module):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-        if mode == "prefill":
-            k_cache[:, :, :s] = k.transpose(1, 2).to(k_cache.dtype)
-            v_cache[:, :, :s] = v.transpose(1, 2).to(v_cache.dtype)
+        if mode in ("prefill", "train"):
+            if mode == "prefill":
+                k_cache[:, :, :s] = k.transpose(1, 2).to(k_cache.dtype)
+                v_cache[:, :, :s] = v.transpose(1, 2).to(v_cache.dtype)
             o = attention(
                 q, k, v, causal=True, kv_lens=seq_lens, use_kernel=self.use_kernels
             )
@@ -154,7 +159,7 @@ class Qwen2LM(nn.Module):
         input_embeds: torch.Tensor,  # [B, S, hidden]
         positions: torch.Tensor,  # [B, S]
         seq_lens: Optional[torch.Tensor],  # [B] valid lengths
-        cache: Dict[str, torch.Tensor],
+        cache: Optional[Dict[str, torch.Tensor]],  # None in train mode
         cache_len: Optional[torch.Tensor],  # [B] write position (decode)
         mode: str,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -169,7 +174,8 @@ class Qwen2LM(nn.Module):
         cos, sin = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         x = input_embeds.to(self.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, seq_lens, cache_len, cache["k"][i], cache["v"][i], mode)
+            kc, vc = (cache["k"][i], cache["v"][i]) if cache is not None else (None, None)
+            x = layer(x, cos, sin, seq_lens, cache_len, kc, vc, mode)
         return self.norm(x), cache
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Composite UFVideo model for video QA: SigLIP tower + STC-v35 projector +
-Qwen2 LM (mirrors ``ufvideo_tpu/models/ufvideo.py`` ``encode_video`` /
-``splice_embeds``). The region encoder, the ``[SEG]`` text head and SAM2
-come with later slices (ROADMAP.md)."""
+"""Composite UFVideo model: SigLIP tower + STC-v35 projector + Qwen2 LM +
+the ``[SEG]`` text head + SAM2 (mirrors ``ufvideo_tpu/models/ufvideo.py``
+``encode_video`` / ``splice_embeds`` / ``seg_embeddings``; the JAX runtime
+keeps SAM2 beside the composite, here it is a member). The region encoder
+comes with a later slice (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,23 @@ from torch import nn
 from ..configs import UFVideoConfig
 from ..splicing import apply_splice
 from .projector import STCConnector
+from . import init
 from .qwen2 import Qwen2LM
+from .sam2 import SAM2
 from .siglip import SiglipVisionTower
+
+
+class TextHiddenFC(nn.Module):
+    """``[SEG]`` hidden-state head: Linear → ReLU → Linear to sam_out_dim."""
+
+    def __init__(self, hidden_size: int, out_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.fc0 = nn.Linear(hidden_size, hidden_size, dtype=dtype)
+        self.fc1 = nn.Linear(hidden_size, out_dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc1(torch.relu(self.fc0(x.to(self.dtype))))
 
 
 class UFVideoModel(nn.Module):
@@ -25,6 +41,8 @@ class UFVideoModel(nn.Module):
         self.vision = SiglipVisionTower(cfg.vision, dtype=dt, act="gelu_tanh")
         self.projector = STCConnector(cfg.projector, dtype=dt)
         self.llm = Qwen2LM(cfg.llm, dtype=dt)
+        self.text_fcs = TextHiddenFC(cfg.llm.hidden_size, cfg.sam_out_dim, dt)
+        self.sam = SAM2(cfg.sam, dtype=dt)
 
     @classmethod
     def empty(cls, cfg: UFVideoConfig, device) -> "UFVideoModel":
@@ -39,6 +57,8 @@ class UFVideoModel(nn.Module):
         self.vision.reset_parameters(gen)
         self.projector.reset_parameters(gen)
         self.llm.reset_parameters(gen)
+        init.reset_tree_(self.text_fcs, gen)
+        self.sam.reset_parameters(gen)
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route every kernel call to its CUDA kernel (True, the default;
@@ -67,3 +87,8 @@ class UFVideoModel(nn.Module):
     ) -> torch.Tensor:
         text_embeds = self.llm.embed(text_ids)
         return apply_splice(text_embeds, video_feats, region_feats, src_kind, src_idx)
+
+    @torch.no_grad()
+    def seg_embeddings(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Final-layer hidden states → SAM prompt embeddings."""
+        return self.text_fcs(hidden)

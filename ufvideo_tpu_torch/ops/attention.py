@@ -83,6 +83,18 @@ def attention(
     return fn(q, k, v, causal=causal, kv_lens=kv_lens, kv_mask=kv_mask, scale=scale)
 
 
+def window_dense_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float
+) -> torch.Tensor:
+    """Unmasked attention for small windows in the inputs' dtype with a
+    float32 softmax; no GQA, no masks. Plain PyTorch, as the JAX function is
+    plain XLA: the only caller is a q-pool block that keeps its width, which
+    no shipped Hiera has."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+
+
 def decode_attention(
     q: torch.Tensor,  # [B, 1, Hq, D]
     k_cache: torch.Tensor,  # [B, Hkv, S, D]

@@ -4,7 +4,10 @@ Replaces the TPU kernel ``ufvideo_tpu/ops/flash_attention.py``
 ``flash_attention`` (Pallas ``_kernel``). The CUDA source is
 ``csrc/flash_attention.cu`` over ``csrc/attention_tile.cuh``; its header
 comment gives what bounds it on an H100 (tensor-core operations at the
-Qwen2-7B prefill shape) and how the design meets that.
+Qwen2-7B prefill shape) and how the design meets that. Callers: Qwen2
+prefill and full forward (head dim 128, causal), Hiera global blocks (head
+dim 72), SAM2 memory attention (one head of dim 256, ``kv_mask`` over the
+memory slots) and the mask decoder's small attentions (head dim 16 / 32).
 
 Causal alignment contract (as in the TPU kernel): query row r sits at
 position r + (Skv - Sq), a static offset from the buffer end; ``kv_lens``
@@ -65,7 +68,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax attention forward. CPU tensors take the plain
     version; CUDA tensors launch the kernel (bf16, head dim a multiple of
-    8 up to 128)."""
+    8 up to 256)."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, kv_lens=kv_lens, kv_mask=kv_mask, scale=scale
@@ -78,7 +81,7 @@ def flash_attention(
         raise TypeError("flash_attention kernel takes bf16 q / k / v")
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"shape mismatch q {q.shape} k {k.shape} v {v.shape}")
-    if hq % hkv or d > 128 or min(b, sq, skv) == 0:
+    if hq % hkv or d > 256 or min(b, sq, skv) == 0 or max(hq, b) > 65535:
         raise ValueError(f"unsupported shape q {q.shape} k {k.shape}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a unit stride along head dim")

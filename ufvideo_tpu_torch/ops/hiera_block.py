@@ -1,21 +1,35 @@
-"""One whole pre-LN transformer block: hand-written CUDA kernels + the
-plain version.
+"""The fused pre-LN transformer blocks of SigLIP and Hiera: hand-written
+CUDA kernels, each beside its plain version.
 
-Replaces the TPU kernel ``ufvideo_tpu/ops/hiera_block.py``
-``fused_hiera_block`` (Pallas ``_forward`` / ``_kernel`` / ``_block_body``):
-LN1 (f32) → qkv → multi-head attention inside each window → proj +
-residual → LN2 (f32) → fc1 → GELU → fc2 + residual. SigLIP runs it with one
-729-token window per frame and ``gelu_tanh``; Hiera will use ``gelu_exact``.
+Each wrapper replaces one TPU kernel of ``ufvideo_tpu/ops/hiera_block.py``:
+
+- ``fused_hiera_block`` (Pallas ``_forward`` / ``_kernel`` / ``_block_body``):
+  LN1 (f32) → qkv → multi-head attention inside each window → proj +
+  residual → LN2 (f32) → fc1 → GELU → fc2 + residual. SigLIP runs it with
+  one 729-token window per frame and ``gelu_tanh``; Hiera's windowed blocks
+  with 16 / 64 / 256-token windows and ``gelu_exact``.
+- ``fused_ln_matmul`` (``_ln_matmul_forward``): LN (f32) → matmul + bias,
+  the LN1 → qkv front of a Hiera global block.
+- ``fused_block_tail`` (``_tail_forward``): proj + residual → LN2 → fc1 →
+  GELU → fc2 + residual, the tail of a global block after attention.
+- ``fused_qpool_block`` (``_qpool_forward``): a whole stage-transition
+  block: LN1 → [qkv ‖ shortcut projection] → 2×2 max-pool of q and of the
+  shortcut inside each window → attention of the pooled queries on the
+  window's unpooled keys → the tail.
+
 The CUDA source is ``csrc/hiera_block.cu`` (LayerNorm, a tiled bf16 GEMM
-with fused bias / GELU / residual epilogue, and the attention of
-``csrc/attention_tile.cuh``); its header comment gives the bound on an H100
-(tensor-core operations) and the design. The math is that of the JAX
-``_reference``; the TPU kernel's 128-lane head padding and bf16 ``exp2``
-softmax are not carried over.
+with fused bias / GELU / residual epilogue, the pooling pass, and the
+attention of ``csrc/attention_tile.cuh``); its header comment gives the
+bound on an H100 (tensor-core operations) and the design. The math is that
+of the JAX ``_reference`` / ``_ln_matmul_reference`` / ``_tail_reference`` /
+``_qpool_reference``; the TPU kernels' 128-lane head padding, window
+grouping with a block-diagonal score mask and bf16 ``exp2`` softmax are not
+carried over.
 
-``params`` = (ln1_s, ln1_b, wqkv [C, 3·H·hd], bqkv, wproj [H·hd, C], bproj,
-ln2_s, ln2_b, w1 [C, mlp], b1, w2 [mlp, C], b2), weights in [in, out]
-layout, qkv columns ordered [q heads | k heads | v heads].
+Weights are in [in, out] layout, qkv columns ordered [q heads | k heads |
+v heads]. ``fused_hiera_block`` takes ``params`` = (ln1_s, ln1_b, wqkv
+[C, 3·H·hd], bqkv, wproj [H·hd, C], bproj, ln2_s, ln2_b, w1 [C, mlp], b1,
+w2 [mlp, C], b2).
 """
 
 from __future__ import annotations
@@ -48,8 +62,28 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("hiera_block")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hiera_block_bf16.argtypes = [p] * 19 + [i] * 7 + [f, p]
-    lib.hiera_block_bf16.restype = ctypes.c_int
+    lib.ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, p]
+    lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 5 + [f, p]
+    lib.qpool_block_bf16.argtypes = [p] * 22 + [i] * 10 + [f, p]
+    for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.block_tail_bf16,
+               lib.qpool_block_bf16):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_cuda(name: str, x: torch.Tensor, mats) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not all(t.dtype == torch.bfloat16 for t in (x, *mats)):
+        raise TypeError(f"{name} kernel takes bf16 activations and weights")
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _f32(*vecs):
+    return [t.float().contiguous() for t in vecs]
 
 
 def _layernorm(x32, scale, bias, eps):
@@ -82,11 +116,9 @@ def fused_hiera_block_plain(
     logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) * head_dim ** -0.5
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("nhqk,nkhd->nqhd", probs.to(dtype).float(), vh).to(dtype)
-    att = (o.reshape(n, s, hw) @ wproj.to(dtype) + bproj.to(dtype)).to(dtype)
-    x1 = x + att
-    xm = _layernorm(x1.float(), ln2_s, ln2_b, eps).to(dtype)
-    h = _ACTS[act]((xm @ w1.to(dtype) + b1.to(dtype)).float()).to(dtype)
-    return x1 + (h @ w2.to(dtype) + b2.to(dtype)).to(dtype)
+    return fused_block_tail_plain(
+        x, o.reshape(n, s, hw), (wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2), act, eps
+    )
 
 
 def fused_hiera_block(
@@ -103,24 +135,21 @@ def fused_hiera_block(
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
         return fused_hiera_block_plain(x, params, num_heads, head_dim, act, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_hiera_block: unsupported device {x.device}")
     (ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1, b1, w2,
      b2) = params
+    _check_cuda("fused_hiera_block", x, (wqkv, wproj, w1, w2))
     n, s, c = x.shape
     hw = num_heads * head_dim
     mlp = w1.shape[1]
-    mats = (x, wqkv, wproj, w1, w2)
-    if not all(t.dtype == torch.bfloat16 for t in mats):
-        raise TypeError("fused_hiera_block kernel takes bf16 activations and weights")
     expect = ((c, 3 * hw), (hw, c), (c, mlp), (mlp, c))
     if tuple(tuple(t.shape) for t in (wqkv, wproj, w1, w2)) != expect:
         raise ValueError(f"weight shapes do not match x {x.shape}, {num_heads} heads")
     if c % 8 or head_dim % 8 or mlp % 8 or head_dim > 128:
         raise ValueError(f"unsupported dims C={c} head dim={head_dim} mlp={mlp}")
-    x = x.contiguous()
-    mats = [t.contiguous() for t in (wqkv, wproj, w1, w2)]
-    vecs = [t.float().contiguous() for t in (ln1_s, ln1_b, bqkv, bproj, ln2_s, ln2_b, b1, b2)]
+    if n > 65535:
+        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
+    x, wqkv, wproj, w1, w2 = (t.contiguous() for t in (x, wqkv, wproj, w1, w2))
+    vecs = _f32(ln1_s, ln1_b, bqkv, bproj, ln2_s, ln2_b, b1, b2)
     rows = n * s
     empty = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
     out = empty((n, s, c))
@@ -130,11 +159,8 @@ def fused_hiera_block(
     )
     lib = _lib()
     code = lib.hiera_block_bf16(
-        x.data_ptr(), out.data_ptr(),
-        vecs[0].data_ptr(), vecs[1].data_ptr(), mats[0].data_ptr(), vecs[2].data_ptr(),
-        mats[1].data_ptr(), vecs[3].data_ptr(), vecs[4].data_ptr(), vecs[5].data_ptr(),
-        mats[2].data_ptr(), vecs[6].data_ptr(), mats[3].data_ptr(), vecs[7].data_ptr(),
-        xn.data_ptr(), qkv.data_ptr(), att.data_ptr(), x1.data_ptr(), hmid.data_ptr(),
+        *_ptrs(x, out, vecs[0], vecs[1], wqkv, vecs[2], wproj, vecs[3], vecs[4], vecs[5],
+               w1, vecs[6], w2, vecs[7], xn, qkv, att, x1, hmid),
         n, s, c, num_heads, head_dim, mlp, _ACT_CODES[act], float(eps),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -145,3 +171,204 @@ def fused_hiera_block(
 
 fused_hiera_block.launches = 0
 
+
+def fused_block_tail_plain(
+    shortcut: torch.Tensor, att: torch.Tensor, params: tuple,
+    act: str = "gelu_exact", eps: float = 1e-6,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX ``_tail_reference``)."""
+    wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2 = params
+    dtype = shortcut.dtype
+    x1 = shortcut + (att @ wproj.to(dtype) + bproj.to(dtype)).to(dtype)
+    xm = _layernorm(x1.float(), ln2_s, ln2_b, eps).to(dtype)
+    h = _ACTS[act]((xm @ w1.to(dtype) + b1.to(dtype)).float()).to(dtype)
+    return x1 + (h @ w2.to(dtype) + b2.to(dtype)).to(dtype)
+
+
+def fused_ln_matmul_plain(x, ln_s, ln_b, w, b, eps: float = 1e-6) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX ``_ln_matmul_reference``)."""
+    xn = _layernorm(x.float(), ln_s, ln_b, eps).to(x.dtype)
+    return (xn @ w.to(x.dtype) + b.to(x.dtype)).to(x.dtype)
+
+
+def fused_ln_matmul(
+    x: torch.Tensor,  # [N, S, C]
+    ln_s: torch.Tensor,
+    ln_b: torch.Tensor,
+    w: torch.Tensor,  # [C, D]
+    b: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """LayerNorm + matmul + bias → [N, S, D]. CPU tensors take the plain
+    version; CUDA tensors launch the kernels (bf16; C and D multiples of 8)."""
+    if x.device.type == "cpu":
+        return fused_ln_matmul_plain(x, ln_s, ln_b, w, b, eps)
+    _check_cuda("fused_ln_matmul", x, (w,))
+    n, s, c = x.shape
+    d = w.shape[1]
+    if w.shape[0] != c or c % 8 or d % 8:
+        raise ValueError(f"unsupported shapes x {tuple(x.shape)} w {tuple(w.shape)}")
+    x, w = x.contiguous(), w.contiguous()
+    vecs = _f32(ln_s, ln_b, b)
+    xn = torch.empty_like(x)
+    out = torch.empty((n, s, d), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    code = lib.ln_matmul_bf16(
+        *_ptrs(x, vecs[0], vecs[1], w, vecs[2], xn, out), n * s, c, d, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "fused_ln_matmul")
+    fused_ln_matmul.launches += 1
+    return out
+
+
+fused_ln_matmul.launches = 0
+
+
+def fused_block_tail(
+    shortcut: torch.Tensor,  # [N, S, C] residual input
+    att: torch.Tensor,  # [N, S, A] attention output before its projection
+    params: tuple,  # (wproj [A, C], bproj, ln2_s, ln2_b, w1 [C, mlp], b1, w2 [mlp, C], b2)
+    act: str = "gelu_exact",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """proj + residual → LN2 → MLP + residual → [N, S, C]. CPU tensors take
+    the plain version; CUDA tensors launch the kernels (bf16; C, A and mlp
+    multiples of 8)."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    if shortcut.device.type == "cpu":
+        return fused_block_tail_plain(shortcut, att, params, act, eps)
+    wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2 = params
+    _check_cuda("fused_block_tail", shortcut, (att, wproj, w1, w2))
+    n, s, c = shortcut.shape
+    a, mlp = att.shape[-1], w1.shape[1]
+    expect = ((n, s, a), (a, c), (c, mlp), (mlp, c))
+    if tuple(tuple(t.shape) for t in (att, wproj, w1, w2)) != expect:
+        raise ValueError(f"shapes do not match shortcut {tuple(shortcut.shape)}")
+    if c % 8 or a % 8 or mlp % 8:
+        raise ValueError(f"unsupported dims C={c} A={a} mlp={mlp}")
+    shortcut, att, wproj, w1, w2 = (t.contiguous() for t in (shortcut, att, wproj, w1, w2))
+    vecs = _f32(bproj, ln2_s, ln2_b, b1, b2)
+    rows = n * s
+    empty = functools.partial(torch.empty, dtype=shortcut.dtype, device=shortcut.device)
+    out, x1, xn, hmid = empty((n, s, c)), empty((rows, c)), empty((rows, c)), empty((rows, mlp))
+    lib = _lib()
+    code = lib.block_tail_bf16(
+        *_ptrs(shortcut, att, out, wproj, vecs[0], vecs[1], vecs[2], w1, vecs[3], w2,
+               vecs[4], x1, xn, hmid),
+        rows, c, a, mlp, _ACT_CODES[act], float(eps),
+        torch.cuda.current_stream(shortcut.device).cuda_stream,
+    )
+    _build.check(lib, code, "fused_block_tail")
+    fused_block_tail.launches += 1
+    return out
+
+
+fused_block_tail.launches = 0
+
+
+def pool_window_tokens(v: torch.Tensor, ws: int, stride: tuple) -> torch.Tensor:
+    """Max-pool [N, ws², D] window tokens (row-major inside a window) by
+    ``stride`` = (sy, sx) → [N, (ws/sy)·(ws/sx), D]."""
+    n, _, d = v.shape
+    sy, sx = stride
+    v6 = v.reshape(n, ws // sy, sy, ws // sx, sx, d)
+    return v6.amax(dim=4).amax(dim=2).reshape(n, (ws // sy) * (ws // sx), d)
+
+
+def _window_side(s: int) -> int:
+    ws = int(round(s ** 0.5))
+    if ws * ws != s:
+        raise ValueError(f"{s} tokens are not a square window")
+    return ws
+
+
+def fused_qpool_block_plain(
+    x: torch.Tensor,  # [N, S, Cin] window-major tokens, S = ws²
+    params: tuple,
+    num_heads: int,
+    head_dim: int,
+    q_stride: tuple = (2, 2),
+    act: str = "gelu_exact",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX ``_qpool_reference``)."""
+    (ln1_s, ln1_b, wf, bf, wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2) = params
+    n, s, _ = x.shape
+    ws = _window_side(s)
+    sy, sx = q_stride
+    sq = (ws // sy) * (ws // sx)
+    hw = num_heads * head_dim
+    dtype = x.dtype
+    xn = _layernorm(x.float(), ln1_s, ln1_b, eps).to(dtype)
+    front = (xn @ wf.to(dtype) + bf.to(dtype)).to(dtype)
+    qp = pool_window_tokens(front[..., :hw], ws, q_stride)
+    qp = qp.reshape(n, sq, num_heads, head_dim).float()
+    sc = pool_window_tokens(front[..., 3 * hw:], ws, q_stride)
+    kh = front[..., hw:2 * hw].reshape(n, s, num_heads, head_dim).float()
+    vh = front[..., 2 * hw:3 * hw].reshape(n, s, num_heads, head_dim).float()
+    logits = torch.einsum("nqhd,nkhd->nhqk", qp, kh) * head_dim ** -0.5
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("nhqk,nkhd->nqhd", probs.to(dtype).float(), vh).to(dtype)
+    return fused_block_tail_plain(
+        sc, o.reshape(n, sq, hw), (wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2), act, eps
+    )
+
+
+def fused_qpool_block(
+    x: torch.Tensor,  # [N, S, Cin]
+    params: tuple,  # (ln1_s, ln1_b, wfront [Cin, 3·H·hd + Cout], bfront, wproj
+    #                 [H·hd, Cout], bproj, ln2_s, ln2_b, w1 [Cout, mlp], b1, w2, b2)
+    num_heads: int,
+    head_dim: int,
+    q_stride: tuple = (2, 2),
+    act: str = "gelu_exact",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """One q-pooling stage-transition block → [N, S/(sy·sx), Cout]. CPU
+    tensors take the plain version; CUDA tensors launch the kernels (bf16;
+    Cin, Cout, head dim and mlp multiples of 8, head dim up to 128)."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return fused_qpool_block_plain(x, params, num_heads, head_dim, q_stride, act, eps)
+    (ln1_s, ln1_b, wf, bf, wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2) = params
+    _check_cuda("fused_qpool_block", x, (wf, wproj, w1, w2))
+    n, s, cin = x.shape
+    ws = _window_side(s)
+    sy, sx = q_stride
+    hw = num_heads * head_dim
+    cout, mlp = wproj.shape[1], w1.shape[1]
+    expect = ((cin, 3 * hw + cout), (hw, cout), (cout, mlp), (mlp, cout))
+    if tuple(tuple(t.shape) for t in (wf, wproj, w1, w2)) != expect:
+        raise ValueError(f"weight shapes do not match x {tuple(x.shape)}, {num_heads} heads")
+    if ws % sy or ws % sx or cin % 8 or cout % 8 or head_dim % 8 or mlp % 8 or head_dim > 128:
+        raise ValueError(
+            f"unsupported dims window {ws} stride {q_stride} Cin={cin} Cout={cout} "
+            f"head dim={head_dim} mlp={mlp}"
+        )
+    if n > 65535:
+        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
+    sq = (ws // sy) * (ws // sx)
+    x, wf, wproj, w1, w2 = (t.contiguous() for t in (x, wf, wproj, w1, w2))
+    vecs = _f32(ln1_s, ln1_b, bf, bproj, ln2_s, ln2_b, b1, b2)
+    rows, qrows = n * s, n * sq
+    empty = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
+    out = empty((n, sq, cout))
+    xn, front = empty((rows, cin)), empty((rows, 3 * hw + cout))
+    qp, sc, att = empty((qrows, hw)), empty((qrows, cout)), empty((qrows, hw))
+    x1, xm, hmid = empty((qrows, cout)), empty((qrows, cout)), empty((qrows, mlp))
+    lib = _lib()
+    code = lib.qpool_block_bf16(
+        *_ptrs(x, out, vecs[0], vecs[1], wf, vecs[2], wproj, vecs[3], vecs[4], vecs[5],
+               w1, vecs[6], w2, vecs[7], xn, front, qp, sc, att, x1, xm, hmid),
+        n, ws, sy, sx, cin, cout, num_heads, head_dim, mlp, _ACT_CODES[act], float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "fused_qpool_block")
+    fused_qpool_block.launches += 1
+    return out
+
+
+fused_qpool_block.launches = 0

@@ -6,7 +6,8 @@ The resize reproduces ``jax.image.resize(..., method="bicubic")``: the Keys
 cubic kernel with a = -0.5, stretched by the inverse scale when shrinking
 (antialias), weights normalised per output sample, applied separably as
 two float32 matrix products. ``torch.nn.functional.interpolate`` uses
-a = -0.75 and no antialias, so the weights are written out here.
+a = -0.75 and no antialias, so the weights are written out in
+``ops/interp.py`` (``resize_weights``).
 """
 
 from __future__ import annotations
@@ -15,32 +16,17 @@ from typing import Tuple
 
 import torch
 
+from .interp import resize_weights
+
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
 SIGLIP_STD = (0.5, 0.5, 0.5)
-
-
-def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+SAM_MEAN = (123.675, 116.28, 103.53)
+SAM_STD = (58.395, 57.12, 57.375)
 
 
 def bicubic_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
-    """[in_size, out_size] float32 resampling matrix of jax.image.resize."""
-    inv_scale = 1.0 / (out_size / in_size)
-    kernel_scale = max(inv_scale, 1.0)
-    f32 = torch.float32
-    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) * inv_scale - 0.5
-    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None]).abs()
-    w = _keys_cubic(x / kernel_scale)
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(
-        total.abs() > 1000.0 * float(torch.finfo(f32).eps),
-        w / torch.where(total != 0, total, torch.ones_like(total)),
-        torch.zeros_like(w),
-    )
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w))
+    """[in_size, out_size] float32 bicubic resampling matrix of jax.image.resize."""
+    return resize_weights(in_size, out_size, "bicubic", device)
 
 
 def resize_bicubic(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -81,4 +67,14 @@ def siglip_preprocess_device(
     return resize_normalize(
         frames_u8, SIGLIP_MEAN, SIGLIP_STD, size=384, rescale=True,
         out_dtype=out_dtype,
+    )
+
+
+def sam_preprocess_device(
+    frames_u8: torch.Tensor, out_dtype=torch.bfloat16
+) -> torch.Tensor:
+    """uint8 [T, H, W, 3] → [T, 1024, 1024, 3] SAM-normalized, on the
+    frames' device."""
+    return resize_normalize(
+        frames_u8, SAM_MEAN, SAM_STD, size=1024, rescale=False, out_dtype=out_dtype,
     )

@@ -11,11 +11,18 @@ dicts of numpy arrays — so this module needs no JAX. Layout changes:
 - ``patch_embedding_kernel`` [p, p, 3, C] becomes a [C, p·p·3] matmul.
 - Conv kernels [kh, kw, (kt,) in, out] become torch [out, in, (kt,) kh, kw].
 - ``embed_tokens`` / ``lm_head`` keep their padded vocab rows.
+- The ``sam`` and ``text_fcs`` subtrees are walked by name (``load_tree``):
+  the port's modules carry the flax names (``blocks_3`` is ``blocks[3]``).
+  A transposed convolution's kernel is also flipped in space: flax applies
+  it unflipped, torch flips. The Hiera blocks' parameter holders
+  (``kernel`` / ``scale`` attributes) keep the flax [in, out] layout, which
+  is the fused kernels' layout.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Set
 
 import numpy as np
 import torch
@@ -123,9 +130,84 @@ def load_qwen2(lm: Qwen2LM, p: Dict[str, Any]) -> None:
         _set(layer.down_proj.weight, pick("mlp_down_proj", "kernel").T)
 
 
+def _child(mod: torch.nn.Module, name: str):
+    """The attribute a flax name refers to: itself, or ``base_3`` → ``base[3]``."""
+    if hasattr(mod, name):
+        return getattr(mod, name)
+    m = re.fullmatch(r"(.+)_(\d+)", name)
+    if m and hasattr(mod, m.group(1)):
+        return getattr(mod, m.group(1))[int(m.group(2))]
+    raise KeyError(f"{type(mod).__name__} has nothing named {name!r}")
+
+
+def _leaf(mod: torch.nn.Module, key: str, value, seen: Set[int]) -> None:
+    """One flax leaf (kernel / scale / bias) into the layer ``mod``."""
+    value = np.asarray(value)
+    if isinstance(getattr(mod, key, None), torch.nn.Parameter):
+        dst = getattr(mod, key)  # holder in the flax layout
+    elif key == "scale":
+        dst = mod.weight
+    elif key != "kernel":
+        raise KeyError(f"{type(mod).__name__} has no parameter {key!r}")
+    else:
+        dst = mod.weight
+        if isinstance(mod, torch.nn.ConvTranspose2d):  # [kh, kw, in, out], unflipped
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif isinstance(mod, torch.nn.Conv2d):  # [kh, kw, in / groups, out]
+            value = value.transpose(3, 2, 0, 1)
+        elif value.ndim == 4:  # 1x1 convolution held as a Linear
+            value = value[0, 0].T
+        else:
+            value = value.T
+    _set(dst, value)
+    seen.add(id(dst))
+
+
+def load_tree(mod: torch.nn.Module, tree: Dict[str, Any], seen: Set[int]) -> None:
+    """Copy a flax subtree into the module of the same shape, by name."""
+    for name, sub in tree.items():
+        if not isinstance(sub, dict):
+            dst = _child(mod, name)
+            _set(dst, sub)
+            seen.add(id(dst))
+            continue
+        child = _child(mod, name)
+        if all(not isinstance(v, dict) for v in sub.values()) and (
+            "kernel" in sub or "scale" in sub
+        ):
+            for key, value in sub.items():
+                _leaf(child, key, value, seen)
+        else:
+            load_tree(child, sub, seen)
+
+
+# flax creates a layer's parameters when it is first called, and the JAX
+# package's init pass gives no mask prompt: a randomly initialised tree has
+# no mask-prompt convolutions (a converted checkpoint has them)
+_LAZY = ("sam_prompt_encoder.mask_downscaling_",)
+
+
+def load_by_name(mod: torch.nn.Module, tree: Dict[str, Any]) -> None:
+    """``load_tree`` that also checks every parameter of ``mod`` was filled
+    (but for the layers flax creates lazily, see ``_LAZY``)."""
+    seen: Set[int] = set()
+    load_tree(mod, tree, seen)
+    missing = [
+        n for n, p in mod.named_parameters()
+        if id(p) not in seen and not n.startswith(_LAZY)
+    ]
+    if missing:
+        raise KeyError(f"parameters not in the tree: {missing[:8]}")
+
+
 def load_jax_params(model: UFVideoModel, params: Dict[str, Any]) -> UFVideoModel:
-    """Copy the JAX param tree (numpy leaves) into ``model``; returns it."""
+    """Copy the JAX param tree (numpy leaves) into ``model``; returns it.
+    The ``sam`` subtree (the JAX runtime keeps it beside the composite's
+    tree) is loaded when present."""
     load_siglip(model.vision, params["vision"])
     load_projector(model.projector, params["projector"])
     load_qwen2(model.llm, params["llm"])
+    load_by_name(model.text_fcs, params["text_fcs"])
+    if "sam" in params:
+        load_by_name(model.sam, params["sam"])
     return model
