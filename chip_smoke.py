@@ -1,5 +1,5 @@
-"""Build the port's CUDA kernels and drive its video-QA and [SEG]
-segmentation paths on one GPU.
+"""Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation
+and quantised region-referring paths on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
@@ -11,7 +11,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      the full-width path gives it, bf16, held to a limit scaled to the
      output (see check_close); for the block also its attention part alone;
      kernel / plain / library ms (CUDA events, median of 20 after warm-up,
-     L2 flushed before each launch) beside the bound.
+     L2 flushed before each launch) beside the bound. The quantised kernels
+     take int8 / packed-int4 weights, an int8 cache and int8 block weights
+     at the same widths, each with its own stated tolerance.
   3. path: model_init at full width (SigLIP-SO400M + STC-v35 + Qwen2-7B,
      bf16, random weights from a seed) on the card; mm_infer on 32 uint8
      frames (480x640, bicubic resize) with max_new_tokens=32; launch counts
@@ -25,8 +27,16 @@ Phases, each printed as it runs; any failure exits non-zero:
      call and held to what the code predicts; masks [4, 480, 640] boolean;
      stage timings; the SAM2 kernel path against the plain path on the same
      [SEG] embedding (FPN level-2 features, low-res mask logits, mask IoU).
-Then one JSON line with every kernel (launches = QA call + [SEG] call), the
-card line, and the last line {"ok": true, "device": {...}}.
+  5. referring, quantised: a new runtime with quant_llm="int8", quant_kv and
+     quant_vision at full width; mm_infer with one annotated uint8 frame, one
+     480x640 mask and a <region> in the prompt, 32 new tokens; launch counts
+     read around that one call and held to what the configuration predicts;
+     stage timings and peak memory; kernel path against plain path (video
+     tokens, region tokens, final prefill hidden state, the first decode
+     steps' logits). Then the same request on a quant_llm="int4" runtime
+     (bf16 cache and towers) with 8 new tokens.
+Then one JSON line with every kernel (launches = the sum over the counted
+calls), the card line, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 N_TIMED = 20
 # kernel path vs plain path at full width; the run before this check read
@@ -88,8 +99,11 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
+    """The larger of bytes over the memory rate and operations over the peak
+    rate of their type (bf16 and int8 products add up)."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -114,38 +128,45 @@ def nbytes(*ts) -> int:
 REL, RTOL, BLOCK_REL = 1e-2, 2e-2, 5e-2
 
 
-def tol_text(row_rel: float) -> str:
-    return f"|d| <= {row_rel}*rms(row) + {RTOL}*|plain| and ||d||/||plain|| <= {REL}"
+# The quantised products give f32 sums of the same exact terms in another
+# order (18944 terms at most): both sides within QREL of a row's RMS.
+QREL = 1e-3
 
 
-def check_close(name, got, want, row_rel=REL, fatal=True):
+def tol_text(row_rel: float, rtol: float = RTOL, fro: float = REL) -> str:
+    return f"|d| <= {row_rel}*rms(row) + {rtol}*|plain| and ||d||/||plain|| <= {fro}"
+
+
+def check_close(name, got, want, row_rel=REL, fatal=True, rtol=RTOL, fro=REL):
     got, want = got.float(), want.float()
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         fail(f"{name}: non-finite output")
     err = (got - want).abs()
     max_abs = float(err.max())
     row_rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
-    excess = float((err - (row_rel * row_rms + RTOL * want.abs() + 1e-6)).max())
+    excess = float((err - (row_rel * row_rms + rtol * want.abs() + 1e-6)).max())
     rel_fro = float((got - want).norm() / want.norm().clamp_min(1e-30))
-    ok = excess <= 0 and rel_fro <= REL
-    # the smallest row-RMS factor that would have passed, at RTOL
-    need = float(((err - RTOL * want.abs()) / row_rms.clamp_min(1e-30)).max())
+    ok = excess <= 0 and rel_fro <= fro
+    # the smallest row-RMS factor that would have passed, at rtol
+    need = float(((err - rtol * want.abs()) / row_rms.clamp_min(1e-30)).max())
     log(f"  {name}: max_abs_err {max_abs:.3e}, rel_fro {rel_fro:.3e}, needs "
-        f"{need:.2e}*rms(row) (tolerance {tol_text(row_rel)}) "
+        f"{need:.2e}*rms(row) (tolerance {tol_text(row_rel, rtol, fro)}) "
         f"{'ok' if ok else 'EXCEEDED'}")
     if not ok and fatal:
         fail(f"{name} disagrees with its plain version")
     return max_abs
 
 
-def bench(timer, label, kernel, plain, library, nbytes_, flops, row_rel=REL):
-    """One shape of one kernel: check against the plain version, then time
-    kernel / plain / library beside the bound."""
+def bench(timer, label, kernel, plain, library, nbytes_, flops, row_rel=REL, check=None,
+          int8_ops=0.0):
+    """One shape of one kernel: check against the plain version (``check``
+    replaces ``check_close``), then time kernel / plain / library beside the
+    bound."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = check_close(label, got, want, row_rel=row_rel)
+    err = (check or (lambda n, g, w: check_close(n, g, w, row_rel=row_rel)))(label, got, want)
     del got, want
-    t_b, by = bound_ms(nbytes_, flops)
+    t_b, by = bound_ms(nbytes_, flops, int8_ops)
     return dict(shape=label, max_abs_err=err, ms=timer.ms(kernel), plain_ms=timer.ms(plain),
                 library_ms=timer.ms(library) if library else None, bound_ms=t_b, bound_by=by)
 
@@ -478,11 +499,307 @@ def kernel_hiera(dev, timer, gen):
                 shapes=hiera_shapes(dev, timer, gen))
 
 
+
+# ----------------------------------------------------- quantised kernels --
+
+# (din, dout) of the five projections of one Qwen2-7B decode step: fused
+# qkv, o, gate / up, down, lm_head on the padded vocabulary
+def projection_shapes(cfg):
+    l = cfg.llm
+    nq, nkv = l.num_heads * l.head_dim, l.num_kv_heads * l.head_dim
+    return {"qkv": (l.hidden_size, nq + 2 * nkv), "o": (nq, l.hidden_size),
+            "gate/up": (l.hidden_size, l.intermediate_size),
+            "down": (l.intermediate_size, l.hidden_size),
+            "lm_head": (l.hidden_size, l.padded_vocab_size)}
+
+
+def _kernel_entry(name, source, replaces, tol, shapes, headline):
+    """One kernel's JSON entry from its benched shapes: ``headline`` names
+    the shape whose numbers stand in the entry, the rest go to ``shapes``."""
+    first = next(e for e in shapes if e["shape"] == headline)
+    rest = [e for e in shapes if e is not first]
+    first = dict(first, max_abs_err=max(e["max_abs_err"] for e in shapes))
+    return dict(name=name, route="cuda", source=source, replaces=replaces, tol=tol,
+                shapes=rest, **first)
+
+
+def kernel_quant_matmul(dev, timer, gen, cfg, bits):
+    """int8_matvec (bits 8) or int4_matmul (bits 4) at the five projection
+    shapes, rows 1 and 32, weights quantised from a random float kernel.
+    Library yardstick: one bf16 product on a dequantised copy made before
+    the clock starts."""
+    from ufvideo_tpu_torch import quant
+    from ufvideo_tpu_torch.ops import quant_matmul as qm
+
+    qcheck = lambda n, g, w: check_close(n, g, w, row_rel=QREL, rtol=QREL, fro=QREL)
+    shapes = []
+    for pname, (din, dout) in projection_shapes(cfg).items():
+        w = torch.randn(din, dout, generator=gen, device=dev) * din ** -0.5
+        if bits == 8:
+            qd = quant.quantize_kernel(w)
+            wb = (qd["q"].float() * qd["scale"]).to(torch.bfloat16)
+            kern = lambda x, qd=qd: qm.int8_matvec(x, qd["q"], qd["scale"])
+            plain = lambda x, qd=qd: qm.int8_matvec_plain(x, qd["q"], qd["scale"])
+        else:
+            qd = quant.quantize_kernel4(w, 64)
+            wb = qm.dequantize_int4(qd["q"], qd["scale"], 64, torch.bfloat16)
+            kern = lambda x, qd=qd: qm.int4_matmul(x, qd["q"], qd["scale"], 64)
+            plain = lambda x, qd=qd: qm.int4_matmul_plain(x, qd["q"], qd["scale"], 64)
+        del w
+        for rows in (1, 32):
+            x = torch.randn(rows, din, generator=gen, device=dev).to(torch.bfloat16)
+            shapes.append(bench(
+                timer, f"{pname}: x [{rows},{din}] q [{din},{dout}] int{bits}",
+                lambda: kern(x), lambda: plain(x), lambda: torch.mm(x, wb),
+                nbytes(x, qd["q"], qd["scale"]) + rows * dout * 4, 2 * rows * din * dout,
+                check=qcheck))
+        del qd, wb
+        torch.cuda.empty_cache()
+    name = "int8_matvec" if bits == 8 else "int4_matmul"
+    din, dout = projection_shapes(cfg)["gate/up"]
+    return _kernel_entry(
+        name, "ufvideo_tpu_torch/csrc/quant_matmul.cu",
+        "ufvideo_tpu/ops/quant_matmul.py:" + ("193" if bits == 8 else "122"),
+        tol_text(QREL, QREL, QREL), shapes,
+        f"gate/up: x [1,{din}] q [{din},{dout}] int{bits}")
+
+
+def kernel_decode_q8(dev, timer, gen):
+    from ufvideo_tpu_torch.models.qwen2 import quantize_kv
+    from ufvideo_tpu_torch.ops.decode_attention import (
+        ragged_decode_attention_q8, ragged_decode_attention_q8_plain)
+    import torch.nn.functional as F
+
+    shapes = []
+    for label, (b, s, lens) in {
+        "B=1 cache 2944 lens 2800": (1, 2944, [2800]),
+        "B=4 ragged lens": (4, 2944, [2944, 1, 1500, 129]),
+    }.items():
+        mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
+        q = mk(b, 4, 7, 128)
+        (k8, ks), (v8, vs) = quantize_kv(mk(b, 4, s, 128)), quantize_kv(mk(b, 4, s, 128))
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kd = (k8.float() * ks[..., None]).to(torch.bfloat16)
+        vd = (v8.float() * vs[..., None]).to(torch.bfloat16)
+        mask = (torch.arange(s, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+        qs = q.reshape(b, 28, 1, 128)
+        seen = sum(lens)
+        shapes.append(bench(
+            timer, f"q [{b},4,7,128] int8 cache [{b},4,{s},128] {label}",
+            lambda: ragged_decode_attention_q8(q, k8, v8, ks, vs, lens_t),
+            lambda: ragged_decode_attention_q8_plain(q, k8, v8, ks, vs, lens_t),
+            lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask, enable_gqa=True),
+            nbytes(q, q) + 2 * seen * 4 * (128 + 4), 4 * seen * 28 * 128))
+    return _kernel_entry(
+        "ragged_decode_attention_q8", "ufvideo_tpu_torch/csrc/decode_attention.cu",
+        "ufvideo_tpu/ops/decode_attention.py:153", tol_text(REL), shapes,
+        shapes[0]["shape"])
+
+
+# W8A8 block, kernel against plain version. The int32 sums are exact on both
+# sides, so where both quantise the same f32 values (LN output, GELU output)
+# they differ only where a value sits on a rounding boundary: the MLP half
+# alone (projection zeroed, so both sides enter LN2 with the same rows) is
+# held to the JAX package's own test of its kernel against its reference: at
+# least W8A8_FRAC of the elements within 1e-3 absolute or 1e-2 relative,
+# every element within atol 2.0 + rtol 5e-2 (one quantisation step). Through
+# the whole block the kernel quantises the attention output from bf16 and
+# the plain version from f32, and the residual stream rounds to bf16 twice:
+# one bf16 step is 0.4-0.8% of a value, so a relative limit of 1e-2 an
+# element is no longer the measure, and the whole block is held to the float
+# block's limit (BLOCK_REL of a row's RMS an element, REL in Frobenius norm);
+# the share within 1e-2 relative is reported beside it.
+W8A8_FRAC = 0.999
+
+
+def w8a8_frac(got, want) -> float:
+    err = (got.float() - want.float()).abs()
+    close = (err < 1e-3) | (err / (want.float().abs() + 1e-3) < 1e-2)
+    return float(close.float().mean())
+
+
+def check_w8a8_exact(name, got, want):
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail(f"{name}: non-finite output")
+    err = (got - want).abs()
+    frac = w8a8_frac(got, want)
+    worst = float((err - (2.0 + 5e-2 * want.abs())).max())
+    ok = frac > W8A8_FRAC and worst <= 0
+    log(f"  {name}: max_abs_err {float(err.max()):.3e}, {frac:.5f} of elements within "
+        f"1e-3 abs or 1e-2 rel (tolerance > {W8A8_FRAC}), all within 2.0 + 5e-2*|plain|: "
+        f"{worst <= 0} {'ok' if ok else 'EXCEEDED'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return float(err.max())
+
+
+def check_w8a8(name, got, want):
+    err = check_close(name, got, want, row_rel=BLOCK_REL)
+    log(f"    {w8a8_frac(got, want):.5f} of elements within 1e-3 abs or 1e-2 rel (reported)")
+    return err
+
+
+def w8a8_params(dev, gen, c, mlp):
+    """Random float block parameters, the four kernels quantised per column."""
+    from ufvideo_tpu_torch.quant import quantize_kernel
+
+    (l1s, l1b, wq, bq, wp, bp, l2s, l2b, w1, b1, w2, b2) = block_params(dev, gen, c, mlp)
+    q = lambda w: tuple(quantize_kernel(w).values())
+    return (l1s, l1b, *q(wq), bq, *q(wp), bp, l2s, l2b, *q(w1), b1, *q(w2), b2)
+
+
+def kernel_w8a8(dev, timer, gen):
+    """fused_block_w8a8 at the SigLIP shapes: the 32 video frames and the
+    annotated frames of a referring request (1 or 2 after padding). Library
+    yardstick: torch._int_mm products with elementwise quantise / rescale,
+    SDPA, fused LN / GELU."""
+    from ufvideo_tpu_torch.ops.hiera_block import (
+        fused_block_w8a8, fused_block_w8a8_plain, quant_rows_f32)
+    import torch.nn.functional as F
+
+    s, c, heads, hd, mlp = 729, 1152, 16, 72, 4304
+    params = w8a8_params(dev, gen, c, mlp)
+    (l1s, l1b, wq, sq, bq, wp, sp, bp, l2s, l2b, w1, s1, b1, w2, s2, b2) = params
+    # _int_mm wants K and N multiples of 8 and contiguous operands
+    lib_w = {k: w.contiguous() for k, w in (("q", wq), ("p", wp), ("1", w1), ("2", w2))}
+
+    def lib_qdot(x32, w, ws, b):
+        q, xs = quant_rows_f32(x32)
+        return torch._int_mm(q, w).float() * xs * ws + b.float()
+
+    # the halves alone, on 2 frames: the MLP half with the projection zeroed
+    # (identical quantisation points), the attention half with the MLP's
+    # second kernel zeroed (out - x is the projected attention output; x is
+    # small there, so that its bf16 rounding hides nothing)
+    x0 = torch.randn(2, s, c, generator=gen, device=dev)
+    zero = lambda w: torch.zeros_like(w)
+    for label, p, check in (
+        ("MLP half alone", params[:5] + (zero(wp),) + params[6:], check_w8a8_exact),
+        ("attention half alone", params[:13] + (zero(w2),) + params[14:], check_w8a8),
+    ):
+        x = (x0 * (1e-2 if check is check_w8a8 else 1.0)).to(torch.bfloat16)
+        got = fused_block_w8a8(x, p, heads, hd, act="gelu_tanh")
+        want = fused_block_w8a8_plain(x, p, heads, hd, act="gelu_tanh")
+        torch.cuda.synchronize()
+        if check is check_w8a8:  # the residual stream hides the attention part
+            got, want = got.float() - x.float(), want.float() - x.float()
+        check(f"fused_block_w8a8 [{label}]", got, want)
+
+    shapes = []
+    for n in (32, 2, 1):
+        x = torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
+        rows = n * s
+
+        def library():
+            h = F.layer_norm(x.float(), (c,), l1s.float(), l1b.float(), 1e-6)
+            qkv = lib_qdot(h.reshape(rows, c), lib_w["q"], sq, bq).to(x.dtype)
+            qkv = qkv.reshape(n, s, 3, heads, hd)
+            o = F.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4).unbind(0))
+            o = o.transpose(1, 2).reshape(rows, c)
+            x1 = x + lib_qdot(o.float(), lib_w["p"], sp, bp).reshape(n, s, c).to(x.dtype)
+            h = F.layer_norm(x1.float(), (c,), l2s.float(), l2b.float(), 1e-6).reshape(rows, c)
+            h = F.gelu(lib_qdot(h, lib_w["1"], s1, b1), approximate="tanh")
+            return x1 + lib_qdot(h, lib_w["2"], s2, b2).reshape(n, s, c).to(x.dtype)
+
+        int8_ops = 2 * rows * (3 * c * c + c * c + 2 * c * mlp)
+        shapes.append(bench(
+            timer, f"x [{n},{s},{c}] {heads} heads x {hd}, MLP {mlp}, gelu_tanh, W8A8",
+            lambda: fused_block_w8a8(x, params, heads, hd, act="gelu_tanh"),
+            lambda: fused_block_w8a8_plain(x, params, heads, hd, act="gelu_tanh"),
+            library, nbytes(x, x, *params), 4 * n * heads * s * s * hd, check=check_w8a8,
+            int8_ops=int8_ops))
+    return _kernel_entry(
+        "fused_block_w8a8", "ufvideo_tpu_torch/csrc/hiera_block.cu",
+        "ufvideo_tpu/ops/hiera_block.py:1340",
+        tol_text(BLOCK_REL), shapes, shapes[0]["shape"])
+
 # ------------------------------------------------------------------ path --
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float().flatten(), b.float().flatten()
     return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+N_STEPS = 8  # decode steps whose logits the two paths are compared on
+
+
+def compare_paths(kernel_out, plain_out, limit, why):
+    """Hold the kernel path's stages (``staged_path``) against the plain
+    path's: cosines at least ``limit``; a step's greedy token may differ only
+    where the plain path's top two logits lie closer than the two paths'
+    largest logit difference there."""
+    f_k, h_k, lg_k, toks_k, r_k = kernel_out
+    f_p, h_p, lg_p, toks_p, r_p = plain_out
+    named = [("video tokens", f_k), ("prefill hidden", h_k), ("logits", lg_k)]
+    if r_k is not None:
+        named.append(("region tokens", r_k))
+    for name, t in named:
+        if not torch.isfinite(t).all():
+            fail(f"non-finite {name} on the kernel path")
+    cos_f, cos_h = cosine(f_k, f_p), cosine(h_k, h_p)
+    row_cos = torch.nn.functional.cosine_similarity(h_k.float(), h_p.float(), dim=-1)
+    step_cos = [cosine(a, b) for a, b in zip(lg_k, lg_p)]
+    flips = []
+    for i, (a, b) in enumerate(zip(lg_k, lg_p)):
+        gap = float(b.max() - b[toks_k[i]])
+        if toks_k[i] != toks_p[i] and gap > float((a - b).abs().max()):
+            flips.append(i)
+    same = sum(x == y for x, y in zip(toks_k, toks_p))
+    region = ""
+    if r_k is not None:
+        cos_r = cosine(r_k, r_p)
+        region = f"region tokens cosine {cos_r:.5f}, "
+        if cos_r < limit:
+            fail("region tokens of the kernel path and the plain path disagree")
+    log(f"  kernel vs plain path: video tokens cosine {cos_f:.5f}, {region}final prefill "
+        f"hidden cosine {cos_h:.5f} (min per position {float(row_cos.min()):.5f}), "
+        f"decode logits cosine min {min(step_cos):.5f} over {len(step_cos)} steps, greedy "
+        f"tokens equal {same}/{len(step_cos)}; tolerance cosine >= {limit}: {why}")
+    if min(cos_f, cos_h, *step_cos) < limit:
+        fail("kernel path and plain path disagree at full width")
+    if flips:
+        fail(f"greedy tokens differ beyond a near tie at decode steps {flips}")
+
+
+def staged_path(rt, ids, pixels, n_steps, use_kernels, forced=None, region=None):
+    """The request in stages through the kernels or the plain versions:
+    (video tokens, prefill hidden states [n, hidden], the logits of the first
+    ``n_steps`` decode steps, their greedy tokens, region tokens or None).
+    ``forced`` feeds given tokens instead of the greedy ones; ``region`` is
+    (frame, masks, ann_indices)."""
+    from ufvideo_tpu_torch.models.generate import _mask_vocab_logits
+    from ufvideo_tpu_torch.models.qwen2 import make_kv_cache
+    from ufvideo_tpu_torch.splicing import plan_splice
+
+    cfg, dev, llm = rt.cfg, rt.device, rt.model.llm
+    rt.model.set_use_kernels(use_kernels)
+    f = rt.encode_video(pixels[None])
+    r, counts = rt.pack_and_encode_regions(*region) if region else (None, [])
+    p = plan_splice([ids], num_video_tokens=f.shape[1], region_token_counts=[counts],
+                    region_token_id=rt.ids.region, max_seq_len=cfg.budget.max_seq_len,
+                    region_stride=cfg.region.region_token_num)
+    emb = rt.model.splice_embeds(*(torch.as_tensor(a, device=dev) for a in
+                                   (p.text_ids, p.src_kind, p.src_idx)), f, r)
+    n = int(p.seq_lens[0])
+    lens = torch.as_tensor(p.seq_lens, device=dev)
+    trim = min(-(-n // 256) * 256, cfg.budget.max_seq_len)
+    cache = make_kv_cache(cfg.llm, 1, -(-(trim + n_steps) // 128) * 128,
+                          dtype=cfg.compute_dtype, device=dev, quant=bool(cfg.quant_kv))
+    pos = torch.arange(trim, device=dev)[None]
+    h, cache = llm.backbone(emb[:, :trim], pos, lens, cache, None, "prefill")
+    last, cur_len = h[:, n - 1], lens.long()
+    logits, toks = [], []
+    for i in range(n_steps):
+        lg = _mask_vocab_logits(llm.logits(last[:, None])[:, 0].float(),
+                                cfg.llm.vocab_size)[0]
+        logits.append(lg)
+        toks.append(int(lg.argmax()))
+        e = llm.embed(torch.tensor([[toks[-1] if forced is None else forced[i]]], device=dev))
+        hd, cache = llm.backbone(e, cur_len[:, None], None, cache, cur_len, "decode")
+        last, cur_len = hd[:, 0], cur_len + 1
+    rt.model.set_use_kernels(True)
+    return f, h[0, :n], torch.stack(logits), toks, r
 
 
 def run_path(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), max_new_tokens=32):
@@ -492,8 +809,6 @@ def run_path(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), max_new_tokens=
     from ufvideo_tpu_torch.ops.flash_attention import flash_attention
     from ufvideo_tpu_torch.ops.hiera_block import fused_hiera_block
     from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
-    from ufvideo_tpu_torch.models.qwen2 import make_kv_cache
-    from ufvideo_tpu_torch.splicing import plan_splice
 
     wrappers = all_wrappers()
     t0 = time.perf_counter()
@@ -556,73 +871,22 @@ def run_path(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), max_new_tokens=
     # kernel path against the plain path at full width: video tokens,
     # prefill hidden states and the logits of the first decode steps, the
     # plain path fed the kernel path's greedy tokens
-    from ufvideo_tpu_torch.models.generate import _mask_vocab_logits
-
-    llm = rt.model.llm
-    n_steps = 8
-
-    def path(use_kernels: bool, forced=None):
-        rt.model.set_use_kernels(use_kernels)
-        f = rt.encode_video(pixels[None])
-        p = plan_splice([ids], num_video_tokens=f.shape[1], region_token_counts=[[]],
-                        region_token_id=rt.ids.region, max_seq_len=cfg.budget.max_seq_len)
-        emb = rt.model.splice_embeds(*(torch.as_tensor(a, device=dev) for a in
-                                       (p.text_ids, p.src_kind, p.src_idx)), f)
-        n = int(p.seq_lens[0])
-        lens = torch.as_tensor(p.seq_lens, device=dev)
-        trim = min(-(-n // 256) * 256, cfg.budget.max_seq_len)
-        cache = make_kv_cache(cfg.llm, 1, -(-(trim + n_steps) // 128) * 128,
-                              dtype=cfg.compute_dtype, device=dev)
-        pos = torch.arange(trim, device=dev)[None]
-        h, cache = llm.backbone(emb[:, :trim], pos, lens, cache, None, "prefill")
-        last, cur_len = h[:, n - 1], lens.long()
-        logits, toks = [], []
-        for i in range(n_steps):
-            lg = _mask_vocab_logits(llm.logits(last[:, None])[:, 0].float(),
-                                    cfg.llm.vocab_size)[0]
-            logits.append(lg)
-            toks.append(int(lg.argmax()) if forced is None else forced[i])
-            e = llm.embed(torch.tensor([[toks[-1]]], device=dev))
-            hd, cache = llm.backbone(e, cur_len[:, None], None, cache, cur_len, "decode")
-            last, cur_len = hd[:, 0], cur_len + 1
-        return f, h[0, :n], torch.stack(logits), toks
-
     with torch.no_grad():
         for w in wrappers.values():
             w.launches = 0
-        f_k, h_k, lg_k, toks_k = path(True)
+        kernel_out = staged_path(rt, ids, pixels, N_STEPS, True)
         if ragged_decode_attention.launches == 0 or flash_attention.launches == 0:
             fail("the kernel path of the comparison did not launch the kernels")
-        f_p, h_p, lg_p, toks_p = path(False, forced=toks_k)
-    rt.model.set_use_kernels(True)
-    for name, t in (("video tokens", f_k), ("prefill hidden", h_k), ("logits", lg_k)):
-        if not torch.isfinite(t).all():
-            fail(f"non-finite {name} on the kernel path")
-    cos_f, cos_h = cosine(f_k, f_p), cosine(h_k, h_p)
-    row_cos = torch.nn.functional.cosine_similarity(h_k.float(), h_p.float(), dim=-1)
-    step_cos = [cosine(a, b) for a, b in zip(lg_k, lg_p)]
-    # a step's greedy token may differ only where the plain path's top two
-    # logits lie closer than the two paths' largest logit difference there
-    flips = []
-    for i, (a, b) in enumerate(zip(lg_k, lg_p)):
-        gap = float(b.max() - b[toks_k[i]])
-        if toks_k[i] != toks_p[i] and gap > float((a - b).abs().max()):
-            flips.append(i)
-    same = sum(x == y for x, y in zip(toks_k, toks_p))
-    log(f"  kernel vs plain path: video tokens cosine {cos_f:.5f}, final prefill "
-        f"hidden cosine {cos_h:.5f} (min per position {float(row_cos.min()):.5f}), "
-        f"decode logits cosine min {min(step_cos):.5f} over {n_steps} steps, greedy "
-        f"tokens equal {same}/{n_steps}; tolerance cosine >= {PATH_COS}: bf16 rounds "
-        "at other places through 26 SigLIP and 28 Qwen2 layers of random weights")
-    if min(cos_f, cos_h, *step_cos) < PATH_COS:
-        fail("kernel path and plain path disagree at full width")
-    if flips:
-        fail(f"greedy tokens differ beyond a near tie at decode steps {flips}")
+        plain_out = staged_path(rt, ids, pixels, N_STEPS, False, forced=kernel_out[3])
+    compare_paths(kernel_out, plain_out, PATH_COS,
+                  "bf16 rounds at other places through 26 SigLIP and 28 Qwen2 layers of "
+                  "random weights")
     return launches, rt, tok
 
 
 def all_wrappers():
-    from ufvideo_tpu_torch.ops import decode_attention, flash_attention, hiera_block
+    from ufvideo_tpu_torch.ops import (
+        decode_attention, flash_attention, hiera_block, quant_matmul)
 
     return {
         "fused_hiera_block": hiera_block.fused_hiera_block,
@@ -631,6 +895,10 @@ def all_wrappers():
         "fused_ln_matmul": hiera_block.fused_ln_matmul,
         "fused_block_tail": hiera_block.fused_block_tail,
         "fused_qpool_block": hiera_block.fused_qpool_block,
+        "ragged_decode_attention_q8": decode_attention.ragged_decode_attention_q8,
+        "int8_matvec": quant_matmul.int8_matvec,
+        "int4_matmul": quant_matmul.int4_matmul,
+        "fused_block_w8a8": hiera_block.fused_block_w8a8,
     }
 
 
@@ -654,7 +922,126 @@ def expected_seg_launches(cfg, n_sam_frames: int, chunk: int = 8) -> dict:
                             + (n_sam_frames - 1) * cfg.sam.mem_attn_layers * 2
                             + n_sam_frames * 7),
         "ragged_decode_attention": 0,
+        "ragged_decode_attention_q8": 0, "int8_matvec": 0, "int4_matmul": 0,
+        "fused_block_w8a8": 0,
     }
+
+
+def expected_referring_launches(cfg, n_generated: int, calls_to_tower: int = 2) -> dict:
+    """Kernel launches of one referring QA request that generated
+    ``n_generated`` tokens, from the configuration: the tower's layers once
+    for the video and once for the annotated frames; flash for the LLM's
+    layers in prefill; per decode step one decode attention a layer and one
+    quantised product for each of a layer's five projections and for
+    ``lm_head``, whose single prefill row adds one."""
+    want = dict.fromkeys(all_wrappers(), 0)
+    steps = n_generated - 1
+    layers = cfg.llm.num_layers
+    tower = "fused_block_w8a8" if cfg.quant_vision else "fused_hiera_block"
+    want[tower] = calls_to_tower * cfg.vision.num_encode_layers
+    want["flash_attention"] = layers
+    want["ragged_decode_attention_q8" if cfg.quant_kv else "ragged_decode_attention"] = (
+        layers * steps)
+    if cfg.quant_llm:
+        from ufvideo_tpu_torch.quant import quant_bits
+
+        name = "int4_matmul" if quant_bits(cfg.quant_llm) == 4 else "int8_matvec"
+        want[name] = steps * (5 * layers + 1) + 1
+    return want
+
+
+# W8A8 kernel path vs plain path: a block alone differs by 7.5e-3 in relative
+# Frobenius norm (re-quantise flips, phase 2); 26 of them in sequence
+QUANT_COS = 0.99
+
+
+def run_referring(dev, seed: int, cfg, label: str, max_new_tokens: int,
+                  frame_shape=(32, 480, 640, 3)):
+    """Phase 5: one region-referring QA request on a quantised runtime."""
+    from ufvideo_tpu_torch import mm_infer, model_init
+    from ufvideo_tpu_torch.api import _assemble_input_ids
+    from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
+
+    wrappers = all_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt, _, tok = model_init(cfg=cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    log(f"  [{label}] model_init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (peak while building "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    cfg = rt.cfg
+    rng = np.random.default_rng(seed + 2)
+    frames = rng.integers(0, 256, frame_shape, dtype=np.uint8)
+    h, w = frame_shape[1:3]
+    mask = np.zeros((1, h, w), np.float32)
+    mask[0, h // 4:3 * h // 4, w // 3:2 * w // 3] = 1.0
+    region = (frames[7:8], mask, [[0]])
+    question = "What is <region> doing in this video?"
+    call = lambda f, n: mm_infer(f, question, rt, tok, masks=region[1], frame=region[0],
+                                 ann_indices=region[2], max_new_tokens=n)
+    call(frames[::-1], 2)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for wr in wrappers.values():
+        wr.launches = 0
+    t0 = time.perf_counter()
+    text, out = call(frames, max_new_tokens)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    launches = {k: wr.launches for k, wr in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_gen = len(out["output"])
+    log(f"  [{label}] mm_infer with one <region>: {e2e * 1e3:.1f} ms end to end, {n_gen} "
+        f"tokens, peak {peak:.2f} GiB; launches {launches}")
+    want = expected_referring_launches(cfg, n_gen)
+    log(f"  [{label}] launches predicted from the configuration: {want}")
+    if launches != want:
+        fail(f"launch counts of the {label} referring request differ from the prediction")
+
+    # stage timings, outside the counted run
+    ids = _assemble_input_ids(question, 1, "<video>", tok)
+    sync_t = lambda: (torch.cuda.synchronize(), time.perf_counter())[1]
+    t0 = sync_t()
+    pixels = siglip_preprocess_device(torch.from_numpy(frames).to(dev), cfg.compute_dtype)
+    t1 = sync_t()
+    feats = rt.encode_video(pixels[None])
+    t2 = sync_t()
+    rfeats, counts = rt.pack_and_encode_regions(*region)
+    t3 = sync_t()
+    _, _, plan = rt.generate(ids, feats, rfeats, counts, max_new_tokens=1)
+    t4 = sync_t()
+    toks, hidden, _ = rt.generate(ids, feats, rfeats, counts, max_new_tokens=max_new_tokens)
+    t5 = sync_t()
+    step_ms = ((t5 - t4) - (t4 - t3)) / max(len(toks) - 1, 1) * 1e3
+    log(f"  [{label}] prompt {int(plan.seq_lens[0])} tokens ({feats.shape[1]} video + "
+        f"{sum(counts)} region tokens); preprocess {(t1 - t0) * 1e3:.1f} ms, video encode "
+        f"{(t2 - t1) * 1e3:.1f} ms, region encode {(t3 - t2) * 1e3:.1f} ms, prefill + first "
+        f"token {(t4 - t3) * 1e3:.1f} ms, decode {step_ms:.2f} ms a step "
+        f"({1e3 / step_ms:.2f} tok/s)")
+    if sum(counts) != 1 or tuple(rfeats.shape) != (1, cfg.region.region_token_num,
+                                                   cfg.llm.hidden_size):
+        fail(f"region tokens {tuple(rfeats.shape)}, counts {counts}")
+    if not (torch.isfinite(feats).all() and torch.isfinite(rfeats).all()
+            and torch.isfinite(hidden).all()):
+        fail("non-finite video tokens, region tokens or hidden states")
+
+    with torch.no_grad():
+        for wr in wrappers.values():
+            wr.launches = 0
+        kernel_out = staged_path(rt, ids, pixels, N_STEPS, True, region=region)
+        if any(wr.launches == 0 for k, wr in wrappers.items() if want[k]):
+            fail("the kernel path of the comparison did not launch the kernels")
+        plain_out = staged_path(rt, ids, pixels, N_STEPS, False, forced=kernel_out[3],
+                                region=region)
+    limit = QUANT_COS if cfg.quant_vision else PATH_COS
+    compare_paths(kernel_out, plain_out, limit,
+                  "the W8A8 tower re-quantises at other rounding boundaries through 26 blocks"
+                  if cfg.quant_vision else "as the bf16 path")
+    del rt
+    torch.cuda.empty_cache()
+    return launches
 
 
 def iou(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -823,9 +1210,14 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     timer = Timer(dev)
+    from ufvideo_tpu_torch.configs import UFVideoConfig
+
+    full = UFVideoConfig()
     kernels = [kernel_hiera(dev, timer, gen), kernel_flash(dev, timer, gen),
                kernel_decode(dev, timer, gen), kernel_ln_matmul(dev, timer, gen),
-               kernel_block_tail(dev, timer, gen), kernel_qpool(dev, timer, gen)]
+               kernel_block_tail(dev, timer, gen), kernel_qpool(dev, timer, gen),
+               kernel_decode_q8(dev, timer, gen), kernel_quant_matmul(dev, timer, gen, full, 8),
+               kernel_quant_matmul(dev, timer, gen, full, 4), kernel_w8a8(dev, timer, gen)]
     for k in kernels:
         log(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
@@ -839,18 +1231,26 @@ def main() -> int:
         log("stopped after phase 2 (--kernels-only): no result")
         return 0
     log("phase 3: full-width mm_infer on the card")
-    from ufvideo_tpu_torch.configs import UFVideoConfig
-
-    launches, rt, tok = run_path(dev, args.seed, UFVideoConfig())
+    launches, rt, tok = run_path(dev, args.seed, full)
     log("phase 4: full-width [SEG] segmentation on the card")
     seg_launches = run_seg(dev, args.seed, rt, tok)
+    del rt
+    torch.cuda.empty_cache()
+    log("phase 5: full-width quantised region referring on the card")
+    int8_launches = run_referring(
+        dev, args.seed, full.replace(quant_llm="int8", quant_kv=True, quant_vision=True),
+        "int8 + int8 KV + W8A8 SigLIP", 32)
+    int4_launches = run_referring(dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
-        # "launches" is derived: their sum over the two paths
+        # "launches" is derived: their sum over the four counted calls
         k["launches_qa"], k["launches_seg"] = launches[k["name"]], seg_launches[k["name"]]
-        k["launches"] = k["launches_qa"] + k["launches_seg"]
+        k["launches_ref_int8"] = int8_launches[k["name"]]
+        k["launches_ref_int4"] = int4_launches[k["name"]]
+        k["launches"] = (k["launches_qa"] + k["launches_seg"] + k["launches_ref_int8"]
+                         + k["launches_ref_int4"])
         if k["launches"] <= 0:
-            fail(f"{k['name']} was launched on neither path")
+            fail(f"{k['name']} was launched on no path")
         k["check"] = "ok"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""Where the port's time goes on the card: one full-width video-QA request
-and one full-width ``[SEG]`` segmentation request under ``torch.profiler``.
+"""Where the port's time goes on the card: one full-width video-QA request,
+one full-width ``[SEG]`` segmentation request and one full-width quantised
+region-referring request under ``torch.profiler``.
 
     python3 scripts/torch_trace.py [--new-tokens 16] [--trace out.json]
 
@@ -9,8 +10,12 @@ one ``mm_infer``, then profiles the stages of a request on 32 uint8 frames
 with ``--new-tokens`` tokens; then those of a ``[SEG]`` request (a ``[SEG]``
 in the input, 4 uint8 frames for SAM2 Hiera-L, one object): the LLM's
 forward with the ``[SEG]`` head, SAM preprocess + Hiera + FPN encode,
-frame-0 conditioning, the tracked frames, and the mask upsampling. For each
-it prints the wall time, the device-busy time (union of kernel intervals),
+frame-0 conditioning, the tracked frames, and the mask upsampling. Then it
+frees that model, builds the int8 runtime (``quant_llm="int8"``, int8 KV
+cache, W8A8 SigLIP) and profiles a referring request's stages: video encode,
+region encode, prefill with the first token, and prefill with
+``--new-tokens`` tokens, from which the device time of one int8 decode step
+follows. For each it prints the wall time, the device-busy time (union of kernel intervals),
 the device's idle share, and the kernels with the most device time. Needs
 one CUDA card.
 """
@@ -123,14 +128,62 @@ def main() -> int:
             sync()
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    out = {"card": smi, "generated": len(toks)}
+    out.update(_summarise(prof))
 
+    # the quantised referring request, on a runtime of its own
+    del rt, sam, sfeats, state, feats, hidden
+    torch.cuda.empty_cache()
+    qcfg = UFVideoConfig().replace(quant_llm="int8", quant_kv=True, quant_vision=True)
+    rt, _, tok = model_init(cfg=qcfg, device=dev, seed=0)
+    mask = np.zeros((1, 480, 640), np.float32)
+    mask[0, 120:360, 213:426] = 1.0
+    region = (frames[7:8], mask, [[0]])
+    ref_question = "What is <region> doing in this video?"
+    mm_infer(frames, ref_question, rt, tok, masks=mask, frame=region[0], ann_indices=[[0]],
+             max_new_tokens=4)  # warm up
+    torch.cuda.synchronize()
+    ids = _assemble_input_ids(ref_question, 1, "<video>", tok)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as qprof:
+        with record_function("stage:int8 encode"):
+            pixels = siglip_preprocess_device(
+                torch.from_numpy(frames).to(dev), rt.cfg.compute_dtype)
+            feats = rt.encode_video(pixels[None])
+            sync()
+        with record_function("stage:int8 region encode"):
+            rfeats, counts = rt.pack_and_encode_regions(*region)
+            sync()
+        with record_function("stage:int8 prefill"):
+            rt.generate(ids, feats, rfeats, counts, max_new_tokens=1)
+            sync()
+        with record_function("stage:int8 prefill+decode"):
+            qtoks, _, _ = rt.generate(ids, feats, rfeats, counts, max_new_tokens=args.new_tokens)
+            sync()
+    if args.trace:
+        qprof.export_chrome_trace(args.trace.replace(".json", "") + ".int8.json")
+    out["generated_int8"] = len(qtoks)
+    out.update(_summarise(qprof))
+    a, b = out["stage:int8 prefill"], out["stage:int8 prefill+decode"]
+    steps = max(len(qtoks) - 1, 1)
+    out["int8 decode step"] = {
+        "wall_ms": (b["wall_ms"] - a["wall_ms"]) / steps,
+        "device_busy_ms": (b["device_busy_ms"] - a["device_busy_ms"]) / steps,
+        "kernels": (b["kernels"] - a["kernels"]) / steps,
+    }
+    print(json.dumps(out, indent=1), flush=True)
+    return 0
+
+
+def _summarise(prof) -> dict:
+    """Per ``stage:`` range: wall, device-busy time, idle share, the kernels
+    with the most device time."""
     events = prof.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     ranges = {e.name: (e.time_range.start, e.time_range.end)
               for e in events if e.name.startswith("stage:") and e.device_type == cpu}
     kernels = [e for e in events
                if e.device_type == cuda and not e.name.startswith("stage:")]
-    out = {"card": smi, "generated": len(toks)}
+    out = {}
     for stage, (s, e) in ranges.items():
         inside = [(k.time_range.start, k.time_range.end) for k in kernels
                   if s <= k.time_range.start < e]
@@ -147,8 +200,7 @@ def main() -> int:
             "kernels": len(inside),
             "top_ms": {n[:70]: round(t / 1e3, 3) for n, t in top},
         }
-    print(json.dumps(out, indent=1), flush=True)
-    return 0
+    return out
 
 
 if __name__ == "__main__":

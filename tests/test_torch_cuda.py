@@ -271,3 +271,155 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = _randn(dev, 2, 15, 16)  # 15 tokens are no square window
     with pytest.raises(ValueError):
         fused_qpool_block(x, _qpool_params(dev, 16, 32, 1, 16), 1, 16)
+
+
+# ------------------------------------------------------ quantised kernels --
+# int8_matvec / int4_matmul: f32 sums of the same exact terms in another
+# order, held to 1e-3 of a row's RMS. The q8 decode: as its bf16 sibling. The
+# W8A8 block: the int32 sums are exact on both sides; with the projection
+# zeroed (the MLP half alone: both sides quantise the same f32 values) the
+# JAX package's own kernel-test limits apply (0.999 of the elements within
+# 1e-3 absolute or 1e-2 relative, all within 2.0 + 5e-2·|plain|); through the
+# whole block the kernel quantises the attention output from bf16, the plain
+# version from f32, and the residual stream rounds to bf16 twice, so it is
+# held to the float block's limits (5e-2 of the row's RMS).
+
+from ufvideo_tpu_torch import quant as tq  # noqa: E402
+from ufvideo_tpu_torch.models.qwen2 import QuantLinear, quantize_kv  # noqa: E402
+from ufvideo_tpu_torch.ops import quant_matmul as qm  # noqa: E402
+from ufvideo_tpu_torch.ops.decode_attention import (  # noqa: E402
+    ragged_decode_attention_q8,
+    ragged_decode_attention_q8_plain,
+)
+from ufvideo_tpu_torch.ops.hiera_block import (  # noqa: E402
+    fused_block_w8a8,
+    fused_block_w8a8_plain,
+)
+
+QUANT_SHAPES = [
+    (1, 256, 128), (3, 512, 132), (8, 3584, 4608), (17, 1024, 260), (32, 3584, 3584),
+    (1, 18944, 3584), (2, 3584, 18944), (1, 3584, 152064),
+]
+
+
+@pytest.mark.parametrize("rows,din,dout", QUANT_SHAPES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_kernels_match_plain(dev, bits, rows, din, dout):
+    g = torch.Generator(device=dev).manual_seed(20)
+    w = torch.randn(din, dout, generator=g, device=dev) * din ** -0.5
+    x = _randn(dev, rows, din, seed=21)
+    before = (qm.int8_matvec.launches, qm.int4_matmul.launches)
+    if bits == 8:
+        qd = tq.quantize_kernel(w)
+        got = qm.int8_matvec(x, qd["q"], qd["scale"])
+        want = qm.int8_matvec_plain(x, qd["q"], qd["scale"])
+    else:
+        qd = tq.quantize_kernel4(w, 64)
+        got = qm.int4_matmul(x, qd["q"], qd["scale"], 64)
+        want = qm.int4_matmul_plain(x, qd["q"], qd["scale"], 64)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (rows, dout)
+    _assert_close(got, want, row_rel=1e-3, rtol=1e-3, rel=1e-3)
+    after = (qm.int8_matvec.launches, qm.int4_matmul.launches)
+    assert after == (before[0] + (bits == 8), before[1] + (bits == 4))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_linear_routes_by_rows_and_refuses_what_the_kernel_cannot_take(dev, bits):
+    lin = QuantLinear(256, 128, True, torch.bfloat16, bits=bits).to(dev)
+    g = torch.Generator(device=dev).manual_seed(22)
+    lin.reset_parameters(g)
+    wrapper = qm.int8_matvec if bits == 8 else qm.int4_matmul
+    n = wrapper.launches
+    few, many = _randn(dev, 2, 3, 256, seed=23), _randn(dev, 40, 256, seed=24)
+    y_few, y_many = lin(few), lin(many)
+    assert wrapper.launches == n + 1  # 6 rows: the kernel; 40 rows: one matmul
+    lin.use_kernels = False
+    _assert_close(y_few, lin(few))
+    assert wrapper.launches == n + 1
+    assert y_few.shape == (2, 3, 128) and y_many.shape == (40, 128)
+    # both routes give the same function: the first 6 of the 40 rows
+    lin.use_kernels = True
+    _assert_close(lin(many[:6]), y_many[:6])
+    with pytest.raises(ValueError, match="at most 32 rows"):
+        wrapper(*((many, lin.kernel_q, lin.kernel_scale) + ((64,) if bits == 4 else ())))
+    with pytest.raises(TypeError):
+        wrapper(*((few, lin.kernel_q.float(), lin.kernel_scale) + ((64,) if bits == 4 else ())))
+
+
+@pytest.mark.parametrize(
+    "b,hkv,g,s,d,lens",
+    [
+        (1, 4, 7, 2944, 128, [2800]),
+        (4, 4, 7, 2944, 128, [2944, 1, 1500, 129]),
+        (2, 2, 8, 256, 64, [256, 130]),
+        (3, 1, 1, 200, 16, [5, 200, 128]),
+    ],
+)
+def test_decode_q8_kernel_matches_plain(dev, b, hkv, g, s, d, lens):
+    q = _randn(dev, b, hkv, g, d, seed=30)
+    (k8, ks), (v8, vs) = (quantize_kv(_randn(dev, b, hkv, s, d, seed=sd)) for sd in (31, 32))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = ragged_decode_attention_q8(q, k8, v8, ks, vs, lens_t)
+    want = ragged_decode_attention_q8_plain(q, k8, v8, ks, vs, lens_t)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    # past lens[b] nothing is read: garbage there changes nothing
+    k8b, vsb = k8.clone(), vs.clone()
+    for i, n in enumerate(lens):
+        k8b[i, :, n:] = 127
+        vsb[i, :, n:] = 1e9
+    again = ragged_decode_attention_q8(q, k8b, v8, ks, vsb, lens_t)
+    assert torch.equal(got, again)
+
+
+def test_decode_q8_kernel_empty_row_gives_zero(dev):
+    q = _randn(dev, 2, 2, 4, 64, seed=33)
+    (k8, ks), (v8, vs) = (quantize_kv(_randn(dev, 2, 2, 256, 64, seed=sd)) for sd in (34, 35))
+    lens_t = torch.tensor([0, 9], dtype=torch.int32, device=dev)
+    got = ragged_decode_attention_q8(q, k8, v8, ks, vs, lens_t)
+    assert float(got[0].float().abs().max()) == 0.0 and float(got[1].float().abs().max()) > 0.0
+
+
+def _w8a8_block_params(dev, c, hw, mlp, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
+    bf = torch.bfloat16
+    q = lambda w: tuple(tq.quantize_kernel(w).values())
+    return (
+        (1 + 0.1 * rn(c)).to(bf), (0.1 * rn(c)).to(bf),
+        *q(rn(c, 3 * hw) * c ** -0.5), (0.1 * rn(3 * hw)).to(bf),
+        *q(rn(hw, c) * hw ** -0.5), (0.1 * rn(c)).to(bf),
+        (1 + 0.1 * rn(c)).to(bf), (0.1 * rn(c)).to(bf),
+        *q(rn(c, mlp) * c ** -0.5), (0.1 * rn(mlp)).to(bf),
+        *q(rn(mlp, c) * mlp ** -0.5), (0.1 * rn(c)).to(bf),
+    )
+
+
+@pytest.mark.parametrize(
+    "n,s,c,heads,hd,mlp,act",
+    [
+        (4, 64, 128, 2, 64, 512, "gelu_tanh"),
+        (2, 128, 64, 4, 16, 256, "gelu_exact"),
+        (3, 50, 144, 2, 72, 430, "gelu_tanh"),  # K = 430 zero-padded to 448; ragged tiles
+        (2, 729, 1152, 16, 72, 4304, "gelu_tanh"),  # SigLIP: K = 4304 padded to 4320
+    ],
+)
+def test_w8a8_block_kernel_matches_plain(dev, n, s, c, heads, hd, mlp, act):
+    params = _w8a8_block_params(dev, c, heads * hd, mlp, seed=40)
+    x = _randn(dev, n, s, c, seed=41)
+    launches = fused_block_w8a8.launches
+    got = fused_block_w8a8(x, params, heads, hd, act=act)
+    want = fused_block_w8a8_plain(x, params, heads, hd, act=act)
+    torch.cuda.synchronize()
+    assert fused_block_w8a8.launches == launches + 1
+    _assert_close(got, want, row_rel=5e-2)
+    # the MLP half alone (projection zeroed): identical quantisation points
+    half = params[:5] + (torch.zeros_like(params[5]),) + params[6:]
+    got = fused_block_w8a8(x, half, heads, hd, act=act).float()
+    want = fused_block_w8a8_plain(x, half, heads, hd, act=act).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    close = (err < 1e-3) | (err / (want.abs() + 1e-3) < 1e-2)
+    assert float(close.float().mean()) > 0.999
+    assert float((err - (2.0 + 5e-2 * want.abs())).max()) <= 0

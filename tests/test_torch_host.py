@@ -116,6 +116,12 @@ def test_model_init_needs_cuda_unless_cpu_is_asked():
         model_init(cfg=tiny_config())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model_init(cfg=tiny_config(), device="cuda:0")
+    # the quantised runtime keeps the contract
+    quant = tiny_config().replace(quant_llm="int8", quant_kv=True, quant_vision=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model_init(cfg=quant)
+    rt, _, _ = model_init(cfg=quant, device="cpu")
+    assert rt.device.type == "cpu" and rt.model.llm.lm_head.kernel_q.device.type == "cpu"
 
 
 def test_port_imports_no_jax():
@@ -134,6 +140,19 @@ def test_port_imports_no_jax():
         frames = np.random.default_rng(0).standard_normal((4, 56, 56, 3)).astype(np.float32)
         text, out = mm_infer(frames, "What happens?", rt, tok, max_new_tokens=3)
         assert len(out["output"]) >= 1
+        # the quantised referring path: quant.py, ops.quant_matmul, the q8
+        # decode, the W8A8 block, the region encoder
+        from ufvideo_tpu_torch import quant
+        from ufvideo_tpu_torch.models import region_encoder
+        from ufvideo_tpu_torch.ops import quant_matmul
+        from ufvideo_tpu_torch.tokenization import parse_temporal_tokens
+        mask = np.ones((1, 20, 20), np.float32)
+        for kw in (dict(quant_llm="int8", quant_kv=True, quant_vision=True),
+                   dict(quant_llm="int4")):
+            rt, _, tok = model_init(cfg=tiny_config().replace(**kw), device="cpu", seed=1)
+            text, out = mm_infer(frames, "Who is <region>?", rt, tok, masks=mask,
+                                 frame=frames[:1], max_new_tokens=3)
+            assert len(out["output"]) >= 1
         bad = [m for m in sys.modules if m in ("jax", "flax", "ufvideo_tpu")
                or m.startswith(("jax.", "flax.", "ufvideo_tpu."))]
         bad = [m for m in bad if sys.modules[m] is not None]

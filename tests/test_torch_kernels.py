@@ -332,3 +332,55 @@ def test_qpool_pool_order_is_row_major_inside_a_window():
             want[:, 2 * i + j] = sc[:, rows].amax(dim=1)
     got = fused_qpool_block_plain(x, params, heads, cout // heads, (2, 2))
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# --------------------------------------------------- quantised wrappers --
+# Their plain versions are held against the JAX kernels in
+# tests/test_torch_quant.py; here, what surrounds the CUDA kernels in Python.
+
+def test_quantised_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
+    from ufvideo_tpu_torch import quant as tq
+    from ufvideo_tpu_torch.models.qwen2 import quantize_kv
+    from ufvideo_tpu_torch.ops import decode_attention as da
+    from ufvideo_tpu_torch.ops import hiera_block as hb
+    from ufvideo_tpu_torch.ops import quant_matmul as qm
+
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.standard_normal((3, 128)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
+    q8, q4 = tq.quantize_kernel(w), tq.quantize_kernel4(w, 64)
+    counted = (qm.int8_matvec, qm.int4_matmul, da.ragged_decode_attention_q8, hb.fused_block_w8a8)
+    before = [f.launches for f in counted]
+    assert torch.equal(qm.int8_matvec(x, q8["q"], q8["scale"]),
+                       qm.int8_matvec_plain(x, q8["q"], q8["scale"]))
+    assert torch.equal(qm.int4_matmul(x, q4["q"], q4["scale"], 64),
+                       qm.int4_matmul_plain(x, q4["q"], q4["scale"], 64))
+    q = torch.from_numpy(rng.standard_normal((1, 2, 3, 16)).astype(np.float32))
+    (k8, ks), (v8, vs) = (quantize_kv(torch.from_numpy(
+        rng.standard_normal((1, 2, 128, 16)).astype(np.float32))) for _ in range(2))
+    lens = torch.tensor([70], dtype=torch.int32)
+    assert torch.equal(da.ragged_decode_attention_q8(q, k8, v8, ks, vs, lens),
+                       da.ragged_decode_attention_q8_plain(q, k8, v8, ks, vs, lens))
+    assert [f.launches for f in counted] == before  # a launch is counted only on the card
+    with pytest.raises(ValueError, match="unknown activation"):
+        hb.fused_block_w8a8(x[None], (), 1, 16, act="relu")
+
+
+@pytest.mark.parametrize("rows,depth,dout", [
+    (1, 3584, 4608), (1, 3584, 3584), (1, 18944, 3584), (1, 3584, 152064), (32, 1792, 18944),
+    (1, 9472, 3584), (4, 64, 128), (1, 100, 8),
+])
+def test_split_k_covers_the_contraction_in_whole_steps(rows, depth, dout):
+    """``split_k`` plans the grid of the quantised products: slices of whole
+    32-row steps that cover the contraction, one slice where the column
+    tiles alone fill the card, no slice under 256 rows unless it is the only
+    one."""
+    from ufvideo_tpu_torch.ops.quant_matmul import split_k
+
+    ksplit, kchunk = split_k(rows, depth, dout)
+    assert kchunk % 32 == 0 and ksplit >= 1
+    assert ksplit * kchunk >= depth > (ksplit - 1) * kchunk
+    assert ksplit == 1 or kchunk >= 256
+    tiles = -(-dout // 128) * -(-rows // 8)
+    if tiles >= 528:
+        assert ksplit == 1

@@ -199,6 +199,12 @@ def test_segment_video_shapes_and_region_inputs_still_raise(runtimes):
     embeds = torch.from_numpy(np.random.default_rng(10).standard_normal((2, 32)).astype("f"))
     masks = rt.segment_video(images_sam, embeds, 30, 40)
     assert masks.shape == (2, 3, 30, 40) and masks.dtype == np.bool_
-    with pytest.raises(NotImplementedError, match="region"):
-        mm_infer(frames, CONV, rt, tok, choice=3, images_sam=images_sam,
-                 masks=np.zeros((1, 8, 8)), frame=frames[:1])
+    # region inputs are served on path B too (they raised before the region
+    # encoder was ported): with no <region> in the prompt they change
+    # nothing, and the given masks come back as ``gt_masks``
+    gt = np.zeros((1, 8, 8), np.float32)
+    out = mm_infer(frames, CONV, rt, tok, choice=3, images_sam=images_sam,
+                   label_size=LABEL, masks=gt, frame=frames[:1])
+    want = mm_infer(frames, CONV, rt, tok, choice=3, images_sam=images_sam, label_size=LABEL)
+    assert out["gt_masks"] is gt and len(out["pred_masks"]) == 1
+    np.testing.assert_array_equal(out["pred_masks"][0], want["pred_masks"][0])

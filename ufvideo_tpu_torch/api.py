@@ -1,13 +1,17 @@
 """Public inference API: ``model_init`` and ``mm_infer`` (mirrors
-``ufvideo_tpu/api.py``: video / image / text QA, and ``[SEG]`` video
-segmentation through SAM2, whether the model generates the ``[SEG]`` token
-or finds it in the input).
+``ufvideo_tpu/api.py``: video / image / text QA, region referring through
+``masks`` / ``frame`` / ``ann_indices`` and ``<region>`` placeholders, and
+``[SEG]`` video segmentation through SAM2, whether the model generates the
+``[SEG]`` token or finds it in the input).
 
 Entry points run on the card by default: ``model_init(device="cuda")``
 raises when CUDA is missing, and the caller passes ``device="cpu"`` to run
-on the CPU (the plain versions of the kernels). Region inputs, checkpoint
-loading, streaming and batched serving come with later slices and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+on the CPU (the plain versions of the kernels). The config's ``quant_llm``
+(int8 / int4 weight-only LM), ``quant_kv`` (int8 KV cache) and
+``quant_vision`` (W8A8 SigLIP) build the quantised runtime. Segmentation on
+a ``quant_vision`` runtime, speculative decoding, chunked prefill,
+checkpoint loading, streaming and batched serving come with later slices
+and raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -21,12 +25,14 @@ from .configs import UFVideoConfig
 from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
 from .mm_utils import tokenizer_multimodal_token, trim_at_stop_strings
 from .models.generate import forward_hidden, greedy_generate
+from .models.region_encoder import resize_mask_to_grid_np
 from .models.sam2.video import encode_video_frames, masks_to_video_res, propagate_video
 from .models.ufvideo import UFVideoModel
 from .splicing import plan_splice
 from .tokenization import SpecialIds, byte_tokenizer_with_ids
 
-_REGION_ITEM = "ROADMAP.md queue 1 item 2 (region encoder)"
+_QUANT_SEG_ITEM = "ROADMAP.md queue 2 item 1 (W8A8 Hiera blocks: quantised [SEG])"
+_BATCHED_ITEM = "ROADMAP.md queue 1 item 2 (batched and streaming inference)"
 
 
 class UFVideoRuntime:
@@ -43,13 +49,58 @@ class UFVideoRuntime:
         """[B, T, H, W, 3] SigLIP-preprocessed frames → video tokens."""
         return self.model.encode_video(torch.as_tensor(pixels, device=self.device))
 
-    def _splice_plan(self, input_ids_list, video_feats):
+    @torch.no_grad()
+    def pack_and_encode_regions(
+        self,
+        frame_pixels,  # [F, H, W, 3] annotated frames: SigLIP-preprocessed floats or raw uint8
+        masks,  # [F, Hm, Wm] binary masks, one per annotated frame
+        ann_indices: Optional[Sequence[Sequence[int]]],  # frames of each region
+    ):
+        """(frame, masks, ann_indices) → (region tokens [1, R·rt, hidden],
+        the merged-token count of each region). ``ann_indices=None`` means
+        one region per annotated frame. Masks are resized to the patch grid
+        on the host, and the frame and region counts are padded to powers of
+        two with validity masks, as the JAX runtime does."""
+        cfg = self.cfg
+        rt = cfg.region.region_token_num
+        masks = np.asarray(masks)
+        if ann_indices is None:
+            ann_indices = [[i] for i in range(len(masks))]
+        grid = cfg.vision.image_size // cfg.vision.patch_size
+        pow2 = lambda n: 1 << max(n - 1, 0).bit_length()
+        pixels = torch.as_tensor(np.ascontiguousarray(frame_pixels), device=self.device)
+        if pixels.dtype == torch.uint8:
+            from .ops.image_pipeline import siglip_preprocess_device
+
+            pixels = siglip_preprocess_device(pixels, out_dtype=torch.float32)
+        n_frames = pixels.shape[0]
+        f_budget = pow2(max(n_frames, 1))
+        r_budget = pow2(max(len(ann_indices), 1))
+        fp = torch.zeros((1, f_budget) + tuple(pixels.shape[1:]), dtype=torch.float32,
+                         device=self.device)
+        fp[0, :n_frames] = pixels
+        mk = np.zeros((1, f_budget, grid, grid), np.float32)
+        mk[0, :len(masks)] = resize_mask_to_grid_np(masks, grid)
+        fv = np.zeros((1, f_budget), bool)
+        fv[0, :n_frames] = True
+        seg = np.zeros((1, r_budget, f_budget), bool)
+        for r, idxs in enumerate(ann_indices):
+            seg[0, r, list(idxs)] = True
+        on_dev = lambda a: torch.from_numpy(a).to(self.device)
+        feats, _ = self.model.encode_regions(fp, on_dev(mk), on_dev(fv), on_dev(seg))
+        return feats, [min(len(idxs), rt) for idxs in ann_indices]
+
+    def _splice_plan(self, input_ids_list, video_feats, region_feats=None,
+                     region_counts_list=None):
         """Splice plan + spliced input embeddings for a batch of id lists."""
         cfg = self.cfg
         plan = plan_splice(
             list(input_ids_list),
             num_video_tokens=video_feats.shape[1] if video_feats is not None else 0,
-            region_token_counts=[[] for _ in input_ids_list],
+            region_token_counts=[
+                (region_counts_list[i] if region_counts_list else []) or []
+                for i in range(len(input_ids_list))
+            ],
             region_token_id=self.ids.region,
             max_seq_len=cfg.budget.max_seq_len,
             region_stride=cfg.region.region_token_num,
@@ -60,6 +111,7 @@ class UFVideoRuntime:
             torch.as_tensor(plan.src_kind, device=dev),
             torch.as_tensor(plan.src_idx, device=dev),
             video_feats,
+            region_feats,
         )
         # run only up to the 256-rounded true length, not the budget
         real_len = int(max(plan.seq_lens))
@@ -70,6 +122,8 @@ class UFVideoRuntime:
         self,
         input_ids: List[int],
         video_feats: Optional[torch.Tensor],
+        region_feats: Optional[torch.Tensor] = None,
+        region_token_counts: Optional[List[int]] = None,
         max_new_tokens: int = 128,
         do_sample: bool = False,
         temperature: float = 1.0,
@@ -80,7 +134,8 @@ class UFVideoRuntime:
         """Decode one sample. Returns (generated ids, hidden states of the
         steps that produced them [N, hidden], splice plan)."""
         out, plan = self.generate_batch(
-            [input_ids], video_feats, max_new_tokens=max_new_tokens,
+            [input_ids], video_feats, region_feats, [region_token_counts or []],
+            max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_p=top_p,
             seed=seed, stop_sequences=stop_sequences,
         )
@@ -92,6 +147,8 @@ class UFVideoRuntime:
         self,
         input_ids_list: Sequence[List[int]],
         video_feats: Optional[torch.Tensor],  # [B, V, D] or None
+        region_feats: Optional[torch.Tensor] = None,  # [B, RT, D]
+        region_counts_list: Optional[Sequence[List[int]]] = None,
         max_new_tokens: int = 128,
         do_sample: bool = False,
         temperature: float = 1.0,
@@ -102,9 +159,13 @@ class UFVideoRuntime:
         """Decode B samples together. Returns a list of (ids, hidden
         [N, hidden]) per sample, plus the shared splice plan."""
         cfg = self.cfg
+        if cfg.spec_decode or cfg.prefill_chunk:
+            raise NotImplementedError(
+                f"spec_decode / prefill_chunk: {_BATCHED_ITEM}")
         b = len(input_ids_list)
         dev = self.device
-        plan, embeds = self._splice_plan(input_ids_list, video_feats)
+        plan, embeds = self._splice_plan(
+            input_ids_list, video_feats, region_feats, region_counts_list)
         trim = embeds.shape[1]
         generator = None
         if do_sample:
@@ -123,6 +184,7 @@ class UFVideoRuntime:
             top_p=top_p,
             generator=generator,
             stop_sequences=tuple(tuple(s) for s in stop_sequences),
+            kv_quant=bool(cfg.quant_kv),
         )
         gen_lens = res.gen_lens.tolist()
         tokens = res.tokens.tolist()
@@ -130,10 +192,12 @@ class UFVideoRuntime:
         return out, plan
 
     @torch.no_grad()
-    def forward_hidden_states(self, input_ids: List[int], video_feats):
+    def forward_hidden_states(self, input_ids: List[int], video_feats,
+                              region_feats=None, region_token_counts=None):
         """One full forward of one sample. Returns (final-layer hidden
         states [1, S, hidden], splice plan)."""
-        plan, embeds = self._splice_plan([input_ids], video_feats)
+        plan, embeds = self._splice_plan(
+            [input_ids], video_feats, region_feats, [region_token_counts or []])
         hidden = forward_hidden(
             self.model.llm, embeds, torch.as_tensor(plan.seq_lens, device=self.device)
         )
@@ -153,6 +217,9 @@ class UFVideoRuntime:
         through Hiera + FPN, frame 0 conditioned on the embeddings, the rest
         propagated through the memory, low-res logits upsampled and
         thresholded at 0."""
+        if self.cfg.quant_vision:
+            raise NotImplementedError(
+                f"segmentation on a quant_vision runtime: {_QUANT_SEG_ITEM}")
         images = torch.as_tensor(np.ascontiguousarray(images_sam), device=self.device)
         if images.dtype == torch.uint8:
             from .ops.image_pipeline import sam_preprocess_device
@@ -195,11 +262,14 @@ def model_init(
     """Build (runtime, processor, tokenizer). With ``model_path`` None the
     weights are random, drawn on ``device`` from ``seed`` with the JAX
     package's initialiser distributions, and the tokenizer is the offline
-    byte tokenizer."""
+    byte tokenizer. With ``cfg.quant_llm`` / ``cfg.quant_vision`` each
+    quantised layer draws the float layer's weights in the model's dtype,
+    quantises them on ``device`` and frees the float copy, so the quantised
+    model is the quantisation of the float model of the same seed."""
     device = _check_device(device)
     if model_path or tokenizer_path:
         raise NotImplementedError(
-            "checkpoint and HF tokenizer loading: ROADMAP.md queue 1 item 6 (checkpoints)"
+            "checkpoint and HF tokenizer loading: ROADMAP.md queue 1 item 4 (checkpoints)"
         )
     cfg = cfg or UFVideoConfig()
     tokenizer, ids = byte_tokenizer_with_ids()
@@ -283,18 +353,26 @@ def mm_infer(
     Returns ``(text, {"output": ids, "pred_masks": [...]})``, or the dict
     alone when ``seg`` is set. Path B (``[SEG]`` in the input, choice 3): one
     forward, the hidden state at the position before each ``[SEG]``; returns
-    ``{"output": None, "pred_masks": [...], "gt_masks": masks}``."""
-    if masks is not None or frame is not None:
-        raise NotImplementedError(f"region inputs: {_REGION_ITEM}")
+    ``{"output": None, "pred_masks": [...], "gt_masks": masks}``.
+
+    Region referring: ``frame`` [F, H, W, 3] are the annotated frames,
+    ``masks`` [F, Hm, Wm] one binary mask each, ``ann_indices`` the frames of
+    each ``<region>`` placeholder of the prompt, in order (default: one
+    region per frame). Each placeholder is replaced by its region's merged
+    mask-pooled tokens."""
     modal_token = {
         "image": DEFAULT_IMAGE_TOKEN, "video": DEFAULT_VIDEO_TOKEN, "text": ""
     }[modal]
     input_ids = _assemble_input_ids(instruct, choice, modal_token, tokenizer)
     video_feats = _encode_video_input(model, image_or_video, modal)
+    region_feats, region_counts = None, None
+    if frame is not None and masks is not None:
+        region_feats, region_counts = model.pack_and_encode_regions(frame, masks, ann_indices)
 
     if model.ids.seg in input_ids:
         # path B: hidden state at the position before each input [SEG]
-        hidden, plan = model.forward_hidden_states(input_ids, video_feats)
+        hidden, plan = model.forward_hidden_states(
+            input_ids, video_feats, region_feats, region_counts)
         seg_positions = [
             int(plan.text_pos_map[0][ti]) - 1
             for ti, t in enumerate(input_ids) if t == model.ids.seg
@@ -313,7 +391,7 @@ def mm_infer(
         tuple(tokenizer(s, add_special_tokens=False).input_ids) for s in stop_strings
     )
     tokens, hidden, _ = model.generate(
-        input_ids, video_feats,
+        input_ids, video_feats, region_feats, region_counts,
         max_new_tokens=int(kwargs.get("max_new_tokens", 1024)),
         do_sample=do_sample, temperature=temperature,
         top_p=float(kwargs.get("top_p", 0.9)),

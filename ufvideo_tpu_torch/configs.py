@@ -1,10 +1,11 @@
-"""Typed configuration for the video-QA and ``[SEG]`` segmentation paths
-(SigLIP + STC-v35 projector + Qwen2 + SAM2 Hiera-L), mirroring
-``ufvideo_tpu/configs.py`` with torch dtypes.
+"""Typed configuration for the video-QA, region-referring and ``[SEG]``
+segmentation paths (SigLIP + STC-v35 projector + region encoder + Qwen2 +
+SAM2 Hiera-L), mirroring ``ufvideo_tpu/configs.py`` with torch dtypes.
 
-Only the fields this package implements are here: the quantisation,
-speculative-decoding, chunked-prefill and loss settings come with the
-slices that port them (ROADMAP.md queue 1). ``SAM2HieraConfig`` has no
+Only the fields this package implements are here, plus ``spec_decode`` and
+``prefill_chunk``, which are accepted and refused at generation time; the
+loss settings come with the training slice (ROADMAP.md queue 1).
+``SAM2HieraConfig`` has no
 ``head_pad``: padding each head to 128 lanes is a TPU layout, and this
 package always runs the native head dim.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
@@ -112,8 +113,9 @@ class ProjectorConfig:
 
 @dataclass(frozen=True)
 class RegionEncoderConfig:
-    """Mask-pooled region tokens. Only ``region_token_num`` (the splice
-    plan's region stride) is used until the region slice is ported."""
+    """Mask-pooled region tokens (``models/region_encoder.py``):
+    ``region_token_num`` is the merge budget of one region and the splice
+    plan's region stride."""
 
     encoder_hidden_size: int = 1152
     hidden_size: int = 3584
@@ -209,6 +211,16 @@ class UFVideoConfig:
     # bf16 compute and storage; LayerNorm / RMSNorm / softmax in float32
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
+    # weight-only quantised LLM: False | True / 'int8' | 'int4' (quant.py)
+    quant_llm: Any = False
+    # W8A8 int8 SigLIP encoder (ops.hiera_block.fused_block_w8a8)
+    quant_vision: bool = False
+    # int8 KV cache with per-position scales (ops.ragged_decode_attention_q8)
+    quant_kv: bool = False
+    # accepted for parity with the JAX config; a non-zero value makes
+    # generation raise (ROADMAP.md): chunked prefill, speculative decoding
+    prefill_chunk: int = 0
+    spec_decode: int = 0
 
     @property
     def num_video_tokens(self) -> int:

@@ -1,5 +1,5 @@
 // The pre-LN transformer blocks of SigLIP and Hiera as short sequences of
-// hand-written launches, with a plain C interface for ctypes. Four entry
+// hand-written launches, with a plain C interface for ctypes. Five entry
 // points, each replacing one TPU kernel of ufvideo_tpu/ops/hiera_block.py:
 //
 //   hiera_block_bf16  fused_hiera_block (_forward / _kernel / _block_body):
@@ -14,7 +14,10 @@
 //   qpool_block_bf16  fused_qpool_block (_qpool_forward): LN1 -> [qkv |
 //                     shortcut projection] -> 2x2 max-pool of q and of the
 //                     shortcut inside each window -> attention of the pooled
-//                     queries on the window's unpooled keys -> the tail.
+//                     queries on the window's unpooled keys -> the tail;
+//   block_w8a8_bf16   fused_block_w8a8 (_w8a8_kernel / _w8a8_body): the whole
+//                     block with int8 weights and per-row int8 activations
+//                     (see the W8A8 section below).
 //
 // Common math: f32 LayerNorm statistics, bf16 operands with f32
 // accumulation, f32 softmax, probabilities cast to bf16 before P.V, each
@@ -87,7 +90,7 @@ __global__ void __launch_bounds__(256) layernorm_kernel(
     yr[c] = __float2bfloat16((__bfloat162float(xr[c]) - mean) * rstd * gamma[c] + beta[c]);
 }
 
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   // 16-byte global -> shared copy; zero-filled when !valid (src is not read)
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(ufv::smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
@@ -322,6 +325,245 @@ const float* f32(const void* p) { return static_cast<const float*>(p); }
 const bf16* b16(const void* p) { return static_cast<const bf16*>(p); }
 bf16* b16(void* p) { return static_cast<bf16*>(p); }
 
+
+// ---------------------------------------------------------------- W8A8 --
+// The whole block with int8 weights [in, out] (per-column f32 scales) and
+// activations quantised per row just before each product: LN1 (f32) ->
+// rows to int8 -> s8 x s8 -> s32 qkv, rescaled acc * xs[row] * ws[col] + b
+// -> bf16 attention (the kernel above) -> rows of the attention output to
+// int8 -> proj + residual -> LN2 -> int8 -> fc1 -> GELU kept in f32 -> rows
+// to int8 -> fc2 + residual. Math of the JAX w8a8_reference; a row's scale
+// is max(amax * (1/127), 1e-8) and values round half to even.
+//
+// Bound on an H100: at the SigLIP shape the four products are 711 G
+// multiply-adds' worth of int8 operations (0.36 ms at 1979 TOP/s) plus 78
+// GFLOP of bf16 attention (0.08 ms): bound by operations. Design: the int32
+// sums are exact, so the products are one tiled int8 GEMM (128x128 tile, 64
+// bytes of K a step through the 3-stage cp.async ring, 8 warps of 64x32 from
+// mma.sync m16n8k32 s8 -> s32) whose epilogue applies the two scales, the
+// bias, and the GELU or the residual. Both operands are K-contiguous: the
+// weights are transposed to [out, in] (K zero-padded to a multiple of 32:
+// 4304 -> 4320) by a small pass at each call, 13 MB a block against its
+// milliseconds. A row's amax spans every column tile, so quantising is a
+// pass of its own (one warp a row) and not a GEMM epilogue; after fc1 it
+// reads the f32 GELU output, as the reference does. The attention output
+// is quantised from its bf16 form, as the TPU kernel's scratch is.
+
+constexpr int kQBK = 64;            // bytes of K per tile
+constexpr int kQLD = kQBK + 16;     // row stride of an int8 tile: fragment loads hit 32 banks
+constexpr int kQStageA = kBM * kQLD, kQStageB = kBN * kQLD;
+constexpr size_t kQSmem = size_t(kStages) * (kQStageA + kQStageB);
+
+enum QEpi { Q_BF16 = 0, Q_RES = 1, Q_GELU_TANH_F32 = 2, Q_GELU_EXACT_F32 = 3 };
+
+// d[16x8] += a[16x32] . b[32x8], int8 operands, int32 accumulators
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Y[M, N] = epilogue(float(A[M, Kp] . Bt[N, Kp]^T) * xs[m] * ws[n] + bias[n]);
+// A and Bt int8, rows of Kp bytes (Kp % 16 == 0, zero beyond the true K), N
+// even. Epilogues: bf16; bf16(bf16(v) + R); GELU(v) as f32.
+template <int EPI>
+__global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
+    const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
+    const float* __restrict__ xs, const float* __restrict__ ws,
+    const float* __restrict__ bias, const bf16* __restrict__ R, void* __restrict__ Yv, int M,
+    int N, int Kp) {
+  extern __shared__ __align__(128) unsigned char gsmem[];
+  int8_t* As = reinterpret_cast<int8_t*>(gsmem);
+  int8_t* Bs = As + kStages * kQStageA;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int nk = (Kp + kQBK - 1) / kQBK;
+
+  auto load_stage = [&](int stage, int kt) {
+    const int k0 = kt * kQBK;
+    int8_t* as = As + stage * kQStageA;
+    int8_t* bs = Bs + stage * kQStageB;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * kGemmThreads;
+      const int r = idx >> 2, c = (idx & 3) * 16;
+      const bool kv = k0 + c < Kp;
+      const bool va = kv && m0 + r < M;
+      cp_async16(as + r * kQLD + c, va ? A + (long long)(m0 + r) * Kp + k0 + c : A, va);
+      const bool vb = kv && n0 + r < N;
+      cp_async16(bs + r * kQLD + c, vb ? Bt + (long long)(n0 + r) * Kp + k0 + c : Bt, vb);
+    }
+  };
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nk) load_stage(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nt = kt + kStages - 1;
+    if (nt < nk) load_stage(nt % kStages, nt);
+    cp_async_commit();
+    const int8_t* as = As + (kt % kStages) * kQStageA;
+    const int8_t* bs = Bs + (kt % kStages) * kQStageB;
+#pragma unroll
+    for (int kk = 0; kk < kQBK; kk += 32) {
+      // fragment word (row, k): lane (g, tig) holds k = 4 tig .. 4 tig + 3 of
+      // row g (and g + 8), and the same 16 bytes further on
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int8_t* p = as + (wm * 64 + i * 16 + g) * kQLD + kk + tig * 4;
+        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
+        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kQLD);
+        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kQLD + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t* p = bs + (wn * 32 + j * 8 + g) * kQLD + kk + tig * 4;
+        bfr[j][0] = *reinterpret_cast<const uint32_t*>(p);
+        bfr[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wm * 64 + i * 16 + g + 8 * half;
+      if (row >= M) continue;
+      const float xr = xs[row];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + wn * 32 + j * 8 + 2 * tig;
+        if (col >= N) continue;  // N even: col + 1 < N too
+        float v0 = float(acc[i][j][2 * half]) * xr * ws[col] + bias[col];
+        float v1 = float(acc[i][j][2 * half + 1]) * xr * ws[col + 1] + bias[col + 1];
+        const long long off = (long long)row * N + col;
+        if (EPI == Q_GELU_TANH_F32 || EPI == Q_GELU_EXACT_F32) {
+          if (EPI == Q_GELU_TANH_F32) { v0 = gelu_tanh(v0); v1 = gelu_tanh(v1); }
+          else { v0 = gelu_exact(v0); v1 = gelu_exact(v1); }
+          *reinterpret_cast<float2*>(static_cast<float*>(Yv) + off) = make_float2(v0, v1);
+        } else {
+          if (EPI == Q_RES) {
+            const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
+            v0 = __bfloat162float(__float2bfloat16(v0)) + r.x;
+            v1 = __bfloat162float(__float2bfloat16(v1)) + r.y;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(Yv) + off) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t gemm_s8(const int8_t* A, const int8_t* Bt, const float* xs, const float* ws,
+                    const float* bias, const bf16* R, void* Y, int M, int N, int Kp,
+                    cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_s8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kQSmem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  gemm_s8_kernel<EPI><<<grid, kGemmThreads, kQSmem, st>>>(A, Bt, xs, ws, bias, R, Y, M, N, Kp);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
+
+// One warp per row: v = LN ? (x - mean) * rstd * gamma + beta : x, in f32;
+// s = max(amax|v| * (1/127), 1e-8); q[row, c] = rint(v / s) for c < C and 0
+// for C <= c < Kp; xs[row] = s.
+template <typename T, bool LN>
+__global__ void __launch_bounds__(256) rowquant_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+    int8_t* __restrict__ q, float* __restrict__ xs, int rows, int C, int Kp, float eps) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* xr = x + (long long)row * C;
+  float mean = 0.f, rstd = 1.f;
+  if (LN) {
+    float sum = 0.f;
+    for (int c = lane; c < C; c += 32) sum += as_float(xr[c]);
+    mean = ufv::warp_sum(sum) / C;
+    float var = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = as_float(xr[c]) - mean;
+      var += d * d;
+    }
+    rstd = rsqrtf(ufv::warp_sum(var) / C + eps);
+  }
+  auto value = [&](int c) {
+    const float v = as_float(xr[c]);
+    return LN ? (v - mean) * rstd * gamma[c] + beta[c] : v;
+  };
+  float amax = 0.f;
+  for (int c = lane; c < C; c += 32) amax = fmaxf(amax, fabsf(value(c)));
+  amax = ufv::warp_max(amax);
+  const float s = fmaxf(amax * 0.007874015748031496f, 1e-8f);
+  int8_t* qr = q + (long long)row * Kp;
+  for (int c = lane; c < Kp; c += 32)
+    qr[c] = c < C ? static_cast<int8_t>(__float2int_rn(value(c) / s)) : int8_t(0);
+  if (lane == 0) xs[row] = s;
+}
+
+template <typename T, bool LN>
+cudaError_t rowquant(const T* x, const float* g, const float* b, int8_t* q, float* xs, int rows,
+                     int C, int Kp, float eps, cudaStream_t st) {
+  rowquant_kernel<T, LN><<<(rows + 7) / 8, 256, 0, st>>>(x, g, b, q, xs, rows, C, Kp, eps);
+  return cudaGetLastError();
+}
+
+// wt[n, k] = w[k, n] for k < K, 0 for K <= k < Kp (Kp % 32 == 0): int8
+// [K, N] -> [N, Kp]. Block (32, 8), one 32 x 32 tile through shared memory.
+__global__ void __launch_bounds__(256) transpose_s8_kernel(const int8_t* __restrict__ w,
+                                                           int8_t* __restrict__ wt, int K,
+                                                           int N, int Kp) {
+  __shared__ int8_t tile[32][33];
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int k = k0 + j, n = n0 + threadIdx.x;
+    tile[j][threadIdx.x] = (k < K && n < N) ? w[(long long)k * N + n] : int8_t(0);
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int n = n0 + j;
+    if (n < N) wt[(long long)n * Kp + k0 + threadIdx.x] = tile[threadIdx.x][j];
+  }
+}
+
+cudaError_t transpose_s8(const int8_t* w, int8_t* wt, int K, int N, int Kp, cudaStream_t st) {
+  dim3 grid((N + 31) / 32, Kp / 32), block(32, 8);
+  transpose_s8_kernel<<<grid, block, 0, st>>>(w, wt, K, N, Kp);
+  return cudaGetLastError();
+}
+
+const int8_t* s8(const void* p) { return static_cast<const int8_t*>(p); }
+int8_t* s8(void* p) { return static_cast<int8_t*>(p); }
+
 }  // namespace
 
 extern "C" const char* ufv_error_string(int code) {
@@ -429,5 +671,63 @@ extern "C" int qpool_block_bf16(
   UFV_TRY(block_tail(b16(att), b16(sc), b16(wproj), f32(bproj), f32(ln2_s), f32(ln2_b),
                      b16(w1), f32(b1), b16(w2), f32(b2), b16(x1), b16(xm), b16(hmid),
                      b16(out), qrows, Cout, hw, mlp, act, eps, st));
+  return 0;
+}
+
+// x, out [N, S, C] bf16; int8 weights in [in, out] layout with f32 column
+// scales: wqkv [C, 3*H*hd] (q heads | k heads | v heads), wproj [H*hd, C], w1
+// [C, mlp], w2 [mlp, C]; LayerNorm vectors and biases f32. Kc / Ka / Km are
+// C / H*hd / mlp rounded up to 32. Scratch: the transposed weights wqkv_t
+// [3*H*hd, Kc], wproj_t [C, Ka], w1_t [mlp, Kc], w2_t [C, Km] (int8); qa
+// [N*S, max(Kc, Ka)], qh [N*S, Km] (int8); xs [N*S] (f32); qkv [N*S,
+// 3*H*hd], att [N*S, H*hd], x1 [N*S, C] (bf16); hmid [N*S, mlp] (f32).
+// act: 1 = gelu_tanh, 2 = gelu_exact. Returns the first CUDA error or 0.
+extern "C" int block_w8a8_bf16(
+    const void* x, void* out, const void* ln1_s, const void* ln1_b, const void* wqkv,
+    const void* sqkv, const void* bqkv, const void* wproj, const void* sproj,
+    const void* bproj, const void* ln2_s, const void* ln2_b, const void* w1, const void* s1,
+    const void* b1, const void* w2, const void* s2, const void* b2, void* wqkv_t,
+    void* wproj_t, void* w1_t, void* w2_t, void* qa, void* qh, void* xs, void* qkv, void* att,
+    void* x1, void* hmid, int N, int S, int C, int heads, int head_dim, int mlp, int act,
+    float eps, void* stream) {
+  const int rows = N * S;
+  const int hw = heads * head_dim;
+  if (rows <= 0 || C % 8 || head_dim % 8 || mlp % 2 || head_dim > 128 || !act_ok(act))
+    return int(cudaErrorInvalidValue);
+  if (!all_aligned16({x, out, wqkv_t, wproj_t, w1_t, w2_t, qa, qh, qkv, att, x1, hmid}))
+    return int(cudaErrorMisalignedAddress);
+  auto pad32 = [](int k) { return (k + 31) / 32 * 32; };
+  const int Kc = pad32(C), Ka = pad32(hw), Km = pad32(mlp);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* QKV = b16(qkv);
+  float* XS = static_cast<float*>(xs);
+
+  UFV_TRY(transpose_s8(s8(wqkv), s8(wqkv_t), C, 3 * hw, Kc, st));
+  UFV_TRY(transpose_s8(s8(wproj), s8(wproj_t), hw, C, Ka, st));
+  UFV_TRY(transpose_s8(s8(w1), s8(w1_t), C, mlp, Kc, st));
+  UFV_TRY(transpose_s8(s8(w2), s8(w2_t), mlp, C, Km, st));
+
+  UFV_TRY((rowquant<bf16, true>(b16(x), f32(ln1_s), f32(ln1_b), s8(qa), XS, rows, C, Kc, eps,
+                                st)));
+  UFV_TRY((gemm_s8<Q_BF16>(s8(qa), s8(wqkv_t), XS, f32(sqkv), f32(bqkv), nullptr, QKV, rows,
+                           3 * hw, Kc, st)));
+  UFV_TRY(window_attention(QKV, 3LL * hw, QKV + hw, QKV + 2 * hw, 3LL * hw, b16(att), N, S,
+                           S, heads, head_dim, st));
+  UFV_TRY((rowquant<bf16, false>(b16(att), nullptr, nullptr, s8(qa), XS, rows, hw, Ka, eps,
+                                 st)));
+  UFV_TRY((gemm_s8<Q_RES>(s8(qa), s8(wproj_t), XS, f32(sproj), f32(bproj), b16(x), x1, rows, C,
+                          Ka, st)));
+  UFV_TRY((rowquant<bf16, true>(b16(x1), f32(ln2_s), f32(ln2_b), s8(qa), XS, rows, C, Kc, eps,
+                                st)));
+  if (act == ACT_GELU_TANH)
+    UFV_TRY((gemm_s8<Q_GELU_TANH_F32>(s8(qa), s8(w1_t), XS, f32(s1), f32(b1), nullptr, hmid,
+                                      rows, mlp, Kc, st)));
+  else
+    UFV_TRY((gemm_s8<Q_GELU_EXACT_F32>(s8(qa), s8(w1_t), XS, f32(s1), f32(b1), nullptr, hmid,
+                                       rows, mlp, Kc, st)));
+  UFV_TRY((rowquant<float, false>(static_cast<const float*>(hmid), nullptr, nullptr, s8(qh), XS,
+                                  rows, mlp, Km, eps, st)));
+  UFV_TRY((gemm_s8<Q_RES>(s8(qh), s8(w2_t), XS, f32(s2), f32(b2), b16(x1), out, rows, C, Km,
+                          st)));
   return 0;
 }

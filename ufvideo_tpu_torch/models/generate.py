@@ -82,9 +82,11 @@ def greedy_generate(
     top_p: float = 1.0,
     generator: Optional[torch.Generator] = None,
     stop_sequences: Tuple[Tuple[int, ...], ...] = (),
+    kv_quant: bool = False,
 ) -> GenerateResult:
     """Prefill + decode loop. ``stop_sequences``: multi-token keyword stops,
-    matched against the trailing generated ids."""
+    matched against the trailing generated ids. ``kv_quant``: keep the KV
+    cache as int8 with per-position scales (``make_kv_cache(quant=True)``)."""
     cfg = model.cfg
     b, s, hid = input_embeds.shape
     dev = input_embeds.device
@@ -99,7 +101,8 @@ def greedy_generate(
     stop_arr = torch.tensor(list(stop_ids), dtype=torch.int64, device=dev)
     seq_lens = seq_lens.to(device=dev, dtype=torch.int32)
 
-    cache = make_kv_cache(cfg, b, cache_max_len, dtype=model.dtype, device=dev)
+    cache = make_kv_cache(
+        cfg, b, cache_max_len, dtype=model.dtype, device=dev, quant=kv_quant)
     cache, last_hidden = prefill_cache(model, input_embeds, seq_lens, cache)
 
     def sample(h):  # [B, hidden] -> [B] next token

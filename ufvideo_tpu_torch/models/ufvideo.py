@@ -1,12 +1,14 @@
-"""Composite UFVideo model: SigLIP tower + STC-v35 projector + Qwen2 LM +
-the ``[SEG]`` text head + SAM2 (mirrors ``ufvideo_tpu/models/ufvideo.py``
-``encode_video`` / ``splice_embeds`` / ``seg_embeddings``; the JAX runtime
-keeps SAM2 beside the composite, here it is a member). The region encoder
-comes with a later slice (ROADMAP.md)."""
+"""Composite UFVideo model: SigLIP tower + STC-v35 projector + region
+encoder + Qwen2 LM + the ``[SEG]`` text head + SAM2 (mirrors
+``ufvideo_tpu/models/ufvideo.py`` ``encode_video`` / ``encode_regions`` /
+``splice_embeds`` / ``seg_embeddings``; the JAX runtime keeps SAM2 beside
+the composite, here it is a member). ``cfg.quant_vision`` builds the SigLIP
+tower in W8A8, ``cfg.quant_llm`` the LM on weight-only int8 / int4; SAM2
+stays float (its W8A8 trunk is a later slice, ROADMAP.md)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -16,6 +18,7 @@ from ..splicing import apply_splice
 from .projector import STCConnector
 from . import init
 from .qwen2 import Qwen2LM
+from .region_encoder import RegionProjector, extract_region_tokens
 from .sam2 import SAM2
 from .siglip import SiglipVisionTower
 
@@ -38,9 +41,11 @@ class UFVideoModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         dt = cfg.param_dtype
-        self.vision = SiglipVisionTower(cfg.vision, dtype=dt, act="gelu_tanh")
+        self.vision = SiglipVisionTower(
+            cfg.vision, dtype=dt, act="gelu_tanh", quant=bool(cfg.quant_vision))
         self.projector = STCConnector(cfg.projector, dtype=dt)
-        self.llm = Qwen2LM(cfg.llm, dtype=dt)
+        self.region = RegionProjector(cfg.region, dtype=dt)
+        self.llm = Qwen2LM(cfg.llm, dtype=dt, quant=cfg.quant_llm)
         self.text_fcs = TextHiddenFC(cfg.llm.hidden_size, cfg.sam_out_dim, dt)
         self.sam = SAM2(cfg.sam, dtype=dt)
 
@@ -59,6 +64,9 @@ class UFVideoModel(nn.Module):
         self.llm.reset_parameters(gen)
         init.reset_tree_(self.text_fcs, gen)
         self.sam.reset_parameters(gen)
+        # last, so that the modules above draw what they drew before the
+        # region encoder was added
+        init.reset_tree_(self.region, gen)
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route every kernel call to its CUDA kernel (True, the default;
@@ -75,6 +83,28 @@ class UFVideoModel(nn.Module):
         feats = self.vision(pixels.reshape(b * t, h, w, c))
         feats = feats.reshape(b, t, feats.shape[1], feats.shape[2])
         return self.projector(feats)
+
+    @torch.no_grad()
+    def encode_regions(
+        self,
+        frame_pixels: torch.Tensor,  # [B, F, H, W, 3] annotated frames
+        masks: torch.Tensor,  # [B, F, Hm, Wm]
+        frame_valid: torch.Tensor,  # [B, F] bool
+        region_segments: torch.Tensor,  # [B, R, F] bool
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """→ ([B, R·rt, hidden] region tokens, [B, R·rt] validity): tower
+        encode of the annotated frames, mask pooling, static token merge,
+        the region MLP."""
+        b, f, h, w, c = frame_pixels.shape
+        feats = self.vision(frame_pixels.reshape(b * f, h, w, c))
+        feats = feats.reshape(b, f, feats.shape[1], feats.shape[2])
+        rt = self.cfg.region.region_token_num
+        tokens, valid = zip(*(
+            extract_region_tokens(feats[i], masks[i], frame_valid[i], region_segments[i], rt)
+            for i in range(b)
+        ))
+        tokens = torch.stack(tokens).reshape(b, -1, feats.shape[-1])  # [B, R·rt, C]
+        return self.region(tokens), torch.stack(valid).reshape(b, -1)
 
     @torch.no_grad()
     def splice_embeds(

@@ -101,18 +101,23 @@ def decode_attention(
     v_cache: torch.Tensor,
     cache_len: torch.Tensor,  # [B] valid entries, current step included
     *,
+    k_scale: Optional[torch.Tensor] = None,  # [B, Hkv, S] f32: the cache is int8
+    v_scale: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    """Single-step decode attention against a padded KV cache."""
-    from .decode_attention import (
-        ragged_decode_attention,
-        ragged_decode_attention_plain,
-    )
+    """Single-step decode attention against a padded KV cache. With
+    ``k_scale`` / ``v_scale`` the cache holds int8 values quantised per
+    position; the scales fold into the scores and the probabilities."""
+    from . import decode_attention as da
 
     b, _, hq, d = q.shape
     hkv = k_cache.shape[1]
     qg = q[:, 0].reshape(b, hkv, hq // hkv, d)
-    fn = ragged_decode_attention if use_kernel else ragged_decode_attention_plain
-    out = fn(qg, k_cache, v_cache, cache_len, scale=scale)
+    if k_scale is not None:
+        fn = da.ragged_decode_attention_q8 if use_kernel else da.ragged_decode_attention_q8_plain
+        out = fn(qg, k_cache, v_cache, k_scale, v_scale, cache_len, scale=scale)
+    else:
+        fn = da.ragged_decode_attention if use_kernel else da.ragged_decode_attention_plain
+        out = fn(qg, k_cache, v_cache, cache_len, scale=scale)
     return out.reshape(b, 1, hq, d)

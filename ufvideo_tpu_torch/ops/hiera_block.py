@@ -16,13 +16,17 @@ Each wrapper replaces one TPU kernel of ``ufvideo_tpu/ops/hiera_block.py``:
   block: LN1 → [qkv ‖ shortcut projection] → 2×2 max-pool of q and of the
   shortcut inside each window → attention of the pooled queries on the
   window's unpooled keys → the tail.
+- ``fused_block_w8a8`` (``_w8a8_kernel`` / ``_w8a8_body``): the whole block
+  with int8 weights (per-column f32 scales) and activations quantised per row
+  before each product, so the four products run s8 × s8 → s32; the attention
+  stays bf16. The quantised SigLIP tower runs it.
 
 The CUDA source is ``csrc/hiera_block.cu`` (LayerNorm, a tiled bf16 GEMM
 with fused bias / GELU / residual epilogue, the pooling pass, and the
 attention of ``csrc/attention_tile.cuh``); its header comment gives the
 bound on an H100 (tensor-core operations) and the design. The math is that
 of the JAX ``_reference`` / ``_ln_matmul_reference`` / ``_tail_reference`` /
-``_qpool_reference``; the TPU kernels' 128-lane head padding, window
+``_qpool_reference`` / ``w8a8_reference``; the TPU kernels' 128-lane head padding, window
 grouping with a block-diagonal score mask and bf16 ``exp2`` softmax are not
 carried over.
 
@@ -65,8 +69,9 @@ def _lib() -> ctypes.CDLL:
     lib.ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, p]
     lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 5 + [f, p]
     lib.qpool_block_bf16.argtypes = [p] * 22 + [i] * 10 + [f, p]
+    lib.block_w8a8_bf16.argtypes = [p] * 29 + [i] * 7 + [f, p]
     for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.block_tail_bf16,
-               lib.qpool_block_bf16):
+               lib.qpool_block_bf16, lib.block_w8a8_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -372,3 +377,112 @@ def fused_qpool_block(
 
 
 fused_qpool_block.launches = 0
+
+
+def quant_rows_f32(x32: torch.Tensor):
+    """f32 [rows, d] → (int8 [rows, d], f32 scales [rows, 1]), the fused
+    block's row quantiser: scale = max(amax · (1 / 127), 1e-8)."""
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    s = (amax * (1.0 / 127.0)).clamp_min(1e-8)
+    return torch.round(x32 / s).to(torch.int8), s
+
+
+def _qdot(x32: torch.Tensor, w: torch.Tensor, ws: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rows quantised, s8 × s8 → exact integer sums (float64 holds them),
+    rescaled ``acc · xs · ws + b`` in f32."""
+    q, xs = quant_rows_f32(x32)
+    acc = (q.double() @ w.double()).float()
+    return acc * xs * ws.float()[None, :] + b.float()[None, :]
+
+
+def fused_block_w8a8_plain(
+    x: torch.Tensor,  # [N, S, C]
+    params: tuple,
+    num_heads: int,
+    head_dim: int,
+    act: str = "gelu_tanh",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX ``w8a8_reference``):
+    rows are quantised from the f32 LN outputs, the f32 attention output and
+    the f32 GELU output."""
+    (ln1_s, ln1_b, wqkv, sqkv, bqkv, wproj, sproj, bproj, ln2_s, ln2_b,
+     w1, s1, b1, w2, s2, b2) = params
+    n, s, c = x.shape
+    dtype = x.dtype
+    hw = num_heads * head_dim
+    xn = _layernorm(x.float(), ln1_s, ln1_b, eps)
+    qkv = _qdot(xn.reshape(n * s, c), wqkv, sqkv, bqkv).reshape(n, s, -1).to(dtype)
+    qh, kh, vh = (
+        qkv[..., i * hw:(i + 1) * hw].reshape(n, s, num_heads, head_dim).float()
+        for i in range(3)
+    )
+    logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) * head_dim ** -0.5
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("nhqk,nkhd->nqhd", probs.to(dtype).float(), vh).reshape(n * s, hw)
+    x1 = x + _qdot(o, wproj, sproj, bproj).reshape(n, s, c).to(dtype)
+    xm = _layernorm(x1.float(), ln2_s, ln2_b, eps)
+    h = _ACTS[act](_qdot(xm.reshape(n * s, c), w1, s1, b1))
+    return x1 + _qdot(h, w2, s2, b2).reshape(n, s, c).to(dtype)
+
+
+def fused_block_w8a8(
+    x: torch.Tensor,  # [N, S, C] window-major tokens (SigLIP: one window a frame)
+    params: tuple,  # (ln1_s, ln1_b, wqkv_q [C, 3·H·hd] int8, sqkv, bqkv, wproj_q
+    #                 [H·hd, C], sproj, bproj, ln2_s, ln2_b, w1_q [C, mlp], s1, b1,
+    #                 w2_q [mlp, C], s2, b2)
+    num_heads: int,
+    head_dim: int,
+    act: str = "gelu_tanh",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The whole block in W8A8 → [N, S, C]. CPU tensors take the plain
+    version; CUDA tensors launch the kernels (bf16 activations, int8 weights,
+    f32 scales; C and head dim multiples of 8, mlp even)."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return fused_block_w8a8_plain(x, params, num_heads, head_dim, act, eps)
+    (ln1_s, ln1_b, wqkv, sqkv, bqkv, wproj, sproj, bproj, ln2_s, ln2_b,
+     w1, s1, b1, w2, s2, b2) = params
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block_w8a8: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16 or not all(t.dtype == torch.int8 for t in (wqkv, wproj, w1, w2)):
+        raise TypeError("fused_block_w8a8 kernel takes bf16 activations and int8 weights")
+    n, s, c = x.shape
+    hw = num_heads * head_dim
+    mlp = w1.shape[1]
+    expect = ((c, 3 * hw), (hw, c), (c, mlp), (mlp, c))
+    if tuple(tuple(t.shape) for t in (wqkv, wproj, w1, w2)) != expect:
+        raise ValueError(f"weight shapes do not match x {tuple(x.shape)}, {num_heads} heads")
+    if c % 8 or head_dim % 8 or mlp % 2 or head_dim > 128:
+        raise ValueError(f"unsupported dims C={c} head dim={head_dim} mlp={mlp}")
+    if n > 65535:
+        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
+    x, wqkv, wproj, w1, w2 = (t.contiguous() for t in (x, wqkv, wproj, w1, w2))
+    vecs = _f32(ln1_s, ln1_b, sqkv, bqkv, sproj, bproj, ln2_s, ln2_b, s1, b1, s2, b2)
+    rows = n * s
+    pad32 = lambda k: -(-k // 32) * 32
+    kc, ka, km = pad32(c), pad32(hw), pad32(mlp)
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=x.device)
+    i8, bf = torch.int8, x.dtype
+    out = empty((n, s, c), bf)
+    scratch = (
+        empty((3 * hw, kc), i8), empty((c, ka), i8), empty((mlp, kc), i8), empty((c, km), i8),
+        empty((rows, max(kc, ka)), i8), empty((rows, km), i8), empty((rows,), torch.float32),
+        empty((rows, 3 * hw), bf), empty((rows, hw), bf), empty((rows, c), bf),
+        empty((rows, mlp), torch.float32),
+    )
+    lib = _lib()
+    code = lib.block_w8a8_bf16(
+        *_ptrs(x, out, vecs[0], vecs[1], wqkv, vecs[2], vecs[3], wproj, vecs[4], vecs[5],
+               vecs[6], vecs[7], w1, vecs[8], vecs[9], w2, vecs[10], vecs[11], *scratch),
+        n, s, c, num_heads, head_dim, mlp, _ACT_CODES[act], float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "fused_block_w8a8")
+    fused_block_w8a8.launches += 1
+    return out
+
+
+fused_block_w8a8.launches = 0

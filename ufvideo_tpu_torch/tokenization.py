@@ -1,13 +1,16 @@
 """Offline byte-level tokenizer with the UFVideo special tokens (a copy of
 ``ufvideo_tpu/tokenization.py`` ``ByteTokenizer`` / ``SpecialIds`` /
-``byte_tokenizer_with_ids``: same vocabulary, same ids)."""
+``byte_tokenizer_with_ids``: same vocabulary, same ids), and
+``parse_temporal_tokens``, which reads temporal grounding out of generated
+text."""
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import List, Sequence
 
-from .constants import extra_special_tokens
+from .constants import NUM_TEMPORAL_TOKENS, extra_special_tokens
 
 
 @dataclass
@@ -116,3 +119,8 @@ def byte_tokenizer_with_ids():
         pad=tok.pad_token_id,
     )
     return tok, ids
+
+
+def parse_temporal_tokens(text: str) -> List[float]:
+    """Normalised timestamps of the ``<TEMP-xxx>`` tokens in generated text."""
+    return [int(m) / (NUM_TEMPORAL_TOKENS - 1) for m in re.findall(r"<TEMP-(\d{3})>", text)]

@@ -11,7 +11,13 @@ dicts of numpy arrays — so this module needs no JAX. Layout changes:
 - ``patch_embedding_kernel`` [p, p, 3, C] becomes a [C, p·p·3] matmul.
 - Conv kernels [kh, kw, (kt,) in, out] become torch [out, in, (kt,) kh, kw].
 - ``embed_tokens`` / ``lm_head`` keep their padded vocab rows.
-- The ``sam`` and ``text_fcs`` subtrees are walked by name (``load_tree``):
+- A quantised tree (``quant.quantize_qwen2_params`` /
+  ``quantize_vision_params`` on either side) carries ``kernel_q`` /
+  ``kernel_scale`` leaves in place of ``kernel``: scan-stacked [L, in, out]
+  int8 and [L, out] f32, or for int4 [L, in/2, out] packed int8 and
+  [L, in/64, out]. They go into ``QuantLinear`` / the quantised SigLIP layer
+  unchanged: those keep the [in, out] layout.
+- The ``sam``, ``text_fcs`` and ``region`` subtrees are walked by name (``load_tree``):
   the port's modules carry the flax names (``blocks_3`` is ``blocks[3]``).
   A transposed convolution's kernel is also flipped in space: flax applies
   it unflipped, torch flips. The Hiera blocks' parameter holders
@@ -28,7 +34,7 @@ import numpy as np
 import torch
 
 from .models.projector import RegBottleneck, STCConnector
-from .models.qwen2 import Qwen2LM
+from .models.qwen2 import QuantLinear, Qwen2LM
 from .models.siglip import SiglipVisionTower
 from .models.ufvideo import UFVideoModel
 
@@ -59,20 +65,21 @@ def load_siglip(tower: SiglipVisionTower, p: Dict[str, Any]) -> None:
     _set(tower.patch_embedding.bias, p["patch_embedding_bias"])
     _set(tower.position_embedding, p["position_embedding"])
     lp = p["layers"]
+    dense = {"qkv": ("self_attn", "qkv_proj"), "out": ("self_attn", "out_proj"),
+             "fc1": ("mlp", "fc1"), "fc2": ("mlp", "fc2")}
     for i, layer in enumerate(tower.layers):
         pick = lambda *path: _pick(lp, path)[i]
         _set(layer.ln1_scale, pick("layer_norm1", "scale"))
         _set(layer.ln1_bias, pick("layer_norm1", "bias"))
-        _set(layer.qkv_kernel, pick("self_attn", "qkv_proj", "kernel"))
-        _set(layer.qkv_bias, pick("self_attn", "qkv_proj", "bias"))
-        _set(layer.out_kernel, pick("self_attn", "out_proj", "kernel"))
-        _set(layer.out_bias, pick("self_attn", "out_proj", "bias"))
         _set(layer.ln2_scale, pick("layer_norm2", "scale"))
         _set(layer.ln2_bias, pick("layer_norm2", "bias"))
-        _set(layer.fc1_kernel, pick("mlp", "fc1", "kernel"))
-        _set(layer.fc1_bias, pick("mlp", "fc1", "bias"))
-        _set(layer.fc2_kernel, pick("mlp", "fc2", "kernel"))
-        _set(layer.fc2_bias, pick("mlp", "fc2", "bias"))
+        for name, path in dense.items():
+            if layer.quant:
+                _set(getattr(layer, f"{name}_kernel"), pick(*path, "kernel_q"))
+                _set(getattr(layer, f"{name}_scale"), pick(*path, "kernel_scale"))
+            else:
+                _set(getattr(layer, f"{name}_kernel"), pick(*path, "kernel"))
+            _set(getattr(layer, f"{name}_bias"), pick(*path, "bias"))
 
 
 def _pick(tree, path):
@@ -113,21 +120,37 @@ def load_projector(proj: STCConnector, p: Dict[str, Any]) -> None:
         _dense(fc, p["readout"][f"fc{2 * i}"])
 
 
+def _qwen2_dense(lin, p: Dict[str, Any], i=None) -> None:
+    """One dense layer of the LM from its flax dict (layer ``i`` of a
+    scan-stacked one): float ``kernel`` into an ``nn.Linear``, or
+    ``kernel_q`` / ``kernel_scale`` into a ``QuantLinear``."""
+    leaf = lambda k: np.asarray(p[k]) if i is None else np.asarray(p[k])[i]
+    if isinstance(lin, QuantLinear):
+        if "kernel_q" not in p:
+            raise KeyError("a quantised LM needs a quantised tree (kernel_q / kernel_scale)")
+        _set(lin.kernel_q, leaf("kernel_q"))
+        _set(lin.kernel_scale, leaf("kernel_scale"))
+    else:
+        _set(lin.weight, leaf("kernel").T)
+    if lin.bias is not None:
+        _set(lin.bias, leaf("bias"))
+
+
 def load_qwen2(lm: Qwen2LM, p: Dict[str, Any]) -> None:
     _set(lm.embed_tokens.weight, p["embed_tokens"]["embedding"])
     _ln(lm.norm, p["norm"])
-    _set(lm.lm_head.weight, np.asarray(p["lm_head"]["kernel"]).T)
+    _qwen2_dense(lm.lm_head, p["lm_head"])
     lp = p["layers"]
     for i, layer in enumerate(lm.layers):
         pick = lambda *path: _pick(lp, path)[i]
         _set(layer.input_layernorm.weight, pick("input_layernorm", "scale"))
         _set(layer.post_attention_layernorm.weight, pick("post_attention_layernorm", "scale"))
-        _set(layer.qkv_proj.weight, pick("self_attn_qkv_proj", "kernel").T)
-        _set(layer.qkv_proj.bias, pick("self_attn_qkv_proj", "bias"))
-        _set(layer.o_proj.weight, pick("self_attn_o_proj", "kernel").T)
-        _set(layer.gate_proj.weight, pick("mlp_gate_proj", "kernel").T)
-        _set(layer.up_proj.weight, pick("mlp_up_proj", "kernel").T)
-        _set(layer.down_proj.weight, pick("mlp_down_proj", "kernel").T)
+        for lin, name in (
+            (layer.qkv_proj, "self_attn_qkv_proj"), (layer.o_proj, "self_attn_o_proj"),
+            (layer.gate_proj, "mlp_gate_proj"), (layer.up_proj, "mlp_up_proj"),
+            (layer.down_proj, "mlp_down_proj"),
+        ):
+            _qwen2_dense(lin, lp[name], i)
 
 
 def _child(mod: torch.nn.Module, name: str):
@@ -208,6 +231,7 @@ def load_jax_params(model: UFVideoModel, params: Dict[str, Any]) -> UFVideoModel
     load_projector(model.projector, params["projector"])
     load_qwen2(model.llm, params["llm"])
     load_by_name(model.text_fcs, params["text_fcs"])
+    load_by_name(model.region, params["region"])
     if "sam" in params:
         load_by_name(model.sam, params["sam"])
     return model
