@@ -1,8 +1,9 @@
-"""Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation
-and quantised region-referring paths on one GPU.
+"""Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation,
+quantised region-referring and quantised [SEG] paths on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
+    python3 chip_smoke.py --match w8a8    # phases 0-2 on the kernels so named
 
 Phases, each printed as it runs; any failure exits non-zero:
   0. device: nvidia-smi name / power limit, torch and CUDA versions; TF32 off.
@@ -13,7 +14,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      kernel / plain / library ms (CUDA events, median of 20 after warm-up,
      L2 flushed before each launch) beside the bound. The quantised kernels
      take int8 / packed-int4 weights, an int8 cache and int8 block weights
-     at the same widths, each with its own stated tolerance.
+     at the same widths, each with its own stated tolerance; the W8A8 block
+     also at Hiera-L's four windowed shapes, and the W8A8 q-pool block,
+     LN-matmul and block tail at the shapes the quantised trunk gives them.
   3. path: model_init at full width (SigLIP-SO400M + STC-v35 + Qwen2-7B,
      bf16, random weights from a seed) on the card; mm_infer on 32 uint8
      frames (480x640, bicubic resize) with max_new_tokens=32; launch counts
@@ -35,6 +38,14 @@ Phases, each printed as it runs; any failure exits non-zero:
      tokens, region tokens, final prefill hidden state, the first decode
      steps' logits). Then the same request on a quant_llm="int4" runtime
      (bf16 cache and towers) with 8 new tokens.
+  6. [SEG], quantised: a runtime with quant_llm="int8", quant_kv and
+     quant_vision (W8A8 SigLIP and W8A8 Hiera trunk); the request of phase 4
+     on it, launch counts held to what the configuration predicts, stage
+     timings and peak memory, kernel path against plain path (FPN level-2
+     features, mask logits, IoU). Then, on the same model,
+     propagate_video_general (a language prompt and a box on two frames,
+     both directions, stride 2) and segment_videos_batched on two videos,
+     each counted, timed and held against the plain path.
 Then one JSON line with every kernel (launches = the sum over the counted
 calls), the card line, and the last line {"ok": true, "device": {...}}.
 """
@@ -61,6 +72,10 @@ PATH_COS = 0.999
 # low-res mask logits of the [SEG] path, kernel path vs plain path: they sit
 # behind 48 Hiera blocks, the memory attention and the mask decoder
 SEG_COS = 0.99
+# the same behind a W8A8 trunk: a block alone differs by up to 7.5e-3 in
+# relative Frobenius norm (re-quantise flips), 48 of them stand in sequence
+# before the FPN; limits stated before the first full-width run
+SEG_QUANT_FEAT_COS, SEG_QUANT_COS = 0.99, 0.98
 
 
 def log(msg: str) -> None:
@@ -345,8 +360,7 @@ def hiera_shapes(dev, timer, gen):
     import torch.nn.functional as F
 
     out = []
-    for n, s, c, heads in ((4096, 64, 144, 2), (4096, 16, 288, 4), (64, 256, 576, 8),
-                           (64, 64, 1152, 16)):
+    for n, s, c, heads in HIERA_BLOCK_SHAPES:
         hd, mlp = 72, 4 * c
         params = block_params(dev, gen, c, mlp)
         x = torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
@@ -411,7 +425,7 @@ def kernel_qpool(dev, timer, gen):
     import torch.nn.functional as F
 
     shapes = []
-    for n, s, cin, heads in ((4096, 64, 144, 4), (4096, 16, 288, 8), (64, 256, 576, 16)):
+    for n, s, cin, heads in HIERA_QPOOL_SHAPES:
         cout, hd, mlp = 2 * cin, 72, 8 * cin
         hw, ws, sq = heads * hd, int(s ** 0.5), s // 4
         params = block_params(dev, gen, cout, mlp, cin=cin, front_extra=cout)
@@ -634,39 +648,196 @@ def check_w8a8_exact(name, got, want):
     return float(err.max())
 
 
-def check_w8a8(name, got, want):
-    err = check_close(name, got, want, row_rel=BLOCK_REL)
+def check_w8a8(name, got, want, row_rel=BLOCK_REL):
+    err = check_close(name, got, want, row_rel=row_rel)
     log(f"    {w8a8_frac(got, want):.5f} of elements within 1e-3 abs or 1e-2 rel (reported)")
     return err
 
 
-def w8a8_params(dev, gen, c, mlp):
-    """Random float block parameters, the four kernels quantised per column."""
+def w8a8_params(dev, gen, c, mlp, cin=None, front_extra=0):
+    """Random float block parameters (``block_params``), the four kernels
+    quantised per column: (ln1_s, ln1_b, wfront_q, sfront, bfront, wproj_q,
+    sproj, bproj, ln2_s, ln2_b, w1_q, s1, b1, w2_q, s2, b2)."""
     from ufvideo_tpu_torch.quant import quantize_kernel
 
-    (l1s, l1b, wq, bq, wp, bp, l2s, l2b, w1, b1, w2, b2) = block_params(dev, gen, c, mlp)
+    (l1s, l1b, wq, bq, wp, bp, l2s, l2b, w1, b1, w2, b2) = block_params(
+        dev, gen, c, mlp, cin=cin, front_extra=front_extra)
     q = lambda w: tuple(quantize_kernel(w).values())
     return (l1s, l1b, *q(wq), bq, *q(wp), bp, l2s, l2b, *q(w1), b1, *q(w2), b2)
 
 
-def kernel_w8a8(dev, timer, gen):
-    """fused_block_w8a8 at the SigLIP shapes: the 32 video frames and the
-    annotated frames of a referring request (1 or 2 after padding). Library
-    yardstick: torch._int_mm products with elementwise quantise / rescale,
-    SDPA, fused LN / GELU."""
-    from ufvideo_tpu_torch.ops.hiera_block import (
-        fused_block_w8a8, fused_block_w8a8_plain, quant_rows_f32)
+def lib_qdot(x32, w, ws, b):
+    """Library yardstick of one W8A8 product: elementwise row quantise,
+    ``torch._int_mm`` (contiguous operands, K and N multiples of 8), rescale."""
+    from ufvideo_tpu_torch.ops.hiera_block import quant_rows_f32
+
+    q, xs = quant_rows_f32(x32)
+    return torch._int_mm(q, w).float() * xs * ws + b.float()
+
+
+def lib_w8a8_tail(shortcut, o, params, approximate):
+    """Library yardstick of the W8A8 tail: ``lib_qdot`` products, fused LN /
+    GELU. ``o`` [rows, A] is the attention output."""
     import torch.nn.functional as F
+
+    wp, sp, bp, l2s, l2b, w1, s1, b1, w2, s2, b2 = params
+    n, s, c = shortcut.shape
+    x1 = shortcut + lib_qdot(o.float(), wp, sp, bp).reshape(n, s, c).to(shortcut.dtype)
+    h = F.layer_norm(x1.float(), (c,), l2s.float(), l2b.float(), 1e-6).reshape(n * s, c)
+    h = F.gelu(lib_qdot(h, w1, s1, b1), approximate=approximate)
+    return x1 + lib_qdot(h, w2, s2, b2).reshape(n, s, c).to(shortcut.dtype)
+
+
+def lib_w8a8_block(x, params, heads, hd, approximate):
+    """Library yardstick of the whole W8A8 block: ``lib_qdot`` products,
+    SDPA, fused LN / GELU."""
+    import torch.nn.functional as F
+
+    (l1s, l1b, wq, sq, bq) = params[:5]
+    n, s, c = x.shape
+    h = F.layer_norm(x.float(), (c,), l1s.float(), l1b.float(), 1e-6)
+    qkv = lib_qdot(h.reshape(n * s, c), wq, sq, bq).to(x.dtype).reshape(n, s, 3, heads, hd)
+    o = F.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4).unbind(0))
+    return lib_w8a8_tail(x, o.transpose(1, 2).reshape(n * s, heads * hd), params[5:],
+                         approximate)
+
+
+# (windows, tokens a window, width, heads) of Hiera-L's four windowed-block
+# shapes on 4 frames, and (windows, tokens, width in, heads out) of its three
+# stage transitions
+HIERA_BLOCK_SHAPES = ((4096, 64, 144, 2), (4096, 16, 288, 4), (64, 256, 576, 8),
+                      (64, 64, 1152, 16))
+HIERA_QPOOL_SHAPES = ((4096, 64, 144, 4), (4096, 16, 288, 8), (64, 256, 576, 16))
+
+
+def w8a8_hiera_shapes(dev, timer, gen):
+    """fused_block_w8a8 at the four windowed-block shapes of the quantised
+    Hiera-L on 4 frames (gelu_exact, head dim 72, MLP 4C; K = 144 is padded
+    to 160 inside the kernel)."""
+    from ufvideo_tpu_torch.ops.hiera_block import fused_block_w8a8, fused_block_w8a8_plain
+
+    out = []
+    for n, s, c, heads in HIERA_BLOCK_SHAPES:
+        hd, mlp = 72, 4 * c
+        params = w8a8_params(dev, gen, c, mlp)
+        x = torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
+        rows = n * s
+        out.append(bench(
+            timer, f"Hiera x [{n},{s},{c}] {heads} heads x {hd}, MLP {mlp}, gelu_exact, W8A8",
+            lambda: fused_block_w8a8(x, params, heads, hd, act="gelu_exact"),
+            lambda: fused_block_w8a8_plain(x, params, heads, hd, act="gelu_exact"),
+            lambda: lib_w8a8_block(x, params, heads, hd, "none"),
+            nbytes(x, x, *params), 4 * n * heads * s * s * hd, check=check_w8a8,
+            int8_ops=2 * rows * (3 * c * c + c * c + 2 * c * mlp)))
+        del params, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_ln_matmul_w8a8(dev, timer, gen):
+    """fused_ln_matmul_w8a8 at the front of a quantised global block. Both
+    sides quantise the same f32 LN output: the float front's limit."""
+    from ufvideo_tpu_torch.ops.hiera_block import (
+        fused_ln_matmul_w8a8, fused_ln_matmul_w8a8_plain)
+    import torch.nn.functional as F
+
+    n, s, c, d = 4, 4096, 576, 1728
+    l1s, l1b, w, ws, b = w8a8_params(dev, gen, c, 8)[:5]
+    x = torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
+
+    def library():
+        h = F.layer_norm(x.float(), (c,), l1s.float(), l1b.float(), 1e-6)
+        return lib_qdot(h.reshape(n * s, c), w, ws, b).to(x.dtype)
+
+    e = bench(
+        timer, f"fused_ln_matmul_w8a8 [x [{n},{s},{c}] int8 w [{c},{d}]]",
+        lambda: fused_ln_matmul_w8a8(x, l1s, l1b, w, ws, b),
+        lambda: fused_ln_matmul_w8a8_plain(x, l1s, l1b, w, ws, b),
+        library, nbytes(x, w, ws, l1s, l1b, b) + n * s * d * 2, 0.0,
+        check=lambda nm, g, wt: check_w8a8(nm, g, wt, row_rel=REL),
+        int8_ops=2 * n * s * c * d)
+    return dict(name="fused_ln_matmul_w8a8", route="cuda",
+                source="ufvideo_tpu_torch/csrc/hiera_block.cu",
+                replaces="ufvideo_tpu/ops/hiera_block.py:1753", tol=tol_text(REL), **e)
+
+
+def kernel_block_tail_w8a8(dev, timer, gen):
+    """fused_block_tail_w8a8 at the tail of a quantised global block."""
+    from ufvideo_tpu_torch.ops.hiera_block import (
+        fused_block_tail_w8a8, fused_block_tail_w8a8_plain)
+
+    n, s, c, mlp = 4, 4096, 576, 2304
+    params = w8a8_params(dev, gen, c, mlp)[5:]
+    mk = lambda: torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
+    shortcut, att = mk(), mk()
+    e = bench(
+        timer, f"fused_block_tail_w8a8 [shortcut, att [{n},{s},{c}] MLP {mlp}, gelu_exact]",
+        lambda: fused_block_tail_w8a8(shortcut, att, params),
+        lambda: fused_block_tail_w8a8_plain(shortcut, att, params),
+        lambda: lib_w8a8_tail(shortcut, att.reshape(n * s, c), params, "none"),
+        nbytes(shortcut, att, shortcut, *params), 0.0, check=check_w8a8,
+        int8_ops=2 * n * s * (c * c + 2 * c * mlp))
+    return dict(name="fused_block_tail_w8a8", route="cuda",
+                source="ufvideo_tpu_torch/csrc/hiera_block.cu",
+                replaces="ufvideo_tpu/ops/hiera_block.py:1862", tol=tol_text(BLOCK_REL), **e)
+
+
+def kernel_qpool_w8a8(dev, timer, gen):
+    """fused_qpool_block_w8a8 at Hiera-L's three stage transitions on 4
+    frames. The kernel quantises the attention output from bf16 and the
+    plain version from f32, as in the whole W8A8 block: the block's limit."""
+    from ufvideo_tpu_torch.ops.hiera_block import (
+        fused_qpool_block_w8a8, fused_qpool_block_w8a8_plain)
+    import torch.nn.functional as F
+
+    shapes = []
+    for n, s, cin, heads in HIERA_QPOOL_SHAPES:
+        cout, hd, mlp = 2 * cin, 72, 8 * cin
+        hw, ws, sq = heads * hd, int(s ** 0.5), s // 4
+        params = w8a8_params(dev, gen, cout, mlp, cin=cin, front_extra=cout)
+        x = torch.randn(n, s, cin, generator=gen, device=dev).to(torch.bfloat16)
+        (l1s, l1b, wf, sf, bf_) = params[:5]
+
+        def pool(v):
+            v6 = v.reshape(n, ws // 2, 2, ws // 2, 2, v.shape[-1])
+            return v6.amax(dim=4).amax(dim=2).reshape(n, sq, v.shape[-1])
+
+        def library():
+            h = F.layer_norm(x.float(), (cin,), l1s.float(), l1b.float(), 1e-6)
+            fr = lib_qdot(h.reshape(n * s, cin), wf, sf, bf_).to(x.dtype).reshape(n, s, -1)
+            q = pool(fr[..., :hw]).reshape(n, sq, heads, hd).transpose(1, 2)
+            k = fr[..., hw:2 * hw].reshape(n, s, heads, hd).transpose(1, 2)
+            v = fr[..., 2 * hw:3 * hw].reshape(n, s, heads, hd).transpose(1, 2)
+            o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(n * sq, hw)
+            return lib_w8a8_tail(pool(fr[..., 3 * hw:]), o, params[5:], "none")
+
+        int8_ops = (2 * n * s * cin * (3 * hw + cout)
+                    + 2 * n * sq * (hw * cout + 2 * cout * mlp))
+        shapes.append(bench(
+            timer, f"fused_qpool_block_w8a8 [x [{n},{s},{cin}] -> [{n},{sq},{cout}] "
+                   f"{heads} heads]",
+            lambda: fused_qpool_block_w8a8(x, params, heads, hd, (2, 2)),
+            lambda: fused_qpool_block_w8a8_plain(x, params, heads, hd, (2, 2)),
+            library, nbytes(x, *params) + n * sq * cout * 2, 4 * n * heads * sq * s * hd,
+            check=check_w8a8, int8_ops=int8_ops))
+        del params, x
+        torch.cuda.empty_cache()
+    return _kernel_entry(
+        "fused_qpool_block_w8a8", "ufvideo_tpu_torch/csrc/hiera_block.cu",
+        "ufvideo_tpu/ops/hiera_block.py:1629", tol_text(BLOCK_REL), shapes, shapes[0]["shape"])
+
+
+def kernel_w8a8(dev, timer, gen):
+    """fused_block_w8a8 at the SigLIP shapes (the 32 video frames and the
+    annotated frames of a referring request, 1 or 2 after padding) and at
+    the quantised Hiera trunk's four windowed shapes. Library yardstick:
+    torch._int_mm products with elementwise quantise / rescale, SDPA, fused
+    LN / GELU."""
+    from ufvideo_tpu_torch.ops.hiera_block import fused_block_w8a8, fused_block_w8a8_plain
 
     s, c, heads, hd, mlp = 729, 1152, 16, 72, 4304
     params = w8a8_params(dev, gen, c, mlp)
-    (l1s, l1b, wq, sq, bq, wp, sp, bp, l2s, l2b, w1, s1, b1, w2, s2, b2) = params
-    # _int_mm wants K and N multiples of 8 and contiguous operands
-    lib_w = {k: w.contiguous() for k, w in (("q", wq), ("p", wp), ("1", w1), ("2", w2))}
-
-    def lib_qdot(x32, w, ws, b):
-        q, xs = quant_rows_f32(x32)
-        return torch._int_mm(q, w).float() * xs * ws + b.float()
+    wp, w2 = params[5], params[13]
 
     # the halves alone, on 2 frames: the MLP half with the projection zeroed
     # (identical quantisation points), the attention half with the MLP's
@@ -690,25 +861,17 @@ def kernel_w8a8(dev, timer, gen):
     for n in (32, 2, 1):
         x = torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
         rows = n * s
-
-        def library():
-            h = F.layer_norm(x.float(), (c,), l1s.float(), l1b.float(), 1e-6)
-            qkv = lib_qdot(h.reshape(rows, c), lib_w["q"], sq, bq).to(x.dtype)
-            qkv = qkv.reshape(n, s, 3, heads, hd)
-            o = F.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4).unbind(0))
-            o = o.transpose(1, 2).reshape(rows, c)
-            x1 = x + lib_qdot(o.float(), lib_w["p"], sp, bp).reshape(n, s, c).to(x.dtype)
-            h = F.layer_norm(x1.float(), (c,), l2s.float(), l2b.float(), 1e-6).reshape(rows, c)
-            h = F.gelu(lib_qdot(h, lib_w["1"], s1, b1), approximate="tanh")
-            return x1 + lib_qdot(h, lib_w["2"], s2, b2).reshape(n, s, c).to(x.dtype)
-
         int8_ops = 2 * rows * (3 * c * c + c * c + 2 * c * mlp)
         shapes.append(bench(
             timer, f"x [{n},{s},{c}] {heads} heads x {hd}, MLP {mlp}, gelu_tanh, W8A8",
             lambda: fused_block_w8a8(x, params, heads, hd, act="gelu_tanh"),
             lambda: fused_block_w8a8_plain(x, params, heads, hd, act="gelu_tanh"),
-            library, nbytes(x, x, *params), 4 * n * heads * s * s * hd, check=check_w8a8,
+            lambda: lib_w8a8_block(x, params, heads, hd, "tanh"),
+            nbytes(x, x, *params), 4 * n * heads * s * s * hd, check=check_w8a8,
             int8_ops=int8_ops))
+    del params, x
+    torch.cuda.empty_cache()
+    shapes += w8a8_hiera_shapes(dev, timer, gen)
     return _kernel_entry(
         "fused_block_w8a8", "ufvideo_tpu_torch/csrc/hiera_block.cu",
         "ufvideo_tpu/ops/hiera_block.py:1340",
@@ -899,32 +1062,47 @@ def all_wrappers():
         "int8_matvec": quant_matmul.int8_matvec,
         "int4_matmul": quant_matmul.int4_matmul,
         "fused_block_w8a8": hiera_block.fused_block_w8a8,
+        "fused_qpool_block_w8a8": hiera_block.fused_qpool_block_w8a8,
+        "fused_ln_matmul_w8a8": hiera_block.fused_ln_matmul_w8a8,
+        "fused_block_tail_w8a8": hiera_block.fused_block_tail_w8a8,
     }
 
 
-def expected_seg_launches(cfg, n_sam_frames: int, chunk: int = 8) -> dict:
-    """Kernel launches of one path-B [SEG] request, from the configuration:
-    SigLIP layers + Hiera blocks by routing for each encode chunk; flash for
-    the LLM's layers, the global blocks, two attentions per memory-attention
-    layer per tracked frame and the mask decoder's seven per frame."""
+def expected_sam_launches(cfg, n_frames: int, prompted: int, tracked: int,
+                          chunk: int = 8) -> dict:
+    """Kernel launches of SAM2 on ``n_frames`` encoded frames, from the
+    configuration: Hiera's blocks by routing for each encode chunk (their
+    W8A8 kernels on a ``quant_vision`` runtime); flash for the global blocks,
+    two attentions per memory-attention layer per tracked frame, and the mask
+    decoder's seven on every prompted and every tracked frame."""
     from ufvideo_tpu_torch.models.sam2.hiera import Hiera
 
     with torch.device("meta"):
         routes = [b.route for b in Hiera(cfg.sam.hiera, torch.bfloat16).blocks]
-    chunks = -(-n_sam_frames // chunk)
+    chunks = -(-n_frames // chunk)
     n = {r: routes.count(r) * chunks for r in ("block", "qpool", "split")}
-    return {
-        "fused_hiera_block": cfg.vision.num_encode_layers + n["block"],
-        "fused_qpool_block": n["qpool"],
-        "fused_ln_matmul": n["split"],
-        "fused_block_tail": n["split"],
-        "flash_attention": (cfg.llm.num_layers + n["split"]
-                            + (n_sam_frames - 1) * cfg.sam.mem_attn_layers * 2
-                            + n_sam_frames * 7),
-        "ragged_decode_attention": 0,
-        "ragged_decode_attention_q8": 0, "int8_matvec": 0, "int4_matmul": 0,
-        "fused_block_w8a8": 0,
-    }
+    q = "_w8a8" if cfg.quant_vision else ""
+    want = dict.fromkeys(all_wrappers(), 0)
+    want["fused_block_w8a8" if cfg.quant_vision else "fused_hiera_block"] = n["block"]
+    want["fused_qpool_block" + q] = n["qpool"]
+    want["fused_ln_matmul" + q] = n["split"]
+    want["fused_block_tail" + q] = n["split"]
+    want["flash_attention"] = (n["split"] + tracked * cfg.sam.mem_attn_layers * 2
+                               + (prompted + tracked) * 7)
+    return want
+
+
+def expected_seg_launches(cfg, n_sam_frames: int) -> dict:
+    """Kernel launches of one path-B [SEG] request: SAM2 on its frames (frame
+    0 prompted, the rest tracked), the SigLIP tower's layers (the whole-block
+    kernel, W8A8 on a ``quant_vision`` runtime) and flash for the LLM's
+    layers. The LLM's forward has thousands of rows: its quantised products
+    dequantise and launch no matvec."""
+    want = expected_sam_launches(cfg, n_sam_frames, 1, n_sam_frames - 1)
+    want["fused_block_w8a8" if cfg.quant_vision else "fused_hiera_block"] += (
+        cfg.vision.num_encode_layers)
+    want["flash_attention"] += cfg.llm.num_layers
+    return want
 
 
 def expected_referring_launches(cfg, n_generated: int, calls_to_tower: int = 2) -> dict:
@@ -1050,7 +1228,10 @@ def iou(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4,
-            label_size=(480, 640)):
+            label_size=(480, 640), feat_cos=PATH_COS, low_cos=SEG_COS):
+    """One path-B [SEG] request on ``rt``; ``feat_cos`` / ``low_cos`` are the
+    limits of the kernel path against the plain path on the FPN level-2
+    features and on each frame's low-res mask logits."""
     from ufvideo_tpu_torch import mm_infer
     from ufvideo_tpu_torch.models.sam2.common import ProjAttention
     from ufvideo_tpu_torch.models.sam2.video import (
@@ -1161,14 +1342,142 @@ def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4
     masks_p = masks_to_video_res(low_p, *label_size)
     ious = [iou(a, b) for a, b in zip(masks_k[:, 0], masks_p[:, 0])]
     log(f"  kernel vs plain path: FPN level-2 features cosine {cos_f:.5f} (tolerance >= "
-        f"{PATH_COS}); low-res mask logits cosine per frame "
-        f"{[round(c, 5) for c in cos_low]} (tolerance >= {SEG_COS}; on the same features "
+        f"{feat_cos}); low-res mask logits cosine per frame "
+        f"{[round(c, 5) for c in cos_low]} (tolerance >= {low_cos}; on the same features "
         f"{[round(c, 5) for c in cos_mem]}); mask IoU per frame "
         f"{[round(x, 4) for x in ious]} (reported, not gated: random weights leave "
         "logits near the threshold)")
-    if cos_f < PATH_COS or min(cos_low) < SEG_COS:
+    if cos_f < feat_cos or min(cos_low) < low_cos:
         fail("SAM2 kernel path and plain path disagree at full width")
     return launches
+
+
+def _count(wrappers, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after: (result, launches, wall ms)."""
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, {k: w.launches for k, w in wrappers.items()}, ms
+
+
+def run_predictors(dev, seed: int, rt, sam_frames=4, label_size=(480, 640)):
+    """The rest of SAM2's predictors at full width on ``rt``'s SAM2:
+    ``propagate_video_general`` on one video's features (a language prompt on
+    frame 1 and a box on frame 3, both directions, stride 2) and the entry
+    point ``segment_videos_batched`` on two videos. Each is counted, timed
+    and held against the plain path. Returns the two launch dictionaries."""
+    from ufvideo_tpu_torch.models.sam2.common import NO_OBJ_SCORE
+    from ufvideo_tpu_torch.models.sam2.video import (
+        FrameCondition, FrameFeatures, encode_video_frames, masks_to_video_res,
+        propagate_video, propagate_video_general, propagate_videos_batched)
+    from ufvideo_tpu_torch.ops.image_pipeline import sam_preprocess_device
+
+    cfg, sam, wrappers = rt.cfg, rt.model.sam, all_wrappers()
+    rng = np.random.default_rng(seed + 3)
+    videos = rng.integers(0, 256, (2, sam_frames, 480, 640, 3), dtype=np.uint8)
+    emb = torch.from_numpy(rng.standard_normal((2, cfg.sam_out_dim)).astype(np.float32))
+    emb = emb.to(dev, cfg.compute_dtype)
+    size = cfg.sam.hiera.image_size
+    low_size = (sam_frames, 1, 1, size // 4, size // 4)
+
+    # general predictor, on the features of the first video
+    images = sam_preprocess_device(torch.from_numpy(videos[0]).to(dev), cfg.compute_dtype)
+    feats = encode_video_frames(sam, images)
+    box = torch.tensor([[200.0, 250.0, 700.0, 800.0]], device=dev)
+    conds = [FrameCondition(1, language_embd=emb[:1, None]), FrameCondition(3, box=box)]
+    general = lambda: propagate_video_general(sam, feats, conds, stride=2, direction="both")
+    general()  # warm-up
+    low_k, launches_g, ms = _count(wrappers, general)
+    tracked = sam_frames - 1  # forward 2 .. T-1 from the anchor frame 1, reverse 0
+    want = expected_sam_launches(cfg, 0, len(conds), tracked)
+    log(f"  propagate_video_general: {ms:.1f} ms for {len(conds)} prompted + {tracked} tracked "
+        f"frames; launches {launches_g}")
+    if launches_g != want:
+        fail(f"launch counts of the general predictor differ from the prediction {want}")
+    if tuple(low_k.shape) != low_size or not torch.isfinite(low_k).all() \
+            or bool((low_k == NO_OBJ_SCORE).any()):
+        fail(f"general predictor: logits {tuple(low_k.shape)}, not finite or a frame unreached")
+    rt.model.set_use_kernels(False)
+    low_p = general()
+    rt.model.set_use_kernels(True)
+    cos_g = [cosine(a, b) for a, b in zip(low_k, low_p)]
+    log(f"  general predictor, kernel vs plain path on the same features: mask logits cosine "
+        f"per frame {[round(c, 5) for c in cos_g]} (tolerance >= {SEG_COS})")
+    if min(cos_g) < SEG_COS:
+        fail("the general predictor's kernel path and plain path disagree")
+
+    # batched videos through the entry point
+    batched = lambda: rt.segment_videos_batched(videos, emb, *label_size)
+    batched()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    masks, launches_b, ms = _count(wrappers, batched)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expected_sam_launches(cfg, 2 * sam_frames, 1, sam_frames - 1)
+    log(f"  segment_videos_batched: {ms:.1f} ms for 2 videos x {sam_frames} frames, peak "
+        f"{peak:.2f} GiB; launches {launches_b}")
+    if launches_b != want:
+        fail(f"launch counts of segment_videos_batched differ from the prediction {want}")
+    if masks.shape != (2, sam_frames) + tuple(label_size) or masks.dtype != np.bool_:
+        fail(f"segment_videos_batched: masks {masks.shape} {masks.dtype}")
+
+    def staged(use_kernels):
+        rt.model.set_use_kernels(use_kernels)
+        flat = torch.from_numpy(videos.reshape((-1,) + videos.shape[2:])).to(dev)
+        f = encode_video_frames(sam, sam_preprocess_device(flat, cfg.compute_dtype))
+        per_video = lambda a: a.reshape((2, sam_frames) + tuple(a.shape[1:]))
+        vf = FrameFeatures(per_video(f.s0), per_video(f.s1), per_video(f.s2), f.pos2)
+        low = propagate_videos_batched(sam, vf, emb[:, None])
+        rt.model.set_use_kernels(True)
+        return vf, low
+
+    vfeats, low_b = staged(True)
+    if not np.array_equal(masks_to_video_res(low_b, *label_size).permute(1, 0, 2, 3).cpu().numpy(),
+                          masks):
+        fail("the staged batched run's masks differ from those the entry point returned")
+    _, low_bp = staged(False)
+    alone = torch.cat([
+        propagate_video(sam, FrameFeatures(vfeats.s0[i], vfeats.s1[i], vfeats.s2[i],
+                                           vfeats.pos2), emb[i:i + 1, None])
+        for i in range(2)], dim=1)
+    cos_b = [cosine(low_b[:, i], low_bp[:, i]) for i in range(2)]
+    cos_a = [cosine(low_b[:, i], alone[:, i]) for i in range(2)]
+    ious = [iou(a, b) for a, b in zip(masks_to_video_res(low_b, *label_size).permute(1, 0, 2, 3),
+                                     masks_to_video_res(low_bp, *label_size).permute(1, 0, 2, 3))]
+    low_limit = SEG_QUANT_COS if cfg.quant_vision else SEG_COS
+    log(f"  batched, kernel vs plain path: mask logits cosine per video "
+        f"{[round(c, 5) for c in cos_b]} (tolerance >= {low_limit}), mask IoU per video "
+        f"{[round(x, 4) for x in ious]} (reported); batched vs each video alone: cosine "
+        f"{[round(c, 5) for c in cos_a]} (tolerance >= {PATH_COS})")
+    if min(cos_b) < low_limit or min(cos_a) < PATH_COS:
+        fail("segment_videos_batched disagrees with the plain path or with per-video calls")
+    return launches_g, launches_b
+
+
+def run_quant_seg(dev, seed: int, full):
+    """Phase 6: the serving configuration (int8 LM, int8 KV cache, W8A8
+    SigLIP and W8A8 Hiera trunk) on a runtime of its own."""
+    from ufvideo_tpu_torch import model_init
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = full.replace(quant_llm="int8", quant_kv=True, quant_vision=True)
+    rt, _, tok = model_init(cfg=cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    log(f"  model_init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (peak while building "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    if not rt.model.sam.quant:
+        fail("the quant_vision runtime built a float SAM2")
+    seg = run_seg(dev, seed, rt, tok, feat_cos=SEG_QUANT_FEAT_COS, low_cos=SEG_QUANT_COS)
+    general, batched = run_predictors(dev, seed, rt)
+    del rt
+    torch.cuda.empty_cache()
+    return seg, general, batched
 
 
 # ------------------------------------------------------------------ main --
@@ -1176,6 +1485,8 @@ def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 2")
+    ap.add_argument("--match", default="", help="phase 2 on the kernels whose name holds "
+                    "this, then stop (a new kernel's first call on a card)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1213,11 +1524,25 @@ def main() -> int:
     from ufvideo_tpu_torch.configs import UFVideoConfig
 
     full = UFVideoConfig()
-    kernels = [kernel_hiera(dev, timer, gen), kernel_flash(dev, timer, gen),
-               kernel_decode(dev, timer, gen), kernel_ln_matmul(dev, timer, gen),
-               kernel_block_tail(dev, timer, gen), kernel_qpool(dev, timer, gen),
-               kernel_decode_q8(dev, timer, gen), kernel_quant_matmul(dev, timer, gen, full, 8),
-               kernel_quant_matmul(dev, timer, gen, full, 4), kernel_w8a8(dev, timer, gen)]
+    checks = {
+        "fused_hiera_block": kernel_hiera, "flash_attention": kernel_flash,
+        "ragged_decode_attention": kernel_decode, "fused_ln_matmul": kernel_ln_matmul,
+        "fused_block_tail": kernel_block_tail, "fused_qpool_block": kernel_qpool,
+        "ragged_decode_attention_q8": kernel_decode_q8,
+        "int8_matvec": lambda *a: kernel_quant_matmul(*a, full, 8),
+        "int4_matmul": lambda *a: kernel_quant_matmul(*a, full, 4),
+        "fused_block_w8a8": kernel_w8a8, "fused_qpool_block_w8a8": kernel_qpool_w8a8,
+        "fused_ln_matmul_w8a8": kernel_ln_matmul_w8a8,
+        "fused_block_tail_w8a8": kernel_block_tail_w8a8,
+    }
+    if set(checks) != set(all_wrappers()):
+        fail("phase 2 does not hold every counted kernel")
+    # the W8A8 family draws its inputs from a generator of its own, so that
+    # --match w8a8 holds these kernels on the inputs the whole run gives them
+    gen_q = torch.Generator(device=dev)
+    gen_q.manual_seed(args.seed)
+    kernels = [fn(dev, timer, gen_q if "w8a8" in name else gen)
+               for name, fn in checks.items() if args.match in name]
     for k in kernels:
         log(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
@@ -1226,9 +1551,9 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    if args.kernels_only:
+    if args.kernels_only or args.match:
         print(json.dumps({"kernels": kernels}), flush=True)
-        log("stopped after phase 2 (--kernels-only): no result")
+        log("stopped after phase 2 (--kernels-only / --match): no result")
         return 0
     log("phase 3: full-width mm_infer on the card")
     launches, rt, tok = run_path(dev, args.seed, full)
@@ -1241,14 +1566,17 @@ def main() -> int:
         dev, args.seed, full.replace(quant_llm="int8", quant_kv=True, quant_vision=True),
         "int8 + int8 KV + W8A8 SigLIP", 32)
     int4_launches = run_referring(dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
+    log("phase 6: full-width quantised [SEG] segmentation and SAM2's other predictors")
+    qseg_launches, general_launches, batched_launches = run_quant_seg(dev, args.seed, full)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
-        # "launches" is derived: their sum over the four counted calls
-        k["launches_qa"], k["launches_seg"] = launches[k["name"]], seg_launches[k["name"]]
-        k["launches_ref_int8"] = int8_launches[k["name"]]
-        k["launches_ref_int4"] = int4_launches[k["name"]]
-        k["launches"] = (k["launches_qa"] + k["launches_seg"] + k["launches_ref_int8"]
-                         + k["launches_ref_int4"])
+        # "launches" is derived: their sum over the seven counted calls
+        by_path = {"qa": launches, "seg": seg_launches, "ref_int8": int8_launches,
+                   "ref_int4": int4_launches, "seg_int8": qseg_launches,
+                   "general_int8": general_launches, "batched_int8": batched_launches}
+        for path, counts in by_path.items():
+            k[f"launches_{path}"] = counts[k["name"]]
+        k["launches"] = sum(counts[k["name"]] for counts in by_path.values())
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched on no path")
         k["check"] = "ok"

@@ -1,6 +1,7 @@
 """Where the port's time goes on the card: one full-width video-QA request,
-one full-width ``[SEG]`` segmentation request and one full-width quantised
-region-referring request under ``torch.profiler``.
+one full-width ``[SEG]`` segmentation request, one full-width quantised
+region-referring request and one full-width quantised ``[SEG]`` request
+under ``torch.profiler``.
 
     python3 scripts/torch_trace.py [--new-tokens 16] [--trace out.json]
 
@@ -15,7 +16,8 @@ frees that model, builds the int8 runtime (``quant_llm="int8"``, int8 KV
 cache, W8A8 SigLIP) and profiles a referring request's stages: video encode,
 region encode, prefill with the first token, and prefill with
 ``--new-tokens`` tokens, from which the device time of one int8 decode step
-follows. For each it prints the wall time, the device-busy time (union of kernel intervals),
+follows; and, on that runtime (its SAM2 has a W8A8 Hiera trunk), the stages
+of the ``[SEG]`` request again. For each it prints the wall time, the device-busy time (union of kernel intervals),
 the device's idle share, and the kernels with the most device time. Needs
 one CUDA card.
 """
@@ -63,10 +65,7 @@ def main() -> int:
     from ufvideo_tpu_torch import mm_infer, model_init
     from ufvideo_tpu_torch.api import _assemble_input_ids
     from ufvideo_tpu_torch.configs import UFVideoConfig
-    from ufvideo_tpu_torch.models.sam2.video import (
-        encode_video_frames, init_on_first_frame, masks_to_video_res, track_frame)
-    from ufvideo_tpu_torch.ops.image_pipeline import (
-        sam_preprocess_device, siglip_preprocess_device)
+    from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -87,7 +86,6 @@ def main() -> int:
 
     ids = _assemble_input_ids(question, 1, "<video>", tok)
     seg_ids = _assemble_input_ids(conv, 3, "<video>", tok)
-    sam = rt.model.sam
     sync = torch.cuda.synchronize
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("stage:encode"):
@@ -101,38 +99,14 @@ def main() -> int:
         with record_function("stage:prefill+decode"):
             toks, _, _ = rt.generate(ids, feats, max_new_tokens=args.new_tokens)
             sync()
-        with record_function("stage:seg llm forward + [SEG] head"):
-            hidden, plan = rt.forward_hidden_states(seg_ids, feats)
-            pos = [int(plan.text_pos_map[0][i]) - 1
-                   for i, t in enumerate(seg_ids) if t == rt.ids.seg]
-            emb = rt.model.seg_embeddings(hidden[0, pos])[:, None, :]
-            sync()
-        with record_function("stage:seg sam preprocess + hiera + fpn"):
-            images = sam_preprocess_device(
-                torch.from_numpy(images_sam).to(dev), rt.cfg.compute_dtype)
-            sfeats = encode_video_frames(sam, images)
-            sync()
-        with record_function("stage:seg frame-0 conditioning"):
-            state, low = init_on_first_frame(sam, sfeats, emb)
-            sync()
-        lows = [low]
-        with record_function("stage:seg tracked frames"):
-            for fi in range(1, images_sam.shape[0]):
-                state, low = track_frame(sam, state, fi, sfeats.s0[fi], sfeats.s1[fi],
-                                         sfeats.s2[fi], sfeats.pos2,
-                                         num_frames=images_sam.shape[0])
-                lows.append(low)
-            sync()
-        with record_function("stage:seg upsample"):
-            masks_to_video_res(torch.stack(lows), 480, 640).cpu()
-            sync()
+        lows = _seg_stages(rt, seg_ids, feats, images_sam, "seg")
     if args.trace:
         prof.export_chrome_trace(args.trace)
     out = {"card": smi, "generated": len(toks)}
     out.update(_summarise(prof))
 
     # the quantised referring request, on a runtime of its own
-    del rt, sam, sfeats, state, feats, hidden
+    del rt, feats, lows
     torch.cuda.empty_cache()
     qcfg = UFVideoConfig().replace(quant_llm="int8", quant_kv=True, quant_vision=True)
     rt, _, tok = model_init(cfg=qcfg, device=dev, seed=0)
@@ -159,6 +133,11 @@ def main() -> int:
         with record_function("stage:int8 prefill+decode"):
             qtoks, _, _ = rt.generate(ids, feats, rfeats, counts, max_new_tokens=args.new_tokens)
             sync()
+        # the [SEG] request on the quantised runtime (W8A8 Hiera trunk)
+        mm_infer(frames, conv, rt, tok, choice=3, images_sam=images_sam,
+                 label_size=(480, 640), seg=True)  # warm up
+        sync()
+        _seg_stages(rt, seg_ids, feats, images_sam, "int8 seg")
     if args.trace:
         qprof.export_chrome_trace(args.trace.replace(".json", "") + ".int8.json")
     out["generated_int8"] = len(qtoks)
@@ -172,6 +151,41 @@ def main() -> int:
     }
     print(json.dumps(out, indent=1), flush=True)
     return 0
+
+
+def _seg_stages(rt, seg_ids, feats, images_sam, prefix: str):
+    """The stages of a path-B ``[SEG]`` request on ``rt`` under
+    ``stage:<prefix> ...`` ranges of the running profile; returns the
+    per-frame low-res mask logits."""
+    from ufvideo_tpu_torch.models.sam2.video import (
+        encode_video_frames, init_on_first_frame, masks_to_video_res, track_frame)
+    from ufvideo_tpu_torch.ops.image_pipeline import sam_preprocess_device
+
+    sam, dev, sync = rt.model.sam, rt.device, torch.cuda.synchronize
+    with record_function(f"stage:{prefix} llm forward + [SEG] head"):
+        hidden, plan = rt.forward_hidden_states(seg_ids, feats)
+        pos = [int(plan.text_pos_map[0][i]) - 1
+               for i, t in enumerate(seg_ids) if t == rt.ids.seg]
+        emb = rt.model.seg_embeddings(hidden[0, pos])[:, None, :]
+        sync()
+    with record_function(f"stage:{prefix} sam preprocess + hiera + fpn"):
+        images = sam_preprocess_device(torch.from_numpy(images_sam).to(dev), rt.cfg.compute_dtype)
+        sfeats = encode_video_frames(sam, images)
+        sync()
+    with record_function(f"stage:{prefix} frame-0 conditioning"):
+        state, low = init_on_first_frame(sam, sfeats, emb)
+        sync()
+    lows = [low]
+    with record_function(f"stage:{prefix} tracked frames"):
+        for fi in range(1, images_sam.shape[0]):
+            state, low = track_frame(sam, state, fi, sfeats.s0[fi], sfeats.s1[fi],
+                                     sfeats.s2[fi], sfeats.pos2, num_frames=images_sam.shape[0])
+            lows.append(low)
+        sync()
+    with record_function(f"stage:{prefix} upsample"):
+        masks_to_video_res(torch.stack(lows), 480, 640).cpu()
+        sync()
+    return lows
 
 
 def _summarise(prof) -> dict:

@@ -423,3 +423,143 @@ def test_w8a8_block_kernel_matches_plain(dev, n, s, c, heads, hd, mlp, act):
     close = (err < 1e-3) | (err / (want.abs() + 1e-3) < 1e-2)
     assert float(close.float().mean()) > 0.999
     assert float((err - (2.0 + 5e-2 * want.abs())).max()) <= 0
+
+
+# ---------------------------------------------------- W8A8 Hiera block parts --
+# The quantised trunk's kernels: the whole block at Hiera's window sizes with
+# the exact GELU (K = 144 zero-padded to 160), the LN-matmul front, the tail
+# and the q-pool block. The front and the tail quantise the same values on
+# both sides (the float kernels' limits); the q-pool block quantises its
+# attention output from bf16 in the kernel and from f32 in the plain version,
+# as the whole block does (5e-2 of a row's RMS).
+
+from ufvideo_tpu_torch.ops import hiera_block as hb  # noqa: E402
+
+
+@pytest.mark.parametrize("n,s,c,heads", [(64, 64, 144, 2), (64, 16, 288, 4), (4, 256, 576, 8),
+                                         (8, 64, 1152, 16)])
+def test_w8a8_block_kernel_at_hiera_shapes(dev, n, s, c, heads):
+    params = _w8a8_block_params(dev, c, heads * 72, 4 * c, seed=42)
+    x = _randn(dev, n, s, c, seed=43)
+    got = fused_block_w8a8(x, params, heads, 72, act="gelu_exact")
+    want = fused_block_w8a8_plain(x, params, heads, 72, act="gelu_exact")
+    torch.cuda.synchronize()
+    _assert_close(got, want, row_rel=5e-2)
+
+
+@pytest.mark.parametrize("c,d", [(576, 1728), (144, 432), (50, 66)])
+def test_ln_matmul_w8a8_kernel_matches_plain(dev, c, d):
+    """(50, 66): K padded from 50 to 64, a ragged column tile."""
+    g = torch.Generator(device=dev).manual_seed(44)
+    qd = tq.quantize_kernel(torch.randn(c, d, generator=g, device=dev) * c ** -0.5)
+    x = _randn(dev, 3, 200, c, seed=45)
+    ln_s, ln_b, b = _randn(dev, c, seed=46) * 0.1 + 1, _randn(dev, c, seed=47) * 0.1, \
+        _randn(dev, d, seed=48) * 0.1
+    launches = hb.fused_ln_matmul_w8a8.launches
+    got = hb.fused_ln_matmul_w8a8(x, ln_s, ln_b, qd["q"], qd["scale"], b)
+    want = hb.fused_ln_matmul_w8a8_plain(x, ln_s, ln_b, qd["q"], qd["scale"], b)
+    torch.cuda.synchronize()
+    assert hb.fused_ln_matmul_w8a8.launches == launches + 1
+    assert got.shape == (3, 200, d) and got.dtype == torch.bfloat16
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("a,c,mlp,act", [(576, 576, 2304, "gelu_exact"),
+                                         (144, 288, 1152, "gelu_exact"),
+                                         (72, 50, 430, "gelu_tanh")])
+def test_block_tail_w8a8_kernel_matches_plain(dev, a, c, mlp, act):
+    params = _w8a8_block_params(dev, c, a, mlp, seed=49)[5:]
+    # the projection of that recipe is [hw, c] = [a, c]
+    shortcut, att = _randn(dev, 2, 300, c, seed=50), _randn(dev, 2, 300, a, seed=51)
+    launches = hb.fused_block_tail_w8a8.launches
+    got = hb.fused_block_tail_w8a8(shortcut, att, params, act=act)
+    want = hb.fused_block_tail_w8a8_plain(shortcut, att, params, act=act)
+    torch.cuda.synchronize()
+    assert hb.fused_block_tail_w8a8.launches == launches + 1
+    _assert_close(got, want, row_rel=5e-2)
+
+
+def _w8a8_qpool_params(dev, cin, cout, hw, mlp, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
+    bf = torch.bfloat16
+    q = lambda w: tuple(tq.quantize_kernel(w).values())
+    nf = 3 * hw + cout
+    return (
+        (1 + 0.1 * rn(cin)).to(bf), (0.1 * rn(cin)).to(bf),
+        *q(rn(cin, nf) * cin ** -0.5), (0.1 * rn(nf)).to(bf),
+        *q(rn(hw, cout) * hw ** -0.5), (0.1 * rn(cout)).to(bf),
+        (1 + 0.1 * rn(cout)).to(bf), (0.1 * rn(cout)).to(bf),
+        *q(rn(cout, mlp) * cout ** -0.5), (0.1 * rn(mlp)).to(bf),
+        *q(rn(mlp, cout) * mlp ** -0.5), (0.1 * rn(cout)).to(bf),
+    )
+
+
+@pytest.mark.parametrize("n,s,cin,cout,heads", [(32, 64, 144, 288, 4), (32, 16, 288, 576, 8),
+                                                (4, 256, 576, 1152, 16), (6, 4, 32, 64, 1)])
+def test_qpool_w8a8_kernel_matches_plain(dev, n, s, cin, cout, heads):
+    hd = cout // heads
+    params = _w8a8_qpool_params(dev, cin, cout, heads * hd, 4 * cout, seed=52)
+    x = _randn(dev, n, s, cin, seed=53)
+    launches = hb.fused_qpool_block_w8a8.launches
+    got = hb.fused_qpool_block_w8a8(x, params, heads, hd, (2, 2))
+    want = hb.fused_qpool_block_w8a8_plain(x, params, heads, hd, (2, 2))
+    torch.cuda.synchronize()
+    assert hb.fused_qpool_block_w8a8.launches == launches + 1
+    assert got.shape == (n, s // 4, cout)
+    _assert_close(got, want, row_rel=5e-2)
+    # zero projection and zero MLP: the block returns the pooled shortcut,
+    # taken from the bf16 front after its rescale (exact on both sides up to
+    # a flipped step in the front's rows)
+    zeroed = list(params)
+    for i in (5, 7, 10, 12, 13, 15):  # the kernels and biases of proj, fc1 and fc2
+        zeroed[i] = torch.zeros_like(params[i])
+    got = hb.fused_qpool_block_w8a8(x, tuple(zeroed), heads, hd, (2, 2))
+    want = hb.fused_qpool_block_w8a8_plain(x, tuple(zeroed), heads, hd, (2, 2))
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
+def test_w8a8_part_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    params = _w8a8_block_params(dev, 64, 64, 256, seed=54)
+    x = _randn(dev, 2, 16, 64, seed=55)
+    with pytest.raises(TypeError, match="bf16 activations and int8 weights"):
+        hb.fused_ln_matmul_w8a8(x.float(), *params[:5])
+    with pytest.raises(TypeError, match="bf16 activations and int8 weights"):
+        hb.fused_block_tail_w8a8(x, x, (params[5].float(),) + params[6:])
+    with pytest.raises(ValueError, match="shapes do not match"):
+        hb.fused_block_tail_w8a8(x, x[..., :32], params[5:])
+    with pytest.raises(ValueError, match="weight shapes do not match"):
+        hb.fused_qpool_block_w8a8(x, params, 2, 32, (2, 2))
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        hb.fused_ln_matmul_w8a8(x[..., :32], *params[:5])
+
+
+def test_quantised_hiera_trunk_kernel_path_matches_plain_path(dev):
+    """A narrow quantised trunk with every route (whole block, q-pool,
+    global front + flash + tail) on the card: kernel path against plain
+    path, cosine >= 0.99 per stage (re-quantise flips through 5 blocks)."""
+    from ufvideo_tpu_torch.configs import SAM2HieraConfig
+    from ufvideo_tpu_torch.models import init
+    from ufvideo_tpu_torch.models.sam2.hiera import Hiera
+
+    cfg = SAM2HieraConfig(embed_dim=72, num_heads=1, stages=(1, 2, 1, 1), global_att_blocks=(2,),
+                          window_spec=(8, 4, 8, 4), image_size=256)
+    trunk = Hiera(cfg, torch.bfloat16, quant=True).to(dev).eval()
+    init.reset_tree_(trunk, torch.Generator(device=dev).manual_seed(56))
+    assert [b.route for b in trunk.blocks] == ["block", "qpool", "split", "qpool", "qpool"]
+    x = _randn(dev, 2, 256, 256, 3, seed=57)
+    counted = (hb.fused_block_w8a8, hb.fused_qpool_block_w8a8, hb.fused_ln_matmul_w8a8,
+               hb.fused_block_tail_w8a8)
+    before = [f.launches for f in counted]
+    with torch.no_grad():
+        got = trunk(x)
+        for blk in trunk.blocks:
+            blk.use_kernels = False
+        want = trunk(x)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counted, before)] == [1, 3, 1, 1]
+    for g, w in zip(got, want):
+        cos = torch.nn.functional.cosine_similarity(
+            g.float().flatten(), w.float().flatten(), dim=0)
+        assert torch.isfinite(g).all() and float(cos) > 0.99

@@ -161,6 +161,59 @@ def test_block_kernel_params_follow_a_weight_write(dim, dim_out, q_stride):
     assert (second - first).abs().max() > 0.5
 
 
+def test_quantised_hiera_full_width_routes_are_the_float_ones():
+    """Hiera-Large with ``quant=True``: the same 42 / 3 / 3 routes, every
+    dense layer of every block an int8 holder, and the shortcut projection
+    folded into the front of the three q-pool blocks (K = 144 and 288 are
+    padded to a multiple of 32 inside the kernels, not here)."""
+    with torch.device("meta"):
+        trunk = t_hiera.Hiera(UFVideoConfig().sam.hiera, torch.bfloat16, quant=True)
+        flt = t_hiera.Hiera(UFVideoConfig().sam.hiera, torch.bfloat16)
+    assert [b.route for b in trunk.blocks] == [b.route for b in flt.blocks]
+    for blk in trunk.blocks:
+        dense = [blk.attn.qkv, blk.attn.proj, blk.mlp_layers_0, blk.mlp_layers_1]
+        dense += [blk.proj] if blk.dim != blk.dim_out else []
+        assert all(d.kernel_q.dtype == torch.int8 and d.kernel_scale.dtype == torch.float32
+                   and d.bias.dtype == torch.bfloat16 for d in dense)
+        assert not any(isinstance(m, t_hiera.DenseParams) for m in blk.modules())
+    assert trunk.patch_embed.weight.dtype == torch.bfloat16
+    shapes = [(tuple(trunk.blocks[i].attn.qkv.kernel_q.shape),
+               tuple(trunk.blocks[i].proj.kernel_q.shape)) for i in (2, 8, 44)]
+    assert shapes == [((144, 864), (144, 288)), ((288, 1728), (288, 576)),
+                      ((576, 3456), (576, 1152))]
+
+
+@pytest.mark.parametrize("dim,dim_out,q_stride,side", [
+    (16, 16, None, 4), (16, 32, (2, 2), 4), (16, 16, None, 0)], ids=["block", "qpool", "split"])
+def test_quantised_block_kernel_params_follow_a_weight_write(dim, dim_out, q_stride, side):
+    """The quantised twin of the kernel-ready parameters: built once, rebuilt
+    after ``set_kernel`` or a bias write, and the block then computes what a
+    fresh block with those weights computes."""
+    blk = t_hiera.MultiScaleBlock(dim, dim_out, 2, 4.0, q_stride, side, torch.float32, True)
+    gen = torch.Generator().manual_seed(4)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen) * 0.2
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, t_hiera.QuantDenseParams):
+                m.set_kernel(rnd(*m.kernel_q.shape))
+                m.bias.copy_(rnd(*m.bias.shape))
+            elif isinstance(m, t_hiera.LayerNormParams):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+        x = rnd(3, 16, dim) * 5
+        first = blk(x)
+        assert blk._kernel_params() is blk._kernel_params()
+        assert len(blk._kernel_params()) == 16 and blk._kernel_params()[2].dtype == torch.int8
+        blk.mlp_layers_1.bias.add_(1.0)
+        blk.attn.qkv.set_kernel(rnd(*blk.attn.qkv.kernel_q.shape))
+        second = blk(x)
+        fresh = t_hiera.MultiScaleBlock(dim, dim_out, 2, 4.0, q_stride, side, torch.float32, True)
+        fresh.load_state_dict(blk.state_dict())
+        torch.testing.assert_close(second, fresh(x), rtol=0, atol=0)
+    assert tuple(first.shape) == (3, 16 // (4 if q_stride else 1), dim_out)
+    assert (second - first).abs().max() > 0.5
+
+
 @pytest.mark.parametrize("ws", [2, 4, 8])
 def test_window_layout_matches(ws):
     x = _randn(2, 2, 8, 16, 5)

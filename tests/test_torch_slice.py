@@ -177,10 +177,11 @@ def test_quantised_runtime_uses_the_quantised_modules(quant_runtimes):
 
 def test_unported_inputs_raise(runtimes):
     """What still waits for its slice raises ``NotImplementedError`` naming
-    its ROADMAP item: segmentation on a ``quant_vision`` runtime, speculative
-    decoding, chunked prefill. ``images_sam`` and a ``[SEG]`` in the input
-    are served (tests/test_torch_seg.py holds their masks against JAX) and,
-    with nothing to segment, give no masks."""
+    its ROADMAP item: speculative decoding, chunked prefill. Segmentation on
+    a ``quant_vision`` runtime is served (tests/test_torch_seg_quant.py holds
+    its masks against JAX). ``images_sam`` and a ``[SEG]`` in the input are
+    served (tests/test_torch_seg.py) and, with nothing to segment, give no
+    masks."""
     _, (rt, tok) = runtimes
     frames = np.zeros((4, 56, 56, 3), np.float32)
     for kw in (dict(spec_decode=4), dict(prefill_chunk=2)):
@@ -188,8 +189,8 @@ def test_unported_inputs_raise(runtimes):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
             mm_infer(frames, "x", held, tok, max_new_tokens=2)
     held = UFVideoRuntime(rt.cfg.replace(quant_vision=True), rt.model, rt.ids, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 1"):
-        held.segment_video(np.zeros((2, 128, 128, 3), np.float32), torch.zeros(1, 32), 8, 8)
+    masks = held.segment_video(np.zeros((2, 128, 128, 3), np.float32), torch.zeros(1, 32), 8, 8)
+    assert masks.shape == (1, 2, 8, 8) and masks.dtype == np.bool_
     # no [SEG] among the generated tokens: SAM2 is never reached
     _, out = mm_infer(frames, "x", rt, tok, images_sam=np.zeros((2, 128, 128, 3), np.float32),
                       max_new_tokens=2)

@@ -8,10 +8,11 @@ Entry points run on the card by default: ``model_init(device="cuda")``
 raises when CUDA is missing, and the caller passes ``device="cpu"`` to run
 on the CPU (the plain versions of the kernels). The config's ``quant_llm``
 (int8 / int4 weight-only LM), ``quant_kv`` (int8 KV cache) and
-``quant_vision`` (W8A8 SigLIP) build the quantised runtime. Segmentation on
-a ``quant_vision`` runtime, speculative decoding, chunked prefill,
-checkpoint loading, streaming and batched serving come with later slices
-and raise ``NotImplementedError`` naming their ROADMAP.md item.
+``quant_vision`` (W8A8 SigLIP tower and W8A8 Hiera trunk of SAM2) build the
+quantised runtime. ``UFVideoRuntime.segment_videos_batched`` segments
+several videos in one walk over their frames. Speculative decoding, chunked
+prefill, checkpoint loading, streaming and batched generation come with
+later slices and raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -26,12 +27,16 @@ from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
 from .mm_utils import tokenizer_multimodal_token, trim_at_stop_strings
 from .models.generate import forward_hidden, greedy_generate
 from .models.region_encoder import resize_mask_to_grid_np
-from .models.sam2.video import encode_video_frames, masks_to_video_res, propagate_video
+from .models.sam2.video import (
+    encode_video_frames,
+    masks_to_video_res,
+    propagate_video,
+    propagate_videos_batched,
+)
 from .models.ufvideo import UFVideoModel
 from .splicing import plan_splice
 from .tokenization import SpecialIds, byte_tokenizer_with_ids
 
-_QUANT_SEG_ITEM = "ROADMAP.md queue 2 item 1 (W8A8 Hiera blocks: quantised [SEG])"
 _BATCHED_ITEM = "ROADMAP.md queue 1 item 2 (batched and streaming inference)"
 
 
@@ -217,19 +222,47 @@ class UFVideoRuntime:
         through Hiera + FPN, frame 0 conditioned on the embeddings, the rest
         propagated through the memory, low-res logits upsampled and
         thresholded at 0."""
-        if self.cfg.quant_vision:
-            raise NotImplementedError(
-                f"segmentation on a quant_vision runtime: {_QUANT_SEG_ITEM}")
-        images = torch.as_tensor(np.ascontiguousarray(images_sam), device=self.device)
+        sam = self.model.sam
+        feats = encode_video_frames(sam, self._sam_images(images_sam))
+        low = propagate_video(sam, feats, seg_embeddings[:, None, :])
+        masks = masks_to_video_res(low, out_height, out_width)
+        return masks.permute(1, 0, 2, 3).cpu().numpy()
+
+    @torch.no_grad()
+    def segment_videos_batched(
+        self,
+        images_sam,  # [V, T, S, S, 3] SAM-preprocessed floats, or raw uint8 [V, T, H, W, 3]
+        seg_embeddings: torch.Tensor,  # [V, sam_out_dim], one object per video
+        out_height: int,
+        out_width: int,
+    ) -> np.ndarray:
+        """V independent videos of T frames each, one ``[SEG]`` object a
+        video → boolean masks [V, T, H, W]. All V · T frames are encoded in
+        chunks; the propagation walks the T frames once with the videos
+        riding the object-batch dimension."""
+        images = images_sam if torch.is_tensor(images_sam) else np.asarray(images_sam)
+        v, t = images.shape[:2]
+        sam = self.model.sam
+        feats = encode_video_frames(
+            sam, self._sam_images(images.reshape((v * t,) + tuple(images.shape[2:]))))
+        per_video = lambda a: a.reshape((v, t) + tuple(a.shape[1:]))
+        vfeats = feats._replace(
+            s0=per_video(feats.s0), s1=per_video(feats.s1), s2=per_video(feats.s2))
+        low = propagate_videos_batched(sam, vfeats, seg_embeddings[:, None, :])
+        masks = masks_to_video_res(low, out_height, out_width)  # [T, V, H, W]
+        return masks.permute(1, 0, 2, 3).cpu().numpy()
+
+    def _sam_images(self, images_sam) -> torch.Tensor:
+        """Frames for SAM2 on the device: raw uint8 frames are resized and
+        normalised there, floats are taken as preprocessed."""
+        if not torch.is_tensor(images_sam):
+            images_sam = np.ascontiguousarray(images_sam)
+        images = torch.as_tensor(images_sam, device=self.device)
         if images.dtype == torch.uint8:
             from .ops.image_pipeline import sam_preprocess_device
 
             images = sam_preprocess_device(images, out_dtype=self.cfg.compute_dtype)
-        sam = self.model.sam
-        feats = encode_video_frames(sam, images)
-        low = propagate_video(sam, feats, seg_embeddings[:, None, :])
-        masks = masks_to_video_res(low, out_height, out_width)
-        return masks.permute(1, 0, 2, 3).cpu().numpy()
+        return images
 
     def _seg_masks(self, seg_hidden: torch.Tensor, images_sam, label_size) -> list:
         """Hidden states behind ``[SEG]`` tokens → one [T, H, W] mask stack

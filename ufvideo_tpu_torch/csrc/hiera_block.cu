@@ -1,5 +1,5 @@
 // The pre-LN transformer blocks of SigLIP and Hiera as short sequences of
-// hand-written launches, with a plain C interface for ctypes. Five entry
+// hand-written launches, with a plain C interface for ctypes. Eight entry
 // points, each replacing one TPU kernel of ufvideo_tpu/ops/hiera_block.py:
 //
 //   hiera_block_bf16  fused_hiera_block (_forward / _kernel / _block_body):
@@ -17,7 +17,14 @@
 //                     queries on the window's unpooled keys -> the tail;
 //   block_w8a8_bf16   fused_block_w8a8 (_w8a8_kernel / _w8a8_body): the whole
 //                     block with int8 weights and per-row int8 activations
-//                     (see the W8A8 section below).
+//                     (see the W8A8 section below);
+//   ln_matmul_w8a8_bf16, block_tail_w8a8_bf16, qpool_block_w8a8_bf16
+//                     fused_ln_matmul_w8a8 (_ln_matmul_w8a8_kernel),
+//                     fused_block_tail_w8a8 (_tail_w8a8_kernel) and
+//                     fused_qpool_block_w8a8 (_qpool_w8a8_kernel): the three
+//                     above with int8 weights and per-row int8 activations,
+//                     the blocks of a quantised Hiera trunk that the whole
+//                     W8A8 block does not cover.
 //
 // Common math: f32 LayerNorm statistics, bf16 operands with f32
 // accumulation, f32 softmax, probabilities cast to bf16 before P.V, each
@@ -564,6 +571,39 @@ cudaError_t transpose_s8(const int8_t* w, int8_t* wt, int K, int N, int Kp, cuda
 const int8_t* s8(const void* p) { return static_cast<const int8_t*>(p); }
 int8_t* s8(void* p) { return static_cast<int8_t*>(p); }
 
+int pad32(int k) { return (k + 31) / 32 * 32; }
+
+// The shared tail of every W8A8 block: rows of A (bf16 attention output) to
+// int8 -> x1 = R + bf16(proj); LN2 (f32) -> int8 -> hmid = GELU(fc1) kept in
+// f32 -> rows to int8 -> out = x1 + bf16(fc2). A [rows, a_dim], R / x1 / out
+// [rows, C]. Scratch: wproj_t [C, pad32(a_dim)], w1_t [mlp, pad32(C)], w2_t
+// [C, pad32(mlp)], qa [rows, max(pad32(C), pad32(a_dim))], qh [rows,
+// pad32(mlp)] (int8); xs [rows] (f32); hmid [rows, mlp] (f32).
+cudaError_t tail_w8a8(const bf16* A, const bf16* R, const int8_t* wproj, const float* sproj,
+                      const float* bproj, const float* ln2_s, const float* ln2_b,
+                      const int8_t* w1, const float* s1, const float* b1, const int8_t* w2,
+                      const float* s2, const float* b2, int8_t* wproj_t, int8_t* w1_t,
+                      int8_t* w2_t, int8_t* qa, int8_t* qh, float* xs, bf16* x1, float* hmid,
+                      bf16* out, int rows, int C, int a_dim, int mlp, int act, float eps,
+                      cudaStream_t st) {
+  const int Kc = pad32(C), Ka = pad32(a_dim), Km = pad32(mlp);
+  cudaError_t e;
+  if ((e = transpose_s8(wproj, wproj_t, a_dim, C, Ka, st))) return e;
+  if ((e = transpose_s8(w1, w1_t, C, mlp, Kc, st))) return e;
+  if ((e = transpose_s8(w2, w2_t, mlp, C, Km, st))) return e;
+  if ((e = rowquant<bf16, false>(A, nullptr, nullptr, qa, xs, rows, a_dim, Ka, eps, st))) return e;
+  if ((e = gemm_s8<Q_RES>(qa, wproj_t, xs, sproj, bproj, R, x1, rows, C, Ka, st))) return e;
+  if ((e = rowquant<bf16, true>(x1, ln2_s, ln2_b, qa, xs, rows, C, Kc, eps, st))) return e;
+  if (act == ACT_GELU_TANH)
+    e = gemm_s8<Q_GELU_TANH_F32>(qa, w1_t, xs, s1, b1, nullptr, hmid, rows, mlp, Kc, st);
+  else
+    e = gemm_s8<Q_GELU_EXACT_F32>(qa, w1_t, xs, s1, b1, nullptr, hmid, rows, mlp, Kc, st);
+  if (e) return e;
+  if ((e = rowquant<float, false>(hmid, nullptr, nullptr, qh, xs, rows, mlp, Km, eps, st)))
+    return e;
+  return gemm_s8<Q_RES>(qh, w2_t, xs, s2, b2, x1, out, rows, C, Km, st);
+}
+
 }  // namespace
 
 extern "C" const char* ufv_error_string(int code) {
@@ -696,38 +736,111 @@ extern "C" int block_w8a8_bf16(
     return int(cudaErrorInvalidValue);
   if (!all_aligned16({x, out, wqkv_t, wproj_t, w1_t, w2_t, qa, qh, qkv, att, x1, hmid}))
     return int(cudaErrorMisalignedAddress);
-  auto pad32 = [](int k) { return (k + 31) / 32 * 32; };
-  const int Kc = pad32(C), Ka = pad32(hw), Km = pad32(mlp);
+  const int Kc = pad32(C);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* QKV = b16(qkv);
   float* XS = static_cast<float*>(xs);
 
   UFV_TRY(transpose_s8(s8(wqkv), s8(wqkv_t), C, 3 * hw, Kc, st));
-  UFV_TRY(transpose_s8(s8(wproj), s8(wproj_t), hw, C, Ka, st));
-  UFV_TRY(transpose_s8(s8(w1), s8(w1_t), C, mlp, Kc, st));
-  UFV_TRY(transpose_s8(s8(w2), s8(w2_t), mlp, C, Km, st));
-
   UFV_TRY((rowquant<bf16, true>(b16(x), f32(ln1_s), f32(ln1_b), s8(qa), XS, rows, C, Kc, eps,
                                 st)));
   UFV_TRY((gemm_s8<Q_BF16>(s8(qa), s8(wqkv_t), XS, f32(sqkv), f32(bqkv), nullptr, QKV, rows,
                            3 * hw, Kc, st)));
   UFV_TRY(window_attention(QKV, 3LL * hw, QKV + hw, QKV + 2 * hw, 3LL * hw, b16(att), N, S,
                            S, heads, head_dim, st));
-  UFV_TRY((rowquant<bf16, false>(b16(att), nullptr, nullptr, s8(qa), XS, rows, hw, Ka, eps,
-                                 st)));
-  UFV_TRY((gemm_s8<Q_RES>(s8(qa), s8(wproj_t), XS, f32(sproj), f32(bproj), b16(x), x1, rows, C,
-                          Ka, st)));
-  UFV_TRY((rowquant<bf16, true>(b16(x1), f32(ln2_s), f32(ln2_b), s8(qa), XS, rows, C, Kc, eps,
+  UFV_TRY(tail_w8a8(b16(att), b16(x), s8(wproj), f32(sproj), f32(bproj), f32(ln2_s),
+                    f32(ln2_b), s8(w1), f32(s1), f32(b1), s8(w2), f32(s2), f32(b2),
+                    s8(wproj_t), s8(w1_t), s8(w2_t), s8(qa), s8(qh), XS, b16(x1),
+                    static_cast<float*>(hmid), b16(out), rows, C, hw, mlp, act, eps, st));
+  return 0;
+}
+
+// out [rows, D] = bf16(float(q(LN(x)) . w) * xs[row] * ws[col] + b): the W8A8
+// front of a global block. x [rows, C] bf16, w [C, D] int8 with f32 column
+// scales ws. Scratch: w_t [D, pad32(C)], qa [rows, pad32(C)] (int8), xs
+// [rows] (f32).
+extern "C" int ln_matmul_w8a8_bf16(const void* x, const void* ln_s, const void* ln_b,
+                                   const void* w, const void* ws, const void* b, void* w_t,
+                                   void* qa, void* xs, void* out, int rows, int C, int D,
+                                   float eps, void* stream) {
+  if (rows <= 0 || C <= 0 || D % 2) return int(cudaErrorInvalidValue);
+  if (!all_aligned16({w_t, qa, out})) return int(cudaErrorMisalignedAddress);
+  const int Kc = pad32(C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* XS = static_cast<float*>(xs);
+  UFV_TRY(transpose_s8(s8(w), s8(w_t), C, D, Kc, st));
+  UFV_TRY((rowquant<bf16, true>(b16(x), f32(ln_s), f32(ln_b), s8(qa), XS, rows, C, Kc, eps,
                                 st)));
-  if (act == ACT_GELU_TANH)
-    UFV_TRY((gemm_s8<Q_GELU_TANH_F32>(s8(qa), s8(w1_t), XS, f32(s1), f32(b1), nullptr, hmid,
-                                      rows, mlp, Kc, st)));
-  else
-    UFV_TRY((gemm_s8<Q_GELU_EXACT_F32>(s8(qa), s8(w1_t), XS, f32(s1), f32(b1), nullptr, hmid,
-                                       rows, mlp, Kc, st)));
-  UFV_TRY((rowquant<float, false>(static_cast<const float*>(hmid), nullptr, nullptr, s8(qh), XS,
-                                  rows, mlp, Km, eps, st)));
-  UFV_TRY((gemm_s8<Q_RES>(s8(qh), s8(w2_t), XS, f32(s2), f32(b2), b16(x1), out, rows, C, Km,
-                          st)));
+  UFV_TRY((gemm_s8<Q_BF16>(s8(qa), s8(w_t), XS, f32(ws), f32(b), nullptr, out, rows, D, Kc,
+                           st)));
+  return 0;
+}
+
+// shortcut, out [rows, C]; att [rows, A] bf16; int8 wproj [A, C], w1 [C, mlp],
+// w2 [mlp, C] with f32 column scales. Scratch as tail_w8a8 lists it.
+extern "C" int block_tail_w8a8_bf16(
+    const void* shortcut, const void* att, void* out, const void* wproj, const void* sproj,
+    const void* bproj, const void* ln2_s, const void* ln2_b, const void* w1, const void* s1,
+    const void* b1, const void* w2, const void* s2, const void* b2, void* wproj_t, void* w1_t,
+    void* w2_t, void* qa, void* qh, void* xs, void* x1, void* hmid, int rows, int C, int A,
+    int mlp, int act, float eps, void* stream) {
+  if (rows <= 0 || C % 2 || A <= 0 || mlp % 2 || !act_ok(act))
+    return int(cudaErrorInvalidValue);
+  if (!all_aligned16({shortcut, out, wproj_t, w1_t, w2_t, qa, qh, x1, hmid}))
+    return int(cudaErrorMisalignedAddress);
+  UFV_TRY(tail_w8a8(b16(att), b16(shortcut), s8(wproj), f32(sproj), f32(bproj), f32(ln2_s),
+                    f32(ln2_b), s8(w1), f32(s1), f32(b1), s8(w2), f32(s2), f32(b2),
+                    s8(wproj_t), s8(w1_t), s8(w2_t), s8(qa), s8(qh), static_cast<float*>(xs),
+                    b16(x1), static_cast<float*>(hmid), b16(out), rows, C, A, mlp, act, eps,
+                    static_cast<cudaStream_t>(stream)));
+  return 0;
+}
+
+// The W8A8 stage-transition block. x [N, ws*ws, Cin] -> out [N, Sq, Cout], Sq
+// = (ws/sy) * (ws/sx). int8 wfront [Cin, 3*H*hd + Cout] = [q heads | k heads |
+// v heads | shortcut proj], wproj [H*hd, Cout], w1 [Cout, mlp], w2 [mlp,
+// Cout], each with f32 column scales. LN1 (f32) -> rows to int8 -> s8 x s8
+// front, rescaled to bf16 -> max-pool of q and of the shortcut columns from
+// that bf16 front -> bf16 attention of the Sq pooled queries on the window's
+// S unpooled keys -> the W8A8 tail on the N*Sq pooled rows. Scratch: wf_t
+// [3*H*hd + Cout, pad32(Cin)] and the tail's transposed weights; qa [N*S,
+// pad32(Cin)] or [N*Sq, max(pad32(Cout), pad32(H*hd))], whichever is larger;
+// qh [N*Sq, pad32(mlp)] (int8); xs [N*S] (f32); front [N*S, 3*H*hd + Cout],
+// qp, att [N*Sq, H*hd], sc, x1 [N*Sq, Cout] (bf16); hmid [N*Sq, mlp] (f32).
+extern "C" int qpool_block_w8a8_bf16(
+    const void* x, void* out, const void* ln1_s, const void* ln1_b, const void* wfront,
+    const void* sfront, const void* bfront, const void* wproj, const void* sproj,
+    const void* bproj, const void* ln2_s, const void* ln2_b, const void* w1, const void* s1,
+    const void* b1, const void* w2, const void* s2, const void* b2, void* wf_t, void* wproj_t,
+    void* w1_t, void* w2_t, void* qa, void* qh, void* xs, void* front, void* qp, void* sc,
+    void* att, void* x1, void* hmid, int N, int ws, int sy, int sx, int Cin, int Cout,
+    int heads, int head_dim, int mlp, int act, float eps, void* stream) {
+  if (N <= 0 || ws <= 0 || sy <= 0 || sx <= 0 || ws % sy || ws % sx || Cin <= 0 || Cout % 8 ||
+      head_dim % 8 || mlp % 2 || head_dim > 128 || !act_ok(act))
+    return int(cudaErrorInvalidValue);
+  if (!all_aligned16({out, wf_t, wproj_t, w1_t, w2_t, qa, qh, front, qp, sc, att, x1, hmid}))
+    return int(cudaErrorMisalignedAddress);
+  const int S = ws * ws, Sq = (ws / sy) * (ws / sx);
+  const int rows = N * S, qrows = N * Sq;
+  const int hw = heads * head_dim;
+  const int F = 3 * hw + Cout;
+  const int Kin = pad32(Cin);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* FR = b16(front);
+  float* XS = static_cast<float*>(xs);
+
+  UFV_TRY(transpose_s8(s8(wfront), s8(wf_t), Cin, F, Kin, st));
+  UFV_TRY((rowquant<bf16, true>(b16(x), f32(ln1_s), f32(ln1_b), s8(qa), XS, rows, Cin, Kin,
+                                eps, st)));
+  UFV_TRY((gemm_s8<Q_BF16>(s8(qa), s8(wf_t), XS, f32(sfront), f32(bfront), nullptr, FR, rows, F,
+                           Kin, st)));
+  UFV_TRY(pool(FR, b16(qp), qrows, ws, sy, sx, F, 0, hw, st));
+  UFV_TRY(pool(FR, b16(sc), qrows, ws, sy, sx, F, 3 * hw, Cout, st));
+  UFV_TRY(window_attention(b16(qp), hw, FR + hw, FR + 2 * hw, F, b16(att), N, Sq, S, heads,
+                           head_dim, st));
+  UFV_TRY(tail_w8a8(b16(att), b16(sc), s8(wproj), f32(sproj), f32(bproj), f32(ln2_s),
+                    f32(ln2_b), s8(w1), f32(s1), f32(b1), s8(w2), f32(s2), f32(b2),
+                    s8(wproj_t), s8(w1_t), s8(w2_t), s8(qa), s8(qh), XS, b16(x1),
+                    static_cast<float*>(hmid), b16(out), qrows, Cout, hw, mlp, act, eps, st));
   return 0;
 }

@@ -50,7 +50,9 @@ def reset_tree_(root: torch.nn.Module, gen: torch.Generator) -> None:
     convolution kernels lecun_normal with zero bias (a transposed
     convolution's fan-in is kh·kw·in, as flax counts it), norms unit scale
     and zero bias; a module's own bare parameters come from its
-    ``reset_own_parameters``."""
+    ``reset_own_parameters``. A W8A8 holder (``kernel_q``) draws the float
+    layer's kernel in the working type, quantises it where it lies and lets
+    the float copy go."""
     nn = torch.nn
     for m in root.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
@@ -59,6 +61,9 @@ def reset_tree_(root: torch.nn.Module, gen: torch.Generator) -> None:
             lecun_normal_(m.weight, m.weight.numel() // m.weight.shape[1], gen)
         elif isinstance(getattr(m, "kernel", None), nn.Parameter):  # [in, out] holder
             lecun_normal_(m.kernel, m.kernel.shape[0], gen)
+        elif isinstance(getattr(m, "kernel_q", None), nn.Parameter):  # W8A8 [in, out] holder
+            w = torch.empty(m.kernel_q.shape, dtype=m.bias.dtype, device=m.kernel_q.device)
+            m.set_kernel(lecun_normal_(w, w.shape[0], gen))
         elif isinstance(getattr(m, "scale", None), nn.Parameter):
             m.scale.fill_(1.0)
         elif isinstance(getattr(m, "weight", None), nn.Parameter) and m.weight.dim() == 1:

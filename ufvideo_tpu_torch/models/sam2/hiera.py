@@ -15,6 +15,15 @@ chosen when the block is built:
 - ``split``: a global block (or a q-pooling block that keeps its width) →
   ``fused_ln_matmul`` → attention (the flash kernel) → ``fused_block_tail``.
 
+With ``quant=True`` (the JAX ``Hiera(quant=True)``) every block's dense
+layers are W8A8: int8 kernels with per-column f32 scales (``kernel_q`` /
+``kernel_scale`` / ``bias``, the tree of the JAX ``W8A8Dense``), rows
+quantised before each product. The routes are the same three and call the
+``_w8a8`` kernels: ``fused_block_w8a8``, ``fused_qpool_block_w8a8``,
+``fused_ln_matmul_w8a8`` → attention (bf16, unchanged) →
+``fused_block_tail_w8a8``. Patch embedding, position embeddings and norms
+stay float.
+
 The GELU is the exact (erf) one. The JAX package picks its GELU variant,
 the fused q-pool routing and a multi-block stage fusion from environment
 variables at trace time; this package reads no environment variable and
@@ -36,10 +45,17 @@ from ...configs import SAM2Config, SAM2HieraConfig
 from ...ops import hiera_block as hb
 from ...ops.attention import attention, window_dense_attention
 from ...ops.interp import bicubic_matrix
+from ...quant import quantize_kernel
 from .common import ConvNHWC, position_embedding_sine
 
 _ACT = "gelu_exact"
 _EPS = 1e-6
+# the wrapper of each part of a block in ``ops.hiera_block``; its plain
+# version carries the suffix ``_plain``
+_KERNELS = {"block": "fused_hiera_block", "qpool": "fused_qpool_block",
+            "front": "fused_ln_matmul", "tail": "fused_block_tail"}
+_W8A8_KERNELS = {"block": "fused_block_w8a8", "qpool": "fused_qpool_block_w8a8",
+                 "front": "fused_ln_matmul_w8a8", "tail": "fused_block_tail_w8a8"}
 
 
 def to_windows(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -68,6 +84,25 @@ class DenseParams(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_dim, dtype=dtype))
 
 
+class QuantDenseParams(nn.Module):
+    """A W8A8 dense layer's parameters: int8 ``kernel_q`` [in, out], f32
+    ``kernel_scale`` [out], ``bias`` in the working type."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype):
+        super().__init__()
+        frozen = lambda shape, dt: nn.Parameter(torch.empty(shape, dtype=dt), requires_grad=False)
+        self.kernel_q = frozen((in_dim, out_dim), torch.int8)
+        self.kernel_scale = frozen((out_dim,), torch.float32)
+        self.bias = nn.Parameter(torch.empty(out_dim, dtype=dtype))
+
+    @torch.no_grad()
+    def set_kernel(self, kernel: torch.Tensor) -> None:
+        """Quantise a float [in, out] kernel into this layer."""
+        qd = quantize_kernel(kernel)
+        self.kernel_q.copy_(qd["q"])
+        self.kernel_scale.copy_(qd["scale"])
+
+
 class LayerNormParams(nn.Module):
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
@@ -76,10 +111,12 @@ class LayerNormParams(nn.Module):
 
 
 class AttnPairParams(nn.Module):
-    def __init__(self, dim: int, qkv_out: int, proj_in: int, proj_out: int, dtype):
+    def __init__(self, dim: int, qkv_out: int, proj_in: int, proj_out: int, dtype,
+                 quant: bool = False):
         super().__init__()
-        self.qkv = DenseParams(dim, qkv_out, dtype)
-        self.proj = DenseParams(proj_in, proj_out, dtype)
+        dense = QuantDenseParams if quant else DenseParams
+        self.qkv = dense(dim, qkv_out, dtype)
+        self.proj = dense(proj_in, proj_out, dtype)
 
 
 class MultiScaleBlock(nn.Module):
@@ -87,9 +124,11 @@ class MultiScaleBlock(nn.Module):
     (+ q-pool) → residual → MLP."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, mlp_ratio: float,
-                 q_stride: Optional[Tuple[int, int]], window_side: int, dtype: torch.dtype):
+                 q_stride: Optional[Tuple[int, int]], window_side: int, dtype: torch.dtype,
+                 quant: bool = False):
         super().__init__()
         self.dim, self.dim_out, self.num_heads = dim, dim_out, num_heads
+        self.quant = quant
         self.q_stride = tuple(q_stride) if q_stride is not None else None
         self.window_side = window_side  # 0 = global
         self.dtype = dtype
@@ -108,36 +147,43 @@ class MultiScaleBlock(nn.Module):
                 "the unfused MultiScaleAttention path (ROADMAP.md queue 2, "
                 "fused_window_attention)"
             )
+        dense = QuantDenseParams if quant else DenseParams
         self.norm1 = LayerNormParams(dim, dtype)
-        self.attn = AttnPairParams(dim, 3 * hw, hw, dim_out, dtype)
+        self.attn = AttnPairParams(dim, 3 * hw, hw, dim_out, dtype, quant)
         self.norm2 = LayerNormParams(dim_out, dtype)
-        self.mlp_layers_0 = DenseParams(dim_out, hidden, dtype)
-        self.mlp_layers_1 = DenseParams(hidden, dim_out, dtype)
+        self.mlp_layers_0 = dense(dim_out, hidden, dtype)
+        self.mlp_layers_1 = dense(hidden, dim_out, dtype)
         if dim != dim_out:
-            self.proj = DenseParams(dim, dim_out, dtype)
+            self.proj = dense(dim, dim_out, dtype)
         self.use_kernels = True
         self._prepared_key, self._prepared = None, None
 
     def _kernel_params(self) -> tuple:
-        """(ln1_s, ln1_b, wfront, bfront, wproj, bproj, ln2_s, ln2_b, w1, b1,
-        w2, b2) as the kernels take them: LayerNorm and bias vectors in f32,
-        and the width-changing shortcut projection (it reads the same LN1
-        output) folded into the qkv weights as further output columns. Built
-        once for a set of weights, and again after a parameter was written
-        or moved."""
+        """The block's parameters as the kernels take them, built once for a
+        set of weights, and again after a parameter was written or moved.
+        LayerNorm, scale and bias vectors are f32, and the width-changing
+        shortcut projection (it reads the same LN1 output) is folded into
+        the qkv weights as further output columns. Float: (ln1_s, ln1_b,
+        wfront, bfront, wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2).
+        Quantised: each weight is followed by its column scales, (ln1_s,
+        ln1_b, wfront_q, sfront, bfront, wproj_q, sproj, bproj, ln2_s, ln2_b,
+        w1_q, s1, b1, w2_q, s2, b2); the scales are per output column, so
+        int8 columns, scales and biases concatenate exactly."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if key != self._prepared_key:
             f32 = lambda t: t.detach().float().contiguous()
-            w, b = self.attn.qkv.kernel, self.attn.qkv.bias
+            if self.quant:
+                dense = lambda d: (d.kernel_q.detach(), f32(d.kernel_scale), f32(d.bias))
+            else:
+                dense = lambda d: (d.kernel.detach(), f32(d.bias))
+            front = dense(self.attn.qkv)
             if self.dim != self.dim_out:
-                w = torch.cat([w, self.proj.kernel], dim=1)
-                b = torch.cat([b, self.proj.bias])
+                front = tuple(
+                    torch.cat([a, b], dim=-1) for a, b in zip(front, dense(self.proj)))
             self._prepared = (
-                f32(self.norm1.scale), f32(self.norm1.bias), w.detach(), f32(b),
-                self.attn.proj.kernel.detach(), f32(self.attn.proj.bias),
+                f32(self.norm1.scale), f32(self.norm1.bias), *front, *dense(self.attn.proj),
                 f32(self.norm2.scale), f32(self.norm2.bias),
-                self.mlp_layers_0.kernel.detach(), f32(self.mlp_layers_0.bias),
-                self.mlp_layers_1.kernel.detach(), f32(self.mlp_layers_1.bias),
+                *dense(self.mlp_layers_0), *dense(self.mlp_layers_1),
             )
             self._prepared_key = key
         return self._prepared
@@ -150,15 +196,18 @@ class MultiScaleBlock(nn.Module):
         params = self._kernel_params()
         if self.route != "split" and x.shape[1] != self.window_side ** 2:
             raise ValueError(f"{x.shape[1]} tokens a window, built for {self.window_side ** 2}")
+        names = _W8A8_KERNELS if self.quant else _KERNELS
+        pick = lambda part: getattr(hb, names[part] + ("" if k else "_plain"))
+        n_front = 5 if self.quant else 4  # (ln1_s, ln1_b, wfront, [sfront,] bfront)
         if self.route == "block":
-            fn = hb.fused_hiera_block if k else hb.fused_hiera_block_plain
+            fn = pick("block")
             return fn(x, params, heads, hd, act=_ACT, eps=_EPS)
         if self.route == "qpool":
-            fn = hb.fused_qpool_block if k else hb.fused_qpool_block_plain
+            fn = pick("qpool")
             return fn(x, params, heads, hd, self.q_stride, act=_ACT, eps=_EPS)
 
-        ln_matmul = hb.fused_ln_matmul if k else hb.fused_ln_matmul_plain
-        front = ln_matmul(x, *params[:4], eps=_EPS)
+        ln_matmul = pick("front")
+        front = ln_matmul(x, *params[:n_front], eps=_EPS)
         n, s, _ = front.shape
         shortcut = x if self.dim == self.dim_out else front[..., 3 * hw:]
         parts = front[..., :3 * hw].reshape(n, s, 3, heads, hd)
@@ -171,8 +220,8 @@ class MultiScaleBlock(nn.Module):
             o = window_dense_attention(q, kk, v, scale=hd ** -0.5)
         else:  # global block
             o = attention(q, kk, v, scale=hd ** -0.5, use_kernel=k)
-        tail = hb.fused_block_tail if k else hb.fused_block_tail_plain
-        return tail(shortcut, o.reshape(n, -1, hw), params[4:], act=_ACT, eps=_EPS)
+        tail = pick("tail")
+        return tail(shortcut, o.reshape(n, -1, hw), params[n_front:], act=_ACT, eps=_EPS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,10 +232,11 @@ def _bicubic(src: int, dst: int) -> np.ndarray:
 class Hiera(nn.Module):
     """Multi-stage trunk returning per-stage NHWC feature maps."""
 
-    def __init__(self, cfg: SAM2HieraConfig, dtype: torch.dtype):
+    def __init__(self, cfg: SAM2HieraConfig, dtype: torch.dtype, quant: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.quant = quant  # W8A8 blocks
         self.patch_embed = ConvNHWC(
             3, cfg.embed_dim, cfg.patch_kernel, stride=cfg.patch_stride,
             padding=cfg.patch_padding, dtype=dtype,
@@ -221,7 +271,7 @@ class Hiera(nn.Module):
                 side = 1
             blocks.append(MultiScaleBlock(
                 embed_dim, dim_out, num_heads, cfg.mlp_ratio, pool,
-                side if window_size > 0 else 0, dtype,
+                side if window_size > 0 else 0, dtype, quant,
             ))
             if pool is not None:
                 if side % pool[0] or side % pool[1] or grid % pool[0]:

@@ -43,12 +43,16 @@ def _upsample(masks: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class SAM2(nn.Module):
-    def __init__(self, cfg: SAM2Config, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg: SAM2Config, dtype: torch.dtype = torch.bfloat16,
+                 quant: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.quant = quant
         c = cfg.sam_embed_dim
-        self.image_encoder_trunk = Hiera(cfg.hiera, dtype)
+        # quant: only the trunk's blocks are W8A8 (the encode hot path);
+        # patch embed, FPN, prompt / mask / memory heads stay float
+        self.image_encoder_trunk = Hiera(cfg.hiera, dtype, quant)
         self.image_encoder_neck = FpnNeck(cfg, dtype)
         self.sam_prompt_encoder = PromptEncoder(cfg, dtype)
         self.sam_mask_decoder = MaskDecoder(cfg, dtype)

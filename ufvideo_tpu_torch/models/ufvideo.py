@@ -3,8 +3,8 @@ encoder + Qwen2 LM + the ``[SEG]`` text head + SAM2 (mirrors
 ``ufvideo_tpu/models/ufvideo.py`` ``encode_video`` / ``encode_regions`` /
 ``splice_embeds`` / ``seg_embeddings``; the JAX runtime keeps SAM2 beside
 the composite, here it is a member). ``cfg.quant_vision`` builds the SigLIP
-tower in W8A8, ``cfg.quant_llm`` the LM on weight-only int8 / int4; SAM2
-stays float (its W8A8 trunk is a later slice, ROADMAP.md)."""
+tower and SAM2's Hiera trunk in W8A8, ``cfg.quant_llm`` the LM on
+weight-only int8 / int4."""
 
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ class UFVideoModel(nn.Module):
         self.region = RegionProjector(cfg.region, dtype=dt)
         self.llm = Qwen2LM(cfg.llm, dtype=dt, quant=cfg.quant_llm)
         self.text_fcs = TextHiddenFC(cfg.llm.hidden_size, cfg.sam_out_dim, dt)
-        self.sam = SAM2(cfg.sam, dtype=dt)
+        self.sam = SAM2(cfg.sam, dtype=dt, quant=bool(cfg.quant_vision))
 
     @classmethod
     def empty(cls, cfg: UFVideoConfig, device) -> "UFVideoModel":

@@ -19,16 +19,25 @@ Each wrapper replaces one TPU kernel of ``ufvideo_tpu/ops/hiera_block.py``:
 - ``fused_block_w8a8`` (``_w8a8_kernel`` / ``_w8a8_body``): the whole block
   with int8 weights (per-column f32 scales) and activations quantised per row
   before each product, so the four products run s8 × s8 → s32; the attention
-  stays bf16. The quantised SigLIP tower runs it.
+  stays bf16. The quantised SigLIP tower runs it, and the quantised Hiera
+  trunk at its four windowed shapes with ``gelu_exact``.
+- ``fused_ln_matmul_w8a8`` (``_ln_matmul_w8a8_kernel``),
+  ``fused_block_tail_w8a8`` (``_tail_w8a8_kernel``) and
+  ``fused_qpool_block_w8a8`` (``_qpool_w8a8_kernel``): the front and the tail
+  of a global block and the whole stage-transition block with int8 weights
+  and rows quantised before each product. In the q-pool block the shortcut
+  and q are pooled from the bf16 front, after its rescale, and the rows that
+  enter the projection are the pooled ones.
 
 The CUDA source is ``csrc/hiera_block.cu`` (LayerNorm, a tiled bf16 GEMM
 with fused bias / GELU / residual epilogue, the pooling pass, and the
 attention of ``csrc/attention_tile.cuh``); its header comment gives the
 bound on an H100 (tensor-core operations) and the design. The math is that
 of the JAX ``_reference`` / ``_ln_matmul_reference`` / ``_tail_reference`` /
-``_qpool_reference`` / ``w8a8_reference``; the TPU kernels' 128-lane head padding, window
-grouping with a block-diagonal score mask and bf16 ``exp2`` softmax are not
-carried over.
+``_qpool_reference`` / ``w8a8_reference`` / ``_ln_matmul_w8a8_reference`` /
+``_tail_w8a8_reference`` / ``_qpool_w8a8_reference``; the TPU kernels'
+128-lane head padding, window grouping with a block-diagonal score mask and
+bf16 ``exp2`` softmax are not carried over.
 
 Weights are in [in, out] layout, qkv columns ordered [q heads | k heads |
 v heads]. ``fused_hiera_block`` takes ``params`` = (ln1_s, ln1_b, wqkv
@@ -70,8 +79,12 @@ def _lib() -> ctypes.CDLL:
     lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 5 + [f, p]
     lib.qpool_block_bf16.argtypes = [p] * 22 + [i] * 10 + [f, p]
     lib.block_w8a8_bf16.argtypes = [p] * 29 + [i] * 7 + [f, p]
+    lib.ln_matmul_w8a8_bf16.argtypes = [p] * 10 + [i] * 3 + [f, p]
+    lib.block_tail_w8a8_bf16.argtypes = [p] * 22 + [i] * 5 + [f, p]
+    lib.qpool_block_w8a8_bf16.argtypes = [p] * 31 + [i] * 10 + [f, p]
     for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.block_tail_bf16,
-               lib.qpool_block_bf16, lib.block_w8a8_bf16):
+               lib.qpool_block_bf16, lib.block_w8a8_bf16, lib.ln_matmul_w8a8_bf16,
+               lib.block_tail_w8a8_bf16, lib.qpool_block_w8a8_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -395,6 +408,19 @@ def _qdot(x32: torch.Tensor, w: torch.Tensor, ws: torch.Tensor, b: torch.Tensor)
     return acc * xs * ws.float()[None, :] + b.float()[None, :]
 
 
+def _tail_w8a8(shortcut, att32, params, act, eps):
+    """proj + residual → LN2 → MLP + residual with the rows quantised from the
+    f32 attention output, the f32 LN2 output and the f32 GELU output."""
+    wproj, sproj, bproj, ln2_s, ln2_b, w1, s1, b1, w2, s2, b2 = params
+    n, s, c = shortcut.shape
+    dtype = shortcut.dtype
+    rows = lambda t: t.reshape(n * s, t.shape[-1])
+    x1 = shortcut + _qdot(rows(att32), wproj, sproj, bproj).reshape(n, s, c).to(dtype)
+    xm = _layernorm(x1.float(), ln2_s, ln2_b, eps)
+    h = _ACTS[act](_qdot(rows(xm), w1, s1, b1))
+    return x1 + _qdot(h, w2, s2, b2).reshape(n, s, c).to(dtype)
+
+
 def fused_block_w8a8_plain(
     x: torch.Tensor,  # [N, S, C]
     params: tuple,
@@ -419,11 +445,30 @@ def fused_block_w8a8_plain(
     )
     logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) * head_dim ** -0.5
     probs = torch.softmax(logits, dim=-1)
-    o = torch.einsum("nhqk,nkhd->nqhd", probs.to(dtype).float(), vh).reshape(n * s, hw)
-    x1 = x + _qdot(o, wproj, sproj, bproj).reshape(n, s, c).to(dtype)
-    xm = _layernorm(x1.float(), ln2_s, ln2_b, eps)
-    h = _ACTS[act](_qdot(xm.reshape(n * s, c), w1, s1, b1))
-    return x1 + _qdot(h, w2, s2, b2).reshape(n, s, c).to(dtype)
+    o = torch.einsum("nhqk,nkhd->nqhd", probs.to(dtype).float(), vh).reshape(n, s, hw)
+    return _tail_w8a8(x, o, params[5:], act, eps)
+
+
+def _check_w8a8(name: str, x: torch.Tensor, acts, weights) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not all(t.dtype == torch.bfloat16 for t in (x, *acts)) or not all(
+            t.dtype == torch.int8 for t in weights):
+        raise TypeError(f"{name} kernel takes bf16 activations and int8 weights")
+
+
+def _pad32(k: int) -> int:
+    return -(-k // 32) * 32
+
+
+def _tail_w8a8_scratch(rows: int, c: int, a: int, mlp: int, dev, qa_bytes: int = 0):
+    """The int8 scratch of the CUDA W8A8 tail, in the order the entry points
+    take it: wproj_t, w1_t, w2_t, qa, qh; ``qa_bytes`` is what a caller's own
+    use of ``qa`` needs."""
+    kc, ka, km = _pad32(c), _pad32(a), _pad32(mlp)
+    i8 = lambda *shape: torch.empty(shape, dtype=torch.int8, device=dev)
+    return (i8(c, ka), i8(mlp, kc), i8(c, km), i8(max(rows * max(kc, ka), qa_bytes)),
+            i8(rows, km))
 
 
 def fused_block_w8a8(
@@ -445,10 +490,7 @@ def fused_block_w8a8(
         return fused_block_w8a8_plain(x, params, num_heads, head_dim, act, eps)
     (ln1_s, ln1_b, wqkv, sqkv, bqkv, wproj, sproj, bproj, ln2_s, ln2_b,
      w1, s1, b1, w2, s2, b2) = params
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_block_w8a8: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16 or not all(t.dtype == torch.int8 for t in (wqkv, wproj, w1, w2)):
-        raise TypeError("fused_block_w8a8 kernel takes bf16 activations and int8 weights")
+    _check_w8a8("fused_block_w8a8", x, (), (wqkv, wproj, w1, w2))
     n, s, c = x.shape
     hw = num_heads * head_dim
     mlp = w1.shape[1]
@@ -461,17 +503,14 @@ def fused_block_w8a8(
         raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
     x, wqkv, wproj, w1, w2 = (t.contiguous() for t in (x, wqkv, wproj, w1, w2))
     vecs = _f32(ln1_s, ln1_b, sqkv, bqkv, sproj, bproj, ln2_s, ln2_b, s1, b1, s2, b2)
-    rows = n * s
-    pad32 = lambda k: -(-k // 32) * 32
-    kc, ka, km = pad32(c), pad32(hw), pad32(mlp)
+    rows, kc = n * s, _pad32(c)
     empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=x.device)
-    i8, bf = torch.int8, x.dtype
+    bf = x.dtype
     out = empty((n, s, c), bf)
     scratch = (
-        empty((3 * hw, kc), i8), empty((c, ka), i8), empty((mlp, kc), i8), empty((c, km), i8),
-        empty((rows, max(kc, ka)), i8), empty((rows, km), i8), empty((rows,), torch.float32),
-        empty((rows, 3 * hw), bf), empty((rows, hw), bf), empty((rows, c), bf),
-        empty((rows, mlp), torch.float32),
+        empty((3 * hw, kc), torch.int8), *_tail_w8a8_scratch(rows, c, hw, mlp, x.device),
+        empty((rows,), torch.float32), empty((rows, 3 * hw), bf), empty((rows, hw), bf),
+        empty((rows, c), bf), empty((rows, mlp), torch.float32),
     )
     lib = _lib()
     code = lib.block_w8a8_bf16(
@@ -486,3 +525,206 @@ def fused_block_w8a8(
 
 
 fused_block_w8a8.launches = 0
+
+
+def fused_ln_matmul_w8a8_plain(x, ln_s, ln_b, w, s, b, eps: float = 1e-6) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX
+    ``_ln_matmul_w8a8_reference``): rows quantised from the f32 LN output."""
+    n, sl, c = x.shape
+    xn = _layernorm(x.float(), ln_s, ln_b, eps)
+    return _qdot(xn.reshape(n * sl, c), w, s, b).reshape(n, sl, -1).to(x.dtype)
+
+
+def fused_ln_matmul_w8a8(
+    x: torch.Tensor,  # [N, S, C]
+    ln_s: torch.Tensor,
+    ln_b: torch.Tensor,
+    w: torch.Tensor,  # int8 [C, D]
+    s: torch.Tensor,  # f32 [D] column scales
+    b: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """LayerNorm → rows to int8 → s8 × s8 → ``acc · xs · ws + b`` → [N, S, D].
+    CPU tensors take the plain version; CUDA tensors launch the kernels (bf16
+    activations, int8 weights; D even)."""
+    if x.device.type == "cpu":
+        return fused_ln_matmul_w8a8_plain(x, ln_s, ln_b, w, s, b, eps)
+    _check_w8a8("fused_ln_matmul_w8a8", x, (), (w,))
+    n, sl, c = x.shape
+    d = w.shape[1]
+    if w.shape[0] != c or d % 2:
+        raise ValueError(f"unsupported shapes x {tuple(x.shape)} w {tuple(w.shape)}")
+    x, w = x.contiguous(), w.contiguous()
+    vecs = _f32(ln_s, ln_b, s, b)
+    rows, kc = n * sl, _pad32(c)
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=x.device)
+    out = empty((n, sl, d), x.dtype)
+    scratch = (empty((d, kc), torch.int8), empty((rows, kc), torch.int8),
+               empty((rows,), torch.float32))
+    lib = _lib()
+    code = lib.ln_matmul_w8a8_bf16(
+        *_ptrs(x, vecs[0], vecs[1], w, vecs[2], vecs[3], *scratch, out), rows, c, d,
+        float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "fused_ln_matmul_w8a8")
+    fused_ln_matmul_w8a8.launches += 1
+    return out
+
+
+fused_ln_matmul_w8a8.launches = 0
+
+
+def fused_block_tail_w8a8_plain(
+    shortcut: torch.Tensor, att: torch.Tensor, params: tuple,
+    act: str = "gelu_exact", eps: float = 1e-6,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX ``_tail_w8a8_reference``)."""
+    return _tail_w8a8(shortcut, att.float(), params, act, eps)
+
+
+def fused_block_tail_w8a8(
+    shortcut: torch.Tensor,  # [N, S, C] residual input
+    att: torch.Tensor,  # [N, S, A] attention output before its projection
+    params: tuple,  # (wproj_q [A, C], sproj, bproj, ln2_s, ln2_b, w1_q [C, mlp], s1, b1,
+    #                 w2_q [mlp, C], s2, b2)
+    act: str = "gelu_exact",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Rows of ``att`` to int8 → proj + residual → LN2 → int8 → fc1 → GELU →
+    int8 → fc2 + residual → [N, S, C]. CPU tensors take the plain version;
+    CUDA tensors launch the kernels (bf16 activations, int8 weights, f32
+    scales; C and mlp even)."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    if shortcut.device.type == "cpu":
+        return fused_block_tail_w8a8_plain(shortcut, att, params, act, eps)
+    wproj, sproj, bproj, ln2_s, ln2_b, w1, s1, b1, w2, s2, b2 = params
+    _check_w8a8("fused_block_tail_w8a8", shortcut, (att,), (wproj, w1, w2))
+    n, s, c = shortcut.shape
+    a, mlp = att.shape[-1], w1.shape[1]
+    expect = ((n, s, a), (a, c), (c, mlp), (mlp, c))
+    if tuple(tuple(t.shape) for t in (att, wproj, w1, w2)) != expect:
+        raise ValueError(f"shapes do not match shortcut {tuple(shortcut.shape)}")
+    if c % 2 or mlp % 2:
+        raise ValueError(f"unsupported dims C={c} mlp={mlp}")
+    shortcut, att, wproj, w1, w2 = (t.contiguous() for t in (shortcut, att, wproj, w1, w2))
+    vecs = _f32(sproj, bproj, ln2_s, ln2_b, s1, b1, s2, b2)
+    rows, dev = n * s, shortcut.device
+    out = torch.empty_like(shortcut)
+    scratch = (
+        *_tail_w8a8_scratch(rows, c, a, mlp, dev),
+        torch.empty((rows,), dtype=torch.float32, device=dev),
+        torch.empty((rows, c), dtype=shortcut.dtype, device=dev),
+        torch.empty((rows, mlp), dtype=torch.float32, device=dev),
+    )
+    lib = _lib()
+    code = lib.block_tail_w8a8_bf16(
+        *_ptrs(shortcut, att, out, wproj, vecs[0], vecs[1], vecs[2], vecs[3], w1, vecs[4],
+               vecs[5], w2, vecs[6], vecs[7], *scratch),
+        rows, c, a, mlp, _ACT_CODES[act], float(eps),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, code, "fused_block_tail_w8a8")
+    fused_block_tail_w8a8.launches += 1
+    return out
+
+
+fused_block_tail_w8a8.launches = 0
+
+
+def fused_qpool_block_w8a8_plain(
+    x: torch.Tensor,  # [N, S, Cin] window-major tokens, S = ws²
+    params: tuple,
+    num_heads: int,
+    head_dim: int,
+    q_stride: tuple = (2, 2),
+    act: str = "gelu_exact",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX
+    ``_qpool_w8a8_reference``): q and the shortcut are pooled from the front
+    after its rescale and its rounding to the working type."""
+    (ln1_s, ln1_b, wf, sf, bf) = params[:5]
+    n, s, cin = x.shape
+    ws = _window_side(s)
+    sy, sx = q_stride
+    sq = (ws // sy) * (ws // sx)
+    hw = num_heads * head_dim
+    dtype = x.dtype
+    xn = _layernorm(x.float(), ln1_s, ln1_b, eps)
+    front = _qdot(xn.reshape(n * s, cin), wf, sf, bf).reshape(n, s, -1).to(dtype)
+    qp = pool_window_tokens(front[..., :hw], ws, q_stride)
+    qp = qp.reshape(n, sq, num_heads, head_dim).float()
+    sc = pool_window_tokens(front[..., 3 * hw:], ws, q_stride)
+    kh = front[..., hw:2 * hw].reshape(n, s, num_heads, head_dim).float()
+    vh = front[..., 2 * hw:3 * hw].reshape(n, s, num_heads, head_dim).float()
+    logits = torch.einsum("nqhd,nkhd->nhqk", qp, kh) * head_dim ** -0.5
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("nhqk,nkhd->nqhd", probs.to(dtype).float(), vh).reshape(n, sq, hw)
+    return _tail_w8a8(sc, o, params[5:], act, eps)
+
+
+def fused_qpool_block_w8a8(
+    x: torch.Tensor,  # [N, S, Cin]
+    params: tuple,  # (ln1_s, ln1_b, wfront_q [Cin, 3·H·hd + Cout] int8, sfront, bfront,
+    #                 wproj_q [H·hd, Cout], sproj, bproj, ln2_s, ln2_b, w1_q [Cout, mlp],
+    #                 s1, b1, w2_q [mlp, Cout], s2, b2)
+    num_heads: int,
+    head_dim: int,
+    q_stride: tuple = (2, 2),
+    act: str = "gelu_exact",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """One q-pooling stage-transition block in W8A8 → [N, S/(sy·sx), Cout].
+    CPU tensors take the plain version; CUDA tensors launch the kernels (bf16
+    activations, int8 weights, f32 scales; Cout and head dim multiples of 8,
+    head dim up to 128, mlp even)."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return fused_qpool_block_w8a8_plain(x, params, num_heads, head_dim, q_stride, act, eps)
+    (ln1_s, ln1_b, wf, sf, bf, wproj, sproj, bproj, ln2_s, ln2_b,
+     w1, s1, b1, w2, s2, b2) = params
+    _check_w8a8("fused_qpool_block_w8a8", x, (), (wf, wproj, w1, w2))
+    n, s, cin = x.shape
+    ws = _window_side(s)
+    sy, sx = q_stride
+    hw = num_heads * head_dim
+    cout, mlp = wproj.shape[1], w1.shape[1]
+    nf = 3 * hw + cout
+    expect = ((cin, nf), (hw, cout), (cout, mlp), (mlp, cout))
+    if tuple(tuple(t.shape) for t in (wf, wproj, w1, w2)) != expect:
+        raise ValueError(f"weight shapes do not match x {tuple(x.shape)}, {num_heads} heads")
+    if ws % sy or ws % sx or cout % 8 or head_dim % 8 or mlp % 2 or head_dim > 128:
+        raise ValueError(
+            f"unsupported dims window {ws} stride {q_stride} Cout={cout} "
+            f"head dim={head_dim} mlp={mlp}"
+        )
+    if n > 65535:
+        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
+    sq = (ws // sy) * (ws // sx)
+    x, wf, wproj, w1, w2 = (t.contiguous() for t in (x, wf, wproj, w1, w2))
+    vecs = _f32(ln1_s, ln1_b, sf, bf, sproj, bproj, ln2_s, ln2_b, s1, b1, s2, b2)
+    rows, qrows, kin, dev = n * s, n * sq, _pad32(cin), x.device
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+    i8, bf16 = torch.int8, x.dtype
+    out = empty((n, sq, cout), bf16)
+    scratch = (
+        empty((nf, kin), i8), *_tail_w8a8_scratch(qrows, cout, hw, mlp, dev, rows * kin),
+        empty((rows,), torch.float32), empty((rows, nf), bf16), empty((qrows, hw), bf16),
+        empty((qrows, cout), bf16), empty((qrows, hw), bf16), empty((qrows, cout), bf16),
+        empty((qrows, mlp), torch.float32),
+    )
+    lib = _lib()
+    code = lib.qpool_block_w8a8_bf16(
+        *_ptrs(x, out, vecs[0], vecs[1], wf, vecs[2], vecs[3], wproj, vecs[4], vecs[5],
+               vecs[6], vecs[7], w1, vecs[8], vecs[9], w2, vecs[10], vecs[11], *scratch),
+        n, ws, sy, sx, cin, cout, num_heads, head_dim, mlp, _ACT_CODES[act], float(eps),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, code, "fused_qpool_block_w8a8")
+    fused_qpool_block_w8a8.launches += 1
+    return out
+
+
+fused_qpool_block_w8a8.launches = 0

@@ -2,7 +2,7 @@
 
 Weight-only for the LLM (symmetric per-output-column int8, or packed int4
 with per-(input-group, column) scales), weight + activation (W8A8) for the
-SigLIP tower. Every function runs on the device its input lies on.
+SigLIP tower and SAM2's Hiera trunk. Every function runs on the device its input lies on.
 
 The three row quantisers of the JAX package differ on purpose and are kept
 apart here, each with the formula as written there:
@@ -119,3 +119,17 @@ def quantize_vision_params(params: Dict[str, Any]) -> Dict[str, Any]:
     dense kernel becomes ``kernel_q`` / ``kernel_scale``; patch embedding,
     position embedding and norms stay float."""
     return _quantize_dense_tree(params, quantize_kernel)
+
+
+def quantize_sam2_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """A SAM2 parameter tree → the layout ``SAM2(quant=True)`` takes: only
+    the dense kernels of the Hiera trunk's blocks become ``kernel_q`` /
+    ``kernel_scale``; patch embedding, FPN neck and the prompt, mask and
+    memory heads stay float."""
+    out = dict(params)
+    trunk = dict(params["image_encoder_trunk"])
+    for k, v in trunk.items():
+        if k.startswith("blocks_"):
+            trunk[k] = _quantize_dense_tree(v, quantize_kernel)
+    out["image_encoder_trunk"] = trunk
+    return out

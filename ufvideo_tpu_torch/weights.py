@@ -22,7 +22,10 @@ dicts of numpy arrays — so this module needs no JAX. Layout changes:
   A transposed convolution's kernel is also flipped in space: flax applies
   it unflipped, torch flips. The Hiera blocks' parameter holders
   (``kernel`` / ``scale`` attributes) keep the flax [in, out] layout, which
-  is the fused kernels' layout.
+  is the fused kernels' layout. A quantised SAM2 (``quant_vision``) takes
+  the tree of ``quant.quantize_sam2_params`` (either side): under
+  ``sam.image_encoder_trunk.blocks_*`` each dense layer carries ``kernel_q``
+  int8 [in, out] and ``kernel_scale`` f32 [out] in place of ``kernel``.
 """
 
 from __future__ import annotations
@@ -186,7 +189,8 @@ def _leaf(mod: torch.nn.Module, key: str, value, seen: Set[int]) -> None:
     seen.add(id(dst))
 
 
-def load_tree(mod: torch.nn.Module, tree: Dict[str, Any], seen: Set[int]) -> None:
+def load_tree(mod: torch.nn.Module, tree: Dict[str, Any], seen: Set[int],
+              path: str = "") -> None:
     """Copy a flax subtree into the module of the same shape, by name."""
     for name, sub in tree.items():
         if not isinstance(sub, dict):
@@ -195,13 +199,18 @@ def load_tree(mod: torch.nn.Module, tree: Dict[str, Any], seen: Set[int]) -> Non
             seen.add(id(dst))
             continue
         child = _child(mod, name)
+        here = f"{path}{name}"
         if all(not isinstance(v, dict) for v in sub.values()) and (
-            "kernel" in sub or "scale" in sub
+            "kernel" in sub or "scale" in sub or "kernel_q" in sub
         ):
+            if hasattr(child, "kernel_q") and "kernel_q" not in sub:
+                raise KeyError(
+                    f"a quantised SAM2 trunk needs a quantised tree: {here} has "
+                    "kernel, not kernel_q / kernel_scale")
             for key, value in sub.items():
                 _leaf(child, key, value, seen)
         else:
-            load_tree(child, sub, seen)
+            load_tree(child, sub, seen, here + ".")
 
 
 # flax creates a layer's parameters when it is first called, and the JAX
