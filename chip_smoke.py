@@ -53,6 +53,7 @@ calls), the card line, and the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import subprocess
@@ -668,11 +669,13 @@ def w8a8_params(dev, gen, c, mlp, cin=None, front_extra=0):
 
 def lib_qdot(x32, w, ws, b):
     """Library yardstick of one W8A8 product: elementwise row quantise,
-    ``torch._int_mm`` (contiguous operands, K and N multiples of 8), rescale."""
+    ``torch._int_mm`` (K and N multiples of 8; the weights handed over
+    K-contiguous, as its int8 kernels take them: row-major it runs at a fifth
+    of that rate), rescale."""
     from ufvideo_tpu_torch.ops.hiera_block import quant_rows_f32
 
     q, xs = quant_rows_f32(x32)
-    return torch._int_mm(q, w).float() * xs * ws + b.float()
+    return torch._int_mm(q, w.t().contiguous().t()).float() * xs * ws + b.float()
 
 
 def lib_w8a8_tail(shortcut, o, params, approximate):
@@ -877,6 +880,195 @@ def kernel_w8a8(dev, timer, gen):
         "ufvideo_tpu/ops/hiera_block.py:1340",
         tol_text(BLOCK_REL), shapes, shapes[0]["shape"])
 
+# ------------------------- packed attention, the stage, the int8-rate probe --
+
+# Hiera-L's windowed attention on 4 frames: (windows, tokens, heads) at the
+# four stages (head dim 72)
+WINDOW_SHAPES = ((4096, 64, 2), (4096, 16, 4), (64, 256, 8), (64, 64, 16))
+
+
+def _sdpa_packed(qkv, heads, hd):
+    """Library yardstick of packed attention: SDPA on head-split views."""
+    import torch.nn.functional as F
+
+    b, s, _ = qkv.shape
+    q, k, v = qkv.reshape(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    return F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, s, heads * hd)
+
+
+def _head_rows(name, got, want, heads, hd):
+    """check_close with one head's output as the row, at the block's limit:
+    the kernel rounds the unnormalised probabilities to bf16 and divides at
+    the end, the plain version rounds the normalised ones, and over 16-729
+    keys a probability is large enough for its bf16 step to show (1.6e-2 of
+    a row's RMS on an H100; the block's attention part alone needs 3.9e-2)."""
+    b, s, _ = want.shape
+    return check_close(name, got.reshape(b, s, heads, hd), want.reshape(b, s, heads, hd),
+                       row_rel=BLOCK_REL)
+
+
+def kernel_packed_mha(dev, timer, gen):
+    """mha_full_attention_packed at the unfused SigLIP layer's shape: 32
+    frames x 729 tokens, 16 heads x 72, packed [q | k | v]."""
+    from ufvideo_tpu_torch.ops.vit_attention import (
+        mha_full_attention_packed, mha_full_attention_packed_plain)
+
+    b, s, heads, hd = 32, 729, 16, 72
+    qkv = torch.randn(b, s, 3 * heads * hd, generator=gen, device=dev).to(torch.bfloat16)
+    e = bench(
+        timer, f"mha_full_attention_packed [qkv [{b},{s},{3 * heads * hd}] {heads} heads x {hd}]",
+        lambda: mha_full_attention_packed(qkv, heads, hd),
+        lambda: mha_full_attention_packed_plain(qkv, heads, hd),
+        lambda: _sdpa_packed(qkv, heads, hd),
+        nbytes(qkv) + b * s * heads * hd * 2, 4 * b * heads * s * s * hd,
+        check=lambda n, g, w: _head_rows(n, g, w, heads, hd))
+    return dict(name="mha_full_attention_packed", route="cuda",
+                source="ufvideo_tpu_torch/csrc/packed_attention.cu",
+                replaces="ufvideo_tpu/ops/vit_attention.py:110", tol=tol_text(BLOCK_REL), **e)
+
+
+def kernel_window_attention(dev, timer, gen):
+    """fused_window_attention at Hiera-L's four windowed stages on 4 frames
+    (the MultiScaleAttention module's windowed branch)."""
+    from ufvideo_tpu_torch.ops.window_attention import (
+        fused_window_attention, fused_window_attention_plain)
+
+    shapes = []
+    for nw, s, heads in WINDOW_SHAPES:
+        hd = 72
+        qkv = torch.randn(nw, s, 3 * heads * hd, generator=gen, device=dev).to(torch.bfloat16)
+        shapes.append(bench(
+            timer, f"qkv [{nw},{s},{3 * heads * hd}] {heads} heads x {hd}",
+            lambda: fused_window_attention(qkv, heads, hd),
+            lambda: fused_window_attention_plain(qkv, heads, hd),
+            lambda: _sdpa_packed(qkv, heads, hd),
+            nbytes(qkv) + nw * s * heads * hd * 2, 4 * nw * heads * s * s * hd,
+            check=lambda n, g, w, h=heads: _head_rows(n, g, w, h, 72)))
+        del qkv
+    return _kernel_entry(
+        "fused_window_attention", "ufvideo_tpu_torch/csrc/packed_attention.cu",
+        "ufvideo_tpu/ops/window_attention.py:141", tol_text(BLOCK_REL), shapes,
+        shapes[0]["shape"])
+
+
+def stage_runs(cfg, routing, n_frames: int) -> collections.Counter:
+    """(blocks, windows, tokens, width, heads) of each ``fused_hiera_stage``
+    call that Hiera's forward makes under ``routing`` on ``n_frames`` frames
+    (one encode chunk), counted: the shapes phase 2 must hold the kernel at."""
+    trunk = _trunk(cfg, routing)
+    h = cfg.sam.hiera
+    grid = (h.image_size + 2 * h.patch_padding - h.patch_kernel) // h.patch_stride + 1
+    runs = collections.Counter()
+    for group in trunk.groups:
+        blk = trunk.blocks[group[0]]
+        if len(group) > 1:
+            ws = blk.window_side
+            runs[(len(group), n_frames * (grid // ws) ** 2, ws * ws, blk.dim_out,
+                  blk.num_heads)] += 1
+        if blk.q_stride is not None:
+            grid //= blk.q_stride[0]
+    return runs
+
+
+def kernel_stage(dev, timer, gen, cfg):
+    """fused_hiera_stage at every run that phase 7a's stage fusion
+    (``hiera_stage_nb=4``) makes in ``cfg``'s Hiera on the 4 SAM frames of a
+    [SEG] request, gelu_poly as phase 7a runs it. The kernel is the block's
+    launches carried through nb blocks, so it must equal nb calls of
+    fused_hiera_block bit for bit; against the plain fold it is held to the
+    block's limit (nb blocks read 3.6-3.8e-2 of a row's RMS on an H100).
+    Library yardstick: nb cuBLAS + SDPA blocks. The headline is the shape of
+    the most runs."""
+    from ufvideo_tpu_torch.configs import VisionRouting
+    from ufvideo_tpu_torch.ops.hiera_block import (
+        fused_hiera_block, fused_hiera_stage, fused_hiera_stage_plain)
+    import torch.nn.functional as F
+
+    runs = stage_runs(cfg, VisionRouting(**ROUTING_7A), 4)
+    if not runs:
+        fail("phase 7a's routing makes no stage run")
+    shapes, headline = [], None
+    for (nb, n, s, c, heads), count in runs.items():
+        hd, mlp = c // heads, int(c * cfg.sam.hiera.mlp_ratio)
+        plist = [block_params(dev, gen, c, mlp) for _ in range(nb)]
+        x = torch.randn(n, s, c, generator=gen, device=dev).to(torch.bfloat16)
+        seq = x
+        for p in plist:
+            seq = fused_hiera_block(seq, p, heads, hd, act="gelu_poly")
+        same = torch.equal(fused_hiera_stage(x, plist, heads, hd, act="gelu_poly"), seq)
+        log(f"  fused_hiera_stage [{nb} blocks x [{n},{s},{c}]]: equal to {nb} fused_hiera_block "
+            f"calls bit for bit: {same}")
+        if not same:
+            fail("fused_hiera_stage differs from its blocks' kernel")
+
+        def library():
+            y = x
+            for p in plist:
+                h = F.layer_norm(y, (c,), p[0], p[1], 1e-6)
+                qkv = torch.addmm(p[3], h.reshape(n * s, c), p[2]).reshape(n, s, 3, heads, hd)
+                o = F.scaled_dot_product_attention(*qkv.permute(2, 0, 3, 1, 4).unbind(0))
+                y = lib_tail(y, o.transpose(1, 2).reshape(n, s, c), p[4:], "tanh")
+            return y
+
+        rows = n * s
+        flops = nb * (2 * rows * (3 * c * c + c * c + 2 * c * mlp) + 4 * n * heads * s * s * hd)
+        label = (f"{nb} blocks x [{n},{s},{c}] {heads} heads x {hd}, MLP {mlp}, gelu_poly "
+                 f"({count} run{'s' if count > 1 else ''} a request)")
+        if headline is None or count > runs[headline[0]]:
+            headline = ((nb, n, s, c, heads), label)
+        shapes.append(bench(
+            timer, label,
+            lambda: fused_hiera_stage(x, plist, heads, hd, act="gelu_poly"),
+            lambda: fused_hiera_stage_plain(x, plist, heads, hd, act="gelu_poly"),
+            library, nbytes(x, x, *[t for p in plist for t in p]), flops,
+            row_rel=BLOCK_REL))
+        del plist, x, seq
+        torch.cuda.empty_cache()
+    return _kernel_entry(
+        "fused_hiera_stage", "ufvideo_tpu_torch/csrc/hiera_block.cu",
+        "ufvideo_tpu/ops/hiera_block.py:568",
+        "equal to nb fused_hiera_block calls; " + tol_text(BLOCK_REL), shapes, headline[1])
+
+
+def kernel_probe(dev, timer, gen):
+    """probe_step at the probe's shape (SigLIP fc1 rows of 64 frames):
+    int8, whose int32 sums must equal the plain version's exactly, and
+    bf16 -> f32, held to QREL in relative Frobenius norm (f32 sums of the
+    same products in another order). Library: torch._int_mm / torch.mm."""
+    from ufvideo_tpu_torch.probe_int8_rate import (
+        DIN, DOUT, ROWS, probe_inputs, probe_step, probe_step_plain)
+
+    x, wf, wq = probe_inputs(dev, int(torch.randint(1 << 30, (1,), generator=gen, device=dev)))
+    xq = torch.round(x.float()).clamp(-127, 127).to(torch.int8)
+    # cuBLASLt's int8 kernels take the weights K-contiguous; row-major it is
+    # 5x slower (timed beside, reported)
+    wq_cols = wq.t().contiguous().t()
+    log(f"  torch._int_mm on row-major int8 weights: {timer.ms(lambda: torch._int_mm(xq, wq)):.4f} "
+        f"ms; K-contiguous: {timer.ms(lambda: torch._int_mm(xq, wq_cols)):.4f} ms")
+
+    def exact(name, got, want):
+        same = torch.equal(got, want)
+        log(f"  {name}: int32 sums equal to the plain version's: {same}")
+        if not same:
+            fail(f"{name} disagrees with its plain version")
+        return 0.0
+
+    ops = 2 * ROWS * DIN * DOUT
+    shapes = [
+        bench(timer, f"int8: x [{ROWS},{DIN}] bf16 rounded in the prologue, w [{DIN},{DOUT}] int8",
+              lambda: probe_step(x, wq, True), lambda: probe_step_plain(x, wq, True),
+              lambda: torch._int_mm(xq, wq_cols), nbytes(x, wq) + ROWS * DOUT * 4, 0.0,
+              check=exact, int8_ops=ops),
+        bench(timer, f"bf16: x [{ROWS},{DIN}] w [{DIN},{DOUT}] bf16 -> f32",
+              lambda: probe_step(x, wf, False), lambda: probe_step_plain(x, wf, False),
+              lambda: torch.mm(x, wf), nbytes(x, wf) + ROWS * DOUT * 4, ops,
+              check=lambda n, g, w: check_close(n, g, w, row_rel=QREL, rtol=QREL, fro=QREL)),
+    ]
+    return _kernel_entry(
+        "probe_step", "ufvideo_tpu_torch/csrc/hiera_block.cu", "scripts/probe_int8_rate.py:99",
+        "int8: equal; bf16: " + tol_text(QREL, QREL, QREL), shapes, shapes[0]["shape"])
+
+
 # ------------------------------------------------------------------ path --
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1048,8 +1240,10 @@ def run_path(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), max_new_tokens=
 
 
 def all_wrappers():
+    from ufvideo_tpu_torch import probe_int8_rate
     from ufvideo_tpu_torch.ops import (
-        decode_attention, flash_attention, hiera_block, quant_matmul)
+        decode_attention, flash_attention, hiera_block, quant_matmul, vit_attention,
+        window_attention)
 
     return {
         "fused_hiera_block": hiera_block.fused_hiera_block,
@@ -1065,42 +1259,86 @@ def all_wrappers():
         "fused_qpool_block_w8a8": hiera_block.fused_qpool_block_w8a8,
         "fused_ln_matmul_w8a8": hiera_block.fused_ln_matmul_w8a8,
         "fused_block_tail_w8a8": hiera_block.fused_block_tail_w8a8,
+        "fused_hiera_stage": hiera_block.fused_hiera_stage,
+        "fused_window_attention": window_attention.fused_window_attention,
+        "mha_full_attention_packed": vit_attention.mha_full_attention_packed,
+        "probe_step": probe_int8_rate.probe_step,
     }
 
 
-def expected_sam_launches(cfg, n_frames: int, prompted: int, tracked: int,
-                          chunk: int = 8) -> dict:
-    """Kernel launches of SAM2 on ``n_frames`` encoded frames, from the
-    configuration: Hiera's blocks by routing for each encode chunk (their
-    W8A8 kernels on a ``quant_vision`` runtime); flash for the global blocks,
-    two attentions per memory-attention layer per tracked frame, and the mask
-    decoder's seven on every prompted and every tracked frame."""
+def _trunk(cfg, routing=None):
+    """Hiera as ``model_init`` builds it for ``cfg`` and ``routing``, on the
+    meta device (nothing allocated)."""
     from ufvideo_tpu_torch.models.sam2.hiera import Hiera
 
     with torch.device("meta"):
-        routes = [b.route for b in Hiera(cfg.sam.hiera, torch.bfloat16).blocks]
+        return Hiera(cfg.sam.hiera, torch.bfloat16, quant=bool(cfg.quant_vision),
+                     routing=routing)
+
+
+def expected_sam_launches(cfg, n_frames: int, prompted: int, tracked: int,
+                          chunk: int = 8, routing=None) -> dict:
+    """Kernel launches of SAM2 on ``n_frames`` encoded frames, from the
+    configuration and the routing: each call of Hiera's forward for each
+    encode chunk (a run of blocks: the stage kernel; a block: its route's
+    kernels, W8A8 on a ``quant_vision`` runtime; flash for a global block's
+    attention, the window kernel for a generic windowed block of at most
+    512 tokens); two attentions per memory-attention layer per tracked frame,
+    and the mask decoder's seven on every prompted and every tracked frame."""
+    trunk = _trunk(cfg, routing)
     chunks = -(-n_frames // chunk)
-    n = {r: routes.count(r) * chunks for r in ("block", "qpool", "split")}
     q = "_w8a8" if cfg.quant_vision else ""
     want = dict.fromkeys(all_wrappers(), 0)
-    want["fused_block_w8a8" if cfg.quant_vision else "fused_hiera_block"] = n["block"]
-    want["fused_qpool_block" + q] = n["qpool"]
-    want["fused_ln_matmul" + q] = n["split"]
-    want["fused_block_tail" + q] = n["split"]
-    want["flash_attention"] = (n["split"] + tracked * cfg.sam.mem_attn_layers * 2
-                               + (prompted + tracked) * 7)
+    flash = 0
+    for group, route in zip(trunk.groups, trunk.call_routes()):
+        blk = trunk.blocks[group[0]]
+        if route == "stage":
+            want["fused_hiera_stage"] += chunks
+        elif route == "block":
+            want["fused_block_w8a8" if cfg.quant_vision else "fused_hiera_block"] += chunks
+        elif route == "qpool":
+            want["fused_qpool_block" + q] += chunks
+        elif route == "split":
+            want["fused_ln_matmul" + q] += chunks
+            want["fused_block_tail" + q] += chunks
+        elif blk.q_stride is None and 0 < blk.window_side ** 2 <= 512:
+            want["fused_window_attention"] += chunks
+        flash += chunks if route in ("split", "generic") and blk.window_side == 0 else 0
+    want["flash_attention"] = flash + tracked * cfg.sam.mem_attn_layers * 2 + (
+        prompted + tracked) * 7
     return want
 
 
-def expected_seg_launches(cfg, n_sam_frames: int) -> dict:
+def expected_w8a8_products(cfg, n_sam_frames: int, routing=None, chunk: int = 8) -> int:
+    """``quant.w8a8_linear`` products of one path-B [SEG] request: the
+    unfused W8A8 SigLIP layer's four, and each generic W8A8 Hiera block's
+    four (five with a width-changing shortcut) for each encode chunk."""
+    from ufvideo_tpu_torch.configs import VisionRouting
+
+    routing = routing or VisionRouting()
+    if not cfg.quant_vision:
+        return 0
+    n = 0 if routing.siglip_int8_fused else 4 * cfg.vision.num_encode_layers
+    trunk = _trunk(cfg, routing)
+    generic = [b for b in trunk.blocks if b.route == "generic"]
+    return n + -(-n_sam_frames // chunk) * sum(4 + (b.dim != b.dim_out) for b in generic)
+
+
+def expected_seg_launches(cfg, n_sam_frames: int, routing=None) -> dict:
     """Kernel launches of one path-B [SEG] request: SAM2 on its frames (frame
     0 prompted, the rest tracked), the SigLIP tower's layers (the whole-block
-    kernel, W8A8 on a ``quant_vision`` runtime) and flash for the LLM's
-    layers. The LLM's forward has thousands of rows: its quantised products
-    dequantise and launch no matvec."""
-    want = expected_sam_launches(cfg, n_sam_frames, 1, n_sam_frames - 1)
-    want["fused_block_w8a8" if cfg.quant_vision else "fused_hiera_block"] += (
-        cfg.vision.num_encode_layers)
+    kernel, W8A8 on a ``quant_vision`` runtime, or the packed attention of
+    the unfused layer) and flash for the LLM's layers. The LLM's forward has
+    thousands of rows: its quantised products dequantise and launch no
+    matvec."""
+    from ufvideo_tpu_torch.configs import VisionRouting
+
+    routing = routing or VisionRouting()
+    want = expected_sam_launches(cfg, n_sam_frames, 1, n_sam_frames - 1, routing=routing)
+    fused = routing.siglip_int8_fused if cfg.quant_vision else routing.siglip_ln_dtype == "f32"
+    tower = ("fused_block_w8a8" if cfg.quant_vision else "fused_hiera_block") if fused \
+        else "mha_full_attention_packed"
+    want[tower] += cfg.vision.num_encode_layers
     want["flash_attention"] += cfg.llm.num_layers
     return want
 
@@ -1228,11 +1466,15 @@ def iou(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4,
-            label_size=(480, 640), feat_cos=PATH_COS, low_cos=SEG_COS):
-    """One path-B [SEG] request on ``rt``; ``feat_cos`` / ``low_cos`` are the
-    limits of the kernel path against the plain path on the FPN level-2
-    features and on each frame's low-res mask logits."""
+            label_size=(480, 640), feat_cos=PATH_COS, low_cos=SEG_COS, vid_cos=PATH_COS,
+            routing=None):
+    """One path-B [SEG] request on ``rt`` (built with ``routing``);
+    ``feat_cos`` / ``low_cos`` / ``vid_cos`` are the limits of the kernel path
+    against the plain path on the FPN level-2 features, on each frame's
+    low-res mask logits and on the video tokens. Returns (launches, the
+    kernel path's video tokens, FPN level-2 features and low-res logits)."""
     from ufvideo_tpu_torch import mm_infer
+    from ufvideo_tpu_torch.quant import w8a8_linear
     from ufvideo_tpu_torch.models.sam2.common import ProjAttention
     from ufvideo_tpu_torch.models.sam2.video import (
         encode_video_frames, init_on_first_frame, masks_to_video_res,
@@ -1268,17 +1510,21 @@ def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4
 
     for w in wrappers.values():
         w.launches = 0
+    w8a8_linear.calls = 0
     t0 = time.perf_counter()
     out = call(frames, images_sam)
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    products = w8a8_linear.calls
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  mm_infer [SEG]: {e2e * 1e3:.1f} ms end to end, peak {peak:.2f} GiB; "
-        f"launches {launches}")
-    want = expected_seg_launches(cfg, sam_frames)
-    log(f"  launches predicted from the configuration: {want}")
-    if launches != want:
+        f"launches {launches}; W8A8 dense products {products}")
+    want = expected_seg_launches(cfg, sam_frames, routing)
+    want_products = expected_w8a8_products(cfg, sam_frames, routing)
+    log(f"  launches predicted from the configuration and the routing: {want}; W8A8 dense "
+        f"products {want_products}")
+    if launches != want or products != want_products:
         fail("launch counts of the [SEG] request differ from the prediction")
     masks = out["pred_masks"]
     if len(masks) != 1 or masks[0].shape != (sam_frames,) + tuple(label_size) \
@@ -1295,7 +1541,8 @@ def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4
     sync_t = lambda: (torch.cuda.synchronize(), time.perf_counter())[1]
     ids = _assemble_input_ids(conv, 3, "<video>", tok)
     t0 = sync_t()
-    hidden, plan = rt.forward_hidden_states(ids, _encode_video_input(rt, frames, "video"))
+    video = _encode_video_input(rt, frames, "video")
+    hidden, plan = rt.forward_hidden_states(ids, video)
     pos = [int(plan.text_pos_map[0][i]) - 1 for i, t in enumerate(ids) if t == rt.ids.seg]
     emb = rt.model.seg_embeddings(hidden[0, pos])[:, None, :]
     t1 = sync_t()
@@ -1330,26 +1577,40 @@ def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4
         fail("the staged run's masks differ from those mm_infer returned")
 
     rt.model.set_use_kernels(False)
+    video_p = _encode_video_input(rt, frames, "video")
     feats_p = encode_video_frames(sam, images)
     low_p = propagate_video(sam, feats_p, emb)
     # the memory path alone: plain propagation on the kernel path's features
     low_pk = propagate_video(sam, feats, emb)
     rt.model.set_use_kernels(True)
     torch.cuda.synchronize()
+    cos_v = cosine(video, video_p)
     cos_f = cosine(feats.s2, feats_p.s2)
     cos_low = [cosine(a, b) for a, b in zip(low_k, low_p)]
     cos_mem = [cosine(a, b) for a, b in zip(low_k, low_pk)]
     masks_p = masks_to_video_res(low_p, *label_size)
     ious = [iou(a, b) for a, b in zip(masks_k[:, 0], masks_p[:, 0])]
-    log(f"  kernel vs plain path: FPN level-2 features cosine {cos_f:.5f} (tolerance >= "
+    log(f"  kernel vs plain path: video tokens cosine {cos_v:.5f} (tolerance >= {vid_cos}); "
+        f"FPN level-2 features cosine {cos_f:.5f} (tolerance >= "
         f"{feat_cos}); low-res mask logits cosine per frame "
         f"{[round(c, 5) for c in cos_low]} (tolerance >= {low_cos}; on the same features "
         f"{[round(c, 5) for c in cos_mem]}); mask IoU per frame "
         f"{[round(x, 4) for x in ious]} (reported, not gated: random weights leave "
         "logits near the threshold)")
-    if cos_f < feat_cos or min(cos_low) < low_cos:
+    if cos_v < vid_cos or cos_f < feat_cos or min(cos_low) < low_cos:
         fail("SAM2 kernel path and plain path disagree at full width")
-    return launches
+    return launches, dict(video=video, s2=feats.s2, low=low_k,
+                          weights=weights_fingerprint(rt.model))
+
+
+def weights_fingerprint(model) -> list:
+    """Sums of a few tensors that every routing holds: runtimes built from one
+    seed under two routings must hold the same weights."""
+    sam = model.sam.image_encoder_trunk
+    picks = [model.vision.layers[0].qkv_kernel, model.vision.layers[-1].fc2_bias,
+             model.llm.embed_tokens.weight, sam.blocks[0].mlp_layers_0.bias,
+             sam.blocks[-1].attn.proj.bias]
+    return [float(t.double().sum()) for t in picks]
 
 
 def _count(wrappers, fn):
@@ -1473,11 +1734,121 @@ def run_quant_seg(dev, seed: int, full):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
     if not rt.model.sam.quant:
         fail("the quant_vision runtime built a float SAM2")
-    seg = run_seg(dev, seed, rt, tok, feat_cos=SEG_QUANT_FEAT_COS, low_cos=SEG_QUANT_COS)
+    seg, ref = run_seg(dev, seed, rt, tok, feat_cos=SEG_QUANT_FEAT_COS, low_cos=SEG_QUANT_COS,
+                       vid_cos=QUANT_COS)
     general, batched = run_predictors(dev, seed, rt)
     del rt
     torch.cuda.empty_cache()
-    return seg, general, batched
+    return seg, general, batched, ref
+
+
+# Phase 7: the request of phases 4 and 6 under the vision towers' other
+# routings, each runtime built from the same seed as the default one.
+# 7a, bf16: the unfused SigLIP layer with a bf16 LayerNorm (packed attention
+# kernel), Hiera's runs of up to 4 windowed blocks in one stage call, the
+# q-pool blocks split into front, pooling, attention and tail, the
+# polynomial GELU. 7b, the int8 serving configuration: the unfused W8A8
+# SigLIP layer and the trunk's q-pool and global blocks on the generic W8A8
+# block. Neither sets siglip_gelu: only the fused float SigLIP layer reads it,
+# as in the JAX package.
+ROUTING_7A = dict(siglip_ln_dtype="bf16", qpool_fused=False, hiera_stage_nb=4,
+                  hiera_gelu="poly")
+ROUTING_7B = dict(siglip_int8_fused=False, sam2_int8_special=False)
+# a routing whose math differs from the default one (bf16 LayerNorm, a
+# polynomial GELU, W8A8 rows quantised at other points) against the default
+# routing on the same weights: the 0.99 that tests/test_hiera_block.py holds
+# the JAX package's two W8A8 routings to
+ROUTING_COS = 0.99
+
+
+def run_routed_seg(dev, seed: int, cfg, routing, label: str, ref: dict, limits) -> dict:
+    """One phase-7 request: a runtime under ``routing``, the [SEG] request
+    counted and held against the plain path at ``limits`` (video tokens,
+    FPN level 2, mask logits), then against the default routing's outputs
+    ``ref`` on the same weights."""
+    from ufvideo_tpu_torch import model_init
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt, _, tok = model_init(cfg=cfg, device=dev, seed=seed, routing=routing)
+    torch.cuda.synchronize()
+    log(f"  [{label}] {routing}")
+    log(f"  [{label}] model_init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if weights_fingerprint(rt.model) != ref["weights"]:
+        fail(f"[{label}] the routed runtime holds other weights than the default one")
+    vid_cos, feat_cos, low_cos = limits
+    launches, out = run_seg(dev, seed, rt, tok, feat_cos=feat_cos, low_cos=low_cos,
+                            vid_cos=vid_cos, routing=routing)
+    cos_v = cosine(out["video"], ref["video"])
+    cos_f = cosine(out["s2"], ref["s2"])
+    cos_low = [cosine(a, b) for a, b in zip(out["low"], ref["low"])]
+    log(f"  [{label}] against the default routing on the same weights: video tokens cosine "
+        f"{cos_v:.5f}, FPN level-2 {cos_f:.5f}, mask logits per frame "
+        f"{[round(c, 5) for c in cos_low]} (tolerance >= {ROUTING_COS}: bf16 LayerNorm, "
+        f"polynomial GELU or W8A8 rows quantised at other points)")
+    if min(cos_v, cos_f, *cos_low) < ROUTING_COS:
+        fail(f"[{label}] the routing disagrees with the default routing")
+    del rt, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_window_msa(dev, seed: int) -> dict:
+    """Phase 7c: the ``MultiScaleAttention`` module's windowed branch (no
+    shipped Hiera routing reaches it through a block, as in the JAX package)
+    at Hiera-L's four windowed stages on 4 frames, random weights from the
+    seed; counted, and held against its plain path (cosine >= PATH_COS)."""
+    from ufvideo_tpu_torch.models import init
+    from ufvideo_tpu_torch.models.sam2.hiera import MultiScaleAttention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 4)
+    mods, xs = [], []
+    for nw, s, heads in WINDOW_SHAPES:
+        c = heads * 72
+        msa = MultiScaleAttention(c, c, heads, int(round(s ** 0.5)), None,
+                                  torch.bfloat16).to(dev).eval()
+        init.reset_tree_(msa, gen)
+        mods.append(msa)
+        xs.append(torch.randn(nw, s, c, generator=gen, device=dev).to(torch.bfloat16))
+    run = lambda: [m(x) for m, x in zip(mods, xs)]
+    with torch.no_grad():
+        run()  # warm-up
+        outs, launches, ms = _count(all_wrappers(), run)
+        for m in mods:
+            m.use_kernels = False
+        plain = run()
+    cos = [cosine(a, b) for a, b in zip(outs, plain)]
+    want = dict.fromkeys(all_wrappers(), 0)
+    want["fused_window_attention"] = len(WINDOW_SHAPES)
+    log(f"  MultiScaleAttention, windowed branch at {[tuple(x.shape) for x in xs]}: "
+        f"{ms:.1f} ms; launches {launches}; kernel vs plain path cosine "
+        f"{[round(c, 5) for c in cos]} (tolerance >= {PATH_COS})")
+    if launches != want:
+        fail(f"launch counts of the windowed MultiScaleAttention differ from {want}")
+    if min(cos) < PATH_COS or not all(torch.isfinite(o).all() for o in outs):
+        fail("the windowed MultiScaleAttention's kernel path disagrees with its plain path")
+    return launches
+
+
+def run_probe(dev, smi: str, iters: int = 50) -> dict:
+    """Phase 7d: the int8-rate probe (python -m ufvideo_tpu_torch.probe_int8_rate),
+    counted; its four lines after the card's."""
+    from ufvideo_tpu_torch import probe_int8_rate
+
+    recs, launches, _ = _count(all_wrappers(), lambda: probe_int8_rate.run(dev, iters))
+    log(f"  {smi}")
+    for r in recs:
+        log(f"  {json.dumps(r)}")
+    rate = {r["variant"]: r["tops"] for r in recs}
+    log(f"  int8 : bf16 rate, library {rate['int8_torch'] / rate['bf16_torch']:.3f}, kernels "
+        f"{rate['int8_kernel'] / rate['bf16_kernel']:.3f}; launches {launches}")
+    want = dict.fromkeys(all_wrappers(), 0)
+    want["probe_step"] = 2 * (iters + 3)
+    if launches != want or not all(r["ms"] > 0 for r in recs):
+        fail(f"the probe's launches {launches} differ from {want}")
+    return launches
 
 
 # ------------------------------------------------------------------ main --
@@ -1486,7 +1857,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 2")
     ap.add_argument("--match", default="", help="phase 2 on the kernels whose name holds "
-                    "this, then stop (a new kernel's first call on a card)")
+                    "one of these comma-separated words, then stop (a new kernel's first "
+                    "call on a card)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1534,6 +1906,9 @@ def main() -> int:
         "fused_block_w8a8": kernel_w8a8, "fused_qpool_block_w8a8": kernel_qpool_w8a8,
         "fused_ln_matmul_w8a8": kernel_ln_matmul_w8a8,
         "fused_block_tail_w8a8": kernel_block_tail_w8a8,
+        "fused_hiera_stage": lambda *a: kernel_stage(*a, full),
+        "fused_window_attention": kernel_window_attention,
+        "mha_full_attention_packed": kernel_packed_mha, "probe_step": kernel_probe,
     }
     if set(checks) != set(all_wrappers()):
         fail("phase 2 does not hold every counted kernel")
@@ -1541,8 +1916,9 @@ def main() -> int:
     # --match w8a8 holds these kernels on the inputs the whole run gives them
     gen_q = torch.Generator(device=dev)
     gen_q.manual_seed(args.seed)
+    matches = args.match.split(",")
     kernels = [fn(dev, timer, gen_q if "w8a8" in name else gen)
-               for name, fn in checks.items() if args.match in name]
+               for name, fn in checks.items() if any(m in name for m in matches)]
     for k in kernels:
         log(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
@@ -1558,7 +1934,7 @@ def main() -> int:
     log("phase 3: full-width mm_infer on the card")
     launches, rt, tok = run_path(dev, args.seed, full)
     log("phase 4: full-width [SEG] segmentation on the card")
-    seg_launches = run_seg(dev, args.seed, rt, tok)
+    seg_launches, ref_bf16 = run_seg(dev, args.seed, rt, tok)
     del rt
     torch.cuda.empty_cache()
     log("phase 5: full-width quantised region referring on the card")
@@ -1567,13 +1943,32 @@ def main() -> int:
         "int8 + int8 KV + W8A8 SigLIP", 32)
     int4_launches = run_referring(dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
     log("phase 6: full-width quantised [SEG] segmentation and SAM2's other predictors")
-    qseg_launches, general_launches, batched_launches = run_quant_seg(dev, args.seed, full)
+    qseg_launches, general_launches, batched_launches, ref_int8 = run_quant_seg(
+        dev, args.seed, full)
+    log("phase 7: the vision towers' other routings, the windowed MultiScaleAttention, "
+        "the int8-rate probe")
+    from ufvideo_tpu_torch.configs import VisionRouting
+
+    log(" 7a: [SEG] on the bf16 runtime, routing " + str(ROUTING_7A))
+    seg_7a = run_routed_seg(dev, args.seed, full, VisionRouting(**ROUTING_7A), "7a bf16",
+                            ref_bf16, (PATH_COS, PATH_COS, SEG_COS))
+    log(" 7b: [SEG] on the int8 serving runtime, routing " + str(ROUTING_7B))
+    seg_7b = run_routed_seg(
+        dev, args.seed, full.replace(quant_llm="int8", quant_kv=True, quant_vision=True),
+        VisionRouting(**ROUTING_7B), "7b int8", ref_int8,
+        (QUANT_COS, SEG_QUANT_FEAT_COS, SEG_QUANT_COS))
+    log(" 7c: the windowed MultiScaleAttention module")
+    msa_launches = run_window_msa(dev, args.seed)
+    log(" 7d: the int8-rate probe")
+    probe_launches = run_probe(dev, smi)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
-        # "launches" is derived: their sum over the seven counted calls
+        # "launches" is derived: their sum over the eleven counted calls
         by_path = {"qa": launches, "seg": seg_launches, "ref_int8": int8_launches,
                    "ref_int4": int4_launches, "seg_int8": qseg_launches,
-                   "general_int8": general_launches, "batched_int8": batched_launches}
+                   "general_int8": general_launches, "batched_int8": batched_launches,
+                   "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
+                   "probe": probe_launches}
         for path, counts in by_path.items():
             k[f"launches_{path}"] = counts[k["name"]]
         k["launches"] = sum(counts[k["name"]] for counts in by_path.values())

@@ -3,7 +3,7 @@ one full-width ``[SEG]`` segmentation request, one full-width quantised
 region-referring request and one full-width quantised ``[SEG]`` request
 under ``torch.profiler``.
 
-    python3 scripts/torch_trace.py [--new-tokens 16] [--trace out.json]
+    python3 scripts/torch_trace.py [--new-tokens 16] [--trace out.json] [--routing JSON]
 
 Builds the full-width model (random bf16 weights, seed 0), warms it up with
 one ``mm_infer``, then profiles the stages of a request on 32 uint8 frames
@@ -17,9 +17,15 @@ cache, W8A8 SigLIP) and profiles a referring request's stages: video encode,
 region encode, prefill with the first token, and prefill with
 ``--new-tokens`` tokens, from which the device time of one int8 decode step
 follows; and, on that runtime (its SAM2 has a W8A8 Hiera trunk), the stages
-of the ``[SEG]`` request again. For each it prints the wall time, the device-busy time (union of kernel intervals),
-the device's idle share, and the kernels with the most device time. Needs
-one CUDA card.
+of the ``[SEG]`` request again. With ``--routing``, it then frees that
+runtime, builds the same quantised one under that ``VisionRouting`` (its
+fields as JSON) and profiles its video encode and ``[SEG]`` stages too. For
+each it prints the wall time, the device-busy time (union of kernel
+intervals), the device's idle share, and the kernels with the most device
+time. Needs one CUDA card.
+
+    python3 scripts/torch_trace.py --routing \
+        '{"siglip_int8_fused": false, "sam2_int8_special": false}'
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--trace", default="", help="write a chrome trace here")
+    ap.add_argument("--routing", default="", help="also trace the quantised runtime's encode "
+                    "and [SEG] request under this VisionRouting, its fields as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: needs a CUDA card", flush=True)
@@ -64,7 +72,7 @@ def main() -> int:
 
     from ufvideo_tpu_torch import mm_infer, model_init
     from ufvideo_tpu_torch.api import _assemble_input_ids
-    from ufvideo_tpu_torch.configs import UFVideoConfig
+    from ufvideo_tpu_torch.configs import UFVideoConfig, VisionRouting
     from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
 
     smi = subprocess.run(
@@ -149,6 +157,26 @@ def main() -> int:
         "device_busy_ms": (b["device_busy_ms"] - a["device_busy_ms"]) / steps,
         "kernels": (b["kernels"] - a["kernels"]) / steps,
     }
+
+    if args.routing:  # the same quantised runtime under another routing
+        routing = VisionRouting(**json.loads(args.routing))
+        out["routing"] = str(routing)
+        del rt, feats
+        torch.cuda.empty_cache()
+        rt, _, tok = model_init(cfg=qcfg, device=dev, seed=0, routing=routing)
+        mm_infer(frames, conv, rt, tok, choice=3, images_sam=images_sam,
+                 label_size=(480, 640), seg=True)  # warm up
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as rprof:
+            with record_function("stage:routed int8 encode"):
+                pixels = siglip_preprocess_device(
+                    torch.from_numpy(frames).to(dev), rt.cfg.compute_dtype)
+                feats = rt.encode_video(pixels[None])
+                sync()
+            _seg_stages(rt, seg_ids, feats, images_sam, "routed int8 seg")
+        if args.trace:
+            rprof.export_chrome_trace(args.trace.replace(".json", "") + ".routed.json")
+        out.update(_summarise(rprof))
     print(json.dumps(out, indent=1), flush=True)
     return 0
 
@@ -188,9 +216,22 @@ def _seg_stages(rt, seg_ids, feats, images_sam, prefix: str):
     return lows
 
 
+def _family(name: str) -> str:
+    """Who wrote a device operation: the port, PyTorch's own elementwise /
+    reduction / copy kernels, a library (cuBLAS, CUTLASS, cuDNN), a copy."""
+    if "ufv::" in name or ("(anonymous namespace)::" in name and "at::native" not in name):
+        return "port kernels"
+    if "at::native" in name:
+        return "pytorch elementwise / reduce / copy"
+    if name.startswith(("Memcpy", "Memset")):
+        return "memcpy / memset"
+    return "library"
+
+
 def _summarise(prof) -> dict:
-    """Per ``stage:`` range: wall, device-busy time, idle share, the kernels
-    with the most device time."""
+    """Per ``stage:`` range: wall, device-busy time, idle share, device time
+    by ``_family`` and the kernels with the most device time (names cut to
+    70 characters, the times of names that then agree summed)."""
     events = prof.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     ranges = {e.name: (e.time_range.start, e.time_range.end)
@@ -202,17 +243,19 @@ def _summarise(prof) -> dict:
         inside = [(k.time_range.start, k.time_range.end) for k in kernels
                   if s <= k.time_range.start < e]
         busy = _busy_us(inside)
-        by_name = defaultdict(float)
+        by_name, by_family = defaultdict(float), defaultdict(float)
         for k in kernels:
             if s <= k.time_range.start < e:
-                by_name[k.name] += k.time_range.end - k.time_range.start
+                by_name[k.name[:70]] += k.time_range.end - k.time_range.start
+                by_family[_family(k.name)] += k.time_range.end - k.time_range.start
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         wall = e - s
         out[stage] = {
             "wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1 - busy / wall if wall else None,
             "kernels": len(inside),
-            "top_ms": {n[:70]: round(t / 1e3, 3) for n, t in top},
+            "family_ms": {n: round(t / 1e3, 3) for n, t in sorted(by_family.items())},
+            "top_ms": {n: round(t / 1e3, 3) for n, t in top},
         }
     return out
 

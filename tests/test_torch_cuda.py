@@ -563,3 +563,193 @@ def test_quantised_hiera_trunk_kernel_path_matches_plain_path(dev):
         cos = torch.nn.functional.cosine_similarity(
             g.float().flatten(), w.float().flatten(), dim=0)
         assert torch.isfinite(g).all() and float(cos) > 0.99
+
+
+# ------------------------------------ packed attention, the stage, the probe --
+# The packed-qkv attention kernels (unfused SigLIP, Hiera's windowed
+# MultiScaleAttention), the multi-block stage, the polynomial GELUs in the
+# block kernels and the int8-rate probe's two products.
+
+from ufvideo_tpu_torch.ops.vit_attention import (  # noqa: E402
+    mha_full_attention_packed, mha_full_attention_packed_plain)
+from ufvideo_tpu_torch.ops.window_attention import (  # noqa: E402
+    fused_window_attention, fused_window_attention_plain)
+
+
+@pytest.mark.parametrize("b,s,heads,d", [(2, 729, 16, 72), (3, 50, 2, 72), (2, 17, 4, 16)])
+def test_packed_mha_kernel_matches_plain(dev, b, s, heads, d):
+    qkv = _randn(dev, b, s, 3 * heads * d, seed=60)
+    before = mha_full_attention_packed.launches
+    got = mha_full_attention_packed(qkv, heads, d)
+    want = mha_full_attention_packed_plain(qkv, heads, d)
+    torch.cuda.synchronize()
+    assert mha_full_attention_packed.launches == before + 1
+    assert got.shape == (b, s, heads * d)
+    # probabilities rounded to bf16 before normalising (kernel) or after
+    # (plain): over few keys each is large enough for its bf16 step to show,
+    # as in the block's attention part
+    _assert_close(got.reshape(b, s, heads, d), want.reshape(b, s, heads, d), row_rel=5e-2)
+
+
+@pytest.mark.parametrize("nw,s,heads,d", [(64, 16, 2, 72), (16, 64, 4, 72), (4, 256, 8, 72),
+                                          (5, 50, 2, 72), (7, 16, 1, 16)])
+def test_window_attention_kernel_matches_plain(dev, nw, s, heads, d):
+    qkv = _randn(dev, nw, s, 3 * heads * d, seed=61)
+    got = fused_window_attention(qkv, heads, d)
+    want = fused_window_attention_plain(qkv, heads, d)
+    torch.cuda.synchronize()
+    _assert_close(got.reshape(nw, s, heads, d), want.reshape(nw, s, heads, d), row_rel=5e-2)
+
+
+def test_window_attention_kernel_keeps_windows_apart(dev):
+    """A 16-token window fills a quarter of the kernel's 64-row tile: new
+    keys and values in one window leave every other window's output
+    unchanged, bit for bit, and the windows past the launch grid's 65535
+    are reached."""
+    nw, s, heads, d = 70000, 16, 1, 8
+    qkv = _randn(dev, nw, s, 3 * heads * d, seed=62)
+    base = fused_window_attention(qkv, heads, d)
+    for w in (5, 66000):
+        pert = qkv.clone()
+        pert[w, :, heads * d:] = _randn(dev, s, 2 * heads * d, seed=63 + w)
+        got = fused_window_attention(pert, heads, d)
+        torch.cuda.synchronize()
+        moved = (got.float() - base.float()).abs().amax(dim=(1, 2))
+        assert float(moved[w]) > 1e-2
+        moved[w] = 0
+        assert float(moved.max()) == 0.0
+    tail = fused_window_attention_plain(qkv[-8:], heads, d)
+    _assert_close(base[-8:].reshape(8, s, heads, d), tail.reshape(8, s, heads, d),
+                  row_rel=5e-2)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+def test_stage_kernel_matches_plain_and_the_block_kernel(dev, nb):
+    from ufvideo_tpu_torch.ops.hiera_block import fused_hiera_stage, fused_hiera_stage_plain
+
+    n, s, c, heads = 8, 64, 144, 2
+    plist = [tuple((t.float() * (1 + 0.05 * j)).to(t.dtype) for t in _block_params(dev, c, 4 * c))
+             for j in range(nb)]
+    x = _randn(dev, n, s, c, seed=64)
+    before = (fused_hiera_stage.launches, fused_hiera_block.launches)
+    got = fused_hiera_stage(x, plist, heads, 72)
+    want = fused_hiera_stage_plain(x, plist, heads, 72)
+    torch.cuda.synchronize()
+    assert (fused_hiera_stage.launches, fused_hiera_block.launches) == (before[0] + 1, before[1])
+    _assert_close(got, want, row_rel=5e-2)
+    # the same launches as nb block calls, in the same order: equal bits
+    seq = x
+    for p in plist:
+        seq = fused_hiera_block(seq, p, heads, 72)
+    torch.cuda.synchronize()
+    assert torch.equal(got, seq)
+
+
+@pytest.mark.parametrize("act", ["gelu_poly", "gelu_poly_bf16", "gelu_tanh_poly",
+                                 "gelu_tanh_poly_bf16"])
+def test_polynomial_gelus_in_the_block_kernels(dev, act):
+    n, s, c, heads = 6, 50, 144, 2
+    params = _block_params(dev, c, 4 * c)
+    x = _randn(dev, n, s, c, seed=65)
+    got = fused_hiera_block(x, params, heads, 72, act=act)
+    want = fused_hiera_block_plain(x, params, heads, 72, act=act)
+    torch.cuda.synchronize()
+    _assert_close(got, want, row_rel=5e-2)
+    # the GELU alone, through the tail with the projection and fc2 the identity
+    h = _randn(dev, 1, 64, 64, seed=66, scale=3.0)
+    eye, z = torch.eye(64, device=dev, dtype=torch.bfloat16), torch.zeros(64, device=dev)
+    one = torch.ones(64, device=dev)
+    tail = (torch.zeros_like(eye), z, one, z, eye, z, eye, z)  # x1 = h; LN; GELU; + x1
+    got = fused_block_tail(h, h, tail, act=act)
+    want = fused_block_tail_plain(h, h, tail, act=act)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    wq = _w8a8_block_params(dev, c, heads * 72, 4 * c, seed=67)
+    got = fused_block_w8a8(x, wq, heads, 72, act=act)
+    want = fused_block_w8a8_plain(x, wq, heads, 72, act=act)
+    torch.cuda.synchronize()
+    _assert_close(got, want, row_rel=5e-2)
+
+
+@pytest.mark.parametrize("m,k,n", [(40, 144, 56), (8192, 1152, 4304), (77, 1160, 130)])
+def test_probe_kernels_match_plain(dev, m, k, n):
+    from ufvideo_tpu_torch.probe_int8_rate import probe_inputs, probe_step, probe_step_plain
+
+    x, wf, wq = probe_inputs(dev, 68, m, k, n)
+    x[0, :3] = torch.tensor([200.0, -300.0, 2.5], device=dev)  # clipped, clipped, a tie
+    before = probe_step.launches
+    got = probe_step(x, wq, True)
+    want = probe_step_plain(x, wq, True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if n % 8 == 0:
+        got = probe_step(x, wf, False)
+        want = probe_step_plain(x, wf, False)
+        torch.cuda.synchronize()
+        rel = float((got - want).norm() / want.norm())
+        assert got.dtype == torch.float32 and rel <= 1e-3, rel
+    assert probe_step.launches == before + 1 + (n % 8 == 0)
+
+
+@pytest.mark.parametrize("rows,din,dout", [(5, 50, 24), (729, 1152, 3456), (40, 144, 30)])
+def test_w8a8_linear_on_the_card_equals_the_cpu(dev, rows, din, dout):
+    """``torch._int_mm`` (rows padded past 16, K and N to multiples of 8)
+    gives the exact integer sums the CPU computes in float64, from the
+    layer's K-contiguous weights and from a row-major copy alike."""
+    from ufvideo_tpu_torch.quant import W8A8Linear
+
+    lin = W8A8Linear(din, dout, torch.bfloat16)
+    lin.set_kernel(torch.randn(din, dout, generator=torch.Generator().manual_seed(69)))
+    with torch.no_grad():
+        lin.bias.copy_(torch.randn(dout, generator=torch.Generator().manual_seed(70)))
+    x = torch.randn(rows, din, generator=torch.Generator().manual_seed(71)).to(torch.bfloat16)
+    q, xs = tq.quantize_rows(x)
+    q_d, xs_d = tq.quantize_rows(x.to(dev))
+    assert torch.equal(q_d.cpu(), q) and torch.equal(xs_d.cpu(), xs)
+    acc = tq._int8_matmul(q, lin.kernel_q)
+    acc_d = tq._int8_matmul(q_d, lin.kernel_q.to(dev)).cpu()
+    bad = (acc_d != acc).nonzero()
+    assert bad.numel() == 0, (bad[:5].tolist(), acc_d[tuple(bad[0])], acc[tuple(bad[0])])
+    assert lin.kernel_q.to(dev).stride() == (1, din)
+    assert torch.equal(tq._int8_matmul(q_d, lin.kernel_q.contiguous().to(dev)).cpu(), acc)
+    want = lin(x)
+    got = lin.to(dev)(x.to(dev)).cpu()
+    torch.cuda.synchronize()
+    bad = (got != want).nonzero()
+    assert bad.numel() == 0, (bad.shape[0], bad[:5].tolist(), got[tuple(bad[0])],
+                              want[tuple(bad[0])])
+
+
+def test_routed_hiera_kernel_paths_match_plain_paths(dev):
+    """A narrow Hiera under the bf16 routing of chip_smoke.py phase 7a
+    (stage fusion, split q-pool, polynomial GELU) and its W8A8 twin under
+    7b's (generic special blocks), each against its plain path."""
+    from ufvideo_tpu_torch.configs import SAM2HieraConfig, VisionRouting
+    from ufvideo_tpu_torch.models import init
+    from ufvideo_tpu_torch.models.sam2.hiera import Hiera
+    from ufvideo_tpu_torch.quant import w8a8_linear
+
+    cfg = SAM2HieraConfig(embed_dim=72, num_heads=1, stages=(2, 3, 2, 1), global_att_blocks=(4,),
+                          window_spec=(8, 4, 8, 4), image_size=256)
+    x = _randn(dev, 2, 256, 256, 3, seed=72)
+    for quant, routing, want_calls in (
+            (False, VisionRouting(qpool_fused=False, hiera_stage_nb=4, hiera_gelu="poly"),
+             {"stage": 1, "split": 4, "block": 2}),
+            (True, VisionRouting(sam2_int8_special=False), {"block": 4, "generic": 4})):
+        trunk = Hiera(cfg, torch.bfloat16, quant=quant, routing=routing).to(dev).eval()
+        init.reset_tree_(trunk, torch.Generator(device=dev).manual_seed(73))
+        routes = trunk.call_routes()
+        assert {r: routes.count(r) for r in set(routes)} == want_calls
+        calls = w8a8_linear.calls
+        with torch.no_grad():
+            got = trunk(x)
+            for m in trunk.modules():
+                if hasattr(m, "use_kernels"):
+                    m.use_kernels = False
+            want = trunk(x)
+        torch.cuda.synchronize()
+        assert (w8a8_linear.calls - calls > 0) == quant
+        for g, w in zip(got, want):
+            cos = torch.nn.functional.cosine_similarity(
+                g.float().flatten(), w.float().flatten(), dim=0)
+            assert torch.isfinite(g).all() and float(cos) > 0.99

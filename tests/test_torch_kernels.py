@@ -531,3 +531,106 @@ def test_split_k_covers_the_contraction_in_whole_steps(rows, depth, dout):
     tiles = -(-dout // 128) * -(-rows // 8)
     if tiles >= 528:
         assert ksplit == 1
+
+
+# --------------------------------------------- packed attention, the probe --
+
+@pytest.mark.parametrize("b,s,heads,d", [(2, 49, 2, 16), (1, 17, 3, 8)])
+def test_packed_mha_plain_matches_pallas_and_reference(b, s, heads, d):
+    """``mha_full_attention_packed`` (unfused SigLIP): the plain version
+    against the Pallas kernel in interpret mode and ``_reference_packed``,
+    on a token count that no tile divides."""
+    from ufvideo_tpu.ops import vit_attention as jva
+    from ufvideo_tpu_torch.ops.vit_attention import (
+        mha_full_attention_packed, mha_full_attention_packed_plain)
+
+    qkv = np.random.default_rng(11).standard_normal((b, s, 3 * heads * d)).astype(np.float32)
+    got = mha_full_attention_packed(torch.from_numpy(qkv), heads, d)
+    assert mha_full_attention_packed.launches == 0
+    torch.testing.assert_close(got, mha_full_attention_packed_plain(torch.from_numpy(qkv),
+                                                                    heads, d), rtol=0, atol=0)
+    assert got.shape == (b, s, heads * d)
+    pallas = jva.mha_full_attention_packed(jnp.asarray(qkv), heads, d, True)
+    ref = jva._reference_packed(jnp.asarray(qkv), heads, d ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=ATOL)
+
+
+def _pad_heads(qkv, heads, d, hp):
+    """[NW, S, 3·H·d] → [NW, S, 3·H·hp], each head's lanes zero-padded, as
+    the JAX converter's ``head_pad`` lays them out."""
+    nw, s, _ = qkv.shape
+    x = qkv.reshape(nw, s, 3, heads, d)
+    return np.pad(x, ((0, 0), (0, 0), (0, 0), (0, 0), (0, hp - d))).reshape(nw, s, 3 * heads * hp)
+
+
+@pytest.mark.parametrize("nw,s,heads,d", [(8, 16, 2, 16), (4, 64, 2, 8), (2, 256, 1, 16)])
+def test_window_attention_plain_matches_pallas_and_reference(nw, s, heads, d):
+    """``fused_window_attention`` on unpadded heads against the Pallas
+    kernel in interpret mode (several windows a score group under its
+    block-diagonal mask) on the heads zero-padded to 128 lanes, pad lanes
+    stripped from its output (``export._unpad_attn``), and ``_reference``."""
+    from ufvideo_tpu.ops import window_attention as jwa
+    from ufvideo_tpu_torch.ops.window_attention import (
+        fused_window_attention, fused_window_attention_plain)
+
+    qkv = np.random.default_rng(12).standard_normal((nw, s, 3 * heads * d)).astype(np.float32)
+    got = fused_window_attention(torch.from_numpy(qkv), heads, d)
+    assert fused_window_attention.launches == 0
+    torch.testing.assert_close(got, fused_window_attention_plain(torch.from_numpy(qkv), heads, d),
+                               rtol=0, atol=0)
+    padded = jnp.asarray(_pad_heads(qkv, heads, d, 128))
+    strip = lambda o: np.asarray(o).reshape(nw, s, heads, 128)[..., :d].reshape(nw, s, heads * d)
+    pallas = strip(jwa.fused_window_attention(padded, heads, d, 128, True))
+    ref = jwa._reference(jnp.asarray(qkv), heads, d, d ** -0.5)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=ATOL)
+
+
+def test_window_attention_keeps_windows_apart_on_cpu():
+    """Changing one window's keys moves that window's output only."""
+    from ufvideo_tpu_torch.ops.window_attention import fused_window_attention
+
+    gen = torch.Generator().manual_seed(0)
+    qkv = torch.randn(6, 16, 3 * 2 * 8, generator=gen)
+    base = fused_window_attention(qkv, 2, 8)
+    qkv[3, :, 16:32] += 3 * torch.randn(16, 16, generator=gen)  # window 3's keys
+    moved = (fused_window_attention(qkv, 2, 8) - base).abs().amax(dim=(1, 2))
+    assert moved[3] > 1e-3 and float(moved[[0, 1, 2, 4, 5]].max()) == 0.0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_probe_plain_matches_the_jax_probe_kernel_body(quant, monkeypatch):
+    """``probe_step`` on the CPU against the body of the JAX probe's Pallas
+    kernel (``_pallas_dot_kernel``) run on arrays: int8 sums equal, f32
+    products to ATOL."""
+    import importlib.util
+    import pathlib
+
+    import ml_dtypes
+    from ufvideo_tpu_torch.probe_int8_rate import probe_step
+
+    monkeypatch.setenv("UFVIDEO_JAX_CACHE", "off")
+    path = pathlib.Path(__file__).resolve().parent.parent / "scripts" / "probe_int8_rate.py"
+    spec = importlib.util.spec_from_file_location("jax_probe_int8_rate", path)
+    jprobe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jprobe)
+    rng = np.random.default_rng(13)
+    x = (4 * rng.standard_normal((40, 144))).astype(ml_dtypes.bfloat16)
+    x[0, :3] = [200.0, -300.0, 2.5]  # clipped, clipped, a tie to even
+    if quant:
+        w = np.clip(np.round(30 * rng.standard_normal((144, 56))), -127, 127).astype(np.int8)
+        out = np.zeros((40, 56), np.int32)
+    else:
+        w = rng.standard_normal((144, 56)).astype(ml_dtypes.bfloat16)
+        out = np.zeros((40, 56), np.float32)
+    jprobe._pallas_dot_kernel(x, w, out, quant=quant)
+    xt = torch.from_numpy(x.astype(np.float32)).bfloat16()
+    wt = torch.from_numpy(w) if quant else torch.from_numpy(w.astype(np.float32)).bfloat16()
+    got = probe_step(xt, wt, quant)
+    assert probe_step.launches == 0
+    if quant:
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), out)
+    else:
+        np.testing.assert_allclose(got.numpy(), out, atol=ATOL, rtol=ATOL)

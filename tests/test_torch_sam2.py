@@ -194,7 +194,7 @@ def test_quantised_block_kernel_params_follow_a_weight_write(dim, dim_out, q_str
     rnd = lambda *shape: torch.randn(*shape, generator=gen) * 0.2
     with torch.no_grad():
         for m in blk.modules():
-            if isinstance(m, t_hiera.QuantDenseParams):
+            if isinstance(m, t_hiera.W8A8Linear):
                 m.set_kernel(rnd(*m.kernel_q.shape))
                 m.bias.copy_(rnd(*m.bias.shape))
             elif isinstance(m, t_hiera.LayerNormParams):

@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNEL_SOURCES = ("flash_attention", "decode_attention", "hiera_block", "quant_matmul")
+KERNEL_SOURCES = ("flash_attention", "decode_attention", "hiera_block", "quant_matmul",
+                  "packed_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

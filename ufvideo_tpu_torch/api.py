@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .configs import UFVideoConfig
+from .configs import UFVideoConfig, VisionRouting
 from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
 from .mm_utils import tokenizer_multimodal_token, trim_at_stop_strings
 from .models.generate import forward_hidden, greedy_generate
@@ -291,6 +291,7 @@ def model_init(
     device="cuda",
     seed: int = 0,
     tokenizer_path: Optional[str] = None,
+    routing: Optional[VisionRouting] = None,
 ):
     """Build (runtime, processor, tokenizer). With ``model_path`` None the
     weights are random, drawn on ``device`` from ``seed`` with the JAX
@@ -298,7 +299,10 @@ def model_init(
     byte tokenizer. With ``cfg.quant_llm`` / ``cfg.quant_vision`` each
     quantised layer draws the float layer's weights in the model's dtype,
     quantises them on ``device`` and frees the float copy, so the quantised
-    model is the quantisation of the float model of the same seed."""
+    model is the quantisation of the float model of the same seed.
+    ``routing`` (``VisionRouting``, default the JAX package's default
+    routing) picks the vision towers' kernels and modules; every routing
+    holds the same parameters and draws the same weights from a seed."""
     device = _check_device(device)
     if model_path or tokenizer_path:
         raise NotImplementedError(
@@ -311,7 +315,7 @@ def model_init(
         seg_token_id=ids.seg,
         temporal_token_start_id=ids.temporal_start,
     )
-    model = UFVideoModel.empty(cfg, device)
+    model = UFVideoModel.empty(cfg, device, routing)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     model.reset_parameters(gen)

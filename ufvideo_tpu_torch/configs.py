@@ -232,6 +232,68 @@ class UFVideoConfig:
         return dataclasses.replace(self, **kw)
 
 
+_SIGLIP_GELUS = {"tanh": "gelu_tanh", "poly": "gelu_tanh_poly",
+                 "poly_bf16": "gelu_tanh_poly_bf16"}
+_HIERA_GELUS = {"exact": "gelu_exact", "poly": "gelu_poly", "poly_bf16": "gelu_poly_bf16"}
+
+
+@dataclass(frozen=True)
+class VisionRouting:
+    """Which kernels and modules the vision towers run, fixed when the towers
+    are built. Each field stands for a switch that the JAX package reads from
+    its environment (or a module argument) at trace time; this package reads
+    no environment variable. The defaults are the JAX defaults.
+
+    Not carried over, being TPU layout devices: ``UFVIDEO_GLOBAL_PAD_HEADS``
+    (zero head lanes, exact either way), ``UFVIDEO_HIERA_ALIGN_QKV`` /
+    ``head_pad`` and ``UFVIDEO_HIERA_GROUP_ROWS``.
+    """
+
+    # SiglipVisionTower(ln_dtype=): "f32" runs each layer as one fused block,
+    # "bf16" the unfused float layer (LayerNorm rounded to bf16, the packed
+    # attention kernel between dense products)
+    siglip_ln_dtype: str = "f32"
+    # UFVIDEO_SIGLIP_INT8_FUSED: the W8A8 tower as one fused block a layer
+    # (True) or the unfused W8A8 layer (W8A8 dense products around the packed
+    # attention kernel)
+    siglip_int8_fused: bool = True
+    # UFVIDEO_SIGLIP_GELU: the fused float layer's GELU, "tanh" / "poly" /
+    # "poly_bf16"; only that layer reads it: the unfused layers and the W8A8
+    # tower, fused or not, always take the tanh GELU, as in the JAX package
+    siglip_gelu: str = "tanh"
+    # UFVIDEO_HIERA_GELU: the Hiera kernels' GELU, "exact" / "poly" / "poly_bf16"
+    hiera_gelu: str = "exact"
+    # UFVIDEO_QPOOL_FUSED: a width-changing q-pool block as one fused block
+    # (True) or front, pooling, attention and tail apart
+    qpool_fused: bool = True
+    # UFVIDEO_SAM2_INT8_SPECIAL: the W8A8 trunk's q-pool and global blocks on
+    # the fused front / tail kernels (True) or on the generic W8A8 block
+    sam2_int8_special: bool = True
+    # UFVIDEO_HIERA_STAGE_NB: up to this many consecutive identical windowed
+    # float blocks run as one fused_hiera_stage call
+    hiera_stage_nb: int = 1
+
+    def __post_init__(self):
+        if self.siglip_ln_dtype not in ("f32", "bf16"):
+            raise ValueError(f"siglip_ln_dtype {self.siglip_ln_dtype!r}: 'f32' or 'bf16'")
+        if self.siglip_gelu not in _SIGLIP_GELUS:
+            raise ValueError(f"siglip_gelu {self.siglip_gelu!r}: one of {list(_SIGLIP_GELUS)}")
+        if self.hiera_gelu not in _HIERA_GELUS:
+            raise ValueError(f"hiera_gelu {self.hiera_gelu!r}: one of {list(_HIERA_GELUS)}")
+        if self.hiera_stage_nb < 1:
+            raise ValueError(f"hiera_stage_nb {self.hiera_stage_nb} < 1")
+
+    @property
+    def siglip_act(self) -> str:
+        """The fused float SigLIP layer's activation, as the kernels name it."""
+        return _SIGLIP_GELUS[self.siglip_gelu]
+
+    @property
+    def hiera_act(self) -> str:
+        """The Hiera kernels' activation, as the kernels name it."""
+        return _HIERA_GELUS[self.hiera_gelu]
+
+
 def tiny_config() -> UFVideoConfig:
     """Miniature config for tests: the dims of ``ufvideo_tpu`` tiny_config."""
     return UFVideoConfig(

@@ -1,11 +1,14 @@
 // The pre-LN transformer blocks of SigLIP and Hiera as short sequences of
-// hand-written launches, with a plain C interface for ctypes. Eight entry
-// points, each replacing one TPU kernel of ufvideo_tpu/ops/hiera_block.py:
+// hand-written launches, with a plain C interface for ctypes. Eleven entry
+// points; the first nine replace one TPU kernel of
+// ufvideo_tpu/ops/hiera_block.py each:
 //
 //   hiera_block_bf16  fused_hiera_block (_forward / _kernel / _block_body):
 //                     LN1 (f32) -> qkv -> multi-head attention inside each
 //                     window -> proj + residual -> LN2 (f32) -> fc1 -> GELU
 //                     -> fc2 + residual (math of _reference);
+//   hiera_stage_bf16  fused_hiera_stage (_stage_forward / _stage_kernel): nb
+//                     such blocks in one call (see the entry point);
 //   ln_matmul_bf16    fused_ln_matmul (_ln_matmul_forward): LN (f32) ->
 //                     matmul + bias, the front of a global block;
 //   block_tail_bf16   fused_block_tail (_tail_forward): proj + residual ->
@@ -24,7 +27,16 @@
 //                     fused_qpool_block_w8a8 (_qpool_w8a8_kernel): the three
 //                     above with int8 weights and per-row int8 activations,
 //                     the blocks of a quantised Hiera trunk that the whole
-//                     W8A8 block does not cover.
+//                     W8A8 block does not cover;
+//   probe_gemm_bf16, probe_gemm_s8
+//                     scripts/probe_int8_rate.py pallas_step
+//                     (_pallas_dot_kernel): the bare bf16 x bf16 -> f32 and
+//                     s8 x s8 -> s32 products of the int8-rate probe, on the
+//                     two GEMMs below.
+//
+// GELU: every entry point with an act takes 1 = tanh, 2 = exact (erf), and
+// the JAX package's minimax polynomials 3 = gelu_poly, 4 = gelu_poly_bf16,
+// 5 = gelu_tanh_poly, 6 = gelu_tanh_poly_bf16 (act_apply).
 //
 // Common math: f32 LayerNorm statistics, bf16 operands with f32
 // accumulation, f32 softmax, probabilities cast to bf16 before P.V, each
@@ -63,7 +75,10 @@ constexpr int kLDB = kBN + 8;  // bf16 row stride of a B tile (272 B)
 constexpr int kStageA = kBM * kLDA, kStageB = kBK * kLDB;  // elements per stage
 constexpr size_t kGemmSmem = size_t(kStages) * (kStageA + kStageB) * sizeof(bf16);
 
-enum Act { ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_EXACT = 2 };
+enum Act {
+  ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_EXACT = 2, ACT_GELU_POLY = 3, ACT_GELU_POLY_BF16 = 4,
+  ACT_GELU_TANH_POLY = 5, ACT_GELU_TANH_POLY_BF16 = 6
+};
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
@@ -71,6 +86,60 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+}
+
+// The JAX package's minimax polynomial GELUs (ufvideo_tpu/ops/hiera_block.py
+// _poly_gelu_eval): gelu(x) = x * (0.5 + xc * Q(t)), xc = clip(x, +-4.5), t =
+// 2 xc^2 / 4.5^2 - 1, Q a polynomial in t with these coefficients (lowest
+// first): a fit of the erf GELU and a fit of the tanh form.
+__constant__ float kGeluPolyCt[10] = {
+    0.1569060442880844f, -0.07718588485083337f, 0.054637490167050023f,
+    -0.04023694830724554f, 0.02885765287056899f, -0.018484084923067773f,
+    0.009653220256290044f, -0.006070030404158596f, 0.004962705354373479f,
+    -0.0019306118341346908f};
+__constant__ float kGeluTanhPolyCt[11] = {
+    0.15693845830119607f, -0.077295380617666f, 0.054784027802834236f,
+    -0.04004952801103731f, 0.02807726149055056f, -0.018491884341240026f,
+    0.010685858987061678f, -0.005250474306093966f, 0.003522283558394471f,
+    -0.0028267368523108055f, 0.0010171322565724434f};
+constexpr float kPolyB = 4.5f;
+
+template <int N>
+__device__ __forceinline__ float gelu_poly(float x, const float* ct) {
+  const float xc = fminf(fmaxf(x, -kPolyB), kPolyB);
+  const float t = xc * xc * (2.f / (kPolyB * kPolyB)) - 1.f;
+  float q = ct[N - 1];
+#pragma unroll
+  for (int k = N - 2; k >= 0; --k) q = q * t + ct[k];
+  return x * (0.5f + xc * q);
+}
+
+__device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// the same polynomial on bf16 values (_gelu_poly_bf16): the input, each
+// constant and each intermediate rounded to bf16; _rn intrinsics keep the
+// compiler from fusing a product and a sum past a rounding
+template <int N>
+__device__ __forceinline__ float gelu_poly_bf16(float x, const float* ct) {
+  const float xb = rbf(x);
+  const float xc = fminf(fmaxf(xb, -kPolyB), kPolyB);
+  const float t = rbf(__fsub_rn(rbf(__fmul_rn(rbf(__fmul_rn(xc, xc)),
+                                              rbf(2.f / (kPolyB * kPolyB)))), 1.f));
+  float q = rbf(ct[N - 1]);
+#pragma unroll
+  for (int k = N - 2; k >= 0; --k) q = rbf(__fadd_rn(rbf(__fmul_rn(q, t)), rbf(ct[k])));
+  return rbf(__fmul_rn(xb, rbf(__fadd_rn(0.5f, rbf(__fmul_rn(xc, q))))));
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_apply(float v) {
+  if (ACT == ACT_GELU_TANH) return gelu_tanh(v);
+  if (ACT == ACT_GELU_EXACT) return gelu_exact(v);
+  if (ACT == ACT_GELU_POLY) return gelu_poly<10>(v, kGeluPolyCt);
+  if (ACT == ACT_GELU_POLY_BF16) return gelu_poly_bf16<10>(v, kGeluPolyCt);
+  if (ACT == ACT_GELU_TANH_POLY) return gelu_poly<11>(v, kGeluTanhPolyCt);
+  if (ACT == ACT_GELU_TANH_POLY_BF16) return gelu_poly_bf16<11>(v, kGeluTanhPolyCt);
+  return v;
 }
 
 // y[r] = (x[r] - mean) * rsqrt(var + eps) * gamma + beta, f32 statistics,
@@ -113,14 +182,15 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Y[M, N] = epilogue(A[M, K] . W[K, N] + bias[N]); all row-major, K and N
-// multiples of 8, A and W 16-byte aligned. Epilogue: optional GELU; with a
-// residual R, Y = bf16(bf16(acc + bias) + R). 8 warps, each a 64x32 tile of
-// mma.sync m16n8k16 accumulators; K tiles stream through a 3-stage
-// cp.async ring in shared memory.
-template <int ACT, bool RES>
+// multiples of 8, A and W 16-byte aligned. Epilogue: an optional activation;
+// with a residual R, Y = bf16(bf16(acc + bias) + R); with F32OUT the f32 sum
+// (bias may be null). 8 warps, each a 64x32 tile of mma.sync m16n8k16
+// accumulators; K tiles stream through a 3-stage cp.async ring in shared
+// memory.
+template <int ACT, bool RES, bool F32OUT = false>
 __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
     const bf16* __restrict__ A, const bf16* __restrict__ W,
-    const float* __restrict__ bias, const bf16* __restrict__ R, bf16* __restrict__ Y,
+    const float* __restrict__ bias, const bf16* __restrict__ R, void* __restrict__ Yv,
     int M, int N, int K) {
   extern __shared__ __align__(128) unsigned char gsmem[];
   bf16* As = reinterpret_cast<bf16*>(gsmem);
@@ -199,35 +269,58 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + wn * 32 + j * 8 + 2 * tig;
       if (col >= N) continue;  // N % 8 == 0: col + 1 < N too
-      const float b0 = bias[col], b1 = bias[col + 1];
+      const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * 64 + i * 16 + g + 8 * half;
         if (row >= M) continue;
-        float v0 = acc[i][j][2 * half] + b0, v1 = acc[i][j][2 * half + 1] + b1;
-        if (ACT == ACT_GELU_TANH) { v0 = gelu_tanh(v0); v1 = gelu_tanh(v1); }
-        if (ACT == ACT_GELU_EXACT) { v0 = gelu_exact(v0); v1 = gelu_exact(v1); }
+        float v0 = act_apply<ACT>(acc[i][j][2 * half] + b0);
+        float v1 = act_apply<ACT>(acc[i][j][2 * half + 1] + b1);
         const long long off = (long long)row * N + col;
+        if (F32OUT) {
+          *reinterpret_cast<float2*>(static_cast<float*>(Yv) + off) = make_float2(v0, v1);
+          continue;
+        }
         if (RES) {
           const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
           v0 = __bfloat162float(__float2bfloat16(v0)) + r.x;
           v1 = __bfloat162float(__float2bfloat16(v1)) + r.y;
         }
-        *reinterpret_cast<__nv_bfloat162*>(Y + off) = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(Yv) + off) =
+            __floats2bfloat162_rn(v0, v1);
       }
     }
   }
 }
 
-template <int ACT, bool RES>
-cudaError_t gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R, bf16* Y,
+template <int ACT, bool RES, bool F32OUT = false>
+cudaError_t gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
                  int M, int N, int K, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<ACT, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kGemmSmem));
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<ACT, RES, F32OUT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(kGemmSmem));
   if (err != cudaSuccess) return err;
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<ACT, RES><<<grid, kGemmThreads, kGemmSmem, st>>>(A, W, bias, R, Y, M, N, K);
+  gemm_kernel<ACT, RES, F32OUT><<<grid, kGemmThreads, kGemmSmem, st>>>(A, W, bias, R, Y, M, N,
+                                                                       K);
   return cudaGetLastError();
+}
+
+// Y = act(A . W + bias) for an activation chosen at run time
+cudaError_t gemm_act(int act, const bf16* A, const bf16* W, const float* bias, bf16* Y, int M,
+                     int N, int K, cudaStream_t st) {
+  switch (act) {
+    case ACT_GELU_TANH: return gemm<ACT_GELU_TANH, false>(A, W, bias, nullptr, Y, M, N, K, st);
+    case ACT_GELU_EXACT: return gemm<ACT_GELU_EXACT, false>(A, W, bias, nullptr, Y, M, N, K, st);
+    case ACT_GELU_POLY: return gemm<ACT_GELU_POLY, false>(A, W, bias, nullptr, Y, M, N, K, st);
+    case ACT_GELU_POLY_BF16:
+      return gemm<ACT_GELU_POLY_BF16, false>(A, W, bias, nullptr, Y, M, N, K, st);
+    case ACT_GELU_TANH_POLY:
+      return gemm<ACT_GELU_TANH_POLY, false>(A, W, bias, nullptr, Y, M, N, K, st);
+    case ACT_GELU_TANH_POLY_BF16:
+      return gemm<ACT_GELU_TANH_POLY_BF16, false>(A, W, bias, nullptr, Y, M, N, K, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t layernorm(const bf16* x, const float* g, const float* b, bf16* y, int rows,
@@ -290,11 +383,7 @@ cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const fl
   cudaError_t e;
   if ((e = gemm<ACT_NONE, true>(A, wproj, bproj, R, x1, rows, C, a_dim, st))) return e;
   if ((e = layernorm(x1, ln2_s, ln2_b, xn, rows, C, eps, st))) return e;
-  if (act == ACT_GELU_TANH)
-    e = gemm<ACT_GELU_TANH, false>(xn, w1, b1, nullptr, hmid, rows, mlp, C, st);
-  else
-    e = gemm<ACT_GELU_EXACT, false>(xn, w1, b1, nullptr, hmid, rows, mlp, C, st);
-  if (e) return e;
+  if ((e = gemm_act(act, xn, w1, b1, hmid, rows, mlp, C, st))) return e;
   return gemm<ACT_NONE, true>(hmid, w2, b2, x1, out, rows, C, mlp, st);
 }
 
@@ -326,7 +415,7 @@ bool all_aligned16(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-bool act_ok(int act) { return act == ACT_GELU_TANH || act == ACT_GELU_EXACT; }
+bool act_ok(int act) { return act >= ACT_GELU_TANH && act <= ACT_GELU_TANH_POLY_BF16; }
 
 const float* f32(const void* p) { return static_cast<const float*>(p); }
 const bf16* b16(const void* p) { return static_cast<const bf16*>(p); }
@@ -361,7 +450,7 @@ constexpr int kQLD = kQBK + 16;     // row stride of an int8 tile: fragment load
 constexpr int kQStageA = kBM * kQLD, kQStageB = kBN * kQLD;
 constexpr size_t kQSmem = size_t(kStages) * (kQStageA + kQStageB);
 
-enum QEpi { Q_BF16 = 0, Q_RES = 1, Q_GELU_TANH_F32 = 2, Q_GELU_EXACT_F32 = 3 };
+enum QEpi { Q_BF16 = 0, Q_RES = 1, Q_ACT_F32 = 2, Q_S32 = 3 };
 
 // d[16x8] += a[16x32] . b[32x8], int8 operands, int32 accumulators
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -375,13 +464,17 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
 
 // Y[M, N] = epilogue(float(A[M, Kp] . Bt[N, Kp]^T) * xs[m] * ws[n] + bias[n]);
 // A and Bt int8, rows of Kp bytes (Kp % 16 == 0, zero beyond the true K), N
-// even. Epilogues: bf16; bf16(bf16(v) + R); GELU(v) as f32.
-template <int EPI>
+// even. Epilogues: bf16; bf16(bf16(v) + R); act(v) as f32; the raw int32
+// sums (xs, ws and bias unused). With AQ, A is bf16 [M, lda] (lda % 8 == 0,
+// lda <= Kp) and the prologue rounds each value half to even and clips it to
+// +-127 on its way into shared memory (columns past lda are zero).
+template <int EPI, int ACT, bool AQ>
 __global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
-    const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
+    const void* __restrict__ Av, const int8_t* __restrict__ Bt,
     const float* __restrict__ xs, const float* __restrict__ ws,
     const float* __restrict__ bias, const bf16* __restrict__ R, void* __restrict__ Yv, int M,
-    int N, int Kp) {
+    int N, int Kp, int lda) {
+  const int8_t* A = static_cast<const int8_t*>(Av);
   extern __shared__ __align__(128) unsigned char gsmem[];
   int8_t* As = reinterpret_cast<int8_t*>(gsmem);
   int8_t* Bs = As + kStages * kQStageA;
@@ -400,8 +493,26 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
       const int idx = tid + i * kGemmThreads;
       const int r = idx >> 2, c = (idx & 3) * 16;
       const bool kv = k0 + c < Kp;
-      const bool va = kv && m0 + r < M;
-      cp_async16(as + r * kQLD + c, va ? A + (long long)(m0 + r) * Kp + k0 + c : A, va);
+      if constexpr (AQ) {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        const bf16* Ab = static_cast<const bf16*>(Av);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kk = k0 + c + 8 * h;
+          if (m0 + r >= M || kk >= lda) continue;
+          const uint4 v = *reinterpret_cast<const uint4*>(Ab + (long long)(m0 + r) * lda + kk);
+          const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int q = __float2int_rn(fminf(fmaxf(__bfloat162float(e[j]), -127.f), 127.f));
+            w[2 * h + j / 4] |= (uint32_t(q) & 0xffu) << (8 * (j % 4));
+          }
+        }
+        *reinterpret_cast<uint4*>(as + r * kQLD + c) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+        const bool va = kv && m0 + r < M;
+        cp_async16(as + r * kQLD + c, va ? A + (long long)(m0 + r) * Kp + k0 + c : A, va);
+      }
       const bool vb = kv && n0 + r < N;
       cp_async16(bs + r * kQLD + c, vb ? Bt + (long long)(n0 + r) * Kp + k0 + c : Bt, vb);
     }
@@ -459,17 +570,22 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
     for (int half = 0; half < 2; ++half) {
       const int row = m0 + wm * 64 + i * 16 + g + 8 * half;
       if (row >= M) continue;
-      const float xr = xs[row];
+      const float xr = EPI == Q_S32 ? 0.f : xs[row];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + wn * 32 + j * 8 + 2 * tig;
         if (col >= N) continue;  // N even: col + 1 < N too
+        const long long off = (long long)row * N + col;
+        if (EPI == Q_S32) {
+          *reinterpret_cast<int2*>(static_cast<int*>(Yv) + off) =
+              make_int2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+          continue;
+        }
         float v0 = float(acc[i][j][2 * half]) * xr * ws[col] + bias[col];
         float v1 = float(acc[i][j][2 * half + 1]) * xr * ws[col + 1] + bias[col + 1];
-        const long long off = (long long)row * N + col;
-        if (EPI == Q_GELU_TANH_F32 || EPI == Q_GELU_EXACT_F32) {
-          if (EPI == Q_GELU_TANH_F32) { v0 = gelu_tanh(v0); v1 = gelu_tanh(v1); }
-          else { v0 = gelu_exact(v0); v1 = gelu_exact(v1); }
+        if (EPI == Q_ACT_F32) {
+          v0 = act_apply<ACT>(v0);
+          v1 = act_apply<ACT>(v1);
           *reinterpret_cast<float2*>(static_cast<float*>(Yv) + off) = make_float2(v0, v1);
         } else {
           if (EPI == Q_RES) {
@@ -485,16 +601,36 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
   }
 }
 
-template <int EPI>
-cudaError_t gemm_s8(const int8_t* A, const int8_t* Bt, const float* xs, const float* ws,
+template <int EPI, int ACT = ACT_NONE, bool AQ = false>
+cudaError_t gemm_s8(const void* A, const int8_t* Bt, const float* xs, const float* ws,
                     const float* bias, const bf16* R, void* Y, int M, int N, int Kp,
-                    cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_s8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kQSmem));
+                    cudaStream_t st, int lda = 0) {
+  cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<EPI, ACT, AQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(kQSmem));
   if (err != cudaSuccess) return err;
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_s8_kernel<EPI><<<grid, kGemmThreads, kQSmem, st>>>(A, Bt, xs, ws, bias, R, Y, M, N, Kp);
+  gemm_s8_kernel<EPI, ACT, AQ><<<grid, kGemmThreads, kQSmem, st>>>(
+      A, Bt, xs, ws, bias, R, Y, M, N, Kp, lda ? lda : Kp);
   return cudaGetLastError();
+}
+
+// hmid = act(rescaled A . Bt) as f32, for an activation chosen at run time
+cudaError_t gemm_s8_act(int act, const int8_t* A, const int8_t* Bt, const float* xs,
+                        const float* ws, const float* bias, float* Y, int M, int N, int Kp,
+                        cudaStream_t st) {
+  switch (act) {
+#define UFV_S8_ACT(a) \
+    case a: return gemm_s8<Q_ACT_F32, a>(A, Bt, xs, ws, bias, nullptr, Y, M, N, Kp, st);
+    UFV_S8_ACT(ACT_GELU_TANH)
+    UFV_S8_ACT(ACT_GELU_EXACT)
+    UFV_S8_ACT(ACT_GELU_POLY)
+    UFV_S8_ACT(ACT_GELU_POLY_BF16)
+    UFV_S8_ACT(ACT_GELU_TANH_POLY)
+    UFV_S8_ACT(ACT_GELU_TANH_POLY_BF16)
+#undef UFV_S8_ACT
+  }
+  return cudaErrorInvalidValue;
 }
 
 __device__ __forceinline__ float as_float(float v) { return v; }
@@ -594,14 +730,36 @@ cudaError_t tail_w8a8(const bf16* A, const bf16* R, const int8_t* wproj, const f
   if ((e = rowquant<bf16, false>(A, nullptr, nullptr, qa, xs, rows, a_dim, Ka, eps, st))) return e;
   if ((e = gemm_s8<Q_RES>(qa, wproj_t, xs, sproj, bproj, R, x1, rows, C, Ka, st))) return e;
   if ((e = rowquant<bf16, true>(x1, ln2_s, ln2_b, qa, xs, rows, C, Kc, eps, st))) return e;
-  if (act == ACT_GELU_TANH)
-    e = gemm_s8<Q_GELU_TANH_F32>(qa, w1_t, xs, s1, b1, nullptr, hmid, rows, mlp, Kc, st);
-  else
-    e = gemm_s8<Q_GELU_EXACT_F32>(qa, w1_t, xs, s1, b1, nullptr, hmid, rows, mlp, Kc, st);
-  if (e) return e;
+  if ((e = gemm_s8_act(act, qa, w1_t, xs, s1, b1, hmid, rows, mlp, Kc, st))) return e;
   if ((e = rowquant<float, false>(hmid, nullptr, nullptr, qh, xs, rows, mlp, Km, eps, st)))
     return e;
   return gemm_s8<Q_RES>(qh, w2_t, xs, s2, b2, x1, out, rows, C, Km, st);
+}
+
+// One whole bf16 block: x -> out (distinct buffers). Scratch as
+// hiera_block_bf16 lists it.
+cudaError_t block_bf16(const bf16* x, bf16* out, const float* ln1_s, const float* ln1_b,
+                       const bf16* wqkv, const float* bqkv, const bf16* wproj,
+                       const float* bproj, const float* ln2_s, const float* ln2_b,
+                       const bf16* w1, const float* b1, const bf16* w2, const float* b2,
+                       bf16* xn, bf16* qkv, bf16* att, bf16* x1, bf16* hmid, int N, int S,
+                       int C, int heads, int head_dim, int mlp, int act, float eps,
+                       cudaStream_t st) {
+  const int rows = N * S;
+  const int hw = heads * head_dim;
+  cudaError_t e;
+  if ((e = layernorm(x, ln1_s, ln1_b, xn, rows, C, eps, st))) return e;
+  if ((e = gemm<ACT_NONE, false>(xn, wqkv, bqkv, nullptr, qkv, rows, 3 * hw, C, st))) return e;
+  if ((e = window_attention(qkv, 3LL * hw, qkv + hw, qkv + 2 * hw, 3LL * hw, att, N, S, S,
+                            heads, head_dim, st)))
+    return e;
+  return block_tail(att, x, wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2, x1, xn, hmid, out,
+                    rows, C, hw, mlp, act, eps, st);
+}
+
+bool block_dims_ok(int rows, int C, int head_dim, int mlp, int act) {
+  return rows > 0 && C % 8 == 0 && head_dim % 8 == 0 && mlp % 8 == 0 && head_dim <= 128 &&
+         act_ok(act);
 }
 
 }  // namespace
@@ -627,23 +785,78 @@ extern "C" int hiera_block_bf16(
     const void* ln2_b, const void* w1, const void* b1, const void* w2, const void* b2,
     void* xn, void* qkv, void* att, void* x1, void* hmid, int N, int S, int C, int heads,
     int head_dim, int mlp, int act, float eps, void* stream) {
-  const int rows = N * S;
-  const int hw = heads * head_dim;
-  if (rows <= 0 || C % 8 || head_dim % 8 || mlp % 8 || head_dim > 128 || !act_ok(act))
-    return int(cudaErrorInvalidValue);
+  if (!block_dims_ok(N * S, C, head_dim, mlp, act)) return int(cudaErrorInvalidValue);
   if (!all_aligned16({x, out, wqkv, wproj, w1, w2, xn, qkv, att, x1, hmid}))
     return int(cudaErrorMisalignedAddress);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bf16* QKV = b16(qkv);
+  UFV_TRY(block_bf16(b16(x), b16(out), f32(ln1_s), f32(ln1_b), b16(wqkv), f32(bqkv),
+                     b16(wproj), f32(bproj), f32(ln2_s), f32(ln2_b), b16(w1), f32(b1), b16(w2),
+                     f32(b2), b16(xn), b16(qkv), b16(att), b16(x1), b16(hmid), N, S, C, heads,
+                     head_dim, mlp, act, eps, static_cast<cudaStream_t>(stream)));
+  return 0;
+}
 
-  UFV_TRY(layernorm(b16(x), f32(ln1_s), f32(ln1_b), b16(xn), rows, C, eps, st));
-  UFV_TRY((gemm<ACT_NONE, false>(b16(xn), b16(wqkv), f32(bqkv), nullptr, QKV, rows, 3 * hw,
-                                 C, st)));
-  UFV_TRY(window_attention(QKV, 3LL * hw, QKV + hw, QKV + 2 * hw, 3LL * hw, b16(att), N, S,
-                           S, heads, head_dim, st));
-  UFV_TRY(block_tail(b16(att), b16(x), b16(wproj), f32(bproj), f32(ln2_s), f32(ln2_b),
-                     b16(w1), f32(b1), b16(w2), f32(b2), b16(x1), b16(xn), b16(hmid),
-                     b16(out), rows, C, hw, mlp, act, eps, st));
+// fused_hiera_stage (_stage_forward / _stage_kernel): nb consecutive whole
+// blocks of the same shape, x -> out. params is a host array of 12 * nb
+// pointers, block after block in hiera_block_bf16's order (ln1_s, ln1_b,
+// wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2). The rows are
+// carried through the blocks in two device buffers, out and tmp [N, S, C]
+// (tmp unused when nb == 1), so no block reads the buffer it writes: block
+// b writes out when nb - 1 - b is even, else tmp, and reads what block b - 1
+// wrote. Every launch goes to one stream, so block b + 1 starts after block
+// b's residual epilogue has finished; the scratch (xn, qkv, att, x1, hmid as
+// in hiera_block_bf16) is shared by all blocks. Not yet: keeping a window's
+// rows in shared memory across blocks (stage 1: 64 x 144 bf16 = 18 KB).
+extern "C" int hiera_stage_bf16(
+    const void* x, void* out, void* tmp, const void* const* params, int nb, void* xn,
+    void* qkv, void* att, void* x1, void* hmid, int N, int S, int C, int heads, int head_dim,
+    int mlp, int act, float eps, void* stream) {
+  if (nb <= 0 || !params || !block_dims_ok(N * S, C, head_dim, mlp, act) ||
+      (nb > 1 && (tmp == out || tmp == x)) || out == x)
+    return int(cudaErrorInvalidValue);
+  if (!all_aligned16({x, out, tmp, xn, qkv, att, x1, hmid}))
+    return int(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* src = x;
+  for (int b = 0; b < nb; ++b) {
+    const void* const* p = params + 12 * b;
+    if (!all_aligned16({p[2], p[4], p[8], p[10]})) return int(cudaErrorMisalignedAddress);
+    void* dst = (nb - 1 - b) % 2 == 0 ? out : tmp;
+    UFV_TRY(block_bf16(b16(src), b16(dst), f32(p[0]), f32(p[1]), b16(p[2]), f32(p[3]),
+                       b16(p[4]), f32(p[5]), f32(p[6]), f32(p[7]), b16(p[8]), f32(p[9]),
+                       b16(p[10]), f32(p[11]), b16(xn), b16(qkv), b16(att), b16(x1),
+                       b16(hmid), N, S, C, heads, head_dim, mlp, act, eps, st));
+    src = dst;
+  }
+  return 0;
+}
+
+// scripts/probe_int8_rate.py pallas_step (_pallas_dot_kernel), quant=False:
+// y [M, N] f32 = x [M, K] bf16 . w [K, N] bf16, f32 accumulation (the bf16
+// GEMM above with an f32 epilogue and no bias). K and N multiples of 8.
+extern "C" int probe_gemm_bf16(const void* x, const void* w, void* y, int M, int K, int N,
+                               void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8) return int(cudaErrorInvalidValue);
+  if (!all_aligned16({x, w, y})) return int(cudaErrorMisalignedAddress);
+  UFV_TRY((gemm<ACT_NONE, false, true>(b16(x), b16(w), nullptr, nullptr, y, M, N, K,
+                                       static_cast<cudaStream_t>(stream))));
+  return 0;
+}
+
+// The same probe, quant=True: y [M, N] int32 = q(x) . w, x [M, K] bf16
+// rounded half to even and clipped to +-127 in the GEMM's prologue, w [K, N]
+// int8, s8 x s8 -> s32 (the int8 GEMM above with that prologue and a raw
+// int32 epilogue). The weights are first transposed into wt [N, pad32(K)]
+// (int8 scratch), as the mma.sync s8 operands want K innermost. K a multiple
+// of 8, N even.
+extern "C" int probe_gemm_s8(const void* x, const void* w, void* wt, void* y, int M, int K,
+                             int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 2) return int(cudaErrorInvalidValue);
+  if (!all_aligned16({x, wt, y})) return int(cudaErrorMisalignedAddress);
+  const int Kp = pad32(K);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  UFV_TRY(transpose_s8(s8(w), s8(wt), K, N, Kp, st));
+  UFV_TRY((gemm_s8<Q_S32, ACT_NONE, true>(x, s8(wt), nullptr, nullptr, nullptr, nullptr, y, M,
+                                          N, Kp, st, K)));
   return 0;
 }
 

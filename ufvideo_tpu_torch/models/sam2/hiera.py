@@ -7,29 +7,48 @@ not care about token order, rides it through a reshape to [B, T, C].
 Spatial layout is materialised only at q-pooling boundaries and for the
 per-stage FPN outputs.
 
-Every block goes through hand-written kernels (``ops/hiera_block.py``),
-chosen when the block is built:
+Each block takes one route, fixed when it is built from its shape, ``quant``
+and a ``VisionRouting`` (the JAX package reads the same choices from
+``UFVIDEO_QPOOL_FUSED``, ``UFVIDEO_SAM2_INT8_SPECIAL``, ``UFVIDEO_HIERA_GELU``
+and ``UFVIDEO_HIERA_STAGE_NB`` at trace time; this package reads no
+environment variable):
 
 - ``block``: a windowed block that keeps its width → ``fused_hiera_block``;
-- ``qpool``: a q-pooling block that changes width → ``fused_qpool_block``;
-- ``split``: a global block (or a q-pooling block that keeps its width) →
-  ``fused_ln_matmul`` → attention (the flash kernel) → ``fused_block_tail``.
+  with ``hiera_stage_nb`` > 1, runs of up to that many consecutive identical
+  such blocks go to one ``fused_hiera_stage`` call instead (float only, as in
+  JAX; the JAX cap of ``96 // pairs`` blocks a run comes from a TPU compile
+  budget and is not carried over: grouping changes launches, not math);
+- ``qpool``: a q-pooling block that changes width, with ``qpool_fused`` →
+  ``fused_qpool_block``;
+- ``split``: a global block, or a q-pooling block off the fused route →
+  ``fused_ln_matmul`` → pooling and ``window_dense_attention`` (q-pool) or
+  the flash kernel (global) → ``fused_block_tail``;
+- ``generic``: everything else: the unfused block (flax LayerNorm, dense
+  layers, ``MultiScaleAttention``, exact GELU). No shipped float
+  configuration takes it; the W8A8 trunk's q-pool and global blocks take it
+  when ``sam2_int8_special`` is off.
+
+``MultiScaleAttention`` has the JAX module's four branches: q-stride →
+``window_dense_attention``; global → the flash kernel; windowed with at most
+512 tokens → ``fused_window_attention``; larger windows →
+``window_dense_attention``.
 
 With ``quant=True`` (the JAX ``Hiera(quant=True)``) every block's dense
 layers are W8A8: int8 kernels with per-column f32 scales (``kernel_q`` /
 ``kernel_scale`` / ``bias``, the tree of the JAX ``W8A8Dense``), rows
-quantised before each product. The routes are the same three and call the
-``_w8a8`` kernels: ``fused_block_w8a8``, ``fused_qpool_block_w8a8``,
-``fused_ln_matmul_w8a8`` → attention (bf16, unchanged) →
-``fused_block_tail_w8a8``. Patch embedding, position embeddings and norms
-stay float.
+quantised before each product. The routes call the ``_w8a8`` kernels
+(``fused_block_w8a8``, ``fused_qpool_block_w8a8``, ``fused_ln_matmul_w8a8``
+→ attention (bf16) → ``fused_block_tail_w8a8``), and the generic route
+``quant.W8A8Linear``. Patch embedding, position embeddings and norms stay
+float. Every route reads the same parameters, under the JAX names, so one
+JAX tree loads into every routing.
 
-The GELU is the exact (erf) one. The JAX package picks its GELU variant,
-the fused q-pool routing and a multi-block stage fusion from environment
-variables at trace time; this package reads no environment variable and
-takes their defaults. Every window side must divide its stage's token grid
-(true of every shipped configuration): the JAX package's padded path is
-only approximate and is not carried over.
+The kernels' GELU is the routing's (exact by default); the generic route's
+is always the exact one, as in JAX. Not carried over, being TPU layout:
+``head_pad`` / ``UFVIDEO_HIERA_ALIGN_QKV``, ``UFVIDEO_GLOBAL_PAD_HEADS`` and
+``UFVIDEO_HIERA_GROUP_ROWS``. Every window side must divide its stage's
+token grid (true of every shipped configuration): the JAX package's padded
+path is only approximate and is not carried over.
 """
 
 from __future__ import annotations
@@ -39,16 +58,17 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ...configs import SAM2Config, SAM2HieraConfig
+from ...configs import SAM2Config, SAM2HieraConfig, VisionRouting
 from ...ops import hiera_block as hb
 from ...ops.attention import attention, window_dense_attention
 from ...ops.interp import bicubic_matrix
-from ...quant import quantize_kernel
+from ...ops.window_attention import fused_window_attention, fused_window_attention_plain
+from ...quant import W8A8Linear
 from .common import ConvNHWC, position_embedding_sine
 
-_ACT = "gelu_exact"
 _EPS = 1e-6
 # the wrapper of each part of a block in ``ops.hiera_block``; its plain
 # version carries the suffix ``_plain``
@@ -76,31 +96,17 @@ def from_windows(tokens: torch.Tensor, ws: int, hw: Tuple[int, int]) -> torch.Te
 
 
 class DenseParams(nn.Module):
-    """A dense layer's parameters in the kernels' [in, out] layout."""
+    """A dense layer in the kernels' [in, out] layout (flax ``nn.Dense``
+    with ``dtype``: the product in that type, then the bias added)."""
 
     def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_dim, out_dim, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(out_dim, dtype=dtype))
 
-
-class QuantDenseParams(nn.Module):
-    """A W8A8 dense layer's parameters: int8 ``kernel_q`` [in, out], f32
-    ``kernel_scale`` [out], ``bias`` in the working type."""
-
-    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype):
-        super().__init__()
-        frozen = lambda shape, dt: nn.Parameter(torch.empty(shape, dtype=dt), requires_grad=False)
-        self.kernel_q = frozen((in_dim, out_dim), torch.int8)
-        self.kernel_scale = frozen((out_dim,), torch.float32)
-        self.bias = nn.Parameter(torch.empty(out_dim, dtype=dtype))
-
-    @torch.no_grad()
-    def set_kernel(self, kernel: torch.Tensor) -> None:
-        """Quantise a float [in, out] kernel into this layer."""
-        qd = quantize_kernel(kernel)
-        self.kernel_q.copy_(qd["q"])
-        self.kernel_scale.copy_(qd["scale"])
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
 
 
 class LayerNormParams(nn.Module):
@@ -110,13 +116,55 @@ class LayerNormParams(nn.Module):
         self.bias = nn.Parameter(torch.empty(dim, dtype=dtype))
 
 
-class AttnPairParams(nn.Module):
-    def __init__(self, dim: int, qkv_out: int, proj_in: int, proj_out: int, dtype,
-                 quant: bool = False):
+class MultiScaleAttention(nn.Module):
+    """Windowed / global attention with optional q max-pooling on
+    window-major tokens [N, S, C] (the JAX ``MultiScaleAttention``):
+    ``qkv`` → attention → ``proj``. ``window_side`` 0 is a global block
+    ([B, T, C] in). With ``quant`` the dense layers are ``W8A8Linear``;
+    ``unfused`` says they run their own products (else a fused block kernel
+    reads their weights), which fixes the layout of their int8 weights."""
+
+    def __init__(self, dim: int, dim_out: int, num_heads: int, window_side: int,
+                 q_stride: Optional[Tuple[int, int]], dtype: torch.dtype, quant: bool = False,
+                 unfused: bool = True):
         super().__init__()
-        dense = QuantDenseParams if quant else DenseParams
-        self.qkv = dense(dim, qkv_out, dtype)
-        self.proj = dense(proj_in, proj_out, dtype)
+        self.num_heads = num_heads
+        self.head_dim = dim_out // num_heads
+        self.window_side = window_side
+        self.q_stride = tuple(q_stride) if q_stride is not None else None
+        dense = functools.partial(W8A8Linear, unfused=unfused) if quant else DenseParams
+        hw = num_heads * self.head_dim
+        self.qkv = dense(dim, 3 * hw, dtype)
+        self.proj = dense(hw, dim_out, dtype)
+        self.use_kernels = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, s, _ = x.shape
+        heads, hd = self.num_heads, self.head_dim
+        hw = heads * hd
+        scale = hd ** -0.5
+        qkv = self.qkv(x)  # [N, S, 3·H·hd], the window kernel's layout
+        if self.q_stride is not None:
+            ws = self.window_side
+            if ws % self.q_stride[0] or ws % self.q_stride[1]:
+                raise ValueError(f"q-stride {self.q_stride} does not divide window {ws}")
+            q = hb.pool_window_tokens(qkv[..., :hw], ws, self.q_stride)
+            q = q.reshape(n, -1, heads, hd)
+            k = qkv[..., hw:2 * hw].reshape(n, s, heads, hd)
+            v = qkv[..., 2 * hw:].reshape(n, s, heads, hd)
+            o = window_dense_attention(q, k, v, scale=scale).reshape(n, -1, hw)
+        elif self.window_side == 0:
+            parts = qkv.reshape(n, s, 3, heads, hd)
+            o = attention(parts[:, :, 0], parts[:, :, 1], parts[:, :, 2], scale=scale,
+                          use_kernel=self.use_kernels).reshape(n, s, hw)
+        elif s <= 512:
+            fn = fused_window_attention if self.use_kernels else fused_window_attention_plain
+            o = fn(qkv, heads, hd)
+        else:
+            parts = qkv.reshape(n, s, 3, heads, hd)
+            o = window_dense_attention(parts[:, :, 0], parts[:, :, 1], parts[:, :, 2],
+                                       scale=scale).reshape(n, s, hw)
+        return self.proj(o)
 
 
 class MultiScaleBlock(nn.Module):
@@ -125,31 +173,31 @@ class MultiScaleBlock(nn.Module):
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, mlp_ratio: float,
                  q_stride: Optional[Tuple[int, int]], window_side: int, dtype: torch.dtype,
-                 quant: bool = False):
+                 quant: bool = False, routing: Optional[VisionRouting] = None):
         super().__init__()
+        routing = routing or VisionRouting()
         self.dim, self.dim_out, self.num_heads = dim, dim_out, num_heads
         self.quant = quant
         self.q_stride = tuple(q_stride) if q_stride is not None else None
         self.window_side = window_side  # 0 = global
         self.dtype = dtype
+        self.act = routing.hiera_act
         self.head_dim = dim_out // num_heads
         hw = num_heads * self.head_dim
         hidden = int(dim_out * mlp_ratio)
+        special = q_stride is not None or window_side == 0
         if q_stride is None and dim == dim_out and 0 < window_side ** 2 <= 512:
             self.route = "block"
-        elif q_stride is not None and dim != dim_out:
-            self.route = "qpool"
-        elif q_stride is not None or window_side == 0:
-            self.route = "split"
+        elif special and (not quant or routing.sam2_int8_special):
+            fused = q_stride is not None and dim != dim_out and routing.qpool_fused
+            self.route = "qpool" if fused else "split"
         else:
-            raise NotImplementedError(
-                f"windowed block of {window_side ** 2} tokens with dim {dim}->{dim_out}: "
-                "the unfused MultiScaleAttention path (ROADMAP.md queue 2, "
-                "fused_window_attention)"
-            )
-        dense = QuantDenseParams if quant else DenseParams
+            self.route = "generic"
+        unfused = self.route == "generic"
+        dense = functools.partial(W8A8Linear, unfused=unfused) if quant else DenseParams
         self.norm1 = LayerNormParams(dim, dtype)
-        self.attn = AttnPairParams(dim, 3 * hw, hw, dim_out, dtype, quant)
+        self.attn = MultiScaleAttention(dim, dim_out, num_heads, window_side, q_stride, dtype,
+                                        quant, unfused)
         self.norm2 = LayerNormParams(dim_out, dtype)
         self.mlp_layers_0 = dense(dim_out, hidden, dtype)
         self.mlp_layers_1 = dense(hidden, dim_out, dtype)
@@ -188,8 +236,26 @@ class MultiScaleBlock(nn.Module):
             self._prepared_key = key
         return self._prepared
 
+    def _generic(self, x: torch.Tensor) -> torch.Tensor:
+        """The unfused block (the JAX ``MultiScaleBlock`` past its fused
+        routes): flax LayerNorms in f32, dense layers, ``MultiScaleAttention``
+        and the exact GELU."""
+        ln = lambda norm, t: hb.layer_norm_flax(
+            t, norm.scale, norm.bias, _EPS, torch.float32).to(self.dtype)
+        shortcut = x
+        xn = ln(self.norm1, x)
+        if self.dim != self.dim_out:
+            shortcut = self.proj(xn)
+            if self.q_stride is not None:
+                shortcut = hb.pool_window_tokens(shortcut, self.window_side, self.q_stride)
+        x = shortcut + self.attn(xn)
+        m = F.gelu(self.mlp_layers_0(ln(self.norm2, x)), approximate="none")
+        return x + self.mlp_layers_1(m)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N, S, C]
         x = x.to(self.dtype)
+        if self.route == "generic":
+            return self._generic(x)
         k = self.use_kernels
         heads, hd = self.num_heads, self.head_dim
         hw = heads * hd
@@ -201,10 +267,10 @@ class MultiScaleBlock(nn.Module):
         n_front = 5 if self.quant else 4  # (ln1_s, ln1_b, wfront, [sfront,] bfront)
         if self.route == "block":
             fn = pick("block")
-            return fn(x, params, heads, hd, act=_ACT, eps=_EPS)
+            return fn(x, params, heads, hd, act=self.act, eps=_EPS)
         if self.route == "qpool":
             fn = pick("qpool")
-            return fn(x, params, heads, hd, self.q_stride, act=_ACT, eps=_EPS)
+            return fn(x, params, heads, hd, self.q_stride, act=self.act, eps=_EPS)
 
         ln_matmul = pick("front")
         front = ln_matmul(x, *params[:n_front], eps=_EPS)
@@ -221,7 +287,7 @@ class MultiScaleBlock(nn.Module):
         else:  # global block
             o = attention(q, kk, v, scale=hd ** -0.5, use_kernel=k)
         tail = pick("tail")
-        return tail(shortcut, o.reshape(n, -1, hw), params[n_front:], act=_ACT, eps=_EPS)
+        return tail(shortcut, o.reshape(n, -1, hw), params[n_front:], act=self.act, eps=_EPS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,8 +298,10 @@ def _bicubic(src: int, dst: int) -> np.ndarray:
 class Hiera(nn.Module):
     """Multi-stage trunk returning per-stage NHWC feature maps."""
 
-    def __init__(self, cfg: SAM2HieraConfig, dtype: torch.dtype, quant: bool = False):
+    def __init__(self, cfg: SAM2HieraConfig, dtype: torch.dtype, quant: bool = False,
+                 routing: Optional[VisionRouting] = None):
         super().__init__()
+        routing = routing or VisionRouting()
         self.cfg = cfg
         self.dtype = dtype
         self.quant = quant  # W8A8 blocks
@@ -271,7 +339,7 @@ class Hiera(nn.Module):
                 side = 1
             blocks.append(MultiScaleBlock(
                 embed_dim, dim_out, num_heads, cfg.mlp_ratio, pool,
-                side if window_size > 0 else 0, dtype, quant,
+                side if window_size > 0 else 0, dtype, quant, routing,
             ))
             if pool is not None:
                 if side % pool[0] or side % pool[1] or grid % pool[0]:
@@ -280,6 +348,29 @@ class Hiera(nn.Module):
                 side = max(side // pool[0], 1)
             embed_dim = dim_out
         self.blocks = nn.ModuleList(blocks)
+        self.groups = self._stage_groups(routing.hiera_stage_nb)
+
+    def _stage_groups(self, stage_nb: int) -> List[List[int]]:
+        """The blocks of each call: a run of up to ``stage_nb`` consecutive
+        float ``block``-route blocks of one shape (width, heads, window), or
+        one block. A run never crosses a stage: the next stage opens with a
+        q-pooling block, and a global block has no window."""
+        shape = lambda b: (b.route, b.dim, b.dim_out, b.num_heads, b.window_side)
+        groups, i = [], 0
+        while i < len(self.blocks):
+            run = [i]
+            if not self.quant and self.blocks[i].route == "block":
+                while (len(run) < stage_nb and run[-1] + 1 < len(self.blocks)
+                       and shape(self.blocks[run[-1] + 1]) == shape(self.blocks[i])):
+                    run.append(run[-1] + 1)
+            groups.append(run)
+            i = run[-1] + 1
+        return groups
+
+    def call_routes(self) -> List[str]:
+        """What each call of a forward runs: ``stage`` for a run of blocks,
+        else the block's route."""
+        return ["stage" if len(g) > 1 else self.blocks[g[0]].route for g in self.groups]
 
     @torch.no_grad()
     def reset_own_parameters(self, gen: torch.Generator) -> None:
@@ -302,7 +393,8 @@ class Hiera(nn.Module):
         outputs: List[torch.Tensor] = []
         tokens: Optional[torch.Tensor] = None
         side = 0
-        for i, blk in enumerate(self.blocks):
+        for group in self.groups:
+            blk = self.blocks[group[0]]
             ws = blk.window_side
             if ws > 0 and side != ws:
                 # relayout to this block's window side (stage entries and
@@ -313,7 +405,12 @@ class Hiera(nn.Module):
                 side = ws
             elif ws == 0 and tokens is None:
                 tokens, side = to_windows(x, 1), 1
-            if ws == 0:
+            if len(group) > 1:
+                fn = hb.fused_hiera_stage if blk.use_kernels else hb.fused_hiera_stage_plain
+                tokens = fn(tokens.to(self.dtype),
+                            [self.blocks[j]._kernel_params() for j in group],
+                            blk.num_heads, blk.head_dim, act=blk.act, eps=_EPS)
+            elif ws == 0:
                 out = blk(tokens.reshape(b, h * w, -1))
                 tokens = out.reshape(tokens.shape[0], side * side, -1)
             else:
@@ -322,7 +419,7 @@ class Hiera(nn.Module):
                 sy, sx = blk.q_stride
                 h, w = h // sy, w // sx
                 side = max(side // sy, 1)
-            if i in self.stage_ends:
+            if group[-1] in self.stage_ends:
                 x = from_windows(tokens, side, (h, w))
                 outputs.append(x)
         return outputs  # finest → coarsest

@@ -18,7 +18,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from ...configs import SAM2Config
+from ...configs import SAM2Config, VisionRouting
 from ...ops.interp import resize_hw
 from .. import init
 from .common import SamMLP, position_embedding_sine
@@ -44,15 +44,16 @@ def _upsample(masks: torch.Tensor, size: int) -> torch.Tensor:
 
 class SAM2(nn.Module):
     def __init__(self, cfg: SAM2Config, dtype: torch.dtype = torch.bfloat16,
-                 quant: bool = False):
+                 quant: bool = False, routing: Optional[VisionRouting] = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.quant = quant
         c = cfg.sam_embed_dim
         # quant: only the trunk's blocks are W8A8 (the encode hot path);
-        # patch embed, FPN, prompt / mask / memory heads stay float
-        self.image_encoder_trunk = Hiera(cfg.hiera, dtype, quant)
+        # patch embed, FPN, prompt / mask / memory heads stay float. The
+        # routing picks the trunk's kernels (hiera.py)
+        self.image_encoder_trunk = Hiera(cfg.hiera, dtype, quant, routing)
         self.image_encoder_neck = FpnNeck(cfg, dtype)
         self.sam_prompt_encoder = PromptEncoder(cfg, dtype)
         self.sam_mask_decoder = MaskDecoder(cfg, dtype)

@@ -1,25 +1,41 @@
-"""SigLIP-SO400M vision tower (mirrors ``ufvideo_tpu/models/siglip.py``,
-default fused branch): patchify matmul, learned position embeddings, and
-the first ``num_encode_layers`` pre-LN encoder layers (the
-``hidden_states[-2]`` tap — the last layer and the post-LN never run).
+"""SigLIP-SO400M vision tower (mirrors ``ufvideo_tpu/models/siglip.py``):
+patchify matmul, learned position embeddings, and the first
+``num_encode_layers`` pre-LN encoder layers (the ``hidden_states[-2]`` tap —
+the last layer and the post-LN never run).
 
-Each encoder layer is one ``ops.fused_hiera_block`` call with one
-729-token window per frame. The GELU is fixed when the tower is built. With
-``quant=True`` (the JAX ``SiglipVisionTower(quant=True)`` on its fused
-route) the dense kernels are int8 with per-column scales and each layer is
-one ``ops.fused_block_w8a8`` call.
+Each layer takes one of four routes, fixed when the tower is built from a
+``VisionRouting`` (the JAX tower picks them from ``ln_dtype`` and from
+``UFVIDEO_SIGLIP_INT8_FUSED`` / the backend at trace time):
+
+- float, ``siglip_ln_dtype="f32"`` (the default): one ``ops.fused_hiera_block``
+  call with one 729-token window per frame and the routing's SigLIP GELU;
+- float, ``"bf16"``: the unfused layer (JAX ``SiglipAttention`` /
+  ``SiglipMLP``): LayerNorm rounded to bf16 (flax ``nn.LayerNorm(dtype=bf16)``),
+  dense qkv, ``ops.mha_full_attention_packed`` on the packed buffer, dense out,
+  dense fc1, tanh GELU, dense fc2;
+- ``quant=True``, ``siglip_int8_fused`` (the default): one
+  ``ops.fused_block_w8a8`` call, int8 kernels with per-column scales;
+- ``quant=True``, not fused: the unfused W8A8 layer (JAX
+  ``SiglipAttentionInt8`` / ``SiglipMLPInt8``): f32 LayerNorm, then each dense
+  product a ``quant.w8a8_linear`` around the packed attention kernel.
+
+All four read the same parameters, so one JAX tree loads into every route.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..configs import SiglipVisionConfig
+from ..configs import SiglipVisionConfig, VisionRouting
 from ..ops.hiera_block import (
-    fused_block_w8a8, fused_block_w8a8_plain, fused_hiera_block, fused_hiera_block_plain)
-from ..quant import quantize_kernel
+    fused_block_w8a8, fused_block_w8a8_plain, fused_hiera_block, fused_hiera_block_plain,
+    layer_norm_flax)
+from ..ops.vit_attention import mha_full_attention_packed, mha_full_attention_packed_plain
+from ..quant import int8_kernel, quantize_kernel, w8a8_linear
 from . import init
 
 
@@ -30,11 +46,14 @@ class SiglipEncoderLayer(nn.Module):
     _DENSE = ("qkv", "out", "fc1", "fc2")
 
     def __init__(self, cfg: SiglipVisionConfig, dtype: torch.dtype, act: str,
-                 quant: bool = False):
+                 quant: bool = False, fused: bool = True,
+                 ln_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.act = act
+        self.act = act  # the fused float layer's GELU
         self.quant = quant
+        self.fused = fused
+        self.ln_dtype = ln_dtype  # the unfused layer's LayerNorm output type
         self.dtype = dtype
         c, m = cfg.hidden_size, cfg.intermediate_size
         p = lambda *shape: nn.Parameter(torch.empty(*shape, dtype=dtype))
@@ -44,7 +63,9 @@ class SiglipEncoderLayer(nn.Module):
             if quant:
                 frozen = lambda shape, dt: nn.Parameter(
                     torch.empty(shape, dtype=dt), requires_grad=False)
-                setattr(self, f"{name}_kernel", frozen((i, o), torch.int8))
+                # the unfused layer's products read their weights K-contiguous
+                setattr(self, f"{name}_kernel",
+                        frozen((i, o), torch.int8) if fused else int8_kernel(i, o))
                 setattr(self, f"{name}_scale", frozen((o,), torch.float32))
             else:
                 setattr(self, f"{name}_kernel", p(i, o))
@@ -81,7 +102,25 @@ class SiglipEncoderLayer(nn.Module):
             self.ln2_scale, self.ln2_bias, *dense("fc1"), *dense("fc2"),
         )
 
+    def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        kernel, bias = getattr(self, f"{name}_kernel"), getattr(self, f"{name}_bias")
+        if self.quant:
+            return w8a8_linear(x, kernel, getattr(self, f"{name}_scale"), bias, self.dtype)
+        return x @ kernel.to(self.dtype) + bias.to(self.dtype)
+
+    def _unfused(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, eps = self.cfg, self.cfg.layer_norm_eps
+        att = mha_full_attention_packed if self.use_kernels else mha_full_attention_packed_plain
+        h = layer_norm_flax(x, self.ln1_scale, self.ln1_bias, eps, self.ln_dtype).to(self.dtype)
+        o = att(self._dense("qkv", h), cfg.num_heads, cfg.head_dim)
+        x = x + self._dense("out", o)
+        h = layer_norm_flax(x, self.ln2_scale, self.ln2_bias, eps, self.ln_dtype).to(self.dtype)
+        h = F.gelu(self._dense("fc1", h), approximate="tanh")
+        return x + self._dense("fc2", h)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N, S, C]
+        if not self.fused:
+            return self._unfused(x)
         if self.quant:
             fn = fused_block_w8a8 if self.use_kernels else fused_block_w8a8_plain
         else:
@@ -100,13 +139,20 @@ class SiglipVisionTower(nn.Module):
         self,
         cfg: SiglipVisionConfig,
         dtype: torch.dtype = torch.bfloat16,
-        act: str = "gelu_tanh",  # HF SigLIP gelu_pytorch_tanh
         quant: bool = False,  # W8A8 int8 encoder layers
+        routing: Optional[VisionRouting] = None,
     ):
         super().__init__()
+        routing = routing or VisionRouting()
         self.cfg = cfg
         self.dtype = dtype
         self.quant = quant
+        fused = routing.siglip_int8_fused if quant else routing.siglip_ln_dtype == "f32"
+        # the W8A8 layer normalises in f32 whatever siglip_ln_dtype says
+        ln_dtype = torch.bfloat16 if routing.siglip_ln_dtype == "bf16" and not quant \
+            else torch.float32
+        # the fused W8A8 layer takes the tanh GELU, as the JAX one does
+        act = routing.siglip_act if not quant else "gelu_tanh"
         p = cfg.patch_size
         # patchify as one matmul; input features ordered (ph, pw, channel)
         self.patch_embedding = nn.Linear(p * p * 3, cfg.hidden_size, dtype=dtype)
@@ -114,7 +160,8 @@ class SiglipVisionTower(nn.Module):
             torch.empty(cfg.num_patches, cfg.hidden_size, dtype=dtype)
         )
         self.layers = nn.ModuleList(
-            SiglipEncoderLayer(cfg, dtype, act, quant) for _ in range(cfg.num_encode_layers)
+            SiglipEncoderLayer(cfg, dtype, act, quant, fused, ln_dtype)
+            for _ in range(cfg.num_encode_layers)
         )
 
     def reset_parameters(self, gen: torch.Generator) -> None:

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..configs import UFVideoConfig
+from ..configs import UFVideoConfig, VisionRouting
 from ..splicing import apply_splice
 from .projector import STCConnector
 from . import init
@@ -37,24 +37,30 @@ class TextHiddenFC(nn.Module):
 
 
 class UFVideoModel(nn.Module):
-    def __init__(self, cfg: UFVideoConfig):
+    """``routing`` fixes the vision towers' kernels and modules when they are
+    built (``VisionRouting``; the JAX package reads the same choices from
+    its environment)."""
+
+    def __init__(self, cfg: UFVideoConfig, routing: Optional[VisionRouting] = None):
         super().__init__()
         self.cfg = cfg
+        self.routing = routing or VisionRouting()
         dt = cfg.param_dtype
         self.vision = SiglipVisionTower(
-            cfg.vision, dtype=dt, act="gelu_tanh", quant=bool(cfg.quant_vision))
+            cfg.vision, dtype=dt, quant=bool(cfg.quant_vision), routing=self.routing)
         self.projector = STCConnector(cfg.projector, dtype=dt)
         self.region = RegionProjector(cfg.region, dtype=dt)
         self.llm = Qwen2LM(cfg.llm, dtype=dt, quant=cfg.quant_llm)
         self.text_fcs = TextHiddenFC(cfg.llm.hidden_size, cfg.sam_out_dim, dt)
-        self.sam = SAM2(cfg.sam, dtype=dt, quant=bool(cfg.quant_vision))
+        self.sam = SAM2(cfg.sam, dtype=dt, quant=bool(cfg.quant_vision), routing=self.routing)
 
     @classmethod
-    def empty(cls, cfg: UFVideoConfig, device) -> "UFVideoModel":
+    def empty(cls, cfg: UFVideoConfig, device,
+              routing: Optional[VisionRouting] = None) -> "UFVideoModel":
         """Uninitialised, frozen parameters on ``device`` (built on the meta
         device first, so no memory is filled twice)."""
         with torch.device("meta"):
-            model = cls(cfg)
+            model = cls(cfg, routing)
         return model.to_empty(device=device).eval().requires_grad_(False)
 
     def reset_parameters(self, gen: torch.Generator) -> None:

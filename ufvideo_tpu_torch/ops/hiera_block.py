@@ -8,6 +8,9 @@ Each wrapper replaces one TPU kernel of ``ufvideo_tpu/ops/hiera_block.py``:
   residual → LN2 (f32) → fc1 → GELU → fc2 + residual. SigLIP runs it with
   one 729-token window per frame and ``gelu_tanh``; Hiera's windowed blocks
   with 16 / 64 / 256-token windows and ``gelu_exact``.
+- ``fused_hiera_stage`` (``_stage_forward`` / ``_stage_kernel``): a run of
+  consecutive identical windowed blocks in one call, the math of folding
+  ``fused_hiera_block`` over them (Hiera with a stage fusion of nb > 1).
 - ``fused_ln_matmul`` (``_ln_matmul_forward``): LN (f32) → matmul + bias,
   the LN1 → qkv front of a Hiera global block.
 - ``fused_block_tail`` (``_tail_forward``): proj + residual → LN2 → fc1 →
@@ -42,7 +45,12 @@ bf16 ``exp2`` softmax are not carried over.
 Weights are in [in, out] layout, qkv columns ordered [q heads | k heads |
 v heads]. ``fused_hiera_block`` takes ``params`` = (ln1_s, ln1_b, wqkv
 [C, 3·H·hd], bqkv, wproj [H·hd, C], bproj, ln2_s, ln2_b, w1 [C, mlp], b1,
-w2 [mlp, C], b2).
+w2 [mlp, C], b2); ``fused_hiera_stage`` one such tuple a block.
+
+Activations (``act``): the tanh and the exact (erf) GELU, and the JAX
+package's four minimax polynomials (``gelu_poly`` and ``gelu_tanh_poly`` in
+f32, their ``_bf16`` twins evaluated on bf16 values); every kernel with an
+``act`` takes all six.
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ import torch.nn.functional as F
 
 from .. import _build
 
-_ACT_CODES = {"gelu_tanh": 1, "gelu_exact": 2}
+_ACT_CODES = {"gelu_tanh": 1, "gelu_exact": 2, "gelu_poly": 3, "gelu_poly_bf16": 4,
+              "gelu_tanh_poly": 5, "gelu_tanh_poly_bf16": 6}
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +76,68 @@ def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-_ACTS = {"gelu_tanh": _gelu_tanh, "gelu_exact": _gelu_exact}
+# The JAX package's minimax polynomial GELUs (FMA only): gelu(x) = x·(0.5 +
+# xc·Q(t)), xc = clip(x, ±B), t = 2·xc²/B² − 1, Q of degree 9 in t (of
+# degree 10 for the fit of the tanh form); the same constants
+_GELU_POLY_B = 4.5
+_GELU_POLY_CT = (
+    0.1569060442880844, -0.07718588485083337, 0.054637490167050023,
+    -0.04023694830724554, 0.02885765287056899, -0.018484084923067773,
+    0.009653220256290044, -0.006070030404158596, 0.004962705354373479,
+    -0.0019306118341346908,
+)
+_GELU_TANH_POLY_CT = (
+    0.15693845830119607, -0.077295380617666, 0.054784027802834236,
+    -0.04004952801103731, 0.02807726149055056, -0.018491884341240026,
+    0.010685858987061678, -0.005250474306093966, 0.003522283558394471,
+    -0.0028267368523108055, 0.0010171322565724434,
+)
+
+
+def _poly_gelu(x: torch.Tensor, ct) -> torch.Tensor:
+    b = _GELU_POLY_B
+    xc = x.clamp(-b, b)
+    t = xc * xc * (2.0 / (b * b)) - 1.0
+    q = torch.full_like(t, ct[-1])
+    for ck in ct[-2::-1]:
+        q = q * t + ck
+    return x * (0.5 + xc * q)
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_const(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+def _poly_gelu_bf16(x: torch.Tensor, ct) -> torch.Tensor:
+    """The polynomial on bf16 values (the JAX ``_gelu_poly_bf16``): the
+    input, every constant and every intermediate rounded to bf16, as the
+    kernels' epilogue computes it; returned as f32 values."""
+    r, c = _round_bf16, _bf16_const
+    b = _GELU_POLY_B
+    xb = r(x.float())
+    xc = xb.clamp(-b, b)
+    t = r(r(r(xc * xc) * c(2.0 / (b * b))) - 1.0)
+    q = torch.full_like(t, c(ct[-1]))
+    for ck in ct[-2::-1]:
+        q = r(r(q * t) + c(ck))
+    return r(xb * r(0.5 + r(xc * q)))
+
+
+# Every activation returns f32 values: the W8A8 kernels quantise the GELU
+# output in f32, also after a bf16 polynomial (the JAX reference would take
+# that quantiser's amax and scale in bf16 there)
+_ACTS = {
+    "gelu_tanh": _gelu_tanh,
+    "gelu_exact": _gelu_exact,
+    "gelu_poly": lambda x: _poly_gelu(x, _GELU_POLY_CT),
+    "gelu_poly_bf16": lambda x: _poly_gelu_bf16(x, _GELU_POLY_CT),
+    "gelu_tanh_poly": lambda x: _poly_gelu(x, _GELU_TANH_POLY_CT),
+    "gelu_tanh_poly_bf16": lambda x: _poly_gelu_bf16(x, _GELU_TANH_POLY_CT),
+}
 
 
 @functools.cache
@@ -82,9 +152,13 @@ def _lib() -> ctypes.CDLL:
     lib.ln_matmul_w8a8_bf16.argtypes = [p] * 10 + [i] * 3 + [f, p]
     lib.block_tail_w8a8_bf16.argtypes = [p] * 22 + [i] * 5 + [f, p]
     lib.qpool_block_w8a8_bf16.argtypes = [p] * 31 + [i] * 10 + [f, p]
+    lib.hiera_stage_bf16.argtypes = [p] * 4 + [i] + [p] * 5 + [i] * 7 + [f, p]
+    lib.probe_gemm_bf16.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.probe_gemm_s8.argtypes = [p] * 4 + [i] * 3 + [p]
     for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.block_tail_bf16,
                lib.qpool_block_bf16, lib.block_w8a8_bf16, lib.ln_matmul_w8a8_bf16,
-               lib.block_tail_w8a8_bf16, lib.qpool_block_w8a8_bf16):
+               lib.block_tail_w8a8_bf16, lib.qpool_block_w8a8_bf16, lib.hiera_stage_bf16,
+               lib.probe_gemm_bf16, lib.probe_gemm_s8):
         fn.restype = ctypes.c_int
     return lib
 
@@ -109,6 +183,19 @@ def _layernorm(x32, scale, bias, eps):
     c = x32 - mean
     var = (c * c).mean(dim=-1, keepdim=True)
     return c * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def layer_norm_flax(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=dtype)`` as the unfused modules call it:
+    mean and variance in f32 (variance as E[x²] − E[x]², floored at 0),
+    (x − mean) · (rsqrt(var + eps) · scale) + bias in f32, one rounding to
+    ``dtype`` at the end."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + eps) * scale.float()
+    return ((x32 - mean) * mul + bias.float()).to(dtype)
 
 
 def fused_hiera_block_plain(
@@ -188,6 +275,81 @@ def fused_hiera_block(
 
 
 fused_hiera_block.launches = 0
+
+
+def fused_hiera_stage_plain(
+    x: torch.Tensor,  # [N, S, C] window-major tokens
+    params_list,  # one 12-tuple a block, in fused_hiera_block's order
+    num_heads: int,
+    head_dim: int,
+    act: str = "gelu_exact",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: ``fused_hiera_block_plain``
+    folded over the blocks (the JAX ``_stage_forward`` off the TPU)."""
+    for params in params_list:
+        x = fused_hiera_block_plain(x, params, num_heads, head_dim, act, eps)
+    return x
+
+
+def fused_hiera_stage(
+    x: torch.Tensor,
+    params_list,
+    num_heads: int,
+    head_dim: int,
+    act: str = "gelu_exact",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """A run of consecutive identical windowed blocks → [N, S, C]. CPU
+    tensors take the plain version; CUDA tensors make one call that carries
+    the rows through every block (bf16; the dims of ``fused_hiera_block``)."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    params_list = tuple(params_list)
+    if not params_list:
+        raise ValueError("fused_hiera_stage needs at least one block")
+    if x.device.type == "cpu":
+        return fused_hiera_stage_plain(x, params_list, num_heads, head_dim, act, eps)
+    n, s, c = x.shape
+    hw = num_heads * head_dim
+    mlp = params_list[0][8].shape[1]
+    expect = ((c, 3 * hw), (hw, c), (c, mlp), (mlp, c))
+    flat = []
+    for params in params_list:
+        (ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2) = params
+        _check_cuda("fused_hiera_stage", x, (wqkv, wproj, w1, w2))
+        if tuple(tuple(t.shape) for t in (wqkv, wproj, w1, w2)) != expect:
+            raise ValueError(f"weight shapes do not match x {x.shape}, {num_heads} heads")
+        mats = [t.contiguous() for t in (wqkv, wproj, w1, w2)]
+        vecs = _f32(ln1_s, ln1_b, bqkv, bproj, ln2_s, ln2_b, b1, b2)
+        flat += [vecs[0], vecs[1], mats[0], vecs[2], mats[1], vecs[3], vecs[4], vecs[5],
+                 mats[2], vecs[6], mats[3], vecs[7]]
+    if c % 8 or head_dim % 8 or mlp % 8 or head_dim > 128:
+        raise ValueError(f"unsupported dims C={c} head dim={head_dim} mlp={mlp}")
+    if n > 65535:
+        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
+    x = x.contiguous()
+    rows, nb = n * s, len(params_list)
+    empty = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
+    out = empty((n, s, c))
+    tmp = empty((n, s, c)) if nb > 1 else out
+    xn, qkv, att, x1, hmid = (
+        empty((rows, c)), empty((rows, 3 * hw)), empty((rows, hw)),
+        empty((rows, c)), empty((rows, mlp)),
+    )
+    table = (ctypes.c_void_p * len(flat))(*_ptrs(*flat))  # read by the host code only
+    lib = _lib()
+    code = lib.hiera_stage_bf16(
+        *_ptrs(x, out, tmp), table, nb, *_ptrs(xn, qkv, att, x1, hmid),
+        n, s, c, num_heads, head_dim, mlp, _ACT_CODES[act], float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "fused_hiera_stage")
+    fused_hiera_stage.launches += 1
+    return out
+
+
+fused_hiera_stage.launches = 0
 
 
 def fused_block_tail_plain(

@@ -8,7 +8,8 @@ The three row quantisers of the JAX package differ on purpose and are kept
 apart here, each with the formula as written there:
 
 - ``quantize_rows``: scale = max(amax / 127, 1e-8), no clip
-  (``ufvideo_tpu/quant.py``, the unfused ``W8A8Dense``);
+  (``ufvideo_tpu/quant.py``, the unfused ``W8A8Dense``, here
+  ``W8A8Linear``);
 - ``ops.hiera_block.quant_rows_f32``: scale = max(amax · (1 / 127), 1e-8)
   (the fused W8A8 block);
 - ``models.qwen2.quantize_kv``: scale = amax / 127, the 1e-12 floor inside
@@ -22,6 +23,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 
 def quant_bits(quant) -> int:
@@ -77,8 +80,84 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     [..., d], f32 scales [..., 1])."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = (amax / 127.0).clamp_min(1e-8)
+    # a tensor divisor: a scalar one becomes a product with its reciprocal on
+    # the card, one ulp off the division here and in JAX
+    scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
     return torch.round(xf / scale).to(torch.int8), scale
+
+
+def int8_kernel(in_dim: int, out_dim: int) -> nn.Parameter:
+    """A frozen int8 [in, out] weight of ``w8a8_linear``, stored K-contiguous
+    (strides (1, in)), the layout ``torch._int_mm`` takes its second operand
+    in: the product reads it as it lies. Values, shape and tree name are the
+    JAX ``kernel_q``'s; ``copy_``, ``to`` and ``to_empty`` keep the strides."""
+    w = torch.empty(out_dim, in_dim, dtype=torch.int8).t()
+    return nn.Parameter(w, requires_grad=False)
+
+
+def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] · int8 [K, N] → the exact integer sums as f32. On the
+    card ``torch._int_mm`` (s8 × s8 → s32; the JAX package leaves this product
+    to XLA, outside any Pallas kernel), with the rows padded past 16 and K and
+    N to multiples of 8 as it requires (no shipped width needs it), and b
+    K-contiguous (``int8_kernel``; another layout is copied first: row-major,
+    cuBLASLt ran this product at a sixth of the bf16 rate on an H100);
+    elsewhere in float64, which holds every such sum exactly."""
+    if a.device.type != "cuda":
+        return (a.double() @ b.double()).float()
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp, np_) != (m, k, n):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+        b = F.pad(b, (0, np_ - n, 0, kp - k))
+    if not b.t().is_contiguous():
+        b = b.t().contiguous().t()
+    return torch._int_mm(a.contiguous(), b)[:m, :n].float()
+
+
+def w8a8_linear(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
+                bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The JAX ``W8A8Dense`` on [..., in] rows: rows quantised per token
+    (``quantize_rows``), s8 × s8 → s32, rescaled ``acc · xs · ws`` in f32,
+    rounded to ``dtype``, then the bias added in ``dtype``."""
+    q, xs = quantize_rows(x)
+    lead = x.shape[:-1]
+    acc = _int8_matmul(q.reshape(-1, x.shape[-1]), kernel_q)
+    y = (acc * xs.reshape(-1, 1) * kernel_scale.float()).to(dtype)
+    w8a8_linear.calls += 1
+    return y.reshape(*lead, -1) + bias.to(dtype)
+
+
+w8a8_linear.calls = 0  # products computed, read by chip_smoke.py
+
+
+class W8A8Linear(nn.Module):
+    """Dense layer with int8 weights and activations quantised per row
+    (the JAX ``W8A8Dense``, same tree): ``kernel_q`` int8 [in, out],
+    ``kernel_scale`` f32 [out], ``bias`` [out] in the layer's type.
+    ``unfused``: the layer runs its own product (``forward``), and
+    ``kernel_q`` is stored K-contiguous for it (``int8_kernel``); else a
+    fused kernel reads it, row-major."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype, unfused: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        frozen = lambda shape, dt: nn.Parameter(torch.empty(shape, dtype=dt), requires_grad=False)
+        self.kernel_q = int8_kernel(in_dim, out_dim) if unfused \
+            else frozen((in_dim, out_dim), torch.int8)
+        self.kernel_scale = frozen((out_dim,), torch.float32)
+        self.bias = nn.Parameter(torch.empty(out_dim, dtype=dtype))
+
+    @torch.no_grad()
+    def set_kernel(self, kernel: torch.Tensor) -> None:
+        """Quantise a float [in, out] kernel into this layer."""
+        qd = quantize_kernel(kernel)
+        self.kernel_q.copy_(qd["q"])
+        self.kernel_scale.copy_(qd["scale"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return w8a8_linear(x, self.kernel_q, self.kernel_scale, self.bias, self.dtype)
 
 
 def _quantize_dense_tree(tree: Dict[str, Any], qfn: Callable) -> Dict[str, Any]:
