@@ -12,7 +12,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      the full-width path gives it, bf16, held to a limit scaled to the
      output (see check_close); for the block also its attention part alone;
      kernel / plain / library ms (CUDA events, median of 20 after warm-up,
-     L2 flushed before each launch) beside the bound. The quantised kernels
+     L2 flushed before each launch) beside the bound, and the kernel /
+     library ratio of each shape, both timed in this call. The probe's bf16
+     product (the block GEMM alone) goes first. The quantised kernels
      take int8 / packed-int4 weights, an int8 cache and int8 block weights
      at the same widths, each with its own stated tolerance; the W8A8 block
      also at Hiera-L's four windowed shapes, and the W8A8 q-pool block,
@@ -183,15 +185,28 @@ def bench(timer, label, kernel, plain, library, nbytes_, flops, row_rel=REL, che
     err = (check or (lambda n, g, w: check_close(n, g, w, row_rel=row_rel)))(label, got, want)
     del got, want
     t_b, by = bound_ms(nbytes_, flops, int8_ops)
-    return dict(shape=label, max_abs_err=err, ms=timer.ms(kernel), plain_ms=timer.ms(plain),
-                library_ms=timer.ms(library) if library else None, bound_ms=t_b, bound_by=by)
+    return with_ratio(dict(
+        shape=label, max_abs_err=err, ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+        library_ms=timer.ms(library) if library else None, bound_ms=t_b, bound_by=by))
+
+
+def with_ratio(e):
+    """kernel ms / library ms, both measured in this call on this card: the
+    number that compares two designs across calls (cards differ)."""
+    e["library_ratio"] = e["ms"] / e["library_ms"] if e.get("library_ms") else None
+    return e
+
+
+def ratio_text(e) -> str:
+    r = e.get("library_ratio")
+    return "" if r is None else f", kernel / library {r:.3f}"
 
 
 def log_shapes(k):
     for e in k.get("shapes", ()):
         lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
         log(f"    {e['shape']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
-            f"library {lib}, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+            f"library {lib}, bound {e['bound_ms']:.4f} ms ({e['bound_by']}){ratio_text(e)}")
 
 
 # tokens of the mask decoder at full width: 6 output tokens (object score,
@@ -1896,7 +1911,10 @@ def main() -> int:
     from ufvideo_tpu_torch.configs import UFVideoConfig
 
     full = UFVideoConfig()
+    # the int8-rate probe's bf16 product is the block GEMM alone: it goes
+    # first, before the blocks built on it
     checks = {
+        "probe_step": kernel_probe,
         "fused_hiera_block": kernel_hiera, "flash_attention": kernel_flash,
         "ragged_decode_attention": kernel_decode, "fused_ln_matmul": kernel_ln_matmul,
         "fused_block_tail": kernel_block_tail, "fused_qpool_block": kernel_qpool,
@@ -1908,7 +1926,7 @@ def main() -> int:
         "fused_block_tail_w8a8": kernel_block_tail_w8a8,
         "fused_hiera_stage": lambda *a: kernel_stage(*a, full),
         "fused_window_attention": kernel_window_attention,
-        "mha_full_attention_packed": kernel_packed_mha, "probe_step": kernel_probe,
+        "mha_full_attention_packed": kernel_packed_mha,
     }
     if set(checks) != set(all_wrappers()):
         fail("phase 2 does not hold every counted kernel")
@@ -1920,9 +1938,10 @@ def main() -> int:
     kernels = [fn(dev, timer, gen_q if "w8a8" in name else gen)
                for name, fn in checks.items() if any(m in name for m in matches)]
     for k in kernels:
+        with_ratio(k)
         log(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']}) at {k['shape']}")
+            f"({k['bound_by']}){ratio_text(k)} at {k['shape']}")
         log_shapes(k)
     del timer
     torch.cuda.empty_cache()

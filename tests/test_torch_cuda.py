@@ -117,6 +117,37 @@ def test_flash_kernel_skips_fully_masked_chunks(dev):
     assert torch.count_nonzero(none) == 0
 
 
+@pytest.mark.parametrize("d", [16, 32, 72, 128, 256])
+@pytest.mark.parametrize("sq,skv,causal,masked,split", [
+    (9, 4096, False, False, True),  # few queries: the keys split across the card
+    (9, 4096, False, True, True),  # ... with kv_mask
+    (40, 3000, True, False, True),  # ... causal (buffer-end diagonal), kv_lens
+    (2100, 2100, True, False, False),  # 17 x 8 query tiles fill an H100: no split
+])
+def test_flash_kernel_head_dims_split_and_whole(dev, d, sq, skv, causal, masked, split):
+    """Every head-dim instance, on the split path (few query tiles) and the
+    whole one; the split path merges its chunks in a second pass."""
+    from ufvideo_tpu_torch.ops import flash_attention as fa
+
+    b, hq, hkv = 1, 8, 2
+    splits, _ = fa.split_plan(b, hq, sq, skv, d, torch.cuda.get_device_properties(dev)
+                              .multi_processor_count)
+    assert (splits > 1) == split
+    q = _randn(dev, b, sq, hq, d, seed=11)
+    k = _randn(dev, b, skv, hkv, d, seed=12)
+    v = _randn(dev, b, skv, hkv, d, seed=13)
+    kv_lens = torch.tensor([skv - 77], device=dev) if causal else None
+    kv_mask = None
+    if masked:  # whole key tiles empty, the rest random
+        g = torch.Generator(device=dev).manual_seed(14)
+        kv_mask = torch.rand(b, skv, generator=g, device=dev) > 0.5
+        kv_mask[:, 256:1280] = False
+    got = flash_attention(q, k, v, causal=causal, kv_lens=kv_lens, kv_mask=kv_mask)
+    want = flash_attention_plain(q, k, v, causal=causal, kv_lens=kv_lens, kv_mask=kv_mask)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
 def test_decode_kernel_matches_plain(dev):
     q = _randn(dev, 3, 4, 7, 128, seed=5)
     kc = _randn(dev, 3, 4, 640, 128, seed=6)
@@ -245,6 +276,44 @@ def test_qpool_kernel_matches_plain(dev, s, cin, cout, heads):
     _assert_close(got, want, row_rel=5e-2)
 
 
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu_exact", "gelu_poly", "gelu_poly_bf16",
+                                 "gelu_tanh_poly", "gelu_tanh_poly_bf16"])
+def test_block_gemm_epilogues_off_the_tile(dev, act):
+    """The bf16 GEMM with M, N and K off its 128 x 128 x 64 tile, through
+    every epilogue: the tail's proj and fc2 (bias + bf16 residual), its fc1
+    (bias + each activation) at K = 144 and N = 4304, and the LN-matmul
+    (bias alone)."""
+    rows, c, a, mlp = 3 * 77, 144, 72, 4304
+    params = _tail_params(dev, a, c, mlp)
+    shortcut, att = _randn(dev, 3, 77, c, seed=15), _randn(dev, 3, 77, a, seed=16)
+    got = fused_block_tail(shortcut, att, params, act=act)
+    want = fused_block_tail_plain(shortcut, att, params, act=act)
+    torch.cuda.synchronize()
+    assert rows % 128 and mlp % 64 and c % 64
+    _assert_close(got, want, row_rel=5e-2)
+    x = _randn(dev, 3, 77, c, seed=17)
+    ln_s, ln_b = _randn(dev, c, seed=18) * 0.1 + 1, _randn(dev, c, seed=19) * 0.1
+    w, bias = _randn(dev, c, mlp, seed=20, scale=c ** -0.5), _randn(dev, mlp, seed=21)
+    got = fused_ln_matmul(x, ln_s, ln_b, w, bias)
+    want = fused_ln_matmul_plain(x, ln_s, ln_b, w, bias)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
+def test_block_gemm_alone_at_the_siglip_rows(dev):
+    """The GEMM's f32 epilogue (the probe's bf16 product) at M = 32 · 729 =
+    23328 rows, K = 144, N = 4304: every edge of the tile ragged."""
+    from ufvideo_tpu_torch.probe_int8_rate import probe_step, probe_step_plain
+
+    x = _randn(dev, 23328, 144, seed=22)
+    w = _randn(dev, 144, 4304, seed=23, scale=144 ** -0.5)
+    got = probe_step(x, w, False)
+    want = probe_step_plain(x, w, False)
+    torch.cuda.synchronize()
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= 1e-3, rel
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = _randn(dev, 1, 8, 2, 16).float()
     with pytest.raises(TypeError):
@@ -271,6 +340,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = _randn(dev, 2, 15, 16)  # 15 tokens are no square window
     with pytest.raises(ValueError):
         fused_qpool_block(x, _qpool_params(dev, 16, 32, 1, 16), 1, 16)
+    # the redesigned tile and GEMM: 3 query heads on 2 kv heads, a row stride
+    # that TMA cannot take (not a multiple of 16 bytes), a width off 8
+    g3, k2 = _randn(dev, 1, 8, 3, 16), _randn(dev, 1, 8, 2, 16)
+    with pytest.raises(ValueError):
+        flash_attention(g3, k2, k2)
+    rows = _randn(dev, 1, 8, 2 * 16 + 4)[..., :32].view(1, 8, 2, 16)  # row stride 36
+    with pytest.raises(ValueError):
+        flash_attention(rows, rows, rows)
+    x = _randn(dev, 2, 16, 20)
+    with pytest.raises(ValueError):
+        fused_ln_matmul(x, x[0, 0], x[0, 0], _randn(dev, 20, 24), _randn(dev, 24))
+    from ufvideo_tpu_torch.probe_int8_rate import probe_step
+
+    with pytest.raises(ValueError):
+        probe_step(_randn(dev, 16, 24), _randn(dev, 24, 20), False)
 
 
 # ------------------------------------------------------ quantised kernels --
@@ -403,6 +487,8 @@ def _w8a8_block_params(dev, c, hw, mlp, seed):
         (2, 128, 64, 4, 16, 256, "gelu_exact"),
         (3, 50, 144, 2, 72, 430, "gelu_tanh"),  # K = 430 zero-padded to 448; ragged tiles
         (2, 729, 1152, 16, 72, 4304, "gelu_tanh"),  # SigLIP: K = 4304 padded to 4320
+        # act code 4: the GELU output quantised in bf16 steps on both sides
+        (8, 64, 144, 2, 72, 576, "gelu_poly_bf16"),
     ],
 )
 def test_w8a8_block_kernel_matches_plain(dev, n, s, c, heads, hd, mlp, act):
@@ -466,7 +552,8 @@ def test_ln_matmul_w8a8_kernel_matches_plain(dev, c, d):
 
 @pytest.mark.parametrize("a,c,mlp,act", [(576, 576, 2304, "gelu_exact"),
                                          (144, 288, 1152, "gelu_exact"),
-                                         (72, 50, 430, "gelu_tanh")])
+                                         (72, 50, 430, "gelu_tanh"),
+                                         (576, 576, 2304, "gelu_poly_bf16")])
 def test_block_tail_w8a8_kernel_matches_plain(dev, a, c, mlp, act):
     params = _w8a8_block_params(dev, c, a, mlp, seed=49)[5:]
     # the projection of that recipe is [hw, c] = [a, c]
@@ -518,6 +605,21 @@ def test_qpool_w8a8_kernel_matches_plain(dev, n, s, cin, cout, heads):
     want = hb.fused_qpool_block_w8a8_plain(x, tuple(zeroed), heads, hd, (2, 2))
     torch.cuda.synchronize()
     _assert_close(got, want)
+
+
+def test_qpool_w8a8_kernel_with_the_bf16_polynomial_matches_plain(dev):
+    """Act code 4 (``hiera_gelu="poly_bf16"``): the q-pool block's GELU
+    output is quantised in bf16 steps by the kernel's row quantiser and by
+    the plain version."""
+    n, s, cin, cout, heads = 32, 64, 144, 288, 4
+    params = _w8a8_qpool_params(dev, cin, cout, cout, 4 * cout, seed=56)
+    x = _randn(dev, n, s, cin, seed=57)
+    got = hb.fused_qpool_block_w8a8(x, params, heads, cout // heads, (2, 2),
+                                    act="gelu_poly_bf16")
+    want = hb.fused_qpool_block_w8a8_plain(x, params, heads, cout // heads, (2, 2),
+                                           act="gelu_poly_bf16")
+    torch.cuda.synchronize()
+    _assert_close(got, want, row_rel=5e-2)
 
 
 def test_w8a8_part_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -604,8 +706,8 @@ def test_window_attention_kernel_matches_plain(dev, nw, s, heads, d):
 def test_window_attention_kernel_keeps_windows_apart(dev):
     """A 16-token window fills a quarter of the kernel's 64-row tile: new
     keys and values in one window leave every other window's output
-    unchanged, bit for bit, and the windows past the launch grid's 65535
-    are reached."""
+    unchanged, bit for bit, and windows past the 65535th are reached (the
+    persistent grid walks every window)."""
     nw, s, heads, d = 70000, 16, 1, 8
     qkv = _randn(dev, nw, s, 3 * heads * d, seed=62)
     base = fused_window_attention(qkv, heads, d)

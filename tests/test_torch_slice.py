@@ -141,7 +141,8 @@ def quant_runtimes(request):
 
 def test_mm_infer_region_referring_tokens_match_jax(quant_runtimes):
     """Two ``<region>`` placeholders over three annotated frames (padded to
-    four), uint8 video frames: the greedy tokens are JAX's, exactly."""
+    four), float video and annotated frames: the greedy tokens are JAX's,
+    exactly. A uint8 annotated frame: tests/test_torch_parity_repairs.py."""
     name, (jrt, jtok), (rt, tok) = quant_runtimes
     rng = np.random.default_rng(21)
     frames = rng.standard_normal((4, 56, 56, 3)).astype(np.float32)

@@ -65,7 +65,14 @@ class UFVideoRuntime:
         the merged-token count of each region). ``ann_indices=None`` means
         one region per annotated frame. Masks are resized to the patch grid
         on the host, and the frame and region counts are padded to powers of
-        two with validity masks, as the JAX runtime does."""
+        two with validity masks, as the JAX runtime does.
+
+        Deviation from the JAX package: a raw uint8 ``frame_pixels`` is
+        resized and normalised on the device (``siglip_preprocess_device``),
+        as uint8 video frames are in both packages. The JAX runtime copies
+        uint8 annotated frames into float32 unchanged and encodes the 0-255
+        values at whatever size they come; fed this method's preprocessed
+        frames, it gives the same region tokens."""
         cfg = self.cfg
         rt = cfg.region.region_token_num
         masks = np.asarray(masks)

@@ -48,20 +48,23 @@
 // MLP 4304) one block is ~711 GFLOP of matrix products plus ~78 GFLOP of
 // attention against ~0.5 GB of activations and weights, so it is bound by
 // operations (~0.8 ms at 989 TFLOP/s). Design: the four products run in
-// one tiled bf16 GEMM (128x128x32 block tile, 8 warps of 64x32 built from
-// mma.sync m16n8k16 with ldmatrix operand loads, K tiles streamed through
-// a 3-stage cp.async ring) whose epilogue fuses the bias, the GELU and the
-// residual add from registers, so each intermediate makes one trip through
-// memory; the attention shares
-// attention_tile.cuh with the flash kernel (head dim 72 zero-padded to 80
-// in shared memory, one window per batch entry). Hiera's windowed blocks
-// (16 / 64 / 256 tokens a window, C 144..1152) have the same ratio of
-// operations to bytes per token and are bound by operations too; their
-// 16-token windows fill a quarter of the 64-row query tile, the rest is
-// masked. The q-pool block adds one elementwise pass (pool_kernel) and
-// runs the attention with Sq = S/4 queries against S keys per window. Not
-// yet used: wgmma, TMA, fusing LN into the GEMM prologue.
+// one bf16 GEMM for Hopper (128x256 or 128x128 output tiles, TMA loads into
+// a ring of 128-byte-swizzled shared memory, one producer warp, two consumer
+// warpgroups on wgmma.mma_async; see "bf16 GEMM" below) whose
+// epilogue fuses the bias, the GELU and the residual add from registers, so
+// each intermediate makes one trip through memory; the attention shares
+// attention_tile.cuh with the flash kernel (head dim 72 in its 80 instance,
+// TMA zero-filling columns 72-79; one window per batch entry). Hiera's
+// windowed blocks (16 / 64 / 256 tokens a window, C 144..1152) have the same
+// ratio of operations to bytes per token and are bound by operations too;
+// their 16- and 64-token windows run the tile's 64-key instance, a 16-token
+// window filling a quarter of its 64-row query tile (the rest is masked).
+// The q-pool block adds one elementwise pass (pool_kernel) and runs the
+// attention with Sq = S/4 queries against S keys per window. Not yet used:
+// fusing LN into the GEMM prologue; consumer warpgroups on different tiles
+// (ping-pong), so that one's epilogue overlaps the other's products.
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
 #include <initializer_list>
 
@@ -69,11 +72,8 @@ namespace {
 
 using ufv::bf16;
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3, kGemmThreads = 256;
-constexpr int kLDA = kBK + 8;  // bf16 row stride of an A tile (80 B: ldmatrix conflict-free)
-constexpr int kLDB = kBN + 8;  // bf16 row stride of a B tile (272 B)
-constexpr int kStageA = kBM * kLDA, kStageB = kBK * kLDB;  // elements per stage
-constexpr size_t kGemmSmem = size_t(kStages) * (kStageA + kStageB) * sizeof(bf16);
+// the int8 GEMM's tile (a 3-stage cp.async ring, 8 warps of mma.sync)
+constexpr int kBM = 128, kBN = 128, kStages = 3, kGemmThreads = 256;
 
 enum Act {
   ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_EXACT = 2, ACT_GELU_POLY = 3, ACT_GELU_POLY_BF16 = 4,
@@ -143,7 +143,7 @@ __device__ __forceinline__ float act_apply(float v) {
 }
 
 // y[r] = (x[r] - mean) * rsqrt(var + eps) * gamma + beta, f32 statistics,
-// one warp per row.
+// one warp per row, rows read as 16-byte vectors (C % 8 == 0).
 __global__ void __launch_bounds__(256) layernorm_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, bf16* __restrict__ y, int rows, int C, float eps) {
@@ -151,19 +151,40 @@ __global__ void __launch_bounds__(256) layernorm_kernel(
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const bf16* xr = x + (long long)row * C;
+  auto load8 = [&](int c, float (&v)[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
+    const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(h[e]);
+  };
   float sum = 0.f;
-  for (int c = lane; c < C; c += 32) sum += __bfloat162float(xr[c]);
+  for (int c = lane * 8; c < C; c += 256) {
+    float v[8];
+    load8(c, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum += v[e];
+  }
   const float mean = ufv::warp_sum(sum) / C;
   float var = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = __bfloat162float(xr[c]) - mean;
-    var += d * d;
+  for (int c = lane * 8; c < C; c += 256) {
+    float v[8];
+    load8(c, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) var += (v[e] - mean) * (v[e] - mean);
   }
   var = ufv::warp_sum(var) / C;
   const float rstd = rsqrtf(var + eps);
   bf16* yr = y + (long long)row * C;
-  for (int c = lane; c < C; c += 32)
-    yr[c] = __float2bfloat16((__bfloat162float(xr[c]) - mean) * rstd * gamma[c] + beta[c]);
+  for (int c = lane * 8; c < C; c += 256) {
+    float v[8];
+    load8(c, v);
+    uint4 u;
+    bf16* h = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      h[e] = __float2bfloat16((v[e] - mean) * rstd * gamma[c + e] + beta[c + e]);
+    *reinterpret_cast<uint4*>(yr + c) = u;
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -181,101 +202,136 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// ------------------------------------------------------------ bf16 GEMM --
 // Y[M, N] = epilogue(A[M, K] . W[K, N] + bias[N]); all row-major, K and N
 // multiples of 8, A and W 16-byte aligned. Epilogue: an optional activation;
 // with a residual R, Y = bf16(bf16(acc + bias) + R); with F32OUT the f32 sum
-// (bias may be null). 8 warps, each a 64x32 tile of mma.sync m16n8k16
-// accumulators; K tiles stream through a 3-stage cp.async ring in shared
-// memory.
-template <int ACT, bool RES, bool F32OUT = false>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
-    const bf16* __restrict__ A, const bf16* __restrict__ W,
-    const float* __restrict__ bias, const bf16* __restrict__ R, void* __restrict__ Yv,
-    int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char gsmem[];
-  bf16* As = reinterpret_cast<bf16*>(gsmem);
-  bf16* Bs = As + kStages * kStageA;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int wm = warp >> 2;  // 0..1: 64-row half
-  const int wn = warp & 3;   // 0..3: 32-column quarter
-  const int nk = (K + kBK - 1) / kBK;
+// (bias may be null).
+//
+// Hopper design: a 128 x BN output tile a block, K in steps of 64. One
+// producer warp streams the A tile (128 rows x 64 K, one TMA box) and the W
+// tile (64 K rows x BN, boxes of 64 N columns) into a ring of 128-byte-
+// swizzled shared memory guarded by mbarriers (full: the TMA bytes have
+// landed; empty: both consumers are done with the stage). Two consumer
+// warpgroups each own 64 rows and issue wgmma.mma_async m64nBNk16 (bf16 ->
+// f32) straight from shared memory: A K-major, W MN-major through the
+// descriptor's transpose bit, so no copy transposes it. One group of wgmmas
+// stays in flight while the previous stage is released. A block is the two
+// consumer warpgroups and one producer warp (288 threads), one output tile.
+// (A persistent grid whose ring runs on across tiles measured 5-28% slower
+// on an H100; PERF.md.) Two tile shapes, chosen by the product's shape
+// (gemm below):
+// - BN = 256, one block an SM (224 registers a thread for the 128
+//   accumulators, a 4-stage ring of 48 KB stages): for K >= 1024 and N >=
+//   2048 (SigLIP's qkv and fc1, the probe), where the mainloop dominates and
+//   the wider tile halves the shared-memory reads a product needs, and a
+//   ragged last column tile wastes little;
+// - BN = 128, two blocks an SM (112 registers, 3 stages of 32 KB), so one
+//   block's epilogue overlaps the other's products: Hiera's short K (144 is
+//   three steps).
+// TMA zero-fills what lies past M, N or K; the epilogue masks its stores.
+// Every output element is summed by one thread in a fixed order:
+// deterministic.
+constexpr int kGBM = 128, kGBK = 64, kGThreads = 288;
 
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kBK;
-    bf16* as = As + stage * kStageA;
-    bf16* bs = Bs + stage * kStageB;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kGemmThreads;
-      const int ar = idx >> 2, ac = (idx & 3) * 8;
-      const int gr = m0 + ar, gk = k0 + ac;
-      const bool va = gr < M && gk < K;
-      cp_async16(as + ar * kLDA + ac, va ? A + (long long)gr * K + gk : A, va);
-      const int br = idx >> 4, bc = (idx & 15) * 8;
-      const int gkb = k0 + br, gn = n0 + bc;
-      const bool vb = gkb < K && gn < N;
-      cp_async16(bs + br * kLDB + bc, vb ? W + (long long)gkb * N + gn : W, vb);
+template <int BN>
+struct GemmCfg {
+  static constexpr int STAGES = BN == 256 ? 4 : 3;
+  static constexpr int PER_SM = BN == 256 ? 1 : 2;
+  static constexpr int TILE_A = kGBM * kGBK * 2;  // bytes: 128 rows x 128 B
+  static constexpr int TILE_B = kGBK * BN * 2;    // bytes: BN / 64 boxes of 64 x 64
+  static constexpr int STAGE = TILE_A + TILE_B;
+  static constexpr size_t SMEM = size_t(STAGES) * STAGE + 2 * STAGES * sizeof(uint64_t) + 1024;
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_gemm(float (&acc)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256)
+    ufv::hop::wgmma_ss_n256<1>(acc, da, db, 1);
+  else
+    ufv::hop::wgmma_ss_n128<1>(acc, da, db, 1);
+}
+
+template <int BN, int ACT, bool RES, bool F32OUT>
+__global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
+    __grid_constant__ const CUtensorMap mapA, __grid_constant__ const CUtensorMap mapW,
+    const float* __restrict__ bias, const bf16* __restrict__ R, void* __restrict__ Yv, int M,
+    int N, int K) {
+  namespace h = ufv::hop;
+  using C = GemmCfg<BN>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char gsmem_raw[];
+  unsigned char* smem = gsmem_raw + ((1024 - (h::smem_u32(gsmem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * C::STAGE);
+  uint64_t* empty = full + ST;
+  const int nk = (K + kGBK - 1) / kGBK;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < ST; ++st) {
+      h::mbar_init(&full[st], 1);
+      h::mbar_init(&empty[st], 8);  // lane 0 of each consumer warp
     }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nk) load_stage(st, st);
-    cp_async_commit();
+    h::fence_barrier_init();
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed
-    __syncthreads();               // for every thread; stage (kt-1) % S is free
-    const int nt = kt + kStages - 1;
-    if (nt < nk) load_stage(nt % kStages, nt);
-    cp_async_commit();
-    const bf16* as = As + (kt % kStages) * kStageA;
-    const bf16* bs = Bs + (kt % kStages) * kStageB;
+  __syncthreads();
+
+  const int m0 = blockIdx.y * kGBM, n0 = blockIdx.x * BN;
+  if (threadIdx.x >= 256) {  // producer warp: one thread issues every load
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % ST;
+        h::mbar_wait(&empty[st], ((kt / ST) & 1) ^ 1);
+        unsigned char* stage = smem + st * C::STAGE;
+        h::mbar_expect_tx(&full[st], C::STAGE);
+        h::tma_load_2d(stage, &mapA, &full[st], kt * kGBK, m0);
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bfr[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ufv::ldmatrix_x4(af[i], as + (wm * 64 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                         kLDA + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j2 = 0; j2 < 2; ++j2)
-        ufv::ldmatrix_x4_trans(bfr[j2], bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kLDB +
-                                            wn * 32 + j2 * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j2 = 0; j2 < 2; ++j2) {
-          ufv::mma_bf16(acc[i][2 * j2], af[i], bfr[j2][0], bfr[j2][1]);
-          ufv::mma_bf16(acc[i][2 * j2 + 1], af[i], bfr[j2][2], bfr[j2][3]);
-        }
+        for (int nb = 0; nb < BN / 64; ++nb)
+          h::tma_load_2d(stage + C::TILE_A + nb * 8192, &mapW, &full[st], n0 + 64 * nb,
+                         kt * kGBK);
+      }
     }
+    return;
   }
-  cp_async_wait<0>();
+  // consumer warpgroups 0 and 1: rows 64 cw .. +63 of the tile
+  const int cw = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  {
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % ST;
+      h::mbar_wait(&full[st], (kt / ST) & 1);
+      const unsigned char* a = smem + st * C::STAGE + cw * 64 * 128;
+      const unsigned char* b = smem + st * C::STAGE + C::TILE_A;
+      h::fence_regs(acc);
+      h::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGBK / 16; ++kk)
+        wgmma_gemm<BN>(acc, h::make_desc(a + kk * 32, 16, 1024, 1),
+                       h::make_desc(b + kk * 16 * 128, 8192, 1024, 1));
+      h::wgmma_commit();
+      h::wgmma_wait<1>();  // the previous stage's products are done: release it
+      h::fence_regs(acc);
+      if (kt > 0 && lane == 0) h::mbar_arrive(&empty[(kt - 1) % ST]);
+    }
+    h::wgmma_wait<0>();
+    h::fence_regs(acc);
 
-  // accumulator (i, j, e): row m0 + 64 wm + 16 i + g + 8 (e >= 2),
-  // columns n0 + 32 wn + 8 j + 2 tig + {0, 1}
+    // accumulator 4 j + e: row m0 + 64 cw + 16 warp + g + 8 (e >= 2), column
+    // n0 + 8 j + 2 tig + (e & 1)
+    const int g = lane >> 2, tig = lane & 3;
+    const int row0 = m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + g;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn * 32 + j * 8 + 2 * tig;
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * tig;
       if (col >= N) continue;  // N % 8 == 0: col + 1 < N too
       const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + i * 16 + g + 8 * half;
+        const int row = row0 + 8 * half;
         if (row >= M) continue;
-        float v0 = act_apply<ACT>(acc[i][j][2 * half] + b0);
-        float v1 = act_apply<ACT>(acc[i][j][2 * half + 1] + b1);
+        float v0 = act_apply<ACT>(acc[4 * j + 2 * half] + b0);
+        float v1 = act_apply<ACT>(acc[4 * j + 2 * half + 1] + b1);
         const long long off = (long long)row * N + col;
         if (F32OUT) {
           *reinterpret_cast<float2*>(static_cast<float*>(Yv) + off) = make_float2(v0, v1);
@@ -293,17 +349,34 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
   }
 }
 
+template <int BN, int ACT, bool RES, bool F32OUT>
+cudaError_t gemm_launch(const CUtensorMap& mapA, const CUtensorMap& mapW, const float* bias,
+                        const bf16* R, void* Y, int M, int N, int K, cudaStream_t st) {
+  using C = GemmCfg<BN>;
+  const cudaError_t err = cudaFuncSetAttribute(gemm_kernel<BN, ACT, RES, F32OUT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               int(C::SMEM));
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + BN - 1) / BN, (M + kGBM - 1) / kGBM);
+  gemm_kernel<BN, ACT, RES, F32OUT><<<grid, kGThreads, C::SMEM, st>>>(mapA, mapW, bias, R, Y, M,
+                                                                       N, K);
+  return cudaGetLastError();
+}
+
 template <int ACT, bool RES, bool F32OUT = false>
 cudaError_t gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
                  int M, int N, int K, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<ACT, RES, F32OUT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(kGemmSmem));
+  // A [M, K]: boxes of 64 K x 128 rows; W [K, N]: boxes of 64 N x 64 K rows
+  CUtensorMap mapA, mapW;
+  const cuuint64_t dimsA[2] = {cuuint64_t(K), cuuint64_t(M)}, strideA[1] = {cuuint64_t(K) * 2};
+  const cuuint64_t dimsW[2] = {cuuint64_t(N), cuuint64_t(K)}, strideW[1] = {cuuint64_t(N) * 2};
+  const cuuint32_t boxA[2] = {kGBK, kGBM}, boxW[2] = {64, kGBK};
+  cudaError_t err = ufv::hop::make_map(&mapA, A, 2, dimsA, strideA, boxA);
+  if (err == cudaSuccess) err = ufv::hop::make_map(&mapW, W, 2, dimsW, strideW, boxW);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<ACT, RES, F32OUT><<<grid, kGemmThreads, kGemmSmem, st>>>(A, W, bias, R, Y, M, N,
-                                                                       K);
-  return cudaGetLastError();
+  if (K >= 1024 && N >= 2048)
+    return gemm_launch<256, ACT, RES, F32OUT>(mapA, mapW, bias, R, Y, M, N, K, st);
+  return gemm_launch<128, ACT, RES, F32OUT>(mapA, mapW, bias, R, Y, M, N, K, st);
 }
 
 // Y = act(A . W + bias) for an activation chosen at run time
@@ -638,8 +711,11 @@ __device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); 
 
 // One warp per row: v = LN ? (x - mean) * rstd * gamma + beta : x, in f32;
 // s = max(amax|v| * (1/127), 1e-8); q[row, c] = rint(v / s) for c < C and 0
-// for C <= c < Kp; xs[row] = s.
-template <typename T, bool LN>
+// for C <= c < Kp; xs[row] = s. With BF16 (the output of a bf16 polynomial
+// GELU: f32 values that bf16 holds exactly) the JAX _quant_rows_f32 on a
+// bf16 array: amax * bf16(1/127), the floor bf16(1e-8) and the quotient each
+// rounded to bf16, a quotient of 128 saturated to 127 as XLA converts it.
+template <typename T, bool LN, bool BF16 = false>
 __global__ void __launch_bounds__(256) rowquant_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
     int8_t* __restrict__ q, float* __restrict__ xs, int rows, int C, int Kp, float eps) {
@@ -666,17 +742,23 @@ __global__ void __launch_bounds__(256) rowquant_kernel(
   float amax = 0.f;
   for (int c = lane; c < C; c += 32) amax = fmaxf(amax, fabsf(value(c)));
   amax = ufv::warp_max(amax);
-  const float s = fmaxf(amax * 0.007874015748031496f, 1e-8f);
+  const float s = BF16 ? fmaxf(rbf(__fmul_rn(amax, rbf(1.f / 127.f))), rbf(1e-8f))
+                      : fmaxf(amax * 0.007874015748031496f, 1e-8f);
   int8_t* qr = q + (long long)row * Kp;
-  for (int c = lane; c < Kp; c += 32)
-    qr[c] = c < C ? static_cast<int8_t>(__float2int_rn(value(c) / s)) : int8_t(0);
+  for (int c = lane; c < Kp; c += 32) {
+    int v = 0;
+    if (c < C)
+      v = BF16 ? min(__float2int_rn(rbf(__fdiv_rn(value(c), s))), 127)
+               : __float2int_rn(value(c) / s);
+    qr[c] = static_cast<int8_t>(v);
+  }
   if (lane == 0) xs[row] = s;
 }
 
-template <typename T, bool LN>
+template <typename T, bool LN, bool BF16 = false>
 cudaError_t rowquant(const T* x, const float* g, const float* b, int8_t* q, float* xs, int rows,
                      int C, int Kp, float eps, cudaStream_t st) {
-  rowquant_kernel<T, LN><<<(rows + 7) / 8, 256, 0, st>>>(x, g, b, q, xs, rows, C, Kp, eps);
+  rowquant_kernel<T, LN, BF16><<<(rows + 7) / 8, 256, 0, st>>>(x, g, b, q, xs, rows, C, Kp, eps);
   return cudaGetLastError();
 }
 
@@ -711,7 +793,8 @@ int pad32(int k) { return (k + 31) / 32 * 32; }
 
 // The shared tail of every W8A8 block: rows of A (bf16 attention output) to
 // int8 -> x1 = R + bf16(proj); LN2 (f32) -> int8 -> hmid = GELU(fc1) kept in
-// f32 -> rows to int8 -> out = x1 + bf16(fc2). A [rows, a_dim], R / x1 / out
+// f32 -> rows to int8 (in bf16 steps after a bf16 polynomial) -> out = x1 +
+// bf16(fc2). A [rows, a_dim], R / x1 / out
 // [rows, C]. Scratch: wproj_t [C, pad32(a_dim)], w1_t [mlp, pad32(C)], w2_t
 // [C, pad32(mlp)], qa [rows, max(pad32(C), pad32(a_dim))], qh [rows,
 // pad32(mlp)] (int8); xs [rows] (f32); hmid [rows, mlp] (f32).
@@ -731,7 +814,11 @@ cudaError_t tail_w8a8(const bf16* A, const bf16* R, const int8_t* wproj, const f
   if ((e = gemm_s8<Q_RES>(qa, wproj_t, xs, sproj, bproj, R, x1, rows, C, Ka, st))) return e;
   if ((e = rowquant<bf16, true>(x1, ln2_s, ln2_b, qa, xs, rows, C, Kc, eps, st))) return e;
   if ((e = gemm_s8_act(act, qa, w1_t, xs, s1, b1, hmid, rows, mlp, Kc, st))) return e;
-  if ((e = rowquant<float, false>(hmid, nullptr, nullptr, qh, xs, rows, mlp, Km, eps, st)))
+  // a bf16 polynomial's output is quantised in bf16, as the JAX kernels' bodies do
+  const bool bf16_rows = act == ACT_GELU_POLY_BF16 || act == ACT_GELU_TANH_POLY_BF16;
+  if ((e = bf16_rows
+               ? rowquant<float, false, true>(hmid, nullptr, nullptr, qh, xs, rows, mlp, Km, eps, st)
+               : rowquant<float, false>(hmid, nullptr, nullptr, qh, xs, rows, mlp, Km, eps, st)))
     return e;
   return gemm_s8<Q_RES>(qh, w2_t, xs, s2, b2, x1, out, rows, C, Km, st);
 }

@@ -31,10 +31,11 @@
 // it is bound by operations (0.08 ms at 989 TFLOP/s); at Hiera's stage-1
 // windows [4096, 64, 2 x 72] it is 9.7 GFLOP against 302 MB, bound by bytes
 // (0.09 ms at 3.35 TB/s). Design: both run the online-softmax tile of
-// attention_tile.cuh (the flash kernel's), which reads q / k / v straight
-// out of the packed buffer through row and head strides (no split in HBM),
-// pads head dim 72 to 80 in shared memory only, and masks the ragged last
-// query / key tile (729 = 11 * 64 + 25). A batch entry is one image or one
+// attention_tile.cuh (the flash kernel's: TMA loads, wgmma for both
+// products), whose tensor maps read q / k / v straight out of the packed
+// buffer through row and head strides (no split in HBM); head dim 72 runs
+// in the 80 instance, TMA zero-filling columns 72-79 and the ragged last
+// query / key tile (729 = 5 * 128 + 89). A batch entry is one image or one
 // window, so no block ever reads another window's keys: windows stay
 // isolated by construction. A 16-token window fills a quarter of the
 // 64-row query tile; packing four windows into a tile under a block-
@@ -45,36 +46,30 @@ namespace {
 
 using ufv::bf16;
 
-constexpr int kMaxGridZ = 65535;  // the launch grid's batch axis
-
 cudaError_t packed_attention(const bf16* qkv, bf16* o, int B, int S, int H, int D,
                              cudaStream_t st) {
   if (B <= 0 || S <= 0 || H <= 0 || D <= 0) return cudaErrorInvalidValue;
   const long long hd = (long long)H * D, row = 3 * hd;
-  for (int b0 = 0; b0 < B; b0 += kMaxGridZ) {
-    ufv::AttnArgs a;
-    a.q = qkv + (long long)b0 * S * row;
-    a.k = a.q + hd;
-    a.v = a.q + 2 * hd;
-    a.o = o + (long long)b0 * S * hd;
-    a.kv_lens = nullptr;
-    a.kv_mask = nullptr;
-    a.B = B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ;
-    a.Sq = a.Skv = S;
-    a.Hq = a.Hkv = H;
-    a.D = D;
-    a.q_sb = a.k_sb = a.v_sb = (long long)S * row;
-    a.q_ss = a.k_ss = a.v_ss = row;
-    a.q_sh = a.k_sh = a.v_sh = D;
-    a.o_sb = (long long)S * hd;
-    a.o_ss = hd;
-    a.o_sh = D;
-    a.scale = 1.0f / sqrtf(float(D));
-    a.causal = 0;
-    const cudaError_t err = ufv::attention_forward(a, st);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  ufv::AttnArgs a;
+  a.q = qkv;
+  a.k = qkv + hd;
+  a.v = qkv + 2 * hd;
+  a.o = o;
+  a.kv_lens = nullptr;
+  a.kv_mask = nullptr;
+  a.B = B;
+  a.Sq = a.Skv = S;
+  a.Hq = a.Hkv = H;
+  a.D = D;
+  a.q_sb = a.k_sb = a.v_sb = (long long)S * row;
+  a.q_ss = a.k_ss = a.v_ss = row;
+  a.q_sh = a.k_sh = a.v_sh = D;
+  a.o_sb = (long long)S * hd;
+  a.o_ss = hd;
+  a.o_sh = D;
+  a.scale = 1.0f / sqrtf(float(D));
+  a.causal = 0;
+  return ufv::attention_forward(a, st);
 }
 
 }  // namespace

@@ -127,9 +127,9 @@ def _poly_gelu_bf16(x: torch.Tensor, ct) -> torch.Tensor:
     return r(xb * r(0.5 + r(xc * q)))
 
 
-# Every activation returns f32 values: the W8A8 kernels quantise the GELU
-# output in f32, also after a bf16 polynomial (the JAX reference would take
-# that quantiser's amax and scale in bf16 there)
+# Every activation returns f32 values. The two bf16 polynomials return bf16
+# values in the JAX package, so the W8A8 blocks quantise their output with
+# the row quantiser's amax, scale and division in bf16 (quant_rows_bf16)
 _ACTS = {
     "gelu_tanh": _gelu_tanh,
     "gelu_exact": _gelu_exact,
@@ -138,6 +138,9 @@ _ACTS = {
     "gelu_tanh_poly": lambda x: _poly_gelu(x, _GELU_TANH_POLY_CT),
     "gelu_tanh_poly_bf16": lambda x: _poly_gelu_bf16(x, _GELU_TANH_POLY_CT),
 }
+
+
+_BF16_ACTS = ("gelu_poly_bf16", "gelu_tanh_poly_bf16")
 
 
 @functools.cache
@@ -251,8 +254,6 @@ def fused_hiera_block(
         raise ValueError(f"weight shapes do not match x {x.shape}, {num_heads} heads")
     if c % 8 or head_dim % 8 or mlp % 8 or head_dim > 128:
         raise ValueError(f"unsupported dims C={c} head dim={head_dim} mlp={mlp}")
-    if n > 65535:
-        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
     x, wqkv, wproj, w1, w2 = (t.contiguous() for t in (x, wqkv, wproj, w1, w2))
     vecs = _f32(ln1_s, ln1_b, bqkv, bproj, ln2_s, ln2_b, b1, b2)
     rows = n * s
@@ -326,8 +327,6 @@ def fused_hiera_stage(
                  mats[2], vecs[6], mats[3], vecs[7]]
     if c % 8 or head_dim % 8 or mlp % 8 or head_dim > 128:
         raise ValueError(f"unsupported dims C={c} head dim={head_dim} mlp={mlp}")
-    if n > 65535:
-        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
     x = x.contiguous()
     rows, nb = n * s, len(params_list)
     empty = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
@@ -528,8 +527,6 @@ def fused_qpool_block(
             f"unsupported dims window {ws} stride {q_stride} Cin={cin} Cout={cout} "
             f"head dim={head_dim} mlp={mlp}"
         )
-    if n > 65535:
-        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
     sq = (ws // sy) * (ws // sx)
     x, wf, wproj, w1, w2 = (t.contiguous() for t in (x, wf, wproj, w1, w2))
     vecs = _f32(ln1_s, ln1_b, bf, bproj, ln2_s, ln2_b, b1, b2)
@@ -562,17 +559,32 @@ def quant_rows_f32(x32: torch.Tensor):
     return torch.round(x32 / s).to(torch.int8), s
 
 
-def _qdot(x32: torch.Tensor, w: torch.Tensor, ws: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Rows quantised, s8 × s8 → exact integer sums (float64 holds them),
-    rescaled ``acc · xs · ws + b`` in f32."""
-    q, xs = quant_rows_f32(x32)
+def quant_rows_bf16(x: torch.Tensor):
+    """The JAX ``_quant_rows_f32`` given a bf16 array: amax, ``amax · bf16(1 /
+    127)``, the floor ``bf16(1e-8)`` and the division each rounded to bf16;
+    a quotient that rounds to 128 saturates to 127, as XLA's conversion
+    does → (int8, f32 scales [rows, 1])."""
+    xb = x.to(torch.bfloat16)
+    bf = lambda v: torch.tensor(v, dtype=torch.bfloat16)
+    s = torch.maximum(xb.abs().amax(dim=-1, keepdim=True) * bf(1.0 / 127.0), bf(1e-8))
+    return torch.round(xb / s).clamp(-128, 127).to(torch.int8), s.float()
+
+
+def _qdot(x32: torch.Tensor, w: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
+          bf16_rows: bool = False) -> torch.Tensor:
+    """Rows quantised (by ``quant_rows_bf16`` with ``bf16_rows``), s8 × s8 →
+    exact integer sums (float64 holds them), rescaled ``acc · xs · ws + b``
+    in f32."""
+    q, xs = (quant_rows_bf16 if bf16_rows else quant_rows_f32)(x32)
     acc = (q.double() @ w.double()).float()
     return acc * xs * ws.float()[None, :] + b.float()[None, :]
 
 
 def _tail_w8a8(shortcut, att32, params, act, eps):
     """proj + residual → LN2 → MLP + residual with the rows quantised from the
-    f32 attention output, the f32 LN2 output and the f32 GELU output."""
+    f32 attention output, the f32 LN2 output and the GELU output: f32, or
+    bf16 after a bf16 polynomial (the JAX W8A8 kernels' bodies quantise
+    that bf16 output in bf16)."""
     wproj, sproj, bproj, ln2_s, ln2_b, w1, s1, b1, w2, s2, b2 = params
     n, s, c = shortcut.shape
     dtype = shortcut.dtype
@@ -580,7 +592,8 @@ def _tail_w8a8(shortcut, att32, params, act, eps):
     x1 = shortcut + _qdot(rows(att32), wproj, sproj, bproj).reshape(n, s, c).to(dtype)
     xm = _layernorm(x1.float(), ln2_s, ln2_b, eps)
     h = _ACTS[act](_qdot(rows(xm), w1, s1, b1))
-    return x1 + _qdot(h, w2, s2, b2).reshape(n, s, c).to(dtype)
+    mlp = _qdot(h, w2, s2, b2, bf16_rows=act in _BF16_ACTS)
+    return x1 + mlp.reshape(n, s, c).to(dtype)
 
 
 def fused_block_w8a8_plain(
@@ -593,7 +606,7 @@ def fused_block_w8a8_plain(
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the JAX ``w8a8_reference``):
     rows are quantised from the f32 LN outputs, the f32 attention output and
-    the f32 GELU output."""
+    the GELU output (in bf16 after a bf16 polynomial, see ``_tail_w8a8``)."""
     (ln1_s, ln1_b, wqkv, sqkv, bqkv, wproj, sproj, bproj, ln2_s, ln2_b,
      w1, s1, b1, w2, s2, b2) = params
     n, s, c = x.shape
@@ -661,8 +674,6 @@ def fused_block_w8a8(
         raise ValueError(f"weight shapes do not match x {tuple(x.shape)}, {num_heads} heads")
     if c % 8 or head_dim % 8 or mlp % 2 or head_dim > 128:
         raise ValueError(f"unsupported dims C={c} head dim={head_dim} mlp={mlp}")
-    if n > 65535:
-        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
     x, wqkv, wproj, w1, w2 = (t.contiguous() for t in (x, wqkv, wproj, w1, w2))
     vecs = _f32(ln1_s, ln1_b, sqkv, bqkv, sproj, bproj, ln2_s, ln2_b, s1, b1, s2, b2)
     rows, kc = n * s, _pad32(c)
@@ -740,7 +751,10 @@ def fused_block_tail_w8a8_plain(
     shortcut: torch.Tensor, att: torch.Tensor, params: tuple,
     act: str = "gelu_exact", eps: float = 1e-6,
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (the JAX ``_tail_w8a8_reference``)."""
+    """The kernel's function in plain PyTorch (the JAX ``_tail_w8a8_reference``).
+    After a bf16 polynomial the GELU output is quantised in bf16, as the JAX
+    kernel's body (``_tail_w8a8_kernel``) does; the JAX reference casts it to
+    f32 first (``_qdot_ref``) and so differs from its own kernel there."""
     return _tail_w8a8(shortcut, att.float(), params, act, eps)
 
 
@@ -805,7 +819,9 @@ def fused_qpool_block_w8a8_plain(
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the JAX
     ``_qpool_w8a8_reference``): q and the shortcut are pooled from the front
-    after its rescale and its rounding to the working type."""
+    after its rescale and its rounding to the working type. After a bf16
+    polynomial the GELU output is quantised in bf16, as the JAX kernel's body
+    does (its reference quantises it in f32, see the tail)."""
     (ln1_s, ln1_b, wf, sf, bf) = params[:5]
     n, s, cin = x.shape
     ws = _window_side(s)
@@ -862,8 +878,6 @@ def fused_qpool_block_w8a8(
             f"unsupported dims window {ws} stride {q_stride} Cout={cout} "
             f"head dim={head_dim} mlp={mlp}"
         )
-    if n > 65535:
-        raise ValueError(f"{n} windows exceed the launch grid's limit of 65535")
     sq = (ws // sy) * (ws // sx)
     x, wf, wproj, w1, w2 = (t.contiguous() for t in (x, wf, wproj, w1, w2))
     vecs = _f32(ln1_s, ln1_b, sf, bf, sproj, bproj, ln2_s, ln2_b, s1, b1, s2, b2)

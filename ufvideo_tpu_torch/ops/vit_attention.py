@@ -52,7 +52,7 @@ def check_packed(name: str, qkv: torch.Tensor, num_heads: int, head_dim: int) ->
         raise TypeError(f"{name} kernel takes a bf16 qkv buffer")
     if qkv.dim() != 3 or qkv.shape[-1] != 3 * num_heads * head_dim or min(qkv.shape) == 0:
         raise ValueError(f"{name}: qkv {tuple(qkv.shape)} is not [B, S, 3*{num_heads}*{head_dim}]")
-    if head_dim % 8 or head_dim > 256 or num_heads > 65535:
+    if head_dim % 8 or head_dim > 256:
         raise ValueError(f"{name}: head dim {head_dim} (a multiple of 8 up to 256), "
                          f"{num_heads} heads")
 
