@@ -303,41 +303,50 @@ def kernel_flash(dev, timer, gen):
                 shapes=flash_sam_shapes(dev, timer, gen))
 
 
+# (label, B, S, lens) of the decode shapes phase 2 holds: Qwen2-7B's 4 kv
+# heads of 7 query heads at the QA request's cache, batch 1 and a ragged 4
+DECODE_SHAPES = (("B=1 cache 2944 lens {}", 1, 2944, None),
+                 ("B=4 ragged lens", 4, 2944, [2944, 1, 1500, 129]))
+
+
+def decode_plan_text(e, b, s, seen_bytes):
+    """The split plan of one decode shape (chunk, blocks) and the rate the
+    kernel reached on the bytes it had to read."""
+    from ufvideo_tpu_torch.ops.decode_attention import decode_split_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = decode_split_plan(b, 4, s, sms)
+    e["plan"] = dict(chunk=chunk, blocks=b * 4 * -(-s // chunk), sms=sms)
+    e["gb_per_s"] = seen_bytes / (e["ms"] * 1e-3) / 1e9
+    log(f"    {e['shape']}: chunk {chunk}, {e['plan']['blocks']} blocks on {sms} SMs, "
+        f"{e['gb_per_s']:.0f} GB/s of the valid cache{ratio_text(e)}")
+    return e
+
+
 def kernel_decode(dev, timer, gen):
     from ufvideo_tpu_torch.ops.decode_attention import (
         ragged_decode_attention, ragged_decode_attention_plain)
     import torch.nn.functional as F
 
-    def inputs(b, s, lens):
+    shapes = []
+    for label, b, s, lens in DECODE_SHAPES:
+        lens = lens or [2771]
         mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
-        return (mk(b, 4, 7, 128), mk(b, 4, s, 128), mk(b, 4, s, 128),
-                torch.tensor(lens, dtype=torch.int32, device=dev))
-
-    errs = []
-    for label, (b, s, lens) in {
-        "B=1 cache 2944 lens 2771": (1, 2944, [2771]),
-        "B=4 ragged lens": (4, 2944, [2944, 1, 1500, 129]),
-    }.items():
-        q, k, v, lens_t = inputs(b, s, lens)
-        got = ragged_decode_attention(q, k, v, lens_t)
-        want = ragged_decode_attention_plain(q, k, v, lens_t)
-        torch.cuda.synchronize()
-        errs.append(check_close(f"ragged_decode_attention [{label}]", got, want))
-
-    q, k, v, lens_t = inputs(1, 2944, [2771])
-    t_b, by = bound_ms(nbytes(q, q) + 2 * 2771 * 4 * 128 * 2, 4 * 2771 * 28 * 128)
-    ms = timer.ms(lambda: ragged_decode_attention(q, k, v, lens_t))
-    plain = timer.ms(lambda: ragged_decode_attention_plain(q, k, v, lens_t))
-    mask = (torch.arange(2944, device=dev) < 2771)[None, None, None, :]
-    qs = q.reshape(1, 28, 1, 128)
-    lib = timer.ms(lambda: F.scaled_dot_product_attention(
-        qs, k, v, attn_mask=mask, enable_gqa=True))
-    return dict(name="ragged_decode_attention", route="cuda",
-                source="ufvideo_tpu_torch/csrc/decode_attention.cu",
-                replaces="ufvideo_tpu/ops/decode_attention.py:200",
-                max_abs_err=max(errs), tol=tol_text(REL), ms=ms, plain_ms=plain,
-                bound_ms=t_b, bound_by=by, library_ms=lib,
-                shape="q [1,4,7,128] cache [1,4,2944,128] lens [2771]")
+        q, k, v = mk(b, 4, 7, 128), mk(b, 4, s, 128), mk(b, 4, s, 128)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = (torch.arange(s, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+        qs = q.reshape(b, 28, 1, 128)
+        seen = 2 * sum(lens) * 4 * 128 * 2
+        shapes.append(decode_plan_text(bench(
+            timer, f"q [{b},4,7,128] cache [{b},4,{s},128] {label.format(lens)}",
+            lambda: ragged_decode_attention(q, k, v, lens_t),
+            lambda: ragged_decode_attention_plain(q, k, v, lens_t),
+            lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask, enable_gqa=True),
+            nbytes(q, q) + seen, 4 * sum(lens) * 28 * 128), b, s, seen))
+    return _kernel_entry(
+        "ragged_decode_attention", "ufvideo_tpu_torch/csrc/decode_attention.cu",
+        "ufvideo_tpu/ops/decode_attention.py:200", tol_text(REL), shapes,
+        shapes[0]["shape"])
 
 
 def block_params(dev, gen, c, mlp, cin=None, front_extra=0):
@@ -601,10 +610,8 @@ def kernel_decode_q8(dev, timer, gen):
     import torch.nn.functional as F
 
     shapes = []
-    for label, (b, s, lens) in {
-        "B=1 cache 2944 lens 2800": (1, 2944, [2800]),
-        "B=4 ragged lens": (4, 2944, [2944, 1, 1500, 129]),
-    }.items():
+    for label, b, s, lens in DECODE_SHAPES:
+        lens = lens or [2800]
         mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
         q = mk(b, 4, 7, 128)
         (k8, ks), (v8, vs) = quantize_kv(mk(b, 4, s, 128)), quantize_kv(mk(b, 4, s, 128))
@@ -613,13 +620,13 @@ def kernel_decode_q8(dev, timer, gen):
         vd = (v8.float() * vs[..., None]).to(torch.bfloat16)
         mask = (torch.arange(s, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
         qs = q.reshape(b, 28, 1, 128)
-        seen = sum(lens)
-        shapes.append(bench(
-            timer, f"q [{b},4,7,128] int8 cache [{b},4,{s},128] {label}",
+        seen = 2 * sum(lens) * 4 * (128 + 4)
+        shapes.append(decode_plan_text(bench(
+            timer, f"q [{b},4,7,128] int8 cache [{b},4,{s},128] {label.format(lens)}",
             lambda: ragged_decode_attention_q8(q, k8, v8, ks, vs, lens_t),
             lambda: ragged_decode_attention_q8_plain(q, k8, v8, ks, vs, lens_t),
             lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask, enable_gqa=True),
-            nbytes(q, q) + 2 * seen * 4 * (128 + 4), 4 * seen * 28 * 128))
+            nbytes(q, q) + seen, 4 * sum(lens) * 28 * 128), b, s, seen))
     return _kernel_entry(
         "ragged_decode_attention_q8", "ufvideo_tpu_torch/csrc/decode_attention.cu",
         "ufvideo_tpu/ops/decode_attention.py:153", tol_text(REL), shapes,

@@ -371,6 +371,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 from ufvideo_tpu_torch import quant as tq  # noqa: E402
 from ufvideo_tpu_torch.models.qwen2 import QuantLinear, quantize_kv  # noqa: E402
 from ufvideo_tpu_torch.ops import quant_matmul as qm  # noqa: E402
+from ufvideo_tpu_torch.ops import decode_attention as da  # noqa: E402
 from ufvideo_tpu_torch.ops.decode_attention import (  # noqa: E402
     ragged_decode_attention_q8,
     ragged_decode_attention_q8_plain,
@@ -463,6 +464,69 @@ def test_decode_q8_kernel_empty_row_gives_zero(dev):
     lens_t = torch.tensor([0, 9], dtype=torch.int32, device=dev)
     got = ragged_decode_attention_q8(q, k8, v8, ks, vs, lens_t)
     assert float(got[0].float().abs().max()) == 0.0 and float(got[1].float().abs().max()) > 0.0
+
+
+# Both decode kernels at every chunk that decode_split_plan can return,
+# through the private launcher that takes the chunk: G 1 / 4 / 7 / 8, D 16 /
+# 64 / 128, ragged lens with 0, 1, chunk boundaries and S.
+DECODE_SHAPES = [
+    (1, 4, 7, 2944, 128, [2771]),
+    (4, 4, 7, 2944, 128, [2944, 1, 1500, 129]),
+    (2, 2, 8, 300, 64, [300, 64]),
+    (3, 1, 1, 200, 16, [5, 200, 128]),
+    (2, 3, 4, 520, 128, [257, 0]),
+]
+
+
+def _decode_inputs(dev, kind, b, hkv, g, s, d):
+    q = _randn(dev, b, hkv, g, d, seed=40)
+    k, v = _randn(dev, b, hkv, s, d, seed=41), _randn(dev, b, hkv, s, d, seed=42)
+    if kind == "bf16":
+        return q, k, v, None, None
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    return q, k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("chunk", da.CHUNKS)
+@pytest.mark.parametrize("b,hkv,g,s,d,lens", DECODE_SHAPES)
+@pytest.mark.parametrize("kind", ["bf16", "q8"])
+def test_decode_kernels_match_plain_at_every_chunk(dev, kind, b, hkv, g, s, d, lens, chunk):
+    q, k, v, ks, vs = _decode_inputs(dev, kind, b, hkv, g, s, d)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    launch = lambda k, v, vs: da._launch(q, k, v, lens_t, chunk, None, ks, vs)
+    got = launch(k, v, vs)
+    if kind == "bf16":
+        want = da.ragged_decode_attention_plain(q, k, v, lens_t)
+    else:
+        want = da.ragged_decode_attention_q8_plain(q, k, v, ks, vs, lens_t)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    assert torch.equal(got, launch(k, v, vs))  # two calls equal bit for bit
+    # past lens[b] nothing is read: garbage there changes nothing
+    kb, vb = k.clone(), v.clone()
+    vsb = None if vs is None else vs.clone()
+    for i, n in enumerate(lens):
+        kb[i, :, n:] = 127 if kind == "q8" else 3e4
+        vb[i, :, n:] = -127 if kind == "q8" else -3e4
+        if vsb is not None:
+            vsb[i, :, n:] = 1e9
+    assert torch.equal(got, launch(kb, vb, vsb))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "q8"])
+def test_decode_wrappers_launch_the_planned_chunk(dev, kind):
+    b, hkv, g, s, d, lens = DECODE_SHAPES[1]
+    q, k, v, ks, vs = _decode_inputs(dev, kind, b, hkv, g, s, d)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    chunk = da.decode_split_plan(b, hkv, s, torch.cuda.get_device_properties(dev).multi_processor_count)
+    wrapper = da.ragged_decode_attention if kind == "bf16" else da.ragged_decode_attention_q8
+    n = wrapper.launches
+    if kind == "bf16":
+        got = wrapper(q, k, v, lens_t)
+    else:
+        got = wrapper(q, k, v, ks, vs, lens_t)
+    assert wrapper.launches == n + 1
+    assert torch.equal(got, da._launch(q, k, v, lens_t, chunk, None, ks, vs))
 
 
 def _w8a8_block_params(dev, c, hw, mlp, seed):

@@ -8,21 +8,34 @@
 // (_kernel_q8): the same on int8 k / v with f32 per-position scales, which
 // are constant along the contracted axis and so fold into the scores
 // (s = (q . k) * scale * k_scale[pos]) and the probabilities (p *
-// v_scale[pos]); no dequantised copy of the cache exists. A position is one
-// 128-byte row of int8; its two scales are read by the thread that owns the
-// position (neighbouring threads, neighbouring addresses).
+// v_scale[pos]); no dequantised copy of the cache exists.
 //
-// Bound on an H100: it reads the whole valid cache once per step
-// (Qwen2-7B: 4 kv heads x 2.8k positions x 128 x 2 bytes x 2 = ~5.8 MB) and
-// does ~2 FLOP per byte, so it is bound by memory bytes. One block per
-// (b, kv head), as on the TPU, would put 4 blocks on 132 SMs at batch 1, so
-// the design splits the cache row into 128-position chunks (flash-decoding):
-// pass 1 reads each chunk once for all G heads (one thread per position for
-// the scores, a chunk-local softmax, one thread per column for the
-// unnormalised P.V in f32) and writes (max, sum, acc) per chunk; pass 2
-// merges the chunks of each query head with the usual rescale. Chunks past
-// lens[b] return at once. The P.V product keeps f32 probabilities (the TPU
-// kernel rounds them to bf16), which is closer to the f32 reference.
+// Bound on an H100: bytes. A step reads the valid cache once (Qwen2-7B: 4 kv
+// heads x 2.8k positions x 128 x 2 bytes x 2 = 5.7 MB bf16, 2.9 MB int8 plus
+// 4 bytes of scales a position and tensor), 1.7 us and 0.9 us at 3.35 TB/s,
+// and does ~2 operations a byte, far below the card's ridge, so no tensor
+// cores. The design keeps enough coalesced bytes in flight to reach that:
+// - split-KV: the row is cut into chunks of 32-256 positions
+//   (ops/decode_attention.py decode_split_plan, from the shape alone) so the
+//   grid (chunks, Hkv, B) holds about two blocks an SM even at batch 1;
+// - each block issues every 16-byte cp.async copy of its chunk's K and V
+//   (and scales) before its first use, committed in groups of 32 positions,
+//   neighbouring threads on neighbouring addresses: 16-64 KB a bf16 block
+//   in flight;
+// - compute from shared memory: a lane owns 8 head-dim columns of a
+//   position (D / 8 lanes, rounded up to a power of two, share a position,
+//   so a warp reads whole rows), dots its slice with q (f32 in shared
+//   memory, scale * log2(e) folded in) for the G <= 8 heads and sums the
+//   slices with __shfl_xor_sync; each lane group keeps an online softmax in
+//   exp2 (running max and sum per head) and the unnormalised P.V of its 8
+//   columns in f32 registers;
+// - the lane groups of a block merge in shared memory in a fixed order and
+//   write (max, sum, acc) per head and chunk (max in log2 units); a second
+//   launch merges the chunks of each head in a fixed order. Both passes are
+//   deterministic for a given shape, and a chunk wholly past lens[b] reads
+//   nothing and weighs 0.
+// The P.V product keeps f32 probabilities (the TPU kernel rounds them to
+// bf16), which is closer to the f32 reference. An empty row gives 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,10 +45,279 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kChunk = 128;   // cache positions per block
-constexpr int kThreads = 128; // 4 warps
-constexpr int kMaxG = 8;      // query heads per kv head
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kMaxG = 8;       // query heads per kv head
 constexpr int kMaxD = 128;
+constexpr int kCols = 8;        // head-dim columns a lane owns
+constexpr int kGroup = 32;      // positions a cp.async commit group
+constexpr int kMaxChunk = 256;  // positions a block (decode_split_plan's largest)
+constexpr int kNB = 4;          // positions a lane group scores at once
+constexpr int kCombineThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most n (0..7) groups are pending
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
+  }
+}
+
+// the 8 cache values of a lane's columns, from shared memory, as floats
+__device__ __forceinline__ void load_cols(const bf16* p, float (&f)[kCols]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+// int8 -> float exactly without I2F: the byte with its sign bit flipped is
+// x + 128, placed in the mantissa of 2^23
+__device__ __forceinline__ void load_cols(const int8_t* p, float (&f)[kCols]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const unsigned w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * h + j] = __uint_as_float(__byte_perm(w[h], 0x4B000000u, 0x7650 + j)) - 8388736.f;
+}
+
+// grid (n_chunks, Hkv, B), kThreads threads, dynamic shared memory as
+// decode_smem_bytes gives. part_m / part_l [B, Hkv, n_chunks, G] (max in
+// log2 units), part_acc [B, Hkv, n_chunks, G, D]. T is the cache's type:
+// bf16 (ks / vs null) or int8 with the scales ks / vs [B, Hkv, S].
+template <typename T>
+__global__ void __launch_bounds__(kThreads) decode_partial_kernel(
+    const bf16* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+    const float* __restrict__ ks, const float* __restrict__ vs,
+    const int* __restrict__ lens, float* __restrict__ part_m, float* __restrict__ part_l,
+    float* __restrict__ part_acc, int Hkv, int G, int S, int D, int chunk, float qscale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ci = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int nchunks = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long bh = (long long)b * Hkv + hk;
+  const long long pidx = bh * nchunks + ci;
+  float* acc_out = part_acc + pidx * G * D;
+  const int s0 = ci * chunk;
+  const int n = min(chunk, min(lens[b], S) - s0);  // valid positions of the chunk
+  if (n <= 0) {  // wholly past lens[b]: read nothing, weigh 0
+    if (tid < G) {
+      part_m[pidx * G + tid] = -INFINITY;
+      part_l[pidx * G + tid] = 0.f;
+    }
+    for (int i = tid; i < G * D; i += kThreads) acc_out[i] = 0.f;
+    return;
+  }
+
+  // shared memory: qs [G, D] f32 | then either the chunk (kbuf, vbuf [chunk,
+  // D] of T, ksc, vsc [chunk] f32) or, after the loop, the merge (racc
+  // [R, G, D], rm, rl [R, G] f32)
+  float* qs = reinterpret_cast<float*>(smem);
+  unsigned char* region = smem + G * D * sizeof(float);
+  T* kbuf = reinterpret_cast<T*>(region);
+  T* vbuf = kbuf + chunk * D;
+  float* ksc = reinterpret_cast<float*>(vbuf + chunk * D);
+  float* vsc = ksc + chunk;
+
+  // 1. every copy of the chunk in flight, a commit group per kGroup positions
+  const T* kg = kc + (bh * S + s0) * D;
+  const T* vg = vc + (bh * S + s0) * D;
+  constexpr int kVec = 16 / int(sizeof(T));  // cache values a 16-byte copy
+  const int row_vecs = D / kVec;
+  const int ngroups = (n + kGroup - 1) / kGroup;
+  for (int gi = 0; gi < ngroups; ++gi) {
+    const int p0 = gi * kGroup, np = min(kGroup, n - p0);
+    const int first = p0 * row_vecs, pieces = np * row_vecs;
+    for (int i = tid; i < pieces; i += kThreads) {
+      const int off = (first + i) * kVec;
+      cp_async16(kbuf + off, kg + off);
+      cp_async16(vbuf + off, vg + off);
+    }
+    if (ks != nullptr && tid < np) {
+      cp_async4(ksc + p0 + tid, ks + bh * S + s0 + p0 + tid);
+      cp_async4(vsc + p0 + tid, vs + bh * S + s0 + p0 + tid);
+    }
+    cp_async_commit();
+  }
+
+  // q with scale * log2(e) folded in, while the copies fly
+  const bf16* qb = q + bh * G * D;
+  for (int i = tid; i < G * D; i += kThreads) qs[i] = __bfloat162float(qb[i]) * qscale;
+
+  // 2. lane groups: lp lanes a position, 8 columns a lane
+  int lp = 1;
+  while (lp * kCols < D) lp <<= 1;
+  const int pw = 32 / lp;            // positions a warp instruction
+  const int R = (kThreads / 32) * pw;  // lane groups a block
+  const int slot = warp * pw + lane / lp;
+  const int col0 = (lane % lp) * kCols;
+  const bool active = col0 < D;
+
+  float m[kMaxG], l[kMaxG], acc[kMaxG][kCols];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[g][c] = 0.f;
+  }
+
+  for (int gi = 0; gi < ngroups; ++gi) {
+    cp_async_wait(ngroups - 1 - gi);
+    __syncthreads();
+    const int p0 = gi * kGroup;
+    // positions p0 + slot + j * R of the group; the bound is uniform in a warp
+    for (int j0 = 0; warp * pw + j0 * R < kGroup; j0 += kNB) {
+      float sc[kNB][kMaxG];
+      bool vld[kNB];
+#pragma unroll
+      for (int u = 0; u < kNB; ++u) {
+        const int pl = slot + (j0 + u) * R;
+        vld[u] = pl < kGroup && p0 + pl < n;
+        float kf[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) kf[c] = 0.f;
+        if (vld[u] && active) load_cols(kbuf + (p0 + pl) * D + col0, kf);
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          float s = 0.f;
+          if (g < G && active) {
+            const float4 qa = *reinterpret_cast<const float4*>(qs + g * D + col0);
+            const float4 qb4 = *reinterpret_cast<const float4*>(qs + g * D + col0 + 4);
+            s = qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
+                qb4.x * kf[4] + qb4.y * kf[5] + qb4.z * kf[6] + qb4.w * kf[7];
+          }
+          sc[u][g] = s;
+        }
+      }
+      // sum the slices of each position over its lp lanes
+#pragma unroll
+      for (int u = 0; u < kNB; ++u)
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g)
+          if (g < G)
+            for (int o = lp >> 1; o > 0; o >>= 1)
+              sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], o);
+      float kscale[kNB], vscale[kNB];
+#pragma unroll
+      for (int u = 0; u < kNB; ++u) {
+        const int pl = p0 + slot + (j0 + u) * R;
+        kscale[u] = (ks != nullptr && vld[u]) ? ksc[pl] : 1.f;
+        vscale[u] = (vs != nullptr && vld[u]) ? vsc[pl] : 1.f;
+      }
+      // online softmax: new max, rescale, probabilities (p stays in sc)
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g >= G) continue;
+        float mx = m[g];
+#pragma unroll
+        for (int u = 0; u < kNB; ++u) {
+          sc[u][g] = vld[u] ? sc[u][g] * kscale[u] : -INFINITY;
+          mx = fmaxf(mx, sc[u][g]);
+        }
+        if (mx == -INFINITY) continue;  // this lane group has seen no position yet
+        const float corr = exp2f(m[g] - mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < kNB; ++u) {
+          const float p = vld[u] ? exp2f(sc[u][g] - mx) : 0.f;
+          sum += p;
+          sc[u][g] = p * vscale[u];  // v's scale folds into p
+        }
+        l[g] = l[g] * corr + sum;
+        m[g] = mx;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[g][c] *= corr;
+      }
+      // unnormalised P.V on the lane's columns
+#pragma unroll
+      for (int u = 0; u < kNB; ++u) {
+        if (!(vld[u] && active)) continue;
+        float vf[kCols];
+        load_cols(vbuf + (p0 + slot + (j0 + u) * R) * D + col0, vf);
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g)
+          if (g < G)
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) acc[g][c] += sc[u][g] * vf[c];
+      }
+    }
+  }
+  __syncthreads();  // the chunk is no longer read: its space takes the merge
+
+  // 3. merge the R lane groups in a fixed order
+  float* racc = reinterpret_cast<float*>(region);  // [R, G, D]
+  float* rm = racc + R * G * D;                    // [R, G]
+  float* rl = rm + R * G;
+  if (active) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < G) {
+        float4* dst = reinterpret_cast<float4*>(racc + (slot * G + g) * D + col0);
+        dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+      }
+  }
+  if (lane % lp == 0) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < G) {
+        rm[slot * G + g] = m[g];
+        rl[slot * G + g] = l[g];
+      }
+  }
+  __shared__ float mmax[kMaxG];
+  __syncthreads();
+  if (tid < G) {
+    float M = -INFINITY;
+    for (int r = 0; r < R; ++r) M = fmaxf(M, rm[r * G + tid]);
+    float L = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const float mr = rm[r * G + tid];
+      L += mr == -INFINITY ? 0.f : rl[r * G + tid] * exp2f(mr - M);
+    }
+    mmax[tid] = M;
+    part_m[pidx * G + tid] = M;
+    part_l[pidx * G + tid] = L;
+  }
+  __syncthreads();  // every M read the maxima: now they become weights
+  for (int i = tid; i < R * G; i += kThreads) {
+    const float mr = rm[i];
+    rl[i] = mr == -INFINITY ? 0.f : exp2f(mr - mmax[i % G]);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float o = 0.f;
+    for (int r = 0; r < R; ++r) o += rl[r * G + g] * racc[(r * G + g) * D + d];
+    acc_out[i] = o;
+  }
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -49,165 +331,87 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 8 (bf16) or 16 (int8) consecutive cache values of one position as floats
-__device__ __forceinline__ void load16(const bf16* p, float (&f)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 v = __bfloat1622float2(h[j]);
-    f[2 * j] = v.x;
-    f[2 * j + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ void load16(const int8_t* p, float (&f)[16]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const signed char* b = reinterpret_cast<const signed char*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) f[j] = float(b[j]);
-}
-
-__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_float(int8_t v) { return float(v); }
-
-// grid (n_chunks, Hkv, B). part_m / part_l [B, Hkv, n_chunks, G],
-// part_acc [B, Hkv, n_chunks, G, D]. T is the cache's type: bf16 (ks / vs
-// null) or int8 with the scales ks / vs [B, Hkv, S].
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_partial_kernel(
-    const bf16* __restrict__ q, const T* __restrict__ kc,
-    const T* __restrict__ vc, const float* __restrict__ ks,
-    const float* __restrict__ vs, const int* __restrict__ lens,
-    float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int Hkv, int G, int S, int D, float scale) {
-  constexpr int kVec = 16 / int(sizeof(T));  // cache values per 16-byte load
-  __shared__ float qs[kMaxG][kMaxD];
-  __shared__ float ps[kMaxG][kChunk];
-  const int chunk = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int nchunks = gridDim.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long bh = (long long)b * Hkv + hk;
-  const long long pidx = bh * nchunks + chunk;
-  float* acc_out = part_acc + pidx * G * D;
-  const int len = min(lens[b], S);
-  const int s0 = chunk * kChunk;
-  const int n = min(kChunk, len - s0);
-  if (n <= 0) {
-    if (tid < G) {
-      part_m[pidx * G + tid] = -INFINITY;
-      part_l[pidx * G + tid] = 0.f;
-    }
-    for (int i = tid; i < G * D; i += kThreads) acc_out[i] = 0.f;
-    return;
-  }
-
-  const bf16* qb = q + bh * G * D;
-  for (int i = tid; i < G * D; i += kThreads) qs[i / D][i % D] = __bfloat162float(qb[i]);
-  __syncthreads();
-
-  const T* kb = kc + (bh * S + s0) * D;
-  const T* vb = vc + (bh * S + s0) * D;
-  // scores: thread t owns cache position s0 + t (kChunk == kThreads) and
-  // reads its key row with independent 16-byte loads
-  if (tid < n) {
-    float part[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) part[g] = 0.f;
-    const T* krow = kb + (long long)tid * D;
-    for (int d0 = 0; d0 < D; d0 += kVec) {
-      float kf[kVec];
-      load16(krow + d0, kf);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j)
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) part[g] += qs[g][d0 + j] * kf[j];
-    }
-    const float kscale = ks ? ks[bh * S + s0 + tid] : 1.f;
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G) ps[g][tid] = ks ? part[g] * scale * kscale : part[g] * scale;
-  }
-  __syncthreads();
-
-  for (int g = warp; g < G; g += kThreads / 32) {
-    float mx = -INFINITY;
-    for (int p = lane; p < n; p += 32) mx = fmaxf(mx, ps[g][p]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int p = lane; p < n; p += 32) {
-      const float e = expf(ps[g][p] - mx);
-      ps[g][p] = vs ? e * vs[bh * S + s0 + p] : e;  // v's scale folds into p
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      part_m[pidx * G + g] = mx;
-      part_l[pidx * G + g] = sum;
-    }
-  }
-  __syncthreads();
-
-  for (int d = tid; d < D; d += kThreads) {
-    float acc[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
-#pragma unroll 4
-    for (int p = 0; p < n; ++p) {
-      const float vv = to_float(vb[(long long)p * D + d]);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) acc[g] += ps[g][p] * vv;
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G) acc_out[g * D + d] = acc[g];
-  }
-}
-
 __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
+  constexpr int kWarps = kCombineThreads / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   v = is_max ? warp_max(v) : warp_sum(v);
   if (lane == 0) red[warp] = v;
   __syncthreads();
   float r = red[0];
-  for (int w = 1; w < kThreads / 32; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
+  for (int w = 1; w < kWarps; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
   __syncthreads();
   return r;
 }
 
 // grid (B * Hkv * G): merge the chunks of one query head → out [B, Hkv, G, D].
-// Chunk weights exp(m_i - M) go to shared memory, then each thread sums its
-// output column over the chunks with independent loads.
-__global__ void __launch_bounds__(kThreads) decode_combine_kernel(
+// Chunk weights exp2(m_i - M) go to shared memory; then 8 rows of 32
+// threads each sum a float4 of columns over every 8th chunk, and the 8 sums
+// are added in a fixed order.
+__global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
     const float* __restrict__ part_acc, bf16* __restrict__ out, int G, int D,
     int nchunks) {
+  constexpr int kRows = kCombineThreads / 32;
   extern __shared__ float w[];  // [nchunks]
-  __shared__ float red[kThreads / 32];
+  __shared__ float red[kRows];
+  __shared__ float4 sums[kRows][32];
   const long long row = blockIdx.x;  // (b * Hkv + hk) * G + g
   const long long bh = row / G;
   const int g = int(row % G);
   const int tid = threadIdx.x;
   auto at = [&](int i) { return (bh * nchunks + i) * G + g; };
   float m = -INFINITY;
-  for (int i = tid; i < nchunks; i += kThreads) m = fmaxf(m, part_m[at(i)]);
+  for (int i = tid; i < nchunks; i += kCombineThreads) m = fmaxf(m, part_m[at(i)]);
   const float M = block_reduce(m, true, red);
   float l = 0.f;
-  for (int i = tid; i < nchunks; i += kThreads) {
+  for (int i = tid; i < nchunks; i += kCombineThreads) {
     const float mi = part_m[at(i)];
-    const float wi = mi == -INFINITY ? 0.f : expf(mi - M);
+    const float wi = mi == -INFINITY ? 0.f : exp2f(mi - M);
     w[i] = wi;
     l += part_l[at(i)] * wi;
   }
   const float L = fmaxf(block_reduce(l, false, red), 1e-30f);  // syncs w too
-  for (int d = tid; d < D; d += kThreads) {
-    float o = 0.f;
+  const int r = tid >> 5, cq = tid & 31;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (cq * 4 < D) {
 #pragma unroll 4
-    for (int i = 0; i < nchunks; ++i) o += part_acc[at(i) * D + d] * w[i];
-    out[row * D + d] = __float2bfloat16(o / L);
+    for (int i = r; i < nchunks; i += kRows) {
+      const float4 a = *reinterpret_cast<const float4*>(part_acc + at(i) * D + cq * 4);
+      const float wi = w[i];
+      o.x += a.x * wi;
+      o.y += a.y * wi;
+      o.z += a.z * wi;
+      o.w += a.w * wi;
+    }
   }
+  sums[r][cq] = o;
+  __syncthreads();
+  if (tid < 32 && tid * 4 < D) {
+    float4 s = sums[0][tid];
+    for (int k = 1; k < kRows; ++k) {
+      s.x += sums[k][tid].x;
+      s.y += sums[k][tid].y;
+      s.z += sums[k][tid].z;
+      s.w += sums[k][tid].w;
+    }
+    bf16* dst = out + row * D + tid * 4;
+    dst[0] = __float2bfloat16(s.x / L);
+    dst[1] = __float2bfloat16(s.y / L);
+    dst[2] = __float2bfloat16(s.z / L);
+    dst[3] = __float2bfloat16(s.w / L);
+  }
+}
+
+// dynamic shared memory of decode_partial_kernel: q, then the larger of the
+// chunk and the merge
+template <typename T>
+size_t decode_smem_bytes(int G, int D, int chunk) {
+  int lp = 1;
+  while (lp * kCols < D) lp <<= 1;
+  const size_t R = size_t(kThreads / 32) * (32 / lp);
+  const size_t kv = 2 * size_t(chunk) * D * sizeof(T) + 2 * size_t(chunk) * sizeof(float);
+  const size_t merge = (R * G * D + 2 * R * G) * sizeof(float);
+  return size_t(G) * D * sizeof(float) + (kv > merge ? kv : merge);
 }
 
 }  // namespace
@@ -217,30 +421,41 @@ extern "C" const char* ufv_error_string(int code) {
 }
 
 // q [B, Hkv, G, D], k / v cache [B, Hkv, S, D] (contiguous, 16-byte
-// aligned, D a multiple of 8), lens [B] int32,
-// out [B, Hkv, G, D]; part_m / part_l hold B*Hkv*n_chunks*G floats and
-// part_acc B*Hkv*n_chunks*G*D floats, n_chunks = ceil(S / 128).
+// aligned, D a multiple of 8), lens [B] int32, out [B, Hkv, G, D]; chunk a
+// multiple of 32 up to 256 (ops/decode_attention.py decode_split_plan);
+// part_m / part_l hold B*Hkv*n_chunks*G floats and part_acc
+// B*Hkv*n_chunks*G*D floats, n_chunks = ceil(S / chunk).
 template <typename T>
 int decode_attention(const void* q, const void* k, const void* v, const void* ks,
                      const void* vs, const void* lens, void* out, void* part_m,
                      void* part_l, void* part_acc, int B, int Hkv, int G, int S, int D,
-                     float scale, void* stream) {
+                     int chunk, float scale, void* stream) {
   constexpr int kVec = 16 / int(sizeof(T));
-  if (B <= 0 || Hkv <= 0 || S <= 0 || G <= 0 || G > kMaxG || D <= 0 || D > kMaxD || D % kVec)
+  if (B <= 0 || Hkv <= 0 || S <= 0 || G <= 0 || G > kMaxG || D <= 0 || D > kMaxD ||
+      D % kVec || D % kCols || chunk <= 0 || chunk > kMaxChunk || chunk % kGroup)
     return static_cast<int>(cudaErrorInvalidValue);
   if (((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(decode_partial_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(decode_smem_bytes<T>(kMaxG, kMaxD, kMaxChunk)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nchunks = (S + kChunk - 1) / kChunk;
+  const int nchunks = (S + chunk - 1) / chunk;
   dim3 grid(nchunks, Hkv, B);
-  decode_partial_kernel<T><<<grid, kThreads, 0, st>>>(
+  decode_partial_kernel<T><<<grid, kThreads, decode_smem_bytes<T>(G, D, chunk), st>>>(
       static_cast<const bf16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(lens), static_cast<float*>(part_m),
-      static_cast<float*>(part_l), static_cast<float*>(part_acc), Hkv, G, S, D, scale);
+      static_cast<float*>(part_l), static_cast<float*>(part_acc), Hkv, G, S, D, chunk,
+      scale * kLog2e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<<<B * Hkv * G, kThreads, nchunks * sizeof(float), st>>>(
+  decode_combine_kernel<<<B * Hkv * G, kCombineThreads, nchunks * sizeof(float), st>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const float*>(part_acc), static_cast<bf16*>(out), G, D, nchunks);
   return static_cast<int>(cudaGetLastError());
@@ -249,9 +464,10 @@ int decode_attention(const void* q, const void* k, const void* v, const void* ks
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* lens, void* out, void* part_m,
                                      void* part_l, void* part_acc, int B, int Hkv,
-                                     int G, int S, int D, float scale, void* stream) {
+                                     int G, int S, int D, int chunk, float scale,
+                                     void* stream) {
   return decode_attention<bf16>(q, k, v, nullptr, nullptr, lens, out, part_m, part_l,
-                                part_acc, B, Hkv, G, S, D, scale, stream);
+                                part_acc, B, Hkv, G, S, D, chunk, scale, stream);
 }
 
 // The same on an int8 cache: k / v [B, Hkv, S, D] int8 (D a multiple of 16),
@@ -260,8 +476,8 @@ extern "C" int decode_attention_q8(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,
                                    const void* lens, void* out, void* part_m,
                                    void* part_l, void* part_acc, int B, int Hkv, int G,
-                                   int S, int D, float scale, void* stream) {
+                                   int S, int D, int chunk, float scale, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return decode_attention<int8_t>(q, k, v, k_scale, v_scale, lens, out, part_m, part_l,
-                                  part_acc, B, Hkv, G, S, D, scale, stream);
+                                  part_acc, B, Hkv, G, S, D, chunk, scale, stream);
 }
