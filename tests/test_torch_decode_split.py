@@ -6,8 +6,8 @@ then their merge), held against ``ragged_decode_attention_plain`` /
 interpret mode.
 
 Plan: the chunk comes from a fixed set, the chunks tile ``[0, S)``
-exactly, the grid reaches two blocks an SM where any chunk of the set can,
-and the largest such chunk is taken. Merge: every input is f32 (for the
+exactly, and it leaves the preferred 64 positions only to give every SM a
+block (32) or to keep a deep grid within ``MAX_BLOCKS_PER_SM``. Merge: every input is f32 (for the
 int8 cache the q, the scales and the dequantised sums are f32, so neither
 side rounds probabilities to bf16), so the only differences are the order
 of f32 sums and exp against the reference's softmax (``TOL``). An empty
@@ -34,19 +34,19 @@ H100_SMS = 132
 @pytest.mark.parametrize("sm_count", [H100_SMS, 16, 1])
 @pytest.mark.parametrize("b,hkv,s", [
     (1, 4, 2944), (4, 4, 2944), (32, 4, 2944), (1, 4, 33), (1, 1, 1), (2, 2, 700),
-    (1, 4, 40000), (8, 8, 256),
+    (1, 4, 40000), (8, 8, 256), (256, 4, 2944),
 ])
 def test_split_plan_tiles_the_cache(b, hkv, s, sm_count):
     chunk = da.decode_split_plan(b, hkv, s, sm_count)
     assert chunk in da.CHUNKS
     n = -(-s // chunk)
     assert (n - 1) * chunk < s <= n * chunk  # whole chunks, none empty
-    target = da.BLOCKS_PER_SM * sm_count
-    if chunk != da.CHUNKS[0]:
-        assert b * hkv * n >= target
-    bigger = [c for c in da.CHUNKS if c > chunk]
-    if bigger:  # the next larger chunk would not reach the target
-        assert b * hkv * -(-s // bigger[0]) < target
+    blocks = lambda c: b * hkv * -(-s // c)
+    if chunk < da.PREFERRED_CHUNK:  # only where the preferred chunk leaves SMs idle
+        assert blocks(da.PREFERRED_CHUNK) < sm_count
+    if chunk > da.PREFERRED_CHUNK:  # only where a smaller one runs too many blocks
+        assert blocks(chunk // 2) > da.MAX_BLOCKS_PER_SM * sm_count
+        assert chunk == da.CHUNKS[-1] or blocks(chunk) <= da.MAX_BLOCKS_PER_SM * sm_count
 
 
 def test_split_plan_fills_the_h100_at_the_qwen2_decode_shape():
@@ -56,11 +56,12 @@ def test_split_plan_fills_the_h100_at_the_qwen2_decode_shape():
     assert chunk in (32, 64) and blocks >= H100_SMS
 
 
-def test_split_plan_takes_the_largest_chunk_at_large_batch():
-    """64 sequences fill the card with 256-position chunks; 4 ragged ones
-    (the smoke script's B = 4 shape) with 128."""
+def test_split_plan_grows_the_chunk_only_for_deep_grids():
+    """The smoke script's ragged batch of 4 keeps 64 positions (736 blocks,
+    5.6 an SM); 64 sequences take 256; a short cache at batch 1 halves it."""
+    assert da.decode_split_plan(4, 4, 2944, H100_SMS) == 64
     assert da.decode_split_plan(64, 4, 2944, H100_SMS) == 256
-    assert da.decode_split_plan(4, 4, 2944, H100_SMS) == 128
+    assert da.decode_split_plan(1, 4, 1000, H100_SMS) == 32
 
 
 CASES = [

@@ -52,6 +52,7 @@ constexpr int kCols = 8;        // head-dim columns a lane owns
 constexpr int kGroup = 32;      // positions a cp.async commit group
 constexpr int kMaxChunk = 256;  // positions a block (decode_split_plan's largest)
 constexpr int kNB = 4;          // positions a lane group scores at once
+constexpr int kMinBlocks = 3;   // resident blocks an SM (caps registers at 168)
 constexpr int kCombineThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -68,6 +69,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// 2^x, the special-function unit's approximation (2 ulp)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // wait until at most n (0..7) groups are pending
 __device__ __forceinline__ void cp_async_wait(int n) {
@@ -109,13 +117,19 @@ __device__ __forceinline__ void load_cols(const int8_t* p, float (&f)[kCols]) {
 // grid (n_chunks, Hkv, B), kThreads threads, dynamic shared memory as
 // decode_smem_bytes gives. part_m / part_l [B, Hkv, n_chunks, G] (max in
 // log2 units), part_acc [B, Hkv, n_chunks, G, D]. T is the cache's type:
-// bf16 (ks / vs null) or int8 with the scales ks / vs [B, Hkv, S].
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_partial_kernel(
+// bf16 (ks / vs null) or int8 with the scales ks / vs [B, Hkv, S]. LP lanes
+// share a position (the power of two with LP * 8 >= D), so every loop over
+// lanes, positions and lane groups has a bound known to the compiler.
+template <typename T, int LP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) decode_partial_kernel(
     const bf16* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
     const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ lens, float* __restrict__ part_m, float* __restrict__ part_l,
     float* __restrict__ part_acc, int Hkv, int G, int S, int D, int chunk, float qscale) {
+  constexpr int kPW = 32 / LP;                  // positions a warp instruction
+  constexpr int kR = (kThreads / 32) * kPW;     // lane groups a block
+  constexpr int kQPer = kMaxG * kMaxD / kThreads;  // q values a thread loads
+  constexpr bool kScaled = sizeof(T) == 1;          // int8: per-position scales
   extern __shared__ __align__(16) unsigned char smem[];
   const int ci = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int nchunks = gridDim.x;
@@ -124,6 +138,16 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
   const long long pidx = bh * nchunks + ci;
   float* acc_out = part_acc + pidx * G * D;
   const int s0 = ci * chunk;
+
+  // q's loads go out beside lens[b]'s; rows G..kMaxG-1 are zeros, so the
+  // loops below run over kMaxG heads with no branch
+  const bf16* qb = q + bh * G * D;
+  bf16 qv[kQPer];
+#pragma unroll
+  for (int k = 0; k < kQPer; ++k) {
+    const int i = tid + k * kThreads;
+    qv[k] = i < G * D ? qb[i] : __float2bfloat16(0.f);
+  }
   const int n = min(chunk, min(lens[b], S) - s0);  // valid positions of the chunk
   if (n <= 0) {  // wholly past lens[b]: read nothing, weigh 0
     if (tid < G) {
@@ -134,11 +158,11 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
     return;
   }
 
-  // shared memory: qs [G, D] f32 | then either the chunk (kbuf, vbuf [chunk,
-  // D] of T, ksc, vsc [chunk] f32) or, after the loop, the merge (racc
-  // [R, G, D], rm, rl [R, G] f32)
+  // shared memory: qs [kMaxG, D] f32 | then either the chunk (kbuf, vbuf
+  // [chunk, D] of T, ksc, vsc [chunk] f32) or, after the loop, the merge
+  // (racc [kR, G, D], rm, rl [kR, G] f32)
   float* qs = reinterpret_cast<float*>(smem);
-  unsigned char* region = smem + G * D * sizeof(float);
+  unsigned char* region = smem + kMaxG * D * sizeof(float);
   T* kbuf = reinterpret_cast<T*>(region);
   T* vbuf = kbuf + chunk * D;
   float* ksc = reinterpret_cast<float*>(vbuf + chunk * D);
@@ -158,25 +182,24 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
       cp_async16(kbuf + off, kg + off);
       cp_async16(vbuf + off, vg + off);
     }
-    if (ks != nullptr && tid < np) {
+    if (kScaled && tid < np) {
       cp_async4(ksc + p0 + tid, ks + bh * S + s0 + p0 + tid);
       cp_async4(vsc + p0 + tid, vs + bh * S + s0 + p0 + tid);
     }
     cp_async_commit();
   }
-
   // q with scale * log2(e) folded in, while the copies fly
-  const bf16* qb = q + bh * G * D;
-  for (int i = tid; i < G * D; i += kThreads) qs[i] = __bfloat162float(qb[i]) * qscale;
+#pragma unroll
+  for (int k = 0; k < kQPer; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < kMaxG * D) qs[i] = __bfloat162float(qv[k]) * qscale;
+  }
 
-  // 2. lane groups: lp lanes a position, 8 columns a lane
-  int lp = 1;
-  while (lp * kCols < D) lp <<= 1;
-  const int pw = 32 / lp;            // positions a warp instruction
-  const int R = (kThreads / 32) * pw;  // lane groups a block
-  const int slot = warp * pw + lane / lp;
-  const int col0 = (lane % lp) * kCols;
-  const bool active = col0 < D;
+  // 2. lane groups: LP lanes a position, 8 columns a lane
+  const int slot = warp * kPW + lane / LP;
+  const int col0 = (lane % LP) * kCols;
+  const bool active = col0 < D;  // D < LP * 8: the last lanes hold no column
+  const int col0c = active ? col0 : 0;  // where they read q (their k is 0)
 
   float m[kMaxG], l[kMaxG], acc[kMaxG][kCols];
 #pragma unroll
@@ -191,89 +214,91 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
     cp_async_wait(ngroups - 1 - gi);
     __syncthreads();
     const int p0 = gi * kGroup;
-    // positions p0 + slot + j * R of the group; the bound is uniform in a warp
-    for (int j0 = 0; warp * pw + j0 * R < kGroup; j0 += kNB) {
-      float sc[kNB][kMaxG];
+    // positions p0 + slot + j * kR of the group; the bound is uniform in a warp
+#pragma unroll
+    for (int j0 = 0; j0 * kR < kGroup; j0 += kNB) {
+      if (warp * kPW + j0 * kR >= kGroup) break;
+      float kf[kNB][kCols];
       bool vld[kNB];
 #pragma unroll
       for (int u = 0; u < kNB; ++u) {
-        const int pl = slot + (j0 + u) * R;
-        vld[u] = pl < kGroup && p0 + pl < n;
-        float kf[kCols];
+        const int pl = slot + (j0 + u) * kR;
+        vld[u] = (kNB * kR <= kGroup || pl < kGroup) && p0 + pl < n;
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) kf[c] = 0.f;
-        if (vld[u] && active) load_cols(kbuf + (p0 + pl) * D + col0, kf);
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          float s = 0.f;
-          if (g < G && active) {
-            const float4 qa = *reinterpret_cast<const float4*>(qs + g * D + col0);
-            const float4 qb4 = *reinterpret_cast<const float4*>(qs + g * D + col0 + 4);
-            s = qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                qb4.x * kf[4] + qb4.y * kf[5] + qb4.z * kf[6] + qb4.w * kf[7];
-          }
-          sc[u][g] = s;
-        }
+        for (int c = 0; c < kCols; ++c) kf[u][c] = 0.f;
+        if (vld[u] && active) load_cols(kbuf + (p0 + pl) * D + col0, kf[u]);
       }
-      // sum the slices of each position over its lp lanes
+      // each head's q slice is read once for the kNB positions
+      float sc[kNB][kMaxG];
 #pragma unroll
-      for (int u = 0; u < kNB; ++u)
+      for (int g = 0; g < kMaxG; ++g) {
+        const float4 qa = *reinterpret_cast<const float4*>(qs + g * D + col0c);
+        const float4 qb4 = *reinterpret_cast<const float4*>(qs + g * D + col0c + 4);
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G)
-            for (int o = lp >> 1; o > 0; o >>= 1)
-              sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], o);
+        for (int u = 0; u < kNB; ++u)
+          sc[u][g] = qa.x * kf[u][0] + qa.y * kf[u][1] + qa.z * kf[u][2] + qa.w * kf[u][3] +
+                     qb4.x * kf[u][4] + qb4.y * kf[u][5] + qb4.z * kf[u][6] + qb4.w * kf[u][7];
+      }
+      // sum the slices of each position over its LP lanes: one level of the
+      // butterfly for every (position, head) before the next level
+#pragma unroll
+      for (int o = LP / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < kNB; ++u)
+#pragma unroll
+          for (int g = 0; g < kMaxG; ++g)
+            sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], o);
       float kscale[kNB], vscale[kNB];
 #pragma unroll
       for (int u = 0; u < kNB; ++u) {
-        const int pl = p0 + slot + (j0 + u) * R;
-        kscale[u] = (ks != nullptr && vld[u]) ? ksc[pl] : 1.f;
-        vscale[u] = (vs != nullptr && vld[u]) ? vsc[pl] : 1.f;
+        const int pc = p0 + slot + (j0 + u) * kR;
+        kscale[u] = kScaled && vld[u] ? ksc[pc] : 1.f;
+        vscale[u] = kScaled && vld[u] ? vsc[pc] : 1.f;
       }
-      // online softmax: new max, rescale, probabilities (p stays in sc)
+      // online softmax: new max, rescale, probabilities (p stays in sc);
+      // a lane group that has seen no position yet keeps m = -inf, p = 0
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
-        if (g >= G) continue;
         float mx = m[g];
 #pragma unroll
         for (int u = 0; u < kNB; ++u) {
-          sc[u][g] = vld[u] ? sc[u][g] * kscale[u] : -INFINITY;
+          sc[u][g] = vld[u] ? (kScaled ? sc[u][g] * kscale[u] : sc[u][g]) : -INFINITY;
           mx = fmaxf(mx, sc[u][g]);
         }
-        if (mx == -INFINITY) continue;  // this lane group has seen no position yet
-        const float corr = exp2f(m[g] - mx);
+        const bool seen = mx != -INFINITY;
+        const float corr = seen ? ex2(m[g] - mx) : 1.f;
         float sum = 0.f;
 #pragma unroll
         for (int u = 0; u < kNB; ++u) {
-          const float p = vld[u] ? exp2f(sc[u][g] - mx) : 0.f;
+          const float p = vld[u] ? ex2(sc[u][g] - mx) : 0.f;
           sum += p;
-          sc[u][g] = p * vscale[u];  // v's scale folds into p
+          sc[u][g] = kScaled ? p * vscale[u] : p;  // v's scale folds into p
         }
         l[g] = l[g] * corr + sum;
         m[g] = mx;
 #pragma unroll
         for (int c = 0; c < kCols; ++c) acc[g][c] *= corr;
       }
-      // unnormalised P.V on the lane's columns
+      // unnormalised P.V on the lane's columns (p = 0 where no position)
 #pragma unroll
       for (int u = 0; u < kNB; ++u) {
-        if (!(vld[u] && active)) continue;
         float vf[kCols];
-        load_cols(vbuf + (p0 + slot + (j0 + u) * R) * D + col0, vf);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) vf[c] = 0.f;
+        if (vld[u] && active) load_cols(vbuf + (p0 + slot + (j0 + u) * kR) * D + col0, vf);
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g)
-          if (g < G)
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) acc[g][c] += sc[u][g] * vf[c];
+          for (int c = 0; c < kCols; ++c) acc[g][c] += sc[u][g] * vf[c];
       }
     }
   }
   __syncthreads();  // the chunk is no longer read: its space takes the merge
 
-  // 3. merge the R lane groups in a fixed order
-  float* racc = reinterpret_cast<float*>(region);  // [R, G, D]
-  float* rm = racc + R * G * D;                    // [R, G]
-  float* rl = rm + R * G;
+  // 3. merge the kR lane groups in a fixed order
+  float* racc = reinterpret_cast<float*>(region);  // [kR, G, D]
+  float* rm = racc + kR * G * D;                   // [kR, G]
+  float* rl = rm + kR * G;
   if (active) {
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g)
@@ -283,7 +308,7 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
         dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
       }
   }
-  if (lane % lp == 0) {
+  if (lane % LP == 0) {
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g)
       if (g < G) {
@@ -291,127 +316,152 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
         rl[slot * G + g] = l[g];
       }
   }
-  __shared__ float mmax[kMaxG];
   __syncthreads();
-  if (tid < G) {
-    float M = -INFINITY;
-    for (int r = 0; r < R; ++r) M = fmaxf(M, rm[r * G + tid]);
-    float L = 0.f;
-    for (int r = 0; r < R; ++r) {
-      const float mr = rm[r * G + tid];
-      L += mr == -INFINITY ? 0.f : rl[r * G + tid] * exp2f(mr - M);
-    }
-    mmax[tid] = M;
-    part_m[pidx * G + tid] = M;
-    part_l[pidx * G + tid] = L;
-  }
-  __syncthreads();  // every M read the maxima: now they become weights
-  for (int i = tid; i < R * G; i += kThreads) {
-    const float mr = rm[i];
-    rl[i] = mr == -INFINITY ? 0.f : exp2f(mr - mmax[i % G]);
-  }
-  __syncthreads();
+  // each thread merges the outputs it writes; a head's maximum and weights
+  // are read by every thread of that head (shared-memory broadcasts)
   for (int i = tid; i < G * D; i += kThreads) {
     const int g = i / D, d = i % D;
-    float o = 0.f;
-    for (int r = 0; r < R; ++r) o += rl[r * G + g] * racc[(r * G + g) * D + d];
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) M = fmaxf(M, rm[r * G + g]);
+    float o = 0.f, L = 0.f;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const float mr = rm[r * G + g];
+      const float w = mr == -INFINITY ? 0.f : ex2(mr - M);
+      o += w * racc[(r * G + g) * D + d];
+      L += w * rl[r * G + g];
+    }
     acc_out[i] = o;
+    if (d == 0) {
+      part_m[pidx * G + g] = M;
+      part_l[pidx * G + g] = L;
+    }
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
-  constexpr int kWarps = kCombineThreads / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  __syncthreads();
-  return r;
-}
-
-// grid (B * Hkv * G): merge the chunks of one query head → out [B, Hkv, G, D].
-// Chunk weights exp2(m_i - M) go to shared memory; then 8 rows of 32
-// threads each sum a float4 of columns over every 8th chunk, and the 8 sums
-// are added in a fixed order.
+// grid (B * Hkv * G), kCombineThreads threads: merge the chunks of one
+// query head → out [B, Hkv, G, D]. Warp r takes chunks r, r + kRows, ...,
+// kLoads of them at a time with every load issued before the first use;
+// each thread keeps an online (max, sum, float4 of columns) over them, and
+// the kRows warps merge in shared memory in a fixed order.
 __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
     const float* __restrict__ part_acc, bf16* __restrict__ out, int G, int D,
     int nchunks) {
   constexpr int kRows = kCombineThreads / 32;
-  extern __shared__ float w[];  // [nchunks]
-  __shared__ float red[kRows];
-  __shared__ float4 sums[kRows][32];
+  constexpr int kLoads = 8;
+  __shared__ float4 rows_o[kRows][32];
+  __shared__ float rows_m[kRows], rows_l[kRows];
   const long long row = blockIdx.x;  // (b * Hkv + hk) * G + g
   const long long bh = row / G;
   const int g = int(row % G);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, r = tid >> 5, cq = tid & 31;
+  const bool has_col = cq * 4 < D;
   auto at = [&](int i) { return (bh * nchunks + i) * G + g; };
-  float m = -INFINITY;
-  for (int i = tid; i < nchunks; i += kCombineThreads) m = fmaxf(m, part_m[at(i)]);
-  const float M = block_reduce(m, true, red);
-  float l = 0.f;
-  for (int i = tid; i < nchunks; i += kCombineThreads) {
-    const float mi = part_m[at(i)];
-    const float wi = mi == -INFINITY ? 0.f : exp2f(mi - M);
-    w[i] = wi;
-    l += part_l[at(i)] * wi;
-  }
-  const float L = fmaxf(block_reduce(l, false, red), 1e-30f);  // syncs w too
-  const int r = tid >> 5, cq = tid & 31;
+  float M = -INFINITY, L = 0.f;
   float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (cq * 4 < D) {
-#pragma unroll 4
-    for (int i = r; i < nchunks; i += kRows) {
-      const float4 a = *reinterpret_cast<const float4*>(part_acc + at(i) * D + cq * 4);
-      const float wi = w[i];
-      o.x += a.x * wi;
-      o.y += a.y * wi;
-      o.z += a.z * wi;
-      o.w += a.w * wi;
+  for (int i0 = r; i0 < nchunks; i0 += kRows * kLoads) {
+    float mi[kLoads], li[kLoads];
+    float4 ai[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = i0 + k * kRows;
+      const bool ok = i < nchunks;
+      mi[k] = ok ? part_m[at(i)] : -INFINITY;
+      li[k] = ok ? part_l[at(i)] : 0.f;
+      ai[k] = ok && has_col ? *reinterpret_cast<const float4*>(part_acc + at(i) * D + cq * 4)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
     }
+    float mx = M;
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) mx = fmaxf(mx, mi[k]);
+    if (mx == -INFINITY) continue;  // only chunks past lens so far
+    const float corr = ex2(M - mx);
+    L *= corr;
+    o.x *= corr;
+    o.y *= corr;
+    o.z *= corr;
+    o.w *= corr;
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const float w = mi[k] == -INFINITY ? 0.f : ex2(mi[k] - mx);
+      L += w * li[k];
+      o.x += w * ai[k].x;
+      o.y += w * ai[k].y;
+      o.z += w * ai[k].z;
+      o.w += w * ai[k].w;
+    }
+    M = mx;
   }
-  sums[r][cq] = o;
+  if (cq == 0) {
+    rows_m[r] = M;
+    rows_l[r] = L;
+  }
+  rows_o[r][cq] = o;
   __syncthreads();
-  if (tid < 32 && tid * 4 < D) {
-    float4 s = sums[0][tid];
-    for (int k = 1; k < kRows; ++k) {
-      s.x += sums[k][tid].x;
-      s.y += sums[k][tid].y;
-      s.z += sums[k][tid].z;
-      s.w += sums[k][tid].w;
+  if (tid < 32 && has_col) {
+    float Mx = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) Mx = fmaxf(Mx, rows_m[k]);
+    float Lt = 0.f;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const float w = rows_m[k] == -INFINITY ? 0.f : ex2(rows_m[k] - Mx);
+      const float4 a = rows_o[k][tid];
+      Lt += w * rows_l[k];
+      s.x += w * a.x;
+      s.y += w * a.y;
+      s.z += w * a.z;
+      s.w += w * a.w;
     }
+    const float inv = 1.f / fmaxf(Lt, 1e-30f);  // an empty row: 0 / 1e-30 = 0
     bf16* dst = out + row * D + tid * 4;
-    dst[0] = __float2bfloat16(s.x / L);
-    dst[1] = __float2bfloat16(s.y / L);
-    dst[2] = __float2bfloat16(s.z / L);
-    dst[3] = __float2bfloat16(s.w / L);
+    dst[0] = __float2bfloat16(s.x * inv);
+    dst[1] = __float2bfloat16(s.y * inv);
+    dst[2] = __float2bfloat16(s.z * inv);
+    dst[3] = __float2bfloat16(s.w * inv);
   }
+}
+
+// lanes a position: the power of two with lp * 8 >= D
+inline int lanes_per_position(int D) {
+  int lp = 1;
+  while (lp * kCols < D) lp <<= 1;
+  return lp;
 }
 
 // dynamic shared memory of decode_partial_kernel: q, then the larger of the
 // chunk and the merge
 template <typename T>
 size_t decode_smem_bytes(int G, int D, int chunk) {
-  int lp = 1;
-  while (lp * kCols < D) lp <<= 1;
-  const size_t R = size_t(kThreads / 32) * (32 / lp);
+  const size_t R = size_t(kThreads / 32) * (32 / lanes_per_position(D));
   const size_t kv = 2 * size_t(chunk) * D * sizeof(T) + 2 * size_t(chunk) * sizeof(float);
   const size_t merge = (R * G * D + 2 * R * G) * sizeof(float);
-  return size_t(G) * D * sizeof(float) + (kv > merge ? kv : merge);
+  return size_t(kMaxG) * D * sizeof(float) + (kv > merge ? kv : merge);
+}
+
+template <typename T, int LP>
+cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t st, const void* q,
+                           const void* k, const void* v, const void* ks, const void* vs,
+                           const void* lens, void* part_m, void* part_l, void* part_acc,
+                           int Hkv, int G, int S, int D, int chunk, float qscale) {
+  static bool attr_set = false;  // once per instantiation: the largest shape's need
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_partial_kernel<T, LP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(decode_smem_bytes<T>(kMaxG, kMaxD, kMaxChunk)));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  decode_partial_kernel<T, LP><<<grid, kThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(lens), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<float*>(part_acc), Hkv, G, S, D, chunk,
+      qscale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -436,26 +486,28 @@ int decode_attention(const void* q, const void* k, const void* v, const void* ks
     return static_cast<int>(cudaErrorInvalidValue);
   if (((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(decode_partial_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(decode_smem_bytes<T>(kMaxG, kMaxD, kMaxChunk)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nchunks = (S + chunk - 1) / chunk;
-  dim3 grid(nchunks, Hkv, B);
-  decode_partial_kernel<T><<<grid, kThreads, decode_smem_bytes<T>(G, D, chunk), st>>>(
-      static_cast<const bf16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(lens), static_cast<float*>(part_m),
-      static_cast<float*>(part_l), static_cast<float*>(part_acc), Hkv, G, S, D, chunk,
-      scale * kLog2e);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid(nchunks, Hkv, B);
+  const size_t smem = decode_smem_bytes<T>(G, D, chunk);
+  const float qscale = scale * kLog2e;
+  cudaError_t err;
+  switch (lanes_per_position(D)) {
+#define UFV_PARTIAL(LP)                                                                   \
+  case LP:                                                                                \
+    err = launch_partial<T, LP>(grid, smem, st, q, k, v, ks, vs, lens, part_m, part_l,   \
+                                part_acc, Hkv, G, S, D, chunk, qscale);                  \
+    break;
+    UFV_PARTIAL(1)
+    UFV_PARTIAL(2)
+    UFV_PARTIAL(4)
+    UFV_PARTIAL(8)
+    UFV_PARTIAL(16)
+#undef UFV_PARTIAL
+    default: err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<<<B * Hkv * G, kCombineThreads, nchunks * sizeof(float), st>>>(
+  decode_combine_kernel<<<B * Hkv * G, kCombineThreads, 0, st>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const float*>(part_acc), static_cast<bf16*>(out), G, D, nchunks);
   return static_cast<int>(cudaGetLastError());

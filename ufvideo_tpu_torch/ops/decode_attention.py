@@ -10,7 +10,7 @@ fold into the scores and the probabilities. Both are one CUDA template,
 ``csrc/decode_attention.cu`` (written and verified on the card); its header
 comment gives what bounds it on an H100 (memory bytes: the cache is read
 once per step) and how the design meets that: ``decode_split_plan`` cuts
-the cache row into chunks so the grid holds about two blocks an SM, each
+the cache row into chunks so the grid fills the card at batch 1, each
 block copies its whole chunk into shared memory with coalesced
 asynchronous copies before it computes, and a second pass merges the
 chunks in a fixed order (``decode_partials_plain`` + ``merge_splits_plain``
@@ -39,18 +39,28 @@ from .attention import _NEG_INF, xla_attention
 # cache positions a block (csrc/decode_attention.cu takes multiples of its
 # 32-position copy group up to kMaxChunk = 256)
 CHUNKS = (32, 64, 128, 256)
-BLOCKS_PER_SM = 2
+PREFERRED_CHUNK = 64
+MAX_BLOCKS_PER_SM = 8
 
 
 def decode_split_plan(b: int, hkv: int, s: int, sm_count: int) -> int:
-    """Cache positions a block: the largest chunk of ``CHUNKS`` whose grid
-    B·Hkv·ceil(S / chunk) still holds ``BLOCKS_PER_SM`` blocks an SM, else
-    the smallest. A function of shapes alone (never of ``lens``), so a
-    shape always runs the same chunks and sums in the same order."""
-    for chunk in reversed(CHUNKS):
-        if b * hkv * -(-s // chunk) >= BLOCKS_PER_SM * sm_count:
+    """Cache positions a block. ``PREFERRED_CHUNK`` (two copy groups, so
+    one group's copy overlaps the other's compute) unless its grid
+    B·Hkv·ceil(S / chunk) would leave an SM without a block (then 32) or
+    hold more than ``MAX_BLOCKS_PER_SM`` blocks an SM (then the smallest
+    larger chunk within that, else the largest), where each block's fixed
+    work (q, the length, the merge of its lane groups) adds up. A function
+    of shapes alone (never of ``lens``), so a shape always runs the same
+    chunks and sums in the same order. 64 ran fastest of the four at both
+    of the smoke script's decode shapes on an H100
+    (``scripts/torch_decode_sweep.py``)."""
+    blocks = lambda chunk: b * hkv * -(-s // chunk)
+    if blocks(PREFERRED_CHUNK) < sm_count:
+        return CHUNKS[0]
+    for chunk in CHUNKS:
+        if chunk >= PREFERRED_CHUNK and blocks(chunk) <= MAX_BLOCKS_PER_SM * sm_count:
             return chunk
-    return CHUNKS[0]
+    return CHUNKS[-1]
 
 
 @functools.cache
