@@ -16,24 +16,32 @@
 // and does ~2 operations a byte, far below the card's ridge, so no tensor
 // cores. The design keeps enough coalesced bytes in flight to reach that:
 // - split-KV: the row is cut into chunks of 32-256 positions
-//   (ops/decode_attention.py decode_split_plan, from the shape alone) so the
-//   grid (chunks, Hkv, B) holds about two blocks an SM even at batch 1;
+//   (ops/decode_attention.py decode_split_plan, from the shape alone: 64 at
+//   batch 1, 184 blocks), and 168 registers a thread keep three blocks an SM
+//   resident, so the grid runs in one wave;
 // - each block issues every 16-byte cp.async copy of its chunk's K and V
 //   (and scales) before its first use, committed in groups of 32 positions,
-//   neighbouring threads on neighbouring addresses: 16-64 KB a bf16 block
-//   in flight;
+//   neighbouring threads on neighbouring addresses: 32 KB (bf16) or 17 KB
+//   (int8) a 64-position block in flight;
 // - compute from shared memory: a lane owns 8 head-dim columns of a
-//   position (D / 8 lanes, rounded up to a power of two, share a position,
-//   so a warp reads whole rows), dots its slice with q (f32 in shared
-//   memory, scale * log2(e) folded in) for the G <= 8 heads and sums the
-//   slices with __shfl_xor_sync; each lane group keeps an online softmax in
-//   exp2 (running max and sum per head) and the unnormalised P.V of its 8
+//   position (D / 8 lanes, rounded up to a power of two and a template
+//   argument, share a position, so a warp reads whole rows), dots its slice
+//   with q (f32 in shared memory, scale * log2(e) folded in, zero rows up to
+//   8 heads so no loop branches on G) and sums the slices with
+//   __shfl_xor_sync; each lane group keeps an online softmax in ex2
+//   (running max and sum per head) and the unnormalised P.V of its 8
 //   columns in f32 registers;
 // - the lane groups of a block merge in shared memory in a fixed order and
 //   write (max, sum, acc) per head and chunk (max in log2 units); a second
-//   launch merges the chunks of each head in a fixed order. Both passes are
-//   deterministic for a given shape, and a chunk wholly past lens[b] reads
-//   nothing and weighs 0.
+//   launch merges the chunks of each head with all its loads in flight and
+//   a fixed order. Both passes are deterministic for a given shape, and a
+//   chunk wholly past lens[b] reads nothing and weighs 0.
+// What holds it back: instruction issue, not bytes. By count of this
+// source, eight positions cost a warp ~1100 instructions, 512 of them the
+// FMAs of the two products and the rest shuffles, softmax and conversions.
+// And on an H100 (scripts/torch_decode_sweep.py) the pair with a cold L2
+// takes ~7 us more than its two kernels warm: the gap between the
+// launches, the length read that gates the copies, HBM latency.
 // The P.V product keeps f32 probabilities (the TPU kernel rounds them to
 // bf16), which is closer to the f32 reference. An empty row gives 0.
 #include <cuda_bf16.h>

@@ -246,14 +246,6 @@ def ragged_decode_attention_q8_plain(
     return torch.einsum("bhgs,bhsd->bhgd", probs.float(), v_cache.float()).to(q.dtype)
 
 
-def _check_scales(q, k_cache, k_scale, v_scale) -> None:
-    b, hkv = q.shape[:2]
-    s = k_cache.shape[2]
-    for t in (k_scale, v_scale):
-        if t.dtype != torch.float32 or t.shape != (b, hkv, s) or not t.is_contiguous():
-            raise ValueError("ragged_decode_attention_q8 needs contiguous f32 scales [B, Hkv, S]")
-
-
 def ragged_decode_attention_q8(
     q: torch.Tensor,  # [B, Hkv, G, D]
     k_cache: torch.Tensor,  # [B, Hkv, S, D] int8
@@ -271,9 +263,12 @@ def ragged_decode_attention_q8(
         return ragged_decode_attention_q8_plain(
             q, k_cache, v_cache, k_scale, v_scale, lens, scale=scale)
     _check_cache("ragged_decode_attention_q8", q, k_cache, v_cache, torch.int8, 16)
-    _check_scales(q, k_cache, k_scale, v_scale)
-    return _launch(q, k_cache, v_cache, lens, _plan(q, k_cache.shape[2]), scale,
-                   k_scale, v_scale)
+    b, hkv = q.shape[:2]
+    s = k_cache.shape[2]
+    for t in (k_scale, v_scale):
+        if t.dtype != torch.float32 or t.shape != (b, hkv, s) or not t.is_contiguous():
+            raise ValueError("ragged_decode_attention_q8 needs contiguous f32 scales [B, Hkv, S]")
+    return _launch(q, k_cache, v_cache, lens, _plan(q, s), scale, k_scale, v_scale)
 
 
 ragged_decode_attention_q8.launches = 0
