@@ -304,49 +304,72 @@ def kernel_flash(dev, timer, gen):
 
 
 # (label, B, S, lens) of the decode shapes phase 2 holds: Qwen2-7B's 4 kv
-# heads of 7 query heads at the QA request's cache, batch 1 and a ragged 4
+# heads of 7 query heads at the QA request's cache, batch 1 and a ragged 4;
+# lens None takes the kind's batch-1 length
 DECODE_SHAPES = (("B=1 cache 2944 lens {}", 1, 2944, None),
                  ("B=4 ragged lens", 4, 2944, [2944, 1, 1500, 129]))
+DECODE_B1_LENS = {"bf16": [2771], "q8": [2800]}
 
 
-def decode_plan_text(e, b, s, seen_bytes):
-    """The split plan of one decode shape (chunk, blocks) and the rate the
-    kernel reached on the bytes it had to read."""
-    from ufvideo_tpu_torch.ops.decode_attention import decode_split_plan
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chunk = decode_split_plan(b, 4, s, sms)
-    e["plan"] = dict(chunk=chunk, blocks=b * 4 * -(-s // chunk), sms=sms)
-    e["gb_per_s"] = seen_bytes / (e["ms"] * 1e-3) / 1e9
-    log(f"    {e['shape']}: chunk {chunk}, {e['plan']['blocks']} blocks on {sms} SMs, "
-        f"{e['gb_per_s']:.0f} GB/s of the valid cache{ratio_text(e)}")
-    return e
-
-
-def kernel_decode(dev, timer, gen):
-    from ufvideo_tpu_torch.ops.decode_attention import (
-        ragged_decode_attention, ragged_decode_attention_plain)
+def decode_inputs(kind, b, s, lens, gen, dev):
+    """Random inputs of one decode shape for the bf16 ("bf16") or the int8
+    ("q8") cache kernel, and the calls made on them: the public wrapper
+    (``kernel``), the private launcher at a given chunk (``launch``), the
+    plain version, SDPA on the (dequantised) cache, and the bytes of the
+    valid cache (``seen``). Phase 2 and ``scripts/torch_decode_sweep.py``."""
+    from ufvideo_tpu_torch.models.qwen2 import quantize_kv
+    from ufvideo_tpu_torch.ops import decode_attention as da
     import torch.nn.functional as F
 
+    mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = mk(b, 4, 7, 128), mk(b, 4, s, 128), mk(b, 4, s, 128)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+    qs = q.reshape(b, 28, 1, 128)
+    if kind == "bf16":
+        args, scales, kd, vd = (q, k, v, lens_t), (), k, v
+        kernel, plain = da.ragged_decode_attention, da.ragged_decode_attention_plain
+        row_bytes = 128 * 2
+    else:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        args, scales = (q, k, v, ks, vs, lens_t), (ks, vs)
+        kd = (k.float() * ks[..., None]).to(torch.bfloat16)
+        vd = (v.float() * vs[..., None]).to(torch.bfloat16)
+        kernel, plain = da.ragged_decode_attention_q8, da.ragged_decode_attention_q8_plain
+        row_bytes = 128 + 4
+    return dict(
+        q=q, wrapper=kernel, kernel=lambda: kernel(*args), plain=lambda: plain(*args),
+        launch=lambda chunk: da._launch(q, k, v, lens_t, chunk, None, *scales),
+        library=lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask,
+                                                        enable_gqa=True),
+        seen=2 * sum(lens) * 4 * row_bytes)
+
+
+def kernel_decode(dev, timer, gen, kind):
+    """Both decode shapes of one kind: each held to its plain version and
+    timed beside SDPA, with the split the wrapper launched (chunk, blocks,
+    read back from the wrapper) and the rate on the valid cache's bytes."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = []
     for label, b, s, lens in DECODE_SHAPES:
-        lens = lens or [2771]
-        mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
-        q, k, v = mk(b, 4, 7, 128), mk(b, 4, s, 128), mk(b, 4, s, 128)
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-        mask = (torch.arange(s, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
-        qs = q.reshape(b, 28, 1, 128)
-        seen = 2 * sum(lens) * 4 * 128 * 2
-        shapes.append(decode_plan_text(bench(
-            timer, f"q [{b},4,7,128] cache [{b},4,{s},128] {label.format(lens)}",
-            lambda: ragged_decode_attention(q, k, v, lens_t),
-            lambda: ragged_decode_attention_plain(q, k, v, lens_t),
-            lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask, enable_gqa=True),
-            nbytes(q, q) + seen, 4 * sum(lens) * 28 * 128), b, s, seen))
+        lens = lens or DECODE_B1_LENS[kind]
+        t = decode_inputs(kind, b, s, lens, gen, dev)
+        t["wrapper"].last_split = None
+        cache = "cache" if kind == "bf16" else "int8 cache"
+        e = bench(timer, f"q [{b},4,7,128] {cache} [{b},4,{s},128] {label.format(lens)}",
+                  t["kernel"], t["plain"], t["library"], nbytes(t["q"], t["q"]) + t["seen"],
+                  4 * sum(lens) * 28 * 128)
+        chunk, blocks = t["wrapper"].last_split
+        e["plan"] = dict(chunk=chunk, blocks=blocks, sms=sms)
+        e["gb_per_s"] = t["seen"] / (e["ms"] * 1e-3) / 1e9
+        log(f"    {e['shape']}: chunk {chunk}, {blocks} blocks on {sms} SMs, "
+            f"{e['gb_per_s']:.0f} GB/s of the valid cache{ratio_text(e)}")
+        shapes.append(e)
+    name = "ragged_decode_attention" + ("" if kind == "bf16" else "_q8")
     return _kernel_entry(
-        "ragged_decode_attention", "ufvideo_tpu_torch/csrc/decode_attention.cu",
-        "ufvideo_tpu/ops/decode_attention.py:200", tol_text(REL), shapes,
-        shapes[0]["shape"])
+        name, "ufvideo_tpu_torch/csrc/decode_attention.cu",
+        "ufvideo_tpu/ops/decode_attention.py:" + ("200" if kind == "bf16" else "153"),
+        tol_text(REL), shapes, shapes[0]["shape"])
 
 
 def block_params(dev, gen, c, mlp, cin=None, front_extra=0):
@@ -601,36 +624,6 @@ def kernel_quant_matmul(dev, timer, gen, cfg, bits):
         "ufvideo_tpu/ops/quant_matmul.py:" + ("193" if bits == 8 else "122"),
         tol_text(QREL, QREL, QREL), shapes,
         f"gate/up: x [1,{din}] q [{din},{dout}] int{bits}")
-
-
-def kernel_decode_q8(dev, timer, gen):
-    from ufvideo_tpu_torch.models.qwen2 import quantize_kv
-    from ufvideo_tpu_torch.ops.decode_attention import (
-        ragged_decode_attention_q8, ragged_decode_attention_q8_plain)
-    import torch.nn.functional as F
-
-    shapes = []
-    for label, b, s, lens in DECODE_SHAPES:
-        lens = lens or [2800]
-        mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
-        q = mk(b, 4, 7, 128)
-        (k8, ks), (v8, vs) = quantize_kv(mk(b, 4, s, 128)), quantize_kv(mk(b, 4, s, 128))
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-        kd = (k8.float() * ks[..., None]).to(torch.bfloat16)
-        vd = (v8.float() * vs[..., None]).to(torch.bfloat16)
-        mask = (torch.arange(s, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
-        qs = q.reshape(b, 28, 1, 128)
-        seen = 2 * sum(lens) * 4 * (128 + 4)
-        shapes.append(decode_plan_text(bench(
-            timer, f"q [{b},4,7,128] int8 cache [{b},4,{s},128] {label.format(lens)}",
-            lambda: ragged_decode_attention_q8(q, k8, v8, ks, vs, lens_t),
-            lambda: ragged_decode_attention_q8_plain(q, k8, v8, ks, vs, lens_t),
-            lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask, enable_gqa=True),
-            nbytes(q, q) + seen, 4 * sum(lens) * 28 * 128), b, s, seen))
-    return _kernel_entry(
-        "ragged_decode_attention_q8", "ufvideo_tpu_torch/csrc/decode_attention.cu",
-        "ufvideo_tpu/ops/decode_attention.py:153", tol_text(REL), shapes,
-        shapes[0]["shape"])
 
 
 # W8A8 block, kernel against plain version. The int32 sums are exact on both
@@ -1923,9 +1916,10 @@ def main() -> int:
     checks = {
         "probe_step": kernel_probe,
         "fused_hiera_block": kernel_hiera, "flash_attention": kernel_flash,
-        "ragged_decode_attention": kernel_decode, "fused_ln_matmul": kernel_ln_matmul,
+        "ragged_decode_attention": lambda *a: kernel_decode(*a, "bf16"),
+        "fused_ln_matmul": kernel_ln_matmul,
         "fused_block_tail": kernel_block_tail, "fused_qpool_block": kernel_qpool,
-        "ragged_decode_attention_q8": kernel_decode_q8,
+        "ragged_decode_attention_q8": lambda *a: kernel_decode(*a, "q8"),
         "int8_matvec": lambda *a: kernel_quant_matmul(*a, full, 8),
         "int4_matmul": lambda *a: kernel_quant_matmul(*a, full, 4),
         "fused_block_w8a8": kernel_w8a8, "fused_qpool_block_w8a8": kernel_qpool_w8a8,

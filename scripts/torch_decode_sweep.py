@@ -6,12 +6,13 @@ partial pass and the combine pass.
     python3 scripts/torch_decode_sweep.py
 
 At each of ``chip_smoke.DECODE_SHAPES`` (Qwen2-7B's 4 kv heads of 7 query
-heads, a 2944-position cache, batch 1 and a ragged batch of 4) and each
-chunk: the kernel against its plain version (``chip_smoke.check_close``),
-the pair's time as ``chip_smoke.Timer`` takes it (median of 20 CUDA-event
-timings, L2 flushed before each), SDPA's time on the same inputs, the rate
-on the valid cache's bytes, and the device time of each of the two
-kernels from ``torch.profiler`` over 20 back-to-back calls (L2 warm).
+heads, a 2944-position cache, batch 1 and a ragged batch of 4), on the
+inputs ``chip_smoke.decode_inputs`` makes, and each chunk: the kernel
+against its plain version (``chip_smoke.check_close``), the pair's time as
+``chip_smoke.Timer`` takes it (median of 20 CUDA-event timings, L2 flushed
+before each), SDPA's time on the same inputs, the rate on the valid
+cache's bytes, and the device time of each of the two kernels from
+``torch.profiler`` over 20 back-to-back calls (L2 warm).
 Prints one line a (kind, shape, chunk) and the card's name and power
 limit. Needs one CUDA card.
 """
@@ -24,38 +25,12 @@ import sys
 from collections import defaultdict
 
 import torch
-import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
-from ufvideo_tpu_torch.models.qwen2 import quantize_kv  # noqa: E402
 from ufvideo_tpu_torch.ops import decode_attention as da  # noqa: E402
-
-
-def inputs(kind, b, s, lens, gen, dev):
-    mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
-    q, k, v = mk(b, 4, 7, 128), mk(b, 4, s, 128), mk(b, 4, s, 128)
-    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-    mask = (torch.arange(s, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
-    qs = q.reshape(b, 28, 1, 128)
-    if kind == "bf16":
-        return dict(
-            kernel=lambda c: da._launch(q, k, v, lens_t, c, None),
-            plain=lambda: da.ragged_decode_attention_plain(q, k, v, lens_t),
-            library=lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
-                                                            enable_gqa=True),
-            nbytes=2 * sum(lens) * 4 * 128 * 2)
-    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
-    kd = (k8.float() * ks[..., None]).to(torch.bfloat16)
-    vd = (v8.float() * vs[..., None]).to(torch.bfloat16)
-    return dict(
-        kernel=lambda c: da._launch(q, k8, v8, lens_t, c, None, ks, vs),
-        plain=lambda: da.ragged_decode_attention_q8_plain(q, k8, v8, ks, vs, lens_t),
-        library=lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask,
-                                                        enable_gqa=True),
-        nbytes=2 * sum(lens) * 4 * (128 + 4))
 
 
 def split_us(fn, n=20):
@@ -86,19 +61,19 @@ def main() -> int:
     gen.manual_seed(0)
     for kind in ("bf16", "q8"):
         for label, b, s, lens in cs.DECODE_SHAPES:
-            lens = lens or [2800]
-            t = inputs(kind, b, s, lens, gen, dev)
+            lens = lens or cs.DECODE_B1_LENS[kind]
+            t = cs.decode_inputs(kind, b, s, lens, gen, dev)
             lib = timer.ms(t["library"])
             plan = da.decode_split_plan(b, 4, s, sms)
             for chunk in da.CHUNKS:
                 name = f"{kind} B={b} lens {lens} chunk {chunk}"
-                got, want = t["kernel"](chunk), t["plain"]()
+                got, want = t["launch"](chunk), t["plain"]()
                 torch.cuda.synchronize()
                 cs.check_close(name, got, want)
-                ms = timer.ms(lambda: t["kernel"](chunk))
-                us = split_us(lambda: t["kernel"](chunk))
+                ms = timer.ms(lambda: t["launch"](chunk))
+                us = split_us(lambda: t["launch"](chunk))
                 print(f"{name}{' (plan)' if chunk == plan else ''}: {ms:.4f} ms, SDPA "
-                      f"{lib:.4f} ms, ratio {ms / lib:.3f}, {t['nbytes'] / ms / 1e6:.0f} GB/s; "
+                      f"{lib:.4f} ms, ratio {ms / lib:.3f}, {t['seen'] / ms / 1e6:.0f} GB/s; "
                       f"warm device us: partial {us['partial']:.2f}, combine "
                       f"{us['combine']:.2f}", flush=True)
     print(card)

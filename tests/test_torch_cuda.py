@@ -526,6 +526,7 @@ def test_decode_wrappers_launch_the_planned_chunk(dev, kind):
     else:
         got = wrapper(q, k, v, ks, vs, lens_t)
     assert wrapper.launches == n + 1
+    assert wrapper.last_split == (chunk, b * hkv * -(-s // chunk))
     assert torch.equal(got, da._launch(q, k, v, lens_t, chunk, None, ks, vs))
 
 

@@ -6,8 +6,8 @@ then their merge), held against ``ragged_decode_attention_plain`` /
 interpret mode.
 
 Plan: the chunk comes from a fixed set, the chunks tile ``[0, S)``
-exactly, and it leaves the preferred 64 positions only to give every SM a
-block (32) or to keep a deep grid within ``MAX_BLOCKS_PER_SM``. Merge: every input is f32 (for the
+exactly, and it leaves 64 positions for 32 only to give every SM a block.
+Merge: every input is f32 (for the
 int8 cache the q, the scales and the dequantised sums are f32, so neither
 side rounds probabilities to bf16), so the only differences are the order
 of f32 sums and exp against the reference's softmax (``TOL``). An empty
@@ -41,12 +41,8 @@ def test_split_plan_tiles_the_cache(b, hkv, s, sm_count):
     assert chunk in da.CHUNKS
     n = -(-s // chunk)
     assert (n - 1) * chunk < s <= n * chunk  # whole chunks, none empty
-    blocks = lambda c: b * hkv * -(-s // c)
-    if chunk < da.PREFERRED_CHUNK:  # only where the preferred chunk leaves SMs idle
-        assert blocks(da.PREFERRED_CHUNK) < sm_count
-    if chunk > da.PREFERRED_CHUNK:  # only where a smaller one runs too many blocks
-        assert blocks(chunk // 2) > da.MAX_BLOCKS_PER_SM * sm_count
-        assert chunk == da.CHUNKS[-1] or blocks(chunk) <= da.MAX_BLOCKS_PER_SM * sm_count
+    # 32 exactly where 64 would leave an SM without a block
+    assert (chunk == 32) == (b * hkv * -(-s // 64) < sm_count)
 
 
 def test_split_plan_fills_the_h100_at_the_qwen2_decode_shape():
@@ -57,10 +53,12 @@ def test_split_plan_fills_the_h100_at_the_qwen2_decode_shape():
 
 
 def test_split_plan_grows_the_chunk_only_for_deep_grids():
-    """The smoke script's ragged batch of 4 keeps 64 positions (736 blocks,
-    5.6 an SM); 64 sequences take 256; a short cache at batch 1 halves it."""
+    """The chunk is 64 only where its grid still gives every SM a block: the
+    smoke script's ragged batch of 4 (736 blocks, 5.6 an SM) and 64
+    sequences keep 64 positions; a short cache at batch 1 (64 blocks at 64)
+    takes 32."""
     assert da.decode_split_plan(4, 4, 2944, H100_SMS) == 64
-    assert da.decode_split_plan(64, 4, 2944, H100_SMS) == 256
+    assert da.decode_split_plan(64, 4, 2944, H100_SMS) == 64
     assert da.decode_split_plan(1, 4, 1000, H100_SMS) == 32
 
 

@@ -15,7 +15,7 @@
 // 4 bytes of scales a position and tensor), 1.7 us and 0.9 us at 3.35 TB/s,
 // and does ~2 operations a byte, far below the card's ridge, so no tensor
 // cores. The design keeps enough coalesced bytes in flight to reach that:
-// - split-KV: the row is cut into chunks of 32-256 positions
+// - split-KV: the row is cut into chunks of 32 or 64 positions
 //   (ops/decode_attention.py decode_split_plan, from the shape alone: 64 at
 //   batch 1, 184 blocks), and 168 registers a thread keep three blocks an SM
 //   resident, so the grid runs in one wave;
@@ -58,7 +58,7 @@ constexpr int kMaxG = 8;       // query heads per kv head
 constexpr int kMaxD = 128;
 constexpr int kCols = 8;        // head-dim columns a lane owns
 constexpr int kGroup = 32;      // positions a cp.async commit group
-constexpr int kMaxChunk = 256;  // positions a block (decode_split_plan's largest)
+constexpr int kMaxChunk = 64;   // positions a block (decode_split_plan's largest)
 constexpr int kNB = 4;          // positions a lane group scores at once
 constexpr int kMinBlocks = 3;   // resident blocks an SM (caps registers at 168)
 constexpr int kCombineThreads = 256;
@@ -85,18 +85,10 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// wait until at most n (0..7) groups are pending
+// wait until at most n (0 or 1: a chunk is at most two groups) are pending
 __device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
-  }
+  if (n) asm volatile("cp.async.wait_group 1;\n" ::);
+  else asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // the 8 cache values of a lane's columns, from shared memory, as floats
@@ -449,20 +441,22 @@ size_t decode_smem_bytes(int G, int D, int chunk) {
   const size_t merge = (R * G * D + 2 * R * G) * sizeof(float);
   return size_t(kMaxG) * D * sizeof(float) + (kv > merge ? kv : merge);
 }
+// Every shape fits the 48 KB a launch gets without opting in: the chunk
+// holds at most kMaxChunk rows of kMaxD bf16 values (and their scales), and
+// the merge's R = kThreads / LP lane groups hold R * D <= kThreads * kCols
+// floats a head.
+constexpr int kMaxChunkBytes = 2 * kMaxChunk * kMaxD * 2 + 2 * kMaxChunk * 4;
+constexpr int kMaxMergeBytes = (kMaxG * kThreads * kCols + 2 * kThreads * kMaxG) * 4;
+static_assert(kMaxG * kMaxD * 4 + (kMaxChunkBytes > kMaxMergeBytes ? kMaxChunkBytes
+                                                                   : kMaxMergeBytes) <=
+                  48 * 1024,
+              "decode_partial_kernel's shared memory exceeds the default 48 KB");
 
 template <typename T, int LP>
 cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t st, const void* q,
                            const void* k, const void* v, const void* ks, const void* vs,
                            const void* lens, void* part_m, void* part_l, void* part_acc,
                            int Hkv, int G, int S, int D, int chunk, float qscale) {
-  static bool attr_set = false;  // once per instantiation: the largest shape's need
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_partial_kernel<T, LP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(decode_smem_bytes<T>(kMaxG, kMaxD, kMaxChunk)));
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
   decode_partial_kernel<T, LP><<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
@@ -479,8 +473,8 @@ extern "C" const char* ufv_error_string(int code) {
 }
 
 // q [B, Hkv, G, D], k / v cache [B, Hkv, S, D] (contiguous, 16-byte
-// aligned, D a multiple of 8), lens [B] int32, out [B, Hkv, G, D]; chunk a
-// multiple of 32 up to 256 (ops/decode_attention.py decode_split_plan);
+// aligned, D a multiple of 8), lens [B] int32, out [B, Hkv, G, D]; chunk 32
+// or 64 (ops/decode_attention.py decode_split_plan);
 // part_m / part_l hold B*Hkv*n_chunks*G floats and part_acc
 // B*Hkv*n_chunks*G*D floats, n_chunks = ceil(S / chunk).
 template <typename T>

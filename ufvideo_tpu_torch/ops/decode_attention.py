@@ -37,30 +37,19 @@ from .. import _build
 from .attention import _NEG_INF, xla_attention
 
 # cache positions a block (csrc/decode_attention.cu takes multiples of its
-# 32-position copy group up to kMaxChunk = 256)
-CHUNKS = (32, 64, 128, 256)
-PREFERRED_CHUNK = 64
-MAX_BLOCKS_PER_SM = 8
+# 32-position copy group up to kMaxChunk = 64)
+CHUNKS = (32, 64)
 
 
 def decode_split_plan(b: int, hkv: int, s: int, sm_count: int) -> int:
-    """Cache positions a block. ``PREFERRED_CHUNK`` (two copy groups, so
-    one group's copy overlaps the other's compute) unless its grid
-    B·Hkv·ceil(S / chunk) would leave an SM without a block (then 32) or
-    hold more than ``MAX_BLOCKS_PER_SM`` blocks an SM (then the smallest
-    larger chunk within that, else the largest), where each block's fixed
-    work (q, the length, the merge of its lane groups) adds up. A function
-    of shapes alone (never of ``lens``), so a shape always runs the same
-    chunks and sums in the same order. 64 ran fastest of the four at both
-    of the smoke script's decode shapes on an H100
-    (``scripts/torch_decode_sweep.py``)."""
-    blocks = lambda chunk: b * hkv * -(-s // chunk)
-    if blocks(PREFERRED_CHUNK) < sm_count:
-        return CHUNKS[0]
-    for chunk in CHUNKS:
-        if chunk >= PREFERRED_CHUNK and blocks(chunk) <= MAX_BLOCKS_PER_SM * sm_count:
-            return chunk
-    return CHUNKS[-1]
+    """Cache positions a block: 64 (two copy groups, so one group's copy
+    overlaps the other's compute), or 32 where the grid B·Hkv·ceil(S / 64)
+    would leave an SM without a block. A function of shapes alone (never of
+    ``lens``), so a shape always runs the same chunks and sums in the same
+    order. On an H100, 64 ran fastest of 32 / 64 / 128 / 256 at both of the
+    smoke script's decode shapes, batch 1 and 4 (``scripts/torch_decode_sweep.py``
+    while the kernel took all four); no shape yet measured asks for more."""
+    return 64 if b * hkv * -(-s // 64) >= sm_count else 32
 
 
 @functools.cache
@@ -165,7 +154,8 @@ def decode_partials_plain(
 def _launch(q, k_cache, v_cache, lens, chunk: int, scale: Optional[float],
             k_scale=None, v_scale=None) -> torch.Tensor:
     """Both kernels (int8 when scales are given) at a given chunk, after
-    the wrappers' checks; adds one to the public wrapper's count."""
+    the wrappers' checks; adds one to the public wrapper's count and keeps
+    the split it launched (chunk, blocks) in its ``last_split``."""
     b, hkv, g, d = q.shape
     s = k_cache.shape[2]
     q = q.contiguous()
@@ -184,13 +174,15 @@ def _launch(q, k_cache, v_cache, lens, chunk: int, scale: Optional[float],
         code = lib.decode_attention_bf16(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(), *scratch)
         _build.check(lib, code, "ragged_decode_attention")
-        ragged_decode_attention.launches += 1
+        wrapper = ragged_decode_attention
     else:
         code = lib.decode_attention_q8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), lens.data_ptr(), *scratch)
         _build.check(lib, code, "ragged_decode_attention_q8")
-        ragged_decode_attention_q8.launches += 1
+        wrapper = ragged_decode_attention_q8
+    wrapper.launches += 1
+    wrapper.last_split = (chunk, b * hkv * n)
     return out
 
 
@@ -216,6 +208,7 @@ def ragged_decode_attention(
 
 
 ragged_decode_attention.launches = 0
+ragged_decode_attention.last_split = None
 
 
 def ragged_decode_attention_q8_plain(
@@ -272,3 +265,4 @@ def ragged_decode_attention_q8(
 
 
 ragged_decode_attention_q8.launches = 0
+ragged_decode_attention_q8.last_split = None
