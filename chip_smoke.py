@@ -589,11 +589,14 @@ def kernel_quant_matmul(dev, timer, gen, cfg, bits):
     """int8_matvec (bits 8) or int4_matmul (bits 4) at the five projection
     shapes, rows 1 and 32, weights quantised from a random float kernel.
     Library yardstick: one bf16 product on a dequantised copy made before
-    the clock starts."""
+    the clock starts. Each shape also logs the grid the wrapper launched
+    (its ``last_plan``) and the rate on the weight and scale bytes; at one
+    row, the 2-32-row kernel on the same inputs is timed beside it."""
     from ufvideo_tpu_torch import quant
     from ufvideo_tpu_torch.ops import quant_matmul as qm
 
     qcheck = lambda n, g, w: check_close(n, g, w, row_rel=QREL, rtol=QREL, fro=QREL)
+    wrapper = qm.int8_matvec if bits == 8 else qm.int4_matmul
     shapes = []
     for pname, (din, dout) in projection_shapes(cfg).items():
         w = torch.randn(din, dout, generator=gen, device=dev) * din ** -0.5
@@ -610,11 +613,21 @@ def kernel_quant_matmul(dev, timer, gen, cfg, bits):
         del w
         for rows in (1, 32):
             x = torch.randn(rows, din, generator=gen, device=dev).to(torch.bfloat16)
-            shapes.append(bench(
+            e = bench(
                 timer, f"{pname}: x [{rows},{din}] q [{din},{dout}] int{bits}",
                 lambda: kern(x), lambda: plain(x), lambda: torch.mm(x, wb),
                 nbytes(x, qd["q"], qd["scale"]) + rows * dout * 4, 2 * rows * din * dout,
-                check=qcheck))
+                check=qcheck)
+            e["plan"] = str(wrapper.last_plan)
+            e["gbps"] = nbytes(qd["q"], qd["scale"]) / e["ms"] / 1e6
+            old = ""
+            if rows == 1:
+                e["rows_kernel_ms"] = timer.ms(
+                    lambda: qm._launch_rows(x, qd["q"], qd["scale"], bits, 64))
+                old = f", 2-32-row kernel {e['rows_kernel_ms']:.4f} ms"
+            log(f"    {e['shape']}: plan {e['plan']}, {e['gbps']:.0f} GB/s{ratio_text(e)}"
+                f"{old}")
+            shapes.append(e)
         del qd, wb
         torch.cuda.empty_cache()
     name = "int8_matvec" if bits == 8 else "int4_matmul"

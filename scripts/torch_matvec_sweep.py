@@ -1,0 +1,112 @@
+"""The one-row quantised products (``int8_matvec``, ``int4_matmul``) at
+several grids, on the card: which grid ``matvec_plan`` picks, the time of
+each grid, the older 2-32-row kernel at the same row, and ``torch.mm``.
+
+    python3 scripts/torch_matvec_sweep.py
+
+At each of Qwen2-7B's five projections (``chip_smoke.projection_shapes``),
+one row, weights quantised from a random float kernel as phase 2 of
+``chip_smoke.py`` makes them (int4: group 64), and each grid (1 to 16
+slices of the contraction, each split of 2 to 8 slices in one launch and
+in two): the kernel
+against its plain version (``chip_smoke.check_close`` at ``QREL``), its
+time as ``chip_smoke.Timer`` takes it (median of 20 CUDA-event timings, L2
+flushed before each), the rate on the weight and scale bytes, and the
+device time of the streaming pass and of the second pass (0 in one
+launch) from
+``torch.profiler`` over 20 back-to-back calls (L2 warm). Prints one line a
+(bits, projection, grid) and the card's name and power limit. Needs one
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+from ufvideo_tpu_torch import quant  # noqa: E402
+from ufvideo_tpu_torch.configs import UFVideoConfig  # noqa: E402
+from ufvideo_tpu_torch.ops import quant_matmul as qm  # noqa: E402
+
+GROUP = 64
+
+
+def pass_us(fn, n=20):
+    """Device microseconds a call of the streaming pass and the second pass."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = defaultdict(float)
+    for e in prof.key_averages():
+        if "matvec_row_kernel" in e.key:
+            us["stream"] += e.device_time_total / n
+        elif "finish_kernel" in e.key:
+            us["finish"] += e.device_time_total / n
+    return us
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    timer = cs.Timer(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for bits in (8, 4):
+        for pname, (din, dout) in cs.projection_shapes(UFVideoConfig()).items():
+            w = torch.randn(din, dout, generator=gen, device=dev) * din ** -0.5
+            if bits == 8:
+                qd = quant.quantize_kernel(w)
+                wb = (qd["q"].float() * qd["scale"]).to(torch.bfloat16)
+                plain = lambda x: qm.int8_matvec_plain(x, qd["q"], qd["scale"])
+            else:
+                qd = quant.quantize_kernel4(w, GROUP)
+                wb = qm.dequantize_int4(qd["q"], qd["scale"], GROUP, torch.bfloat16)
+                plain = lambda x: qm.int4_matmul_plain(x, qd["q"], qd["scale"], GROUP)
+            del w
+            q, s = qd["q"], qd["scale"]
+            x = torch.randn(1, din, generator=gen, device=dev).to(torch.bfloat16)
+            nbytes = cs.nbytes(q, s)
+            lib = timer.ms(lambda: torch.mm(x, wb))
+            old = timer.ms(lambda: qm._launch_rows(x, q, s, bits, GROUP))
+            want = plain(x)
+            plan = qm.matvec_plan(din, dout, bits, sms)
+            grids = {plan}
+            for n_split in (1, 2, 4, 5, 6, 7, 8, 12, 16):
+                for one_launch in (True, False):
+                    grids.add(qm.split_rows(q.shape[0], dout, plan.vec, n_split, one_launch))
+            for p in sorted(grids):
+                name = f"int{bits} {pname} [1,{din}]x[{din},{dout}] {p}"
+                run = lambda: qm._launch_row(x, q, s, bits, GROUP, p)
+                got = run()
+                torch.cuda.synchronize()
+                cs.check_close(name, got, want, row_rel=cs.QREL, rtol=cs.QREL, fro=cs.QREL)
+                ms = timer.ms(run)
+                us = pass_us(run)
+                print(f"{name}{' (plan)' if p == plan else ''}: {ms:.4f} ms, "
+                      f"{nbytes / ms / 1e6:.0f} GB/s, torch.mm {lib:.4f} ms, ratio "
+                      f"{ms / lib:.3f}, 2-32-row kernel {old:.4f} ms; warm device us: "
+                      f"stream {us['stream']:.2f}, finish {us['finish']:.2f}", flush=True)
+            del qd, q, s, wb
+            torch.cuda.empty_cache()
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

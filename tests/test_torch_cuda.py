@@ -432,6 +432,111 @@ def test_quant_linear_routes_by_rows_and_refuses_what_the_kernel_cannot_take(dev
         wrapper(*((few, lin.kernel_q.float(), lin.kernel_scale) + ((64,) if bits == 4 else ())))
 
 
+# The one-row kernel through its private launcher at the plan the wrapper
+# gives it, at the same split added the other way (one launch through a
+# cluster, or a second pass), and at a split in 4 and in 12; the same limit
+# as above against the plain version and against the plain split of that
+# plan (matvec_slices_plain). One launch and a second pass add the slices
+# in one order: equal bit for bit.
+ROW_SHAPES = [(din, dout) for rows, din, dout in QUANT_SHAPES if rows == 1] + [
+    (3584, 4608), (3584, 3584), (3584, 18944), (256, 132), (1024, 260), (1096, 272)]
+
+
+def _row_inputs(dev, bits, din, dout, group=64, seed=40):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(din, dout, generator=g, device=dev) * din ** -0.5
+    qd = tq.quantize_kernel(w) if bits == 8 else tq.quantize_kernel4(w, group)
+    return _randn(dev, 1, din, seed=seed + 1), qd["q"], qd["scale"]
+
+
+def _row_plain(x, q, s, bits, group=64):
+    if bits == 8:
+        return qm.int8_matvec_plain(x, q, s)
+    return qm.int4_matmul_plain(x, q, s, group)
+
+
+@pytest.mark.parametrize("bits,group,din,dout", [
+    (bits, group, din, dout) for bits, group in ((8, 64), (4, 64), (4, 8))
+    for din, dout in ROW_SHAPES if bits == 8 or din % group == 0])
+def test_quant_row_kernel_matches_plain_at_each_split(dev, bits, group, din, dout):
+    x, q, s = _row_inputs(dev, bits, din, dout, group)
+    plan = qm.matvec_plan(din, dout, bits, qm._sm_count(dev.index or 0))
+    want = _row_plain(x, q, s, bits, group)
+    splits = [plan, plan._replace(cluster=plan.ksplit if plan.cluster == 1 else 1)]
+    splits += [qm.split_rows(q.shape[0], dout, plan.vec, n, one_launch=n <= 8) for n in (4, 12)]
+    for p in splits:
+        got = qm._launch_row(x, q, s, bits, group, p)
+        torch.cuda.synchronize()
+        assert got.shape == (1, dout) and got.dtype == torch.float32
+        _assert_close(got, want, row_rel=1e-3, rtol=1e-3, rel=1e-3)
+        _assert_close(got[0], qm.matvec_slices_plain(x, q, s, p, bits, group),
+                      row_rel=1e-3, rtol=1e-3, rel=1e-3)
+        if 1 < p.ksplit <= 8:  # a cluster holds at most 8 slices
+            other = p._replace(cluster=1 if p.cluster > 1 else p.ksplit)
+            assert torch.equal(got, qm._launch_row(x, q, s, bits, group, other))
+
+
+@pytest.mark.parametrize("k", [0, 1, 130, 1023])
+def test_quant_row_kernel_int8_conversion_is_exact(dev, k):
+    """x one-hot at row k, whose 256 columns hold every byte -128..127:
+    the output is float(q[k]) * scale, bit for bit."""
+    q = torch.randint(-128, 128, (1024, 256), dtype=torch.int8, device=dev)
+    q[k] = torch.arange(-128, 128, device=dev).to(torch.int8)
+    s = torch.rand(256, device=dev) + 0.5
+    x = torch.zeros(1, 1024, dtype=torch.bfloat16, device=dev)
+    x[0, k] = 1
+    got = qm.int8_matvec(x, q, s)
+    assert qm.int8_matvec.last_plan.vec == 16
+    assert torch.equal(got[0], q[k].float() * s)
+
+
+@pytest.mark.parametrize("group", [64, 8])
+@pytest.mark.parametrize("k", [0, 1, 130, 511])
+def test_quant_row_kernel_int4_conversion_is_exact(dev, group, k):
+    """x one-hot at logical row 2k or 2k+1, packed row k holding every byte
+    0..255: the output is bf16(w * s) of that row, bit for bit."""
+    q = torch.randint(-128, 128, (512, 256), dtype=torch.int8, device=dev)
+    q[k] = torch.arange(256, device=dev).to(torch.uint8).view(torch.int8)
+    s = torch.rand(1024 // group, 256, device=dev) * 0.1 + 1e-3
+    w = qm.dequantize_int4(q, s, group, torch.bfloat16).float()
+    for row in (2 * k, 2 * k + 1):
+        x = torch.zeros(1, 1024, dtype=torch.bfloat16, device=dev)
+        x[0, row] = 1
+        got = qm.int4_matmul(x, q, s, group)
+        assert isinstance(qm.int4_matmul.last_plan, qm.MatvecPlan)
+        assert torch.equal(got[0], w[row])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_row_kernel_repeats_bit_for_bit(dev, bits):
+    x, q, s = _row_inputs(dev, bits, 3584, 4608)
+    wrapper = qm.int8_matvec if bits == 8 else qm.int4_matmul
+    args = (x, q, s) + ((64,) if bits == 4 else ())
+    first = wrapper(*args)
+    assert qm.matvec_plan(3584, 4608, bits, qm._sm_count(dev.index or 0)).cluster > 1
+    assert torch.equal(first, wrapper(*args))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_wrappers_route_one_row_to_the_row_kernel(dev, bits):
+    """1 row launches the one-row kernel at matvec_plan's plan; 2 and 32
+    rows the 2-32-row kernel at split_k's split."""
+    din, dout = 1024, 260
+    _, q, s = _row_inputs(dev, bits, din, dout)
+    wrapper = qm.int8_matvec if bits == 8 else qm.int4_matmul
+    for rows in (1, 2, 32):
+        x = _randn(dev, rows, din, seed=42)
+        n = wrapper.launches
+        got = wrapper(*((x, q, s) + ((64,) if bits == 4 else ())))
+        assert wrapper.launches == n + 1
+        _assert_close(got, _row_plain(x, q, s, bits, 64), row_rel=1e-3, rtol=1e-3, rel=1e-3)
+        if rows == 1:
+            assert wrapper.last_plan == qm.matvec_plan(
+                din, dout, bits, qm._sm_count(dev.index or 0))
+        else:
+            assert wrapper.last_plan == qm.split_k(rows, q.shape[0], dout)
+
+
 @pytest.mark.parametrize(
     "b,hkv,g,s,d,lens",
     [

@@ -1,34 +1,61 @@
 // Decode-shaped products on quantised weights, with a plain C interface for
-// ctypes. Two entry points, each replacing one TPU kernel of
+// ctypes. Each product replaces one TPU kernel of
 // ufvideo_tpu/ops/quant_matmul.py:
 //
-//   int8_matvec_bf16  int8_matvec (_int8_kernel): out[r, c] =
-//                     (sum_k x[r, k] * q[k, c]) * scale[c], x bf16, q int8
-//                     [din, dout], f32 accumulation, f32 output;
-//   int4_matmul_bf16  int4_matmul (_int4_kernel), with the numbers of
-//                     int4_matmul_reference: out[r, c] = sum_k x[r, k] *
-//                     bf16(w[k, c] * s[k / group, c]), w the 4-bit values of
-//                     quant.pack_int4 (packed row i holds logical row 2i in
-//                     the low nibble biased by +8 and row 2i+1 signed in the
-//                     high nibble), s f32 [din / group, dout].
+//   int8_matvec (_int8_kernel): out[r, c] = (sum_k x[r, k] * q[k, c]) *
+//     scale[c], x bf16, q int8 [din, dout], f32 accumulation, f32 output;
+//   int4_matmul (_int4_kernel), with the numbers of int4_matmul_reference:
+//     out[r, c] = sum_k x[r, k] * bf16(w[k, c] * s[k / group, c]), w the
+//     4-bit values of quant.pack_int4 (packed row i holds logical row 2i in
+//     the low nibble biased by +8 and row 2i+1 signed in the high nibble), s
+//     f32 [din / group, dout].
 //
 // The TPU int4 kernel folds the +8 bias into a second small product because
-// Mosaic has no int8 vector shifts; here the nibbles are de-biased and
-// sign-extended in registers and that fold is not carried over.
+// Mosaic has no int8 vector shifts; here the nibbles are de-biased in
+// registers and that fold is not carried over.
 //
-// Bound on an H100: with 1..32 rows every weight is used once or a few
-// times, so both are bound by the bytes of the weights (Qwen2-7B: 4.6 to
-// 545 MB a product in int8, 0.56 of that in int4 with its scales). Design: a
-// block owns 128 output columns (a warp reads one 128-byte line of int8, or
-// of packed nibbles, per weight row: four columns a lane) and a slice of the
-// contraction; its 8 warps take weight rows four at a time with independent
-// loads, accumulate rows x 4 f32 sums a lane, and are summed through shared
-// memory. 3584 columns are only 28 such tiles, so the contraction is split
-// over gridDim.y blocks until the grid fills the card; the slices' partial
-// sums go to scratch and a second pass adds them in a fixed order (no
-// atomics: the result does not depend on the schedule). Rows are taken 1, 2,
-// 4 or 8 at a time; more than 8 rows re-read the weights from L2 per group
-// of 8. Not used: tensor cores (nothing for a 64-row tile to do), TMA.
+// Bound on an H100: every weight is used once a row, so both are bound by
+// the bytes of the weights and their scales at 3.35 TB/s. Qwen2-7B's one
+// decode row in int8: 4.9 / 3.8 / 20.3 / 20.3 / 163 us for qkv / o / gate
+// and up / down / lm_head; int4 reads 0.56 of those bytes.
+//
+// Two designs, picked by the wrapper from the number of rows:
+//
+// One row (quant_matvec_row, the only count a decode step launches): one
+// template for both weight formats. A lane owns 16 columns (or 4 where the
+// rows are not 16-byte aligned) and reads them with one streaming 16-byte
+// load a weight row; 8 lanes cover a 128-byte line, a warp 4 rows at once,
+// a block of 8 warps a 128-column tile and a slice of the contraction (from
+// ops/quant_matmul.matvec_plan, sized so the grid fills the card). A lane
+// takes 4 rows at a time and issues the next 4 loads before it converts the
+// current ones (a register double buffer: up to 128 bytes a lane, 64 KB an
+// SM in flight); the first two batches go out before the block stages its
+// slice of x in shared memory, as f32. Each weight becomes f32 exactly with
+// integer operations: the byte (or nibble), biased to be unsigned, is
+// placed in the mantissa of 2^23 (prmt) and one FADD removes the bias, so no
+// I2F runs; int4 then multiplies by its scale and rounds to bf16
+// (cvt.rn.bf16x2, two weights at once), as the reference does. Sums are
+// f32 FMAs, reduced in a fixed order: across a warp's 4 rows by shuffles,
+// across warps through shared memory, across slices in slice order, either
+// in the same launch (the slices of a column tile are one thread-block
+// cluster and rank 0 reads the others' sums through distributed shared
+// memory) or by a second pass (finish_kernel) where the grid is too large
+// for one wave of clusters. Both give the same bits, and two calls on one
+// shape give the same bits. int8 issues ~3 instructions a weight byte and
+// streams at the memory rate; int4 issues ~12 a packed byte (de-bias,
+// scale, bf16 round, two FMAs), which bounds it by instruction issue, not
+// bytes, at the large shapes.
+//
+// 2 to 32 rows (int8_matvec_bf16 / int4_matmul_bf16): a block owns 128
+// output columns (four a lane, 4-byte loads) and a slice of the
+// contraction from split_k; its 8 warps take weight rows four at a time and
+// accumulate rows x 4 f32 sums a lane, rows taken 1, 2, 4 or 8 at a time;
+// more than 8 rows re-read the weights from L2 per group of 8. The same
+// fixed-order second pass adds the slices.
+//
+// Not used: tensor cores (at one row a product does 2 operations a weight
+// byte, far below the card's ridge), TMA.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,6 +225,230 @@ cudaError_t finish(const float* part, const float* scale, float* out, int rows, 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------- one row --
+
+namespace row {
+
+constexpr int kThreads = 256;                    // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kLanesPerRow = 8;                  // lanes across one weight row
+constexpr int kLaneRows = 32 / kLanesPerRow;     // weight rows a warp loads at once
+constexpr int kMaxSmem = 48 * 1024;              // x slice + reduction, static limit
+constexpr int U = 4;                             // weight rows a lane loads at once
+
+// VEC bytes of one weight row, read once: no L1 allocation. Volatile, so
+// the compiler issues each load where it is written (a batch ahead of its
+// use) instead of sinking it to the first use.
+template <int VEC>
+__device__ __forceinline__ void load_stream(uint32_t (&w)[VEC / 4], const int8_t* p) {
+  if constexpr (VEC == 16)
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(p));
+  else
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(w[0]) : "l"(p));
+}
+
+// VEC f32 scales of one group (int4), kept in L1: a warp's four rows share them.
+template <int VEC>
+__device__ __forceinline__ void load_scales(float (&sc)[VEC], const float* p) {
+#pragma unroll
+  for (int i = 0; i < VEC / 4; ++i) {
+    float4 v;
+    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p + 4 * i));
+    sc[4 * i] = v.x; sc[4 * i + 1] = v.y; sc[4 * i + 2] = v.z; sc[4 * i + 3] = v.w;
+  }
+}
+
+// 16 bytes that convert to 0: int8 zeros; int4 bytes 0x08 (a low nibble of
+// 8 is 0 after its +8 bias, a high nibble of 0 is 0).
+__device__ __align__(16) const uint32_t kNeutral[2][4] = {
+    {0u, 0u, 0u, 0u}, {0x08080808u, 0x08080808u, 0x08080808u, 0x08080808u}};
+
+// Byte i of t placed in the mantissa of 2^23: the float 2^23 + byte, exact.
+__device__ __forceinline__ float magic(uint32_t t, int i) {
+  return __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7440u + i));
+}
+
+// One row: out[c] = sum over the block's slice of the contraction, for a
+// tile of 8 * VEC columns. BITS 8: q [depth, dout] int8; BITS 4: q packed
+// [depth, dout] (depth = din / 2), s [depth / group_half, dout]. grid
+// (ceil(dout / (8 * VEC)), ksplit); kchunk % (kWarps * kLaneRows * U) == 0;
+// for BITS 4, group_half % U == 0 (group % 8 == 0: a lane's U rows share
+// one scale group).
+template <int BITS, int VEC>
+__global__ void __launch_bounds__(kThreads, 2) matvec_row_kernel(
+    const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
+    float* __restrict__ out, float* __restrict__ part, int depth, int dout, int kchunk,
+    int group_half, int one_launch) {
+  constexpr int kCols = kLanesPerRow * VEC;
+  constexpr int kWords = VEC / 4;
+  constexpr int kStep = kLaneRows * U;           // weight rows of one warp iteration
+  constexpr int XW = BITS == 8 ? 1 : 2;          // x values a weight row
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // the slice of x as f32
+  __shared__ __align__(16) float red[kWarps][kCols];
+  __shared__ float slice_sum[kCols];             // one launch: read by cluster rank 0
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lr = lane / kLanesPerRow, lc = lane % kLanesPerRow;
+  const int col = blockIdx.x * kCols + lc * VEC;
+  const bool col_ok = col < dout;                // dout % VEC == 0
+  const int kbeg = blockIdx.y * kchunk, kend = min(depth, kbeg + kchunk);
+
+  // each warp walks its own run of the slice, U rows a lane an iteration
+  const int per_warp = kchunk / kWarps;
+  const int wbeg = kbeg + warp * per_warp, wend = min(kend, wbeg + per_warp);
+  const int n_it = wend > wbeg ? (wend - wbeg + kStep - 1) / kStep : 0;
+  const int r0 = wbeg + lr * U;
+
+  float acc[VEC];
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) acc[c] = 0.f;
+  uint32_t buf0[U][kWords], buf1[U][kWords];
+  // int4: the scales of each buffer's group, loaded with its weights
+  float sc0[BITS == 4 ? VEC : 1], sc1[BITS == 4 ? VEC : 1];
+
+  // Every load is issued: a masked row (past the slice, or columns past
+  // dout) reads kNeutral, whose words convert to 0, so no branch and no
+  // select on a loaded value stands between the loads of a batch.
+  const int8_t* neutral = reinterpret_cast<const int8_t*>(kNeutral[BITS == 8 ? 0 : 1]);
+  auto load = [&](uint32_t (&b)[U][kWords], float (&sc)[BITS == 4 ? VEC : 1], int it) {
+    const int r = r0 + it * kStep;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const bool ok = col_ok && r + j < kend;
+      load_stream<VEC>(b[j], ok ? q + (long long)(r + j) * dout + col : neutral);
+    }
+    if constexpr (BITS == 4) {
+      const bool ok = col_ok && r < kend;
+      load_scales<VEC>(sc, ok ? s + (long long)(r / group_half) * dout + col : s);
+    }
+  };
+
+  auto compute = [&](const uint32_t (&b)[U][kWords], const float (&sc)[BITS == 4 ? VEC : 1],
+                     int it) {
+    const int r = r0 + it * kStep;
+    float xv[U * XW];
+    const float4* xp = reinterpret_cast<const float4*>(xs + (r - kbeg) * XW);
+#pragma unroll
+    for (int i = 0; i < U * XW / 4; ++i) {
+      const float4 v = xp[i];
+      xv[4 * i] = v.x; xv[4 * i + 1] = v.y; xv[4 * i + 2] = v.z; xv[4 * i + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+        const uint32_t t = b[j][w] ^ 0x80808080u;  // each byte (int4: nibble) + 128 (+ 8)
+        if constexpr (BITS == 8) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[4 * w + i] = fmaf(xv[j], magic(t, i) - 8388736.f, acc[4 * w + i]);
+        } else {
+          const uint32_t lo = t & 0x0F0F0F0Fu, hi = (t >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = 4 * w + i;
+            const float wl = (magic(lo, i) - 8388616.f) * sc[c];
+            const float wh = (magic(hi, i) - 8388616.f) * sc[c];
+            uint32_t pk;  // bf16(wh) : bf16(wl), round to nearest even
+            asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(pk) : "f"(wh), "f"(wl));
+            acc[c] = fmaf(xv[2 * j], __uint_as_float(pk << 16), acc[c]);
+            acc[c] = fmaf(xv[2 * j + 1], __uint_as_float(pk & 0xFFFF0000u), acc[c]);
+          }
+        }
+      }
+  };
+
+  // the first two batches go out before x is staged: their latency covers it
+  if (n_it > 0) load(buf0, sc0, 0);
+  if (n_it > 1) load(buf1, sc1, 1);
+  for (int i = tid; i < kchunk * XW; i += kThreads) {
+    const int k = kbeg * XW + i;
+    xs[i] = k < kend * XW ? __bfloat162float(x[k]) : 0.f;
+  }
+  __syncthreads();
+  for (int it = 0; it < n_it; it += 2) {
+    compute(buf0, sc0, it);
+    if (it + 2 < n_it) load(buf0, sc0, it + 2);
+    if (it + 1 >= n_it) break;
+    compute(buf1, sc1, it + 1);
+    if (it + 3 < n_it) load(buf1, sc1, it + 3);
+  }
+
+  // a warp's 4 rows by shuffles (a butterfly: every lane ends with the same
+  // bits), then the 8 warps in order
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) {
+    acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 8);
+    acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 16);
+  }
+  if (lr == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i)
+      reinterpret_cast<float4*>(&red[warp][lc * VEC])[i] =
+          make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  __syncthreads();
+  for (int c = tid; c < kCols; c += kThreads) {
+    const int oc = blockIdx.x * kCols + c;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w][c];
+    if (one_launch)
+      slice_sum[c] = v;
+    else if (oc >= dout)
+      continue;
+    else if (gridDim.y > 1)
+      part[(long long)blockIdx.y * dout + oc] = v;
+    else
+      out[oc] = BITS == 8 ? v * s[oc] : v;
+  }
+  if (one_launch) {
+    // the launch made the ksplit slices of a column tile one cluster: rank
+    // 0 adds their sums in slice order, as finish_kernel does, through
+    // distributed shared memory; the second sync keeps every block's
+    // shared memory alive until rank 0 has read it
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (cluster.block_rank() == 0) {
+      for (int c = tid; c < kCols; c += kThreads) {
+        const int oc = blockIdx.x * kCols + c;
+        if (oc >= dout) continue;
+        float v = 0.f;
+        for (int r = 0; r < int(gridDim.y); ++r) v += cluster.map_shared_rank(slice_sum, r)[c];
+        out[oc] = BITS == 8 ? v * s[oc] : v;
+      }
+    }
+    cluster.sync();
+  }
+}
+
+template <int BITS, int VEC>
+cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, float* part,
+                   int depth, int dout, int kchunk, int ksplit, int group_half, bool one_launch,
+                   cudaStream_t st) {
+  constexpr int kCols = kLanesPerRow * VEC;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((dout + kCols - 1) / kCols, ksplit);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = size_t(kchunk) * (BITS == 8 ? 1 : 2) * sizeof(float);
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = ksplit;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = one_launch ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, matvec_row_kernel<BITS, VEC>, x, q, s, out, part, depth,
+                            dout, kchunk, group_half, int(one_launch));
+}
+
+}  // namespace row
+
 int rows_per_block(int rows) { return rows >= 8 ? 8 : rows >= 4 ? 4 : rows >= 2 ? 2 : 1; }
 
 bool aligned(const void* p, uintptr_t a) { return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0; }
@@ -269,4 +520,52 @@ extern "C" int int4_matmul_bf16(const void* x, const void* q, const void* s, voi
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   return int(finish(P, nullptr, O, rows, dout, ksplit, st));
+}
+
+// One row: x [din] bf16; bits 8: q [din, dout] int8, s [dout] f32; bits 4:
+// q [din / 2, dout] packed, s [din / group, dout] f32 -> out [dout] f32.
+// The plan (ops/quant_matmul.matvec_plan): vec bytes a lane loads a weight
+// row (16 or 4), and ksplit slices of kchunk weight rows (packed rows for
+// int4), kchunk a multiple of 128, ksplit * kchunk >= depth > (ksplit - 1)
+// * kchunk. cluster 1: the slices' sums go to part (ksplit * dout floats,
+// unused when ksplit == 1) and a second pass adds them; cluster == ksplit
+// (2..8): one launch, the slices of a column tile one thread-block
+// cluster. Both add the slices in slice order: the same bits.
+extern "C" int quant_matvec_row(const void* x, const void* q, const void* s, void* out,
+                                void* part, int bits, int din, int dout, int group, int vec,
+                                int ksplit, int kchunk, int cluster, void* stream) {
+  const int depth = bits == 8 ? din : din / 2;
+  const int xw = bits == 8 ? 1 : 2;
+  if ((bits != 8 && bits != 4) || (vec != 16 && vec != 4) || din <= 0 || dout <= 0 ||
+      depth % 4 || dout % vec || ksplit <= 0 || ksplit > 65535 || kchunk <= 0 ||
+      kchunk % (row::kWarps * row::kLaneRows * row::U) ||
+      (long long)ksplit * kchunk < depth || (long long)(ksplit - 1) * kchunk >= depth ||
+      size_t(kchunk) * xw * sizeof(float) + row::kWarps * 8 * vec * sizeof(float) >
+          size_t(row::kMaxSmem))
+    return int(cudaErrorInvalidValue);
+  if (bits == 4 && (group <= 0 || group % 8 || din % group)) return int(cudaErrorInvalidValue);
+  const bool one_launch = cluster > 1;
+  if (cluster < 1 || (one_launch && (cluster != ksplit || cluster > 8)))
+    return int(cudaErrorInvalidValue);
+  if (!aligned(q, vec) || (bits == 4 && !aligned(s, 16))) return int(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* X = static_cast<const bf16*>(x);
+  const int8_t* Q = static_cast<const int8_t*>(q);
+  const float* S = static_cast<const float*>(s);
+  float* O = static_cast<float*>(out);
+  float* P = static_cast<float*>(part);
+  const int gh = bits == 4 ? group / 2 : 0;
+  cudaError_t err;
+  if (bits == 8)
+    err = vec == 16 ? row::launch<8, 16>(X, Q, S, O, P, depth, dout, kchunk, ksplit, gh,
+                                         one_launch, st)
+                    : row::launch<8, 4>(X, Q, S, O, P, depth, dout, kchunk, ksplit, gh,
+                                        one_launch, st);
+  else
+    err = vec == 16 ? row::launch<4, 16>(X, Q, S, O, P, depth, dout, kchunk, ksplit, gh,
+                                         one_launch, st)
+                    : row::launch<4, 4>(X, Q, S, O, P, depth, dout, kchunk, ksplit, gh,
+                                        one_launch, st);
+  if (err != cudaSuccess || one_launch) return int(err);
+  return int(finish(P, bits == 8 ? S : nullptr, O, 1, dout, ksplit, st));
 }

@@ -12,18 +12,31 @@ Each wrapper replaces one TPU kernel of ``ufvideo_tpu/ops/quant_matmul.py``:
   ``int4_matmul_reference``; the TPU kernel's ``+8`` bias fold is a device of
   that chip and is not carried over.
 
-The CUDA source is ``csrc/quant_matmul.cu``; its header comment gives the
-bound on an H100 (the bytes of the weights) and the design (128-column
-tiles, the contraction split over blocks, a fixed-order second pass).
+The CUDA source is ``csrc/quant_matmul.cu`` (written and verified on the
+card); its header comment gives the bound on an H100 (the bytes of the
+weights and scales) and both designs. One row, the count every decode step
+launches, takes the weight-streaming template whose grid ``matvec_plan``
+sizes (16-byte loads, the contraction split so the grid fills the card, a
+fixed-order second pass); ``matvec_slices_plain`` is its split in plain
+PyTorch. 2 to 32 rows take the older kernel, split by ``split_k``. Each
+wrapper keeps what it launched in ``last_plan``: a ``MatvecPlan`` for one
+row, ``split_k``'s (ksplit, kchunk) otherwise.
 
 Both take at most ``MAX_ROWS`` rows, the JAX package's own limit; a caller
 with more rows dequantises and runs one ``torch.matmul`` (``QuantLinear``).
+
+On the card, these kernels alone (phase 2 of the smoke script, then the
+card tests)::
+
+    python3 chip_smoke.py --match int8_matvec,int4_matmul && \
+        python -m pytest tests/test_torch_cuda.py -q --noconftest -k quant
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,9 +56,16 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.int8_matvec_bf16.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.int4_matmul_bf16.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.quant_matvec_row.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.int8_matvec_bf16.restype = ctypes.c_int
     lib.int4_matmul_bf16.restype = ctypes.c_int
+    lib.quant_matvec_row.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def split_k(rows: int, depth: int, dout: int) -> tuple:
@@ -56,6 +76,161 @@ def split_k(rows: int, depth: int, dout: int) -> tuple:
     want = max(1, min(-(-_TARGET_BLOCKS // tiles), depth // _MIN_CHUNK))
     kchunk = -(-(-(-depth // want)) // _ROW_STEP) * _ROW_STEP
     return -(-depth // kchunk), kchunk
+
+
+# the one-row kernel (csrc/quant_matmul.cu, namespace row): 8 warps, 8 lanes
+# across a weight row, so a warp loads 4 rows at once, 4 rows a lane: a block
+# step is 128 weight rows
+_MV_STEP = 128
+_MV_LANES = 8
+# A grid of clusters ran as one wave on an H100 up to 0.85 of its two blocks
+# an SM (28 clusters of 8, 216 blocks in clusters of 6), and not at 36 of 7
+# (252): scripts/torch_matvec_sweep.py
+_MV_WAVE = 0.85 * 2
+_MV_MANY = 4  # blocks an SM where a split over several waves pays
+_MV_MAX_CHUNK = 4096  # weight rows of a slice: its x (8 bytes a packed int4 row) in 32 KB
+_MV_MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+class MatvecPlan(NamedTuple):
+    """The one-row kernel's grid. ``vec``: bytes a lane loads from a weight
+    row (16, or 4 where the rows are not 16-byte aligned); ``cols``: output
+    columns a block; ``ksplit`` slices of ``kchunk`` weight rows (packed
+    rows for int4) each; ``cluster``: ``ksplit`` where the slices of a
+    column tile form one thread-block cluster that adds them in the same
+    launch, else 1 (a second pass adds them); ``blocks``: the grid."""
+
+    vec: int
+    cols: int
+    ksplit: int
+    kchunk: int
+    cluster: int
+    blocks: int
+
+
+@functools.cache
+def matvec_plan(din: int, dout: int, bits: int, sm_count: int, aligned: bool = True
+                ) -> MatvecPlan:
+    """The one-row kernel's grid for a [din, dout] weight of ``bits`` bits
+    on a card of ``sm_count`` SMs (a lane's 4 packed int4 rows lie in one
+    scale group for every group the wrapper takes), from shapes alone, so a shape always launches the same grid and sums in the
+    same order. ``aligned``: the weight starts on 16 bytes.
+
+    16-byte loads where every weight row starts on 16 bytes (``dout % 16 ==
+    0``), else 4-byte ones. Where one wave of clusters holds two or more
+    slices of every column tile (qkv, o, down of Qwen2-7B), as many as fit,
+    added in one launch; else, where the tiles alone give under
+    ``_MV_MANY`` blocks an SM (gate / up), slices to that many blocks,
+    added by a second pass; else (lm_head) one slice."""
+    depth = din if bits == 8 else din // 2
+    vec = 16 if aligned and dout % 16 == 0 else 4
+    tiles = -(-dout // (_MV_LANES * vec))
+    wave = int(_MV_WAVE * sm_count)
+    if 2 * tiles <= wave:
+        return split_rows(depth, dout, vec, min(wave // tiles, _MV_MAX_CLUSTER))
+    want = -(-_MV_MANY * sm_count // tiles)
+    return split_rows(depth, dout, vec, want, one_launch=False)
+
+
+def split_rows(depth: int, dout: int, vec: int, want: int, one_launch: bool = True
+               ) -> MatvecPlan:
+    """A one-row plan that cuts ``depth`` weight rows (packed rows for
+    int4) into about ``want`` slices of whole block steps (``_MV_STEP``
+    rows), none longer than ``_MV_MAX_CHUNK`` (its x fits in shared
+    memory); with ``one_launch``, the slices a cluster where there are 2 to
+    ``_MV_MAX_CLUSTER`` of them."""
+    cols = _MV_LANES * vec
+    steps = -(-depth // _MV_STEP)
+    want = max(want, -(-depth // _MV_MAX_CHUNK))
+    per_slice = max(1, min(-(-steps // want), _MV_MAX_CHUNK // _MV_STEP))
+    ksplit = -(-steps // per_slice)
+    cluster = ksplit if one_launch and 1 < ksplit <= _MV_MAX_CLUSTER else 1
+    return MatvecPlan(vec, cols, ksplit, per_slice * _MV_STEP, cluster,
+                      -(-dout // cols) * ksplit)
+
+
+def matvec_slices_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, plan: MatvecPlan,
+                        bits: int, group: int = 64) -> torch.Tensor:
+    """One row through the plan's split in plain PyTorch: each slice's f32
+    sum over its weight rows, the slices added in order, then (int8) the
+    column scale, as the kernel's second pass does. → [dout] f32."""
+    x1 = x.reshape(-1).to(torch.bfloat16).float()
+    if bits == 8:
+        w, per_row = q.float(), 1
+    else:
+        w, per_row = dequantize_int4(q, s, group, torch.bfloat16).float(), 2
+    total = torch.zeros(q.shape[1], dtype=torch.float32, device=x.device)
+    for i in range(plan.ksplit):
+        lo = i * plan.kchunk * per_row
+        hi = min(w.shape[0], (i + 1) * plan.kchunk * per_row)
+        total = total + x1[lo:hi] @ w[lo:hi]
+    return total * s.float() if bits == 8 else total
+
+
+_scratch: dict = {}
+
+
+def _part(device: torch.device, n: int) -> torch.Tensor:
+    """Scratch for the slices' partial sums, cached per device and stream
+    (calls on one stream run in order, so one buffer serves them all)."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _scratch[key] = torch.empty(n, dtype=torch.float32, device=device)
+    return buf
+
+
+def _launch_row(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, bits: int, group: int,
+                plan: MatvecPlan) -> torch.Tensor:
+    """The one-row kernel at a given plan, after the wrappers' checks; adds
+    one to the public wrapper's count and keeps the plan in its
+    ``last_plan``. → [1, dout] f32."""
+    din, dout = x2.shape[1], q.shape[1]
+    out = torch.empty((1, dout), dtype=torch.float32, device=x2.device)
+    two_pass = plan.ksplit > 1 and plan.cluster == 1
+    part = _part(x2.device, plan.ksplit * dout) if two_pass else out
+    lib = _lib()
+    code = lib.quant_matvec_row(
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), part.data_ptr(), bits, din,
+        dout, group, plan.vec, plan.ksplit, plan.kchunk, plan.cluster,
+        torch.cuda.current_stream(x2.device).cuda_stream,
+    )
+    wrapper = int8_matvec if bits == 8 else int4_matmul
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
+    wrapper.last_plan = plan
+    return out
+
+
+def _launch_rows(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, bits: int,
+                 group: int) -> torch.Tensor:
+    """The 2-32-row kernel (any row count it takes), split by ``split_k``,
+    after the wrappers' checks; adds one to the public wrapper's count and
+    keeps (ksplit, kchunk) in its ``last_plan``. → [rows, dout] f32."""
+    rows, din = x2.shape
+    dout = q.shape[1]
+    ksplit, kchunk = split_k(rows, q.shape[0], dout)
+    out = torch.empty((rows, dout), dtype=torch.float32, device=x2.device)
+    part = out if ksplit == 1 else torch.empty(
+        (ksplit, rows, dout), dtype=torch.float32, device=x2.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    ptrs = (x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), part.data_ptr())
+    if bits == 8:
+        code = lib.int8_matvec_bf16(*ptrs, rows, din, dout, ksplit, kchunk, stream)
+        wrapper = int8_matvec
+    else:
+        code = lib.int4_matmul_bf16(*ptrs, rows, din, dout, group, ksplit, kchunk, stream)
+        wrapper = int4_matmul
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
+    wrapper.last_plan = (ksplit, kchunk)
+    return out
+
+
+def _row_plan(x2: torch.Tensor, q: torch.Tensor, bits: int) -> MatvecPlan:
+    return matvec_plan(x2.shape[1], q.shape[1], bits, _sm_count(x2.device.index or 0),
+                       q.data_ptr() % 16 == 0)
 
 
 def _rows2d(x: torch.Tensor):
@@ -100,21 +275,15 @@ def int8_matvec(
     if q.shape[0] != din or scale.shape != (dout,) or din % 4 or dout % 4:
         raise ValueError(f"unsupported shapes x {tuple(x.shape)} q {tuple(q.shape)}")
     x2 = x2.to(torch.bfloat16).contiguous()
-    ksplit, kchunk = split_k(rows, din, dout)
-    out = torch.empty((rows, dout), dtype=torch.float32, device=x.device)
-    part = out if ksplit == 1 else torch.empty(
-        (ksplit, rows, dout), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    code = lib.int8_matvec_bf16(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), part.data_ptr(),
-        rows, din, dout, ksplit, kchunk, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, code, "int8_matvec")
-    int8_matvec.launches += 1
+    if rows == 1:
+        out = _launch_row(x2, q, scale, 8, 0, _row_plan(x2, q, 8))
+    else:
+        out = _launch_rows(x2, q, scale, 8, 0)
     return out.reshape(*lead, dout)
 
 
 int8_matvec.launches = 0
+int8_matvec.last_plan = None
 
 
 def dequantize_int4(q8: torch.Tensor, scales: torch.Tensor, group: int, dtype) -> torch.Tensor:
@@ -157,19 +326,12 @@ def int4_matmul(
             f"unsupported shapes x {tuple(x.shape)} q {tuple(q8.shape)} "
             f"scales {tuple(scales.shape)} group {group}")
     x2 = x2.to(torch.bfloat16).contiguous()
-    ksplit, kchunk = split_k(rows, dh, dout)
-    out = torch.empty((rows, dout), dtype=torch.float32, device=x.device)
-    part = out if ksplit == 1 else torch.empty(
-        (ksplit, rows, dout), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    code = lib.int4_matmul_bf16(
-        x2.data_ptr(), q8.data_ptr(), scales.data_ptr(), out.data_ptr(), part.data_ptr(),
-        rows, din, dout, group, ksplit, kchunk,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, code, "int4_matmul")
-    int4_matmul.launches += 1
+    if rows == 1:
+        out = _launch_row(x2, q8, scales, 4, group, _row_plan(x2, q8, 4))
+    else:
+        out = _launch_rows(x2, q8, scales, 4, group)
     return out.reshape(*lead, dout)
 
 
 int4_matmul.launches = 0
+int4_matmul.last_plan = None
