@@ -16,7 +16,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      library ratio of each shape, both timed in this call. The probe's bf16
      product (the block GEMM alone) goes first. The quantised kernels
      take int8 / packed-int4 weights, an int8 cache and int8 block weights
-     at the same widths, each with its own stated tolerance; the W8A8 block
+     at the same widths, each with its own stated tolerance (the quantised
+     products also print the grid they launched, their rate on the weight
+     bytes and, at one row, the 2-32-row kernel's time); the W8A8 block
      also at Hiera-L's four windowed shapes, and the W8A8 q-pool block,
      LN-matmul and block tail at the shapes the quantised trunk gives them.
   3. path: model_init at full width (SigLIP-SO400M + STC-v35 + Qwen2-7B,

@@ -17,9 +17,11 @@ cache, W8A8 SigLIP) and profiles a referring request's stages: video encode,
 region encode, prefill with the first token, and prefill with
 ``--new-tokens`` tokens, from which the device time of one int8 decode step
 follows; and, on that runtime (its SAM2 has a W8A8 Hiera trunk), the stages
-of the ``[SEG]`` request again. With ``--routing``, it then frees that
-runtime, builds the same quantised one under that ``VisionRouting`` (its
-fields as JSON) and profiles its video encode and ``[SEG]`` stages too. For
+of the ``[SEG]`` request again. Then the referring request's stages on an
+int4 runtime (``quant_llm="int4"``, bf16 cache and towers), and one int4
+decode step. With ``--routing``, it then builds the int8 runtime under that
+``VisionRouting`` (its fields as JSON) and profiles its video encode and
+``[SEG]`` stages too. For
 each it prints the wall time, the device-busy time (union of kernel
 intervals), the device's idle share, and the kernels with the most device
 time. Needs one CUDA card.
@@ -113,34 +115,14 @@ def main() -> int:
     out = {"card": smi, "generated": len(toks)}
     out.update(_summarise(prof))
 
-    # the quantised referring request, on a runtime of its own
+    # the quantised referring requests, each on a runtime of its own: int8
+    # (int8 KV cache, W8A8 SigLIP, and its [SEG] request), then int4
     del rt, feats, lows
     torch.cuda.empty_cache()
     qcfg = UFVideoConfig().replace(quant_llm="int8", quant_kv=True, quant_vision=True)
     rt, _, tok = model_init(cfg=qcfg, device=dev, seed=0)
-    mask = np.zeros((1, 480, 640), np.float32)
-    mask[0, 120:360, 213:426] = 1.0
-    region = (frames[7:8], mask, [[0]])
-    ref_question = "What is <region> doing in this video?"
-    mm_infer(frames, ref_question, rt, tok, masks=mask, frame=region[0], ann_indices=[[0]],
-             max_new_tokens=4)  # warm up
-    torch.cuda.synchronize()
-    ids = _assemble_input_ids(ref_question, 1, "<video>", tok)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as qprof:
-        with record_function("stage:int8 encode"):
-            pixels = siglip_preprocess_device(
-                torch.from_numpy(frames).to(dev), rt.cfg.compute_dtype)
-            feats = rt.encode_video(pixels[None])
-            sync()
-        with record_function("stage:int8 region encode"):
-            rfeats, counts = rt.pack_and_encode_regions(*region)
-            sync()
-        with record_function("stage:int8 prefill"):
-            rt.generate(ids, feats, rfeats, counts, max_new_tokens=1)
-            sync()
-        with record_function("stage:int8 prefill+decode"):
-            qtoks, _, _ = rt.generate(ids, feats, rfeats, counts, max_new_tokens=args.new_tokens)
-            sync()
+        feats, qtoks = _referring_stages(rt, tok, frames, args.new_tokens, "int8")
         # the [SEG] request on the quantised runtime (W8A8 Hiera trunk)
         mm_infer(frames, conv, rt, tok, choice=3, images_sam=images_sam,
                  label_size=(480, 640), seg=True)  # warm up
@@ -150,19 +132,21 @@ def main() -> int:
         qprof.export_chrome_trace(args.trace.replace(".json", "") + ".int8.json")
     out["generated_int8"] = len(qtoks)
     out.update(_summarise(qprof))
-    a, b = out["stage:int8 prefill"], out["stage:int8 prefill+decode"]
-    steps = max(len(qtoks) - 1, 1)
-    out["int8 decode step"] = {
-        "wall_ms": (b["wall_ms"] - a["wall_ms"]) / steps,
-        "device_busy_ms": (b["device_busy_ms"] - a["device_busy_ms"]) / steps,
-        "kernels": (b["kernels"] - a["kernels"]) / steps,
-    }
+    out["int8 decode step"] = _decode_step(out, "int8", len(qtoks))
+    del rt, feats
+    torch.cuda.empty_cache()
+    rt4, _, tok = model_init(cfg=UFVideoConfig().replace(quant_llm="int4"), device=dev, seed=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof4:
+        _, toks4 = _referring_stages(rt4, tok, frames, args.new_tokens, "int4")
+    out["generated_int4"] = len(toks4)
+    out.update(_summarise(prof4))
+    out["int4 decode step"] = _decode_step(out, "int4", len(toks4))
+    del rt4
+    torch.cuda.empty_cache()
 
     if args.routing:  # the same quantised runtime under another routing
         routing = VisionRouting(**json.loads(args.routing))
         out["routing"] = str(routing)
-        del rt, feats
-        torch.cuda.empty_cache()
         rt, _, tok = model_init(cfg=qcfg, device=dev, seed=0, routing=routing)
         mm_infer(frames, conv, rt, tok, choice=3, images_sam=images_sam,
                  label_size=(480, 640), seg=True)  # warm up
@@ -179,6 +163,50 @@ def main() -> int:
         out.update(_summarise(rprof))
     print(json.dumps(out, indent=1), flush=True)
     return 0
+
+
+def _referring_stages(rt, tok, frames, new_tokens: int, prefix: str):
+    """A warmed-up referring request on ``rt`` (one annotated frame, one
+    mask) under ``stage:<prefix> ...`` ranges of the running profile: video
+    encode, region encode, prefill with the first token, and prefill with
+    ``new_tokens`` tokens. Returns the video features and the tokens."""
+    from ufvideo_tpu_torch import mm_infer
+    from ufvideo_tpu_torch.api import _assemble_input_ids
+    from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
+
+    dev, sync = rt.device, torch.cuda.synchronize
+    mask = np.zeros((1, 480, 640), np.float32)
+    mask[0, 120:360, 213:426] = 1.0
+    region = (frames[7:8], mask, [[0]])
+    question = "What is <region> doing in this video?"
+    mm_infer(frames, question, rt, tok, masks=mask, frame=region[0], ann_indices=[[0]],
+             max_new_tokens=4)  # warm up
+    sync()
+    ids = _assemble_input_ids(question, 1, "<video>", tok)
+    with record_function(f"stage:{prefix} encode"):
+        pixels = siglip_preprocess_device(torch.from_numpy(frames).to(dev), rt.cfg.compute_dtype)
+        feats = rt.encode_video(pixels[None])
+        sync()
+    with record_function(f"stage:{prefix} region encode"):
+        rfeats, counts = rt.pack_and_encode_regions(*region)
+        sync()
+    with record_function(f"stage:{prefix} prefill"):
+        rt.generate(ids, feats, rfeats, counts, max_new_tokens=1)
+        sync()
+    with record_function(f"stage:{prefix} prefill+decode"):
+        toks, _, _ = rt.generate(ids, feats, rfeats, counts, max_new_tokens=new_tokens)
+        sync()
+    return feats, toks
+
+
+def _decode_step(out: dict, prefix: str, generated: int) -> dict:
+    """One decode step's wall, device-busy time and kernels: the prefill
+    with ``generated`` tokens less the prefill with one, a step each."""
+    a, b = out[f"stage:{prefix} prefill"], out[f"stage:{prefix} prefill+decode"]
+    steps = max(generated - 1, 1)
+    return {"wall_ms": (b["wall_ms"] - a["wall_ms"]) / steps,
+            "device_busy_ms": (b["device_busy_ms"] - a["device_busy_ms"]) / steps,
+            "kernels": (b["kernels"] - a["kernels"]) / steps}
 
 
 def _seg_stages(rt, seg_ids, feats, images_sam, prefix: str):

@@ -16,9 +16,10 @@ The CUDA source is ``csrc/quant_matmul.cu`` (written and verified on the
 card); its header comment gives the bound on an H100 (the bytes of the
 weights and scales) and both designs. One row, the count every decode step
 launches, takes the weight-streaming template whose grid ``matvec_plan``
-sizes (16-byte loads, the contraction split so the grid fills the card, a
-fixed-order second pass); ``matvec_slices_plain`` is its split in plain
-PyTorch. 2 to 32 rows take the older kernel, split by ``split_k``. Each
+sizes (16-byte loads, the contraction split so the grid fills the card,
+the slices added in a fixed order in the same launch by a thread-block
+cluster, or by a second pass); ``matvec_slices_plain`` is its split in
+plain PyTorch. 2 to 32 rows take the older kernel, split by ``split_k``. Each
 wrapper keeps what it launched in ``last_plan``: a ``MatvecPlan`` for one
 row, ``split_k``'s (ksplit, kchunk) otherwise.
 
@@ -83,9 +84,9 @@ def split_k(rows: int, depth: int, dout: int) -> tuple:
 # step is 128 weight rows
 _MV_STEP = 128
 _MV_LANES = 8
-# A grid of clusters ran as one wave on an H100 up to 0.85 of its two blocks
-# an SM (28 clusters of 8, 216 blocks in clusters of 6), and not at 36 of 7
-# (252): scripts/torch_matvec_sweep.py
+# A grid of clusters ran as one wave on an H100 up to 0.85 of two blocks an
+# SM (224 blocks in 28 clusters of 8, 216 in 36 of 6), and not at 252 blocks
+# in 36 clusters of 7 (scripts/torch_matvec_sweep.py)
 _MV_WAVE = 0.85 * 2
 _MV_MANY = 4  # blocks an SM where a split over several waves pays
 _MV_MAX_CHUNK = 4096  # weight rows of a slice: its x (8 bytes a packed int4 row) in 32 KB
@@ -113,8 +114,9 @@ def matvec_plan(din: int, dout: int, bits: int, sm_count: int, aligned: bool = T
                 ) -> MatvecPlan:
     """The one-row kernel's grid for a [din, dout] weight of ``bits`` bits
     on a card of ``sm_count`` SMs (a lane's 4 packed int4 rows lie in one
-    scale group for every group the wrapper takes), from shapes alone, so a shape always launches the same grid and sums in the
-    same order. ``aligned``: the weight starts on 16 bytes.
+    scale group for every group the wrapper takes), from shapes alone, so
+    a shape always launches the same grid and sums in the same order.
+    ``aligned``: the weight starts on 16 bytes.
 
     16-byte loads where every weight row starts on 16 bytes (``dout % 16 ==
     0``), else 4-byte ones. Where one wave of clusters holds two or more
