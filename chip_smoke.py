@@ -1085,7 +1085,7 @@ def kernel_probe(dev, timer, gen):
 
     ops = 2 * ROWS * DIN * DOUT
     shapes = [
-        bench(timer, f"int8: x [{ROWS},{DIN}] bf16 rounded in the prologue, w [{DIN},{DOUT}] int8",
+        bench(timer, f"int8: x [{ROWS},{DIN}] bf16 rounded by a pass, w [{DIN},{DOUT}] int8",
               lambda: probe_step(x, wq, True), lambda: probe_step_plain(x, wq, True),
               lambda: torch._int_mm(xq, wq_cols), nbytes(x, wq) + ROWS * DOUT * 4, 0.0,
               check=exact, int8_ops=ops),
@@ -1094,6 +1094,8 @@ def kernel_probe(dev, timer, gen):
               lambda: torch.mm(x, wf), nbytes(x, wf) + ROWS * DOUT * 4, ops,
               check=lambda n, g, w: check_close(n, g, w, row_rel=QREL, rtol=QREL, fro=QREL)),
     ]
+    log(f"  int8 : bf16 rate through the kernels {shapes[1]['ms'] / shapes[0]['ms']:.3f}, "
+        f"through the libraries {shapes[1]['library_ms'] / shapes[0]['library_ms']:.3f}")
     return _kernel_entry(
         "probe_step", "ufvideo_tpu_torch/csrc/hiera_block.cu", "scripts/probe_int8_rate.py:99",
         "int8: equal; bf16: " + tol_text(QREL, QREL, QREL), shapes, shapes[0]["shape"])

@@ -1025,3 +1025,60 @@ def test_routed_hiera_kernel_paths_match_plain_paths(dev):
             cos = torch.nn.functional.cosine_similarity(
                 g.float().flatten(), w.float().flatten(), dim=0)
             assert torch.isfinite(g).all() and float(cos) > 0.99
+
+
+# ------------------------------------------------------------ int8 GEMM --
+# The TMA + wgmma s8 GEMM behind the probe's int8 product and every int8
+# product of the four W8A8 entry points. int32 sums are exact on both sides,
+# so the probe's product equals its plain version: at row counts off the
+# 128-row tile, column counts off both tile widths (128, 256), and every K
+# the W8A8 blocks use (144 and 288 leave most of a 128-byte K stage to TMA's
+# zero fill; K >= 1024 with N >= 2048 takes the 256-wide tile). Row 0 holds
+# ties and values past ±127, so the rounding pass is held to half-to-even
+# and the clip.
+
+from ufvideo_tpu_torch import probe_int8_rate as pr  # noqa: E402
+
+S8_M, S8_N = (1, 200, 2917), (432, 1728, 2066, 4304)
+S8_K = (144, 288, 576, 1152, 2304, 4304, 4608)
+
+
+def _s8_inputs(dev, m, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (40 * torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
+    ties = torch.tensor([0.5, -0.5, 1.5, -1.5, 126.5, -126.5, 127.5, -127.5, 128.0, -300.0],
+                        device=dev)
+    x[0, :ties.numel()] = ties.to(torch.bfloat16)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=dev).to(torch.int8)
+    return x, w
+
+
+@pytest.mark.parametrize("k", S8_K)
+@pytest.mark.parametrize("n", S8_N)
+@pytest.mark.parametrize("m", S8_M)
+def test_s8_gemm_equals_plain(dev, m, k, n):
+    x, w = _s8_inputs(dev, m, k, n, seed=80)
+    launches = pr.probe_step.launches
+    got = pr.probe_step(x, w, True)
+    want = pr.probe_step_plain(x, w, True)
+    torch.cuda.synchronize()
+    assert pr.probe_step.launches == launches + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(2917, 144, 4304), (200, 1152, 4304), (2917, 4304, 1152)])
+def test_s8_gemm_repeats_bit_for_bit_and_alone_equals_plain(dev, m, k, n):
+    """Two probe calls agree bit for bit, and the GEMM alone on operands
+    already rounded, padded and transposed equals the same plain sums."""
+    x, w = _s8_inputs(dev, m, k, n, seed=81)
+    first, second = pr.probe_step(x, w, True), pr.probe_step(x, w, True)
+    kp = -(-k // 32) * 32
+    qa = pr.round_clip_s8_plain(x, kp)
+    bt = torch.nn.functional.pad(w.t(), (0, kp - k)).contiguous()
+    alone = pr.gemm_s8_alone(qa, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(alone, pr.probe_step_plain(x, w, True))
+    with pytest.raises(ValueError):
+        pr.gemm_s8_alone(qa[:, :24], bt[:, :24])  # Kp not a multiple of 16

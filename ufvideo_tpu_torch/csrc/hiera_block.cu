@@ -1,5 +1,5 @@
 // The pre-LN transformer blocks of SigLIP and Hiera as short sequences of
-// hand-written launches, with a plain C interface for ctypes. Eleven entry
+// hand-written launches, with a plain C interface for ctypes. Twelve entry
 // points; the first nine replace one TPU kernel of
 // ufvideo_tpu/ops/hiera_block.py each:
 //
@@ -32,7 +32,9 @@
 //                     scripts/probe_int8_rate.py pallas_step
 //                     (_pallas_dot_kernel): the bare bf16 x bf16 -> f32 and
 //                     s8 x s8 -> s32 products of the int8-rate probe, on the
-//                     two GEMMs below.
+//                     two GEMMs below;
+//   gemm_s8_s32       the int8 GEMM alone, for timing it apart from the
+//                     probe's preparation passes.
 //
 // GELU: every entry point with an act takes 1 = tanh, 2 = exact (erf), and
 // the JAX package's minimax polynomials 3 = gelu_poly, 4 = gelu_poly_bf16,
@@ -71,9 +73,6 @@
 namespace {
 
 using ufv::bf16;
-
-// the int8 GEMM's tile (a 3-stage cp.async ring, 8 warps of mma.sync)
-constexpr int kBM = 128, kBN = 128, kStages = 3, kGemmThreads = 256;
 
 enum Act {
   ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_EXACT = 2, ACT_GELU_POLY = 3, ACT_GELU_POLY_BF16 = 4,
@@ -185,21 +184,6 @@ __global__ void __launch_bounds__(256) layernorm_kernel(
       h[e] = __float2bfloat16((v[e] - mean) * rstd * gamma[c + e] + beta[c + e]);
     *reinterpret_cast<uint4*>(yr + c) = u;
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  // 16-byte global -> shared copy; zero-filled when !valid (src is not read)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(ufv::smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // ------------------------------------------------------------ bf16 GEMM --
@@ -507,162 +491,143 @@ bf16* b16(void* p) { return static_cast<bf16*>(p); }
 // Bound on an H100: at the SigLIP shape the four products are 711 G
 // multiply-adds' worth of int8 operations (0.36 ms at 1979 TOP/s) plus 78
 // GFLOP of bf16 attention (0.08 ms): bound by operations. Design: the int32
-// sums are exact, so the products are one tiled int8 GEMM (128x128 tile, 64
-// bytes of K a step through the 3-stage cp.async ring, 8 warps of 64x32 from
-// mma.sync m16n8k32 s8 -> s32) whose epilogue applies the two scales, the
-// bias, and the GELU or the residual. Both operands are K-contiguous: the
-// weights are transposed to [out, in] (K zero-padded to a multiple of 32:
-// 4304 -> 4320) by a small pass at each call, 13 MB a block against its
-// milliseconds. A row's amax spans every column tile, so quantising is a
-// pass of its own (one warp a row) and not a GEMM epilogue; after fc1 it
-// reads the f32 GELU output, as the reference does. The attention output
-// is quantised from its bf16 form, as the TPU kernel's scratch is.
-
-constexpr int kQBK = 64;            // bytes of K per tile
-constexpr int kQLD = kQBK + 16;     // row stride of an int8 tile: fragment loads hit 32 banks
-constexpr int kQStageA = kBM * kQLD, kQStageB = kBN * kQLD;
-constexpr size_t kQSmem = size_t(kStages) * (kQStageA + kQStageB);
+// sums are exact, so the products are one int8 GEMM for Hopper (below) whose
+// epilogue applies the two scales, the bias, and the GELU or the residual.
+// Both operands are K-contiguous, as 8-bit wgmma wants them: the weights are
+// transposed to [out, in] (K zero-padded to a multiple of 32: 4304 -> 4320)
+// by a small pass at each call, 13 MB a block against its milliseconds. A
+// row's amax spans every column tile, so quantising is a pass of its own (one
+// warp a row) and not a GEMM epilogue; after fc1 it reads the f32 GELU
+// output, as the reference does. The attention output is quantised from its
+// bf16 form, as the TPU kernel's scratch is.
 
 enum QEpi { Q_BF16 = 0, Q_RES = 1, Q_ACT_F32 = 2, Q_S32 = 3 };
 
-// d[16x8] += a[16x32] . b[32x8], int8 operands, int32 accumulators
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// ------------------------------------------------------------ int8 GEMM --
 // Y[M, N] = epilogue(float(A[M, Kp] . Bt[N, Kp]^T) * xs[m] * ws[n] + bias[n]);
 // A and Bt int8, rows of Kp bytes (Kp % 16 == 0, zero beyond the true K), N
 // even. Epilogues: bf16; bf16(bf16(v) + R); act(v) as f32; the raw int32
-// sums (xs, ws and bias unused). With AQ, A is bf16 [M, lda] (lda % 8 == 0,
-// lda <= Kp) and the prologue rounds each value half to even and clips it to
-// +-127 on its way into shared memory (columns past lda are zero).
-template <int EPI, int ACT, bool AQ>
-__global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
-    const void* __restrict__ Av, const int8_t* __restrict__ Bt,
+// sums (xs, ws and bias unused).
+//
+// Hopper design: the bf16 GEMM's ring (one producer warp issuing TMA, two
+// consumer warpgroups, full / empty mbarriers, one group of wgmmas in
+// flight) with an int8 element. A stage is 128 bytes of K: the A tile (128
+// rows) and the B tile (BN rows of Bt), one TMA box each, both K-major in
+// 128-byte-swizzled rows, so a stage holds as many bytes as the bf16 GEMM's
+// and GemmCfg<BN> sizes the ring. Each consumer warpgroup owns 64 rows and
+// issues wgmma.mma_async m64nBNk32 (s8 x s8 -> s32) four times a stage, each
+// step 32 bytes along both operands' rows. The tile rule is gemm()'s: BN =
+// 256 (one block an SM) for Kp >= 1024 and N >= 2048 (SigLIP's qkv and fc1,
+// the probe), BN = 128 (two blocks an SM) otherwise. TMA zero-fills past M,
+// N and Kp; the epilogue masks its stores. int32 sums are exact and each
+// output is summed and rescaled by one thread in a fixed order: the result
+// repeats bit for bit. Not yet: a 64-byte-swizzle stage for Hiera's short K
+// (Kp 160 fills 160 of a stage's 256 bytes of K), a persistent grid.
+constexpr int kSBK = 128;  // bytes of K a stage
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&acc)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256)
+    ufv::hop::wgmma_s8_n256(acc, da, db, 1);
+  else
+    ufv::hop::wgmma_s8_n128(acc, da, db, 1);
+}
+
+template <int BN, int EPI, int ACT>
+__global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_s8_kernel(
+    __grid_constant__ const CUtensorMap mapA, __grid_constant__ const CUtensorMap mapB,
     const float* __restrict__ xs, const float* __restrict__ ws,
     const float* __restrict__ bias, const bf16* __restrict__ R, void* __restrict__ Yv, int M,
-    int N, int Kp, int lda) {
-  const int8_t* A = static_cast<const int8_t*>(Av);
-  extern __shared__ __align__(128) unsigned char gsmem[];
-  int8_t* As = reinterpret_cast<int8_t*>(gsmem);
-  int8_t* Bs = As + kStages * kQStageA;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int nk = (Kp + kQBK - 1) / kQBK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kQBK;
-    int8_t* as = As + stage * kQStageA;
-    int8_t* bs = Bs + stage * kQStageB;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kGemmThreads;
-      const int r = idx >> 2, c = (idx & 3) * 16;
-      const bool kv = k0 + c < Kp;
-      if constexpr (AQ) {
-        uint32_t w[4] = {0u, 0u, 0u, 0u};
-        const bf16* Ab = static_cast<const bf16*>(Av);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int kk = k0 + c + 8 * h;
-          if (m0 + r >= M || kk >= lda) continue;
-          const uint4 v = *reinterpret_cast<const uint4*>(Ab + (long long)(m0 + r) * lda + kk);
-          const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int q = __float2int_rn(fminf(fmaxf(__bfloat162float(e[j]), -127.f), 127.f));
-            w[2 * h + j / 4] |= (uint32_t(q) & 0xffu) << (8 * (j % 4));
-          }
-        }
-        *reinterpret_cast<uint4*>(as + r * kQLD + c) = make_uint4(w[0], w[1], w[2], w[3]);
-      } else {
-        const bool va = kv && m0 + r < M;
-        cp_async16(as + r * kQLD + c, va ? A + (long long)(m0 + r) * Kp + k0 + c : A, va);
-      }
-      const bool vb = kv && n0 + r < N;
-      cp_async16(bs + r * kQLD + c, vb ? Bt + (long long)(n0 + r) * Kp + k0 + c : Bt, vb);
+    int N, int Kp) {
+  namespace h = ufv::hop;
+  using C = GemmCfg<BN>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char gsmem_raw[];
+  unsigned char* smem = gsmem_raw + ((1024 - (h::smem_u32(gsmem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * C::STAGE);
+  uint64_t* empty = full + ST;
+  const int nk = (Kp + kSBK - 1) / kSBK;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < ST; ++st) {
+      h::mbar_init(&full[st], 1);
+      h::mbar_init(&empty[st], 8);  // lane 0 of each consumer warp
     }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nk) load_stage(st, st);
-    cp_async_commit();
+    h::fence_barrier_init();
   }
+  __syncthreads();
+
+  const int m0 = blockIdx.y * kGBM, n0 = blockIdx.x * BN;
+  if (threadIdx.x >= 256) {  // producer warp: one thread issues every load
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % ST;
+        h::mbar_wait(&empty[st], ((kt / ST) & 1) ^ 1);
+        unsigned char* stage = smem + st * C::STAGE;
+        h::mbar_expect_tx(&full[st], C::STAGE);
+        h::tma_load_2d(stage, &mapA, &full[st], kt * kSBK, m0);
+        h::tma_load_2d(stage + C::TILE_A, &mapB, &full[st], kt * kSBK, n0);
+      }
+    }
+    return;
+  }
+  // consumer warpgroups 0 and 1: rows 64 cw .. +63 of the tile
+  const int cw = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nt = kt + kStages - 1;
-    if (nt < nk) load_stage(nt % kStages, nt);
-    cp_async_commit();
-    const int8_t* as = As + (kt % kStages) * kQStageA;
-    const int8_t* bs = Bs + (kt % kStages) * kQStageB;
+    const int st = kt % ST;
+    h::mbar_wait(&full[st], (kt / ST) & 1);
+    const unsigned char* a = smem + st * C::STAGE + cw * 64 * kSBK;
+    const unsigned char* b = smem + st * C::STAGE + C::TILE_A;
+    h::fence_regs(acc);
+    h::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kQBK; kk += 32) {
-      // fragment word (row, k): lane (g, tig) holds k = 4 tig .. 4 tig + 3 of
-      // row g (and g + 8), and the same 16 bytes further on
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* p = as + (wm * 64 + i * 16 + g) * kQLD + kk + tig * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kQLD);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kQLD + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* p = bs + (wn * 32 + j * 8 + g) * kQLD + kk + tig * 4;
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
+    for (int kk = 0; kk < kSBK / 32; ++kk)
+      wgmma_s8<BN>(acc, h::make_desc(a + kk * 32, 16, 1024, 1),
+                   h::make_desc(b + kk * 32, 16, 1024, 1));
+    h::wgmma_commit();
+    h::wgmma_wait<1>();  // the previous stage's products are done: release it
+    h::fence_regs(acc);
+    if (kt > 0 && lane == 0) h::mbar_arrive(&empty[(kt - 1) % ST]);
   }
-  cp_async_wait<0>();
+  h::wgmma_wait<0>();
+  h::fence_regs(acc);
 
+  // accumulator 4 j + e: row m0 + 64 cw + 16 warp + g + 8 (e >= 2), column
+  // n0 + 8 j + 2 tig + (e & 1)
+  const int g = lane >> 2, tig = lane & 3;
+  const int row0 = m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + g;
+  float xr[2] = {0.f, 0.f};
+  if constexpr (EPI != Q_S32) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int half = 0; half < 2; ++half)
+      if (row0 + 8 * half < M) xr[half] = xs[row0 + 8 * half];
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * tig;
+    if (col >= N) continue;  // N even: col + 1 < N too
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + i * 16 + g + 8 * half;
+      const int row = row0 + 8 * half;
       if (row >= M) continue;
-      const float xr = EPI == Q_S32 ? 0.f : xs[row];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + 2 * tig;
-        if (col >= N) continue;  // N even: col + 1 < N too
-        const long long off = (long long)row * N + col;
-        if (EPI == Q_S32) {
-          *reinterpret_cast<int2*>(static_cast<int*>(Yv) + off) =
-              make_int2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-          continue;
-        }
-        float v0 = float(acc[i][j][2 * half]) * xr * ws[col] + bias[col];
-        float v1 = float(acc[i][j][2 * half + 1]) * xr * ws[col + 1] + bias[col + 1];
-        if (EPI == Q_ACT_F32) {
+      const int s0 = acc[4 * j + 2 * half], s1 = acc[4 * j + 2 * half + 1];
+      const long long off = (long long)row * N + col;
+      if constexpr (EPI == Q_S32) {
+        *reinterpret_cast<int2*>(static_cast<int*>(Yv) + off) = make_int2(s0, s1);
+      } else {
+        float v0 = float(s0) * xr[half] * ws[col] + bias[col];
+        float v1 = float(s1) * xr[half] * ws[col + 1] + bias[col + 1];
+        if constexpr (EPI == Q_ACT_F32) {
           v0 = act_apply<ACT>(v0);
           v1 = act_apply<ACT>(v1);
           *reinterpret_cast<float2*>(static_cast<float*>(Yv) + off) = make_float2(v0, v1);
         } else {
-          if (EPI == Q_RES) {
-            const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
+          if constexpr (EPI == Q_RES) {
+            const float2 r =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
             v0 = __bfloat162float(__float2bfloat16(v0)) + r.x;
             v1 = __bfloat162float(__float2bfloat16(v1)) + r.y;
           }
@@ -674,18 +639,39 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
   }
 }
 
-template <int EPI, int ACT = ACT_NONE, bool AQ = false>
-cudaError_t gemm_s8(const void* A, const int8_t* Bt, const float* xs, const float* ws,
-                    const float* bias, const bf16* R, void* Y, int M, int N, int Kp,
-                    cudaStream_t st, int lda = 0) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<EPI, ACT, AQ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(kQSmem));
+template <int BN, int EPI, int ACT>
+cudaError_t gemm_s8_launch(const CUtensorMap& mapA, const CUtensorMap& mapB, const float* xs,
+                           const float* ws, const float* bias, const bf16* R, void* Y, int M,
+                           int N, int Kp, cudaStream_t st) {
+  using C = GemmCfg<BN>;
+  const cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<BN, EPI, ACT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               int(C::SMEM));
   if (err != cudaSuccess) return err;
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_s8_kernel<EPI, ACT, AQ><<<grid, kGemmThreads, kQSmem, st>>>(
-      A, Bt, xs, ws, bias, R, Y, M, N, Kp, lda ? lda : Kp);
+  dim3 grid((N + BN - 1) / BN, (M + kGBM - 1) / kGBM);
+  gemm_s8_kernel<BN, EPI, ACT><<<grid, kGThreads, C::SMEM, st>>>(mapA, mapB, xs, ws, bias, R, Y,
+                                                                  M, N, Kp);
   return cudaGetLastError();
+}
+
+// The tensor maps are built at each call from that call's Kp, which is both
+// the K extent and the row stride (tail_w8a8 reuses qa with two strides).
+template <int EPI, int ACT = ACT_NONE>
+cudaError_t gemm_s8(const int8_t* A, const int8_t* Bt, const float* xs, const float* ws,
+                    const float* bias, const bf16* R, void* Y, int M, int N, int Kp,
+                    cudaStream_t st) {
+  namespace h = ufv::hop;
+  const bool wide = false;  // BN = 128 only for now
+  CUtensorMap mapA, mapB;
+  const cuuint64_t dimsA[2] = {cuuint64_t(Kp), cuuint64_t(M)};
+  const cuuint64_t dimsB[2] = {cuuint64_t(Kp), cuuint64_t(N)}, stride[1] = {cuuint64_t(Kp)};
+  const cuuint32_t boxA[2] = {kSBK, kGBM}, boxB[2] = {kSBK, wide ? 256u : 128u};
+  cudaError_t err = h::make_map(&mapA, A, 2, dimsA, stride, boxA, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err == cudaSuccess)
+    err = h::make_map(&mapB, Bt, 2, dimsB, stride, boxB, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err != cudaSuccess) return err;
+  if (wide) return gemm_s8_launch<256, EPI, ACT>(mapA, mapB, xs, ws, bias, R, Y, M, N, Kp, st);
+  return gemm_s8_launch<128, EPI, ACT>(mapA, mapB, xs, ws, bias, R, Y, M, N, Kp, st);
 }
 
 // hmid = act(rescaled A . Bt) as f32, for an activation chosen at run time
@@ -704,6 +690,37 @@ cudaError_t gemm_s8_act(int act, const int8_t* A, const int8_t* Bt, const float*
 #undef UFV_S8_ACT
   }
   return cudaErrorInvalidValue;
+}
+
+// q[r, c] = clip(rint(x[r, c]), -127, 127) for c < K (half to even), 0 for K
+// <= c < Kp: bf16 x [M, K] -> int8 q [M, Kp], K and Kp multiples of 8; the
+// probe's x on its way to the int8 GEMM (TMA copies bytes and converts
+// nothing). One thread per 8 bytes of q.
+__global__ void __launch_bounds__(256) round_clip_s8_kernel(const bf16* __restrict__ x,
+                                                            int8_t* __restrict__ q, int M,
+                                                            int K, int Kp) {
+  const int vecs = Kp / 8;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)M * vecs) return;
+  const long long r = i / vecs;
+  const int c = int(i % vecs) * 8;
+  uint32_t w[2] = {0u, 0u};
+  if (c < K) {
+    const uint4 v = *reinterpret_cast<const uint4*>(x + r * K + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = __float2int_rn(fminf(fmaxf(__bfloat162float(e[j]), -127.f), 127.f));
+      w[j / 4] |= (uint32_t(t) & 0xffu) << (8 * (j % 4));
+    }
+  }
+  *reinterpret_cast<uint2*>(q + r * Kp + c) = make_uint2(w[0], w[1]);
+}
+
+cudaError_t round_clip_s8(const bf16* x, int8_t* q, int M, int K, int Kp, cudaStream_t st) {
+  const long long total = (long long)M * (Kp / 8);
+  round_clip_s8_kernel<<<unsigned((total + 255) / 256), 256, 0, st>>>(x, q, M, K, Kp);
+  return cudaGetLastError();
 }
 
 __device__ __forceinline__ float as_float(float v) { return v; }
@@ -930,20 +947,31 @@ extern "C" int probe_gemm_bf16(const void* x, const void* w, void* y, int M, int
 }
 
 // The same probe, quant=True: y [M, N] int32 = q(x) . w, x [M, K] bf16
-// rounded half to even and clipped to +-127 in the GEMM's prologue, w [K, N]
-// int8, s8 x s8 -> s32 (the int8 GEMM above with that prologue and a raw
-// int32 epilogue). The weights are first transposed into wt [N, pad32(K)]
-// (int8 scratch), as the mma.sync s8 operands want K innermost. K a multiple
-// of 8, N even.
-extern "C" int probe_gemm_s8(const void* x, const void* w, void* wt, void* y, int M, int K,
-                             int N, void* stream) {
+// rounded half to even and clipped to +-127 into the int8 scratch xq [M,
+// pad32(K)], w [K, N] int8 transposed into the int8 scratch wt [N, pad32(K)]
+// (8-bit wgmma takes K-major operands), then s8 x s8 -> s32 (the int8 GEMM
+// above with a raw int32 epilogue). K a multiple of 8, N even.
+extern "C" int probe_gemm_s8(const void* x, const void* w, void* wt, void* xq, void* y, int M,
+                             int K, int N, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 2) return int(cudaErrorInvalidValue);
-  if (!all_aligned16({x, wt, y})) return int(cudaErrorMisalignedAddress);
+  if (!all_aligned16({x, wt, xq, y})) return int(cudaErrorMisalignedAddress);
   const int Kp = pad32(K);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   UFV_TRY(transpose_s8(s8(w), s8(wt), K, N, Kp, st));
-  UFV_TRY((gemm_s8<Q_S32, ACT_NONE, true>(x, s8(wt), nullptr, nullptr, nullptr, nullptr, y, M,
-                                          N, Kp, st, K)));
+  UFV_TRY(round_clip_s8(b16(x), s8(xq), M, K, Kp, st));
+  UFV_TRY((gemm_s8<Q_S32>(s8(xq), s8(wt), nullptr, nullptr, nullptr, nullptr, y, M, N, Kp, st)));
+  return 0;
+}
+
+// The int8 GEMM alone, raw int32 epilogue: y [M, N] = qa [M, Kp] . bt [N,
+// Kp]^T, Kp a multiple of 16, N even; the probe's product without its two
+// preparation passes, for timing it (scripts/torch_s8_sweep.py).
+extern "C" int gemm_s8_s32(const void* qa, const void* bt, void* y, int M, int Kp, int N,
+                           void* stream) {
+  if (M <= 0 || Kp <= 0 || N <= 0 || Kp % 16 || N % 2) return int(cudaErrorInvalidValue);
+  if (!all_aligned16({qa, bt, y})) return int(cudaErrorMisalignedAddress);
+  UFV_TRY((gemm_s8<Q_S32>(s8(qa), s8(bt), nullptr, nullptr, nullptr, nullptr, y, M, N, Kp,
+                          static_cast<cudaStream_t>(stream))));
   return 0;
 }
 

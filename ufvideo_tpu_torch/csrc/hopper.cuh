@@ -6,12 +6,14 @@
 // shape.
 //
 // Shared-memory tiles are in the layouts TMA writes with a swizzle: rows of
-// 128, 64 or 32 bytes (64, 32 or 16 bf16 values), eight rows to a swizzle
-// atom of 1024, 512 or 256 bytes, atoms packed densely. A wgmma descriptor
-// names such a tile by its start address, the swizzle, the stride between
-// 8-row groups (SBO) and, for an operand whose M or N runs along the rows
-// (MN-major), the stride between atoms along M or N (LBO). A k16 step moves
-// the start 32 bytes along a K-major row, or 16 rows down an MN-major tile.
+// 128, 64 or 32 bytes (64, 32 or 16 bf16 values, or twice as many int8),
+// eight rows to a swizzle atom of 1024, 512 or 256 bytes, atoms packed
+// densely. A wgmma descriptor names such a tile by its start address, the
+// swizzle, the stride between 8-row groups (SBO) and, for an operand whose M
+// or N runs along the rows (MN-major), the stride between atoms along M or N
+// (LBO). A k16 bf16 step (or a k32 int8 step) moves the start 32 bytes along
+// a K-major row; a k16 bf16 step moves 16 rows down an MN-major tile. 8-bit
+// operands are K-major only.
 // Tiles start on 1024-byte boundaries, so the swizzle phase of every start
 // is 0.
 #pragma once
@@ -57,17 +59,19 @@ inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
                            : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A bf16 tensor map of `rank` dimensions, dims[0] contiguous, strides[i] the
-// byte stride of dims[i + 1]; loads of `box` elements, zero-filled outside
-// the tensor, into rows of box[0] * 2 bytes swizzled as swizzle_for says.
+// A tensor map of `rank` dimensions of bf16 (or, with UINT8, int8) elements,
+// dims[0] contiguous, strides[i] the byte stride of dims[i + 1]; loads of
+// `box` elements, zero-filled outside the tensor, into rows of box[0]
+// elements swizzled as swizzle_for says for that many bytes.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box) {
+                            const cuuint64_t* strides, const cuuint32_t* box,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank),
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_for(int(box[0]) * 2),
+  const int esize = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
+  const CUresult r = fn(map, type, cuuint32_t(rank), const_cast<void*>(base), dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_for(int(box[0]) * esize),
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -174,6 +178,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // D[64x64] (+)= A[64x16] . B[16x64], A and B from shared memory (descriptors);
 // TB = 1 when B is MN-major (N contiguous); scale_d = 0 overwrites D
 template <int TB>
@@ -259,6 +269,71 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D[64x128] (+)= A[64x32] . B[32x128], int8 operands (s8 x s8 -> s32), A and B
+// K-major from shared memory (descriptors; 8-bit wgmma has no transpose);
+// scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64x256] (+)= A[64x32] . B[32x256], int8 operands (s8 x s8 -> s32), A and B
+// K-major from shared memory (descriptors; 8-bit wgmma has no transpose);
+// scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]),
+        "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]),
+        "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
+        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D[64x16] (+)= A[64x16] . B[16x16], A from registers (the accumulator

@@ -157,11 +157,12 @@ def _lib() -> ctypes.CDLL:
     lib.qpool_block_w8a8_bf16.argtypes = [p] * 31 + [i] * 10 + [f, p]
     lib.hiera_stage_bf16.argtypes = [p] * 4 + [i] + [p] * 5 + [i] * 7 + [f, p]
     lib.probe_gemm_bf16.argtypes = [p] * 3 + [i] * 3 + [p]
-    lib.probe_gemm_s8.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.probe_gemm_s8.argtypes = [p] * 5 + [i] * 3 + [p]
+    lib.gemm_s8_s32.argtypes = [p] * 3 + [i] * 3 + [p]
     for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.block_tail_bf16,
                lib.qpool_block_bf16, lib.block_w8a8_bf16, lib.ln_matmul_w8a8_bf16,
                lib.block_tail_w8a8_bf16, lib.qpool_block_w8a8_bf16, lib.hiera_stage_bf16,
-               lib.probe_gemm_bf16, lib.probe_gemm_s8):
+               lib.probe_gemm_bf16, lib.probe_gemm_s8, lib.gemm_s8_s32):
         fn.restype = ctypes.c_int
     return lib
 

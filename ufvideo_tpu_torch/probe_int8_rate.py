@@ -18,8 +18,9 @@ milliseconds a product and its rate in TOP/s (2·M·K·N operations):
 - ``bf16_kernel``: ``probe_step(x, w, quant=False)``, the bf16 GEMM of
   ``csrc/hiera_block.cu`` with an f32 epilogue;
 - ``int8_kernel``: ``probe_step(x, wq, quant=True)``, its int8 GEMM, with x
-  rounded half to even and clipped to ±127 in the prologue, as the TPU
-  kernel ``_pallas_dot_kernel`` does, and the weights transposed first.
+  rounded half to even and clipped to ±127 by a pass of its own, as the TPU
+  kernel ``_pallas_dot_kernel`` does in its body, and the weights transposed
+  first.
 
 Each time is the mean of ``iters`` products back to back between two CUDA
 events after a warm-up (operands stay in L2 between products: the probe
@@ -44,12 +45,20 @@ from .ops.hiera_block import _lib, _pad32
 ROWS, DIN, DOUT = 8192, 1152, 4304
 
 
+def round_clip_s8_plain(x: torch.Tensor, kp: int) -> torch.Tensor:
+    """The probe's int8 x in plain PyTorch: x [M, K] rounded half to even and
+    clipped to ±127, as int8 [M, kp] with zeros in columns K..kp (the kernel
+    ``round_clip_s8`` writes the same into the GEMM's scratch)."""
+    q = torch.round(x.float()).clamp(-127, 127).to(torch.int8)
+    return torch.nn.functional.pad(q, (0, kp - x.shape[1]))
+
+
 def probe_step_plain(x: torch.Tensor, w: torch.Tensor, quant: bool) -> torch.Tensor:
     """The kernel's function in plain PyTorch: with ``quant`` x rounded half
     to even and clipped to ±127, times int8 w, the int32 sums exact (float64
     holds them); else x · w in f32."""
     if quant:
-        q = torch.round(x.float()).clamp(-127, 127)
+        q = round_clip_s8_plain(x, x.shape[1])
         return (q.double() @ w.double()).to(torch.int32)
     return x.float() @ w.float()
 
@@ -75,9 +84,10 @@ def probe_step(x: torch.Tensor, w: torch.Tensor, quant: bool) -> torch.Tensor:
     lib = _lib()
     if quant:
         wt = torch.empty((n, _pad32(k)), dtype=torch.int8, device=x.device)
+        xq = torch.empty((m, _pad32(k)), dtype=torch.int8, device=x.device)
         y = torch.empty((m, n), dtype=torch.int32, device=x.device)
-        code = lib.probe_gemm_s8(x.data_ptr(), w.data_ptr(), wt.data_ptr(), y.data_ptr(),
-                                 m, k, n, stream)
+        code = lib.probe_gemm_s8(x.data_ptr(), w.data_ptr(), wt.data_ptr(), xq.data_ptr(),
+                                 y.data_ptr(), m, k, n, stream)
     else:
         y = torch.empty((m, n), dtype=torch.float32, device=x.device)
         code = lib.probe_gemm_bf16(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n, stream)
@@ -87,6 +97,26 @@ def probe_step(x: torch.Tensor, w: torch.Tensor, quant: bool) -> torch.Tensor:
 
 
 probe_step.launches = 0
+
+
+def gemm_s8_alone(qa: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """The int8 GEMM of ``probe_step`` without its two preparation passes:
+    int32 [M, N] = qa [M, Kp] · bt [N, Kp]ᵀ, both int8 and K-contiguous (Kp a
+    multiple of 16, N even), on the card only. A measuring instrument
+    (``scripts/torch_s8_sweep.py``): no model path calls it, so it counts
+    nothing."""
+    if qa.device.type != "cuda" or qa.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise TypeError("gemm_s8_alone takes int8 CUDA tensors")
+    (m, kp), n = qa.shape, bt.shape[0]
+    if bt.shape[1] != kp or kp % 16 or n % 2 or min(m, kp, n) == 0:
+        raise ValueError(f"unsupported shapes qa {tuple(qa.shape)} bt {tuple(bt.shape)}")
+    qa, bt = qa.contiguous(), bt.contiguous()
+    y = torch.empty((m, n), dtype=torch.int32, device=qa.device)
+    lib = _lib()
+    code = lib.gemm_s8_s32(qa.data_ptr(), bt.data_ptr(), y.data_ptr(), m, kp, n,
+                           torch.cuda.current_stream(qa.device).cuda_stream)
+    _build.check(lib, code, "gemm_s8_alone")
+    return y
 
 
 def probe_inputs(dev, seed: int = 0, rows: int = ROWS, din: int = DIN, dout: int = DOUT):
