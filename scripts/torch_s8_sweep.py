@@ -91,8 +91,8 @@ def main() -> int:
         bound, by = cs.bound_ms(cs.nbytes(q, w) + 4 * m * n, 0.0, ops)
         print(f"{label} [M {m}, K {k}, N {n}]: "
               + ", ".join(f"{v} {t:.4f} ms" for v, t in ms.items())
-              + f"; s8 kernel {ops / ms['s8 kernel'] / 1e9:.0f} TOP/s, bound {bound:.4f} ms ({by}); "
-              f"int8 : bf16 kernels {ms['bf16 kernel'] / ms['s8 kernel']:.3f}, libraries "
+              + f"; s8 kernel {ops / ms['s8 kernel'] / 1e9:.0f} TOP/s, bound {bound:.4f} ms "
+              f"({by}); int8 : bf16 kernels {ms['bf16 kernel'] / ms['s8 kernel']:.3f}, libraries "
               f"{ms['torch.mm'] / ms['_int_mm']:.3f}", flush=True)
         del q, w, qa, bt, w_cols, x, wf
         torch.cuda.empty_cache()

@@ -258,8 +258,8 @@ def _family(name: str) -> str:
 
 def _summarise(prof) -> dict:
     """Per ``stage:`` range: wall, device-busy time, idle share, device time
-    by ``_family`` and the kernels with the most device time (names cut to
-    70 characters, the times of names that then agree summed)."""
+    by ``_family`` and the twelve kernels with the most device time (names
+    cut to 70 characters, the times of names that then agree summed)."""
     events = prof.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     ranges = {e.name: (e.time_range.start, e.time_range.end)
@@ -276,7 +276,7 @@ def _summarise(prof) -> dict:
             if s <= k.time_range.start < e:
                 by_name[k.name[:70]] += k.time_range.end - k.time_range.start
                 by_family[_family(k.name)] += k.time_range.end - k.time_range.start
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         wall = e - s
         out[stage] = {
             "wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3,

@@ -516,13 +516,19 @@ enum QEpi { Q_BF16 = 0, Q_RES = 1, Q_ACT_F32 = 2, Q_S32 = 3 };
 // 128-byte-swizzled rows, so a stage holds as many bytes as the bf16 GEMM's
 // and GemmCfg<BN> sizes the ring. Each consumer warpgroup owns 64 rows and
 // issues wgmma.mma_async m64nBNk32 (s8 x s8 -> s32) four times a stage, each
-// step 32 bytes along both operands' rows. The tile rule is gemm()'s: BN =
-// 256 (one block an SM) for Kp >= 1024 and N >= 2048 (SigLIP's qkv and fc1,
-// the probe), BN = 128 (two blocks an SM) otherwise. TMA zero-fills past M,
-// N and Kp; the epilogue masks its stores. int32 sums are exact and each
-// output is summed and rescaled by one thread in a fixed order: the result
-// repeats bit for bit. Not yet: a 64-byte-swizzle stage for Hiera's short K
-// (Kp 160 fills 160 of a stage's 256 bytes of K), a persistent grid.
+// step 32 bytes along both operands' rows. Two tiles: BN = 128, two blocks
+// an SM, so that one block's epilogue overlaps the other's products; and BN
+// = 256, one block an SM, which halves the B tile's shared-memory reads a
+// product needs but leaves its epilogue exposed. Only the raw int32
+// epilogue takes the wide tile (at Kp >= 1024 and N >= 2048: the probe): on
+// an H100 it ran the probe 5% faster, while SigLIP's W8A8 block ran 9%
+// slower with its qkv and fc1 products (bf16 and GELU epilogues) on it
+// (PERF.md). TMA zero-fills past M, N and Kp; the epilogue masks its
+// stores. int32 sums are exact and each output is summed and rescaled by one
+// thread in a fixed order: the result repeats bit for bit. Not yet: a
+// 64-byte-swizzle stage for Hiera's short K (Kp 160 fills 160 of two
+// stages' 256 bytes of K), stores staged through shared memory (a warp
+// writes 16 or 32 bytes of a row at a time), a persistent grid.
 constexpr int kSBK = 128;  // bytes of K a stage
 
 template <int BN>
@@ -661,7 +667,8 @@ cudaError_t gemm_s8(const int8_t* A, const int8_t* Bt, const float* xs, const fl
                     const float* bias, const bf16* R, void* Y, int M, int N, int Kp,
                     cudaStream_t st) {
   namespace h = ufv::hop;
-  const bool wide = false;  // BN = 128 only for now
+  constexpr bool kWideTile = EPI == Q_S32;
+  const bool wide = kWideTile && Kp >= 1024 && N >= 2048;
   CUtensorMap mapA, mapB;
   const cuuint64_t dimsA[2] = {cuuint64_t(Kp), cuuint64_t(M)};
   const cuuint64_t dimsB[2] = {cuuint64_t(Kp), cuuint64_t(N)}, stride[1] = {cuuint64_t(Kp)};
@@ -670,7 +677,8 @@ cudaError_t gemm_s8(const int8_t* A, const int8_t* Bt, const float* xs, const fl
   if (err == cudaSuccess)
     err = h::make_map(&mapB, Bt, 2, dimsB, stride, boxB, CU_TENSOR_MAP_DATA_TYPE_UINT8);
   if (err != cudaSuccess) return err;
-  if (wide) return gemm_s8_launch<256, EPI, ACT>(mapA, mapB, xs, ws, bias, R, Y, M, N, Kp, st);
+  if constexpr (kWideTile)
+    if (wide) return gemm_s8_launch<256, EPI, ACT>(mapA, mapB, xs, ws, bias, R, Y, M, N, Kp, st);
   return gemm_s8_launch<128, EPI, ACT>(mapA, mapB, xs, ws, bias, R, Y, M, N, Kp, st);
 }
 
