@@ -1066,10 +1066,10 @@ def kernel_probe(dev, timer, gen):
     bf16 -> f32, held to QREL in relative Frobenius norm (f32 sums of the
     same products in another order). Library: torch._int_mm / torch.mm."""
     from ufvideo_tpu_torch.probe_int8_rate import (
-        DIN, DOUT, ROWS, probe_inputs, probe_step, probe_step_plain)
+        DIN, DOUT, ROWS, probe_inputs, probe_step, probe_step_plain, round_clip_s8_plain)
 
     x, wf, wq = probe_inputs(dev, int(torch.randint(1 << 30, (1,), generator=gen, device=dev)))
-    xq = torch.round(x.float()).clamp(-127, 127).to(torch.int8)
+    xq = round_clip_s8_plain(x, DIN)
     # cuBLASLt's int8 kernels take the weights K-contiguous; row-major it is
     # 5x slower (timed beside, reported)
     wq_cols = wq.t().contiguous().t()

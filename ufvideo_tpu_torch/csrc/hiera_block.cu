@@ -518,7 +518,7 @@ enum QEpi { Q_BF16 = 0, Q_RES = 1, Q_ACT_F32 = 2, Q_S32 = 3 };
 // issues wgmma.mma_async m64nBNk32 (s8 x s8 -> s32) four times a stage, each
 // step 32 bytes along both operands' rows. Two tiles: BN = 128, two blocks
 // an SM, so that one block's epilogue overlaps the other's products; and BN
-// = 256, one block an SM, which halves the B tile's shared-memory reads a
+// = 256, one block an SM, which halves the A tile's shared-memory reads a
 // product needs but leaves its epilogue exposed. Only the raw int32
 // epilogue takes the wide tile (at Kp >= 1024 and N >= 2048: the probe): on
 // an H100 it ran the probe 5% faster, while SigLIP's W8A8 block ran 9%

@@ -105,8 +105,10 @@ def gemm_s8_alone(qa: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     multiple of 16, N even), on the card only. A measuring instrument
     (``scripts/torch_s8_sweep.py``): no model path calls it, so it counts
     nothing."""
-    if qa.device.type != "cuda" or qa.dtype != torch.int8 or bt.dtype != torch.int8:
-        raise TypeError("gemm_s8_alone takes int8 CUDA tensors")
+    if qa.device.type != "cuda" or bt.device != qa.device:
+        raise ValueError(f"gemm_s8_alone: unsupported devices {qa.device}, {bt.device}")
+    if qa.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise TypeError("gemm_s8_alone takes int8 qa and bt")
     (m, kp), n = qa.shape, bt.shape[0]
     if bt.shape[1] != kp or kp % 16 or n % 2 or min(m, kp, n) == 0:
         raise ValueError(f"unsupported shapes qa {tuple(qa.shape)} bt {tuple(bt.shape)}")
@@ -148,7 +150,7 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 def run(dev, iters: int = 50, seed: int = 0) -> list:
     """The four variants on ``dev``: [{"variant", "ms", "tops"}]."""
     x, wf, wq = probe_inputs(dev, seed)
-    xq = torch.round(x.float()).clamp(-127, 127).to(torch.int8)
+    xq = round_clip_s8_plain(x, DIN)
     wq_cols = wq.t().contiguous().t()
     ops = 2.0 * ROWS * DIN * DOUT
     variants = [
