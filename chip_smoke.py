@@ -42,6 +42,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      tokens, region tokens, final prefill hidden state, the first decode
      steps' logits). Then the same request on a quant_llm="int4" runtime
      (bf16 cache and towers) with 8 new tokens.
+ 5b. batched decode, on each phase-5 runtime: the request's video with 8
+     questions of different lengths through UFVideoRuntime.generate_batch,
+     16 new tokens; launches held to the prediction (every quantised
+     product at 8 rows), ms a step, tok/s over the batch, peak memory; the
+     first 4 decode steps' logits through the kernels against the plain
+     versions.
   6. [SEG], quantised: a runtime with quant_llm="int8", quant_kv and
      quant_vision (W8A8 SigLIP and W8A8 Hiera trunk); the request of phase 4
      on it, launch counts held to what the configuration predicts, stage
@@ -587,9 +593,14 @@ def _kernel_entry(name, source, replaces, tol, shapes, headline):
                 shapes=rest, **first)
 
 
+# rows phase 2 holds the quantised products at: one decode row, the 2-32-row
+# kernel's edges and its two tile counts, and the serving batch of 8
+QUANT_ROWS = (1, 2, 8, 17, 32)
+
+
 def kernel_quant_matmul(dev, timer, gen, cfg, bits):
     """int8_matvec (bits 8) or int4_matmul (bits 4) at the five projection
-    shapes, rows 1 and 32, weights quantised from a random float kernel.
+    shapes and ``QUANT_ROWS``, weights quantised from a random float kernel.
     Library yardstick: one bf16 product on a dequantised copy made before
     the clock starts. Each shape also logs the grid the wrapper launched
     (its ``last_plan``) and the rate on the weight and scale bytes; at one
@@ -613,7 +624,7 @@ def kernel_quant_matmul(dev, timer, gen, cfg, bits):
             kern = lambda x, qd=qd: qm.int4_matmul(x, qd["q"], qd["scale"], 64)
             plain = lambda x, qd=qd: qm.int4_matmul_plain(x, qd["q"], qd["scale"], 64)
         del w
-        for rows in (1, 32):
+        for rows in QUANT_ROWS:
             x = torch.randn(rows, din, generator=gen, device=dev).to(torch.bfloat16)
             e = bench(
                 timer, f"{pname}: x [{rows},{din}] q [{din},{dout}] int{bits}",
@@ -622,13 +633,14 @@ def kernel_quant_matmul(dev, timer, gen, cfg, bits):
                 check=qcheck)
             e["plan"] = str(wrapper.last_plan)
             e["gbps"] = nbytes(qd["q"], qd["scale"]) / e["ms"] / 1e6
+            e["bound_ratio"] = e["ms"] / e["bound_ms"]
             old = ""
             if rows == 1:
                 e["rows_kernel_ms"] = timer.ms(
                     lambda: qm._launch_rows(x, qd["q"], qd["scale"], bits, 64))
                 old = f", 2-32-row kernel {e['rows_kernel_ms']:.4f} ms"
-            log(f"    {e['shape']}: plan {e['plan']}, {e['gbps']:.0f} GB/s{ratio_text(e)}"
-                f"{old}")
+            log(f"    {e['shape']}: plan {e['plan']}, {e['gbps']:.0f} GB/s{ratio_text(e)}, "
+                f"kernel / bound {e['bound_ratio']:.2f}{old}")
             shapes.append(e)
         del qd, wb
         torch.cuda.empty_cache()
@@ -1487,8 +1499,134 @@ def run_referring(dev, seed: int, cfg, label: str, max_new_tokens: int,
     compare_paths(kernel_out, plain_out, limit,
                   "the W8A8 tower re-quantises at other rounding boundaries through 26 blocks"
                   if cfg.quant_vision else "as the bf16 path")
+    log(f" 5b [{label}]: batched decode, {BATCH} questions on the request's video")
+    batch_launches = run_batched(dev, rt, tok, feats, label)
     del rt
     torch.cuda.empty_cache()
+    return launches, batch_launches
+
+
+# Phase 5b: the JAX package's serving batch (scripts/serve.py --max-batch 8)
+# through UFVideoRuntime.generate_batch: one encoded video, 8 questions of
+# different lengths (ragged prompts, so ragged decode positions), 16 new
+# tokens; every decode step hands each quantised projection 8 rows.
+BATCH = 8
+BATCH_NEW_TOKENS = 16
+BATCH_STEPS = 4  # decode steps whose logits the kernel and plain paths are compared on
+BATCH_QUESTIONS = (
+    "What happens?",
+    "What happens in this video?",
+    "Describe the video.",
+    "Who is in the video and what are they doing?",
+    "What colour is the largest object in the scene, and where does it move?",
+    "How many people appear?",
+    "Summarise the video in one sentence, then list every object you can see in it.",
+    "Is it day or night?",
+)
+
+
+def staged_batch(rt, embeds, lens, n_steps, use_kernels, forced=None):
+    """generate_batch's first ``n_steps`` steps in stages: (logits [n_steps,
+    B, vocab], greedy tokens [n_steps, B]). The prefill runs through the
+    kernels on both paths (the plain attention would hold eight prompts'
+    [S, S] scores); ``use_kernels`` routes the decode steps and lm_head.
+    ``forced`` feeds given tokens instead of the greedy ones."""
+    from ufvideo_tpu_torch.models.generate import _mask_vocab_logits, prefill_cache
+    from ufvideo_tpu_torch.models.qwen2 import make_kv_cache
+
+    cfg, llm = rt.cfg, rt.model.llm
+    b, s = embeds.shape[:2]
+    cache = make_kv_cache(cfg.llm, b, -(-(s + n_steps) // 128) * 128, dtype=cfg.compute_dtype,
+                          device=rt.device, quant=bool(cfg.quant_kv))
+    cache, last = prefill_cache(llm, embeds, lens, cache)
+    rt.model.set_use_kernels(use_kernels)
+    cur_len = lens.long()
+    logits, toks = [], []
+    for i in range(n_steps):
+        lg = _mask_vocab_logits(llm.logits(last[:, None])[:, 0].float(), cfg.llm.vocab_size)
+        logits.append(lg)
+        toks.append(lg.argmax(-1))
+        nxt = toks[-1] if forced is None else forced[i]
+        h, cache = llm.backbone(llm.embed(nxt[:, None]), cur_len[:, None], None, cache,
+                                cur_len, "decode")
+        last, cur_len = h[:, 0], cur_len + 1
+    rt.model.set_use_kernels(True)
+    return torch.stack(logits), torch.stack(toks)
+
+
+def run_batched(dev, rt, tok, feats, label: str) -> dict:
+    """Phase 5b on a phase-5 runtime: the batch's launches read around one
+    generate_batch call and held to what the configuration predicts (every
+    quantised product at 8 rows), ms a step, tok/s over the batch, peak
+    memory; then the kernel path against the plain path over BATCH_STEPS
+    decode steps (logits cosine, greedy tokens but at a near tie)."""
+    from ufvideo_tpu_torch.api import _assemble_input_ids
+    from ufvideo_tpu_torch.ops import quant_matmul as qm
+    from ufvideo_tpu_torch.quant import quant_bits
+
+    wrappers = all_wrappers()
+    cfg = rt.cfg
+    ids = [_assemble_input_ids(q, 1, "<video>", tok) for q in BATCH_QUESTIONS[:BATCH]]
+    vf = feats.expand(BATCH, -1, -1)
+    run = lambda n: rt.generate_batch(ids, vf, max_new_tokens=n)
+    run(2)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for wr in wrappers.values():
+        wr.launches = 0
+    out, plan = run(BATCH_NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = {k: wr.launches for k, wr in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen_lens = [len(t) for t, _ in out]
+    want = expected_referring_launches(cfg, max(gen_lens), calls_to_tower=0)
+    wrapper = qm.int4_matmul if quant_bits(cfg.quant_llm) == 4 else qm.int8_matvec
+    log(f"  [{label}] generate_batch B={BATCH}: prompts {list(map(int, plan.seq_lens))}, "
+        f"generated {gen_lens}, peak {peak:.2f} GiB; launches {launches}; last plan "
+        f"{wrapper.last_plan}")
+    log(f"  [{label}] launches predicted from the configuration: {want}")
+    if launches != want:
+        fail(f"launch counts of the {label} batched decode differ from the prediction")
+    if getattr(wrapper.last_plan, "rows", BATCH) != BATCH:
+        fail(f"{wrapper.__name__} last ran at {wrapper.last_plan}, not {BATCH} rows")
+    for t, h in out:
+        if not torch.isfinite(h).all():
+            fail("non-finite hidden states in the batched decode")
+
+    sync_t = lambda: (torch.cuda.synchronize(), time.perf_counter())[1]
+    t0 = sync_t()
+    run(1)
+    t1 = sync_t()
+    run(BATCH_NEW_TOKENS)
+    t2 = sync_t()
+    steps = max(gen_lens) - 1
+    step_ms = ((t2 - t1) - (t1 - t0)) / max(steps, 1) * 1e3
+    log(f"  [{label}] batched decode: prefill + first token {(t1 - t0) * 1e3:.1f} ms, "
+        f"{step_ms:.2f} ms a step over {steps} steps, {BATCH * 1e3 / step_ms:.1f} tok/s over "
+        f"the batch")
+
+    plan, embeds = rt._splice_plan(ids, vf)
+    lens = torch.as_tensor(plan.seq_lens, device=dev).to(torch.int32)
+    with torch.no_grad():
+        lg_k, toks_k = staged_batch(rt, embeds, lens, BATCH_STEPS, True)
+        lg_p, _ = staged_batch(rt, embeds, lens, BATCH_STEPS, False, forced=toks_k)
+    if not torch.isfinite(lg_k).all():
+        fail("non-finite logits on the batched kernel path")
+    step_cos = [cosine(a, b) for a, b in zip(lg_k, lg_p)]
+    flips, same = [], 0
+    for i in range(BATCH_STEPS):
+        for r in range(BATCH):
+            a, b, t = lg_k[i, r], lg_p[i, r], int(toks_k[i, r])
+            same += int(b.argmax()) == t
+            if int(b.argmax()) != t and float(b.max() - b[t]) > float((a - b).abs().max()):
+                flips.append((i, r))
+    log(f"  [{label}] batched kernel vs plain path: decode logits cosine min "
+        f"{min(step_cos):.5f} over {BATCH_STEPS} steps x {BATCH} rows, greedy tokens equal "
+        f"{same}/{BATCH_STEPS * BATCH}; tolerance cosine >= {PATH_COS}")
+    if min(step_cos) < PATH_COS:
+        fail("batched kernel path and plain path disagree")
+    if flips:
+        fail(f"batched greedy tokens differ beyond a near tie at (step, row) {flips}")
     return launches
 
 
@@ -1975,10 +2113,11 @@ def main() -> int:
     del rt
     torch.cuda.empty_cache()
     log("phase 5: full-width quantised region referring on the card")
-    int8_launches = run_referring(
+    int8_launches, batch_int8 = run_referring(
         dev, args.seed, full.replace(quant_llm="int8", quant_kv=True, quant_vision=True),
         "int8 + int8 KV + W8A8 SigLIP", 32)
-    int4_launches = run_referring(dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
+    int4_launches, batch_int4 = run_referring(
+        dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
     log("phase 6: full-width quantised [SEG] segmentation and SAM2's other predictors")
     qseg_launches, general_launches, batched_launches, ref_int8 = run_quant_seg(
         dev, args.seed, full)
@@ -2000,9 +2139,10 @@ def main() -> int:
     probe_launches = run_probe(dev, smi)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
-        # "launches" is derived: their sum over the eleven counted calls
+        # "launches" is derived: their sum over the thirteen counted calls
         by_path = {"qa": launches, "seg": seg_launches, "ref_int8": int8_launches,
-                   "ref_int4": int4_launches, "seg_int8": qseg_launches,
+                   "ref_int4": int4_launches, "batch_int8": batch_int8,
+                   "batch_int4": batch_int4, "seg_int8": qseg_launches,
                    "general_int8": general_launches, "batched_int8": batched_launches,
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
                    "probe": probe_launches}
