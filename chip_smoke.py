@@ -636,8 +636,9 @@ def kernel_quant_matmul(dev, timer, gen, cfg, bits):
             e["bound_ratio"] = e["ms"] / e["bound_ms"]
             old = ""
             if rows == 1:
+                plan = qm._rows_plan(x, qd["q"], bits, 64)
                 e["rows_kernel_ms"] = timer.ms(
-                    lambda: qm._launch_rows(x, qd["q"], qd["scale"], bits, 64))
+                    lambda: qm._launch_rows(x, qd["q"], qd["scale"], bits, 64, plan))
                 old = f", 2-32-row kernel {e['rows_kernel_ms']:.4f} ms"
             log(f"    {e['shape']}: plan {e['plan']}, {e['gbps']:.0f} GB/s{ratio_text(e)}, "
                 f"kernel / bound {e['bound_ratio']:.2f}{old}")
@@ -2021,6 +2022,26 @@ def run_probe(dev, smi: str, iters: int = 50) -> dict:
     return launches
 
 
+def sass_counts(lib, opcode: str) -> dict:
+    """Instructions of ``opcode`` in each kernel of a built library, from
+    ``cuobjdump -sass`` (the toolkit's, beside nvcc); kernels without one
+    are left out."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, fn = collections.Counter(), None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and f" {opcode}" in line:
+            counts[fn] += 1
+    return dict(counts)
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -2056,8 +2077,10 @@ def main() -> int:
     for name in sorted(secs):
         log_file = _build._lib_path(name).with_suffix(".log")
         for line in log_file.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"    {name}: {line.strip()}")
+    for fn, n in sass_counts(_build._lib_path("quant_matmul"), "HMMA").items():
+        log(f"    quant_matmul SASS: {n} HMMA in {fn}")
 
     log("phase 2: kernels vs plain (bf16, main-path shapes)")
     gen = torch.Generator(device=dev)

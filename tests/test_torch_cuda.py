@@ -520,10 +520,11 @@ def test_quant_row_kernel_repeats_bit_for_bit(dev, bits):
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quant_wrappers_route_one_row_to_the_row_kernel(dev, bits):
     """1 row launches the one-row kernel at matvec_plan's plan; 2 and 32
-    rows the 2-32-row kernel at split_k's split."""
+    rows the 2-32-row kernel at rows_plan's plan."""
     din, dout = 1024, 260
     _, q, s = _row_inputs(dev, bits, din, dout)
     wrapper = qm.int8_matvec if bits == 8 else qm.int4_matmul
+    sms = qm._sm_count(dev.index or 0)
     for rows in (1, 2, 32):
         x = _randn(dev, rows, din, seed=42)
         n = wrapper.launches
@@ -531,10 +532,107 @@ def test_quant_wrappers_route_one_row_to_the_row_kernel(dev, bits):
         assert wrapper.launches == n + 1
         _assert_close(got, _row_plain(x, q, s, bits, 64), row_rel=1e-3, rtol=1e-3, rel=1e-3)
         if rows == 1:
-            assert wrapper.last_plan == qm.matvec_plan(
-                din, dout, bits, qm._sm_count(dev.index or 0))
+            assert wrapper.last_plan == qm.matvec_plan(din, dout, bits, sms)
         else:
-            assert wrapper.last_plan == qm.split_k(rows, q.shape[0], dout)
+            assert wrapper.last_plan == qm.rows_plan(rows, din, dout, bits, sms)
+
+
+# The 2-32-row kernel through its private launcher at the plan the wrapper
+# gives it and at the same split added the other way (one launch through a
+# cluster, or a second pass): the same limit against the plain version and
+# against the plain split of that plan (rows_slices_plain); the two ways of
+# adding the slices equal bit for bit. Unaligned weights (an offset of 4
+# bytes) take the 4-byte loads.
+RW_ROWS = [2, 3, 8, 16, 17, 32]
+RW_SHAPES = sorted({(din, dout) for _, din, dout in QUANT_SHAPES} | set(ROW_SHAPES))
+
+
+def _rows_inputs(dev, bits, rows, din, dout, group=64, seed=50, offset=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(din, dout, generator=g, device=dev) * din ** -0.5
+    qd = tq.quantize_kernel(w) if bits == 8 else tq.quantize_kernel4(w, group)
+    q = qd["q"]
+    if offset:  # the same weights starting off a 16-byte boundary
+        flat = torch.empty(q.numel() + offset, dtype=torch.int8, device=dev)
+        q = flat[offset:].view(q.shape)
+        q.copy_(qd["q"])
+    return _randn(dev, rows, din, seed=seed + 1), q, qd["scale"]
+
+
+@pytest.mark.parametrize("bits,group,din,dout,offset", [
+    (bits, group, din, dout, offset) for bits, group in ((8, 64), (4, 64), (4, 8))
+    for din, dout in RW_SHAPES if (bits == 8 or din % group == 0)
+    and (group == 64 or din <= 1096) for offset in ((0, 4) if dout <= 18944 else (0,))])
+def test_quant_rows_kernel_matches_plain_at_each_split(dev, bits, group, din, dout, offset):
+    sms = qm._sm_count(dev.index or 0)
+    for rows in RW_ROWS:
+        x, q, s = _rows_inputs(dev, bits, rows, din, dout, group, offset=offset)
+        plan = qm.rows_plan(rows, din, dout, bits, sms, offset == 0, group)
+        assert plan.vec == (16 if offset == 0 and dout % 16 == 0 else 4)
+        want = _row_plain(x, q, s, bits, group)
+        got = qm._launch_rows(x, q, s, bits, group, plan)
+        torch.cuda.synchronize()
+        assert got.shape == (rows, dout) and got.dtype == torch.float32
+        _assert_close(got, want, row_rel=1e-3, rtol=1e-3, rel=1e-3)
+        _assert_close(got, qm.rows_slices_plain(x, q, s, plan, bits, group),
+                      row_rel=1e-3, rtol=1e-3, rel=1e-3)
+        if 1 < plan.ksplit <= 8:  # a cluster holds at most 8 slices
+            other = plan._replace(cluster=1 if plan.cluster > 1 else plan.ksplit)
+            assert torch.equal(got, qm._launch_rows(x, q, s, bits, group, other))
+
+
+@pytest.mark.parametrize("rows", [2, 32])
+def test_quant_rows_kernel_int8_conversion_is_exact(dev, rows):
+    """x row i one-hot at weight row k_i, each of whose 256 columns holds
+    one byte of -128..127 (in another order for each k): the output is
+    float(q[k_i]) * scale, bit for bit."""
+    ks = [0, 1, 130, 1023]
+    q = torch.randint(-128, 128, (1024, 256), dtype=torch.int8, device=dev)
+    for j, k in enumerate(ks):
+        q[k] = torch.roll(torch.arange(-128, 128, device=dev), 37 * j).to(torch.int8)
+    s = torch.rand(256, device=dev) + 0.5
+    x = torch.zeros(rows, 1024, dtype=torch.bfloat16, device=dev)
+    for i in range(rows):
+        x[i, ks[i % 4]] = 1
+    got = qm.int8_matvec(x, q, s)
+    assert isinstance(qm.int8_matvec.last_plan, qm.RowsPlan)
+    assert qm.int8_matvec.last_plan.vec == 16
+    for i in range(rows):
+        assert torch.equal(got[i], q[ks[i % 4]].float() * s), i
+
+
+@pytest.mark.parametrize("group", [64, 8])
+@pytest.mark.parametrize("rows", [2, 32])
+def test_quant_rows_kernel_int4_conversion_is_exact(dev, group, rows):
+    """x row i one-hot at logical row 2k or 2k + 1 of a packed row k that
+    holds every byte 0..255: the output is bf16(w * s) of that row, bit for
+    bit."""
+    ks = [0, 1, 130, 511]
+    q = torch.randint(-128, 128, (512, 256), dtype=torch.int8, device=dev)
+    for j, k in enumerate(ks):
+        q[k] = torch.roll(torch.arange(256, device=dev), 53 * j).to(torch.uint8).view(
+            torch.int8)
+    s = torch.rand(1024 // group, 256, device=dev) * 0.1 + 1e-3
+    w = qm.dequantize_int4(q, s, group, torch.bfloat16).float()
+    logical = [2 * ks[i % 4] + (i // 4) % 2 for i in range(rows)]
+    x = torch.zeros(rows, 1024, dtype=torch.bfloat16, device=dev)
+    for i, r in enumerate(logical):
+        x[i, r] = 1
+    got = qm.int4_matmul(x, q, s, group)
+    assert isinstance(qm.int4_matmul.last_plan, qm.RowsPlan)
+    for i, r in enumerate(logical):
+        assert torch.equal(got[i], w[r]), i
+
+
+@pytest.mark.parametrize("rows", [8, 32])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_rows_kernel_repeats_bit_for_bit(dev, bits, rows):
+    x, q, s = _rows_inputs(dev, bits, rows, 3584, 4608)
+    wrapper = qm.int8_matvec if bits == 8 else qm.int4_matmul
+    args = (x, q, s) + ((64,) if bits == 4 else ())
+    first = wrapper(*args)
+    assert wrapper.last_plan.cluster > 1
+    assert torch.equal(first, wrapper(*args))
 
 
 @pytest.mark.parametrize(

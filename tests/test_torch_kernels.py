@@ -513,26 +513,6 @@ def test_w8a8_part_wrappers_check_their_inputs_before_any_launch():
     assert hb._tail_w8a8_scratch(10, 144, 72, 576, "cpu")[3].numel() == 1600
 
 
-@pytest.mark.parametrize("rows,depth,dout", [
-    (1, 3584, 4608), (1, 3584, 3584), (1, 18944, 3584), (1, 3584, 152064), (32, 1792, 18944),
-    (1, 9472, 3584), (4, 64, 128), (1, 100, 8),
-])
-def test_split_k_covers_the_contraction_in_whole_steps(rows, depth, dout):
-    """``split_k`` plans the grid of the quantised products: slices of whole
-    32-row steps that cover the contraction, one slice where the column
-    tiles alone fill the card, no slice under 256 rows unless it is the only
-    one."""
-    from ufvideo_tpu_torch.ops.quant_matmul import split_k
-
-    ksplit, kchunk = split_k(rows, depth, dout)
-    assert kchunk % 32 == 0 and ksplit >= 1
-    assert ksplit * kchunk >= depth > (ksplit - 1) * kchunk
-    assert ksplit == 1 or kchunk >= 256
-    tiles = -(-dout // 128) * -(-rows // 8)
-    if tiles >= 528:
-        assert ksplit == 1
-
-
 # --------------------------------------------- packed attention, the probe --
 
 @pytest.mark.parametrize("b,s,heads,d", [(2, 49, 2, 16), (1, 17, 3, 8)])

@@ -14,47 +14,64 @@
 // Mosaic has no int8 vector shifts; here the nibbles are de-biased in
 // registers and that fold is not carried over.
 //
-// Bound on an H100: every weight is used once a row, so both are bound by
-// the bytes of the weights and their scales at 3.35 TB/s. Qwen2-7B's one
-// decode row in int8: 4.9 / 3.8 / 20.3 / 20.3 / 163 us for qkv / o / gate
-// and up / down / lm_head; int4 reads 0.56 of those bytes.
+// Bound on an H100: every weight is used once a row, so at 1 to 32 rows
+// both are bound by the bytes of the weights and their scales at 3.35 TB/s.
+// Qwen2-7B's decode in int8: 4.9 / 3.8 / 20.3 / 20.3 / 163 us for qkv / o /
+// gate and up / down / lm_head; int4 reads 0.56 of those bytes. At 32 rows
+// the products are 2 * 32 * din * dout operations, 35 GFLOP at lm_head,
+// 0.035 ms of bf16 tensor-core time against 0.163 ms of bytes.
 //
-// Two designs, picked by the wrapper from the number of rows:
+// Two designs, picked by the wrapper from the number of rows. Both read
+// each weight byte from device memory once, with streaming 16-byte loads
+// (4 where the weight rows are not 16-byte aligned): 8 lanes cover a
+// 128-byte line of a weight row, a warp four rows at once, and each lane
+// keeps the next batches of loads in flight while it converts the current
+// one (a register ring). Each weight becomes f32 exactly with integer
+// operations: the byte (or nibble), biased to be unsigned, is placed in the
+// mantissa of 2^23 (prmt) and one FADD removes the bias, so no I2F runs;
+// int4 then multiplies by its scale. A block of 8 warps owns a column tile
+// and a slice of the contraction (the plans in ops/quant_matmul.py size
+// the grid to fill the card); each warp walks its own run of the slice.
+// Sums are added in a fixed order: across warps through shared memory,
+// across slices in slice order, either in the same launch (the slices of a
+// column tile are one thread-block cluster and rank 0 reads the others'
+// sums through distributed shared memory) or by a second pass
+// (finish_kernel). Both give the same bits, and two calls on one shape
+// give the same bits.
 //
-// One row (quant_matvec_row, the only count a decode step launches): one
-// template for both weight formats. A lane owns 16 columns (or 4 where the
-// rows are not 16-byte aligned) and reads them with one streaming 16-byte
-// load a weight row; 8 lanes cover a 128-byte line, a warp 4 rows at once,
-// a block of 8 warps a 128-column tile and a slice of the contraction (from
-// ops/quant_matmul.matvec_plan, sized so the grid fills the card). A lane
-// takes 4 rows at a time and issues the next 4 loads before it converts the
-// current ones (a register double buffer: up to 128 bytes a lane, 64 KB an
-// SM in flight); the first two batches go out before the block stages its
-// slice of x in shared memory, as f32. Each weight becomes f32 exactly with
-// integer operations: the byte (or nibble), biased to be unsigned, is
-// placed in the mantissa of 2^23 (prmt) and one FADD removes the bias, so no
-// I2F runs; int4 then multiplies by its scale and rounds to bf16
-// (cvt.rn.bf16x2, two weights at once), as the reference does. Sums are
-// f32 FMAs, reduced in a fixed order: across a warp's 4 rows by shuffles,
-// across warps through shared memory, across slices in slice order, either
-// in the same launch (the slices of a column tile are one thread-block
-// cluster and rank 0 reads the others' sums through distributed shared
-// memory) or by a second pass (finish_kernel) where the grid is too large
-// for one wave of clusters. Both give the same bits, and two calls on one
-// shape give the same bits. int8 issues ~3 instructions a weight byte and
-// streams at the memory rate; int4 issues ~12 a packed byte (de-bias,
-// scale, bf16 round, two FMAs), which bounds it by instruction issue, not
-// bytes, at the large shapes.
+// One row (quant_matvec_row, the count a decode step at batch 1 launches):
+// f32 FMAs on the CUDA cores, a lane's 16 columns times 4 rows at a time;
+// the slice of x staged in shared memory as f32. int8 issues ~3
+// instructions a weight byte and streams at the memory rate; int4 issues
+// ~12 a packed byte (de-bias, scale, bf16 round, two FMAs), which bounds it
+// by instruction issue, not bytes, at the large shapes.
 //
-// 2 to 32 rows (int8_matvec_bf16 / int4_matmul_bf16): a block owns 128
-// output columns (four a lane, 4-byte loads) and a slice of the
-// contraction from split_k; its 8 warps take weight rows four at a time and
-// accumulate rows x 4 f32 sums a lane, rows taken 1, 2, 4 or 8 at a time;
-// more than 8 rows re-read the weights from L2 per group of 8. The same
-// fixed-order second pass adds the slices.
+// 2 to 32 rows (quant_matmul_rows): the products run on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 sums) with the weights as the A
+// operand (16 output columns of a tile) and x as B (8 rows of an n-tile):
+// 1-8 rows take one n-tile, 9-16 two, 17-32 four, so the serving batch of
+// 8 pads nothing. Lane (g = lane / 4, t = lane % 4) loads columns
+// VEC*g .. VEC*g+VEC-1 of weight rows 4t .. 4t+3 of each 16-row step. The
+// contraction order is free, so the mma's k values {2t, 2t+1, 2t+8, 2t+9}
+// stand for those physical rows: the A fragment of m-tile m is bytes 2m
+// and 2m+1 of the lane's own four loads (converted to f32, rounded to
+// bf16 by cvt.rn.bf16x2, exact for int8), and the B fragment is x[n][4t ..
+// 4t+3], one 8-byte read of the slice of x that the block stages in shared
+// memory as bf16. After a step, lane (g, t) holds rows 2t, 2t+1 of each
+// n-tile at its own VEC columns. int4: a packed byte holds two logical
+// rows, so a lane's four packed rows feed two k16 steps, the low nibbles
+// (logical rows 8t, 8t+2, 8t+4, 8t+6) and the high ones; x is staged with
+// each 8 logical rows reordered even ones first, so one 16-byte read gives
+// both B fragments; the scale multiplies each weight before the bf16 round
+// (the group's scales staged in shared memory beside x), as the reference
+// does. The warps' sums meet in shared memory in three rounds (4 + 4, 2 +
+// 2, 1 + 1 warps), the x slice's space reused. The conversion costs the
+// same as at one row, the mma a few percent of it: int4 stays bound by
+// instruction issue where one row is.
 //
-// Not used: tensor cores (at one row a product does 2 operations a weight
-// byte, far below the card's ridge), TMA.
+// Not used: wgmma (its 64-row minimum wastes two thirds or more of the
+// product at 32 rows or fewer, and the bytes bound it anyway), TMA, CUDA
+// graphs, programmatic dependent launch.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,145 +81,33 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;           // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 128;              // output columns per block (4 per lane)
-constexpr int kRowStep = 4 * kWarps;    // weight rows per block step
-
-__device__ __forceinline__ void load_x4(const bf16* p, float (&x)[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);  // 4 bf16, 8-byte aligned
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+// VEC bytes of one weight row, read once: no L1 allocation. Volatile, so
+// the compiler issues each load where it is written (a batch ahead of its
+// use) instead of sinking it to the first use.
+template <int VEC>
+__device__ __forceinline__ void load_stream(uint32_t (&w)[VEC / 4], const int8_t* p) {
+  if constexpr (VEC == 16)
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(p));
+  else
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(w[0]) : "l"(p));
 }
 
-// Sum the warps' accumulators and write this block's [ROWS, 128] tile: to
-// out (times scale, when the contraction is not split) or to its slice of
-// the scratch.
-template <int ROWS>
-__device__ __forceinline__ void reduce_store(float (&acc)[ROWS][4], float* red,
-                                             const float* scale, float* out, float* part,
-                                             int rows, int dout, int r0, int c0) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[(warp * ROWS + r) * kCols + lane * 4 + j] = acc[r][j];
-  __syncthreads();
-  for (int i = tid; i < ROWS * kCols; i += kThreads) {
-    const int r = i / kCols, c = i % kCols;
-    if (r0 + r >= rows || c0 + c >= dout) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[(w * ROWS + r) * kCols + c];
-    const long long o = (long long)(r0 + r) * dout + c0 + c;
-    if (gridDim.y == 1)
-      out[o] = scale ? s * scale[c0 + c] : s;
-    else
-      part[(long long)blockIdx.y * rows * dout + o] = s;
-  }
+// 16 bytes that convert to 0: int8 zeros; int4 bytes 0x08 (a low nibble of
+// 8 is 0 after its +8 bias, a high nibble of 0 is 0).
+__device__ __align__(16) const uint32_t kNeutral[2][4] = {
+    {0u, 0u, 0u, 0u}, {0x08080808u, 0x08080808u, 0x08080808u, 0x08080808u}};
+
+// Byte i of t placed in the mantissa of 2^23: the float 2^23 + byte, exact.
+__device__ __forceinline__ float magic(uint32_t t, int i) {
+  return __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7440u + i));
 }
 
-// grid (ceil(dout / 128), ksplit, ceil(rows / ROWS)); kchunk % 32 == 0.
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads) int8_matvec_kernel(
-    const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ scale,
-    float* __restrict__ out, float* __restrict__ part, int rows, int din, int dout,
-    int kchunk) {
-  __shared__ float red[kWarps * ROWS * kCols];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * kCols, col = c0 + lane * 4;
-  const int r0 = blockIdx.z * ROWS;
-  const int kbeg = blockIdx.y * kchunk, kend = min(din, kbeg + kchunk);
-  const bool col_ok = col < dout;  // dout % 4 == 0: the lane's 4 columns together
-  float acc[ROWS][4];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-
-  for (int k = kbeg + warp * 4; k < kend; k += kRowStep) {  // k % 4 == 0, din % 4 == 0
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w[j] = col_ok ? *reinterpret_cast<const uint32_t*>(q + (long long)(k + j) * dout + col)
-                    : 0u;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      float xv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r0 + r < rows) load_x4(x + (long long)(r0 + r) * din + k, xv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const char4 b = *reinterpret_cast<const char4*>(&w[j]);
-        acc[r][0] += xv[j] * float(b.x);
-        acc[r][1] += xv[j] * float(b.y);
-        acc[r][2] += xv[j] * float(b.z);
-        acc[r][3] += xv[j] * float(b.w);
-      }
-    }
-  }
-  reduce_store<ROWS>(acc, red, scale, out, part, rows, dout, r0, c0);
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// The same tiling on packed nibbles: k counts PACKED rows (two logical rows
-// each); kchunk % 32 == 0 and group % 8 == 0, so the 4 packed rows of one
-// warp's step lie in one scale group.
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads) int4_matmul_kernel(
-    const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    float* __restrict__ out, float* __restrict__ part, int rows, int din, int dout,
-    int kchunk, int group_half) {
-  __shared__ float red[kWarps * ROWS * kCols];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * kCols, col = c0 + lane * 4;
-  const int r0 = blockIdx.z * ROWS;
-  const int dh = din / 2;
-  const int kbeg = blockIdx.y * kchunk, kend = min(dh, kbeg + kchunk);
-  const bool col_ok = col < dout;
-  float acc[ROWS][4];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-
-  for (int k = kbeg + warp * 4; k < kend; k += kRowStep) {  // k % 4 == 0, dh % 4 == 0
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w[j] = col_ok ? *reinterpret_cast<const uint32_t*>(q + (long long)(k + j) * dout + col)
-                    : 0u;
-    float4 sc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (col_ok)
-      sc = *reinterpret_cast<const float4*>(s + (long long)(k / group_half) * dout + col);
-    const float scv[4] = {sc.x, sc.y, sc.z, sc.w};
-    // dequantised weights of this step: [packed row j][column c][low, high]
-    float wl[4][4], wh[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int byte = int((w[j] >> (8 * c)) & 0xffu);
-        const int lo = (byte & 15) - 8;
-        const int hi = (byte >> 4) - ((byte & 0x80) ? 16 : 0);
-        wl[j][c] = bf16_round(float(lo) * scv[c]);
-        wh[j][c] = bf16_round(float(hi) * scv[c]);
-      }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      float xa[4] = {0.f, 0.f, 0.f, 0.f}, xb[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r0 + r < rows) {  // logical rows 2k .. 2k+7
-        load_x4(x + (long long)(r0 + r) * din + 2 * k, xa);
-        load_x4(x + (long long)(r0 + r) * din + 2 * k + 4, xb);
-      }
-      const float xe[4] = {xa[0], xa[2], xb[0], xb[2]};  // even logical rows: low nibbles
-      const float xo[4] = {xa[1], xa[3], xb[1], xb[3]};  // odd logical rows: high nibbles
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] += xe[j] * wl[j][c] + xo[j] * wh[j][c];
-    }
-  }
-  reduce_store<ROWS>(acc, red, nullptr, out, part, rows, dout, r0, c0);
+// bf16(hi) : bf16(lo), round to nearest even
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t pk;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(pk) : "f"(hi), "f"(lo));
+  return pk;
 }
 
 // out[i] = (sum over the ksplit slices of part[s, i]) * scale[column]
@@ -236,18 +141,6 @@ constexpr int kLaneRows = 32 / kLanesPerRow;     // weight rows a warp loads at 
 constexpr int kMaxSmem = 48 * 1024;              // x slice + reduction, static limit
 constexpr int U = 4;                             // weight rows a lane loads at once
 
-// VEC bytes of one weight row, read once: no L1 allocation. Volatile, so
-// the compiler issues each load where it is written (a batch ahead of its
-// use) instead of sinking it to the first use.
-template <int VEC>
-__device__ __forceinline__ void load_stream(uint32_t (&w)[VEC / 4], const int8_t* p) {
-  if constexpr (VEC == 16)
-    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(p));
-  else
-    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(w[0]) : "l"(p));
-}
-
 // VEC f32 scales of one group (int4), kept in L1: a warp's four rows share them.
 template <int VEC>
 __device__ __forceinline__ void load_scales(float (&sc)[VEC], const float* p) {
@@ -258,16 +151,6 @@ __device__ __forceinline__ void load_scales(float (&sc)[VEC], const float* p) {
                  : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p + 4 * i));
     sc[4 * i] = v.x; sc[4 * i + 1] = v.y; sc[4 * i + 2] = v.z; sc[4 * i + 3] = v.w;
   }
-}
-
-// 16 bytes that convert to 0: int8 zeros; int4 bytes 0x08 (a low nibble of
-// 8 is 0 after its +8 bias, a high nibble of 0 is 0).
-__device__ __align__(16) const uint32_t kNeutral[2][4] = {
-    {0u, 0u, 0u, 0u}, {0x08080808u, 0x08080808u, 0x08080808u, 0x08080808u}};
-
-// Byte i of t placed in the mantissa of 2^23: the float 2^23 + byte, exact.
-__device__ __forceinline__ float magic(uint32_t t, int i) {
-  return __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7440u + i));
 }
 
 // One row: out[c] = sum over the block's slice of the contraction, for a
@@ -449,7 +332,326 @@ cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, f
 
 }  // namespace row
 
-int rows_per_block(int rows) { return rows >= 8 ? 8 : rows >= 4 ? 4 : rows >= 2 ? 2 : 1; }
+// ------------------------------------------------------------ 2-32 rows --
+
+namespace rows {
+
+constexpr int kThreads = 256;                    // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kStep = 16;                        // weight rows of one warp step (one k16)
+constexpr int kBlockStep = kWarps * kStep;       // kchunk is a multiple of this
+
+// d += a * b: a 16x16 bf16 tile (weights: 16 columns x 16 k), b 16x8 (x:
+// 16 k x 8 rows), f32 sums
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                    uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Bytes of dynamic shared memory the kernel takes: the slice of x (NT * 8
+// rows of kchunk * XW bf16 values, each row padded by 32 * XW bytes so a
+// warp's reads of 4 (int4: 2) rows fall in distinct banks) and, for int4,
+// the slice's scales (one row of cols floats a group it touches); after
+// the loop the same space holds the warps' sums (4 warps' [NT * 8, cols]
+// in the reduction's first round, then the block's own [NT * 8, cols]).
+__host__ __device__ inline long long smem_bytes(int bits, int nt, int vec, int kchunk,
+                                                int group_half) {
+  const int xw = bits == 8 ? 1 : 2, cols = 8 * vec;
+  const long long x = 8LL * nt * (2LL * kchunk * xw + 32 * xw);
+  const long long s = bits == 8 ? 0 : ((kchunk + group_half - 1) / group_half + 1) * 4LL * cols;
+  const long long red = 5LL * 8 * nt * cols * 4;
+  return x + s > red ? x + s : red;
+}
+
+// rows <= 8 * NT of x against a tile of 8 * VEC columns and the block's
+// slice of the contraction. BITS 8: q [depth, dout] int8, s [dout]; BITS
+// 4: q packed [depth, dout] (depth = din / 2), s [din / group, dout]. grid
+// (ceil(dout / (8 * VEC)), ksplit); kchunk % kBlockStep == 0; for BITS 4
+// group_half % 4 == 0 (a lane's four packed rows share one scale group).
+template <int BITS, int NT, int VEC, int STAGES>
+__global__ void __launch_bounds__(kThreads, NT == 4 ? 1 : 2) rows_kernel(
+    const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
+    float* __restrict__ out, float* __restrict__ part, int rows, int din, int depth, int dout,
+    int kchunk, int group_half, int one_launch) {
+  constexpr int kCols = 8 * VEC;                 // the block's output columns
+  constexpr int kWords = VEC / 4;
+  constexpr int kM = VEC / 2;                    // m-tiles: 2 of a lane's columns each
+  constexpr int XW = BITS == 8 ? 1 : 2;          // x values a weight row
+  constexpr int kRowsX = 8 * NT;
+  constexpr int kAcc = NT * kM * 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xstride = 2 * kchunk * XW + 32 * XW; // bytes a row of the x slice
+  unsigned char* xs = smem;
+  float* ss = reinterpret_cast<float*>(smem + kRowsX * xstride);  // int4: [groups][kCols]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = blockIdx.x * kCols, col = c0 + g * VEC;
+  const bool col_ok = col < dout;                // dout % VEC == 0
+  const int kbeg = blockIdx.y * kchunk, kend = min(depth, kbeg + kchunk);
+  const int per_warp = kchunk / kWarps;
+  const int wbeg = kbeg + warp * per_warp, wend = min(kend, wbeg + per_warp);
+  const int n_it = wend > wbeg ? (wend - wbeg + kStep - 1) / kStep : 0;
+  const int r0 = wbeg + 4 * t;                   // the lane's first weight row
+  const int grp0 = BITS == 4 ? kbeg / group_half : 0;
+
+  float acc[NT][kM][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int m = 0; m < kM; ++m) acc[n][m][0] = acc[n][m][1] = acc[n][m][2] = acc[n][m][3] = 0.f;
+  uint32_t buf[STAGES][4][kWords];
+
+  // Every load is issued: a masked row (past the warp's run, or columns
+  // past dout) reads kNeutral, whose words convert to 0.
+  const int8_t* neutral = reinterpret_cast<const int8_t*>(kNeutral[BITS == 8 ? 0 : 1]);
+  auto load = [&](uint32_t (&b)[4][kWords], int it) {
+    const int r = r0 + it * kStep;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool ok = col_ok && r + j < wend;
+      load_stream<VEC>(b[j], ok ? q + (long long)(r + j) * dout + col : neutral);
+    }
+  };
+
+  auto compute = [&](const uint32_t (&b)[4][kWords], int it) {
+    const int r = r0 + it * kStep;
+    // B fragments: x[n][4t .. 4t+3] of each n-tile (int4: logical rows 8t
+    // .. 8t+7, even ones first)
+    uint32_t bx[NT][2 * XW];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const unsigned char* p = xs + (n * 8 + g) * xstride + (r - kbeg) * 2 * XW;
+      if constexpr (BITS == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        bx[n][0] = v.x; bx[n][1] = v.y;
+      } else {
+        const uint4 v = *reinterpret_cast<const uint4*>(p);
+        bx[n][0] = v.x; bx[n][1] = v.y; bx[n][2] = v.z; bx[n][3] = v.w;
+      }
+    }
+    const float* sc = ss + (r / group_half - grp0) * kCols + g * VEC;  // int4 only
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      uint32_t tw[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tw[j] = b[j][w] ^ 0x80808080u;  // each byte (int4: nibble) + 128 (+ 8)
+      if constexpr (BITS == 8) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // m-tile 2w + h: bytes 2h, 2h + 1 of word w
+          const int i0 = 2 * h, i1 = 2 * h + 1;
+          auto f = [&](int j, int i) { return magic(tw[j], i) - 8388736.f; };
+          const uint32_t a0 = bf16x2(f(0, i0), f(1, i0)), a1 = bf16x2(f(0, i1), f(1, i1));
+          const uint32_t a2 = bf16x2(f(2, i0), f(3, i0)), a3 = bf16x2(f(2, i1), f(3, i1));
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma(acc[n][2 * w + h], a0, a1, a2, a3, bx[n][0], bx[n][1]);
+        }
+      } else {
+        const float4 s4 = *reinterpret_cast<const float4*>(sc + 4 * w);
+        const float scw[4] = {s4.x, s4.y, s4.z, s4.w};
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lo[j] = tw[j] & 0x0F0F0F0Fu;
+          hi[j] = (tw[j] >> 4) & 0x0F0F0F0Fu;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i0 = 2 * h, i1 = 2 * h + 1;
+          const float s0 = scw[i0], s1 = scw[i1];
+          auto f = [&](const uint32_t (&v)[4], int j, int i, float sv) {
+            return (magic(v[j], i) - 8388616.f) * sv;
+          };
+          // low nibbles: even logical rows; high nibbles: odd ones
+          const uint32_t l0 = bf16x2(f(lo, 0, i0, s0), f(lo, 1, i0, s0));
+          const uint32_t l1 = bf16x2(f(lo, 0, i1, s1), f(lo, 1, i1, s1));
+          const uint32_t l2 = bf16x2(f(lo, 2, i0, s0), f(lo, 3, i0, s0));
+          const uint32_t l3 = bf16x2(f(lo, 2, i1, s1), f(lo, 3, i1, s1));
+          const uint32_t h0 = bf16x2(f(hi, 0, i0, s0), f(hi, 1, i0, s0));
+          const uint32_t h1 = bf16x2(f(hi, 0, i1, s1), f(hi, 1, i1, s1));
+          const uint32_t h2 = bf16x2(f(hi, 2, i0, s0), f(hi, 3, i0, s0));
+          const uint32_t h3 = bf16x2(f(hi, 2, i1, s1), f(hi, 3, i1, s1));
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            mma(acc[n][2 * w + h], l0, l1, l2, l3, bx[n][0], bx[n][1]);
+            mma(acc[n][2 * w + h], h0, h1, h2, h3, bx[n][2], bx[n][3]);
+          }
+        }
+      }
+    }
+  };
+
+  // the first batches go out before x is staged: their latency covers it
+#pragma unroll
+  for (int st = 0; st < STAGES; ++st)
+    if (st < n_it) load(buf[st], st);
+  {
+    // the slice of x as bf16, zeros past rows and past the slice; int4:
+    // each 8 logical rows reordered x0 x2 x4 x6 x1 x3 x5 x7
+    constexpr int UX = 4 * XW;                   // x values a unit (8 or 16 bytes)
+    const int per_row = kchunk * XW / UX, kl0 = kbeg * XW, kl1 = kend * XW;
+    for (int i = tid; i < kRowsX * per_row; i += kThreads) {
+      const int n = i / per_row, u = i % per_row, k = kl0 + u * UX;
+      const bool in = n < rows && k < kl1;       // kl1 % UX == 0
+      unsigned char* dst = xs + n * xstride + u * UX * 2;
+      if constexpr (BITS == 8) {
+        uint2 v = make_uint2(0u, 0u);
+        if (in) v = *reinterpret_cast<const uint2*>(x + (long long)n * din + k);
+        *reinterpret_cast<uint2*>(dst) = v;
+      } else {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (in) v = *reinterpret_cast<const uint4*>(x + (long long)n * din + k);
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(__byte_perm(v.x, v.y, 0x5410), __byte_perm(v.z, v.w, 0x5410),
+                       __byte_perm(v.x, v.y, 0x7632), __byte_perm(v.z, v.w, 0x7632));
+      }
+    }
+    if constexpr (BITS == 4) {
+      const int n_grp = (kend - 1) / group_half - grp0 + 1;
+      for (int i = tid; i < n_grp * (kCols / 4); i += kThreads) {
+        const int gi = i / (kCols / 4), c = (i % (kCols / 4)) * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c0 + c < dout)                       // dout % 4 == 0
+          v = *reinterpret_cast<const float4*>(s + (long long)(grp0 + gi) * dout + c0 + c);
+        *reinterpret_cast<float4*>(ss + gi * kCols + c) = v;
+      }
+    }
+  }
+  __syncthreads();
+  for (int it = 0; it < n_it; it += STAGES) {
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) {
+      if (it + st >= n_it) break;
+      compute(buf[st], it + st);
+      if (it + st + STAGES < n_it) load(buf[st], it + st + STAGES);
+    }
+  }
+
+  // the 8 warps' sums in three rounds, each through shared memory in lane
+  // order: warp w += warp w + half, for half 4, 2, 1
+  float* red = reinterpret_cast<float*>(smem);
+  __syncthreads();                               // the x slice is read no more
+#pragma unroll
+  for (int half = kWarps / 2; half >= 1; half /= 2) {
+    if (warp >= half && warp < 2 * half) {
+      float* dst = red + (warp - half) * kAcc * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int m = 0; m < kM; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dst[((n * kM + m) * 4 + c) * 32] = acc[n][m][c];
+    }
+    __syncthreads();
+    if (warp < half) {
+      const float* src = red + warp * kAcc * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int m = 0; m < kM; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[n][m][c] += src[((n * kM + m) * 4 + c) * 32];
+    }
+    __syncthreads();
+  }
+  // the block's sums [kRowsX][kCols]: acc[n][m] holds rows 8n + 2t, 8n +
+  // 2t + 1 at columns VEC*g + 2m, VEC*g + 2m + 1
+  float* slice = red + 4 * kAcc * 32;
+  if (warp == 0) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        const int rr = n * 8 + 2 * t, cc = g * VEC + 2 * m;
+        *reinterpret_cast<float2*>(slice + rr * kCols + cc) =
+            make_float2(acc[n][m][0], acc[n][m][2]);
+        *reinterpret_cast<float2*>(slice + (rr + 1) * kCols + cc) =
+            make_float2(acc[n][m][1], acc[n][m][3]);
+      }
+  }
+  __syncthreads();
+  if (one_launch) {
+    // the launch made the ksplit slices of a column tile one cluster: rank
+    // 0 adds their sums in slice order, as finish_kernel does, through
+    // distributed shared memory; the second sync keeps every block's
+    // shared memory alive until rank 0 has read it
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (cluster.block_rank() == 0) {
+      for (int i = tid; i < rows * kCols; i += kThreads) {
+        const int n = i / kCols, oc = c0 + i % kCols;
+        if (oc >= dout) continue;
+        float v = 0.f;
+        for (int r = 0; r < int(gridDim.y); ++r) v += cluster.map_shared_rank(slice, r)[i];
+        out[(long long)n * dout + oc] = BITS == 8 ? v * s[oc] : v;
+      }
+    }
+    cluster.sync();
+  } else {
+    for (int i = tid; i < rows * kCols; i += kThreads) {
+      const int n = i / kCols, oc = c0 + i % kCols;
+      if (oc >= dout) continue;
+      const long long o = (long long)n * dout + oc;
+      if (gridDim.y > 1)
+        part[(long long)blockIdx.y * rows * dout + o] = slice[i];
+      else
+        out[o] = BITS == 8 ? slice[i] * s[oc] : slice[i];
+    }
+  }
+}
+
+template <int BITS, int NT, int VEC>
+cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, float* part,
+                   int rows, int din, int depth, int dout, int kchunk, int ksplit,
+                   int group_half, bool one_launch, int smem, cudaStream_t st) {
+  // a lane keeps STAGES batches of 4 loads in flight: three where the sums
+  // leave the registers for them
+  constexpr int STAGES = NT == 2 ? 2 : 3;
+  auto kernel = rows_kernel<BITS, NT, VEC, STAGES>;
+  static int smem_set = 48 * 1024;               // the default limit
+  if (smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  constexpr int kCols = 8 * VEC;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((dout + kCols - 1) / kCols, ksplit);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = size_t(smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = ksplit;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = one_launch ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, x, q, s, out, part, rows, din, depth, dout, kchunk,
+                            group_half, int(one_launch));
+}
+
+template <int BITS, int VEC>
+cudaError_t launch_tiles(int nt, const bf16* x, const int8_t* q, const float* s, float* out,
+                         float* part, int rows, int din, int depth, int dout, int kchunk,
+                         int ksplit, int group_half, bool one_launch, int smem,
+                         cudaStream_t st) {
+  switch (nt) {
+    case 1: return launch<BITS, 1, VEC>(x, q, s, out, part, rows, din, depth, dout, kchunk,
+                                        ksplit, group_half, one_launch, smem, st);
+    case 2: return launch<BITS, 2, VEC>(x, q, s, out, part, rows, din, depth, dout, kchunk,
+                                        ksplit, group_half, one_launch, smem, st);
+    default: return launch<BITS, 4, VEC>(x, q, s, out, part, rows, din, depth, dout, kchunk,
+                                         ksplit, group_half, one_launch, smem, st);
+  }
+}
+
+}  // namespace rows
 
 bool aligned(const void* p, uintptr_t a) { return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0; }
 
@@ -459,67 +661,58 @@ extern "C" const char* ufv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x [rows, din] bf16, q [din, dout] int8, scale [dout] f32 -> out [rows,
-// dout] f32. The contraction is cut into ksplit slices of kchunk rows
-// (kchunk % 32 == 0, ksplit * kchunk >= din); part holds ksplit * rows *
-// dout floats (unused when ksplit == 1). din % 4 == 0, dout % 4 == 0.
-extern "C" int int8_matvec_bf16(const void* x, const void* q, const void* scale, void* out,
-                                void* part, int rows, int din, int dout, int ksplit,
-                                int kchunk, void* stream) {
-  if (rows <= 0 || din <= 0 || dout <= 0 || din % 4 || dout % 4 || ksplit <= 0 ||
-      kchunk <= 0 || kchunk % kRowStep || (long long)ksplit * kchunk < din || ksplit > 65535)
+// 2 to 32 rows (1 is taken too): x [rows, din] bf16; bits 8: q [din, dout]
+// int8, s [dout] f32; bits 4: q [din / 2, dout] packed, s [din / group,
+// dout] f32 -> out [rows, dout] f32. The plan (ops/quant_matmul.rows_plan):
+// tiles n-tiles of 8 rows (1, 2 or 4; rows <= 8 * tiles), vec bytes a lane
+// loads a weight row (16 or 4), ksplit slices of kchunk weight rows (packed
+// rows for int4), kchunk a multiple of 128, ksplit * kchunk >= depth >
+// (ksplit - 1) * kchunk, smem bytes of dynamic shared memory (at least
+// rows::smem_bytes, at most 113 KB below 4 tiles, two blocks an SM, else
+// 227 KB). cluster 1: the slices' sums go to part (ksplit * rows * dout
+// floats, unused when ksplit == 1) and a second pass adds them; cluster ==
+// ksplit (2..8): one launch. x is 8-byte aligned (int4: 16), din % 4 == 0
+// (int4: din % 8 == 0, group % 8 == 0).
+extern "C" int quant_matmul_rows(const void* x, const void* q, const void* s, void* out,
+                                 void* part, int bits, int rows, int din, int dout, int group,
+                                 int tiles, int vec, int ksplit, int kchunk, int cluster,
+                                 int smem, void* stream) {
+  const int depth = bits == 8 ? din : din / 2;
+  if ((bits != 8 && bits != 4) || (vec != 16 && vec != 4) ||
+      (tiles != 1 && tiles != 2 && tiles != 4) || rows <= 0 || rows > 8 * tiles || din <= 0 ||
+      dout <= 0 || depth % 4 || dout % vec || ksplit <= 0 || ksplit > 65535 || kchunk <= 0 ||
+      kchunk % rows::kBlockStep || (long long)ksplit * kchunk < depth ||
+      (long long)(ksplit - 1) * kchunk >= depth)
     return int(cudaErrorInvalidValue);
-  if (!aligned(x, 8) || !aligned(q, 4)) return int(cudaErrorMisalignedAddress);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rb = rows_per_block(rows);
-  dim3 grid((dout + kCols - 1) / kCols, ksplit, (rows + rb - 1) / rb);
-  if (grid.z > 65535) return int(cudaErrorInvalidValue);
-  const bf16* X = static_cast<const bf16*>(x);
-  const int8_t* Q = static_cast<const int8_t*>(q);
-  const float* S = static_cast<const float*>(scale);
-  float* O = static_cast<float*>(out);
-  float* P = static_cast<float*>(part);
-  switch (rb) {
-    case 1: int8_matvec_kernel<1><<<grid, kThreads, 0, st>>>(X, Q, S, O, P, rows, din, dout, kchunk); break;
-    case 2: int8_matvec_kernel<2><<<grid, kThreads, 0, st>>>(X, Q, S, O, P, rows, din, dout, kchunk); break;
-    case 4: int8_matvec_kernel<4><<<grid, kThreads, 0, st>>>(X, Q, S, O, P, rows, din, dout, kchunk); break;
-    default: int8_matvec_kernel<8><<<grid, kThreads, 0, st>>>(X, Q, S, O, P, rows, din, dout, kchunk); break;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  return int(finish(P, S, O, rows, dout, ksplit, st));
-}
-
-// x [rows, din] bf16, q [din / 2, dout] packed int8, s [din / group, dout]
-// f32 -> out [rows, dout] f32. kchunk counts packed rows: kchunk % 32 == 0,
-// ksplit * kchunk >= din / 2. din % 8 == 0, dout % 4 == 0, group % 8 == 0.
-extern "C" int int4_matmul_bf16(const void* x, const void* q, const void* s, void* out,
-                                void* part, int rows, int din, int dout, int group,
-                                int ksplit, int kchunk, void* stream) {
-  if (rows <= 0 || din <= 0 || dout <= 0 || din % 8 || dout % 4 || group <= 0 || group % 8 ||
-      din % group || ksplit <= 0 || kchunk <= 0 || kchunk % kRowStep ||
-      (long long)ksplit * kchunk < din / 2 || ksplit > 65535)
+  if (bits == 4 && (group <= 0 || group % 8 || din % group)) return int(cudaErrorInvalidValue);
+  const int gh = bits == 4 ? group / 2 : 1;
+  if (smem < rows::smem_bytes(bits, tiles, vec, kchunk, gh) ||
+      smem > (tiles == 4 ? 227 : 113) * 1024)
     return int(cudaErrorInvalidValue);
-  if (!aligned(x, 8) || !aligned(q, 4) || !aligned(s, 16)) return int(cudaErrorMisalignedAddress);
+  const bool one_launch = cluster > 1;
+  if (cluster < 1 || (one_launch && (cluster != ksplit || cluster > 8)))
+    return int(cudaErrorInvalidValue);
+  if (!aligned(q, vec) || !aligned(x, bits == 8 ? 8 : 16) || (bits == 4 && !aligned(s, 16)))
+    return int(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rb = rows_per_block(rows);
-  dim3 grid((dout + kCols - 1) / kCols, ksplit, (rows + rb - 1) / rb);
-  if (grid.z > 65535) return int(cudaErrorInvalidValue);
   const bf16* X = static_cast<const bf16*>(x);
   const int8_t* Q = static_cast<const int8_t*>(q);
   const float* S = static_cast<const float*>(s);
   float* O = static_cast<float*>(out);
   float* P = static_cast<float*>(part);
-  const int gh = group / 2;
-  switch (rb) {
-    case 1: int4_matmul_kernel<1><<<grid, kThreads, 0, st>>>(X, Q, S, O, P, rows, din, dout, kchunk, gh); break;
-    case 2: int4_matmul_kernel<2><<<grid, kThreads, 0, st>>>(X, Q, S, O, P, rows, din, dout, kchunk, gh); break;
-    case 4: int4_matmul_kernel<4><<<grid, kThreads, 0, st>>>(X, Q, S, O, P, rows, din, dout, kchunk, gh); break;
-    default: int4_matmul_kernel<8><<<grid, kThreads, 0, st>>>(X, Q, S, O, P, rows, din, dout, kchunk, gh); break;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  return int(finish(P, nullptr, O, rows, dout, ksplit, st));
+  cudaError_t err;
+  if (bits == 8)
+    err = vec == 16 ? rows::launch_tiles<8, 16>(tiles, X, Q, S, O, P, rows, din, depth, dout,
+                                                kchunk, ksplit, gh, one_launch, smem, st)
+                    : rows::launch_tiles<8, 4>(tiles, X, Q, S, O, P, rows, din, depth, dout,
+                                               kchunk, ksplit, gh, one_launch, smem, st);
+  else
+    err = vec == 16 ? rows::launch_tiles<4, 16>(tiles, X, Q, S, O, P, rows, din, depth, dout,
+                                                kchunk, ksplit, gh, one_launch, smem, st)
+                    : rows::launch_tiles<4, 4>(tiles, X, Q, S, O, P, rows, din, depth, dout,
+                                               kchunk, ksplit, gh, one_launch, smem, st);
+  if (err != cudaSuccess || one_launch) return int(err);
+  return int(finish(P, bits == 8 ? S : nullptr, O, rows, dout, ksplit, st));
 }
 
 // One row: x [din] bf16; bits 8: q [din, dout] int8, s [dout] f32; bits 4:

@@ -14,14 +14,15 @@ Each wrapper replaces one TPU kernel of ``ufvideo_tpu/ops/quant_matmul.py``:
 
 The CUDA source is ``csrc/quant_matmul.cu`` (written and verified on the
 card); its header comment gives the bound on an H100 (the bytes of the
-weights and scales) and both designs. One row, the count every decode step
-launches, takes the weight-streaming template whose grid ``matvec_plan``
-sizes (16-byte loads, the contraction split so the grid fills the card,
-the slices added in a fixed order in the same launch by a thread-block
-cluster, or by a second pass); ``matvec_slices_plain`` is its split in
-plain PyTorch. 2 to 32 rows take the older kernel, split by ``split_k``. Each
-wrapper keeps what it launched in ``last_plan``: a ``MatvecPlan`` for one
-row, ``split_k``'s (ksplit, kchunk) otherwise.
+weights and scales) and both designs. Both stream each weight byte from
+device memory once, split the contraction so the grid fills the card and
+add the slices in a fixed order, in the same launch by a thread-block
+cluster or by a second pass. One row, the count a decode step at batch 1
+launches, takes the CUDA-core template whose grid ``matvec_plan`` sizes;
+2 to 32 rows (a batched decode step) take the tensor-core template whose
+grid ``rows_plan`` sizes. ``matvec_slices_plain`` / ``rows_slices_plain``
+are their splits in plain PyTorch. Each wrapper keeps what it launched in
+``last_plan``: a ``MatvecPlan`` for one row, a ``RowsPlan`` otherwise.
 
 Both take at most ``MAX_ROWS`` rows, the JAX package's own limit; a caller
 with more rows dequantises and runs one ``torch.matmul`` (``QuantLinear``).
@@ -45,21 +46,15 @@ from .. import _build
 from ..quant import unpack_int4
 
 MAX_ROWS = 32
-_ROW_STEP = 32  # weight rows per block step (csrc/quant_matmul.cu kRowStep)
-_COLS = 128  # output columns per block
-_TARGET_BLOCKS = 528  # 4 blocks on each of the 132 SMs
-_MIN_CHUNK = 256  # weight rows per slice of the contraction, at least
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quant_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.int8_matvec_bf16.argtypes = [p] * 5 + [i] * 5 + [p]
-    lib.int4_matmul_bf16.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.quant_matmul_rows.argtypes = [p] * 5 + [i] * 11 + [p]
     lib.quant_matvec_row.argtypes = [p] * 5 + [i] * 8 + [p]
-    lib.int8_matvec_bf16.restype = ctypes.c_int
-    lib.int4_matmul_bf16.restype = ctypes.c_int
+    lib.quant_matmul_rows.restype = ctypes.c_int
     lib.quant_matvec_row.restype = ctypes.c_int
     return lib
 
@@ -67,16 +62,6 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def split_k(rows: int, depth: int, dout: int) -> tuple:
-    """(ksplit, kchunk): cut a contraction of ``depth`` weight rows into
-    slices so that the grid has about ``_TARGET_BLOCKS`` blocks; a slice is
-    a multiple of 32 rows and at least ``_MIN_CHUNK``."""
-    tiles = -(-dout // _COLS) * -(-rows // 8)
-    want = max(1, min(-(-_TARGET_BLOCKS // tiles), depth // _MIN_CHUNK))
-    kchunk = -(-(-(-depth // want)) // _ROW_STEP) * _ROW_STEP
-    return -(-depth // kchunk), kchunk
 
 
 # the one-row kernel (csrc/quant_matmul.cu, namespace row): 8 warps, 8 lanes
@@ -151,22 +136,122 @@ def split_rows(depth: int, dout: int, vec: int, want: int, one_launch: bool = Tr
                       -(-dout // cols) * ksplit)
 
 
+def _slices_plain(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, ksplit: int,
+                  kchunk: int, bits: int, group: int) -> torch.Tensor:
+    """x2 [rows, din] through a split of the contraction into ``ksplit``
+    slices of ``kchunk`` weight rows (packed rows for int4). → [rows, dout]."""
+    x2 = x2.to(torch.bfloat16).float()
+    if bits == 8:
+        w, per_row = q.float(), 1
+    else:
+        w, per_row = dequantize_int4(q, s, group, torch.bfloat16).float(), 2
+    total = torch.zeros((x2.shape[0], q.shape[1]), dtype=torch.float32, device=x2.device)
+    for i in range(ksplit):
+        lo = i * kchunk * per_row
+        hi = min(w.shape[0], (i + 1) * kchunk * per_row)
+        total = total + x2[:, lo:hi] @ w[lo:hi]
+    return total * s.float() if bits == 8 else total
+
+
 def matvec_slices_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, plan: MatvecPlan,
                         bits: int, group: int = 64) -> torch.Tensor:
     """One row through the plan's split in plain PyTorch: each slice's f32
     sum over its weight rows, the slices added in order, then (int8) the
     column scale, as the kernel's second pass does. → [dout] f32."""
-    x1 = x.reshape(-1).to(torch.bfloat16).float()
-    if bits == 8:
-        w, per_row = q.float(), 1
+    return _slices_plain(x.reshape(1, -1), q, s, plan.ksplit, plan.kchunk, bits, group)[0]
+
+
+# the 2-32-row kernel (csrc/quant_matmul.cu, namespace rows): 8 warps, each
+# walking its own run of the slice 16 weight rows (packed rows for int4) a
+# step, so a block step is 128 rows; 8 lanes across a weight row, so a
+# block's column tile is 8 * vec
+_RW_STEP = 128
+# dynamic shared memory a block: two blocks an SM hold under 4 n-tiles (at
+# most 128 registers a thread), one at 4 (its 128 f32 sums a lane)
+_RW_SMEM = {1: 113 * 1024, 2: 113 * 1024, 4: 227 * 1024}
+_RW_RESIDENT = {1: 2, 2: 2, 4: 1}
+
+
+class RowsPlan(NamedTuple):
+    """The 2-32-row kernel's grid. ``rows`` of x in ``tiles`` n-tiles of 8
+    (1, 2 or 4); ``vec``: bytes a lane loads from a weight row (16, or 4
+    where the rows are not 16-byte aligned); ``cols``: output columns a
+    block; ``ksplit`` slices of ``kchunk`` weight rows (packed rows for
+    int4) each; ``cluster``: ``ksplit`` where the slices of a column tile
+    form one thread-block cluster that adds them in the same launch, else 1
+    (a second pass adds them); ``blocks``: the grid; ``smem``: bytes of
+    dynamic shared memory a block (x's slice, int4's scales, the sums)."""
+
+    rows: int
+    tiles: int
+    vec: int
+    cols: int
+    ksplit: int
+    kchunk: int
+    cluster: int
+    blocks: int
+    smem: int
+
+
+def rows_smem(bits: int, tiles: int, vec: int, kchunk: int, group: int = 64) -> int:
+    """Dynamic shared memory of one block (csrc/quant_matmul.cu
+    rows::smem_bytes): the slice of x as bf16 (8 * tiles rows of kchunk
+    weight rows' x values, each row padded by 32 bytes a value of a weight
+    row), int4's scales of the groups the slice touches, or, where larger,
+    the warps' sums (four warps' and the block's own [8 * tiles, cols]
+    f32)."""
+    xw, cols = (1 if bits == 8 else 2), 8 * vec
+    x = 8 * tiles * (2 * kchunk * xw + 32 * xw)
+    scales = 0 if bits == 8 else (-(-kchunk // (group // 2)) + 1) * 4 * cols
+    return max(x + scales, 5 * 8 * tiles * cols * 4)
+
+
+@functools.cache
+def rows_plan(rows: int, din: int, dout: int, bits: int, sm_count: int, aligned: bool = True,
+              group: int = 64) -> RowsPlan:
+    """The 2-32-row kernel's grid for ``rows`` of x against a [din, dout]
+    weight of ``bits`` bits (int4: ``group`` logical rows a scale) on a
+    card of ``sm_count`` SMs, from shapes alone, so a shape always launches
+    the same grid and sums in the same order. ``aligned``: the weight
+    starts on 16 bytes.
+
+    As ``matvec_plan``: where one wave of clusters holds two or more slices
+    of every column tile, as many as fit; else slices to ``_MV_MANY``
+    blocks an SM (two where one block fills an SM); slices longer than
+    shared memory holds are cut further. The slices of a column tile form
+    one cluster (one launch) wherever there are 2 to 8 of them: at many
+    rows a second pass would move rows * dout floats a slice twice."""
+    depth = din if bits == 8 else din // 2
+    tiles = 1 if rows <= 8 else 2 if rows <= 16 else 4
+    vec = 16 if aligned and dout % 16 == 0 else 4
+    cols = 8 * vec
+    col_tiles = -(-dout // cols)
+    resident = _RW_RESIDENT[tiles]
+    wave = int(_MV_WAVE / 2 * resident * sm_count)
+    if 2 * col_tiles <= wave:
+        want = min(wave // col_tiles, _MV_MAX_CLUSTER)
     else:
-        w, per_row = dequantize_int4(q, s, group, torch.bfloat16).float(), 2
-    total = torch.zeros(q.shape[1], dtype=torch.float32, device=x.device)
-    for i in range(plan.ksplit):
-        lo = i * plan.kchunk * per_row
-        hi = min(w.shape[0], (i + 1) * plan.kchunk * per_row)
-        total = total + x1[lo:hi] @ w[lo:hi]
-    return total * s.float() if bits == 8 else total
+        want = -(-_MV_MANY * resident // 2 * sm_count // col_tiles)
+    steps = -(-depth // _RW_STEP)
+    max_steps = steps
+    while max_steps > 1 and rows_smem(bits, tiles, vec, max_steps * _RW_STEP, group) \
+            > _RW_SMEM[tiles]:
+        max_steps -= 1
+    per_slice = max(1, min(-(-steps // want), max_steps))
+    ksplit = -(-steps // per_slice)
+    kchunk = per_slice * _RW_STEP
+    cluster = ksplit if 1 < ksplit <= _MV_MAX_CLUSTER else 1
+    return RowsPlan(rows, tiles, vec, cols, ksplit, kchunk, cluster, col_tiles * ksplit,
+                    rows_smem(bits, tiles, vec, kchunk, group))
+
+
+def rows_slices_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, plan: RowsPlan,
+                      bits: int, group: int = 64) -> torch.Tensor:
+    """Rows of x through the 2-32-row plan's split in plain PyTorch: each
+    slice's f32 sums over its weight rows, the slices added in order, then
+    (int8) the column scale. → [rows, dout] f32."""
+    return _slices_plain(x.reshape(-1, x.shape[-1]), q, s, plan.ksplit, plan.kchunk, bits,
+                         group)
 
 
 _scratch: dict = {}
@@ -204,35 +289,40 @@ def _launch_row(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, bits: int, g
     return out
 
 
-def _launch_rows(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, bits: int,
-                 group: int) -> torch.Tensor:
-    """The 2-32-row kernel (any row count it takes), split by ``split_k``,
-    after the wrappers' checks; adds one to the public wrapper's count and
-    keeps (ksplit, kchunk) in its ``last_plan``. → [rows, dout] f32."""
+def _launch_rows(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, bits: int, group: int,
+                 plan: RowsPlan) -> torch.Tensor:
+    """The 2-32-row kernel at a given plan, after the wrappers' checks
+    (``plan.rows`` rows of x, bf16, contiguous); adds one to the public
+    wrapper's count and keeps the plan in its ``last_plan``. → [rows, dout]
+    f32."""
     rows, din = x2.shape
     dout = q.shape[1]
-    ksplit, kchunk = split_k(rows, q.shape[0], dout)
+    if x2.data_ptr() % 16:  # the kernel stages x in 8- (int4: 16-) byte units
+        x2 = x2.clone()
     out = torch.empty((rows, dout), dtype=torch.float32, device=x2.device)
-    part = out if ksplit == 1 else torch.empty(
-        (ksplit, rows, dout), dtype=torch.float32, device=x2.device)
+    two_pass = plan.ksplit > 1 and plan.cluster == 1
+    part = _part(x2.device, plan.ksplit * rows * dout) if two_pass else out
     lib = _lib()
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    ptrs = (x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), part.data_ptr())
-    if bits == 8:
-        code = lib.int8_matvec_bf16(*ptrs, rows, din, dout, ksplit, kchunk, stream)
-        wrapper = int8_matvec
-    else:
-        code = lib.int4_matmul_bf16(*ptrs, rows, din, dout, group, ksplit, kchunk, stream)
-        wrapper = int4_matmul
+    code = lib.quant_matmul_rows(
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), part.data_ptr(), bits, rows,
+        din, dout, group, plan.tiles, plan.vec, plan.ksplit, plan.kchunk, plan.cluster,
+        plan.smem, torch.cuda.current_stream(x2.device).cuda_stream,
+    )
+    wrapper = int8_matvec if bits == 8 else int4_matmul
     _build.check(lib, code, wrapper.__name__)
     wrapper.launches += 1
-    wrapper.last_plan = (ksplit, kchunk)
+    wrapper.last_plan = plan
     return out
 
 
 def _row_plan(x2: torch.Tensor, q: torch.Tensor, bits: int) -> MatvecPlan:
     return matvec_plan(x2.shape[1], q.shape[1], bits, _sm_count(x2.device.index or 0),
                        q.data_ptr() % 16 == 0)
+
+
+def _rows_plan(x2: torch.Tensor, q: torch.Tensor, bits: int, group: int = 64) -> RowsPlan:
+    return rows_plan(x2.shape[0], x2.shape[1], q.shape[1], bits,
+                     _sm_count(x2.device.index or 0), q.data_ptr() % 16 == 0, group)
 
 
 def _rows2d(x: torch.Tensor):
@@ -280,7 +370,7 @@ def int8_matvec(
     if rows == 1:
         out = _launch_row(x2, q, scale, 8, 0, _row_plan(x2, q, 8))
     else:
-        out = _launch_rows(x2, q, scale, 8, 0)
+        out = _launch_rows(x2, q, scale, 8, 0, _rows_plan(x2, q, 8))
     return out.reshape(*lead, dout)
 
 
@@ -331,7 +421,7 @@ def int4_matmul(
     if rows == 1:
         out = _launch_row(x2, q8, scales, 4, group, _row_plan(x2, q8, 4))
     else:
-        out = _launch_rows(x2, q8, scales, 4, group)
+        out = _launch_rows(x2, q8, scales, 4, group, _rows_plan(x2, q8, 4, group))
     return out.reshape(*lead, dout)
 
 
