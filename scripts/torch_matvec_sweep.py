@@ -71,7 +71,7 @@ def rows_grids(rows, din, dout, bits, sms):
         per_slice = -(-steps // want)
         kchunk = per_slice * qm._RW_STEP
         smem = qm.rows_smem(bits, plan.tiles, plan.vec, kchunk, GROUP)
-        if smem > qm._RW_SMEM[plan.tiles]:
+        if smem > qm._RW_SMEM:
             continue
         ksplit = -(-steps // per_slice)
         for cluster in {1, ksplit}:

@@ -568,7 +568,8 @@ def test_quant_rows_kernel_matches_plain_at_each_split(dev, bits, group, din, do
     for rows in RW_ROWS:
         x, q, s = _rows_inputs(dev, bits, rows, din, dout, group, offset=offset)
         plan = qm.rows_plan(rows, din, dout, bits, sms, offset == 0, group)
-        assert plan.vec == (16 if offset == 0 and dout % 16 == 0 else 4)
+        wide = 8 if plan.tiles == 4 else 16
+        assert plan.vec == (wide if offset == 0 and dout % wide == 0 else 4)
         want = _row_plain(x, q, s, bits, group)
         got = qm._launch_rows(x, q, s, bits, group, plan)
         torch.cuda.synchronize()
@@ -595,8 +596,8 @@ def test_quant_rows_kernel_int8_conversion_is_exact(dev, rows):
     for i in range(rows):
         x[i, ks[i % 4]] = 1
     got = qm.int8_matvec(x, q, s)
-    assert isinstance(qm.int8_matvec.last_plan, qm.RowsPlan)
-    assert qm.int8_matvec.last_plan.vec == 16
+    plan = qm.int8_matvec.last_plan
+    assert isinstance(plan, qm.RowsPlan) and plan.vec == (8 if plan.tiles == 4 else 16)
     for i in range(rows):
         assert torch.equal(got[i], q[ks[i % 4]].float() * s), i
 
@@ -631,7 +632,9 @@ def test_quant_rows_kernel_repeats_bit_for_bit(dev, bits, rows):
     wrapper = qm.int8_matvec if bits == 8 else qm.int4_matmul
     args = (x, q, s) + ((64,) if bits == 4 else ())
     first = wrapper(*args)
-    assert wrapper.last_plan.cluster > 1
+    # slices added in one launch at 8 rows, by the second pass at 32
+    plan = wrapper.last_plan
+    assert plan.ksplit > 1 and (plan.cluster > 1) == (rows == 8)
     assert torch.equal(first, wrapper(*args))
 
 

@@ -7,10 +7,10 @@ the int8 scale last), held against ``int8_matvec_plain`` /
 
 Plan: whole block steps cover the contraction with no empty slice, one
 n-tile of 8 rows for the serving batch of 8 (two at 9-16 rows, four
-above), 16-byte loads only where every weight row starts on 16 bytes, the
-slice of x (and int4's scales) and the warps' sums fit the shared memory
-the plan gives the block, and a split of 2 to 8 slices is one cluster that
-divides the grid.
+above), 16-byte loads (8 at four n-tiles) only where every weight row
+starts so aligned, the slice of x (and int4's scales) and the warps' sums
+fit the shared memory the plan gives the block, and below four n-tiles a
+split of 2 to 8 slices in one wave is one cluster that divides the grid.
 """
 
 import jax.numpy as jnp
@@ -26,9 +26,9 @@ H100_SMS = 132
 # (din, dout) of Qwen2-7B's projections: qkv, o, gate / up, down, lm_head
 QWEN2_7B = [(3584, 4608), (3584, 3584), (3584, 18944), (18944, 3584), (3584, 152064)]
 SMALL = [(256, 128), (256, 132), (1024, 260), (1096, 272), (1088, 132)]
-# bytes of dynamic shared memory a block may take: two blocks an SM below
-# four n-tiles, one at four (H100: 228 KB an SM, 1 KB of it kept a block)
-SMEM_CAP = {1: 113 * 1024, 2: 113 * 1024, 4: 227 * 1024}
+# bytes of dynamic shared memory a block may take: two blocks an SM (H100:
+# 228 KB an SM, 1 KB of it kept a block)
+SMEM_CAP = 113 * 1024
 
 
 def _group(din):
@@ -46,35 +46,43 @@ def test_rows_plan_covers_the_contraction_in_whole_steps(din, dout, rows, bits, 
     assert p.rows == rows and p.tiles == (1 if rows <= 8 else 2 if rows <= 16 else 4)
     assert p.kchunk % 128 == 0  # whole steps: 8 warps x 16 rows
     assert (p.ksplit - 1) * p.kchunk < depth <= p.ksplit * p.kchunk  # no empty slice
-    assert p.vec == (16 if aligned and dout % 16 == 0 else 4)
-    assert p.cols == 8 * p.vec and dout % p.vec == 0
+    # 16-byte loads below 4 n-tiles, 8-byte ones at 4 (two column groups of
+    # warps, so a lane's sums stay 64 floats), 4 bytes where rows are not
+    # aligned to the wide load
+    wide = 8 if p.tiles == 4 else 16
+    assert p.vec == (wide if aligned and dout % wide == 0 else 4)
+    assert p.cols == (2 if p.tiles == 4 else 1) * 8 * p.vec and dout % p.vec == 0
     assert p.blocks == -(-dout // p.cols) * p.ksplit
-    # one launch wherever the slices fit a portable cluster: the cluster is
+    # below 4 n-tiles, one launch where the slices fit a portable cluster
+    # and the clusters one wave (0.85 of two blocks an SM); the cluster is
     # a column tile's slices, so it divides the grid
-    assert p.cluster == (p.ksplit if 1 < p.ksplit <= 8 else 1)
+    one_wave = p.blocks <= int(0.85 * 2 * H100_SMS)
+    assert p.cluster == (p.ksplit if p.tiles < 4 and 1 < p.ksplit <= 8 and one_wave else 1)
     assert p.blocks % p.cluster == 0
+    # slices of one length, as short as that many slices allow
+    assert p.kchunk // 128 == -(-(-(-depth // 128)) // p.ksplit)
     # x's slice (8 * tiles rows of kchunk weight rows' bf16 values, padded)
     # and int4's scales, or the warps' sums, within the plan's shared memory
     xw = 1 if bits == 8 else 2
     x_bytes = 8 * p.tiles * (2 * p.kchunk * xw + 32 * xw)
     scale_bytes = 0 if bits == 8 else (-(-p.kchunk // (group // 2)) + 1) * 4 * p.cols
-    sums_bytes = 5 * 8 * p.tiles * p.cols * 4
-    assert max(x_bytes + scale_bytes, sums_bytes) <= p.smem <= SMEM_CAP[p.tiles]
+    sums_bytes = 4 * p.tiles * p.vec * 2 * 32 * 4 + 8 * p.tiles * p.cols * 4
+    assert max(x_bytes + scale_bytes, sums_bytes) <= p.smem <= SMEM_CAP
     assert qm.rows_plan(rows, din, dout, bits, H100_SMS, aligned, group) is p  # cached
 
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_rows_plan_at_the_serving_batch(bits):
     """Eight rows take one n-tile and the one-row kernel's column tiles;
-    qkv, o and down add their slices in one launch (a cluster), lm_head
-    takes one slice (1188 tiles)."""
+    qkv, o and down add their slices in one launch (a cluster of one wave),
+    gate / up (148 tiles) and lm_head (1188) take one slice."""
     plans = [qm.rows_plan(8, din, dout, bits, H100_SMS) for din, dout in QWEN2_7B]
     for p in plans:
         assert p.tiles == 1 and p.vec == 16 and p.blocks >= H100_SMS, p
     qkv, o, gate_up, down, lm_head = plans
     for p in (qkv, o, down):
         assert p.cluster == p.ksplit > 1
-    assert lm_head.ksplit == 1
+    assert gate_up.ksplit == lm_head.ksplit == 1
 
 
 def _case(seed, rows, din, dout):

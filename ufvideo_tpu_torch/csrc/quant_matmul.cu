@@ -64,10 +64,14 @@
 // each 8 logical rows reordered even ones first, so one 16-byte read gives
 // both B fragments; the scale multiplies each weight before the bf16 round
 // (the group's scales staged in shared memory beside x), as the reference
-// does. The warps' sums meet in shared memory in three rounds (4 + 4, 2 +
-// 2, 1 + 1 warps), the x slice's space reused. The conversion costs the
-// same as at one row, the mma a few percent of it: int4 stays bound by
-// instruction issue where one row is.
+// does. Below four n-tiles the 8 warps share one column tile of 16-byte
+// loads; at four, two groups of 4 warps take 64 columns each with 8-byte
+// loads, so a lane's sums stay 64 floats and two blocks fit an SM (at 128
+// registers, no spills). The warps of a column group add their sums
+// through shared memory in rounds (4 + 4, 2 + 2, 1 + 1 warps), the x
+// slice's space reused. The conversion costs what it costs at one row, the
+// mma a few percent of it: int4 stays bound by instruction issue where one
+// row is.
 //
 // Not used: wgmma (its 64-row minimum wastes two thirds or more of the
 // product at 32 rows or fewer, and the bytes bound it anyway), TMA, CUDA
@@ -89,6 +93,9 @@ __device__ __forceinline__ void load_stream(uint32_t (&w)[VEC / 4], const int8_t
   if constexpr (VEC == 16)
     asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
                  : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(p));
+  else if constexpr (VEC == 8)
+    asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(w[0]), "=r"(w[1]) : "l"(p));
   else
     asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(w[0]) : "l"(p));
 }
@@ -351,32 +358,40 @@ __device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// Warps across a block's columns: one below 4 n-tiles (a warp's 8 * VEC
+// columns are the block's), two at 4, so that a lane's sums (NT * VEC * 2
+// floats) stay 64 and two blocks fit an SM.
+__host__ __device__ constexpr int warp_cols(int nt) { return nt == 4 ? 2 : 1; }
+
 // Bytes of dynamic shared memory the kernel takes: the slice of x (NT * 8
 // rows of kchunk * XW bf16 values, each row padded by 32 * XW bytes so a
 // warp's reads of 4 (int4: 2) rows fall in distinct banks) and, for int4,
 // the slice's scales (one row of cols floats a group it touches); after
-// the loop the same space holds the warps' sums (4 warps' [NT * 8, cols]
-// in the reduction's first round, then the block's own [NT * 8, cols]).
+// the loop the same space holds the warps' sums (4 warps' sums in the
+// reduction's first round, then the block's own [NT * 8, cols]).
 __host__ __device__ inline long long smem_bytes(int bits, int nt, int vec, int kchunk,
                                                 int group_half) {
-  const int xw = bits == 8 ? 1 : 2, cols = 8 * vec;
+  const int xw = bits == 8 ? 1 : 2, cols = warp_cols(nt) * 8 * vec;
   const long long x = 8LL * nt * (2LL * kchunk * xw + 32 * xw);
   const long long s = bits == 8 ? 0 : ((kchunk + group_half - 1) / group_half + 1) * 4LL * cols;
-  const long long red = 5LL * 8 * nt * cols * 4;
+  const long long red = 4LL * nt * vec * 2 * 32 * 4 + 8LL * nt * cols * 4;
   return x + s > red ? x + s : red;
 }
 
-// rows <= 8 * NT of x against a tile of 8 * VEC columns and the block's
-// slice of the contraction. BITS 8: q [depth, dout] int8, s [dout]; BITS
-// 4: q packed [depth, dout] (depth = din / 2), s [din / group, dout]. grid
-// (ceil(dout / (8 * VEC)), ksplit); kchunk % kBlockStep == 0; for BITS 4
-// group_half % 4 == 0 (a lane's four packed rows share one scale group).
+// rows <= 8 * NT of x against a tile of WC * 8 * VEC columns and the
+// block's slice of the contraction; warp w takes the columns of w % WC and
+// the run w / WC of the slice. BITS 8: q [depth, dout] int8, s [dout];
+// BITS 4: q packed [depth, dout] (depth = din / 2), s [din / group, dout].
+// grid (ceil(dout / (WC * 8 * VEC)), ksplit); kchunk % kBlockStep == 0;
+// for BITS 4 group_half % 4 == 0 (a lane's four packed rows share one
+// scale group).
 template <int BITS, int NT, int VEC, int STAGES>
-__global__ void __launch_bounds__(kThreads, NT == 4 ? 1 : 2) rows_kernel(
+__global__ void __launch_bounds__(kThreads, 2) rows_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
     float* __restrict__ out, float* __restrict__ part, int rows, int din, int depth, int dout,
     int kchunk, int group_half, int one_launch) {
-  constexpr int kCols = 8 * VEC;                 // the block's output columns
+  constexpr int WC = warp_cols(NT), WK = kWarps / WC;
+  constexpr int kCols = WC * 8 * VEC;            // the block's output columns
   constexpr int kWords = VEC / 4;
   constexpr int kM = VEC / 2;                    // m-tiles: 2 of a lane's columns each
   constexpr int XW = BITS == 8 ? 1 : 2;          // x values a weight row
@@ -388,12 +403,13 @@ __global__ void __launch_bounds__(kThreads, NT == 4 ? 1 : 2) rows_kernel(
   float* ss = reinterpret_cast<float*>(smem + kRowsX * xstride);  // int4: [groups][kCols]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wc = warp % WC, wk = warp / WC;
   const int g = lane >> 2, t = lane & 3;
-  const int c0 = blockIdx.x * kCols, col = c0 + g * VEC;
+  const int c0 = blockIdx.x * kCols, lc = wc * 8 * VEC + g * VEC, col = c0 + lc;
   const bool col_ok = col < dout;                // dout % VEC == 0
   const int kbeg = blockIdx.y * kchunk, kend = min(depth, kbeg + kchunk);
-  const int per_warp = kchunk / kWarps;
-  const int wbeg = kbeg + warp * per_warp, wend = min(kend, wbeg + per_warp);
+  const int per_warp = kchunk / WK;
+  const int wbeg = kbeg + wk * per_warp, wend = min(kend, wbeg + per_warp);
   const int n_it = wend > wbeg ? (wend - wbeg + kStep - 1) / kStep : 0;
   const int r0 = wbeg + 4 * t;                   // the lane's first weight row
   const int grp0 = BITS == 4 ? kbeg / group_half : 0;
@@ -433,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, NT == 4 ? 1 : 2) rows_kernel(
         bx[n][0] = v.x; bx[n][1] = v.y; bx[n][2] = v.z; bx[n][3] = v.w;
       }
     }
-    const float* sc = ss + (r / group_half - grp0) * kCols + g * VEC;  // int4 only
+    const float* sc = ss + (r / group_half - grp0) * kCols + lc;  // int4 only
 #pragma unroll
     for (int w = 0; w < kWords; ++w) {
       uint32_t tw[4];
@@ -530,14 +546,14 @@ __global__ void __launch_bounds__(kThreads, NT == 4 ? 1 : 2) rows_kernel(
     }
   }
 
-  // the 8 warps' sums in three rounds, each through shared memory in lane
-  // order: warp w += warp w + half, for half 4, 2, 1
+  // the sums of the WK warps of a column group in rounds, each through
+  // shared memory in lane order: run k += run k + half, for half WK / 2 .. 1
   float* red = reinterpret_cast<float*>(smem);
   __syncthreads();                               // the x slice is read no more
 #pragma unroll
-  for (int half = kWarps / 2; half >= 1; half /= 2) {
-    if (warp >= half && warp < 2 * half) {
-      float* dst = red + (warp - half) * kAcc * 32 + lane;
+  for (int half = WK / 2; half >= 1; half /= 2) {
+    if (wk >= half && wk < 2 * half) {
+      float* dst = red + ((wk - half) * WC + wc) * kAcc * 32 + lane;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -546,8 +562,8 @@ __global__ void __launch_bounds__(kThreads, NT == 4 ? 1 : 2) rows_kernel(
           for (int c = 0; c < 4; ++c) dst[((n * kM + m) * 4 + c) * 32] = acc[n][m][c];
     }
     __syncthreads();
-    if (warp < half) {
-      const float* src = red + warp * kAcc * 32 + lane;
+    if (wk < half) {
+      const float* src = red + (wk * WC + wc) * kAcc * 32 + lane;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -558,14 +574,14 @@ __global__ void __launch_bounds__(kThreads, NT == 4 ? 1 : 2) rows_kernel(
     __syncthreads();
   }
   // the block's sums [kRowsX][kCols]: acc[n][m] holds rows 8n + 2t, 8n +
-  // 2t + 1 at columns VEC*g + 2m, VEC*g + 2m + 1
+  // 2t + 1 at the lane's columns 2m, 2m + 1
   float* slice = red + 4 * kAcc * 32;
-  if (warp == 0) {
+  if (wk == 0) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int m = 0; m < kM; ++m) {
-        const int rr = n * 8 + 2 * t, cc = g * VEC + 2 * m;
+        const int rr = n * 8 + 2 * t, cc = lc + 2 * m;
         *reinterpret_cast<float2*>(slice + rr * kCols + cc) =
             make_float2(acc[n][m][0], acc[n][m][2]);
         *reinterpret_cast<float2*>(slice + (rr + 1) * kCols + cc) =
@@ -609,8 +625,8 @@ cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, f
                    int rows, int din, int depth, int dout, int kchunk, int ksplit,
                    int group_half, bool one_launch, int smem, cudaStream_t st) {
   // a lane keeps STAGES batches of 4 loads in flight: three where the sums
-  // leave the registers for them
-  constexpr int STAGES = NT == 2 ? 2 : 3;
+  // and the conversion leave the registers for them
+  constexpr int STAGES = NT == 1 || (NT == 4 && BITS == 8) ? 3 : 2;
   auto kernel = rows_kernel<BITS, NT, VEC, STAGES>;
   static int smem_set = 48 * 1024;               // the default limit
   if (smem > smem_set) {
@@ -619,7 +635,7 @@ cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, f
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
-  constexpr int kCols = 8 * VEC;
+  constexpr int kCols = warp_cols(NT) * 8 * VEC;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((dout + kCols - 1) / kCols, ksplit);
   cfg.blockDim = dim3(kThreads);
@@ -636,19 +652,19 @@ cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, f
                             group_half, int(one_launch));
 }
 
-template <int BITS, int VEC>
-cudaError_t launch_tiles(int nt, const bf16* x, const int8_t* q, const float* s, float* out,
-                         float* part, int rows, int din, int depth, int dout, int kchunk,
-                         int ksplit, int group_half, bool one_launch, int smem,
+// vec 16 (or 4) below 4 n-tiles, 8 (or 4) at 4
+template <int BITS>
+cudaError_t launch_tiles(int nt, int vec, const bf16* x, const int8_t* q, const float* s,
+                         float* out, float* part, int rows, int din, int depth, int dout,
+                         int kchunk, int ksplit, int group_half, bool one_launch, int smem,
                          cudaStream_t st) {
-  switch (nt) {
-    case 1: return launch<BITS, 1, VEC>(x, q, s, out, part, rows, din, depth, dout, kchunk,
-                                        ksplit, group_half, one_launch, smem, st);
-    case 2: return launch<BITS, 2, VEC>(x, q, s, out, part, rows, din, depth, dout, kchunk,
-                                        ksplit, group_half, one_launch, smem, st);
-    default: return launch<BITS, 4, VEC>(x, q, s, out, part, rows, din, depth, dout, kchunk,
-                                         ksplit, group_half, one_launch, smem, st);
-  }
+#define UFV_ROWS_LAUNCH(NT, VEC)                                                          \
+  launch<BITS, NT, VEC>(x, q, s, out, part, rows, din, depth, dout, kchunk, ksplit,      \
+                        group_half, one_launch, smem, st)
+  if (nt == 1) return vec == 16 ? UFV_ROWS_LAUNCH(1, 16) : UFV_ROWS_LAUNCH(1, 4);
+  if (nt == 2) return vec == 16 ? UFV_ROWS_LAUNCH(2, 16) : UFV_ROWS_LAUNCH(2, 4);
+  return vec == 8 ? UFV_ROWS_LAUNCH(4, 8) : UFV_ROWS_LAUNCH(4, 4);
+#undef UFV_ROWS_LAUNCH
 }
 
 }  // namespace rows
@@ -665,11 +681,11 @@ extern "C" const char* ufv_error_string(int code) {
 // int8, s [dout] f32; bits 4: q [din / 2, dout] packed, s [din / group,
 // dout] f32 -> out [rows, dout] f32. The plan (ops/quant_matmul.rows_plan):
 // tiles n-tiles of 8 rows (1, 2 or 4; rows <= 8 * tiles), vec bytes a lane
-// loads a weight row (16 or 4), ksplit slices of kchunk weight rows (packed
-// rows for int4), kchunk a multiple of 128, ksplit * kchunk >= depth >
-// (ksplit - 1) * kchunk, smem bytes of dynamic shared memory (at least
-// rows::smem_bytes, at most 113 KB below 4 tiles, two blocks an SM, else
-// 227 KB). cluster 1: the slices' sums go to part (ksplit * rows * dout
+// loads a weight row (16 or 4 below 4 tiles, 8 or 4 at 4), ksplit slices of
+// kchunk weight rows (packed rows for int4), kchunk a multiple of 128,
+// ksplit * kchunk >= depth > (ksplit - 1) * kchunk, smem bytes of dynamic
+// shared memory (at least rows::smem_bytes, at most 113 KB: two blocks an
+// SM). cluster 1: the slices' sums go to part (ksplit * rows * dout
 // floats, unused when ksplit == 1) and a second pass adds them; cluster ==
 // ksplit (2..8): one launch. x is 8-byte aligned (int4: 16), din % 4 == 0
 // (int4: din % 8 == 0, group % 8 == 0).
@@ -678,7 +694,7 @@ extern "C" int quant_matmul_rows(const void* x, const void* q, const void* s, vo
                                  int tiles, int vec, int ksplit, int kchunk, int cluster,
                                  int smem, void* stream) {
   const int depth = bits == 8 ? din : din / 2;
-  if ((bits != 8 && bits != 4) || (vec != 16 && vec != 4) ||
+  if ((bits != 8 && bits != 4) || (vec != (tiles == 4 ? 8 : 16) && vec != 4) ||
       (tiles != 1 && tiles != 2 && tiles != 4) || rows <= 0 || rows > 8 * tiles || din <= 0 ||
       dout <= 0 || depth % 4 || dout % vec || ksplit <= 0 || ksplit > 65535 || kchunk <= 0 ||
       kchunk % rows::kBlockStep || (long long)ksplit * kchunk < depth ||
@@ -686,8 +702,7 @@ extern "C" int quant_matmul_rows(const void* x, const void* q, const void* s, vo
     return int(cudaErrorInvalidValue);
   if (bits == 4 && (group <= 0 || group % 8 || din % group)) return int(cudaErrorInvalidValue);
   const int gh = bits == 4 ? group / 2 : 1;
-  if (smem < rows::smem_bytes(bits, tiles, vec, kchunk, gh) ||
-      smem > (tiles == 4 ? 227 : 113) * 1024)
+  if (smem < rows::smem_bytes(bits, tiles, vec, kchunk, gh) || smem > 113 * 1024)
     return int(cudaErrorInvalidValue);
   const bool one_launch = cluster > 1;
   if (cluster < 1 || (one_launch && (cluster != ksplit || cluster > 8)))
@@ -700,17 +715,11 @@ extern "C" int quant_matmul_rows(const void* x, const void* q, const void* s, vo
   const float* S = static_cast<const float*>(s);
   float* O = static_cast<float*>(out);
   float* P = static_cast<float*>(part);
-  cudaError_t err;
-  if (bits == 8)
-    err = vec == 16 ? rows::launch_tiles<8, 16>(tiles, X, Q, S, O, P, rows, din, depth, dout,
-                                                kchunk, ksplit, gh, one_launch, smem, st)
-                    : rows::launch_tiles<8, 4>(tiles, X, Q, S, O, P, rows, din, depth, dout,
-                                               kchunk, ksplit, gh, one_launch, smem, st);
-  else
-    err = vec == 16 ? rows::launch_tiles<4, 16>(tiles, X, Q, S, O, P, rows, din, depth, dout,
-                                                kchunk, ksplit, gh, one_launch, smem, st)
-                    : rows::launch_tiles<4, 4>(tiles, X, Q, S, O, P, rows, din, depth, dout,
-                                               kchunk, ksplit, gh, one_launch, smem, st);
+  const cudaError_t err =
+      bits == 8 ? rows::launch_tiles<8>(tiles, vec, X, Q, S, O, P, rows, din, depth, dout,
+                                        kchunk, ksplit, gh, one_launch, smem, st)
+                : rows::launch_tiles<4>(tiles, vec, X, Q, S, O, P, rows, din, depth, dout,
+                                        kchunk, ksplit, gh, one_launch, smem, st);
   if (err != cudaSuccess || one_launch) return int(err);
   return int(finish(P, bits == 8 ? S : nullptr, O, rows, dout, ksplit, st));
 }

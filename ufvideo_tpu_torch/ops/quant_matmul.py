@@ -163,20 +163,21 @@ def matvec_slices_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, plan:
 
 # the 2-32-row kernel (csrc/quant_matmul.cu, namespace rows): 8 warps, each
 # walking its own run of the slice 16 weight rows (packed rows for int4) a
-# step, so a block step is 128 rows; 8 lanes across a weight row, so a
-# block's column tile is 8 * vec
+# step, so a block step is 128 rows; 8 lanes across a weight row; below 4
+# n-tiles the 8 warps share one column tile of 8 * vec (vec 16), at 4 two
+# groups of 4 warps take 8 * vec columns each (vec 8), so a lane's sums stay
+# 64 floats
 _RW_STEP = 128
-# dynamic shared memory a block: two blocks an SM hold under 4 n-tiles (at
-# most 128 registers a thread), one at 4 (its 128 f32 sums a lane)
-_RW_SMEM = {1: 113 * 1024, 2: 113 * 1024, 4: 227 * 1024}
-_RW_RESIDENT = {1: 2, 2: 2, 4: 1}
+# dynamic shared memory a block: two blocks an SM (at most 128 registers a
+# thread)
+_RW_SMEM = 113 * 1024
 
 
 class RowsPlan(NamedTuple):
     """The 2-32-row kernel's grid. ``rows`` of x in ``tiles`` n-tiles of 8
-    (1, 2 or 4); ``vec``: bytes a lane loads from a weight row (16, or 4
-    where the rows are not 16-byte aligned); ``cols``: output columns a
-    block; ``ksplit`` slices of ``kchunk`` weight rows (packed rows for
+    (1, 2 or 4); ``vec``: bytes a lane loads from a weight row (16, 8 at 4
+    n-tiles, or 4 where the rows are not so aligned); ``cols``: output
+    columns a block; ``ksplit`` slices of ``kchunk`` weight rows (packed rows for
     int4) each; ``cluster``: ``ksplit`` where the slices of a column tile
     form one thread-block cluster that adds them in the same launch, else 1
     (a second pass adds them); ``blocks``: the grid; ``smem``: bytes of
@@ -200,10 +201,14 @@ def rows_smem(bits: int, tiles: int, vec: int, kchunk: int, group: int = 64) -> 
     row), int4's scales of the groups the slice touches, or, where larger,
     the warps' sums (four warps' and the block's own [8 * tiles, cols]
     f32)."""
-    xw, cols = (1 if bits == 8 else 2), 8 * vec
+    xw, cols = (1 if bits == 8 else 2), _warp_cols(tiles) * 8 * vec
     x = 8 * tiles * (2 * kchunk * xw + 32 * xw)
     scales = 0 if bits == 8 else (-(-kchunk // (group // 2)) + 1) * 4 * cols
-    return max(x + scales, 5 * 8 * tiles * cols * 4)
+    return max(x + scales, 4 * tiles * vec * 2 * 32 * 4 + 8 * tiles * cols * 4)
+
+
+def _warp_cols(tiles: int) -> int:
+    return 2 if tiles == 4 else 1
 
 
 @functools.cache
@@ -215,32 +220,38 @@ def rows_plan(rows: int, din: int, dout: int, bits: int, sm_count: int, aligned:
     the same grid and sums in the same order. ``aligned``: the weight
     starts on 16 bytes.
 
-    As ``matvec_plan``: where one wave of clusters holds two or more slices
-    of every column tile, as many as fit; else slices to ``_MV_MANY``
-    blocks an SM (two where one block fills an SM); slices longer than
-    shared memory holds are cut further. The slices of a column tile form
-    one cluster (one launch) wherever there are 2 to 8 of them: at many
-    rows a second pass would move rows * dout floats a slice twice."""
+    Where one wave of blocks holds two or more slices of every column tile
+    (qkv, o, down of Qwen2-7B), as many as fit; else, below 4 n-tiles, one
+    slice (gate / up, lm_head), at 4 slices to ``_MV_MANY`` blocks an SM.
+    Slices longer than shared memory holds are cut further, all to one
+    length. Below 4 n-tiles the slices are added in the same launch where
+    the grid is one wave of clusters; else, and always at 4 n-tiles, by a
+    second pass. Each choice is the faster one in
+    ``scripts/torch_matvec_sweep.py --rows`` on an H100: clusters over
+    several waves, and the cluster's rank 0 adding 32 rows' sums, ran
+    slower than the second pass."""
     depth = din if bits == 8 else din // 2
     tiles = 1 if rows <= 8 else 2 if rows <= 16 else 4
-    vec = 16 if aligned and dout % 16 == 0 else 4
-    cols = 8 * vec
+    wide = 8 if tiles == 4 else 16
+    vec = wide if aligned and dout % wide == 0 else 4
+    cols = _warp_cols(tiles) * 8 * vec
     col_tiles = -(-dout // cols)
-    resident = _RW_RESIDENT[tiles]
-    wave = int(_MV_WAVE / 2 * resident * sm_count)
+    wave = int(_MV_WAVE * sm_count)
     if 2 * col_tiles <= wave:
         want = min(wave // col_tiles, _MV_MAX_CLUSTER)
     else:
-        want = -(-_MV_MANY * resident // 2 * sm_count // col_tiles)
+        want = -(-_MV_MANY * sm_count // col_tiles) if tiles == 4 else 1
     steps = -(-depth // _RW_STEP)
     max_steps = steps
     while max_steps > 1 and rows_smem(bits, tiles, vec, max_steps * _RW_STEP, group) \
-            > _RW_SMEM[tiles]:
+            > _RW_SMEM:
         max_steps -= 1
-    per_slice = max(1, min(-(-steps // want), max_steps))
+    # slices of equal length, as many as wanted and shared memory needs
+    per_slice = -(-steps // max(want, -(-steps // max_steps)))
     ksplit = -(-steps // per_slice)
     kchunk = per_slice * _RW_STEP
-    cluster = ksplit if 1 < ksplit <= _MV_MAX_CLUSTER else 1
+    one_wave = ksplit * col_tiles <= wave
+    cluster = ksplit if tiles < 4 and 1 < ksplit <= _MV_MAX_CLUSTER and one_wave else 1
     return RowsPlan(rows, tiles, vec, cols, ksplit, kchunk, cluster, col_tiles * ksplit,
                     rows_smem(bits, tiles, vec, kchunk, group))
 
