@@ -17,8 +17,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      product (the block GEMM alone) goes first. The quantised kernels
      take int8 / packed-int4 weights, an int8 cache and int8 block weights
      at the same widths, each with its own stated tolerance (the quantised
-     products also print the grid they launched, their rate on the weight
-     bytes and, at one row, the 2-32-row kernel's time); the W8A8 block
+     products at rows 1, 2, 8, 17 and 32, each with the grid it launched,
+     its rate on the weight bytes, its ratio to the bound and, at one row,
+     the 2-32-row kernel's time); the W8A8 block
      also at Hiera-L's four windowed shapes, and the W8A8 q-pool block,
      LN-matmul and block tail at the shapes the quantised trunk gives them.
   3. path: model_init at full width (SigLIP-SO400M + STC-v35 + Qwen2-7B,
@@ -1511,7 +1512,6 @@ def run_referring(dev, seed: int, cfg, label: str, max_new_tokens: int,
 # through UFVideoRuntime.generate_batch: one encoded video, 8 questions of
 # different lengths (ragged prompts, so ragged decode positions), 16 new
 # tokens; every decode step hands each quantised projection 8 rows.
-BATCH = 8
 BATCH_NEW_TOKENS = 16
 BATCH_STEPS = 4  # decode steps whose logits the kernel and plain paths are compared on
 BATCH_QUESTIONS = (
@@ -1524,6 +1524,7 @@ BATCH_QUESTIONS = (
     "Summarise the video in one sentence, then list every object you can see in it.",
     "Is it day or night?",
 )
+BATCH = len(BATCH_QUESTIONS)
 
 
 def staged_batch(rt, embeds, lens, n_steps, use_kernels, forced=None):
@@ -1567,7 +1568,7 @@ def run_batched(dev, rt, tok, feats, label: str) -> dict:
 
     wrappers = all_wrappers()
     cfg = rt.cfg
-    ids = [_assemble_input_ids(q, 1, "<video>", tok) for q in BATCH_QUESTIONS[:BATCH]]
+    ids = [_assemble_input_ids(q, 1, "<video>", tok) for q in BATCH_QUESTIONS]
     vf = feats.expand(BATCH, -1, -1)
     run = lambda n: rt.generate_batch(ids, vf, max_new_tokens=n)
     run(2)  # warm-up, outside the counted run
@@ -1588,7 +1589,7 @@ def run_batched(dev, rt, tok, feats, label: str) -> dict:
     log(f"  [{label}] launches predicted from the configuration: {want}")
     if launches != want:
         fail(f"launch counts of the {label} batched decode differ from the prediction")
-    if getattr(wrapper.last_plan, "rows", BATCH) != BATCH:
+    if not (isinstance(wrapper.last_plan, qm.RowsPlan) and wrapper.last_plan.rows == BATCH):
         fail(f"{wrapper.__name__} last ran at {wrapper.last_plan}, not {BATCH} rows")
     for t, h in out:
         if not torch.isfinite(h).all():

@@ -452,9 +452,9 @@ __global__ void __launch_bounds__(kThreads, 2) rows_kernel(
     const float* sc = ss + (r / group_half - grp0) * kCols + lc;  // int4 only
 #pragma unroll
     for (int w = 0; w < kWords; ++w) {
-      uint32_t tw[4];
+      uint32_t tw[4];  // each byte + 128 (int4: each nibble + 8)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) tw[j] = b[j][w] ^ 0x80808080u;  // each byte (int4: nibble) + 128 (+ 8)
+      for (int j = 0; j < 4; ++j) tw[j] = b[j][w] ^ 0x80808080u;
       if constexpr (BITS == 8) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // m-tile 2w + h: bytes 2h, 2h + 1 of word w

@@ -177,8 +177,8 @@ class RowsPlan(NamedTuple):
     """The 2-32-row kernel's grid. ``rows`` of x in ``tiles`` n-tiles of 8
     (1, 2 or 4); ``vec``: bytes a lane loads from a weight row (16, 8 at 4
     n-tiles, or 4 where the rows are not so aligned); ``cols``: output
-    columns a block; ``ksplit`` slices of ``kchunk`` weight rows (packed rows for
-    int4) each; ``cluster``: ``ksplit`` where the slices of a column tile
+    columns a block; ``ksplit`` slices of ``kchunk`` weight rows (packed
+    rows for int4) each; ``cluster``: ``ksplit`` where the slices of a column tile
     form one thread-block cluster that adds them in the same launch, else 1
     (a second pass adds them); ``blocks``: the grid; ``smem``: bytes of
     dynamic shared memory a block (x's slice, int4's scales, the sums)."""
@@ -194,21 +194,22 @@ class RowsPlan(NamedTuple):
     smem: int
 
 
+def _warp_cols(tiles: int) -> int:
+    """Column groups of warps in a block (csrc/quant_matmul.cu warp_cols)."""
+    return 2 if tiles == 4 else 1
+
+
 def rows_smem(bits: int, tiles: int, vec: int, kchunk: int, group: int = 64) -> int:
     """Dynamic shared memory of one block (csrc/quant_matmul.cu
-    rows::smem_bytes): the slice of x as bf16 (8 * tiles rows of kchunk
-    weight rows' x values, each row padded by 32 bytes a value of a weight
-    row), int4's scales of the groups the slice touches, or, where larger,
-    the warps' sums (four warps' and the block's own [8 * tiles, cols]
-    f32)."""
+    rows::smem_bytes): the slice of x as bf16 (8 * tiles rows of the x
+    values of kchunk weight rows, each row padded by 32 bytes, int4 64),
+    int4's scales of the groups the slice touches, or, where larger, the
+    warps' sums (four warps' in the reduction's first round, then the
+    block's own [8 * tiles, cols] f32)."""
     xw, cols = (1 if bits == 8 else 2), _warp_cols(tiles) * 8 * vec
     x = 8 * tiles * (2 * kchunk * xw + 32 * xw)
     scales = 0 if bits == 8 else (-(-kchunk // (group // 2)) + 1) * 4 * cols
     return max(x + scales, 4 * tiles * vec * 2 * 32 * 4 + 8 * tiles * cols * 4)
-
-
-def _warp_cols(tiles: int) -> int:
-    return 2 if tiles == 4 else 1
 
 
 @functools.cache
