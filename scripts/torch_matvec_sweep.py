@@ -10,8 +10,9 @@ each row count of ``--rows``, weights quantised from a random float kernel
 as phase 2 of ``chip_smoke.py`` makes them (int4: group 64), and each grid:
 at one row, ``matvec_plan``'s and 1 to 16 slices of the contraction, each
 split of 2 to 8 slices in one launch and in two; at 2-32 rows,
-``rows_plan``'s and every split into 1 to 8 slices that fits the block's
-shared memory, in one launch where it has 2 to 8 slices and in two. For
+``rows_plan``'s and, for each count of column groups of warps, every
+split into 1 to 8 slices that fits the block's shared memory, in one
+launch where it has 2 to 8 slices and in two. For
 each: the kernel against its plain version (``chip_smoke.check_close`` at
 ``QREL``), its time as ``chip_smoke.Timer`` takes it (median of 20
 CUDA-event timings, L2 flushed before each), the rate on the weight and
@@ -60,23 +61,28 @@ def pass_us(fn, n=20):
 
 
 def rows_grids(rows, din, dout, bits, sms):
-    """The 2-32-row plan and each split of the contraction into 1 to 8
-    slices of whole block steps that fits the block's shared memory, each
-    split of 2 or more in one launch and in two."""
+    """The 2-32-row plan and, for each count of column groups of warps the
+    kernel has (one or two below 4 n-tiles, two or four at 4), each split of
+    the contraction into 1 to 8 slices of whole block steps that fits the
+    block's shared memory, each split of 2 or more in one launch and in
+    two."""
     plan = qm.rows_plan(rows, din, dout, bits, sms, True, GROUP)
     depth = din if bits == 8 else din // 2
     steps = -(-depth // qm._RW_STEP)
     grids = {plan}
-    for want in range(1, 9):
-        per_slice = -(-steps // want)
-        kchunk = per_slice * qm._RW_STEP
-        smem = qm.rows_smem(bits, plan.tiles, plan.vec, kchunk, GROUP)
-        if smem > qm._RW_SMEM:
-            continue
-        ksplit = -(-steps // per_slice)
-        for cluster in {1, ksplit}:
-            grids.add(plan._replace(ksplit=ksplit, kchunk=kchunk, cluster=cluster,
-                                    blocks=-(-dout // plan.cols) * ksplit, smem=smem))
+    for wc in ((2, 4) if plan.tiles == 4 else (1, 2)):
+        cols = wc * 8 * plan.vec
+        for want in range(1, 9):
+            per_slice = -(-steps // want)
+            kchunk = per_slice * qm._RW_STEP
+            smem = qm.rows_smem(bits, plan.tiles, plan.vec, wc, kchunk, GROUP)
+            if smem > qm._RW_SMEM:
+                continue
+            ksplit = -(-steps // per_slice)
+            for cluster in {1, ksplit}:
+                grids.add(plan._replace(wc=wc, cols=cols, ksplit=ksplit, kchunk=kchunk,
+                                        cluster=cluster, blocks=-(-dout // cols) * ksplit,
+                                        smem=smem))
     return plan, grids
 
 

@@ -51,7 +51,8 @@ def test_rows_plan_covers_the_contraction_in_whole_steps(din, dout, rows, bits, 
     # aligned to the wide load
     wide = 8 if p.tiles == 4 else 16
     assert p.vec == (wide if aligned and dout % wide == 0 else 4)
-    assert p.cols == (2 if p.tiles == 4 else 1) * 8 * p.vec and dout % p.vec == 0
+    assert p.wc in ((2, 4) if p.tiles == 4 else (1, 2))
+    assert p.cols == p.wc * 8 * p.vec and dout % p.vec == 0
     assert p.blocks == -(-dout // p.cols) * p.ksplit
     # below 4 n-tiles, one launch where the slices fit a portable cluster
     # and the clusters one wave (0.85 of two blocks an SM); the cluster is
@@ -67,22 +68,27 @@ def test_rows_plan_covers_the_contraction_in_whole_steps(din, dout, rows, bits, 
     x_bytes = 8 * p.tiles * (2 * p.kchunk * xw + 32 * xw)
     scale_bytes = 0 if bits == 8 else (-(-p.kchunk // (group // 2)) + 1) * 4 * p.cols
     sums_bytes = 4 * p.tiles * p.vec * 2 * 32 * 4 + 8 * p.tiles * p.cols * 4
+    assert p.smem == qm.rows_smem(bits, p.tiles, p.vec, p.wc, p.kchunk, group)
     assert max(x_bytes + scale_bytes, sums_bytes) <= p.smem <= SMEM_CAP
     assert qm.rows_plan(rows, din, dout, bits, H100_SMS, aligned, group) is p  # cached
 
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_rows_plan_at_the_serving_batch(bits):
-    """Eight rows take one n-tile and the one-row kernel's column tiles;
-    qkv, o and down add their slices in one launch (a cluster of one wave),
-    gate / up (148 tiles) and lm_head (1188) take one slice."""
+    """Eight rows take one n-tile and 16-byte loads. qkv, o and down: the
+    one-row kernel's 128-column tiles, their slices added in one launch (a
+    cluster of one wave). gate / up and lm_head: two column groups of warps
+    (256 columns a block), gate / up in one wave of 3 slices (a cluster),
+    lm_head in two slices added by a second pass."""
     plans = [qm.rows_plan(8, din, dout, bits, H100_SMS) for din, dout in QWEN2_7B]
     for p in plans:
         assert p.tiles == 1 and p.vec == 16 and p.blocks >= H100_SMS, p
     qkv, o, gate_up, down, lm_head = plans
     for p in (qkv, o, down):
-        assert p.cluster == p.ksplit > 1
-    assert gate_up.ksplit == lm_head.ksplit == 1
+        assert p.wc == 1 and p.cluster == p.ksplit > 1
+    assert gate_up.wc == lm_head.wc == 2
+    assert gate_up.ksplit == gate_up.cluster == 3
+    assert lm_head.ksplit == 2 and lm_head.cluster == 1
 
 
 def _case(seed, rows, din, dout):

@@ -64,14 +64,16 @@
 // each 8 logical rows reordered even ones first, so one 16-byte read gives
 // both B fragments; the scale multiplies each weight before the bf16 round
 // (the group's scales staged in shared memory beside x), as the reference
-// does. Below four n-tiles the 8 warps share one column tile of 16-byte
-// loads; at four, two groups of 4 warps take 64 columns each with 8-byte
-// loads, so a lane's sums stay 64 floats and two blocks fit an SM (at 128
-// registers, no spills). The warps of a column group add their sums
-// through shared memory in rounds (4 + 4, 2 + 2, 1 + 1 warps), the x
-// slice's space reused. The conversion costs what it costs at one row, the
-// mma a few percent of it: int4 stays bound by instruction issue where one
-// row is.
+// does. The 8 warps form WC column groups, each walking the slice in runs:
+// below four n-tiles one group of 16-byte loads (128 columns a block), or
+// two (256) where the column tiles alone fill the card, so x is staged once
+// for more columns; at four n-tiles 8-byte loads in two or four groups, so
+// a lane's sums stay 64 floats and two blocks fit an SM (128 registers, no
+// spills). The warps of a column group add their sums through shared
+// memory in rounds, halving the warps each time, in the x slice's space.
+// A weight costs the conversion it costs at one row; an mma adds one
+// instruction per 64 weights converted at one n-tile, so int4 stays bound
+// by instruction issue where one row is.
 //
 // Not used: wgmma (its 64-row minimum wastes two thirds or more of the
 // product at 32 rows or fewer, and the bytes bound it anyway), TMA, CUDA
@@ -358,20 +360,15 @@ __device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Warps across a block's columns: one below 4 n-tiles (a warp's 8 * VEC
-// columns are the block's), two at 4, so that a lane's sums (NT * VEC * 2
-// floats) stay 64 and two blocks fit an SM.
-__host__ __device__ constexpr int warp_cols(int nt) { return nt == 4 ? 2 : 1; }
-
 // Bytes of dynamic shared memory the kernel takes: the slice of x (NT * 8
 // rows of kchunk * XW bf16 values, each row padded by 32 * XW bytes so a
 // warp's reads of 4 (int4: 2) rows fall in distinct banks) and, for int4,
 // the slice's scales (one row of cols floats a group it touches); after
 // the loop the same space holds the warps' sums (4 warps' sums in the
 // reduction's first round, then the block's own [NT * 8, cols]).
-__host__ __device__ inline long long smem_bytes(int bits, int nt, int vec, int kchunk,
+__host__ __device__ inline long long smem_bytes(int bits, int nt, int vec, int wc, int kchunk,
                                                 int group_half) {
-  const int xw = bits == 8 ? 1 : 2, cols = warp_cols(nt) * 8 * vec;
+  const int xw = bits == 8 ? 1 : 2, cols = wc * 8 * vec;
   const long long x = 8LL * nt * (2LL * kchunk * xw + 32 * xw);
   const long long s = bits == 8 ? 0 : ((kchunk + group_half - 1) / group_half + 1) * 4LL * cols;
   const long long red = 4LL * nt * vec * 2 * 32 * 4 + 8LL * nt * cols * 4;
@@ -385,12 +382,12 @@ __host__ __device__ inline long long smem_bytes(int bits, int nt, int vec, int k
 // grid (ceil(dout / (WC * 8 * VEC)), ksplit); kchunk % kBlockStep == 0;
 // for BITS 4 group_half % 4 == 0 (a lane's four packed rows share one
 // scale group).
-template <int BITS, int NT, int VEC, int STAGES>
+template <int BITS, int NT, int VEC, int WC, int STAGES>
 __global__ void __launch_bounds__(kThreads, 2) rows_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
     float* __restrict__ out, float* __restrict__ part, int rows, int din, int depth, int dout,
     int kchunk, int group_half, int one_launch) {
-  constexpr int WC = warp_cols(NT), WK = kWarps / WC;
+  constexpr int WK = kWarps / WC;
   constexpr int kCols = WC * 8 * VEC;            // the block's output columns
   constexpr int kWords = VEC / 4;
   constexpr int kM = VEC / 2;                    // m-tiles: 2 of a lane's columns each
@@ -620,14 +617,14 @@ __global__ void __launch_bounds__(kThreads, 2) rows_kernel(
   }
 }
 
-template <int BITS, int NT, int VEC>
+template <int BITS, int NT, int VEC, int WC>
 cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, float* part,
                    int rows, int din, int depth, int dout, int kchunk, int ksplit,
                    int group_half, bool one_launch, int smem, cudaStream_t st) {
   // a lane keeps STAGES batches of 4 loads in flight: three where the sums
   // and the conversion leave the registers for them
   constexpr int STAGES = NT == 1 || (NT == 4 && BITS == 8) ? 3 : 2;
-  auto kernel = rows_kernel<BITS, NT, VEC, STAGES>;
+  auto kernel = rows_kernel<BITS, NT, VEC, WC, STAGES>;
   static int smem_set = 48 * 1024;               // the default limit
   if (smem > smem_set) {
     const cudaError_t err =
@@ -635,7 +632,7 @@ cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, f
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
-  constexpr int kCols = warp_cols(NT) * 8 * VEC;
+  constexpr int kCols = WC * 8 * VEC;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((dout + kCols - 1) / kCols, ksplit);
   cfg.blockDim = dim3(kThreads);
@@ -652,18 +649,32 @@ cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, f
                             group_half, int(one_launch));
 }
 
-// vec 16 (or 4) below 4 n-tiles, 8 (or 4) at 4
+// The instances: below 4 n-tiles vec 16 with one or two column groups, or
+// vec 4 with one; at 4 vec 8 with two or four, or vec 4 with two.
+bool instance(int nt, int vec, int wc) {
+  if (nt == 4) return (vec == 8 && (wc == 2 || wc == 4)) || (vec == 4 && wc == 2);
+  return (nt == 1 || nt == 2) &&
+         ((vec == 16 && (wc == 1 || wc == 2)) || (vec == 4 && wc == 1));
+}
+
 template <int BITS>
-cudaError_t launch_tiles(int nt, int vec, const bf16* x, const int8_t* q, const float* s,
-                         float* out, float* part, int rows, int din, int depth, int dout,
-                         int kchunk, int ksplit, int group_half, bool one_launch, int smem,
-                         cudaStream_t st) {
-#define UFV_ROWS_LAUNCH(NT, VEC)                                                          \
-  launch<BITS, NT, VEC>(x, q, s, out, part, rows, din, depth, dout, kchunk, ksplit,      \
-                        group_half, one_launch, smem, st)
-  if (nt == 1) return vec == 16 ? UFV_ROWS_LAUNCH(1, 16) : UFV_ROWS_LAUNCH(1, 4);
-  if (nt == 2) return vec == 16 ? UFV_ROWS_LAUNCH(2, 16) : UFV_ROWS_LAUNCH(2, 4);
-  return vec == 8 ? UFV_ROWS_LAUNCH(4, 8) : UFV_ROWS_LAUNCH(4, 4);
+cudaError_t launch_tiles(int nt, int vec, int wc, const bf16* x, const int8_t* q,
+                         const float* s, float* out, float* part, int rows, int din, int depth,
+                         int dout, int kchunk, int ksplit, int group_half, bool one_launch,
+                         int smem, cudaStream_t st) {
+#define UFV_ROWS_LAUNCH(NT, VEC, WC)                                                      \
+  launch<BITS, NT, VEC, WC>(x, q, s, out, part, rows, din, depth, dout, kchunk, ksplit,  \
+                            group_half, one_launch, smem, st)
+  if (nt == 4) {
+    if (vec == 4) return UFV_ROWS_LAUNCH(4, 4, 2);
+    return wc == 4 ? UFV_ROWS_LAUNCH(4, 8, 4) : UFV_ROWS_LAUNCH(4, 8, 2);
+  }
+  if (nt == 2) {
+    if (vec == 4) return UFV_ROWS_LAUNCH(2, 4, 1);
+    return wc == 2 ? UFV_ROWS_LAUNCH(2, 16, 2) : UFV_ROWS_LAUNCH(2, 16, 1);
+  }
+  if (vec == 4) return UFV_ROWS_LAUNCH(1, 4, 1);
+  return wc == 2 ? UFV_ROWS_LAUNCH(1, 16, 2) : UFV_ROWS_LAUNCH(1, 16, 1);
 #undef UFV_ROWS_LAUNCH
 }
 
@@ -683,7 +694,8 @@ extern "C" const char* ufv_error_string(int code) {
 // tiles n-tiles of 8 rows (1, 2 or 4; rows <= 8 * tiles), vec bytes a lane
 // loads a weight row (16 or 4 below 4 tiles, 8 or 4 at 4), ksplit slices of
 // kchunk weight rows (packed rows for int4), kchunk a multiple of 128,
-// ksplit * kchunk >= depth > (ksplit - 1) * kchunk, smem bytes of dynamic
+// wc column groups of warps (rows::instance), ksplit * kchunk >= depth >
+// (ksplit - 1) * kchunk, smem bytes of dynamic
 // shared memory (at least rows::smem_bytes, at most 113 KB: two blocks an
 // SM). cluster 1: the slices' sums go to part (ksplit * rows * dout
 // floats, unused when ksplit == 1) and a second pass adds them; cluster ==
@@ -691,18 +703,18 @@ extern "C" const char* ufv_error_string(int code) {
 // (int4: din % 8 == 0, group % 8 == 0).
 extern "C" int quant_matmul_rows(const void* x, const void* q, const void* s, void* out,
                                  void* part, int bits, int rows, int din, int dout, int group,
-                                 int tiles, int vec, int ksplit, int kchunk, int cluster,
+                                 int tiles, int vec, int wc, int ksplit, int kchunk, int cluster,
                                  int smem, void* stream) {
   const int depth = bits == 8 ? din : din / 2;
-  if ((bits != 8 && bits != 4) || (vec != (tiles == 4 ? 8 : 16) && vec != 4) ||
-      (tiles != 1 && tiles != 2 && tiles != 4) || rows <= 0 || rows > 8 * tiles || din <= 0 ||
+  if ((bits != 8 && bits != 4) || !rows::instance(tiles, vec, wc) || rows <= 0 ||
+      rows > 8 * tiles || din <= 0 ||
       dout <= 0 || depth % 4 || dout % vec || ksplit <= 0 || ksplit > 65535 || kchunk <= 0 ||
       kchunk % rows::kBlockStep || (long long)ksplit * kchunk < depth ||
       (long long)(ksplit - 1) * kchunk >= depth)
     return int(cudaErrorInvalidValue);
   if (bits == 4 && (group <= 0 || group % 8 || din % group)) return int(cudaErrorInvalidValue);
   const int gh = bits == 4 ? group / 2 : 1;
-  if (smem < rows::smem_bytes(bits, tiles, vec, kchunk, gh) || smem > 113 * 1024)
+  if (smem < rows::smem_bytes(bits, tiles, vec, wc, kchunk, gh) || smem > 113 * 1024)
     return int(cudaErrorInvalidValue);
   const bool one_launch = cluster > 1;
   if (cluster < 1 || (one_launch && (cluster != ksplit || cluster > 8)))
@@ -716,9 +728,9 @@ extern "C" int quant_matmul_rows(const void* x, const void* q, const void* s, vo
   float* O = static_cast<float*>(out);
   float* P = static_cast<float*>(part);
   const cudaError_t err =
-      bits == 8 ? rows::launch_tiles<8>(tiles, vec, X, Q, S, O, P, rows, din, depth, dout,
+      bits == 8 ? rows::launch_tiles<8>(tiles, vec, wc, X, Q, S, O, P, rows, din, depth, dout,
                                         kchunk, ksplit, gh, one_launch, smem, st)
-                : rows::launch_tiles<4>(tiles, vec, X, Q, S, O, P, rows, din, depth, dout,
+                : rows::launch_tiles<4>(tiles, vec, wc, X, Q, S, O, P, rows, din, depth, dout,
                                         kchunk, ksplit, gh, one_launch, smem, st);
   if (err != cudaSuccess || one_launch) return int(err);
   return int(finish(P, bits == 8 ? S : nullptr, O, rows, dout, ksplit, st));

@@ -52,7 +52,7 @@ MAX_ROWS = 32
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quant_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.quant_matmul_rows.argtypes = [p] * 5 + [i] * 11 + [p]
+    lib.quant_matmul_rows.argtypes = [p] * 5 + [i] * 12 + [p]
     lib.quant_matvec_row.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.quant_matmul_rows.restype = ctypes.c_int
     lib.quant_matvec_row.restype = ctypes.c_int
@@ -161,12 +161,11 @@ def matvec_slices_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, plan:
     return _slices_plain(x.reshape(1, -1), q, s, plan.ksplit, plan.kchunk, bits, group)[0]
 
 
-# the 2-32-row kernel (csrc/quant_matmul.cu, namespace rows): 8 warps, each
-# walking its own run of the slice 16 weight rows (packed rows for int4) a
-# step, so a block step is 128 rows; 8 lanes across a weight row; below 4
-# n-tiles the 8 warps share one column tile of 8 * vec (vec 16), at 4 two
-# groups of 4 warps take 8 * vec columns each (vec 8), so a lane's sums stay
-# 64 floats
+# the 2-32-row kernel (csrc/quant_matmul.cu, namespace rows): 8 warps in
+# wc column groups, each warp walking its own run of the slice 16 weight
+# rows (packed rows for int4) a step, so a block step is 128 rows; 8 lanes
+# across a weight row, so a group takes 8 * vec columns; vec 8 at 4 n-tiles
+# keeps a lane's sums at 64 floats
 _RW_STEP = 128
 # dynamic shared memory a block: two blocks an SM (at most 128 registers a
 # thread)
@@ -186,6 +185,7 @@ class RowsPlan(NamedTuple):
     rows: int
     tiles: int
     vec: int
+    wc: int
     cols: int
     ksplit: int
     kchunk: int
@@ -194,19 +194,14 @@ class RowsPlan(NamedTuple):
     smem: int
 
 
-def _warp_cols(tiles: int) -> int:
-    """Column groups of warps in a block (csrc/quant_matmul.cu warp_cols)."""
-    return 2 if tiles == 4 else 1
-
-
-def rows_smem(bits: int, tiles: int, vec: int, kchunk: int, group: int = 64) -> int:
+def rows_smem(bits: int, tiles: int, vec: int, wc: int, kchunk: int, group: int = 64) -> int:
     """Dynamic shared memory of one block (csrc/quant_matmul.cu
     rows::smem_bytes): the slice of x as bf16 (8 * tiles rows of the x
     values of kchunk weight rows, each row padded by 32 bytes, int4 64),
     int4's scales of the groups the slice touches, or, where larger, the
     warps' sums (four warps' in the reduction's first round, then the
     block's own [8 * tiles, cols] f32)."""
-    xw, cols = (1 if bits == 8 else 2), _warp_cols(tiles) * 8 * vec
+    xw, cols = (1 if bits == 8 else 2), wc * 8 * vec
     x = 8 * tiles * (2 * kchunk * xw + 32 * xw)
     scales = 0 if bits == 8 else (-(-kchunk // (group // 2)) + 1) * 4 * cols
     return max(x + scales, 4 * tiles * vec * 2 * 32 * 4 + 8 * tiles * cols * 4)
@@ -222,29 +217,34 @@ def rows_plan(rows: int, din: int, dout: int, bits: int, sm_count: int, aligned:
     starts on 16 bytes.
 
     Where one wave of blocks holds two or more slices of every column tile
-    (qkv, o, down of Qwen2-7B), as many as fit; else, below 4 n-tiles, one
-    slice (gate / up, lm_head), at 4 slices to ``_MV_MANY`` blocks an SM.
-    Slices longer than shared memory holds are cut further, all to one
-    length. Below 4 n-tiles the slices are added in the same launch where
-    the grid is one wave of clusters; else, and always at 4 n-tiles, by a
-    second pass. Each choice is the faster one in
-    ``scripts/torch_matvec_sweep.py --rows`` on an H100: clusters over
-    several waves, and the cluster's rank 0 adding 32 rows' sums, ran
+    (qkv, o, down of Qwen2-7B), as many as fit, one column group of warps
+    below 4 n-tiles, two at 4; else (gate / up, lm_head) twice those column
+    groups, so x is staged once for twice the columns, and as many slices
+    as fill one wave, at least two. Slices longer than shared memory holds
+    are cut further, all to one length. Below 4 n-tiles the slices are
+    added in the same launch where the grid is one wave of clusters; else,
+    and always at 4 n-tiles, by a second pass. Each choice is the faster
+    one in ``scripts/torch_matvec_sweep.py --rows`` on an H100: clusters
+    over several waves, and the cluster's rank 0 adding 32 rows' sums, ran
     slower than the second pass."""
     depth = din if bits == 8 else din // 2
     tiles = 1 if rows <= 8 else 2 if rows <= 16 else 4
     wide = 8 if tiles == 4 else 16
     vec = wide if aligned and dout % wide == 0 else 4
-    cols = _warp_cols(tiles) * 8 * vec
-    col_tiles = -(-dout // cols)
+    wc = 2 if tiles == 4 else 1
+    col_tiles = -(-dout // (wc * 8 * vec))
     wave = int(_MV_WAVE * sm_count)
     if 2 * col_tiles <= wave:
         want = min(wave // col_tiles, _MV_MAX_CLUSTER)
     else:
-        want = -(-_MV_MANY * sm_count // col_tiles) if tiles == 4 else 1
+        if vec > 4:  # twice the column groups: x staged once for twice the columns
+            wc *= 2
+            col_tiles = -(-dout // (wc * 8 * vec))
+        want = max(2, wave // col_tiles)
+    cols = wc * 8 * vec
     steps = -(-depth // _RW_STEP)
     max_steps = steps
-    while max_steps > 1 and rows_smem(bits, tiles, vec, max_steps * _RW_STEP, group) \
+    while max_steps > 1 and rows_smem(bits, tiles, vec, wc, max_steps * _RW_STEP, group) \
             > _RW_SMEM:
         max_steps -= 1
     # slices of equal length, as many as wanted and shared memory needs
@@ -253,8 +253,8 @@ def rows_plan(rows: int, din: int, dout: int, bits: int, sm_count: int, aligned:
     kchunk = per_slice * _RW_STEP
     one_wave = ksplit * col_tiles <= wave
     cluster = ksplit if tiles < 4 and 1 < ksplit <= _MV_MAX_CLUSTER and one_wave else 1
-    return RowsPlan(rows, tiles, vec, cols, ksplit, kchunk, cluster, col_tiles * ksplit,
-                    rows_smem(bits, tiles, vec, kchunk, group))
+    return RowsPlan(rows, tiles, vec, wc, cols, ksplit, kchunk, cluster, col_tiles * ksplit,
+                    rows_smem(bits, tiles, vec, wc, kchunk, group))
 
 
 def rows_slices_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, plan: RowsPlan,
@@ -317,7 +317,7 @@ def _launch_rows(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, bits: int, 
     lib = _lib()
     code = lib.quant_matmul_rows(
         x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), part.data_ptr(), bits, rows,
-        din, dout, group, plan.tiles, plan.vec, plan.ksplit, plan.kchunk, plan.cluster,
+        din, dout, group, plan.tiles, plan.vec, plan.wc, plan.ksplit, plan.kchunk, plan.cluster,
         plan.smem, torch.cuda.current_stream(x2.device).cuda_stream,
     )
     wrapper = int8_matvec if bits == 8 else int4_matmul
