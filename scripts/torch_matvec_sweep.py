@@ -62,7 +62,7 @@ def pass_us(fn, n=20):
 
 def rows_grids(rows, din, dout, bits, sms):
     """The 2-32-row plan and, for each count of column groups of warps the
-    kernel has (one or two below 4 n-tiles, two or four at 4), each split of
+    kernel has (one or two with 16-byte loads, two or four with 8), each split of
     the contraction into 1 to 8 slices of whole block steps that fits the
     block's shared memory, each split of 2 or more in one launch and in
     two."""
@@ -70,7 +70,8 @@ def rows_grids(rows, din, dout, bits, sms):
     depth = din if bits == 8 else din // 2
     steps = -(-depth // qm._RW_STEP)
     grids = {plan}
-    for wc in ((2, 4) if plan.tiles == 4 else (1, 2)):
+    narrow = 2 if plan.vec == 8 else 1
+    for wc in (narrow, 2 * narrow):
         cols = wc * 8 * plan.vec
         for want in range(1, 9):
             per_slice = -(-steps // want)

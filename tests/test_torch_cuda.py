@@ -568,7 +568,7 @@ def test_quant_rows_kernel_matches_plain_at_each_split(dev, bits, group, din, do
     for rows in RW_ROWS:
         x, q, s = _rows_inputs(dev, bits, rows, din, dout, group, offset=offset)
         plan = qm.rows_plan(rows, din, dout, bits, sms, offset == 0, group)
-        wide = 8 if plan.tiles == 4 else 16
+        wide = 8 if plan.tiles == 4 or (plan.tiles == 2 and bits == 4) else 16
         assert plan.vec == (wide if offset == 0 and dout % wide == 0 else 4)
         want = _row_plain(x, q, s, bits, group)
         got = qm._launch_rows(x, q, s, bits, group, plan)

@@ -7,8 +7,8 @@ the int8 scale last), held against ``int8_matvec_plain`` /
 
 Plan: whole block steps cover the contraction with no empty slice, one
 n-tile of 8 rows for the serving batch of 8 (two at 9-16 rows, four
-above), 16-byte loads (8 at four n-tiles) only where every weight row
-starts so aligned, the slice of x (and int4's scales) and the warps' sums
+above), 16-byte loads (8 at four n-tiles and for int4 at two) only where
+every weight row starts so aligned, the slice of x (and int4's scales) and the warps' sums
 fit the shared memory the plan gives the block, and below four n-tiles a
 split of 2 to 8 slices in one wave is one cluster that divides the grid.
 """
@@ -46,12 +46,12 @@ def test_rows_plan_covers_the_contraction_in_whole_steps(din, dout, rows, bits, 
     assert p.rows == rows and p.tiles == (1 if rows <= 8 else 2 if rows <= 16 else 4)
     assert p.kchunk % 128 == 0  # whole steps: 8 warps x 16 rows
     assert (p.ksplit - 1) * p.kchunk < depth <= p.ksplit * p.kchunk  # no empty slice
-    # 16-byte loads below 4 n-tiles, 8-byte ones at 4 (two column groups of
-    # warps, so a lane's sums stay 64 floats), 4 bytes where rows are not
-    # aligned to the wide load
-    wide = 8 if p.tiles == 4 else 16
+    # 16-byte loads, 8-byte ones at 4 n-tiles and for int4 at 2 (two column
+    # groups of warps, so a lane's sums stay at most 64 floats), 4 bytes
+    # where rows are not aligned to the wide load
+    wide = 8 if p.tiles == 4 or (p.tiles == 2 and bits == 4) else 16
     assert p.vec == (wide if aligned and dout % wide == 0 else 4)
-    assert p.wc in ((2, 4) if p.tiles == 4 else (1, 2))
+    assert p.wc in ((2, 4) if wide == 8 else (1, 2))
     assert p.cols == p.wc * 8 * p.vec and dout % p.vec == 0
     assert p.blocks == -(-dout // p.cols) * p.ksplit
     # below 4 n-tiles, one launch where the slices fit a portable cluster

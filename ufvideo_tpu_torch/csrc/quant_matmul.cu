@@ -65,11 +65,11 @@
 // both B fragments; the scale multiplies each weight before the bf16 round
 // (the group's scales staged in shared memory beside x), as the reference
 // does. The 8 warps form WC column groups, each walking the slice in runs:
-// below four n-tiles one group of 16-byte loads (128 columns a block), or
-// two (256) where the column tiles alone fill the card, so x is staged once
-// for more columns; at four n-tiles 8-byte loads in two or four groups, so
-// a lane's sums stay 64 floats and two blocks fit an SM (128 registers, no
-// spills). The warps of a column group add their sums through shared
+// one group of 16-byte loads (128 columns a block), or two (256) where the
+// column tiles alone fill the card, so x is staged once for more columns;
+// at four n-tiles, and at two for int4, 8-byte loads in two or four groups,
+// so a lane's sums stay at most 64 floats and two blocks fit an SM (128
+// registers, no spills). The warps of a column group add their sums through shared
 // memory in rounds, halving the warps each time, in the x slice's space.
 // A weight costs the conversion it costs at one row; an mma adds one
 // instruction per 64 weights converted at one n-tile, so int4 stays bound
@@ -622,8 +622,8 @@ cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, f
                    int rows, int din, int depth, int dout, int kchunk, int ksplit,
                    int group_half, bool one_launch, int smem, cudaStream_t st) {
   // a lane keeps STAGES batches of 4 loads in flight: three where the sums
-  // and the conversion leave the registers for them
-  constexpr int STAGES = NT == 1 || (NT == 4 && BITS == 8) ? 3 : 2;
+  // (NT * VEC * 2 floats) and the conversion leave the registers for them
+  constexpr int STAGES = NT * VEC * 2 >= 64 && (BITS == 4 || VEC == 16) ? 2 : 3;
   auto kernel = rows_kernel<BITS, NT, VEC, WC, STAGES>;
   static int smem_set = 48 * 1024;               // the default limit
   if (smem > smem_set) {
@@ -649,12 +649,17 @@ cudaError_t launch(const bf16* x, const int8_t* q, const float* s, float* out, f
                             group_half, int(one_launch));
 }
 
-// The instances: below 4 n-tiles vec 16 with one or two column groups, or
-// vec 4 with one; at 4 vec 8 with two or four, or vec 4 with two.
-bool instance(int nt, int vec, int wc) {
-  if (nt == 4) return (vec == 8 && (wc == 2 || wc == 4)) || (vec == 4 && wc == 2);
-  return (nt == 1 || nt == 2) &&
-         ((vec == 16 && (wc == 1 || wc == 2)) || (vec == 4 && wc == 1));
+// The wide load of each instance: 16 bytes, or 8 where a lane's sums at
+// 16 (NT * 32 floats) would leave too few registers: at four n-tiles, and
+// at two for int4 (its conversion needs more registers than int8's).
+constexpr int wide_vec(int bits, int nt) { return nt == 4 || (nt == 2 && bits == 4) ? 8 : 16; }
+
+// The instances: the wide load with the narrow count of column groups (1
+// for 16 bytes, 2 for 8) or twice it, or 4-byte loads with the narrow one.
+bool instance(int bits, int nt, int vec, int wc) {
+  if (nt != 1 && nt != 2 && nt != 4) return false;
+  const int wide = wide_vec(bits, nt), narrow = wide == 8 ? 2 : 1;
+  return (vec == wide && (wc == narrow || wc == 2 * narrow)) || (vec == 4 && wc == narrow);
 }
 
 template <int BITS>
@@ -670,8 +675,13 @@ cudaError_t launch_tiles(int nt, int vec, int wc, const bf16* x, const int8_t* q
     return wc == 4 ? UFV_ROWS_LAUNCH(4, 8, 4) : UFV_ROWS_LAUNCH(4, 8, 2);
   }
   if (nt == 2) {
-    if (vec == 4) return UFV_ROWS_LAUNCH(2, 4, 1);
-    return wc == 2 ? UFV_ROWS_LAUNCH(2, 16, 2) : UFV_ROWS_LAUNCH(2, 16, 1);
+    if constexpr (wide_vec(BITS, 2) == 8) {
+      if (vec == 4) return UFV_ROWS_LAUNCH(2, 4, 2);
+      return wc == 4 ? UFV_ROWS_LAUNCH(2, 8, 4) : UFV_ROWS_LAUNCH(2, 8, 2);
+    } else {
+      if (vec == 4) return UFV_ROWS_LAUNCH(2, 4, 1);
+      return wc == 2 ? UFV_ROWS_LAUNCH(2, 16, 2) : UFV_ROWS_LAUNCH(2, 16, 1);
+    }
   }
   if (vec == 4) return UFV_ROWS_LAUNCH(1, 4, 1);
   return wc == 2 ? UFV_ROWS_LAUNCH(1, 16, 2) : UFV_ROWS_LAUNCH(1, 16, 1);
@@ -692,7 +702,7 @@ extern "C" const char* ufv_error_string(int code) {
 // int8, s [dout] f32; bits 4: q [din / 2, dout] packed, s [din / group,
 // dout] f32 -> out [rows, dout] f32. The plan (ops/quant_matmul.rows_plan):
 // tiles n-tiles of 8 rows (1, 2 or 4; rows <= 8 * tiles), vec bytes a lane
-// loads a weight row (16 or 4 below 4 tiles, 8 or 4 at 4), ksplit slices of
+// loads a weight row (rows::wide_vec, or 4), ksplit slices of
 // kchunk weight rows (packed rows for int4), kchunk a multiple of 128,
 // wc column groups of warps (rows::instance), ksplit * kchunk >= depth >
 // (ksplit - 1) * kchunk, smem bytes of dynamic
@@ -706,7 +716,7 @@ extern "C" int quant_matmul_rows(const void* x, const void* q, const void* s, vo
                                  int tiles, int vec, int wc, int ksplit, int kchunk, int cluster,
                                  int smem, void* stream) {
   const int depth = bits == 8 ? din : din / 2;
-  if ((bits != 8 && bits != 4) || !rows::instance(tiles, vec, wc) || rows <= 0 ||
+  if ((bits != 8 && bits != 4) || !rows::instance(bits, tiles, vec, wc) || rows <= 0 ||
       rows > 8 * tiles || din <= 0 ||
       dout <= 0 || depth % 4 || dout % vec || ksplit <= 0 || ksplit > 65535 || kchunk <= 0 ||
       kchunk % rows::kBlockStep || (long long)ksplit * kchunk < depth ||

@@ -164,8 +164,7 @@ def matvec_slices_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, plan:
 # the 2-32-row kernel (csrc/quant_matmul.cu, namespace rows): 8 warps in
 # wc column groups, each warp walking its own run of the slice 16 weight
 # rows (packed rows for int4) a step, so a block step is 128 rows; 8 lanes
-# across a weight row, so a group takes 8 * vec columns; vec 8 at 4 n-tiles
-# keeps a lane's sums at 64 floats
+# across a weight row, so a group takes 8 * vec columns
 _RW_STEP = 128
 # dynamic shared memory a block: two blocks an SM (at most 128 registers a
 # thread)
@@ -174,9 +173,9 @@ _RW_SMEM = 113 * 1024
 
 class RowsPlan(NamedTuple):
     """The 2-32-row kernel's grid. ``rows`` of x in ``tiles`` n-tiles of 8
-    (1, 2 or 4); ``vec``: bytes a lane loads from a weight row (16, 8 at 4
-    n-tiles, or 4 where the rows are not so aligned); ``cols``: output
-    columns a block; ``ksplit`` slices of ``kchunk`` weight rows (packed
+    (1, 2 or 4); ``vec``: bytes a lane loads from a weight row (16; 8 at 4
+    n-tiles and for int4 at 2; 4 where the rows are not so aligned);
+    ``wc``: column groups of warps; ``cols``: output columns a block; ``ksplit`` slices of ``kchunk`` weight rows (packed
     rows for int4) each; ``cluster``: ``ksplit`` where the slices of a column tile
     form one thread-block cluster that adds them in the same launch, else 1
     (a second pass adds them); ``blocks``: the grid; ``smem``: bytes of
@@ -216,9 +215,10 @@ def rows_plan(rows: int, din: int, dout: int, bits: int, sm_count: int, aligned:
     the same grid and sums in the same order. ``aligned``: the weight
     starts on 16 bytes.
 
-    Where one wave of blocks holds two or more slices of every column tile
-    (qkv, o, down of Qwen2-7B), as many as fit, one column group of warps
-    below 4 n-tiles, two at 4; else (gate / up, lm_head) twice those column
+    16-byte loads, or 8 at 4 n-tiles and for int4 at 2 (``wide_vec`` in
+    csrc/quant_matmul.cu). Where one wave of blocks holds two or more
+    slices of every column tile (qkv, o, down of Qwen2-7B), as many as fit,
+    one column group of warps (two with 8-byte loads); else (gate / up, lm_head) twice those column
     groups, so x is staged once for twice the columns, and as many slices
     as fill one wave, at least two. Slices longer than shared memory holds
     are cut further, all to one length. Below 4 n-tiles the slices are
@@ -229,9 +229,9 @@ def rows_plan(rows: int, din: int, dout: int, bits: int, sm_count: int, aligned:
     slower than the second pass."""
     depth = din if bits == 8 else din // 2
     tiles = 1 if rows <= 8 else 2 if rows <= 16 else 4
-    wide = 8 if tiles == 4 else 16
+    wide = 8 if tiles == 4 or (tiles == 2 and bits == 4) else 16
     vec = wide if aligned and dout % wide == 0 else 4
-    wc = 2 if tiles == 4 else 1
+    wc = 2 if wide == 8 else 1
     col_tiles = -(-dout // (wc * 8 * vec))
     wave = int(_MV_WAVE * sm_count)
     if 2 * col_tiles <= wave:
