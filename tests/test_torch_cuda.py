@@ -615,7 +615,8 @@ def test_quant_rows_kernel_int4_conversion_is_exact(dev, group, rows):
             torch.int8)
     s = torch.rand(1024 // group, 256, device=dev) * 0.1 + 1e-3
     w = qm.dequantize_int4(q, s, group, torch.bfloat16).float()
-    logical = [2 * ks[i % 4] + (i // 4) % 2 for i in range(rows)]
+    # both nibbles at 2 rows; every packed row's both nibbles at 32
+    logical = [2 * ks[i % 4] + (i + i // 4) % 2 for i in range(rows)]
     x = torch.zeros(rows, 1024, dtype=torch.bfloat16, device=dev)
     for i, r in enumerate(logical):
         x[i, r] = 1
