@@ -125,6 +125,38 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def launches(self, fn, n=N_TIMED):
+        """Device ms of each launch one call of ``fn`` makes, in launch
+        order: [(kernel name, median ms)], from torch.profiler over ``n``
+        calls, L2 flushed before each; [] when the trace lost events."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        name = lambda e: (e.name.replace("(anonymous namespace)::", "")
+                          .removeprefix("void ").split("(")[0])
+        ks = sorted((e.time_range.start, name(e),
+                     (e.time_range.end - e.time_range.start) / 1e3)
+                    for e in prof.events() if e.device_type == cuda)
+        ks = [k for k in ks if "FillFunctor" not in k[1]]  # the flushes
+        if not ks or len(ks) % n:
+            return []
+        per = len(ks) // n
+        return [(ks[i][1], statistics.median(k[2] for k in ks[i::per])) for i in range(per)]
+
+
+def log_launches(label, launches):
+    if not launches:
+        log(f"  {label}: per-launch breakdown lost (the trace dropped events)")
+    for i, (name, ms) in enumerate(launches):
+        log(f"  {label} launch {i + 1}/{len(launches)}: {ms:.4f} ms {name}")
+
 
 def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
     """The larger of bytes over the memory rate and operations over the peak
@@ -452,6 +484,8 @@ def kernel_ln_matmul(dev, timer, gen):
         lambda: fused_ln_matmul_plain(x, l1s, l1b, w, b),
         lambda: torch.addmm(b, F.layer_norm(x, (c,), l1s, l1b, 1e-6).reshape(n * s, c), w),
         nbytes(x, w, l1s, l1b, b) + n * s * d * 2, 2 * n * s * c * d)
+    e["launch_ms"] = timer.launches(lambda: fused_ln_matmul(x, l1s, l1b, w, b))
+    log_launches("fused_ln_matmul", e["launch_ms"])
     return dict(name="fused_ln_matmul", route="cuda",
                 source="ufvideo_tpu_torch/csrc/hiera_block.cu",
                 replaces="ufvideo_tpu/ops/hiera_block.py:695", tol=tol_text(REL), **e)
@@ -471,6 +505,8 @@ def kernel_block_tail(dev, timer, gen):
         lambda: lib_tail(shortcut, att, params),
         nbytes(shortcut, att, shortcut, *params), 2 * n * s * (c * c + 2 * c * mlp),
         row_rel=BLOCK_REL)
+    e["launch_ms"] = timer.launches(lambda: fused_block_tail(shortcut, att, params))
+    log_launches("fused_block_tail", e["launch_ms"])
     return dict(name="fused_block_tail", route="cuda",
                 source="ufvideo_tpu_torch/csrc/hiera_block.cu",
                 replaces="ufvideo_tpu/ops/hiera_block.py:819", tol=tol_text(BLOCK_REL), **e)
