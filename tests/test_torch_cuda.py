@@ -1184,3 +1184,82 @@ def test_s8_gemm_repeats_bit_for_bit_and_alone_equals_plain(dev, m, k, n):
     assert torch.equal(alone, pr.probe_step_plain(x, w, True))
     with pytest.raises(ValueError):
         pr.gemm_s8_alone(qa[:, :24], bt[:, :24])  # Kp not a multiple of 16
+
+
+# ------------------------------------------------ the LayerNorm-band GEMM --
+# fused_ln_matmul and the LN2 -> fc1 step of fused_block_tail on one launch of
+# ln_gemm_kernel for C <= 576 (a band of 128 rows normalised in shared
+# memory, W streamed past it); C = 1152 keeps the pair of launches. Rows on
+# and off the band (1, 127, 129, 16384), N on and off the 128-column tile.
+
+from ufvideo_tpu_torch.ops import hiera_block as hb  # noqa: E402
+
+LN_GEMM_ROWS = [1, 127, 129, 16384]
+
+
+def _ln_inputs(dev, rows, c, d, seed):
+    x = _randn(dev, 1, rows, c, seed=seed)
+    ln_s = (1.0 + _randn(dev, c, seed=seed + 1, scale=0.1).float()).to(torch.bfloat16)
+    ln_b = _randn(dev, c, seed=seed + 2, scale=0.1)
+    w = _randn(dev, c, d, seed=seed + 3, scale=c ** -0.5)
+    return x, ln_s, ln_b, w, _randn(dev, d, seed=seed + 4, scale=0.1)
+
+
+@pytest.mark.parametrize("rows", LN_GEMM_ROWS)
+@pytest.mark.parametrize("c,d", [(144, 432), (144, 1024), (288, 864), (288, 1024),
+                                 (576, 1728), (576, 2304)])
+def test_ln_gemm_ln_matmul_matches_plain(dev, rows, c, d):
+    assert hb.ln_gemm_plan(rows, c, d).route == "ln_gemm"
+    args = _ln_inputs(dev, rows, c, d, seed=90)
+    before = fused_ln_matmul.launches
+    got = fused_ln_matmul(*args)
+    want = fused_ln_matmul_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_ln_matmul.launches == before + 1
+    assert got.shape == (1, rows, d)
+    _assert_close(got, want)
+
+
+def test_ln_gemm_repeats_bit_for_bit(dev):
+    args = _ln_inputs(dev, 3000, 576, 1728, seed=95)
+    first, second = fused_ln_matmul(*args), fused_ln_matmul(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_ln_gemm_wide_rows_keep_the_pair(dev):
+    """C = 1152 (SigLIP, Hiera's stage 4): the plan gives the pair of
+    launches, and both wrappers run it."""
+    rows, c = 300, 1152
+    assert hb.ln_gemm_plan(rows, c, 4 * c).route == "pair"
+    shortcut, att = _randn(dev, 1, rows, c, seed=98), _randn(dev, 1, rows, c, seed=99)
+    params = _tail_params(dev, c, c, 4 * c)
+    before = fused_block_tail.launches
+    got = fused_block_tail(shortcut, att, params, act="gelu_tanh")
+    want = fused_block_tail_plain(shortcut, att, params, act="gelu_tanh")
+    args = _ln_inputs(dev, rows, c, 3 * c, seed=100)
+    got_ln, want_ln = fused_ln_matmul(*args), fused_ln_matmul_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_block_tail.launches == before + 1
+    _assert_close(got, want, row_rel=5e-2)
+    _assert_close(got_ln, want_ln)
+
+
+def test_ln_gemm_entry_refuses_another_plan(dev):
+    """The C entry points launch only the plan they were built for."""
+    x, ln_s, ln_b, w, b = _ln_inputs(dev, 256, 576, 1728, seed=101)
+    vecs = [t.float().contiguous() for t in (ln_s, ln_b, b)]
+    out = torch.empty(256, 1728, dtype=torch.bfloat16, device=dev)
+    plan = hb.ln_gemm_plan(256, 576, 1728)
+    lib = hb._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in (x, vecs[0], vecs[1], w, vecs[2], out)]
+    for bad in ((plan.bm, plan.bn, plan.stages + 1, 1), (plan.bm, 256, plan.stages, 1),
+                (plan.bm, plan.bn, plan.stages, 2), (0, 0, 0, 0)):
+        assert lib.ln_matmul_bf16(*ptrs, 256, 576, 1728, *bad, 1e-6, stream) != 0
+    assert lib.ln_matmul_bf16(*ptrs, 256, 576, 1728, *plan.args, 1e-6, stream) == 0
+    xn = torch.empty_like(x)
+    pair = ptrs[:5] + [xn.data_ptr(), out.data_ptr()]
+    assert lib.ln_matmul_pair_bf16(*pair, 256, 576, 1728, 1e-6, stream) != 0
+    torch.cuda.synchronize()
+    _assert_close(out[None], fused_ln_matmul_plain(x, ln_s, ln_b, w, b))

@@ -236,6 +236,124 @@ __device__ __forceinline__ void wgmma_gemm(float (&acc)[BN / 2], uint64_t da, ui
     ufv::hop::wgmma_ss_n128<1>(acc, da, db, 1);
 }
 
+// The epilogue of one warpgroup's m64 x BN accumulator: accumulator 4 j + e
+// is row `row0` + 8 (e >= 2), column n0 + 8 j + 2 tig + (e & 1), with row0
+// the warp's first row + lane / 4. Bias, activation, then the f32 value, or
+// bf16(bf16(v) + R) with a residual, or bf16(v); rows >= M and columns >= N
+// are not stored (N % 8 == 0: a pair is all in or all out).
+template <int BN, int ACT, bool RES, bool F32OUT>
+__device__ __forceinline__ void store_acc(const float (&acc)[BN / 2], int row0, int n0,
+                                          const float* __restrict__ bias,
+                                          const bf16* __restrict__ R, void* __restrict__ Yv,
+                                          int M, int N) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * tig;
+    if (col >= N) continue;
+    const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      if (row >= M) continue;
+      float v0 = act_apply<ACT>(acc[4 * j + 2 * half] + b0);
+      float v1 = act_apply<ACT>(acc[4 * j + 2 * half + 1] + b1);
+      const long long off = (long long)row * N + col;
+      if (F32OUT) {
+        *reinterpret_cast<float2*>(static_cast<float*>(Yv) + off) = make_float2(v0, v1);
+        continue;
+      }
+      if (RES) {
+        const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
+        v0 = __bfloat162float(__float2bfloat16(v0)) + r.x;
+        v1 = __bfloat162float(__float2bfloat16(v1)) + r.y;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(Yv) + off) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// bj[2 j + e] = bias[n0 + 8 j + 2 tig + e] (0 past N or without a bias): a
+// thread's bias values for its columns of an m64 x BN accumulator, loaded
+// before any store of the tile so no load waits behind one
+template <int BN>
+__device__ __forceinline__ void load_bias(const float* __restrict__ bias, int n0, int N,
+                                          float (&bj)[BN / 4]) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * tig;
+    bj[2 * j] = bias && col < N ? bias[col] : 0.f;
+    bj[2 * j + 1] = bias && col < N ? bias[col + 1] : 0.f;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
+  return (i & 2) ? ((i & 1) ? w[3] : w[2]) : ((i & 1) ? w[1] : w[0]);
+}
+
+// The epilogue of an m64 x BN accumulator (the layout store_acc reads) with
+// 16-byte stores: for each group of four 8-column blocks, the lanes of a quad
+// trade their bf16 pairs (a 4 x 4 transpose in three shuffles), after which
+// lane tig holds the 8 contiguous columns of block 4 q + tig of its row, so a
+// warp writes 64 contiguous bytes of each of its 8 rows at once. Bias from
+// load_bias, activation, then bf16(v), or with a residual bf16(bf16(v) + R)
+// (R read 16 bytes at a time at the same place). Rows >= M and 8-column
+// blocks past N (N % 8 == 0) are not stored. BN % 32 == 0.
+template <int BN, int ACT, bool RES>
+__device__ __forceinline__ void store_rows16(const float (&acc)[BN / 2], const float (&bj)[BN / 4],
+                                             int row0, int n0, const bf16* __restrict__ R,
+                                             bf16* __restrict__ Y, int M, int N) {
+  static_assert(BN % 32 == 0, "four 8-column blocks a group");
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+#pragma unroll
+    for (int q = 0; q < BN / 32; ++q) {
+      uint32_t w[4], o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = 4 * q + k;
+        w[k] = pack_bf16x2(act_apply<ACT>(acc[4 * j + 2 * half] + bj[2 * j]),
+                           act_apply<ACT>(acc[4 * j + 2 * half + 1] + bj[2 * j + 1]));
+      }
+      // o[k] = lane k's pair of block 4 q + tig: o[tig] is this lane's own
+      // w[tig]; at step s, lane tig ^ s sends its w[tig] for o[tig ^ s]
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = w[k];
+#pragma unroll
+      for (int s = 1; s < 4; ++s) {
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, pick4(w, tig ^ s), s);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (k == (tig ^ s)) o[k] = got;
+      }
+      const int col = n0 + (4 * q + tig) * 8;
+      if (row >= M || col >= N) continue;
+      const long long off = (long long)row * N + col;
+      uint4 out = make_uint4(o[0], o[1], o[2], o[3]);
+      if (RES) {
+        const uint4 r = *reinterpret_cast<const uint4*>(R + off);
+        const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&r);
+        __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 a = __bfloat1622float2(oh[k]), b = __bfloat1622float2(rh[k]);
+          oh[k] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+        }
+      }
+      *reinterpret_cast<uint4*>(Y + off) = out;
+    }
+  }
+}
+
 template <int BN, int ACT, bool RES, bool F32OUT>
 __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
     __grid_constant__ const CUtensorMap mapA, __grid_constant__ const CUtensorMap mapW,
@@ -300,36 +418,8 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
     }
     h::wgmma_wait<0>();
     h::fence_regs(acc);
-
-    // accumulator 4 j + e: row m0 + 64 cw + 16 warp + g + 8 (e >= 2), column
-    // n0 + 8 j + 2 tig + (e & 1)
-    const int g = lane >> 2, tig = lane & 3;
-    const int row0 = m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + g;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + j * 8 + 2 * tig;
-      if (col >= N) continue;  // N % 8 == 0: col + 1 < N too
-      const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + 8 * half;
-        if (row >= M) continue;
-        float v0 = act_apply<ACT>(acc[4 * j + 2 * half] + b0);
-        float v1 = act_apply<ACT>(acc[4 * j + 2 * half + 1] + b1);
-        const long long off = (long long)row * N + col;
-        if (F32OUT) {
-          *reinterpret_cast<float2*>(static_cast<float*>(Yv) + off) = make_float2(v0, v1);
-          continue;
-        }
-        if (RES) {
-          const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
-          v0 = __bfloat162float(__float2bfloat16(v0)) + r.x;
-          v1 = __bfloat162float(__float2bfloat16(v1)) + r.y;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(Yv) + off) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
+    store_acc<BN, ACT, RES, F32OUT>(
+        acc, m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2), n0, bias, R, Yv, M, N);
   }
 }
 
@@ -384,6 +474,291 @@ cudaError_t layernorm(const bf16* x, const float* g, const float* b, bf16* y, in
                       int C, float eps, cudaStream_t st) {
   layernorm_kernel<<<(rows + 7) / 8, 256, 0, st>>>(x, g, b, y, rows, C, eps);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------- LayerNorm-band GEMM --
+// Y[M, N] = act(bf16(LN(X[M, C])) . W[C, N] + bias[N]) for C <= 576 (Hiera's
+// widths 144, 288, 576), C and N multiples of 8: the math of layernorm_kernel
+// followed by gemm_kernel (the same f32 statistics, summed in the same order,
+// the normalised row rounded to bf16, f32 accumulation in k order), in one
+// launch, with nothing of LN(X) in device memory.
+//
+// Hopper design: a block owns a band of 128 rows. One producer thread loads
+// the whole band by TMA (boxes of 64 columns x 128 rows, 128-byte swizzle,
+// the K-major layout wgmma reads; 147 KB at C = 576) and then streams W tiles
+// (64 K rows x BN columns) through a ring of mbarrier-guarded stages; the
+// ring runs on from one column tile to the next, so it never drains. The two
+// consumer warpgroups normalise the band in place (one warp a row, f32,
+// written back as bf16 in the same swizzled layout), then take alternate
+// column tiles (ping-pong): each computes a 128 x BN tile (two m64 wgmmas a
+// k16 step on one W descriptor), so one warpgroup's epilogue (bias, GELU,
+// stores) overlaps the other's products. Each band reads all of W once from
+// L2: 128 bands x 1.99 MB at row 6's shape against the 128 x 128-tile
+// GEMM's ~528 MB of A and W tiles. One block an SM (setmaxnreg: 40
+// registers for the producer warpgroup, 232 for the consumers' 128
+// accumulators); ln_gemm_plan sizes the ring from what the band leaves of
+// 227 KB (5 stages at C = 576, 8 at C <= 288). Rows past M are zero-filled
+// by TMA and not stored; K past C is zero in both operands.
+constexpr int kLnBM = 128, kLnMaxC = 576, kLnMaxStages = 8, kLnThreads = 384;
+constexpr int kLnChunk = kLnBM * 128;  // bytes of one 64-column chunk of the band
+constexpr int kSmemMax = 232448;       // dynamic shared memory a block may have
+
+struct LnPlan {
+  int bm, bn, stages, cluster;
+  int smem;
+};
+
+// The one configuration this file is built for at width C, from C alone (the
+// Python ln_gemm_plan computes the same); false where C takes the pair of
+// launches (layernorm_kernel, then gemm) instead.
+bool ln_gemm_plan(int C, LnPlan* p) {
+  if (C <= 0 || C > kLnMaxC || C % 8) return false;
+  const int band = (C + 63) / 64 * kLnChunk;
+  p->bm = kLnBM;
+  p->bn = 128;
+  p->cluster = 1;
+  const int stage = 64 * p->bn * 2;
+  const int fit = (kSmemMax - 1024 - band - 64) / (stage + 24);
+  p->stages = fit < kLnMaxStages ? fit : kLnMaxStages;
+  p->smem = 1024 + band + p->stages * stage + (8 + 3 * p->stages) * 8;
+  return true;
+}
+
+template <int BN, int ACT>
+__global__ void __launch_bounds__(kLnThreads, 1) ln_gemm_kernel(
+    __grid_constant__ const CUtensorMap mapX, __grid_constant__ const CUtensorMap mapW,
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    const float* __restrict__ bias, bf16* __restrict__ Y, int M, int N, int C, int ST,
+    float eps) {
+  namespace h = ufv::hop;
+  constexpr int STAGE = 64 * BN * 2;
+  extern __shared__ __align__(1024) unsigned char lsmem_raw[];
+  unsigned char* band = lsmem_raw + ((1024 - (h::smem_u32(lsmem_raw) & 1023)) & 1023);
+  const int nkc = (C + 63) / 64;
+  unsigned char* ring = band + nkc * kLnChunk;
+  // full[w * ST + s]: stage s holds a tile for consumer warpgroup w. One
+  // barrier a stage for both would let a warpgroup that waits for its next
+  // tile see the phase of the other's last use of that stage as its own.
+  // band_full[w]: the 16 rows consumer warp w normalises have landed
+  uint64_t* band_full = reinterpret_cast<uint64_t*>(ring + ST * STAGE);
+  uint64_t* full = band_full + 8;
+  uint64_t* empty = full + 2 * ST;
+  const int ntiles = (N + BN - 1) / BN;
+  // band b walks the column tiles from tile b % ntiles on, so that the
+  // bands in flight read different parts of W from L2 at any one time
+  const int rot = blockIdx.x % ntiles;
+  const int m0 = blockIdx.x * kLnBM;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 8; ++w) h::mbar_init(&band_full[w], 1);
+    for (int s = 0; s < ST; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&full[ST + s], 1);
+      h::mbar_init(&empty[s], 4);  // lane 0 of each warp of the consuming warpgroup
+    }
+    h::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup; one thread issues every load
+    h::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      // the band in 16-row boxes, warp by warp, so the first warps normalise
+      // while the rest of the band is in flight
+      for (int w = 0; w < 8; ++w) {
+        h::mbar_expect_tx(&band_full[w], nkc * 16 * 128);
+        for (int kc = 0; kc < nkc; ++kc)
+          h::tma_load_2d(band + kc * kLnChunk + w * 16 * 128, &mapX, &band_full[w], kc * 64,
+                         m0 + 16 * w);
+      }
+      int it = 0;  // stages in the order the consumers take them: tile, then k
+      for (int p = 0; p < ntiles; ++p) {
+        const int n0 = (p + rot) % ntiles * BN;
+        for (int kt = 0; kt < nkc; ++kt, ++it) {
+          const int st = it % ST;
+          uint64_t* f = &full[(p & 1) * ST + st];
+          h::mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+          unsigned char* stage = ring + st * STAGE;
+          h::mbar_expect_tx(f, STAGE);
+#pragma unroll
+          for (int nb = 0; nb < BN / 64; ++nb)
+            h::tma_load_2d(stage + nb * 8192, &mapW, f, n0 + 64 * nb, kt * 64);
+        }
+      }
+    }
+    return;
+  }
+  h::setmaxnreg_inc<232>();
+  const int cw = threadIdx.x / 128 - 1;        // consumer warpgroup 0 or 1
+  const int warp = (threadIdx.x - 128) >> 5;   // 0..7 over both
+  const int lane = threadIdx.x & 31;
+
+  // LayerNorm in place: warp w normalises rows 16 w .. 16 w + 15, lpr lanes
+  // a row (the fewest that hold a row in three 16-byte units each: 32 at C =
+  // 576, 16 at 288, 8 at 144), 32 / lpr rows at a time, two such groups
+  // interleaved; lane l holds units sub, sub + lpr, sub + 2 lpr of its row
+  // (columns 8 u .. 8 u + 7), sub = l % lpr
+  {
+    constexpr int U = kLnMaxC / 8 / 32 + 1;  // units a lane holds at most (3)
+    const int units = C / 8;
+    const int lpr = units > 48 ? 32 : units > 24 ? 16 : units > 12 ? 8 : units > 6 ? 4 : 2;
+    const int rpi = 32 / lpr, sub = lane % lpr;
+    float gv[U][8], bv[U][8];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int u = sub + lpr * i;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        gv[i][e] = u < units ? gamma[u * 8 + e] : 0.f;
+        bv[i][e] = u < units ? beta[u * 8 + e] : 0.f;
+      }
+    }
+    h::mbar_wait(&band_full[warp], 0);
+    const int rend = warp * 16 + 16;
+    for (int r0 = warp * 16 + lane / lpr; r0 < rend; r0 += 2 * rpi) {
+      // unit u of row r: chunk u / 8, 16-byte slot (u % 8) ^ (r % 8) of the
+      // row's 128 bytes (the 128-byte swizzle)
+      auto at = [&](int r, int u) {
+        return reinterpret_cast<uint4*>(band + (u >> 3) * kLnChunk + r * 128 +
+                                        (((u & 7) ^ (r & 7)) << 4));
+      };
+      float v[2][U][8], sum[2] = {0.f, 0.f}, var[2] = {0.f, 0.f}, mean[2], rstd[2];
+      bool live[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int r = r0 + k * rpi;
+        live[k] = r < rend && m0 + r < M;
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+          const int u = sub + lpr * i;
+          uint4 q = make_uint4(0u, 0u, 0u, 0u);
+          if (live[k] && u < units) q = *at(r, u);
+          const bf16* hq = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            v[k][i][e] = __bfloat162float(hq[e]);
+            sum[k] += v[k][i][e];
+          }
+        }
+      }
+      for (int off = lpr >> 1; off > 0; off >>= 1)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], off);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        mean[k] = sum[k] / C;
+#pragma unroll
+        for (int i = 0; i < U; ++i)
+          if (sub + lpr * i < units) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) var[k] += (v[k][i][e] - mean[k]) * (v[k][i][e] - mean[k]);
+          }
+      }
+      for (int off = lpr >> 1; off > 0; off >>= 1)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) var[k] += __shfl_xor_sync(0xffffffffu, var[k], off);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        rstd[k] = rsqrtf(var[k] / C + eps);
+        const int r = r0 + k * rpi;
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+          const int u = sub + lpr * i;
+          if (live[k] && u < units) {
+            uint32_t q[4];
+#pragma unroll
+            for (int e = 0; e < 8; e += 2)
+              q[e / 2] = pack_bf16x2(
+                  (v[k][i][e] - mean[k]) * rstd[k] * gv[i][e] + bv[i][e],
+                  (v[k][i][e + 1] - mean[k]) * rstd[k] * gv[i][e + 1] + bv[i][e + 1]);
+            *at(r, u) = make_uint4(q[0], q[1], q[2], q[3]);
+          }
+        }
+      }
+    }
+    h::fence_proxy_async();  // the band's new values, before wgmma reads them
+    h::named_bar_sync(1, 256);
+  }
+
+  // consumer warpgroup cw: the band's tiles cw, cw + 2, ... in its order;
+  // each warp owns rows 16 (warp % 4) .. + 15 of both 64-row halves. phase
+  // bit s: the parity of this warpgroup's next wait on stage s.
+  const int row0 = m0 + (warp & 3) * 16 + (lane >> 2);
+  uint32_t phase = 0;
+  for (int p = cw; p < ntiles; p += 2) {
+    const int n0 = (p + rot) % ntiles * BN;
+    float bj[BN / 4];  // this thread's bias values, loaded while the products run
+    load_bias<BN>(bias, n0, N, bj);
+    float acc0[BN / 2], acc1[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc0[i] = acc1[i] = 0.f;
+    for (int kt = 0; kt < nkc; ++kt) {
+      const int it = p * nkc + kt;
+      const int st = it % ST;
+      h::mbar_wait(&full[cw * ST + st], (phase >> st) & 1);
+      phase ^= 1u << st;
+      const unsigned char* a = band + kt * kLnChunk;
+      const unsigned char* b = ring + st * STAGE;
+      h::fence_regs(acc0);
+      h::fence_regs(acc1);
+      h::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = h::make_desc(b + kk * 16 * 128, 8192, 1024, 1);
+        wgmma_gemm<BN>(acc0, h::make_desc(a + kk * 32, 16, 1024, 1), db);
+        wgmma_gemm<BN>(acc1, h::make_desc(a + 64 * 128 + kk * 32, 16, 1024, 1), db);
+      }
+      h::wgmma_commit();
+      h::wgmma_wait<1>();  // the previous stage's products are done: release it
+      h::fence_regs(acc0);
+      h::fence_regs(acc1);
+      if (kt > 0 && lane == 0) h::mbar_arrive(&empty[(it - 1) % ST]);
+    }
+    h::wgmma_wait<0>();
+    h::fence_regs(acc0);
+    h::fence_regs(acc1);
+    if (lane == 0) h::mbar_arrive(&empty[(p * nkc + nkc - 1) % ST]);
+    store_rows16<BN, ACT, false>(acc0, bj, row0, n0, nullptr, Y, M, N);
+    store_rows16<BN, ACT, false>(acc1, bj, row0 + 64, n0, nullptr, Y, M, N);
+  }
+}
+
+template <int ACT>
+cudaError_t ln_gemm_launch(const CUtensorMap& mapX, const CUtensorMap& mapW, const float* g,
+                           const float* b, const float* bias, bf16* Y, int M, int N, int C,
+                           float eps, const LnPlan& p, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      ln_gemm_kernel<128, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  ln_gemm_kernel<128, ACT><<<(M + kLnBM - 1) / kLnBM, kLnThreads, p.smem, st>>>(
+      mapX, mapW, g, b, bias, Y, M, N, C, p.stages, eps);
+  return cudaGetLastError();
+}
+
+// Y = act(bf16(LN(X)) . W + bias) in one launch, on the plan ln_gemm_plan
+// gave for C; act 0 is none, 1-6 the GELUs
+cudaError_t ln_gemm(int act, const bf16* X, const float* g, const float* b, const bf16* W,
+                    const float* bias, bf16* Y, int M, int N, int C, float eps,
+                    const LnPlan& p, cudaStream_t st) {
+  CUtensorMap mapX, mapW;
+  const cuuint64_t dimsX[2] = {cuuint64_t(C), cuuint64_t(M)}, strideX[1] = {cuuint64_t(C) * 2};
+  const cuuint64_t dimsW[2] = {cuuint64_t(N), cuuint64_t(C)}, strideW[1] = {cuuint64_t(N) * 2};
+  const cuuint32_t boxX[2] = {64, 16}, boxW[2] = {64, 64};
+  cudaError_t err = ufv::hop::make_map(&mapX, X, 2, dimsX, strideX, boxX);
+  if (err == cudaSuccess) err = ufv::hop::make_map(&mapW, W, 2, dimsW, strideW, boxW);
+  if (err != cudaSuccess) return err;
+  switch (act) {
+#define UFV_LN_ACT(a) \
+    case a: return ln_gemm_launch<a>(mapX, mapW, g, b, bias, Y, M, N, C, eps, p, st);
+    UFV_LN_ACT(ACT_NONE)
+    UFV_LN_ACT(ACT_GELU_TANH)
+    UFV_LN_ACT(ACT_GELU_EXACT)
+    UFV_LN_ACT(ACT_GELU_POLY)
+    UFV_LN_ACT(ACT_GELU_POLY_BF16)
+    UFV_LN_ACT(ACT_GELU_TANH_POLY)
+    UFV_LN_ACT(ACT_GELU_TANH_POLY_BF16)
+#undef UFV_LN_ACT
+  }
+  return cudaErrorInvalidValue;
 }
 
 // dst[(n*Sq + oy*(ws/sx) + ox), c] = max over the sy x sx patch of
@@ -442,6 +817,14 @@ cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const fl
   if ((e = layernorm(x1, ln2_s, ln2_b, xn, rows, C, eps, st))) return e;
   if ((e = gemm_act(act, xn, w1, b1, hmid, rows, mlp, C, st))) return e;
   return gemm<ACT_NONE, true>(hmid, w2, b2, x1, out, rows, C, mlp, st);
+}
+
+// the plan a caller passed (bm, bn, stages, cluster; all 0 for the pair of
+// launches) is the one this file is built for at width C
+bool plan_is(int C, int bm, int bn, int stages, int cluster) {
+  LnPlan p;
+  if (!ln_gemm_plan(C, &p)) return bm == 0 && bn == 0 && stages == 0 && cluster == 0;
+  return bm == p.bm && bn == p.bn && stages == p.stages && cluster == p.cluster;
 }
 
 // Non-causal attention of Sq queries on Skv keys in each of N windows, q /
@@ -983,11 +1366,29 @@ extern "C" int gemm_s8_s32(const void* qa, const void* bt, void* y, int M, int K
   return 0;
 }
 
-// out [rows, D] = bf16(LN(x [rows, C]) . w [C, D] + b). Scratch xn [rows, C].
+// out [rows, D] = bf16(bf16(LN(x [rows, C])) . w [C, D] + b) in one launch of
+// the LayerNorm-band GEMM, for C <= 576; (bm, bn, stages, cluster) the plan
+// ops/hiera_block.ln_gemm_plan gave, refused unless it is this file's.
 extern "C" int ln_matmul_bf16(const void* x, const void* ln_s, const void* ln_b,
-                              const void* w, const void* b, void* xn, void* out, int rows,
-                              int C, int D, float eps, void* stream) {
-  if (rows <= 0 || C % 8 || D % 8) return int(cudaErrorInvalidValue);
+                              const void* w, const void* b, void* out, int rows, int C, int D,
+                              int bm, int bn, int stages, int cluster, float eps,
+                              void* stream) {
+  LnPlan p;
+  if (rows <= 0 || D % 8 || !ln_gemm_plan(C, &p) || !plan_is(C, bm, bn, stages, cluster))
+    return int(cudaErrorInvalidValue);
+  if (!all_aligned16({x, w, out})) return int(cudaErrorMisalignedAddress);
+  UFV_TRY(ln_gemm(ACT_NONE, b16(x), f32(ln_s), f32(ln_b), b16(w), f32(b), b16(out), rows, D, C,
+                  eps, p, static_cast<cudaStream_t>(stream)));
+  return 0;
+}
+
+// The same for the widths the plan gives no band to (C > 576): a LayerNorm
+// pass into the scratch xn [rows, C], then the GEMM.
+extern "C" int ln_matmul_pair_bf16(const void* x, const void* ln_s, const void* ln_b,
+                                   const void* w, const void* b, void* xn, void* out, int rows,
+                                   int C, int D, float eps, void* stream) {
+  if (rows <= 0 || C % 8 || D % 8 || !plan_is(C, 0, 0, 0, 0))
+    return int(cudaErrorInvalidValue);
   if (!all_aligned16({x, w, xn, out})) return int(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   UFV_TRY(layernorm(b16(x), f32(ln_s), f32(ln_b), b16(xn), rows, C, eps, st));

@@ -146,6 +146,17 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, TMA stores) once a barrier orders them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) over `threads` threads of the block
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // swizzle codes of the descriptor: 1 = 128 B, 2 = 64 B, 3 = 32 B rows
 __host__ __device__ constexpr int desc_swizzle(int row_bytes) {
   return row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;

@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -148,7 +149,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("hiera_block")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hiera_block_bf16.argtypes = [p] * 19 + [i] * 7 + [f, p]
-    lib.ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, p]
+    lib.ln_matmul_bf16.argtypes = [p] * 6 + [i] * 7 + [f, p]
+    lib.ln_matmul_pair_bf16.argtypes = [p] * 7 + [i] * 3 + [f, p]
     lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 5 + [f, p]
     lib.qpool_block_bf16.argtypes = [p] * 22 + [i] * 10 + [f, p]
     lib.block_w8a8_bf16.argtypes = [p] * 29 + [i] * 7 + [f, p]
@@ -159,7 +161,8 @@ def _lib() -> ctypes.CDLL:
     lib.probe_gemm_bf16.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.probe_gemm_s8.argtypes = [p] * 5 + [i] * 3 + [p]
     lib.gemm_s8_s32.argtypes = [p] * 3 + [i] * 3 + [p]
-    for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.block_tail_bf16,
+    for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.ln_matmul_pair_bf16,
+               lib.block_tail_bf16,
                lib.qpool_block_bf16, lib.block_w8a8_bf16, lib.ln_matmul_w8a8_bf16,
                lib.block_tail_w8a8_bf16, lib.qpool_block_w8a8_bf16, lib.hiera_stage_bf16,
                lib.probe_gemm_bf16, lib.probe_gemm_s8, lib.gemm_s8_s32):
@@ -352,6 +355,53 @@ def fused_hiera_stage(
 fused_hiera_stage.launches = 0
 
 
+# The LayerNorm-band GEMM of csrc/hiera_block.cu (ln_gemm_kernel): a block
+# normalises a band of LN_BM rows of x in shared memory and streams W past
+# it. It takes C <= LN_MAX_C; wider rows take the pair of launches (a
+# LayerNorm pass into a scratch, then the GEMM).
+LN_BM, LN_MAX_C, LN_BN, LN_MAX_STAGES = 128, 576, 128, 8
+SMEM_MAX = 232448  # dynamic shared memory an H100 block may have (227 KB)
+
+
+class LnGemmPlan(NamedTuple):
+    """How ``fused_ln_matmul`` and the LN2 -> fc1 step of ``fused_block_tail``
+    run at a shape: ``route`` "ln_gemm" (one launch) or "pair"; for
+    "ln_gemm", the band's rows ``bm``, the column tile ``bn``, the W ring's
+    ``stages``, the dynamic shared memory ``smem`` (bytes), the cluster size
+    and the grid's ``bands``; 0 for "pair"."""
+    route: str
+    bm: int
+    bn: int
+    stages: int
+    smem: int
+    cluster: int
+    bands: int
+
+    @property
+    def args(self):
+        """(bm, bn, stages, cluster) as the C entry points take and check them."""
+        return self.bm, self.bn, self.stages, self.cluster
+
+
+@functools.cache
+def ln_gemm_plan(rows: int, c: int, n: int) -> LnGemmPlan:
+    """The plan at ``rows`` rows of width ``c`` into ``n`` columns, from shapes
+    alone (csrc/hiera_block.cu ``ln_gemm_plan`` computes the same and refuses
+    any other). The band of 128 rows is loaded once (``ceil(c / 64)`` chunks
+    of 64 columns, 16 KB each); the ring of W tiles (64 K rows x 128 columns,
+    16 KB) gets as many stages as the rest of 227 KB holds, at most 8: 5 at
+    C = 576, 8 at C <= 288. One band a block, one block an SM."""
+    if rows <= 0 or n <= 0 or n % 8 or c <= 0 or c % 8:
+        raise ValueError(f"no plan for rows={rows} C={c} N={n}: C and N multiples of 8")
+    if c > LN_MAX_C:
+        return LnGemmPlan("pair", 0, 0, 0, 0, 0, 0)
+    band = -(-c // 64) * LN_BM * 128
+    stage = 64 * LN_BN * 2
+    stages = min(LN_MAX_STAGES, (SMEM_MAX - 1024 - band - 64) // (stage + 24))
+    smem = 1024 + band + stages * stage + (8 + 3 * stages) * 8
+    return LnGemmPlan("ln_gemm", LN_BM, LN_BN, stages, smem, 1, -(-rows // LN_BM))
+
+
 def fused_block_tail_plain(
     shortcut: torch.Tensor, att: torch.Tensor, params: tuple,
     act: str = "gelu_exact", eps: float = 1e-6,
@@ -380,7 +430,9 @@ def fused_ln_matmul(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """LayerNorm + matmul + bias → [N, S, D]. CPU tensors take the plain
-    version; CUDA tensors launch the kernels (bf16; C and D multiples of 8)."""
+    version; CUDA tensors launch the kernel (bf16; C and D multiples of 8):
+    one launch of the LayerNorm-band GEMM for C <= 576, else the pair of
+    launches (``ln_gemm_plan``)."""
     if x.device.type == "cpu":
         return fused_ln_matmul_plain(x, ln_s, ln_b, w, b, eps)
     _check_cuda("fused_ln_matmul", x, (w,))
@@ -390,13 +442,18 @@ def fused_ln_matmul(
         raise ValueError(f"unsupported shapes x {tuple(x.shape)} w {tuple(w.shape)}")
     x, w = x.contiguous(), w.contiguous()
     vecs = _f32(ln_s, ln_b, b)
-    xn = torch.empty_like(x)
     out = torch.empty((n, s, d), dtype=x.dtype, device=x.device)
+    plan = ln_gemm_plan(n * s, c, d)
     lib = _lib()
-    code = lib.ln_matmul_bf16(
-        *_ptrs(x, vecs[0], vecs[1], w, vecs[2], xn, out), n * s, c, d, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan.route == "ln_gemm":
+        code = lib.ln_matmul_bf16(
+            *_ptrs(x, vecs[0], vecs[1], w, vecs[2], out), n * s, c, d, *plan.args,
+            float(eps), stream)
+    else:
+        code = lib.ln_matmul_pair_bf16(
+            *_ptrs(x, vecs[0], vecs[1], w, vecs[2], torch.empty_like(x), out), n * s, c, d,
+            float(eps), stream)
     _build.check(lib, code, "fused_ln_matmul")
     fused_ln_matmul.launches += 1
     return out
