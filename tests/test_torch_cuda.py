@@ -1220,11 +1220,40 @@ def test_ln_gemm_ln_matmul_matches_plain(dev, rows, c, d):
     _assert_close(got, want)
 
 
+@pytest.mark.parametrize("rows", LN_GEMM_ROWS)
+@pytest.mark.parametrize("c", [144, 288, 576])
+def test_ln_gemm_block_tail_matches_plain(dev, rows, c):
+    mlp = 4 * c
+    assert hb.ln_gemm_plan(rows, c, mlp).route == "ln_gemm"
+    shortcut, att = _randn(dev, 1, rows, c, seed=91), _randn(dev, 1, rows, c, seed=92)
+    params = _tail_params(dev, c, c, mlp)
+    before = fused_block_tail.launches
+    got = fused_block_tail(shortcut, att, params, act="gelu_exact")
+    want = fused_block_tail_plain(shortcut, att, params, act="gelu_exact")
+    torch.cuda.synchronize()
+    assert fused_block_tail.launches == before + 1
+    _assert_close(got, want, row_rel=5e-2)
+
+
+@pytest.mark.parametrize("act", list(hb._ACT_CODES))
+def test_ln_gemm_block_tail_every_gelu(dev, act):
+    shortcut, att = _randn(dev, 2, 150, 576, seed=93), _randn(dev, 2, 150, 576, seed=94)
+    params = _tail_params(dev, 576, 576, 2304)
+    got = fused_block_tail(shortcut, att, params, act=act)
+    want = fused_block_tail_plain(shortcut, att, params, act=act)
+    torch.cuda.synchronize()
+    _assert_close(got, want, row_rel=5e-2)
+
+
 def test_ln_gemm_repeats_bit_for_bit(dev):
     args = _ln_inputs(dev, 3000, 576, 1728, seed=95)
     first, second = fused_ln_matmul(*args), fused_ln_matmul(*args)
+    shortcut, att = _randn(dev, 1, 3000, 288, seed=96), _randn(dev, 1, 3000, 288, seed=97)
+    params = _tail_params(dev, 288, 288, 1152)
+    t1 = fused_block_tail(shortcut, att, params)
+    t2 = fused_block_tail(shortcut, att, params)
     torch.cuda.synchronize()
-    assert torch.equal(first, second)
+    assert torch.equal(first, second) and torch.equal(t1, t2)
 
 
 def test_ln_gemm_wide_rows_keep_the_pair(dev):

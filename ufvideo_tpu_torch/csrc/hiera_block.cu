@@ -805,8 +805,10 @@ cudaError_t pool(const bf16* src, bf16* dst, long long out_rows, int ws, int sy,
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // The shared tail of every block: x1 = R + bf16(A . wproj + bproj);
-// xn = LN2(x1); hmid = GELU(xn . w1 + b1); out = x1 + bf16(hmid . w2 + b2).
-// A [rows, a_dim], R / x1 / xn / out [rows, C], hmid [rows, mlp].
+// hmid = GELU(bf16(LN2(x1)) . w1 + b1); out = x1 + bf16(hmid . w2 + b2).
+// A [rows, a_dim], R / x1 / out [rows, C], hmid [rows, mlp]. Three launches
+// where ln_gemm_plan takes C (LN2 inside the fc1 launch; xn unused, may be
+// null), else four through the scratch xn [rows, C].
 cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const float* bproj,
                        const float* ln2_s, const float* ln2_b, const bf16* w1,
                        const float* b1, const bf16* w2, const float* b2, bf16* x1, bf16* xn,
@@ -814,8 +816,14 @@ cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const fl
                        float eps, cudaStream_t st) {
   cudaError_t e;
   if ((e = gemm<ACT_NONE, true>(A, wproj, bproj, R, x1, rows, C, a_dim, st))) return e;
-  if ((e = layernorm(x1, ln2_s, ln2_b, xn, rows, C, eps, st))) return e;
-  if ((e = gemm_act(act, xn, w1, b1, hmid, rows, mlp, C, st))) return e;
+  LnPlan p;
+  if (ln_gemm_plan(C, &p)) {
+    if ((e = ln_gemm(act, x1, ln2_s, ln2_b, w1, b1, hmid, rows, mlp, C, eps, p, st))) return e;
+  } else {
+    if (!xn) return cudaErrorInvalidValue;
+    if ((e = layernorm(x1, ln2_s, ln2_b, xn, rows, C, eps, st))) return e;
+    if ((e = gemm_act(act, xn, w1, b1, hmid, rows, mlp, C, st))) return e;
+  }
   return gemm<ACT_NONE, true>(hmid, w2, b2, x1, out, rows, C, mlp, st);
 }
 
@@ -1397,15 +1405,19 @@ extern "C" int ln_matmul_pair_bf16(const void* x, const void* ln_s, const void* 
 }
 
 // shortcut, out [rows, C]; att [rows, A]; wproj [A, C], w1 [C, mlp], w2
-// [mlp, C]. Scratch x1, xn [rows, C], hmid [rows, mlp].
+// [mlp, C]. Scratch x1 [rows, C], hmid [rows, mlp], and xn [rows, C] where
+// the plan (bm, bn, stages, cluster) is the pair's (all 0); xn may be null
+// otherwise.
 extern "C" int block_tail_bf16(
     const void* shortcut, const void* att, void* out, const void* wproj, const void* bproj,
     const void* ln2_s, const void* ln2_b, const void* w1, const void* b1, const void* w2,
     const void* b2, void* x1, void* xn, void* hmid, int rows, int C, int A, int mlp, int act,
-    float eps, void* stream) {
-  if (rows <= 0 || C % 8 || A % 8 || mlp % 8 || !act_ok(act))
+    int bm, int bn, int stages, int cluster, float eps, void* stream) {
+  if (rows <= 0 || C % 8 || A % 8 || mlp % 8 || !act_ok(act) ||
+      !plan_is(C, bm, bn, stages, cluster) || (bn == 0 && !xn))
     return int(cudaErrorInvalidValue);
-  if (!all_aligned16({shortcut, att, out, wproj, w1, w2, x1, xn, hmid}))
+  if (!all_aligned16({shortcut, att, out, wproj, w1, w2, x1, hmid}) ||
+      (xn && !aligned16(xn)))
     return int(cudaErrorMisalignedAddress);
   UFV_TRY(block_tail(b16(att), b16(shortcut), b16(wproj), f32(bproj), f32(ln2_s),
                      f32(ln2_b), b16(w1), f32(b1), b16(w2), f32(b2), b16(x1), b16(xn),

@@ -151,7 +151,7 @@ def _lib() -> ctypes.CDLL:
     lib.hiera_block_bf16.argtypes = [p] * 19 + [i] * 7 + [f, p]
     lib.ln_matmul_bf16.argtypes = [p] * 6 + [i] * 7 + [f, p]
     lib.ln_matmul_pair_bf16.argtypes = [p] * 7 + [i] * 3 + [f, p]
-    lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 5 + [f, p]
+    lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 9 + [f, p]
     lib.qpool_block_bf16.argtypes = [p] * 22 + [i] * 10 + [f, p]
     lib.block_w8a8_bf16.argtypes = [p] * 29 + [i] * 7 + [f, p]
     lib.ln_matmul_w8a8_bf16.argtypes = [p] * 10 + [i] * 3 + [f, p]
@@ -471,7 +471,8 @@ def fused_block_tail(
 ) -> torch.Tensor:
     """proj + residual → LN2 → MLP + residual → [N, S, C]. CPU tensors take
     the plain version; CUDA tensors launch the kernels (bf16; C, A and mlp
-    multiples of 8)."""
+    multiples of 8): three launches where ``ln_gemm_plan`` takes C (LN2
+    inside fc1's), else four."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
     if shortcut.device.type == "cpu":
@@ -489,12 +490,14 @@ def fused_block_tail(
     vecs = _f32(bproj, ln2_s, ln2_b, b1, b2)
     rows = n * s
     empty = functools.partial(torch.empty, dtype=shortcut.dtype, device=shortcut.device)
-    out, x1, xn, hmid = empty((n, s, c)), empty((rows, c)), empty((rows, c)), empty((rows, mlp))
+    out, x1, hmid = empty((n, s, c)), empty((rows, c)), empty((rows, mlp))
+    plan = ln_gemm_plan(rows, c, mlp)
+    xn = empty((rows, c)).data_ptr() if plan.route == "pair" else None
     lib = _lib()
     code = lib.block_tail_bf16(
         *_ptrs(shortcut, att, out, wproj, vecs[0], vecs[1], vecs[2], w1, vecs[3], w2,
-               vecs[4], x1, xn, hmid),
-        rows, c, a, mlp, _ACT_CODES[act], float(eps),
+               vecs[4], x1), xn, hmid.data_ptr(),
+        rows, c, a, mlp, _ACT_CODES[act], *plan.args, float(eps),
         torch.cuda.current_stream(shortcut.device).cuda_stream,
     )
     _build.check(lib, code, "fused_block_tail")
