@@ -1,5 +1,5 @@
 // The pre-LN transformer blocks of SigLIP and Hiera as short sequences of
-// hand-written launches, with a plain C interface for ctypes. Twelve entry
+// hand-written launches, with a plain C interface for ctypes. Thirteen entry
 // points; the first nine replace one TPU kernel of
 // ufvideo_tpu/ops/hiera_block.py each:
 //
@@ -10,7 +10,10 @@
 //   hiera_stage_bf16  fused_hiera_stage (_stage_forward / _stage_kernel): nb
 //                     such blocks in one call (see the entry point);
 //   ln_matmul_bf16    fused_ln_matmul (_ln_matmul_forward): LN (f32) ->
-//                     matmul + bias, the front of a global block;
+//                     matmul + bias, the front of a global block, in one
+//                     launch of the LayerNorm-band GEMM (C <= 576; wider
+//                     rows: ln_matmul_pair_bf16, a LayerNorm pass and the
+//                     GEMM);
 //   block_tail_bf16   fused_block_tail (_tail_forward): proj + residual ->
 //                     LN2 -> fc1 -> GELU -> fc2 + residual, the tail of a
 //                     global block after the flash kernel;
@@ -62,9 +65,13 @@
 // their 16- and 64-token windows run the tile's 64-key instance, a 16-token
 // window filling a quarter of its 64-row query tile (the rest is masked).
 // The q-pool block adds one elementwise pass (pool_kernel) and runs the
-// attention with Sq = S/4 queries against S keys per window. Not yet used:
-// fusing LN into the GEMM prologue; consumer warpgroups on different tiles
-// (ping-pong), so that one's epilogue overlaps the other's products.
+// attention with Sq = S/4 queries against S keys per window. Every block's
+// tail at C <= 576 (Hiera's stages 1-3) runs LN2 inside its fc1 launch, on
+// the LayerNorm-band GEMM below (a band of rows normalised once in shared
+// memory, W streamed past it, consumer warpgroups on different column tiles
+// so one's epilogue overlaps the other's products). Not yet: LN1 -> qkv of
+// the windowed and q-pool blocks on that GEMM; fc1 and fc2 in one kernel
+// (hmid kept on the chip); a 64-row band for C = 1152.
 #include "attention_tile.cuh"
 #include "hopper.cuh"
 
@@ -220,18 +227,27 @@ constexpr int kGBM = 128, kGBK = 64, kGThreads = 288;
 
 template <int BN>
 struct GemmCfg {
-  static constexpr int STAGES = BN == 256 ? 4 : 3;
-  static constexpr int PER_SM = BN == 256 ? 1 : 2;
+  // the 144-column tile's 72 accumulators do not fit two blocks an SM (96
+  // registers a thread): one block, a deeper ring
+  static constexpr int STAGES = BN == 256 ? 4 : BN == 144 ? 6 : 3;
+  static constexpr int PER_SM = BN == 128 ? 2 : 1;
+  // W's boxes: BA columns (64 in 128-byte-swizzled rows; 16 in 32-byte rows
+  // for the 144-column tile, which divides Hiera's widths 144, 288, 576)
+  static constexpr int BA = BN % 64 == 0 ? 64 : 16;
   static constexpr int TILE_A = kGBM * kGBK * 2;  // bytes: 128 rows x 128 B
-  static constexpr int TILE_B = kGBK * BN * 2;    // bytes: BN / 64 boxes of 64 x 64
+  static constexpr int TILE_B = kGBK * BN * 2;    // bytes: BN / BA boxes of 64 x BA
   static constexpr int STAGE = TILE_A + TILE_B;
-  static constexpr size_t SMEM = size_t(STAGES) * STAGE + 2 * STAGES * sizeof(uint64_t) + 1024;
+  static constexpr int BIAS = BA == 64 ? 0 : BN * 4;  // the tile's bias, staged for the epilogue
+  static constexpr size_t SMEM =
+      size_t(STAGES) * STAGE + 2 * STAGES * sizeof(uint64_t) + BIAS + 1024;
 };
 
 template <int BN>
 __device__ __forceinline__ void wgmma_gemm(float (&acc)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 256)
     ufv::hop::wgmma_ss_n256<1>(acc, da, db, 1);
+  else if constexpr (BN == 144)
+    ufv::hop::wgmma_ss_n144<1>(acc, da, db, 1);
   else
     ufv::hop::wgmma_ss_n128<1>(acc, da, db, 1);
 }
@@ -274,19 +290,9 @@ __device__ __forceinline__ void store_acc(const float (&acc)[BN / 2], int row0, 
   }
 }
 
-// bj[2 j + e] = bias[n0 + 8 j + 2 tig + e] (0 past N or without a bias): a
-// thread's bias values for its columns of an m64 x BN accumulator, loaded
-// before any store of the tile so no load waits behind one
-template <int BN>
-__device__ __forceinline__ void load_bias(const float* __restrict__ bias, int n0, int N,
-                                          float (&bj)[BN / 4]) {
-  const int tig = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + j * 8 + 2 * tig;
-    bj[2 * j] = bias && col < N ? bias[col] : 0.f;
-    bj[2 * j + 1] = bias && col < N ? bias[col + 1] : 0.f;
-  }
+// ((v0 + v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7))
+__device__ __forceinline__ float tree8(const float (&v)[8]) {
+  return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
@@ -298,58 +304,113 @@ __device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
   return (i & 2) ? ((i & 1) ? w[3] : w[2]) : ((i & 1) ? w[1] : w[0]);
 }
 
-// The epilogue of an m64 x BN accumulator (the layout store_acc reads) with
-// 16-byte stores: for each group of four 8-column blocks, the lanes of a quad
-// trade their bf16 pairs (a 4 x 4 transpose in three shuffles), after which
-// lane tig holds the 8 contiguous columns of block 4 q + tig of its row, so a
-// warp writes 64 contiguous bytes of each of its 8 rows at once. Bias from
-// load_bias, activation, then bf16(v), or with a residual bf16(bf16(v) + R)
-// (R read 16 bytes at a time at the same place). Rows >= M and 8-column
-// blocks past N (N % 8 == 0) are not stored. BN % 32 == 0.
-template <int BN, int ACT, bool RES>
-__device__ __forceinline__ void store_rows16(const float (&acc)[BN / 2], const float (&bj)[BN / 4],
-                                             int row0, int n0, const bf16* __restrict__ R,
-                                             bf16* __restrict__ Y, int M, int N) {
-  static_assert(BN % 32 == 0, "four 8-column blocks a group");
+// One group of the 16-byte epilogue: accumulators v[0..15] are blocks 4 q ..
+// 4 q + 3 (8 columns each) of rows `row` and row + 8; bias from shared
+// memory (bs: the tile's values; a global load here would wait behind the
+// stores before it), activation, then bf16(v), or with a residual bf16(bf16(v)
+// + R). The lanes of a quad trade their bf16 pairs (a 4 x 4 transpose in
+// three shuffles), after which lane tig holds the 8 contiguous columns of
+// block 4 q + tig, so a warp writes 64 contiguous bytes of each of its 8 rows
+// at once (R read 16 bytes at a time at the same place). Rows >= M and blocks
+// past N (N % 8 == 0) are not stored.
+template <int ACT, bool RES>
+__device__ __forceinline__ void store_group16(const float (&v)[16], const float* bs, int q,
+                                              int row, int n0, const bf16* __restrict__ R,
+                                              bf16* __restrict__ Y, int M, int N) {
   const int tig = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = row0 + 8 * half;
+    uint32_t w[4], o[4];
 #pragma unroll
-    for (int q = 0; q < BN / 32; ++q) {
-      uint32_t w[4], o[4];
+    for (int k = 0; k < 4; ++k) {
+      const float2 b = *reinterpret_cast<const float2*>(bs + 8 * (4 * q + k) + 2 * tig);
+      w[k] = pack_bf16x2(act_apply<ACT>(v[4 * k + 2 * half] + b.x),
+                         act_apply<ACT>(v[4 * k + 2 * half + 1] + b.y));
+    }
+    // o[k] = lane k's pair of block 4 q + tig: o[tig] is this lane's own
+    // w[tig]; at step s, lane tig ^ s sends its w[tig] for o[tig ^ s]
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o[k] = w[k];
+#pragma unroll
+    for (int s = 1; s < 4; ++s) {
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, pick4(w, tig ^ s), s);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k == (tig ^ s)) o[k] = got;
+    }
+    const int r = row + 8 * half, col = n0 + (4 * q + tig) * 8;
+    if (r >= M || col >= N) continue;
+    const long long off = (long long)r * N + col;
+    uint4 out = make_uint4(o[0], o[1], o[2], o[3]);
+    if (RES) {
+      const uint4 rv = *reinterpret_cast<const uint4*>(R + off);
+      const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&rv);
+      __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int j = 4 * q + k;
-        w[k] = pack_bf16x2(act_apply<ACT>(acc[4 * j + 2 * half] + bj[2 * j]),
-                           act_apply<ACT>(acc[4 * j + 2 * half + 1] + bj[2 * j + 1]));
+        const float2 x = __bfloat1622float2(oh[k]), y = __bfloat1622float2(rh[k]);
+        oh[k] = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
       }
-      // o[k] = lane k's pair of block 4 q + tig: o[tig] is this lane's own
-      // w[tig]; at step s, lane tig ^ s sends its w[tig] for o[tig ^ s]
+    }
+    *reinterpret_cast<uint4*>(Y + off) = out;
+  }
+}
+
+// The epilogue of NA m64 x BN accumulators (the layout store_acc reads;
+// array a holds rows row0 + 64 a) with 16-byte stores, group by group (four
+// 8-column blocks). Without an activation every group is unrolled. With a
+// GELU, one group a step of a loop that is not unrolled: the arrays shift
+// down 16 values a step, so a step reads fixed registers and the code (the
+// GELU inlined 16 times, not NA * BN / 2 times) stays in the instruction
+// cache. Fully unrolled, a GELU epilogue took 4x its later tiles' time on its
+// first tile on an H100 (PERF.md, PR 13). Where BN % 32 == 16 (144) the last
+// two blocks go first, a bf16 pair at a time.
+template <int BN, int ACT, bool RES, int NA>
+__device__ __forceinline__ void store_rows16(float (&acc)[NA][BN / 2], const float* bs, int row0,
+                                             int n0, const bf16* __restrict__ R,
+                                             bf16* __restrict__ Y, int M, int N) {
+  static_assert(BN % 16 == 0, "whole 8-column blocks in pairs");
+  constexpr int GQ = BN / 32, FLAT = 16 * GQ;  // groups an array, values they hold
+  const int tig = threadIdx.x & 3;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) o[k] = w[k];
+  for (int a = 0; a < NA; ++a)
 #pragma unroll
-      for (int s = 1; s < 4; ++s) {
-        const uint32_t got = __shfl_xor_sync(0xffffffffu, pick4(w, tig ^ s), s);
+    for (int j = GQ * 4; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * tig;
+      const float2 b = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * tig);
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (k == (tig ^ s)) o[k] = got;
-      }
-      const int col = n0 + (4 * q + tig) * 8;
-      if (row >= M || col >= N) continue;
-      const long long off = (long long)row * N + col;
-      uint4 out = make_uint4(o[0], o[1], o[2], o[3]);
-      if (RES) {
-        const uint4 r = *reinterpret_cast<const uint4*>(R + off);
-        const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&r);
-        __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 a = __bfloat1622float2(oh[k]), b = __bfloat1622float2(rh[k]);
-          oh[k] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 64 * a + 8 * half;
+        if (row >= M || col >= N) continue;
+        float v0 = act_apply<ACT>(acc[a][4 * j + 2 * half] + b.x);
+        float v1 = act_apply<ACT>(acc[a][4 * j + 2 * half + 1] + b.y);
+        const long long off = (long long)row * N + col;
+        if (RES) {
+          const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
+          v0 = __bfloat162float(__float2bfloat16(v0)) + r.x;
+          v1 = __bfloat162float(__float2bfloat16(v1)) + r.y;
         }
+        *reinterpret_cast<__nv_bfloat162*>(Y + off) = __floats2bfloat162_rn(v0, v1);
       }
-      *reinterpret_cast<uint4*>(Y + off) = out;
+    }
+  constexpr int NG = NA * GQ, GPI = ACT == ACT_NONE ? NG : 1;  // groups, groups a step
+  static_assert(NG % GPI == 0, "whole steps");
+#pragma unroll 1
+  for (int it = 0; it < NG / GPI; ++it) {
+#pragma unroll
+    for (int gi = 0; gi < GPI; ++gi) {
+      float v[16];  // values 16 gi .. 16 gi + 15 of the arrays taken in order
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = acc[(16 * gi + i) / FLAT][(16 * gi + i) % FLAT];
+      const int g = it * GPI + gi;
+      store_group16<ACT, RES>(v, bs, g % GQ, row0 + 64 * (g / GQ), n0, R, Y, M, N);
+    }
+    if constexpr (GPI < NG) {  // the next step's groups to the front
+#pragma unroll
+      for (int i = 0; i + 16 * GPI < NA * FLAT; ++i) {
+        const int s = i + 16 * GPI;
+        acc[i / FLAT][i % FLAT] = acc[s / FLAT][s % FLAT];
+      }
     }
   }
 }
@@ -361,11 +422,12 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
     int N, int K) {
   namespace h = ufv::hop;
   using C = GemmCfg<BN>;
-  constexpr int ST = C::STAGES;
+  constexpr int ST = C::STAGES, BA = C::BA;
   extern __shared__ __align__(1024) unsigned char gsmem_raw[];
   unsigned char* smem = gsmem_raw + ((1024 - (h::smem_u32(gsmem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * C::STAGE);
   uint64_t* empty = full + ST;
+  float* bs = reinterpret_cast<float*>(empty + ST);  // [BN] where C::BIAS
   const int nk = (K + kGBK - 1) / kGBK;
   if (threadIdx.x == 0) {
     for (int st = 0; st < ST; ++st) {
@@ -386,8 +448,8 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
         h::mbar_expect_tx(&full[st], C::STAGE);
         h::tma_load_2d(stage, &mapA, &full[st], kt * kGBK, m0);
 #pragma unroll
-        for (int nb = 0; nb < BN / 64; ++nb)
-          h::tma_load_2d(stage + C::TILE_A + nb * 8192, &mapW, &full[st], n0 + 64 * nb,
+        for (int nb = 0; nb < BN / BA; ++nb)
+          h::tma_load_2d(stage + C::TILE_A + nb * kGBK * BA * 2, &mapW, &full[st], n0 + BA * nb,
                          kt * kGBK);
       }
     }
@@ -396,8 +458,11 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
   // consumer warpgroups 0 and 1: rows 64 cw .. +63 of the tile
   const int cw = threadIdx.x / 128;
   const int lane = threadIdx.x & 31;
+  if constexpr (C::BIAS > 0)
+    for (int i = threadIdx.x; i < BN; i += 256) bs[i] = bias && n0 + i < N ? bias[n0 + i] : 0.f;
   {
-    float acc[BN / 2];
+    float accs[1][BN / 2];
+    float (&acc)[BN / 2] = accs[0];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     for (int kt = 0; kt < nk; ++kt) {
@@ -410,7 +475,8 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
 #pragma unroll
       for (int kk = 0; kk < kGBK / 16; ++kk)
         wgmma_gemm<BN>(acc, h::make_desc(a + kk * 32, 16, 1024, 1),
-                       h::make_desc(b + kk * 16 * 128, 8192, 1024, 1));
+                       h::make_desc(b + kk * 16 * BA * 2, kGBK * BA * 2, 8 * BA * 2,
+                                    h::desc_swizzle(BA * 2)));
       h::wgmma_commit();
       h::wgmma_wait<1>();  // the previous stage's products are done: release it
       h::fence_regs(acc);
@@ -418,8 +484,13 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
     }
     h::wgmma_wait<0>();
     h::fence_regs(acc);
-    store_acc<BN, ACT, RES, F32OUT>(
-        acc, m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2), n0, bias, R, Yv, M, N);
+    const int row0 = m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+    if constexpr (C::BIAS > 0) {
+      h::named_bar_sync(1, 256);  // bs is in place
+      store_rows16<BN, ACT, RES, 1>(accs, bs, row0, n0, R, static_cast<bf16*>(Yv), M, N);
+    } else {
+      store_acc<BN, ACT, RES, F32OUT>(acc, row0, n0, bias, R, Yv, M, N);
+    }
   }
 }
 
@@ -437,20 +508,26 @@ cudaError_t gemm_launch(const CUtensorMap& mapA, const CUtensorMap& mapW, const 
   return cudaGetLastError();
 }
 
-template <int ACT, bool RES, bool F32OUT = false>
-cudaError_t gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
-                 int M, int N, int K, cudaStream_t st) {
-  // A [M, K]: boxes of 64 K x 128 rows; W [K, N]: boxes of 64 N x 64 K rows
+// A [M, K]: boxes of 64 K x 128 rows; W [K, N]: boxes of BA N x 64 K rows
+template <int BN, int ACT, bool RES, bool F32OUT = false>
+cudaError_t gemm_tile(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
+                      int M, int N, int K, cudaStream_t st) {
   CUtensorMap mapA, mapW;
   const cuuint64_t dimsA[2] = {cuuint64_t(K), cuuint64_t(M)}, strideA[1] = {cuuint64_t(K) * 2};
   const cuuint64_t dimsW[2] = {cuuint64_t(N), cuuint64_t(K)}, strideW[1] = {cuuint64_t(N) * 2};
-  const cuuint32_t boxA[2] = {kGBK, kGBM}, boxW[2] = {64, kGBK};
+  const cuuint32_t boxA[2] = {kGBK, kGBM}, boxW[2] = {GemmCfg<BN>::BA, kGBK};
   cudaError_t err = ufv::hop::make_map(&mapA, A, 2, dimsA, strideA, boxA);
   if (err == cudaSuccess) err = ufv::hop::make_map(&mapW, W, 2, dimsW, strideW, boxW);
   if (err != cudaSuccess) return err;
+  return gemm_launch<BN, ACT, RES, F32OUT>(mapA, mapW, bias, R, Y, M, N, K, st);
+}
+
+template <int ACT, bool RES, bool F32OUT = false>
+cudaError_t gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
+                 int M, int N, int K, cudaStream_t st) {
   if (K >= 1024 && N >= 2048)
-    return gemm_launch<256, ACT, RES, F32OUT>(mapA, mapW, bias, R, Y, M, N, K, st);
-  return gemm_launch<128, ACT, RES, F32OUT>(mapA, mapW, bias, R, Y, M, N, K, st);
+    return gemm_tile<256, ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, st);
+  return gemm_tile<128, ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, st);
 }
 
 // Y = act(A . W + bias) for an activation chosen at run time
@@ -479,26 +556,32 @@ cudaError_t layernorm(const bf16* x, const float* g, const float* b, bf16* y, in
 // ------------------------------------------------- LayerNorm-band GEMM --
 // Y[M, N] = act(bf16(LN(X[M, C])) . W[C, N] + bias[N]) for C <= 576 (Hiera's
 // widths 144, 288, 576), C and N multiples of 8: the math of layernorm_kernel
-// followed by gemm_kernel (the same f32 statistics, summed in the same order,
-// the normalised row rounded to bf16, f32 accumulation in k order), in one
-// launch, with nothing of LN(X) in device memory.
+// followed by gemm_kernel (f32 statistics, the normalised row rounded to
+// bf16, f32 accumulation in k order), in one launch, with nothing of LN(X)
+// in device memory.
 //
-// Hopper design: a block owns a band of 128 rows. One producer thread loads
-// the whole band by TMA (boxes of 64 columns x 128 rows, 128-byte swizzle,
-// the K-major layout wgmma reads; 147 KB at C = 576) and then streams W tiles
-// (64 K rows x BN columns) through a ring of mbarrier-guarded stages; the
-// ring runs on from one column tile to the next, so it never drains. The two
-// consumer warpgroups normalise the band in place (one warp a row, f32,
-// written back as bf16 in the same swizzled layout), then take alternate
-// column tiles (ping-pong): each computes a 128 x BN tile (two m64 wgmmas a
-// k16 step on one W descriptor), so one warpgroup's epilogue (bias, GELU,
-// stores) overlaps the other's products. Each band reads all of W once from
-// L2: 128 bands x 1.99 MB at row 6's shape against the 128 x 128-tile
-// GEMM's ~528 MB of A and W tiles. One block an SM (setmaxnreg: 40
-// registers for the producer warpgroup, 232 for the consumers' 128
-// accumulators); ln_gemm_plan sizes the ring from what the band leaves of
-// 227 KB (5 stages at C = 576, 8 at C <= 288). Rows past M are zero-filled
-// by TMA and not stored; K past C is zero in both operands.
+// Bound on an H100: at row 6's shape (16384 x 576 into 1728) 32.6 GFLOP,
+// 0.033 ms at 989 TFLOP/s, against 76 MB of rows, W and output (0.023 ms):
+// operations. Hopper design: a block owns a band of 128 rows. One producer
+// thread loads the band by TMA in 16-row groups (boxes of 64 columns,
+// 128-byte swizzle, the K-major layout wgmma reads; 147 KB at C = 576) and
+// then streams W tiles (64 K rows x BN columns) through a ring of
+// mbarrier-guarded stages; the ring runs on from one column tile to the
+// next, so it never drains. The consumer warps normalise each group as it
+// lands (ln_band), in place, then the two consumer warpgroups take
+// alternate column tiles (ping-pong): each computes a 128 x BN tile (two
+// m64 wgmmas a k16 step on one W descriptor), so one warpgroup's epilogue
+// (bias from shared memory, GELU, 16-byte stores) overlaps the other's
+// products. Each band reads all of W once: 128 bands x 1.99 MB at row 6's
+// shape against the 128 x 128-tile GEMM's ~528 MB of A and W tiles. One
+// block an SM (setmaxnreg: 40 registers for the producer warpgroup, 232 for
+// the consumers' 128 accumulators); ln_gemm_plan sizes the ring from what
+// the band leaves of 227 KB (5 stages at C = 576, 8 at C <= 288). Rows past
+// M are zero-filled by TMA and not stored; K past C is zero in both
+// operands. Measured (PERF.md, PR 13): a tile's products run at ~70% of
+// the peak, near what shared memory feeds (two m64n128 operand reads and
+// the W tile's TMA write a k16 step); a 2-CTA cluster sharing each W tile by
+// TMA multicast ran twice as slow and was dropped.
 constexpr int kLnBM = 128, kLnMaxC = 576, kLnMaxStages = 8, kLnThreads = 384;
 constexpr int kLnChunk = kLnBM * 128;  // bytes of one 64-column chunk of the band
 constexpr int kSmemMax = 232448;       // dynamic shared memory a block may have
@@ -506,6 +589,7 @@ constexpr int kSmemMax = 232448;       // dynamic shared memory a block may have
 struct LnPlan {
   int bm, bn, stages, cluster;
   int smem;
+  int res_bn;  // the column tile of a block tail's proj and fc2 (N = C)
 };
 
 // The one configuration this file is built for at width C, from C alone (the
@@ -518,163 +602,142 @@ bool ln_gemm_plan(int C, LnPlan* p) {
   p->bn = 128;
   p->cluster = 1;
   const int stage = 64 * p->bn * 2;
-  const int fit = (kSmemMax - 1024 - band - 64) / (stage + 24);
+  const int fit = (kSmemMax - 1024 - band - 64 - 8 * p->bn) / (stage + 24);
   p->stages = fit < kLnMaxStages ? fit : kLnMaxStages;
-  p->smem = 1024 + band + p->stages * stage + (8 + 3 * p->stages) * 8;
+  p->smem = 1024 + band + p->stages * stage + (8 + 3 * p->stages) * 8 + 8 * p->bn;
+  // proj and fc2: the 144-column tile where it divides C and was the faster
+  // on an H100 (C = 144, 288); at C = 576 the 128-column tile (two blocks an
+  // SM) ran fc2 faster (PERF.md, PR 13)
+  p->res_bn = C % 144 == 0 && C < 576 ? 144 : 128;
   return true;
 }
 
-template <int BN, int ACT>
-__global__ void __launch_bounds__(kLnThreads, 1) ln_gemm_kernel(
-    __grid_constant__ const CUtensorMap mapX, __grid_constant__ const CUtensorMap mapW,
-    const float* __restrict__ gamma, const float* __restrict__ beta,
-    const float* __restrict__ bias, bf16* __restrict__ Y, int M, int N, int C, int ST,
-    float eps) {
-  namespace h = ufv::hop;
-  constexpr int STAGE = 64 * BN * 2;
-  extern __shared__ __align__(1024) unsigned char lsmem_raw[];
-  unsigned char* band = lsmem_raw + ((1024 - (h::smem_u32(lsmem_raw) & 1023)) & 1023);
-  const int nkc = (C + 63) / 64;
-  unsigned char* ring = band + nkc * kLnChunk;
-  // full[w * ST + s]: stage s holds a tile for consumer warpgroup w. One
-  // barrier a stage for both would let a warpgroup that waits for its next
-  // tile see the phase of the other's last use of that stage as its own.
-  // band_full[w]: the 16 rows consumer warp w normalises have landed
-  uint64_t* band_full = reinterpret_cast<uint64_t*>(ring + ST * STAGE);
-  uint64_t* full = band_full + 8;
-  uint64_t* empty = full + 2 * ST;
-  const int ntiles = (N + BN - 1) / BN;
-  // band b walks the column tiles from tile b % ntiles on, so that the
-  // bands in flight read different parts of W from L2 at any one time
-  const int rot = blockIdx.x % ntiles;
-  const int m0 = blockIdx.x * kLnBM;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < 8; ++w) h::mbar_init(&band_full[w], 1);
-    for (int s = 0; s < ST; ++s) {
-      h::mbar_init(&full[s], 1);
-      h::mbar_init(&full[ST + s], 1);
-      h::mbar_init(&empty[s], 4);  // lane 0 of each warp of the consuming warpgroup
-    }
-    h::fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {  // producer warpgroup; one thread issues every load
-    h::setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      // the band in 16-row boxes, warp by warp, so the first warps normalise
-      // while the rest of the band is in flight
-      for (int w = 0; w < 8; ++w) {
-        h::mbar_expect_tx(&band_full[w], nkc * 16 * 128);
-        for (int kc = 0; kc < nkc; ++kc)
-          h::tma_load_2d(band + kc * kLnChunk + w * 16 * 128, &mapX, &band_full[w], kc * 64,
-                         m0 + 16 * w);
-      }
-      int it = 0;  // stages in the order the consumers take them: tile, then k
-      for (int p = 0; p < ntiles; ++p) {
-        const int n0 = (p + rot) % ntiles * BN;
-        for (int kt = 0; kt < nkc; ++kt, ++it) {
-          const int st = it % ST;
-          uint64_t* f = &full[(p & 1) * ST + st];
-          h::mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
-          unsigned char* stage = ring + st * STAGE;
-          h::mbar_expect_tx(f, STAGE);
+// The LayerNorm of a band in place, by the 8 consumer warps: the band lands
+// in 16-row groups (band_full[g]: rows 16 g .. 16 g + 15), and warp w
+// normalises rows 16 g + 2 w and 16 g + 2 w + 1 of each group, so every warp
+// starts on the first group and the last group leaves little behind. LPR
+// lanes a row (32 at C = 576, 16 at 288, 8 at 144); lane l holds units sub,
+// sub + LPR, sub + 2 LPR of its row (columns 8 u .. 8 u + 7), sub = l % LPR.
+// A pass holds 2 * 32 / LPR rows, two interleaved sets of 32 / LPR, from
+// G = 32 / LPR groups. f32 statistics (two passes over the row held in
+// registers), written back as bf16 in the same 128-byte-swizzled layout.
+template <int LPR>
+__device__ __forceinline__ void ln_band(unsigned char* band, uint64_t* band_full,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ beta, int C, int M, int m0,
+                                        int warp, int lane, float eps) {
+  constexpr int U = kLnMaxC / 8 / 32 + 1;   // units a lane holds at most (3)
+  constexpr int RPI = 32 / LPR;             // rows of a set
+  constexpr int NK = 2;                     // interleaved sets a pass
+  constexpr int G = RPI;                    // groups a pass (two rows of each)
+  const int units = C / 8, sub = lane % LPR;
+  float gv[U][8], bv[U][8];
 #pragma unroll
-          for (int nb = 0; nb < BN / 64; ++nb)
-            h::tma_load_2d(stage + nb * 8192, &mapW, f, n0 + 64 * nb, kt * 64);
+  for (int i = 0; i < U; ++i) {
+    const int u = sub + LPR * i;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gv[i][e] = u < units ? gamma[u * 8 + e] : 0.f;
+      bv[i][e] = u < units ? beta[u * 8 + e] : 0.f;
+    }
+  }
+  // unit u of row r: chunk u / 8, 16-byte slot (u % 8) ^ (r % 8) of the
+  // row's 128 bytes (the 128-byte swizzle)
+  auto at = [&](int r, int u) {
+    return reinterpret_cast<uint4*>(band + (u >> 3) * kLnChunk + r * 128 +
+                                    (((u & 7) ^ (r & 7)) << 4));
+  };
+  for (int g0 = 0; g0 < 8; g0 += G) {
+    for (int g = g0; g < g0 + G && g < 8; ++g) ufv::hop::mbar_wait(&band_full[g], 0);
+    float v[NK][U][8], sum[NK], var[NK], mean[NK], rstd[NK];
+    bool live[NK];
+    int row[NK];
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const int q = k * RPI + lane / LPR;  // q / 2: the group, q % 2: the row of two
+      row[k] = 16 * (g0 + q / 2) + 2 * warp + q % 2;
+      live[k] = g0 + q / 2 < 8 && m0 + row[k] < M;
+      sum[k] = var[k] = 0.f;
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int u = sub + LPR * i;
+        uint4 q = make_uint4(0u, 0u, 0u, 0u);
+        if (live[k] && u < units) q = *at(row[k], u);
+        const bf16* hq = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[k][i][e] = __bfloat162float(hq[e]);
+        sum[k] += tree8(v[k][i]);
+      }
+    }
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off /= 2)
+#pragma unroll
+      for (int k = 0; k < NK; ++k) sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], off);
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      mean[k] = sum[k] / C;
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        if (sub + LPR * i < units) {
+          float d[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) d[e] = (v[k][i][e] - mean[k]) * (v[k][i][e] - mean[k]);
+          var[k] += tree8(d);
+        }
+    }
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off /= 2)
+#pragma unroll
+      for (int k = 0; k < NK; ++k) var[k] += __shfl_xor_sync(0xffffffffu, var[k], off);
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      rstd[k] = rsqrtf(var[k] / C + eps);
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int u = sub + LPR * i;
+        if (live[k] && u < units) {
+          uint32_t q[4];
+#pragma unroll
+          for (int e = 0; e < 8; e += 2)
+            q[e / 2] = pack_bf16x2((v[k][i][e] - mean[k]) * rstd[k] * gv[i][e] + bv[i][e],
+                                   (v[k][i][e + 1] - mean[k]) * rstd[k] * gv[i][e + 1] +
+                                       bv[i][e + 1]);
+          *at(row[k], u) = make_uint4(q[0], q[1], q[2], q[3]);
         }
       }
     }
-    return;
   }
+}
+
+// The consumer warpgroups of ln_gemm_kernel: the LayerNorm of the band, then
+// the products and epilogues of their column tiles.
+template <int BN, int ACT>
+__device__ __forceinline__ void ln_gemm_consume(
+    unsigned char* band, unsigned char* ring, uint64_t* band_full, uint64_t* full,
+    uint64_t* empty, float* bias_s, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const float* __restrict__ bias, bf16* __restrict__ Y,
+    int M, int N, int C, int ST, float eps, int ntiles, int nkc, int rot, int m0) {
+  namespace h = ufv::hop;
+  constexpr int STAGE = 64 * BN * 2;
   h::setmaxnreg_inc<232>();
   const int cw = threadIdx.x / 128 - 1;        // consumer warpgroup 0 or 1
   const int warp = (threadIdx.x - 128) >> 5;   // 0..7 over both
   const int lane = threadIdx.x & 31;
 
-  // LayerNorm in place: warp w normalises rows 16 w .. 16 w + 15, lpr lanes
-  // a row (the fewest that hold a row in three 16-byte units each: 32 at C =
-  // 576, 16 at 288, 8 at 144), 32 / lpr rows at a time, two such groups
-  // interleaved; lane l holds units sub, sub + lpr, sub + 2 lpr of its row
-  // (columns 8 u .. 8 u + 7), sub = l % lpr
+  // LayerNorm in place, by the fewest lanes a row that hold it in three
+  // 16-byte units each
   {
-    constexpr int U = kLnMaxC / 8 / 32 + 1;  // units a lane holds at most (3)
     const int units = C / 8;
-    const int lpr = units > 48 ? 32 : units > 24 ? 16 : units > 12 ? 8 : units > 6 ? 4 : 2;
-    const int rpi = 32 / lpr, sub = lane % lpr;
-    float gv[U][8], bv[U][8];
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      const int u = sub + lpr * i;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        gv[i][e] = u < units ? gamma[u * 8 + e] : 0.f;
-        bv[i][e] = u < units ? beta[u * 8 + e] : 0.f;
-      }
-    }
-    h::mbar_wait(&band_full[warp], 0);
-    const int rend = warp * 16 + 16;
-    for (int r0 = warp * 16 + lane / lpr; r0 < rend; r0 += 2 * rpi) {
-      // unit u of row r: chunk u / 8, 16-byte slot (u % 8) ^ (r % 8) of the
-      // row's 128 bytes (the 128-byte swizzle)
-      auto at = [&](int r, int u) {
-        return reinterpret_cast<uint4*>(band + (u >> 3) * kLnChunk + r * 128 +
-                                        (((u & 7) ^ (r & 7)) << 4));
-      };
-      float v[2][U][8], sum[2] = {0.f, 0.f}, var[2] = {0.f, 0.f}, mean[2], rstd[2];
-      bool live[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int r = r0 + k * rpi;
-        live[k] = r < rend && m0 + r < M;
-#pragma unroll
-        for (int i = 0; i < U; ++i) {
-          const int u = sub + lpr * i;
-          uint4 q = make_uint4(0u, 0u, 0u, 0u);
-          if (live[k] && u < units) q = *at(r, u);
-          const bf16* hq = reinterpret_cast<const bf16*>(&q);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            v[k][i][e] = __bfloat162float(hq[e]);
-            sum[k] += v[k][i][e];
-          }
-        }
-      }
-      for (int off = lpr >> 1; off > 0; off >>= 1)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], off);
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        mean[k] = sum[k] / C;
-#pragma unroll
-        for (int i = 0; i < U; ++i)
-          if (sub + lpr * i < units) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) var[k] += (v[k][i][e] - mean[k]) * (v[k][i][e] - mean[k]);
-          }
-      }
-      for (int off = lpr >> 1; off > 0; off >>= 1)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) var[k] += __shfl_xor_sync(0xffffffffu, var[k], off);
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        rstd[k] = rsqrtf(var[k] / C + eps);
-        const int r = r0 + k * rpi;
-#pragma unroll
-        for (int i = 0; i < U; ++i) {
-          const int u = sub + lpr * i;
-          if (live[k] && u < units) {
-            uint32_t q[4];
-#pragma unroll
-            for (int e = 0; e < 8; e += 2)
-              q[e / 2] = pack_bf16x2(
-                  (v[k][i][e] - mean[k]) * rstd[k] * gv[i][e] + bv[i][e],
-                  (v[k][i][e + 1] - mean[k]) * rstd[k] * gv[i][e + 1] + bv[i][e + 1]);
-            *at(r, u) = make_uint4(q[0], q[1], q[2], q[3]);
-          }
-        }
-      }
-    }
+    if (units > 48)
+      ln_band<32>(band, band_full, gamma, beta, C, M, m0, warp, lane, eps);
+    else if (units > 24)
+      ln_band<16>(band, band_full, gamma, beta, C, M, m0, warp, lane, eps);
+    else if (units > 12)
+      ln_band<8>(band, band_full, gamma, beta, C, M, m0, warp, lane, eps);
+    else if (units > 6)
+      ln_band<4>(band, band_full, gamma, beta, C, M, m0, warp, lane, eps);
+    else
+      ln_band<2>(band, band_full, gamma, beta, C, M, m0, warp, lane, eps);
     h::fence_proxy_async();  // the band's new values, before wgmma reads them
     h::named_bar_sync(1, 256);
   }
@@ -686,9 +749,12 @@ __global__ void __launch_bounds__(kLnThreads, 1) ln_gemm_kernel(
   uint32_t phase = 0;
   for (int p = cw; p < ntiles; p += 2) {
     const int n0 = (p + rot) % ntiles * BN;
-    float bj[BN / 4];  // this thread's bias values, loaded while the products run
-    load_bias<BN>(bias, n0, N, bj);
-    float acc0[BN / 2], acc1[BN / 2];
+    float* bs = bias_s + cw * BN;
+    h::named_bar_sync(2 + cw, 128);  // the previous tile's epilogue is done with bs
+    for (int i = threadIdx.x & 127; i < BN; i += 128) bs[i] = bias && n0 + i < N ? bias[n0 + i] : 0.f;
+    float acc[2][BN / 2];  // rows 0-63 and 64-127 of the band
+    float (&acc0)[BN / 2] = acc[0];
+    float (&acc1)[BN / 2] = acc[1];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc0[i] = acc1[i] = 0.f;
     for (int kt = 0; kt < nkc; ++kt) {
@@ -717,9 +783,77 @@ __global__ void __launch_bounds__(kLnThreads, 1) ln_gemm_kernel(
     h::fence_regs(acc0);
     h::fence_regs(acc1);
     if (lane == 0) h::mbar_arrive(&empty[(p * nkc + nkc - 1) % ST]);
-    store_rows16<BN, ACT, false>(acc0, bj, row0, n0, nullptr, Y, M, N);
-    store_rows16<BN, ACT, false>(acc1, bj, row0 + 64, n0, nullptr, Y, M, N);
+    h::named_bar_sync(2 + cw, 128);  // bs holds this tile's bias
+    store_rows16<BN, ACT, false, 2>(acc, bs, row0, n0, nullptr, Y, M, N);
   }
+}
+
+template <int BN, int ACT>
+__global__ void __launch_bounds__(kLnThreads, 1) ln_gemm_kernel(
+    __grid_constant__ const CUtensorMap mapX, __grid_constant__ const CUtensorMap mapW,
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    const float* __restrict__ bias, bf16* __restrict__ Y, int M, int N, int C, int ST,
+    float eps) {
+  namespace h = ufv::hop;
+  constexpr int STAGE = 64 * BN * 2;
+  extern __shared__ __align__(1024) unsigned char lsmem_raw[];
+  unsigned char* band = lsmem_raw + ((1024 - (h::smem_u32(lsmem_raw) & 1023)) & 1023);
+  const int nkc = (C + 63) / 64;
+  unsigned char* ring = band + nkc * kLnChunk;
+  // full[w * ST + s]: stage s holds a tile for consumer warpgroup w. One
+  // barrier a stage for both would let a warpgroup that waits for its next
+  // tile see the phase of the other's last use of that stage as its own.
+  // band_full[g]: rows 16 g .. 16 g + 15 of the band have landed
+  uint64_t* band_full = reinterpret_cast<uint64_t*>(ring + ST * STAGE);
+  uint64_t* full = band_full + 8;
+  uint64_t* empty = full + 2 * ST;
+  float* bias_s = reinterpret_cast<float*>(empty + ST);  // [2][BN]: each warpgroup's tile
+  const int ntiles = (N + BN - 1) / BN;
+  // band b walks the column tiles from tile b % ntiles on, so that the
+  // bands in flight read different parts of W at any one time
+  const int rot = blockIdx.x % ntiles;
+  const int m0 = blockIdx.x * kLnBM;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 8; ++w) h::mbar_init(&band_full[w], 1);
+    for (int s = 0; s < ST; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&full[ST + s], 1);
+      h::mbar_init(&empty[s], 4);  // lane 0 of each warp of the consuming warpgroup
+    }
+    h::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup; one thread issues every load
+    h::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      // the band in 16-row groups, so the warps normalise while the rest of
+      // the band is in flight
+      for (int g = 0; g < 8; ++g) {
+        h::mbar_expect_tx(&band_full[g], nkc * 16 * 128);
+        for (int kc = 0; kc < nkc; ++kc)
+          h::tma_load_2d(band + kc * kLnChunk + g * 16 * 128, &mapX, &band_full[g], kc * 64,
+                         m0 + 16 * g);
+      }
+      int it = 0;  // stages in the order the consumers take them: tile, then k
+      for (int p = 0; p < ntiles; ++p) {
+        const int n0 = (p + rot) % ntiles * BN;
+        for (int kt = 0; kt < nkc; ++kt, ++it) {
+          const int st = it % ST;
+          uint64_t* f = &full[(p & 1) * ST + st];
+          h::mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+          unsigned char* stage = ring + st * STAGE;
+          h::mbar_expect_tx(f, STAGE);
+#pragma unroll
+          for (int nb = 0; nb < BN / 64; ++nb)
+            h::tma_load_2d(stage + nb * 8192, &mapW, f, n0 + 64 * nb, kt * 64);
+        }
+      }
+    }
+    return;
+  }
+  ln_gemm_consume<BN, ACT>(band, ring, band_full, full, empty, bias_s, gamma, beta, bias, Y, M,
+                           N, C, ST, eps, ntiles, nkc, rot, m0);
 }
 
 template <int ACT>
@@ -808,31 +942,42 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // hmid = GELU(bf16(LN2(x1)) . w1 + b1); out = x1 + bf16(hmid . w2 + b2).
 // A [rows, a_dim], R / x1 / out [rows, C], hmid [rows, mlp]. Three launches
 // where ln_gemm_plan takes C (LN2 inside the fc1 launch; xn unused, may be
-// null), else four through the scratch xn [rows, C].
+// null; proj and fc2 on the plan's column tile, 144 where it divides C),
+// else four through the scratch xn [rows, C].
 cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const float* bproj,
                        const float* ln2_s, const float* ln2_b, const bf16* w1,
                        const float* b1, const bf16* w2, const float* b2, bf16* x1, bf16* xn,
                        bf16* hmid, bf16* out, int rows, int C, int a_dim, int mlp, int act,
                        float eps, cudaStream_t st) {
-  cudaError_t e;
-  if ((e = gemm<ACT_NONE, true>(A, wproj, bproj, R, x1, rows, C, a_dim, st))) return e;
   LnPlan p;
-  if (ln_gemm_plan(C, &p)) {
+  const bool banded = ln_gemm_plan(C, &p);
+  // the two products with N = C and a residual, on the plan's column tile
+  auto res_gemm = [&](const bf16* a, const bf16* w, const float* b, const bf16* r, bf16* y,
+                      int K) {
+    return banded && p.res_bn == 144 ? gemm_tile<144, ACT_NONE, true>(a, w, b, r, y, rows, C, K, st)
+                                     : gemm<ACT_NONE, true>(a, w, b, r, y, rows, C, K, st);
+  };
+  cudaError_t e;
+  if ((e = res_gemm(A, wproj, bproj, R, x1, a_dim))) return e;
+  if (banded) {
     if ((e = ln_gemm(act, x1, ln2_s, ln2_b, w1, b1, hmid, rows, mlp, C, eps, p, st))) return e;
   } else {
     if (!xn) return cudaErrorInvalidValue;
     if ((e = layernorm(x1, ln2_s, ln2_b, xn, rows, C, eps, st))) return e;
     if ((e = gemm_act(act, xn, w1, b1, hmid, rows, mlp, C, st))) return e;
   }
-  return gemm<ACT_NONE, true>(hmid, w2, b2, x1, out, rows, C, mlp, st);
+  return res_gemm(hmid, w2, b2, x1, out, mlp);
 }
 
-// the plan a caller passed (bm, bn, stages, cluster; all 0 for the pair of
-// launches) is the one this file is built for at width C
-bool plan_is(int C, int bm, int bn, int stages, int cluster) {
+// the plan a caller passed (bm, bn, stages, cluster and, for a block tail,
+// res_bn; all 0 for the pair of launches) is the one this file is built for
+// at width C
+bool plan_is(int C, int bm, int bn, int stages, int cluster, int res_bn = -1) {
   LnPlan p;
-  if (!ln_gemm_plan(C, &p)) return bm == 0 && bn == 0 && stages == 0 && cluster == 0;
-  return bm == p.bm && bn == p.bn && stages == p.stages && cluster == p.cluster;
+  if (!ln_gemm_plan(C, &p))
+    return bm == 0 && bn == 0 && stages == 0 && cluster == 0 && res_bn <= 0;
+  return bm == p.bm && bn == p.bn && stages == p.stages && cluster == p.cluster &&
+         (res_bn < 0 || res_bn == p.res_bn);
 }
 
 // Non-causal attention of Sq queries on Skv keys in each of N windows, q /
@@ -1406,15 +1551,15 @@ extern "C" int ln_matmul_pair_bf16(const void* x, const void* ln_s, const void* 
 
 // shortcut, out [rows, C]; att [rows, A]; wproj [A, C], w1 [C, mlp], w2
 // [mlp, C]. Scratch x1 [rows, C], hmid [rows, mlp], and xn [rows, C] where
-// the plan (bm, bn, stages, cluster) is the pair's (all 0); xn may be null
-// otherwise.
+// the plan (bm, bn, stages, cluster, res_bn) is the pair's (all 0); xn may
+// be null otherwise.
 extern "C" int block_tail_bf16(
     const void* shortcut, const void* att, void* out, const void* wproj, const void* bproj,
     const void* ln2_s, const void* ln2_b, const void* w1, const void* b1, const void* w2,
     const void* b2, void* x1, void* xn, void* hmid, int rows, int C, int A, int mlp, int act,
-    int bm, int bn, int stages, int cluster, float eps, void* stream) {
+    int bm, int bn, int stages, int cluster, int res_bn, float eps, void* stream) {
   if (rows <= 0 || C % 8 || A % 8 || mlp % 8 || !act_ok(act) ||
-      !plan_is(C, bm, bn, stages, cluster) || (bn == 0 && !xn))
+      !plan_is(C, bm, bn, stages, cluster, res_bn) || (bn == 0 && !xn))
     return int(cudaErrorInvalidValue);
   if (!all_aligned16({shortcut, att, out, wproj, w1, w2, x1, hmid}) ||
       (xn && !aligned16(xn)))

@@ -151,7 +151,7 @@ def _lib() -> ctypes.CDLL:
     lib.hiera_block_bf16.argtypes = [p] * 19 + [i] * 7 + [f, p]
     lib.ln_matmul_bf16.argtypes = [p] * 6 + [i] * 7 + [f, p]
     lib.ln_matmul_pair_bf16.argtypes = [p] * 7 + [i] * 3 + [f, p]
-    lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 9 + [f, p]
+    lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 10 + [f, p]
     lib.qpool_block_bf16.argtypes = [p] * 22 + [i] * 10 + [f, p]
     lib.block_w8a8_bf16.argtypes = [p] * 29 + [i] * 7 + [f, p]
     lib.ln_matmul_w8a8_bf16.argtypes = [p] * 10 + [i] * 3 + [f, p]
@@ -367,8 +367,9 @@ class LnGemmPlan(NamedTuple):
     """How ``fused_ln_matmul`` and the LN2 -> fc1 step of ``fused_block_tail``
     run at a shape: ``route`` "ln_gemm" (one launch) or "pair"; for
     "ln_gemm", the band's rows ``bm``, the column tile ``bn``, the W ring's
-    ``stages``, the dynamic shared memory ``smem`` (bytes), the cluster size
-    and the grid's ``bands``; 0 for "pair"."""
+    ``stages``, the dynamic shared memory ``smem`` (bytes), the cluster size,
+    the grid's ``bands``, and ``res_bn``, the column tile of a block tail's
+    proj and fc2 (N = C); 0 for "pair"."""
     route: str
     bm: int
     bn: int
@@ -376,6 +377,7 @@ class LnGemmPlan(NamedTuple):
     smem: int
     cluster: int
     bands: int
+    res_bn: int
 
     @property
     def args(self):
@@ -390,16 +392,22 @@ def ln_gemm_plan(rows: int, c: int, n: int) -> LnGemmPlan:
     any other). The band of 128 rows is loaded once (``ceil(c / 64)`` chunks
     of 64 columns, 16 KB each); the ring of W tiles (64 K rows x 128 columns,
     16 KB) gets as many stages as the rest of 227 KB holds, at most 8: 5 at
-    C = 576, 8 at C <= 288. One band a block, one block an SM."""
+    C = 576, 8 at C <= 288. One band a block, one block an SM. A cluster of
+    two bands sharing each W tile by TMA multicast ran twice as slow on an
+    H100 (PERF.md, PR 13): the cluster is 1. A block tail's proj and fc2
+    take a 144-column tile, which divides C, at C = 144 and 288, and the
+    GEMM's 128-column tile elsewhere: at C = 576 the 144-column tile (one
+    block an SM: its 72 accumulators do not fit two) ran fc2 slower."""
     if rows <= 0 or n <= 0 or n % 8 or c <= 0 or c % 8:
         raise ValueError(f"no plan for rows={rows} C={c} N={n}: C and N multiples of 8")
     if c > LN_MAX_C:
-        return LnGemmPlan("pair", 0, 0, 0, 0, 0, 0)
+        return LnGemmPlan("pair", 0, 0, 0, 0, 0, 0, 0)
     band = -(-c // 64) * LN_BM * 128
     stage = 64 * LN_BN * 2
-    stages = min(LN_MAX_STAGES, (SMEM_MAX - 1024 - band - 64) // (stage + 24))
-    smem = 1024 + band + stages * stage + (8 + 3 * stages) * 8
-    return LnGemmPlan("ln_gemm", LN_BM, LN_BN, stages, smem, 1, -(-rows // LN_BM))
+    stages = min(LN_MAX_STAGES, (SMEM_MAX - 1024 - band - 64 - 8 * LN_BN) // (stage + 24))
+    smem = 1024 + band + stages * stage + (8 + 3 * stages) * 8 + 8 * LN_BN
+    return LnGemmPlan("ln_gemm", LN_BM, LN_BN, stages, smem, 1, -(-rows // LN_BM),
+                      144 if c % 144 == 0 and c < 576 else 128)
 
 
 def fused_block_tail_plain(
@@ -497,7 +505,7 @@ def fused_block_tail(
     code = lib.block_tail_bf16(
         *_ptrs(shortcut, att, out, wproj, vecs[0], vecs[1], vecs[2], w1, vecs[3], w2,
                vecs[4], x1), xn, hmid.data_ptr(),
-        rows, c, a, mlp, _ACT_CODES[act], *plan.args, float(eps),
+        rows, c, a, mlp, _ACT_CODES[act], *plan.args, plan.res_bn, float(eps),
         torch.cuda.current_stream(shortcut.device).cuda_stream,
     )
     _build.check(lib, code, "fused_block_tail")
