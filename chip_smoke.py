@@ -7,14 +7,17 @@ quantised region-referring and quantised [SEG] paths on one GPU.
 
 Phases, each printed as it runs; any failure exits non-zero:
   0. device: nvidia-smi name / power limit, torch and CUDA versions; TF32 off.
-  1. build: compile csrc/*.cu with nvcc (in parallel), print the seconds.
+  1. build: compile csrc/*.cu with nvcc (in parallel), print the seconds
+     and each kernel instance's registers, stack and spill bytes (ptxas).
   2. kernels: each kernel against its plain PyTorch version at the shapes
      the full-width path gives it, bf16, held to a limit scaled to the
      output (see check_close); for the block also its attention part alone;
      kernel / plain / library ms (CUDA events, median of 20 after warm-up,
      L2 flushed before each launch) beside the bound, and the kernel /
-     library ratio of each shape, both timed in this call. The probe's bf16
-     product (the block GEMM alone) goes first. The quantised kernels
+     library ratio of each shape, both timed in this call; for the
+     LN-matmul and the block tail also each launch's device time
+     (torch.profiler, Timer.launches). The probe's bf16 product (the block
+     GEMM alone) goes first. The quantised kernels
      take int8 / packed-int4 weights, an int8 cache and int8 block weights
      at the same widths, each with its own stated tolerance (the quantised
      products at rows 1, 2, 8, 17 and 32, each with the grid it launched,

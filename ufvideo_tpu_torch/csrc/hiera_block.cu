@@ -362,8 +362,8 @@ __device__ __forceinline__ void store_group16(const float (&v)[16], const float*
 // GELU, one group a step of a loop that is not unrolled: the arrays shift
 // down 16 values a step, so a step reads fixed registers and the code (the
 // GELU inlined 16 times, not NA * BN / 2 times) stays in the instruction
-// cache. Fully unrolled, a GELU epilogue took 4x its later tiles' time on its
-// first tile on an H100 (PERF.md, PR 13). Where BN % 32 == 16 (144) the last
+// cache. Fully unrolled, the GELU epilogue outgrew the instruction cache and
+// ran slower on an H100 (PERF.md, PR 13). Where BN % 32 == 16 (144) the last
 // two blocks go first, a bf16 pair at a time.
 template <int BN, int ACT, bool RES, int NA>
 __device__ __forceinline__ void store_rows16(float (&acc)[NA][BN / 2], const float* bs, int row0,
@@ -578,10 +578,10 @@ cudaError_t layernorm(const bf16* x, const float* g, const float* b, bf16* y, in
 // the consumers' 128 accumulators); ln_gemm_plan sizes the ring from what
 // the band leaves of 227 KB (5 stages at C = 576, 8 at C <= 288). Rows past
 // M are zero-filled by TMA and not stored; K past C is zero in both
-// operands. Measured (PERF.md, PR 13): a tile's products run at ~70% of
-// the peak, near what shared memory feeds (two m64n128 operand reads and
-// the W tile's TMA write a k16 step); a 2-CTA cluster sharing each W tile by
-// TMA multicast ran twice as slow and was dropped.
+// operands. A tile's products are near what shared memory feeds (two
+// m64n128 operand reads and the W tile's TMA write a k16 step); a 2-CTA
+// cluster sharing each W tile by TMA multicast ran slower in a trial on an
+// H100 and was dropped (PERF.md, PR 13).
 constexpr int kLnBM = 128, kLnMaxC = 576, kLnMaxStages = 8, kLnThreads = 384;
 constexpr int kLnChunk = kLnBM * 128;  // bytes of one 64-column chunk of the band
 constexpr int kSmemMax = 232448;       // dynamic shared memory a block may have
@@ -716,7 +716,7 @@ __device__ __forceinline__ void ln_gemm_consume(
     unsigned char* band, unsigned char* ring, uint64_t* band_full, uint64_t* full,
     uint64_t* empty, float* bias_s, const float* __restrict__ gamma,
     const float* __restrict__ beta, const float* __restrict__ bias, bf16* __restrict__ Y,
-    int M, int N, int C, int ST, float eps, int ntiles, int nkc, int rot, int m0) {
+    int M, int N, int C, int ST, float eps, int ntiles, int nkc, int m0) {
   namespace h = ufv::hop;
   constexpr int STAGE = 64 * BN * 2;
   h::setmaxnreg_inc<232>();
@@ -742,13 +742,13 @@ __device__ __forceinline__ void ln_gemm_consume(
     h::named_bar_sync(1, 256);
   }
 
-  // consumer warpgroup cw: the band's tiles cw, cw + 2, ... in its order;
+  // consumer warpgroup cw: the band's column tiles cw, cw + 2, ...;
   // each warp owns rows 16 (warp % 4) .. + 15 of both 64-row halves. phase
   // bit s: the parity of this warpgroup's next wait on stage s.
   const int row0 = m0 + (warp & 3) * 16 + (lane >> 2);
   uint32_t phase = 0;
   for (int p = cw; p < ntiles; p += 2) {
-    const int n0 = (p + rot) % ntiles * BN;
+    const int n0 = p * BN;
     float* bs = bias_s + cw * BN;
     h::named_bar_sync(2 + cw, 128);  // the previous tile's epilogue is done with bs
     for (int i = threadIdx.x & 127; i < BN; i += 128) bs[i] = bias && n0 + i < N ? bias[n0 + i] : 0.f;
@@ -809,9 +809,6 @@ __global__ void __launch_bounds__(kLnThreads, 1) ln_gemm_kernel(
   uint64_t* empty = full + 2 * ST;
   float* bias_s = reinterpret_cast<float*>(empty + ST);  // [2][BN]: each warpgroup's tile
   const int ntiles = (N + BN - 1) / BN;
-  // band b walks the column tiles from tile b % ntiles on, so that the
-  // bands in flight read different parts of W at any one time
-  const int rot = blockIdx.x % ntiles;
   const int m0 = blockIdx.x * kLnBM;
   if (threadIdx.x == 0) {
     for (int w = 0; w < 8; ++w) h::mbar_init(&band_full[w], 1);
@@ -837,7 +834,7 @@ __global__ void __launch_bounds__(kLnThreads, 1) ln_gemm_kernel(
       }
       int it = 0;  // stages in the order the consumers take them: tile, then k
       for (int p = 0; p < ntiles; ++p) {
-        const int n0 = (p + rot) % ntiles * BN;
+        const int n0 = p * BN;
         for (int kt = 0; kt < nkc; ++kt, ++it) {
           const int st = it % ST;
           uint64_t* f = &full[(p & 1) * ST + st];
@@ -853,7 +850,7 @@ __global__ void __launch_bounds__(kLnThreads, 1) ln_gemm_kernel(
     return;
   }
   ln_gemm_consume<BN, ACT>(band, ring, band_full, full, empty, bias_s, gamma, beta, bias, Y, M,
-                           N, C, ST, eps, ntiles, nkc, rot, m0);
+                           N, C, ST, eps, ntiles, nkc, m0);
 }
 
 template <int ACT>
