@@ -363,7 +363,7 @@ __device__ __forceinline__ void store_group16(const float (&v)[16], const float*
 // down 16 values a step, so a step reads fixed registers and the code (the
 // GELU inlined 16 times, not NA * BN / 2 times) stays in the instruction
 // cache. Fully unrolled, the GELU epilogue outgrew the instruction cache and
-// ran slower on an H100 (PERF.md, PR 13). Where BN % 32 == 16 (144) the last
+// ran slower on an H100 (PERF.md). Where BN % 32 == 16 (144) the last
 // two blocks go first, a bf16 pair at a time.
 template <int BN, int ACT, bool RES, int NA>
 __device__ __forceinline__ void store_rows16(float (&acc)[NA][BN / 2], const float* bs, int row0,
@@ -581,7 +581,7 @@ cudaError_t layernorm(const bf16* x, const float* g, const float* b, bf16* y, in
 // operands. A tile's products are near what shared memory feeds (two
 // m64n128 operand reads and the W tile's TMA write a k16 step); a 2-CTA
 // cluster sharing each W tile by TMA multicast ran slower in a trial on an
-// H100 and was dropped (PERF.md, PR 13).
+// H100 and was dropped (PERF.md).
 constexpr int kLnBM = 128, kLnMaxC = 576, kLnMaxStages = 8, kLnThreads = 384;
 constexpr int kLnChunk = kLnBM * 128;  // bytes of one 64-column chunk of the band
 constexpr int kSmemMax = 232448;       // dynamic shared memory a block may have
@@ -607,7 +607,7 @@ bool ln_gemm_plan(int C, LnPlan* p) {
   p->smem = 1024 + band + p->stages * stage + (8 + 3 * p->stages) * 8 + 8 * p->bn;
   // proj and fc2: the 144-column tile where it divides C and was the faster
   // on an H100 (C = 144, 288); at C = 576 the 128-column tile (two blocks an
-  // SM) ran fc2 faster (PERF.md, PR 13)
+  // SM) ran fc2 faster (PERF.md)
   p->res_bn = C % 144 == 0 && C < 576 ? 144 : 128;
   return true;
 }

@@ -394,7 +394,7 @@ def ln_gemm_plan(rows: int, c: int, n: int) -> LnGemmPlan:
     16 KB) gets as many stages as the rest of 227 KB holds, at most 8: 5 at
     C = 576, 8 at C <= 288. One band a block, one block an SM. A cluster of
     two bands sharing each W tile by TMA multicast ran slower in a trial on
-    an H100 (PERF.md, PR 13): the cluster is 1. A block tail's proj and fc2
+    an H100 (PERF.md): the cluster is 1. A block tail's proj and fc2
     take a 144-column tile, which divides C, at C = 144 and 288, and the
     GEMM's 128-column tile elsewhere: at C = 576 the 144-column tile (one
     block an SM: its 72 accumulators do not fit two) ran fc2 slower."""
