@@ -161,6 +161,16 @@ def log_launches(label, launches):
         log(f"  {label} launch {i + 1}/{len(launches)}: {ms:.4f} ms {name}")
 
 
+def breakdown(timer, label, e, kernel, library):
+    """Each launch's device time in one call of the kernel and of its
+    library yardstick, into e["launch_ms"] and e["library_launch_ms"]."""
+    e["launch_ms"] = timer.launches(kernel)
+    log_launches(label, e["launch_ms"])
+    e["library_launch_ms"] = timer.launches(library)
+    log_launches(f"{label} library", e["library_launch_ms"])
+    return e
+
+
 def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
     """The larger of bytes over the memory rate and operations over the peak
     rate of their type (bf16 and int8 products add up)."""
@@ -466,11 +476,14 @@ def hiera_shapes(dev, timer, gen):
 
         rows = n * s
         flops = 2 * rows * (3 * c * c + c * c + 2 * c * mlp) + 4 * n * heads * s * s * hd
+        label = f"fused_hiera_block [Hiera x [{n},{s},{c}] {heads} heads, gelu_exact]"
+        kernel = lambda: fused_hiera_block(x, params, heads, hd, act="gelu_exact")
         out.append(bench(
-            timer, f"fused_hiera_block [Hiera x [{n},{s},{c}] {heads} heads, gelu_exact]",
-            lambda: fused_hiera_block(x, params, heads, hd, act="gelu_exact"),
+            timer, label, kernel,
             lambda: fused_hiera_block_plain(x, params, heads, hd, act="gelu_exact"),
             unfused, nbytes(x, x, *params), flops, row_rel=BLOCK_REL))
+        if c == 1152:  # stage 4: the products of the SigLIP layer's width
+            breakdown(timer, f"fused_hiera_block [{n},{s},{c}]", out[-1], kernel, unfused)
     return out
 
 
@@ -600,13 +613,15 @@ def kernel_hiera(dev, timer, gen):
     want = fused_hiera_block_plain(x, params, heads, hd, act="gelu_tanh", eps=1e-6)
     check_close("unfused library block (yardstick only)", unfused(), want,
                 row_rel=BLOCK_REL, fatal=False)
+    e = breakdown(timer, "fused_hiera_block [SigLIP]", {},
+                  lambda: fused_hiera_block(x, params, heads, hd, act="gelu_tanh"), unfused)
     return dict(name="fused_hiera_block", route="cuda",
                 source="ufvideo_tpu_torch/csrc/hiera_block.cu",
                 replaces="ufvideo_tpu/ops/hiera_block.py:435",
                 max_abs_err=err, tol=tol_text(BLOCK_REL), ms=ms, plain_ms=plain,
                 bound_ms=t_b, bound_by=by, library_ms=lib,
                 shape="x [32,729,1152] 16 heads x 72, MLP 4304, gelu_tanh",
-                shapes=hiera_shapes(dev, timer, gen))
+                shapes=hiera_shapes(dev, timer, gen), **e)
 
 
 
