@@ -237,7 +237,7 @@ struct GemmCfg {
   static constexpr int TILE_A = kGBM * kGBK * 2;  // bytes: 128 rows x 128 B
   static constexpr int TILE_B = kGBK * BN * 2;    // bytes: BN / BA boxes of 64 x BA
   static constexpr int STAGE = TILE_A + TILE_B;
-  static constexpr int BIAS = BA == 64 ? 0 : BN * 4;  // the tile's bias, staged for the epilogue
+  static constexpr int BIAS = BN * 4;  // the tile's bias, staged for the epilogue
   static constexpr size_t SMEM =
       size_t(STAGES) * STAGE + 2 * STAGES * sizeof(uint64_t) + BIAS + 1024;
 };
@@ -252,16 +252,15 @@ __device__ __forceinline__ void wgmma_gemm(float (&acc)[BN / 2], uint64_t da, ui
     ufv::hop::wgmma_ss_n128<1>(acc, da, db, 1);
 }
 
-// The epilogue of one warpgroup's m64 x BN accumulator: accumulator 4 j + e
-// is row `row0` + 8 (e >= 2), column n0 + 8 j + 2 tig + (e & 1), with row0
-// the warp's first row + lane / 4. Bias, activation, then the f32 value, or
-// bf16(bf16(v) + R) with a residual, or bf16(v); rows >= M and columns >= N
-// are not stored (N % 8 == 0: a pair is all in or all out).
-template <int BN, int ACT, bool RES, bool F32OUT>
-__device__ __forceinline__ void store_acc(const float (&acc)[BN / 2], int row0, int n0,
+// The f32 epilogue of one warpgroup's m64 x BN accumulator (the probe's
+// product): accumulator 4 j + e is row `row0` + 8 (e >= 2), column n0 + 8 j +
+// 2 tig + (e & 1), with row0 the warp's first row + lane / 4; the sum plus
+// the bias (which may be null); rows >= M and columns >= N are not stored (N
+// % 8 == 0: a pair is all in or all out).
+template <int BN>
+__device__ __forceinline__ void store_f32(const float (&acc)[BN / 2], int row0, int n0,
                                           const float* __restrict__ bias,
-                                          const bf16* __restrict__ R, void* __restrict__ Yv,
-                                          int M, int N) {
+                                          float* __restrict__ Y, int M, int N) {
   const int tig = threadIdx.x & 3;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -272,20 +271,8 @@ __device__ __forceinline__ void store_acc(const float (&acc)[BN / 2], int row0, 
     for (int half = 0; half < 2; ++half) {
       const int row = row0 + 8 * half;
       if (row >= M) continue;
-      float v0 = act_apply<ACT>(acc[4 * j + 2 * half] + b0);
-      float v1 = act_apply<ACT>(acc[4 * j + 2 * half + 1] + b1);
-      const long long off = (long long)row * N + col;
-      if (F32OUT) {
-        *reinterpret_cast<float2*>(static_cast<float*>(Yv) + off) = make_float2(v0, v1);
-        continue;
-      }
-      if (RES) {
-        const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
-        v0 = __bfloat162float(__float2bfloat16(v0)) + r.x;
-        v1 = __bfloat162float(__float2bfloat16(v1)) + r.y;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(Yv) + off) =
-          __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<float2*>(Y + (long long)row * N + col) =
+          make_float2(acc[4 * j + 2 * half] + b0, acc[4 * j + 2 * half + 1] + b1);
     }
   }
 }
@@ -356,7 +343,7 @@ __device__ __forceinline__ void store_group16(const float (&v)[16], const float*
   }
 }
 
-// The epilogue of NA m64 x BN accumulators (the layout store_acc reads;
+// The epilogue of NA m64 x BN accumulators (the layout store_f32 reads;
 // array a holds rows row0 + 64 a) with 16-byte stores, group by group (four
 // 8-column blocks). Without an activation every group is unrolled. With a
 // GELU, one group a step of a loop that is not unrolled: the arrays shift
@@ -423,11 +410,12 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
   namespace h = ufv::hop;
   using C = GemmCfg<BN>;
   constexpr int ST = C::STAGES, BA = C::BA;
+  static_assert(!F32OUT || (ACT == ACT_NONE && !RES), "the f32 epilogue is the sum + bias");
   extern __shared__ __align__(1024) unsigned char gsmem_raw[];
   unsigned char* smem = gsmem_raw + ((1024 - (h::smem_u32(gsmem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * C::STAGE);
   uint64_t* empty = full + ST;
-  float* bs = reinterpret_cast<float*>(empty + ST);  // [BN] where C::BIAS
+  float* bs = reinterpret_cast<float*>(empty + ST);  // [BN]: the tile's bias
   const int nk = (K + kGBK - 1) / kGBK;
   if (threadIdx.x == 0) {
     for (int st = 0; st < ST; ++st) {
@@ -458,7 +446,7 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
   // consumer warpgroups 0 and 1: rows 64 cw .. +63 of the tile
   const int cw = threadIdx.x / 128;
   const int lane = threadIdx.x & 31;
-  if constexpr (C::BIAS > 0)
+  if constexpr (!F32OUT)
     for (int i = threadIdx.x; i < BN; i += 256) bs[i] = bias && n0 + i < N ? bias[n0 + i] : 0.f;
   {
     float accs[1][BN / 2];
@@ -485,11 +473,11 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
     h::wgmma_wait<0>();
     h::fence_regs(acc);
     const int row0 = m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-    if constexpr (C::BIAS > 0) {
+    if constexpr (F32OUT) {
+      store_f32<BN>(acc, row0, n0, bias, static_cast<float*>(Yv), M, N);
+    } else {
       h::named_bar_sync(1, 256);  // bs is in place
       store_rows16<BN, ACT, RES, 1>(accs, bs, row0, n0, R, static_cast<bf16*>(Yv), M, N);
-    } else {
-      store_acc<BN, ACT, RES, F32OUT>(acc, row0, n0, bias, R, Yv, M, N);
     }
   }
 }
