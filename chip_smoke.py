@@ -15,9 +15,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      kernel / plain / library ms (CUDA events, median of 20 after warm-up,
      L2 flushed before each launch) beside the bound, and the kernel /
      library ratio of each shape, both timed in this call; for the
-     LN-matmul and the block tail also each launch's device time
-     (torch.profiler, Timer.launches). The probe's bf16 product (the block
-     GEMM alone) goes first. The quantised kernels
+     LN-matmul, the block tail and the block at C = 1152 (SigLIP, Hiera's
+     stage 4) also each launch's device time (torch.profiler,
+     Timer.launches), the block's beside its library yardstick's, and the
+     GEMM route each of its products and the probe's takes (the C side's
+     plan, held equal to ops/hiera_block.block_gemm_plan). The probe's bf16
+     product (the block GEMM alone) goes first. The quantised kernels
      take int8 / packed-int4 weights, an int8 cache and int8 block weights
      at the same widths, each with its own stated tolerance (the quantised
      products at rows 1, 2, 8, 17 and 32, each with the grid it launched,
@@ -169,6 +172,27 @@ def breakdown(timer, label, e, kernel, library):
     e["library_launch_ms"] = timer.launches(library)
     log_launches(f"{label} library", e["library_launch_ms"])
     return e
+
+
+def gemm_routes(label, rows, c, hw, mlp):
+    """The block GEMM's route for each product of a block of ``rows`` rows
+    (qkv, proj, fc1, fc2; or the probe's product where ``hw`` is None): the
+    C side's block_gemm_plan on this card, held equal to the Python one."""
+    from ufvideo_tpu_torch.ops import hiera_block as hb
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    products = ({"product": (rows, mlp, c)} if hw is None else
+                {"qkv": (rows, 3 * hw, c), "proj": (rows, c, hw), "fc1": (rows, mlp, c),
+                 "fc2": (rows, c, mlp)})
+    routes = {}
+    for name, (m, n, k) in products.items():
+        plan = hb.block_gemm_plan(m, n, k, sms)
+        if hb.block_gemm_plan_on_card(m, n, k) != plan.code:
+            fail(f"{label} {name}: the C side's GEMM plan differs from {plan}")
+        routes[name] = (f"{plan.route}: grid {plan.grid}, {plan.tiles} tiles, "
+                        f"{plan.stages} stages, {plan.smem} B")
+        log(f"  {label} {name} [M {m}, N {n}, K {k}]: GEMM route {routes[name]}")
+    return routes
 
 
 def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
@@ -484,6 +508,7 @@ def hiera_shapes(dev, timer, gen):
             unfused, nbytes(x, x, *params), flops, row_rel=BLOCK_REL))
         if c == 1152:  # stage 4: the products of the SigLIP layer's width
             breakdown(timer, f"fused_hiera_block [{n},{s},{c}]", out[-1], kernel, unfused)
+            out[-1]["gemm_routes"] = gemm_routes(f"[{n},{s},{c}]", rows, c, heads * hd, mlp)
     return out
 
 
@@ -615,6 +640,7 @@ def kernel_hiera(dev, timer, gen):
                 row_rel=BLOCK_REL, fatal=False)
     e = breakdown(timer, "fused_hiera_block [SigLIP]", {},
                   lambda: fused_hiera_block(x, params, heads, hd, act="gelu_tanh"), unfused)
+    e["gemm_routes"] = gemm_routes("[SigLIP]", rows, c, heads * hd, mlp)
     return dict(name="fused_hiera_block", route="cuda",
                 source="ufvideo_tpu_torch/csrc/hiera_block.cu",
                 replaces="ufvideo_tpu/ops/hiera_block.py:435",
@@ -1162,6 +1188,7 @@ def kernel_probe(dev, timer, gen):
               lambda: torch.mm(x, wf), nbytes(x, wf) + ROWS * DOUT * 4, ops,
               check=lambda n, g, w: check_close(n, g, w, row_rel=QREL, rtol=QREL, fro=QREL)),
     ]
+    shapes[1]["gemm_routes"] = gemm_routes("probe bf16", ROWS, DIN, None, DOUT)
     log(f"  int8 : bf16 rate through the kernels {shapes[1]['ms'] / shapes[0]['ms']:.3f}, "
         f"through the libraries {shapes[1]['library_ms'] / shapes[0]['library_ms']:.3f}")
     return _kernel_entry(

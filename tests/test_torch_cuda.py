@@ -1292,3 +1292,55 @@ def test_ln_gemm_entry_refuses_another_plan(dev):
     assert lib.ln_matmul_pair_bf16(*pair, 256, 576, 1728, 1e-6, stream) != 0
     torch.cuda.synchronize()
     _assert_close(out[None], fused_ln_matmul_plain(x, ln_s, ln_b, w, b))
+
+
+# The block GEMM (gemm in csrc/hiera_block.cu) on the route block_gemm_plan
+# gives each shape: K >= 1024 on the persistent ping-pong kernel. At SigLIP's
+# four products (M = 23328) and off every edge: M = 1, 127, 129; N on and off
+# the 128-column tile (N must be a multiple of 8: 136 for "off"); K = 1152 and
+# 4304; fewer tiles than SMs, a block with a single tile (its second
+# warpgroup idle) and an odd tile count. Every epilogue: none, the residual,
+# the six GELUs and the f32 sum, against the plain math, twice, bit for bit.
+
+from test_torch_gemm_plan import PRODUCT_SHAPES  # noqa: E402
+
+PP_SHAPES = [(23328, 3456, 1152), (23328, 1152, 1152), (23328, 4304, 1152),
+             (23328, 1152, 4304), (1, 1152, 1152), (127, 4304, 1152), (129, 136, 4304),
+             (129, 1152, 4304)]
+EPILOGUES = ["none", "residual", "f32", *hb._ACT_CODES]
+
+
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("m,n,k", PP_SHAPES)
+def test_block_gemm_ping_pong_every_epilogue(dev, m, n, k, epi):
+    assert hb.block_gemm_plan(m, n, k).route == "pp"
+    a = _randn(dev, m, k, seed=110)
+    w = _randn(dev, k, n, seed=111, scale=k ** -0.5)
+    bias = _randn(dev, n, seed=112, scale=0.1)
+    kw = dict(f32=epi == "f32", act=epi if epi in hb._ACT_CODES else None,
+              residual=_randn(dev, m, n, seed=113) if epi == "residual" else None)
+    first = hb.block_gemm_alone(a, w, bias, **kw)
+    second = hb.block_gemm_alone(a, w, bias, **kw)
+    want = hb.block_gemm_plain(a, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    if epi == "f32":
+        _assert_close(first, want, row_rel=1e-3, rtol=1e-3, rel=1e-3)
+    else:
+        _assert_close(first, want)
+
+
+def test_block_gemm_plan_on_the_card_equals_python(dev):
+    """The C side's plan (block_gemm_plan_query) is the Python one at every
+    product shape of tests/test_torch_gemm_plan.py, on 132 and 114 SMs and
+    on this card's count; both refuse K or N off a multiple of 8."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, n, k in PRODUCT_SHAPES:
+        for s in (132, 114):
+            assert hb.block_gemm_plan_on_card(m, n, k, s) == hb.block_gemm_plan(m, n, k, s).code
+        assert hb.block_gemm_plan_on_card(m, n, k) == hb.block_gemm_plan(m, n, k, sms).code
+    for m, n, k in ((8, 130, 1152), (8, 8, 1020), (0, 8, 1152)):
+        with pytest.raises(ValueError):
+            hb.block_gemm_plan(m, n, k)
+        with pytest.raises(RuntimeError):
+            hb.block_gemm_plan_on_card(m, n, k)

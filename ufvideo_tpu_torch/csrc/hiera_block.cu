@@ -75,6 +75,7 @@
 #include "attention_tile.cuh"
 #include "hopper.cuh"
 
+#include <climits>
 #include <initializer_list>
 
 namespace {
@@ -224,6 +225,7 @@ __global__ void __launch_bounds__(256) layernorm_kernel(
 // Every output element is summed by one thread in a fixed order:
 // deterministic.
 constexpr int kGBM = 128, kGBK = 64, kGThreads = 288;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have
 
 template <int BN>
 struct GemmCfg {
@@ -510,11 +512,202 @@ cudaError_t gemm_tile(const bf16* A, const bf16* W, const float* bias, const bf1
   return gemm_launch<BN, ACT, RES, F32OUT>(mapA, mapW, bias, R, Y, M, N, K, st);
 }
 
+// ------------------------------------------------ ping-pong bf16 GEMM --
+// The same product and epilogues for K >= 1024 (SigLIP's four products,
+// Hiera's stage 4, the probe), where gemm_kernel's wide tile leaves the
+// tensor cores idle through every epilogue (both consumer warpgroups on one
+// tile, one block an SM; PERF.md). Hopper design: a persistent grid (at
+// most one block an SM) walks the 128 x 128 output tiles in a fixed order,
+// row bands with column tiles fastest, so the blocks in flight share a few
+// A bands and W in L2; block b takes tiles b, b + G, .... Its two consumer
+// warpgroups take alternate tiles of the block, each a whole 128 x 128 tile
+// (two m64n128k16 wgmmas a k16 step on one W descriptor), so one
+// warpgroup's epilogue (bias staged in shared memory, GELU, 16-byte stores
+// through store_rows16) runs under the other's products. One producer
+// thread loads the stages (A 128 x 64 in one TMA box, W 64 x 128 in two, 32
+// KB) in the order the consumers take them, tile by tile, into a ring of up
+// to kPpMaxStages; full barriers are per warpgroup (a barrier shared by both
+// would let a warpgroup waiting for its next tile see the phase of the
+// other's last use of that stage as its own), empty barriers count the four
+// warps of the warpgroup that used the stage. 384 threads: the producer
+// warpgroup at 40 registers (setmaxnreg), the consumers at 232 for their 128
+// accumulators. The f32 epilogue (the probe) stores 8 bytes a lane
+// (store_f32). Every output is summed by one thread in k order, then bias,
+// activation and one rounding: the result repeats bit for bit.
+constexpr int kPpThreads = 384, kPpMaxStages = 6;
+constexpr int kPpTileA = kGBM * kGBK * 2;        // bytes: 128 rows x 64 K
+constexpr int kPpStage = kPpTileA + kGBK * 128 * 2;  // + W: 64 K x 128 columns
+
+// How gemm runs a product: route 0 is the ping-pong kernel, else gemm_kernel's
+// tile of width `route`; the ring's stages, the dynamic shared memory, the
+// blocks launched and the output tiles. ops/hiera_block.block_gemm_plan
+// computes the same (block_gemm_plan_query below reads this one).
+struct GemmPlan {
+  int route, stages, smem, grid, tiles;
+};
+
+// The plan at M x K into N on a card of `sms` SMs, from the shapes alone;
+// false where the GEMM cannot take them.
+bool block_gemm_plan(int M, int N, int K, int sms, GemmPlan* p) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || sms <= 0) return false;
+  const long long tiles = (M + kGBM - 1LL) / kGBM * ((N + 127) / 128);
+  if (tiles > INT_MAX) return false;
+  p->tiles = int(tiles);
+  if (K >= 1024) {
+    const int fit = (kSmemMax - 1024 - 2 * 128 * 4) / (kPpStage + 24);
+    p->route = 0;
+    p->stages = fit < kPpMaxStages ? fit : kPpMaxStages;
+    p->smem = 1024 + p->stages * kPpStage + 3 * p->stages * 8 + 2 * 128 * 4;
+    p->grid = p->tiles < sms ? p->tiles : sms;
+  } else {
+    p->route = 128;
+    p->stages = GemmCfg<128>::STAGES;
+    p->smem = int(GemmCfg<128>::SMEM);
+    p->grid = p->tiles;
+  }
+  return true;
+}
+
+// The plan on `sms` SMs, or on the current device's where sms <= 0
+cudaError_t gemm_plan_on(int M, int N, int K, int sms, GemmPlan* p) {
+  cudaError_t err = cudaSuccess;
+  if (sms <= 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  return block_gemm_plan(M, N, K, sms, p) ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int ACT, bool RES, bool F32OUT>
+__global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
+    __grid_constant__ const CUtensorMap mapA, __grid_constant__ const CUtensorMap mapW,
+    const float* __restrict__ bias, const bf16* __restrict__ R, void* __restrict__ Yv, int M,
+    int N, int K, int ST) {
+  namespace h = ufv::hop;
+  static_assert(!F32OUT || (ACT == ACT_NONE && !RES), "the f32 epilogue is the sum + bias");
+  extern __shared__ __align__(1024) unsigned char psmem_raw[];
+  unsigned char* ring = psmem_raw + ((1024 - (h::smem_u32(psmem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * kPpStage);  // [2][ST]
+  uint64_t* empty = full + 2 * ST;
+  float* bias_s = reinterpret_cast<float*>(empty + ST);  // [2][128]: each warpgroup's tile
+  const int nk = (K + kGBK - 1) / kGBK;
+  const int ntn = (N + 127) / 128, tiles = (M + kGBM - 1) / kGBM * ntn;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      h::mbar_init(&full[s], 1);
+      h::mbar_init(&full[ST + s], 1);
+      h::mbar_init(&empty[s], 4);  // lane 0 of each warp of the consuming warpgroup
+    }
+    h::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup; one thread issues every load
+    h::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // stages in the order the consumers take them: tile, then k
+      for (int t = blockIdx.x, j = 0; t < tiles; t += gridDim.x, ++j) {
+        const int m0 = t / ntn * kGBM, n0 = t % ntn * 128;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int st = it % ST;
+          uint64_t* f = &full[(j & 1) * ST + st];
+          h::mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+          unsigned char* stage = ring + st * kPpStage;
+          h::mbar_expect_tx(f, kPpStage);
+          h::tma_load_2d(stage, &mapA, f, kt * kGBK, m0);
+          h::tma_load_2d(stage + kPpTileA, &mapW, f, n0, kt * kGBK);
+          h::tma_load_2d(stage + kPpTileA + kGBK * 128, &mapW, f, n0 + 64, kt * kGBK);
+        }
+      }
+    }
+    return;
+  }
+  h::setmaxnreg_inc<232>();
+  // consumer warpgroup cw: the block's tiles j = cw, cw + 2, ...; each warp
+  // owns rows 16 (warp % 4) .. + 15 of both 64-row halves. phase bit s: the
+  // parity of this warpgroup's next wait on stage s.
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x - 128) >> 5;
+  const int lane = threadIdx.x & 31;
+  float* bs = bias_s + cw * 128;
+  uint32_t phase = 0;
+  for (int j = cw, t = blockIdx.x + cw * gridDim.x; t < tiles; j += 2, t += 2 * gridDim.x) {
+    const int m0 = t / ntn * kGBM, n0 = t % ntn * 128;
+    if constexpr (!F32OUT) {
+      const int i = threadIdx.x & 127;
+      h::named_bar_sync(2 + cw, 128);  // the previous tile's epilogue is done with bs
+      bs[i] = bias && n0 + i < N ? bias[n0 + i] : 0.f;
+    }
+    float acc[2][64];  // rows 0-63 and 64-127 of the tile
+    float (&acc0)[64] = acc[0];
+    float (&acc1)[64] = acc[1];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int it = j * nk + kt;
+      const int st = it % ST;
+      h::mbar_wait(&full[cw * ST + st], (phase >> st) & 1);
+      phase ^= 1u << st;
+      const unsigned char* a = ring + st * kPpStage;
+      const unsigned char* b = a + kPpTileA;
+      h::fence_regs(acc0);
+      h::fence_regs(acc1);
+      h::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGBK / 16; ++kk) {
+        const uint64_t db = h::make_desc(b + kk * 16 * 128, kGBK * 128, 1024, 1);
+        wgmma_gemm<128>(acc0, h::make_desc(a + kk * 32, 16, 1024, 1), db);
+        wgmma_gemm<128>(acc1, h::make_desc(a + 64 * 128 + kk * 32, 16, 1024, 1), db);
+      }
+      h::wgmma_commit();
+      h::wgmma_wait<1>();  // the previous stage's products are done: release it
+      h::fence_regs(acc0);
+      h::fence_regs(acc1);
+      if (kt > 0 && lane == 0) h::mbar_arrive(&empty[(it - 1) % ST]);
+    }
+    h::wgmma_wait<0>();
+    h::fence_regs(acc0);
+    h::fence_regs(acc1);
+    if (lane == 0) h::mbar_arrive(&empty[(j * nk + nk - 1) % ST]);
+    const int row0 = m0 + (warp & 3) * 16 + (lane >> 2);
+    if constexpr (F32OUT) {
+      store_f32<128>(acc0, row0, n0, bias, static_cast<float*>(Yv), M, N);
+      store_f32<128>(acc1, row0 + 64, n0, bias, static_cast<float*>(Yv), M, N);
+    } else {
+      h::named_bar_sync(2 + cw, 128);  // bs holds this tile's bias
+      store_rows16<128, ACT, RES, 2>(acc, bs, row0, n0, R, static_cast<bf16*>(Yv), M, N);
+    }
+  }
+}
+
+template <int ACT, bool RES, bool F32OUT>
+cudaError_t gemm_pp(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
+                    int M, int N, int K, const GemmPlan& p, cudaStream_t st) {
+  CUtensorMap mapA, mapW;
+  const cuuint64_t dimsA[2] = {cuuint64_t(K), cuuint64_t(M)}, strideA[1] = {cuuint64_t(K) * 2};
+  const cuuint64_t dimsW[2] = {cuuint64_t(N), cuuint64_t(K)}, strideW[1] = {cuuint64_t(N) * 2};
+  const cuuint32_t boxA[2] = {kGBK, kGBM}, boxW[2] = {64, kGBK};
+  cudaError_t err = ufv::hop::make_map(&mapA, A, 2, dimsA, strideA, boxA);
+  if (err == cudaSuccess) err = ufv::hop::make_map(&mapW, W, 2, dimsW, strideW, boxW);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_pp_kernel<ACT, RES, F32OUT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  gemm_pp_kernel<ACT, RES, F32OUT><<<p.grid, kPpThreads, p.smem, st>>>(mapA, mapW, bias, R, Y, M,
+                                                                       N, K, p.stages);
+  return cudaGetLastError();
+}
+
+// Every block product, on the route block_gemm_plan gives its shape
 template <int ACT, bool RES, bool F32OUT = false>
 cudaError_t gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
                  int M, int N, int K, cudaStream_t st) {
-  if (K >= 1024 && N >= 2048)
-    return gemm_tile<256, ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, st);
+  GemmPlan p;
+  const cudaError_t err = gemm_plan_on(M, N, K, 0, &p);
+  if (err != cudaSuccess) return err;
+  if (p.route == 0) return gemm_pp<ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, p, st);
   return gemm_tile<128, ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, st);
 }
 
@@ -572,7 +765,6 @@ cudaError_t layernorm(const bf16* x, const float* g, const float* b, bf16* y, in
 // H100 and was dropped (PERF.md).
 constexpr int kLnBM = 128, kLnMaxC = 576, kLnMaxStages = 8, kLnThreads = 384;
 constexpr int kLnChunk = kLnBM * 128;  // bytes of one 64-column chunk of the band
-constexpr int kSmemMax = 232448;       // dynamic shared memory a block may have
 
 struct LnPlan {
   int bm, bn, stages, cluster;
@@ -1501,6 +1693,40 @@ extern "C" int gemm_s8_s32(const void* qa, const void* bt, void* y, int M, int K
   if (!all_aligned16({qa, bt, y})) return int(cudaErrorMisalignedAddress);
   UFV_TRY((gemm_s8<Q_S32>(s8(qa), s8(bt), nullptr, nullptr, nullptr, nullptr, y, M, N, Kp,
                           static_cast<cudaStream_t>(stream))));
+  return 0;
+}
+
+// The block GEMM alone, on the route block_gemm_plan gives its shape: y [M,
+// N] = act(a [M, K] . w [K, N] + bias) in bf16 (epi 0; act 0 none, 1-6 the
+// GELUs), bf16(bf16(a . w + bias) + r) (epi 1), or the f32 sum + bias (epi
+// 2); bias may be null. K and N multiples of 8. For testing and timing each
+// route apart from the blocks that run it.
+extern "C" int block_gemm_bf16(const void* a, const void* w, const void* bias, const void* r,
+                               void* y, int M, int N, int K, int act, int epi, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || epi < 0 || epi > 2 ||
+      (act != ACT_NONE && (epi != 0 || !act_ok(act))) || (epi == 1 && !r))
+    return int(cudaErrorInvalidValue);
+  if (!all_aligned16({a, w, y}) || (r && !aligned16(r))) return int(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (epi == 1) UFV_TRY((gemm<ACT_NONE, true>(b16(a), b16(w), f32(bias), b16(r), y, M, N, K, st)));
+  else if (epi == 2)
+    UFV_TRY((gemm<ACT_NONE, false, true>(b16(a), b16(w), f32(bias), nullptr, y, M, N, K, st)));
+  else if (act == ACT_NONE)
+    UFV_TRY((gemm<ACT_NONE, false>(b16(a), b16(w), f32(bias), nullptr, y, M, N, K, st)));
+  else
+    UFV_TRY(gemm_act(act, b16(a), b16(w), f32(bias), b16(y), M, N, K, st));
+  return 0;
+}
+
+// block_gemm_plan at M x K into N on a card of `sms` SMs (sms <= 0: the
+// current device's), as out[5] = (route, stages, smem, grid, tiles): what the
+// Python ops/hiera_block.block_gemm_plan must give (tests/test_torch_cuda.py).
+extern "C" int block_gemm_plan_query(int M, int N, int K, int sms, int* out) {
+  GemmPlan p;
+  if (!out) return int(cudaErrorInvalidValue);
+  UFV_TRY(gemm_plan_on(M, N, K, sms, &p));
+  const int v[5] = {p.route, p.stages, p.smem, p.grid, p.tiles};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -161,11 +161,14 @@ def _lib() -> ctypes.CDLL:
     lib.probe_gemm_bf16.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.probe_gemm_s8.argtypes = [p] * 5 + [i] * 3 + [p]
     lib.gemm_s8_s32.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.block_gemm_plan_query.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.block_gemm_bf16.argtypes = [p] * 5 + [i] * 5 + [p]
     for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.ln_matmul_pair_bf16,
                lib.block_tail_bf16,
                lib.qpool_block_bf16, lib.block_w8a8_bf16, lib.ln_matmul_w8a8_bf16,
                lib.block_tail_w8a8_bf16, lib.qpool_block_w8a8_bf16, lib.hiera_stage_bf16,
-               lib.probe_gemm_bf16, lib.probe_gemm_s8, lib.gemm_s8_s32):
+               lib.probe_gemm_bf16, lib.probe_gemm_s8, lib.gemm_s8_s32,
+               lib.block_gemm_plan_query, lib.block_gemm_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -408,6 +411,109 @@ def ln_gemm_plan(rows: int, c: int, n: int) -> LnGemmPlan:
     smem = 1024 + band + stages * stage + (8 + 3 * stages) * 8 + 8 * LN_BN
     return LnGemmPlan("ln_gemm", LN_BM, LN_BN, stages, smem, 1, -(-rows // LN_BM),
                       144 if c % 144 == 0 and c < 576 else 128)
+
+
+# The block GEMM of csrc/hiera_block.cu: every product of a bf16 block (and
+# the probe's bf16 product) runs on the route ``block_gemm_plan`` gives its
+# shape, the C side's ``block_gemm_plan`` computing the same.
+GEMM_BM, GEMM_BK, GEMM_BN = 128, 64, 128
+PP_MIN_K, PP_MAX_STAGES = 1024, 6
+PP_STAGE = GEMM_BM * GEMM_BK * 2 + GEMM_BK * GEMM_BN * 2  # A 128 x 64 + W 64 x 128, bf16
+TILE128_STAGES = 3
+H100_SMS = 132
+
+
+class BlockGemmPlan(NamedTuple):
+    """How the block GEMM runs one product: ``route`` "pp" (the persistent
+    ping-pong kernel, two consumer warpgroups on alternate 128 x 128 tiles)
+    or "128" (``gemm_kernel``'s 128 x 128 tile, one block a tile, two blocks
+    an SM); the ring's ``stages``, the dynamic shared memory ``smem``
+    (bytes), the blocks launched (``grid``) and the output ``tiles``."""
+    route: str
+    stages: int
+    smem: int
+    grid: int
+    tiles: int
+
+    @property
+    def code(self):
+        """(route, stages, smem, grid, tiles) as the C query gives them
+        (route 0 for "pp", else the tile's width)."""
+        return (0 if self.route == "pp" else int(self.route), self.stages, self.smem,
+                self.grid, self.tiles)
+
+
+@functools.cache
+def block_gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> BlockGemmPlan:
+    """The plan of an [m, k] x [k, n] product on a card of ``sms`` SMs, from
+    shapes alone. K >= 1024 (SigLIP's qkv, proj, fc1 and fc2, Hiera's stage
+    4, the probe) takes the ping-pong kernel: its grid is at most one block
+    an SM, its ring as many 32 KB stages as fit beside the two warpgroups'
+    bias rows, at most 6. Shorter K takes the 128 x 128 tile (3 stages of 32
+    KB, its bias row), a block a tile."""
+    if min(m, n, k, sms) <= 0 or n % 8 or k % 8:
+        raise ValueError(f"no plan for M={m} N={n} K={k} on {sms} SMs: "
+                         "K and N multiples of 8")
+    tiles = -(-m // GEMM_BM) * -(-n // GEMM_BN)
+    if k >= PP_MIN_K:
+        stages = min(PP_MAX_STAGES, (SMEM_MAX - 1024 - 2 * GEMM_BN * 4) // (PP_STAGE + 24))
+        smem = 1024 + stages * PP_STAGE + 3 * stages * 8 + 2 * GEMM_BN * 4
+        return BlockGemmPlan("pp", stages, smem, min(sms, tiles), tiles)
+    smem = TILE128_STAGES * (PP_STAGE + 16) + GEMM_BN * 4 + 1024
+    return BlockGemmPlan("128", TILE128_STAGES, smem, tiles, tiles)
+
+
+def block_gemm_plan_on_card(m: int, n: int, k: int, sms: int = 0) -> tuple:
+    """The C side's plan (``block_gemm_plan_query``) as
+    ``BlockGemmPlan.code``: on ``sms`` SMs, or the current card's where
+    ``sms`` is 0. Builds the kernels' library; needs no card where sms > 0."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, lib.block_gemm_plan_query(m, n, k, sms, out), "block_gemm_plan_query")
+    return tuple(out)
+
+
+def block_gemm_plain(a, w, bias=None, residual=None, act=None, f32=False) -> torch.Tensor:
+    """The block GEMM's function in plain PyTorch: a [M, K] . w [K, N] + bias
+    in f32, then the f32 sum (``f32``), or act and one rounding to bf16, or
+    that rounding plus ``residual`` rounded again."""
+    y = a.float() @ w.float()
+    if bias is not None:
+        y = y + bias.float()
+    if f32:
+        return y
+    if act is not None:
+        y = _ACTS[act](y)
+    y = y.to(torch.bfloat16)
+    if residual is not None:
+        y = (y.float() + residual.float()).to(torch.bfloat16)
+    return y
+
+
+def block_gemm_alone(a, w, bias=None, residual=None, act=None, f32=False) -> torch.Tensor:
+    """The block GEMM alone on the card, on the route ``block_gemm_plan``
+    gives its shape: ``block_gemm_plain``'s function for bf16 a [M, K] and w
+    [K, N] (K and N multiples of 8), with an activation or a residual or the
+    f32 sum. A measuring instrument: no model path calls it, so it counts
+    nothing."""
+    if a.device.type != "cuda":
+        raise ValueError(f"block_gemm_alone: unsupported device {a.device}")
+    _check_cuda("block_gemm_alone", a, (w,) + ((residual,) if residual is not None else ()))
+    (m, k), n = a.shape, w.shape[1]
+    if w.shape[0] != k or k % 8 or n % 8 or (act is not None and (f32 or residual is not None)):
+        raise ValueError(f"unsupported block GEMM: a {tuple(a.shape)} w {tuple(w.shape)}")
+    a, w = a.contiguous(), w.contiguous()
+    b = None if bias is None else bias.float().contiguous()
+    r = None if residual is None else residual.contiguous()
+    y = torch.empty((m, n), dtype=torch.float32 if f32 else a.dtype, device=a.device)
+    lib = _lib()
+    code = lib.block_gemm_bf16(
+        a.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+        None if r is None else r.data_ptr(), y.data_ptr(), m, n, k,
+        _ACT_CODES[act] if act else 0, 2 if f32 else int(r is not None),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, code, "block_gemm_alone")
+    return y
 
 
 def fused_block_tail_plain(
