@@ -1,5 +1,5 @@
 // The pre-LN transformer blocks of SigLIP and Hiera as short sequences of
-// hand-written launches, with a plain C interface for ctypes. Thirteen entry
+// hand-written launches, with a plain C interface for ctypes. Fifteen entry
 // points; the first nine replace one TPU kernel of
 // ufvideo_tpu/ops/hiera_block.py each:
 //
@@ -37,7 +37,10 @@
 //                     s8 x s8 -> s32 products of the int8-rate probe, on the
 //                     two GEMMs below;
 //   gemm_s8_s32       the int8 GEMM alone, for timing it apart from the
-//                     probe's preparation passes.
+//                     probe's preparation passes;
+//   block_gemm_bf16, block_gemm_plan_query
+//                     the bf16 block GEMM alone on the route its plan gives,
+//                     and that plan, for testing and timing the routes.
 //
 // GELU: every entry point with an act takes 1 = tanh, 2 = exact (erf), and
 // the JAX package's minimax polynomials 3 = gelu_poly, 4 = gelu_poly_bf16,
@@ -198,7 +201,9 @@ __global__ void __launch_bounds__(256) layernorm_kernel(
 // Y[M, N] = epilogue(A[M, K] . W[K, N] + bias[N]); all row-major, K and N
 // multiples of 8, A and W 16-byte aligned. Epilogue: an optional activation;
 // with a residual R, Y = bf16(bf16(acc + bias) + R); with F32OUT the f32 sum
-// (bias may be null).
+// (bias may be null). Every product takes the route block_gemm_plan gives
+// its shape (gemm below): the ping-pong kernel of the next section for K >=
+// 1024, this one below that.
 //
 // Hopper design: a 128 x BN output tile a block, K in steps of 64. One
 // producer warp streams the A tile (128 rows x 64 K, one TMA box) and the W
@@ -209,18 +214,17 @@ __global__ void __launch_bounds__(256) layernorm_kernel(
 // f32) straight from shared memory: A K-major, W MN-major through the
 // descriptor's transpose bit, so no copy transposes it. One group of wgmmas
 // stays in flight while the previous stage is released. A block is the two
-// consumer warpgroups and one producer warp (288 threads), one output tile.
-// (A persistent grid whose ring runs on across tiles measured 5-28% slower
-// on an H100; PERF.md.) Two tile shapes, chosen by the product's shape
-// (gemm below):
-// - BN = 256, one block an SM (224 registers a thread for the 128
-//   accumulators, a 4-stage ring of 48 KB stages): for K >= 1024 and N >=
-//   2048 (SigLIP's qkv and fc1, the probe), where the mainloop dominates and
-//   the wider tile halves the shared-memory reads a product needs, and a
-//   ragged last column tile wastes little;
-// - BN = 128, two blocks an SM (112 registers, 3 stages of 32 KB), so one
-//   block's epilogue overlaps the other's products: Hiera's short K (144 is
-//   three steps).
+// consumer warpgroups and one producer warp (288 threads), one output tile:
+// BN = 128, two blocks an SM (3 stages of 32 KB), so one block's epilogue
+// overlaps the other's products (Hiera's short K: 144 is three steps); BN =
+// 144 for a block tail's proj and fc2 where it divides C (block_tail). The
+// epilogue stages the tile's bias in shared memory and stores 16 bytes a
+// lane (store_rows16). A persistent grid of this kernel, whose ring ran on
+// across tiles with both warpgroups on one tile, measured 5-28% slower on an
+// H100: its epilogues stayed serial. The ping-pong kernel is persistent with
+// its warpgroups on alternate tiles instead, and took K >= 1024 from a 128 x
+// 256 tile of this kernel that ran SigLIP's four products 1.5-1.8x slower
+// than cuBLAS (PERF.md).
 // TMA zero-fills what lies past M, N or K; the epilogue masks its stores.
 // Every output element is summed by one thread in a fixed order:
 // deterministic.
@@ -230,7 +234,8 @@ constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have
 template <int BN>
 struct GemmCfg {
   // the 144-column tile's 72 accumulators do not fit two blocks an SM (96
-  // registers a thread): one block, a deeper ring
+  // registers a thread): one block, a deeper ring; the 256-wide ring is the
+  // int8 GEMM's (gemm_s8_kernel)
   static constexpr int STAGES = BN == 256 ? 4 : BN == 144 ? 6 : 3;
   static constexpr int PER_SM = BN == 128 ? 2 : 1;
   // W's boxes: BA columns (64 in 128-byte-swizzled rows; 16 in 32-byte rows
@@ -246,9 +251,7 @@ struct GemmCfg {
 
 template <int BN>
 __device__ __forceinline__ void wgmma_gemm(float (&acc)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 256)
-    ufv::hop::wgmma_ss_n256<1>(acc, da, db, 1);
-  else if constexpr (BN == 144)
+  if constexpr (BN == 144)
     ufv::hop::wgmma_ss_n144<1>(acc, da, db, 1);
   else
     ufv::hop::wgmma_ss_n128<1>(acc, da, db, 1);
@@ -294,18 +297,20 @@ __device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
 }
 
 // One group of the 16-byte epilogue: accumulators v[0..15] are blocks 4 q ..
-// 4 q + 3 (8 columns each) of rows `row` and row + 8; bias from shared
-// memory (bs: the tile's values; a global load here would wait behind the
-// stores before it), activation, then bf16(v), or with a residual bf16(bf16(v)
-// + R). The lanes of a quad trade their bf16 pairs (a 4 x 4 transpose in
+// 4 q + 3 (8 columns each) of rows `row` and row + 8 of the tile at (m0,
+// n0); bias from shared memory (bs: the tile's values; a global load here
+// would wait behind the stores before it), activation, then bf16(v), or with
+// a residual bf16(bf16(v) + R). The lanes of a quad trade their bf16 pairs (a 4 x 4 transpose in
 // three shuffles), after which lane tig holds the 8 contiguous columns of
 // block 4 q + tig, so a warp writes 64 contiguous bytes of each of its 8 rows
 // at once (R read 16 bytes at a time at the same place). Rows >= M and blocks
 // past N (N % 8 == 0) are not stored.
-template <int ACT, bool RES>
+template <int ACT, bool RES, bool RS>
 __device__ __forceinline__ void store_group16(const float (&v)[16], const float* bs, int q,
-                                              int row, int n0, const bf16* __restrict__ R,
-                                              bf16* __restrict__ Y, int M, int N) {
+                                              int row, int m0, int n0,
+                                              const bf16* __restrict__ R,
+                                              const unsigned char* rs, bf16* __restrict__ Y,
+                                              int M, int N) {
   const int tig = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -332,7 +337,13 @@ __device__ __forceinline__ void store_group16(const float (&v)[16], const float*
     const long long off = (long long)r * N + col;
     uint4 out = make_uint4(o[0], o[1], o[2], o[3]);
     if (RES) {
-      const uint4 rv = *reinterpret_cast<const uint4*>(R + off);
+      // RS: the tile's residual in shared memory (two 128-byte-swizzled boxes
+      // of 64 columns, as TMA lands them), else R in device memory
+      const int lr = r - m0, lu = (col - n0) / 8;
+      const uint4 rv =
+          RS ? *reinterpret_cast<const uint4*>(rs + (lu >> 3) * (kGBM * 128) + lr * 128 +
+                                               (((lu & 7) ^ (lr & 7)) << 4))
+             : *reinterpret_cast<const uint4*>(R + off);
       const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&rv);
       __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
@@ -348,16 +359,20 @@ __device__ __forceinline__ void store_group16(const float (&v)[16], const float*
 // The epilogue of NA m64 x BN accumulators (the layout store_f32 reads;
 // array a holds rows row0 + 64 a) with 16-byte stores, group by group (four
 // 8-column blocks). Without an activation every group is unrolled. With a
-// GELU, one group a step of a loop that is not unrolled: the arrays shift
-// down 16 values a step, so a step reads fixed registers and the code (the
-// GELU inlined 16 times, not NA * BN / 2 times) stays in the instruction
-// cache. Fully unrolled, the GELU epilogue outgrew the instruction cache and
-// ran slower on an H100 (PERF.md). Where BN % 32 == 16 (144) the last
-// two blocks go first, a bf16 pair at a time.
-template <int BN, int ACT, bool RES, int NA>
+// GELU, two groups a step of a loop that is not unrolled: the arrays shift
+// down 32 values a step, so a step reads fixed registers and the code (the
+// GELU inlined 32 times, not NA * BN / 2 times) stays in the instruction
+// cache, while a step's 32 independent GELUs keep the one warp a scheduler
+// that runs the epilogue issuing. Fully unrolled, the GELU epilogue outgrew
+// the instruction cache; one group a step ran the ping-pong GEMM's fc1 2-4%
+// slower (both on an H100, PERF.md). Where BN % 32 == 16 (144) the last two
+// blocks go first, a bf16 pair at a time. RS: the residual comes from the
+// tile in shared memory at rs (store_group16).
+template <int BN, int ACT, bool RES, int NA, bool RS = false>
 __device__ __forceinline__ void store_rows16(float (&acc)[NA][BN / 2], const float* bs, int row0,
-                                             int n0, const bf16* __restrict__ R,
-                                             bf16* __restrict__ Y, int M, int N) {
+                                             int m0, int n0, const bf16* __restrict__ R,
+                                             const unsigned char* rs, bf16* __restrict__ Y,
+                                             int M, int N) {
   static_assert(BN % 16 == 0, "whole 8-column blocks in pairs");
   constexpr int GQ = BN / 32, FLAT = 16 * GQ;  // groups an array, values they hold
   const int tig = threadIdx.x & 3;
@@ -382,8 +397,9 @@ __device__ __forceinline__ void store_rows16(float (&acc)[NA][BN / 2], const flo
         *reinterpret_cast<__nv_bfloat162*>(Y + off) = __floats2bfloat162_rn(v0, v1);
       }
     }
-  constexpr int NG = NA * GQ, GPI = ACT == ACT_NONE ? NG : 1;  // groups, groups a step
+  constexpr int NG = NA * GQ, GPI = ACT == ACT_NONE ? NG : 2;  // groups, groups a step
   static_assert(NG % GPI == 0, "whole steps");
+  static_assert(!RS || (RES && BN == 128), "a residual tile in shared memory is 128 wide");
 #pragma unroll 1
   for (int it = 0; it < NG / GPI; ++it) {
 #pragma unroll
@@ -392,7 +408,8 @@ __device__ __forceinline__ void store_rows16(float (&acc)[NA][BN / 2], const flo
 #pragma unroll
       for (int i = 0; i < 16; ++i) v[i] = acc[(16 * gi + i) / FLAT][(16 * gi + i) % FLAT];
       const int g = it * GPI + gi;
-      store_group16<ACT, RES>(v, bs, g % GQ, row0 + 64 * (g / GQ), n0, R, Y, M, N);
+      store_group16<ACT, RES, RS>(v, bs, g % GQ, row0 + 64 * (g / GQ), m0, n0, R, rs, Y, M,
+                                  N);
     }
     if constexpr (GPI < NG) {  // the next step's groups to the front
 #pragma unroll
@@ -479,7 +496,8 @@ __global__ void __launch_bounds__(kGThreads, GemmCfg<BN>::PER_SM) gemm_kernel(
       store_f32<BN>(acc, row0, n0, bias, static_cast<float*>(Yv), M, N);
     } else {
       h::named_bar_sync(1, 256);  // bs is in place
-      store_rows16<BN, ACT, RES, 1>(accs, bs, row0, n0, R, static_cast<bf16*>(Yv), M, N);
+      store_rows16<BN, ACT, RES, 1>(accs, bs, row0, m0, n0, R, nullptr, static_cast<bf16*>(Yv),
+                                    M, N);
     }
   }
 }
@@ -529,14 +547,20 @@ cudaError_t gemm_tile(const bf16* A, const bf16* W, const float* bias, const bf1
 // to kPpMaxStages; full barriers are per warpgroup (a barrier shared by both
 // would let a warpgroup waiting for its next tile see the phase of the
 // other's last use of that stage as its own), empty barriers count the four
-// warps of the warpgroup that used the stage. 384 threads: the producer
-// warpgroup at 40 registers (setmaxnreg), the consumers at 232 for their 128
-// accumulators. The f32 epilogue (the probe) stores 8 bytes a lane
-// (store_f32). Every output is summed by one thread in k order, then bias,
+// warps of the warpgroup that used the stage. A residual tile (proj, fc2)
+// comes by TMA too, into a 32 KB buffer the two warpgroups' epilogues take
+// in turn: the producer loads tile j's after its last stage, once tile j -
+// 1's epilogue has released the buffer. A residual read from device memory
+// in the epilogue waited behind the ring's TMA traffic for most of a tile's
+// time (clock64 stamps, scripts/torch_gemm_stamps.py, PERF.md). 384 threads:
+// the producer warpgroup at 40 registers (setmaxnreg), the consumers at 232
+// for their 128 accumulators. The f32 epilogue (the probe) stores 8 bytes a
+// lane (store_f32). Every output is summed by one thread in k order, then bias,
 // activation and one rounding: the result repeats bit for bit.
 constexpr int kPpThreads = 384, kPpMaxStages = 6;
 constexpr int kPpTileA = kGBM * kGBK * 2;        // bytes: 128 rows x 64 K
 constexpr int kPpStage = kPpTileA + kGBK * 128 * 2;  // + W: 64 K x 128 columns
+constexpr int kPpTileR = kGBM * 128 * 2;             // a residual tile, 128 x 128
 
 // How gemm runs a product: route 0 is the ping-pong kernel, else gemm_kernel's
 // tile of width `route`; the ring's stages, the dynamic shared memory, the
@@ -554,10 +578,11 @@ bool block_gemm_plan(int M, int N, int K, int sms, GemmPlan* p) {
   if (tiles > INT_MAX) return false;
   p->tiles = int(tiles);
   if (K >= 1024) {
-    const int fit = (kSmemMax - 1024 - 2 * 128 * 4) / (kPpStage + 24);
+    const int fixed = 1024 + kPpTileR + 3 * 8 + 2 * 128 * 4;  // pad, residual, its barriers, bias
+    const int fit = (kSmemMax - fixed) / (kPpStage + 24);
     p->route = 0;
     p->stages = fit < kPpMaxStages ? fit : kPpMaxStages;
-    p->smem = 1024 + p->stages * kPpStage + 3 * p->stages * 8 + 2 * 128 * 4;
+    p->smem = fixed + p->stages * (kPpStage + 24);
     p->grid = p->tiles < sms ? p->tiles : sms;
   } else {
     p->route = 128;
@@ -580,18 +605,25 @@ cudaError_t gemm_plan_on(int M, int N, int K, int sms, GemmPlan* p) {
   return block_gemm_plan(M, N, K, sms, p) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+#ifdef UFV_STAMPS
+__device__ long long ufv_stamps[132 * 2 * 64 * 4];
+#endif
+
 template <int ACT, bool RES, bool F32OUT>
 __global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
     __grid_constant__ const CUtensorMap mapA, __grid_constant__ const CUtensorMap mapW,
-    const float* __restrict__ bias, const bf16* __restrict__ R, void* __restrict__ Yv, int M,
-    int N, int K, int ST) {
+    __grid_constant__ const CUtensorMap mapR, const float* __restrict__ bias,
+    void* __restrict__ Yv, int M, int N, int K, int ST) {
   namespace h = ufv::hop;
   static_assert(!F32OUT || (ACT == ACT_NONE && !RES), "the f32 epilogue is the sum + bias");
   extern __shared__ __align__(1024) unsigned char psmem_raw[];
   unsigned char* ring = psmem_raw + ((1024 - (h::smem_u32(psmem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * kPpStage);  // [2][ST]
+  unsigned char* rtile = ring + ST * kPpStage;  // the residual tile, two boxes of 64 columns
+  uint64_t* full = reinterpret_cast<uint64_t*>(rtile + kPpTileR);  // [2][ST]
   uint64_t* empty = full + 2 * ST;
-  float* bias_s = reinterpret_cast<float*>(empty + ST);  // [2][128]: each warpgroup's tile
+  uint64_t* r_full = empty + ST;  // [2]: the residual tile has landed for warpgroup w
+  uint64_t* r_empty = r_full + 2;  // the last epilogue is done with it
+  float* bias_s = reinterpret_cast<float*>(r_empty + 1);  // [2][128]: each warpgroup's tile
   const int nk = (K + kGBK - 1) / kGBK;
   const int ntn = (N + 127) / 128, tiles = (M + kGBM - 1) / kGBM * ntn;
   if (threadIdx.x == 0) {
@@ -600,6 +632,9 @@ __global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
       h::mbar_init(&full[ST + s], 1);
       h::mbar_init(&empty[s], 4);  // lane 0 of each warp of the consuming warpgroup
     }
+    h::mbar_init(&r_full[0], 1);
+    h::mbar_init(&r_full[1], 1);
+    h::mbar_init(r_empty, 4);
     h::fence_barrier_init();
   }
   __syncthreads();
@@ -620,6 +655,13 @@ __global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
           h::tma_load_2d(stage + kPpTileA, &mapW, f, n0, kt * kGBK);
           h::tma_load_2d(stage + kPpTileA + kGBK * 128, &mapW, f, n0 + 64, kt * kGBK);
         }
+        if constexpr (RES) {  // tile j's residual, once tile j - 1's epilogue is done with it
+          uint64_t* f = &r_full[j & 1];
+          h::mbar_wait(r_empty, (j & 1) ^ 1);
+          h::mbar_expect_tx(f, kPpTileR);
+          h::tma_load_2d(rtile, &mapR, f, n0, m0);
+          h::tma_load_2d(rtile + kPpTileR / 2, &mapR, f, n0 + 64, m0);
+        }
       }
     }
     return;
@@ -635,6 +677,10 @@ __global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
   uint32_t phase = 0;
   for (int j = cw, t = blockIdx.x + cw * gridDim.x; t < tiles; j += 2, t += 2 * gridDim.x) {
     const int m0 = t / ntn * kGBM, n0 = t % ntn * 128;
+#ifdef UFV_STAMPS
+    long long ts[4];
+    ts[0] = clock64();
+#endif
     if constexpr (!F32OUT) {
       const int i = threadIdx.x & 127;
       h::named_bar_sync(2 + cw, 128);  // the previous tile's epilogue is done with bs
@@ -650,6 +696,9 @@ __global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
       const int st = it % ST;
       h::mbar_wait(&full[cw * ST + st], (phase >> st) & 1);
       phase ^= 1u << st;
+#ifdef UFV_STAMPS
+      if (kt == 0) ts[1] = clock64();
+#endif
       const unsigned char* a = ring + st * kPpStage;
       const unsigned char* b = a + kPpTileA;
       h::fence_regs(acc0);
@@ -671,32 +720,49 @@ __global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
     h::fence_regs(acc0);
     h::fence_regs(acc1);
     if (lane == 0) h::mbar_arrive(&empty[(j * nk + nk - 1) % ST]);
+#ifdef UFV_STAMPS
+    ts[2] = clock64();
+#endif
     const int row0 = m0 + (warp & 3) * 16 + (lane >> 2);
     if constexpr (F32OUT) {
       store_f32<128>(acc0, row0, n0, bias, static_cast<float*>(Yv), M, N);
       store_f32<128>(acc1, row0 + 64, n0, bias, static_cast<float*>(Yv), M, N);
     } else {
       h::named_bar_sync(2 + cw, 128);  // bs holds this tile's bias
-      store_rows16<128, ACT, RES, 2>(acc, bs, row0, n0, R, static_cast<bf16*>(Yv), M, N);
+      if constexpr (RES) h::mbar_wait(&r_full[cw], (j >> 1) & 1);
+      store_rows16<128, ACT, RES, 2, RES>(acc, bs, row0, m0, n0, nullptr, rtile,
+                                          static_cast<bf16*>(Yv), M, N);
+      if constexpr (RES) {
+        __syncwarp();
+        if (lane == 0) h::mbar_arrive(r_empty);
+      }
     }
+#ifdef UFV_STAMPS
+    ts[3] = clock64();
+    if ((threadIdx.x & 127) == 0 && j / 2 < 64 && blockIdx.x < 132)
+      for (int e = 0; e < 4; ++e) ufv_stamps[((blockIdx.x * 2 + cw) * 64 + j / 2) * 4 + e] = ts[e];
+#endif
   }
 }
 
 template <int ACT, bool RES, bool F32OUT>
 cudaError_t gemm_pp(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
                     int M, int N, int K, const GemmPlan& p, cudaStream_t st) {
-  CUtensorMap mapA, mapW;
+  CUtensorMap mapA, mapW, mapR;
   const cuuint64_t dimsA[2] = {cuuint64_t(K), cuuint64_t(M)}, strideA[1] = {cuuint64_t(K) * 2};
   const cuuint64_t dimsW[2] = {cuuint64_t(N), cuuint64_t(K)}, strideW[1] = {cuuint64_t(N) * 2};
-  const cuuint32_t boxA[2] = {kGBK, kGBM}, boxW[2] = {64, kGBK};
+  const cuuint64_t dimsR[2] = {cuuint64_t(N), cuuint64_t(M)};
+  const cuuint32_t boxA[2] = {kGBK, kGBM}, boxW[2] = {64, kGBK}, boxR[2] = {64, kGBM};
   cudaError_t err = ufv::hop::make_map(&mapA, A, 2, dimsA, strideA, boxA);
   if (err == cudaSuccess) err = ufv::hop::make_map(&mapW, W, 2, dimsW, strideW, boxW);
+  mapR = mapA;  // unused without a residual
+  if (err == cudaSuccess && RES) err = ufv::hop::make_map(&mapR, R, 2, dimsR, strideW, boxR);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(gemm_pp_kernel<ACT, RES, F32OUT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  gemm_pp_kernel<ACT, RES, F32OUT><<<p.grid, kPpThreads, p.smem, st>>>(mapA, mapW, bias, R, Y, M,
-                                                                       N, K, p.stages);
+  gemm_pp_kernel<ACT, RES, F32OUT><<<p.grid, kPpThreads, p.smem, st>>>(mapA, mapW, mapR, bias, Y,
+                                                                       M, N, K, p.stages);
   return cudaGetLastError();
 }
 
@@ -964,7 +1030,7 @@ __device__ __forceinline__ void ln_gemm_consume(
     h::fence_regs(acc1);
     if (lane == 0) h::mbar_arrive(&empty[(p * nkc + nkc - 1) % ST]);
     h::named_bar_sync(2 + cw, 128);  // bs holds this tile's bias
-    store_rows16<BN, ACT, false, 2>(acc, bs, row0, n0, nullptr, Y, M, N);
+    store_rows16<BN, ACT, false, 2>(acc, bs, row0, m0, n0, nullptr, nullptr, Y, M, N);
   }
 }
 
@@ -1717,6 +1783,17 @@ extern "C" int block_gemm_bf16(const void* a, const void* w, const void* bias, c
     UFV_TRY(gemm_act(act, b16(a), b16(w), f32(bias), b16(y), M, N, K, st));
   return 0;
 }
+
+#ifdef UFV_STAMPS
+extern "C" int ufv_stamps_rw(long long* host, int clear) {
+  const size_t bytes = sizeof(long long) * 132 * 2 * 64 * 4;
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, ufv_stamps);
+  if (e == cudaSuccess)
+    e = clear ? cudaMemset(p, 0, bytes) : cudaMemcpy(host, p, bytes, cudaMemcpyDeviceToHost);
+  return int(e);
+}
+#endif
 
 // block_gemm_plan at M x K into N on a card of `sms` SMs (sms <= 0: the
 // current device's), as out[5] = (route, stages, smem, grid, tiles): what the

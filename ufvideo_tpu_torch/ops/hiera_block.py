@@ -419,6 +419,7 @@ def ln_gemm_plan(rows: int, c: int, n: int) -> LnGemmPlan:
 GEMM_BM, GEMM_BK, GEMM_BN = 128, 64, 128
 PP_MIN_K, PP_MAX_STAGES = 1024, 6
 PP_STAGE = GEMM_BM * GEMM_BK * 2 + GEMM_BK * GEMM_BN * 2  # A 128 x 64 + W 64 x 128, bf16
+PP_TILE_R = GEMM_BM * GEMM_BN * 2  # a residual tile, loaded for the epilogue
 TILE128_STAGES = 3
 H100_SMS = 132
 
@@ -448,17 +449,19 @@ def block_gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> BlockGemmPla
     """The plan of an [m, k] x [k, n] product on a card of ``sms`` SMs, from
     shapes alone. K >= 1024 (SigLIP's qkv, proj, fc1 and fc2, Hiera's stage
     4, the probe) takes the ping-pong kernel: its grid is at most one block
-    an SM, its ring as many 32 KB stages as fit beside the two warpgroups'
-    bias rows, at most 6. Shorter K takes the 128 x 128 tile (3 stages of 32
-    KB, its bias row), a block a tile."""
+    an SM, its ring as many 32 KB stages as fit beside a 32 KB residual
+    tile, its barriers and the two warpgroups' bias rows, at most 6. Shorter
+    K takes the 128 x 128 tile (3 stages of 32 KB, its bias row), a block a
+    tile."""
     if min(m, n, k, sms) <= 0 or n % 8 or k % 8:
         raise ValueError(f"no plan for M={m} N={n} K={k} on {sms} SMs: "
                          "K and N multiples of 8")
     tiles = -(-m // GEMM_BM) * -(-n // GEMM_BN)
     if k >= PP_MIN_K:
-        stages = min(PP_MAX_STAGES, (SMEM_MAX - 1024 - 2 * GEMM_BN * 4) // (PP_STAGE + 24))
-        smem = 1024 + stages * PP_STAGE + 3 * stages * 8 + 2 * GEMM_BN * 4
-        return BlockGemmPlan("pp", stages, smem, min(sms, tiles), tiles)
+        fixed = 1024 + PP_TILE_R + 3 * 8 + 2 * GEMM_BN * 4  # pad, residual, barriers, bias
+        stages = min(PP_MAX_STAGES, (SMEM_MAX - fixed) // (PP_STAGE + 24))
+        return BlockGemmPlan("pp", stages, fixed + stages * (PP_STAGE + 24), min(sms, tiles),
+                             tiles)
     smem = TILE128_STAGES * (PP_STAGE + 16) + GEMM_BN * 4 + 1024
     return BlockGemmPlan("128", TILE128_STAGES, smem, tiles, tiles)
 
@@ -473,21 +476,24 @@ def block_gemm_plan_on_card(m: int, n: int, k: int, sms: int = 0) -> tuple:
     return tuple(out)
 
 
-def block_gemm_plain(a, w, bias=None, residual=None, act=None, f32=False) -> torch.Tensor:
-    """The block GEMM's function in plain PyTorch: a [M, K] . w [K, N] + bias
-    in f32, then the f32 sum (``f32``), or act and one rounding to bf16, or
-    that rounding plus ``residual`` rounded again."""
-    y = a.float() @ w.float()
-    if bias is not None:
-        y = y + bias.float()
-    if f32:
-        return y
+def block_gemm_epilogue(y: torch.Tensor, residual=None, act=None) -> torch.Tensor:
+    """The block GEMM's epilogue on f32 sums ``y`` (bias added): act and one
+    rounding to bf16, or that rounding plus ``residual`` rounded again."""
     if act is not None:
         y = _ACTS[act](y)
     y = y.to(torch.bfloat16)
     if residual is not None:
         y = (y.float() + residual.float()).to(torch.bfloat16)
     return y
+
+
+def block_gemm_plain(a, w, bias=None, residual=None, act=None, f32=False) -> torch.Tensor:
+    """The block GEMM's function in plain PyTorch: a [M, K] . w [K, N] + bias
+    in f32, then the f32 sum (``f32``) or ``block_gemm_epilogue``."""
+    y = a.float() @ w.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y if f32 else block_gemm_epilogue(y, residual, act)
 
 
 def block_gemm_alone(a, w, bias=None, residual=None, act=None, f32=False) -> torch.Tensor:
