@@ -300,11 +300,11 @@ __device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
 // 4 q + 3 (8 columns each) of rows `row` and row + 8 of the tile at (m0,
 // n0); bias from shared memory (bs: the tile's values; a global load here
 // would wait behind the stores before it), activation, then bf16(v), or with
-// a residual bf16(bf16(v) + R). The lanes of a quad trade their bf16 pairs (a 4 x 4 transpose in
-// three shuffles), after which lane tig holds the 8 contiguous columns of
-// block 4 q + tig, so a warp writes 64 contiguous bytes of each of its 8 rows
-// at once (R read 16 bytes at a time at the same place). Rows >= M and blocks
-// past N (N % 8 == 0) are not stored.
+// a residual bf16(bf16(v) + R). The lanes of a quad trade their bf16 pairs
+// (a 4 x 4 transpose in three shuffles), after which lane tig holds the 8
+// contiguous columns of block 4 q + tig, so a warp writes 64 contiguous bytes
+// of each of its 8 rows at once (R read 16 bytes at a time at the same
+// place). Rows >= M and blocks past N (N % 8 == 0) are not stored.
 template <int ACT, bool RES, bool RS>
 __device__ __forceinline__ void store_group16(const float (&v)[16], const float* bs, int q,
                                               int row, int m0, int n0,
@@ -532,9 +532,9 @@ cudaError_t gemm_tile(const bf16* A, const bf16* W, const float* bias, const bf1
 
 // ------------------------------------------------ ping-pong bf16 GEMM --
 // The same product and epilogues for K >= 1024 (SigLIP's four products,
-// Hiera's stage 4, the probe), where gemm_kernel's wide tile leaves the
-// tensor cores idle through every epilogue (both consumer warpgroups on one
-// tile, one block an SM; PERF.md). Hopper design: a persistent grid (at
+// Hiera's stage 4, the probe), where a 128 x 256 tile with both consumer
+// warpgroups on it left the tensor cores idle through every epilogue (one
+// block an SM; PERF.md). Hopper design: a persistent grid (at
 // most one block an SM) walks the 128 x 128 output tiles in a fixed order,
 // row bands with column tiles fastest, so the blocks in flight share a few
 // A bands and W in L2; block b takes tiles b, b + G, .... Its two consumer
