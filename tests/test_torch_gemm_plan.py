@@ -93,12 +93,11 @@ def test_plan_fits_and_gives_every_tile_to_one_warpgroup(m, n, k, sms):
         return
     assert plan.route == "pp"
     assert plan.grid == min(sms, plan.tiles) <= sms
-    # as many 32 KB stages (and their three barriers) as fit beside the 32 KB
-    # residual tile, its three barriers and both warpgroups' bias rows, up to 6
-    assert 2 <= plan.stages <= hb.PP_MAX_STAGES
+    # 32 KB stages (and their three barriers) beside the 32 KB residual tile,
+    # its three barriers and both warpgroups' bias rows: as many as fit
     fixed = 1024 + 32768 + 3 * 8 + 2 * 128 * 4
-    assert plan.smem == fixed + plan.stages * (32768 + 3 * 8)
-    assert plan.stages == hb.PP_MAX_STAGES or plan.smem + 32768 + 24 > hb.SMEM_MAX
+    assert plan.stages == 6 and plan.smem == fixed + plan.stages * (32768 + 3 * 8)
+    assert plan.smem + 32768 + 24 > hb.SMEM_MAX
     seen = []
     for b in range(plan.grid):
         mine = [list(pp_tiles(plan, b, w)) for w in (0, 1)]

@@ -543,8 +543,9 @@ cudaError_t gemm_tile(const bf16* A, const bf16* W, const float* bias, const bf1
 // warpgroup's epilogue (bias staged in shared memory, GELU, 16-byte stores
 // through store_rows16) runs under the other's products. One producer
 // thread loads the stages (A 128 x 64 in one TMA box, W 64 x 128 in two, 32
-// KB) in the order the consumers take them, tile by tile, into a ring of up
-// to kPpMaxStages; full barriers are per warpgroup (a barrier shared by both
+// KB) in the order the consumers take them, tile by tile, into a ring of
+// kPpStages, as many as fit beside the residual tile; full barriers are per
+// warpgroup (a barrier shared by both
 // would let a warpgroup waiting for its next tile see the phase of the
 // other's last use of that stage as its own), empty barriers count the four
 // warps of the warpgroup that used the stage. A residual tile (proj, fc2)
@@ -557,10 +558,15 @@ cudaError_t gemm_tile(const bf16* A, const bf16* W, const float* bias, const bf1
 // for their 128 accumulators. The f32 epilogue (the probe) stores 8 bytes a
 // lane (store_f32). Every output is summed by one thread in k order, then bias,
 // activation and one rounding: the result repeats bit for bit.
-constexpr int kPpThreads = 384, kPpMaxStages = 6;
+constexpr int kPpThreads = 384, kPpStages = 6;
 constexpr int kPpTileA = kGBM * kGBK * 2;        // bytes: 128 rows x 64 K
 constexpr int kPpStage = kPpTileA + kGBK * 128 * 2;  // + W: 64 K x 128 columns
 constexpr int kPpTileR = kGBM * 128 * 2;             // a residual tile, 128 x 128
+// the alignment pad, the residual tile and its three barriers, both
+// warpgroups' bias rows, then the ring's stages and their three barriers each
+constexpr int kPpSmem = 1024 + kPpTileR + 3 * 8 + 2 * 128 * 4 + kPpStages * (kPpStage + 24);
+static_assert(kPpSmem <= kSmemMax && kPpSmem + kPpStage + 24 > kSmemMax,
+              "the ring is as deep as fits");
 
 // How gemm runs a product: route 0 is the ping-pong kernel, else gemm_kernel's
 // tile of width `route`; the ring's stages, the dynamic shared memory, the
@@ -578,11 +584,9 @@ bool block_gemm_plan(int M, int N, int K, int sms, GemmPlan* p) {
   if (tiles > INT_MAX) return false;
   p->tiles = int(tiles);
   if (K >= 1024) {
-    const int fixed = 1024 + kPpTileR + 3 * 8 + 2 * 128 * 4;  // pad, residual, its barriers, bias
-    const int fit = (kSmemMax - fixed) / (kPpStage + 24);
     p->route = 0;
-    p->stages = fit < kPpMaxStages ? fit : kPpMaxStages;
-    p->smem = fixed + p->stages * (kPpStage + 24);
+    p->stages = kPpStages;
+    p->smem = kPpSmem;
     p->grid = p->tiles < sms ? p->tiles : sms;
   } else {
     p->route = 128;
@@ -613,8 +617,9 @@ template <int ACT, bool RES, bool F32OUT>
 __global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
     __grid_constant__ const CUtensorMap mapA, __grid_constant__ const CUtensorMap mapW,
     __grid_constant__ const CUtensorMap mapR, const float* __restrict__ bias,
-    void* __restrict__ Yv, int M, int N, int K, int ST) {
+    void* __restrict__ Yv, int M, int N, int K) {
   namespace h = ufv::hop;
+  constexpr int ST = kPpStages;
   static_assert(!F32OUT || (ACT == ACT_NONE && !RES), "the f32 epilogue is the sum + bias");
   extern __shared__ __align__(1024) unsigned char psmem_raw[];
   unsigned char* ring = psmem_raw + ((1024 - (h::smem_u32(psmem_raw) & 1023)) & 1023);
@@ -759,10 +764,10 @@ cudaError_t gemm_pp(const bf16* A, const bf16* W, const float* bias, const bf16*
   if (err == cudaSuccess && RES) err = ufv::hop::make_map(&mapR, R, 2, dimsR, strideW, boxR);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(gemm_pp_kernel<ACT, RES, F32OUT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kPpSmem);
   if (err != cudaSuccess) return err;
-  gemm_pp_kernel<ACT, RES, F32OUT><<<p.grid, kPpThreads, p.smem, st>>>(mapA, mapW, mapR, bias, Y,
-                                                                       M, N, K, p.stages);
+  gemm_pp_kernel<ACT, RES, F32OUT><<<p.grid, kPpThreads, kPpSmem, st>>>(mapA, mapW, mapR, bias,
+                                                                        Y, M, N, K);
   return cudaGetLastError();
 }
 

@@ -417,9 +417,12 @@ def ln_gemm_plan(rows: int, c: int, n: int) -> LnGemmPlan:
 # the probe's bf16 product) runs on the route ``block_gemm_plan`` gives its
 # shape, the C side's ``block_gemm_plan`` computing the same.
 GEMM_BM, GEMM_BK, GEMM_BN = 128, 64, 128
-PP_MIN_K, PP_MAX_STAGES = 1024, 6
-PP_STAGE = GEMM_BM * GEMM_BK * 2 + GEMM_BK * GEMM_BN * 2  # A 128 x 64 + W 64 x 128, bf16
+PP_MIN_K, PP_STAGES = 1024, 6
+GEMM_STAGE = GEMM_BM * GEMM_BK * 2 + GEMM_BK * GEMM_BN * 2  # A 128 x 64 + W 64 x 128, bf16
 PP_TILE_R = GEMM_BM * GEMM_BN * 2  # a residual tile, loaded for the epilogue
+# the alignment pad, the residual tile and its three barriers, both
+# warpgroups' bias rows, then the ring's stages and their three barriers each
+PP_SMEM = 1024 + PP_TILE_R + 3 * 8 + 2 * GEMM_BN * 4 + PP_STAGES * (GEMM_STAGE + 24)
 TILE128_STAGES = 3
 H100_SMS = 132
 
@@ -449,20 +452,16 @@ def block_gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> BlockGemmPla
     """The plan of an [m, k] x [k, n] product on a card of ``sms`` SMs, from
     shapes alone. K >= 1024 (SigLIP's qkv, proj, fc1 and fc2, Hiera's stage
     4, the probe) takes the ping-pong kernel: its grid is at most one block
-    an SM, its ring as many 32 KB stages as fit beside a 32 KB residual
-    tile, its barriers and the two warpgroups' bias rows, at most 6. Shorter
-    K takes the 128 x 128 tile (3 stages of 32 KB, its bias row), a block a
-    tile."""
+    an SM, its ring the 6 stages of 32 KB that fit beside a 32 KB residual
+    tile, the barriers and the two warpgroups' bias rows. Shorter K takes
+    the 128 x 128 tile (3 stages of 32 KB, its bias row), a block a tile."""
     if min(m, n, k, sms) <= 0 or n % 8 or k % 8:
         raise ValueError(f"no plan for M={m} N={n} K={k} on {sms} SMs: "
                          "K and N multiples of 8")
     tiles = -(-m // GEMM_BM) * -(-n // GEMM_BN)
     if k >= PP_MIN_K:
-        fixed = 1024 + PP_TILE_R + 3 * 8 + 2 * GEMM_BN * 4  # pad, residual, barriers, bias
-        stages = min(PP_MAX_STAGES, (SMEM_MAX - fixed) // (PP_STAGE + 24))
-        return BlockGemmPlan("pp", stages, fixed + stages * (PP_STAGE + 24), min(sms, tiles),
-                             tiles)
-    smem = TILE128_STAGES * (PP_STAGE + 16) + GEMM_BN * 4 + 1024
+        return BlockGemmPlan("pp", PP_STAGES, PP_SMEM, min(sms, tiles), tiles)
+    smem = TILE128_STAGES * (GEMM_STAGE + 16) + GEMM_BN * 4 + 1024
     return BlockGemmPlan("128", TILE128_STAGES, smem, tiles, tiles)
 
 
@@ -506,8 +505,12 @@ def block_gemm_alone(a, w, bias=None, residual=None, act=None, f32=False) -> tor
         raise ValueError(f"block_gemm_alone: unsupported device {a.device}")
     _check_cuda("block_gemm_alone", a, (w,) + ((residual,) if residual is not None else ()))
     (m, k), n = a.shape, w.shape[1]
-    if w.shape[0] != k or k % 8 or n % 8 or (act is not None and (f32 or residual is not None)):
-        raise ValueError(f"unsupported block GEMM: a {tuple(a.shape)} w {tuple(w.shape)}")
+    if (w.shape[0] != k or k % 8 or n % 8
+            or (residual is not None and (f32 or act is not None
+                                          or tuple(residual.shape) != (m, n)))
+            or (act is not None and f32)):
+        raise ValueError(f"unsupported block GEMM: a {tuple(a.shape)} w {tuple(w.shape)}, "
+                         f"one of act / residual / f32")
     a, w = a.contiguous(), w.contiguous()
     b = None if bias is None else bias.float().contiguous()
     r = None if residual is None else residual.contiguous()
