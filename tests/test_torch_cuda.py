@@ -1316,9 +1316,11 @@ def test_block_gemm_ping_pong_every_epilogue(dev, m, n, k, epi):
     """The f32 sums (the f32 epilogue: acc + bias) against the plain f32
     product to the probe's 1e-3; every bf16 epilogue equal to the plain
     epilogue on those same sums, bit for bit (no activation, the residual,
-    the bf16 polynomials), or within one bf16 step where the card's f32
-    activation rounds otherwise than PyTorch's (tanhf / erff, the f32
-    polynomials' contracted multiply-adds); two launches bit for bit."""
+    the bf16 polynomials), or, where the card's f32 activation rounds
+    otherwise than PyTorch's (tanhf / erff, the f32 polynomials' contracted
+    multiply-adds), within one bf16 step of the output plus a few f32 steps
+    of the input (2^-20 of |x|: the GELU's tail cancels 0.5 against x·Q
+    down to outputs far below |x|); two launches bit for bit."""
     assert hb.block_gemm_plan(m, n, k).route == "pp"
     a = _randn(dev, m, k, seed=110)
     w = _randn(dev, k, n, seed=111, scale=k ** -0.5)
@@ -1338,7 +1340,11 @@ def test_block_gemm_ping_pong_every_epilogue(dev, m, n, k, epi):
     own = hb.block_gemm_epilogue(sums, res, act)
     if epi in ("gelu_tanh", "gelu_exact", "gelu_poly", "gelu_tanh_poly"):
         d = (first.float() - own.float()).abs()
-        assert bool((d <= 2.0 ** -7 * own.float().abs() + 1e-30).all()), float(d.max())
+        excess = d - (2.0 ** -7 * own.float().abs() + 2.0 ** -20 * sums.abs())
+        worst = int(excess.argmax())
+        assert float(excess.max()) <= 0, (
+            f"x {float(sums.flatten()[worst])}: {float(first.flatten()[worst])} against "
+            f"{float(own.flatten()[worst])}")
     else:
         assert torch.equal(first, own)
 
