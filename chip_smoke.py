@@ -17,9 +17,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      library ratio of each shape, both timed in this call; for the
      LN-matmul, the block tail and the block at C = 1152 (SigLIP, Hiera's
      stage 4) also each launch's device time (torch.profiler,
-     Timer.launches), the block's beside its library yardstick's, and the
-     GEMM route each of its products and the probe's takes (the C side's
-     plan, held equal to ops/hiera_block.block_gemm_plan). The probe's bf16
+     Timer.launches), the block's beside its library yardstick's; the
+     GEMM route each product of every block shape and the probe's takes
+     (the C side's plan, held equal to ops/hiera_block.block_gemm_plan). The probe's bf16
      product (the block GEMM alone) goes first. The quantised kernels
      take int8 / packed-int4 weights, an int8 cache and int8 block weights
      at the same widths, each with its own stated tolerance (the quantised
@@ -176,18 +176,22 @@ def breakdown(timer, label, e, kernel, library):
 
 def gemm_routes(label, rows, c, hw, mlp):
     """The block GEMM's route for each product of a block of ``rows`` rows
-    (qkv, proj, fc1, fc2; or the probe's product where ``hw`` is None): the
-    C side's block_gemm_plan on this card, held equal to the Python one."""
+    (qkv, proj, fc1 where LN2 -> fc1 is not one LayerNorm-band launch, fc2;
+    or the probe's f32 product where ``hw`` is None): the C side's
+    block_gemm_plan on this card, held equal to the Python one."""
     from ufvideo_tpu_torch.ops import hiera_block as hb
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     products = ({"product": (rows, mlp, c)} if hw is None else
                 {"qkv": (rows, 3 * hw, c), "proj": (rows, c, hw), "fc1": (rows, mlp, c),
                  "fc2": (rows, c, mlp)})
+    if hw is not None and c <= hb.LN_MAX_C:
+        del products["fc1"]
+    f32 = hw is None
     routes = {}
     for name, (m, n, k) in products.items():
-        plan = hb.block_gemm_plan(m, n, k, sms)
-        if hb.block_gemm_plan_on_card(m, n, k) != plan.code:
+        plan = hb.block_gemm_plan(m, n, k, sms, f32)
+        if hb.block_gemm_plan_on_card(m, n, k, 0, f32) != plan.code:
             fail(f"{label} {name}: the C side's GEMM plan differs from {plan}")
         routes[name] = (f"{plan.route}: grid {plan.grid}, {plan.tiles} tiles, "
                         f"{plan.stages} stages, {plan.smem} B")
@@ -508,7 +512,7 @@ def hiera_shapes(dev, timer, gen):
             unfused, nbytes(x, x, *params), flops, row_rel=BLOCK_REL))
         if c == 1152:  # stage 4: the products of the SigLIP layer's width
             breakdown(timer, f"fused_hiera_block [{n},{s},{c}]", out[-1], kernel, unfused)
-            out[-1]["gemm_routes"] = gemm_routes(f"[{n},{s},{c}]", rows, c, heads * hd, mlp)
+        out[-1]["gemm_routes"] = gemm_routes(f"[{n},{s},{c}]", rows, c, heads * hd, mlp)
     return out
 
 

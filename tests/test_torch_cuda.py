@@ -17,6 +17,8 @@ the row's RMS (the unfused cuBLAS / SDPA block needs 2.3e-2 against the same
 plain version on an H100).
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -1294,42 +1296,46 @@ def test_ln_gemm_entry_refuses_another_plan(dev):
     _assert_close(out[None], fused_ln_matmul_plain(x, ln_s, ln_b, w, b))
 
 
-# The block GEMM (gemm in csrc/hiera_block.cu) on the route block_gemm_plan
-# gives each shape: K >= 1024 on the persistent ping-pong kernel. At SigLIP's
-# four products (M = 23328) and off every edge: M = 1, 127, 129; N on and off
-# the 128-column tile (N must be a multiple of 8: 136 for "off"); K = 1152 and
+# The block GEMM (gemm in csrc/hiera_block.cu) on each of its routes. The
+# ping-pong kernel (the plan's route for K >= 1024) at SigLIP's four products
+# (M = 23328) and off every edge: M = 1, 127, 129; N on and off the
+# 128-column tile (N must be a multiple of 8: 136 for "off"); K = 1152 and
 # 4304; fewer tiles than SMs, a block with a single tile (its second
-# warpgroup idle) and an odd tile count. Every epilogue: none, the residual,
-# the six GELUs and the f32 sum, against the plain math, twice, bit for bit.
+# warpgroup idle) and an odd tile count. The ping-pong kernel and
+# gemm_kernel's 128 x 128 tile (the plan's for Hiera stage 1) at K < 1024,
+# at Hiera's products and off their edges, and gemm_kernel's 128 x 256 tile
+# for the f32 sum.
+# Every epilogue: none, the residual, the six GELUs and the f32 sum, against
+# the plain math, twice, bit for bit.
 
 from test_torch_gemm_plan import PRODUCT_SHAPES  # noqa: E402
 
 PP_SHAPES = [(23328, 3456, 1152), (23328, 1152, 1152), (23328, 4304, 1152),
              (23328, 1152, 4304), (1, 1152, 1152), (127, 4304, 1152), (129, 136, 4304),
              (129, 1152, 4304)]
+TILE_SHAPES = [(65536, 288, 1152), (262144, 144, 144), (129, 288, 288), (127, 136, 576),
+               (1, 1152, 144)]
 EPILOGUES = ["none", "residual", "f32", *hb._ACT_CODES]
 
 
-@pytest.mark.parametrize("epi", EPILOGUES)
-@pytest.mark.parametrize("m,n,k", PP_SHAPES)
-def test_block_gemm_ping_pong_every_epilogue(dev, m, n, k, epi):
-    """The f32 sums (the f32 epilogue: acc + bias) against the plain f32
-    product to the probe's 1e-3; every bf16 epilogue equal to the plain
-    epilogue on those same sums, bit for bit (no activation, the residual,
-    the bf16 polynomials), or, where the card's f32 activation rounds
-    otherwise than PyTorch's (tanhf / erff, the f32 polynomials' contracted
-    multiply-adds), within one bf16 step of the output plus a few f32 steps
-    of the input (2^-20 of |x|: the GELU's tail cancels 0.5 against x·Q
-    down to outputs far below |x|); two launches bit for bit."""
-    assert hb.block_gemm_plan(m, n, k).route == "pp"
+def _check_block_gemm(dev, m, n, k, epi, route):
+    """The f32 sums (the f32 epilogue: acc + bias) on ``route`` against the
+    plain f32 product to the probe's 1e-3; every bf16 epilogue equal to the
+    plain epilogue on those same sums, bit for bit (no activation, the
+    residual, the bf16 polynomials), or, where the card's f32 activation
+    rounds otherwise than PyTorch's (tanhf / erff, the f32 polynomials'
+    contracted multiply-adds), within one bf16 step of the output plus a few
+    f32 steps of the input (2^-20 of |x|: the GELU's tail cancels 0.5 against
+    x·Q down to outputs far below |x|); two launches bit for bit."""
     a = _randn(dev, m, k, seed=110)
     w = _randn(dev, k, n, seed=111, scale=k ** -0.5)
     bias = _randn(dev, n, seed=112, scale=0.1)
     act = epi if epi in hb._ACT_CODES else None
     res = _randn(dev, m, n, seed=113) if epi == "residual" else None
-    sums = hb.block_gemm_alone(a, w, bias, f32=True)
-    first = hb.block_gemm_alone(a, w, bias, residual=res, act=act, f32=epi == "f32")
-    second = hb.block_gemm_alone(a, w, bias, residual=res, act=act, f32=epi == "f32")
+    run = functools.partial(hb.block_gemm_alone, a, w, bias, route=route)
+    sums = run(f32=True)
+    first = run(residual=res, act=act, f32=epi == "f32")
+    second = run(residual=res, act=act, f32=epi == "f32")
     want = hb.block_gemm_plain(a, w, bias, f32=True)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
@@ -1349,15 +1355,44 @@ def test_block_gemm_ping_pong_every_epilogue(dev, m, n, k, epi):
         assert torch.equal(first, own)
 
 
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("m,n,k", PP_SHAPES)
+def test_block_gemm_ping_pong_every_epilogue(dev, m, n, k, epi):
+    """The ping-pong kernel, the plan's route at these shapes' bf16 outputs
+    but N = 136 (the 128 x 128 tile's), through every epilogue
+    (_check_block_gemm)."""
+    assert hb.block_gemm_plan(m, n, k).route == ("128" if n <= 144 else "pp")
+    _check_block_gemm(dev, m, n, k, epi, "pp")
+
+
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("m,n,k", TILE_SHAPES)
+@pytest.mark.parametrize("route", ["pp", "128"])
+def test_block_gemm_tiles_every_epilogue(dev, route, m, n, k, epi):
+    """The ping-pong kernel and the 128 x 128 tile at Hiera's short K
+    through every epilogue (_check_block_gemm)."""
+    _check_block_gemm(dev, m, n, k, epi, route)
+
+
+@pytest.mark.parametrize("m,n,k", TILE_SHAPES + PP_SHAPES)
+def test_block_gemm_f32_sum_on_the_256_tile(dev, m, n, k):
+    """The plan's route for the f32 sum (the probe's product)."""
+    assert hb.block_gemm_plan(m, n, k, f32=True).route == "256"
+    _check_block_gemm(dev, m, n, k, "f32", None)
+
+
 def test_block_gemm_plan_on_the_card_equals_python(dev):
     """The C side's plan (block_gemm_plan_query) is the Python one at every
     product shape of tests/test_torch_gemm_plan.py, on 132 and 114 SMs and
     on this card's count; both refuse K or N off a multiple of 8."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for m, n, k in PRODUCT_SHAPES:
-        for s in (132, 114):
-            assert hb.block_gemm_plan_on_card(m, n, k, s) == hb.block_gemm_plan(m, n, k, s).code
-        assert hb.block_gemm_plan_on_card(m, n, k) == hb.block_gemm_plan(m, n, k, sms).code
+        for f32 in (False, True):
+            for s in (132, 114):
+                assert (hb.block_gemm_plan_on_card(m, n, k, s, f32)
+                        == hb.block_gemm_plan(m, n, k, s, f32).code)
+            assert (hb.block_gemm_plan_on_card(m, n, k, 0, f32)
+                    == hb.block_gemm_plan(m, n, k, sms, f32).code)
     for m, n, k in ((8, 130, 1152), (8, 8, 1020), (0, 8, 1152)):
         with pytest.raises(ValueError):
             hb.block_gemm_plan(m, n, k)

@@ -2,9 +2,11 @@
 
 ``block_gemm_plan`` decides from shapes alone how the card runs every
 product of a bf16 block (qkv, proj, fc1, fc2, a q-pool block's front) and
-the probe's bf16 product: K >= 1024 on the persistent ping-pong kernel
-(one block an SM at most; its two consumer warpgroups take alternate
-128 x 128 tiles of the block), shorter K on the 128 x 128 tile. Here at
+the probe's bf16 product: the 128 x 128 tile at N <= 144 and at K <= 144
+with N < 1024 (Hiera stage 1's products), every other bf16 output on the
+persistent ping-pong kernel (one block an SM at most; its two consumer
+warpgroups take alternate 128 x 128 tiles of the block), the f32 sum on
+the 128 x 256 tile. Here at
 every product shape that SigLIP-SO400M (32 frames), Hiera-L (4 frames,
 every stage and the q-pool fronts) and ``tiny_config()`` give: the route,
 the shared memory of an H100 block (227 KB), the grid against the SM count
@@ -87,7 +89,7 @@ def test_plan_fits_and_gives_every_tile_to_one_warpgroup(m, n, k, sms):
     plan = block_gemm_plan(m, n, k, sms)
     assert plan.tiles == -(-m // 128) * -(-n // 128)
     assert plan.smem <= hb.SMEM_MAX == 227 * 1024
-    if k < 1024:
+    if n <= 144 or (k <= 144 and n < 1024):  # Hiera stage 1's products
         assert plan.route == "128" and plan.grid == plan.tiles and plan.stages == 3
         assert plan.smem == 3 * (32768 + 16) + 128 * 4 + 1024  # ring, barriers, bias row, pad
         return
@@ -111,17 +113,24 @@ def test_plan_fits_and_gives_every_tile_to_one_warpgroup(m, n, k, sms):
 
 def test_plan_at_the_siglip_products_and_the_probe():
     """Every SigLIP product fills the card, each block with 12-48 tiles;
-    the one-tile product keeps a grid of one."""
+    the one-tile product keeps a grid of one; the probe's f32 sum takes the
+    128 x 256 tile, a block a tile."""
     for m, n, k in siglip_products(_full.vision, 32) + [PROBE]:
         plan = block_gemm_plan(m, n, k)
         assert (plan.route, plan.stages, plan.grid, plan.smem) == ("pp", 6, 132, 231592)
         assert 12 <= plan.tiles // plan.grid <= 48
+    probe = block_gemm_plan(*PROBE, f32=True)
+    assert probe.code == (256, 4, 4 * (16384 + 32768 + 16) + 256 * 4 + 1024, 64 * 17, 64 * 17)
     assert block_gemm_plan(23328, 4304, 1152).tiles == 183 * 34
-    assert block_gemm_plan(1, 8, 1152)[2:] == (231592, 1, 1)
-    assert block_gemm_plan(1, 8, 1152).code == (0, 6, 231592, 1, 1)
+    assert block_gemm_plan(1, 8, 1152).code == (128, 3, 99888, 1, 1)  # N <= 144
+    assert hb.gemm_route_plan("pp", 1, 8, 1152)[2:] == (231592, 1, 1)  # one tile: a grid of one
+    assert hb.gemm_route_plan("pp", 1, 8, 1152).code == (0, 6, 231592, 1, 1)
     assert block_gemm_plan(129, 4304, 1152).grid == 68  # fewer tiles than SMs
-    assert block_gemm_plan(65536, 288, 1152).route == "pp"
-    assert block_gemm_plan(65536, 1152, 288).code == (128, 3, 99888, 4608, 4608)
+    assert block_gemm_plan(65536, 288, 1152).route == "pp"  # Hiera stage 2's fc2
+    assert block_gemm_plan(65536, 1152, 288).code == (0, 6, 231592, 132, 4608)
+    assert block_gemm_plan(262144, 144, 576).code == (128, 3, 99888, 4096, 4096)  # stage 1's
+    assert block_gemm_plan(262144, 432, 144).route == "128"
+    assert block_gemm_plan(262144, 1152, 144).route == "pp"  # the q-pool front into stage 2
 
 
 @pytest.mark.parametrize("m,n,k,sms", [(0, 8, 1152, 132), (8, 12, 1152, 132), (8, 8, 1020, 132),
@@ -129,6 +138,28 @@ def test_plan_at_the_siglip_products_and_the_probe():
 def test_plan_refuses_what_the_gemm_cannot_take(m, n, k, sms):
     with pytest.raises(ValueError):
         block_gemm_plan(m, n, k, sms)
+
+
+@pytest.mark.parametrize("m,n,k", PRODUCT_SHAPES)
+def test_plan_gives_the_f32_sum_the_256_tile(m, n, k):
+    plan = block_gemm_plan(m, n, k, f32=True)
+    assert plan.route == "256" and plan.grid == plan.tiles == -(-m // 128) * -(-n // 256)
+    assert plan.stages == 4 and plan.smem <= hb.SMEM_MAX
+
+
+def test_a_route_plan_takes_each_route_the_gemm_has():
+    """What block_gemm_alone may force: every route at a SigLIP shape, the
+    256-wide tile for the f32 sum only; no other width."""
+    m, n, k = 23328, 1152, 1152
+    for route, tiles in (("pp", 183 * 9), ("128", 183 * 9)):
+        plan = hb.gemm_route_plan(route, m, n, k)
+        assert plan.route == route and plan.tiles == tiles and plan.smem <= hb.SMEM_MAX
+        assert plan == hb.gemm_route_plan(route, m, n, k, f32=True)
+    assert hb.gemm_route_plan("256", m, n, k, f32=True).tiles == 183 * 5
+    assert hb.gemm_route_plan("pp", m, n, k).code == block_gemm_plan(m, n, k).code
+    for route, f32 in (("256", False), ("64", False), ("144", False), ("144", True)):
+        with pytest.raises(ValueError):
+            hb.gemm_route_plan(route, m, n, k, f32=f32)
 
 
 def test_siglip_block_plain_matches_pallas_and_reference_at_its_widths():

@@ -5,8 +5,9 @@ that run on it (``fused_ln_matmul``, ``fused_block_tail``), on the CPU.
 front of a global block and the LN2 -> fc1 step of every block tail: one
 launch that normalises a band of 128 rows in shared memory for C <= 576, the
 LayerNorm pass and the GEMM above. Its shared memory must fit an H100 block
-(227 KB), and a tail's proj and fc2 take a column tile that divides C at
-Hiera's widths 144 and 288 (at 576 the 128-column tile, the faster there).
+(227 KB), and a tail's proj and fc2 take the block GEMM's route
+(``block_gemm_plan``): its 128 x 128 tile at C <= 144 (Hiera's stage 1),
+its ping-pong kernel at wider C.
 
 The plain versions are what the wrappers run on CPU tensors and what the
 kernels are held to on the card: here against the JAX package's Pallas
@@ -67,7 +68,7 @@ def test_plan_fits_and_takes_every_width_up_to_576(rows, c, n):
     plan = ln_gemm_plan(rows, c, n)
     if c > hb.LN_MAX_C:
         assert plan.route == "pair"
-        assert plan.args == (0, 0, 0, 0) and plan.res_bn == 0 and plan.smem == 0
+        assert plan.args == (0, 0, 0, 0) and plan.smem == 0
         return
     assert plan.route == "ln_gemm"
     assert (plan.bm, plan.bn, plan.cluster) == (128, 128, 1)
@@ -80,20 +81,20 @@ def test_plan_fits_and_takes_every_width_up_to_576(rows, c, n):
     # the ring has as many stages as fit, up to 8, and at least two
     assert 2 <= plan.stages <= hb.LN_MAX_STAGES
     assert plan.stages == hb.LN_MAX_STAGES or plan.smem + 64 * 128 * 2 + 24 > hb.SMEM_MAX
-    if c % 144 == 0 and c < 576:
-        assert plan.res_bn == 144 and c % plan.res_bn == 0
-    else:
-        assert plan.res_bn == 128
+    # the tail's proj and fc2 (N = C; K = C and the MLP's 4 C)
+    routes = {hb.block_gemm_plan(rows, c, k).route for k in (c, 4 * c)}
+    assert routes == ({"128"} if c <= 144 else {"pp"})
 
 
 def test_plan_at_hiera_l_widths():
     """C = 576 leaves 5 ring stages beside its 147 KB band; C <= 288 gets 8;
-    a tail's proj / fc2 tile divides 144 and 288; 1152 keeps the pair."""
+    a tail's proj / fc2 take the 128 x 128 tile at 144, the ping-pong
+    kernel above; 1152 keeps the pair."""
     assert ln_gemm_plan(16384, 576, 1728).stages == 5
     assert ln_gemm_plan(16384, 576, 1728).smem == 231608
     assert ln_gemm_plan(65536, 288, 1152).stages == 8
     assert ln_gemm_plan(262144, 144, 576).stages == 8
-    assert [ln_gemm_plan(1, c, 8).res_bn for c in (144, 288, 576)] == [144, 144, 128]
+    assert [hb.block_gemm_plan(1, c, c).route for c in (144, 288, 576)] == ["128", "pp", "pp"]
     assert ln_gemm_plan(4096, 1152, 4608).route == "pair"
 
 

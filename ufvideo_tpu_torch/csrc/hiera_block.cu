@@ -39,8 +39,9 @@
 //   gemm_s8_s32       the int8 GEMM alone, for timing it apart from the
 //                     probe's preparation passes;
 //   block_gemm_bf16, block_gemm_plan_query
-//                     the bf16 block GEMM alone on the route its plan gives,
-//                     and that plan, for testing and timing the routes.
+//                     the bf16 block GEMM alone on the route its plan gives
+//                     or on another, and that plan, for testing and timing
+//                     the routes.
 //
 // GELU: every entry point with an act takes 1 = tanh, 2 = exact (erf), and
 // the JAX package's minimax polynomials 3 = gelu_poly, 4 = gelu_poly_bf16,
@@ -202,8 +203,9 @@ __global__ void __launch_bounds__(256) layernorm_kernel(
 // multiples of 8, A and W 16-byte aligned. Epilogue: an optional activation;
 // with a residual R, Y = bf16(bf16(acc + bias) + R); with F32OUT the f32 sum
 // (bias may be null). Every product takes the route block_gemm_plan gives
-// its shape (gemm below): the ping-pong kernel of the next section for K >=
-// 1024, this one below that.
+// its shape (gemm below): this kernel's 128 x 128 tile for Hiera stage 1's
+// products, the ping-pong kernel of the next section for every other bf16
+// output, this kernel's 128 x 256 tile for the f32 sum.
 //
 // Hopper design: a 128 x BN output tile a block, K in steps of 64. One
 // producer warp streams the A tile (128 rows x 64 K, one TMA box) and the W
@@ -217,11 +219,13 @@ __global__ void __launch_bounds__(256) layernorm_kernel(
 // consumer warpgroups and one producer warp (288 threads), one output tile:
 // BN = 128, two blocks an SM (3 stages of 32 KB), so one block's epilogue
 // overlaps the other's products (Hiera's short K: 144 is three steps); BN =
-// 144 for a block tail's proj and fc2 where it divides C (block_tail). The
-// epilogue stages the tile's bias in shared memory and stores 16 bytes a
-// lane (store_rows16). A persistent grid of this kernel, whose ring ran on
-// across tiles with both warpgroups on one tile, measured 5-28% slower on an
-// H100: its epilogues stayed serial. The ping-pong kernel is persistent with
+// 256 for the f32 sum (the probe). A 144-column tile that divided N = 144
+// and 288 ran every product slower than this one or the ping-pong kernel
+// once their epilogues were fixed (PERF.md) and is gone. The bf16 epilogue
+// stages the tile's bias in shared memory and stores 16 bytes a lane
+// (store_rows16). A persistent grid of this kernel, whose ring ran on across tiles with both
+// warpgroups on one tile, measured 5-28% slower on an H100: its epilogues
+// stayed serial. The ping-pong kernel is persistent with
 // its warpgroups on alternate tiles instead, and took K >= 1024 from a 128 x
 // 256 tile of this kernel that ran SigLIP's four products 1.5-1.8x slower
 // than cuBLAS (PERF.md).
@@ -233,14 +237,11 @@ constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have
 
 template <int BN>
 struct GemmCfg {
-  // the 144-column tile's 72 accumulators do not fit two blocks an SM (96
-  // registers a thread): one block, a deeper ring; the 256-wide ring is the
-  // int8 GEMM's (gemm_s8_kernel)
-  static constexpr int STAGES = BN == 256 ? 4 : BN == 144 ? 6 : 3;
+  // the 256-wide tile (the f32 sum here, every int8 product in
+  // gemm_s8_kernel): one block an SM, 4 stages
+  static constexpr int STAGES = BN == 256 ? 4 : 3;
   static constexpr int PER_SM = BN == 128 ? 2 : 1;
-  // W's boxes: BA columns (64 in 128-byte-swizzled rows; 16 in 32-byte rows
-  // for the 144-column tile, which divides Hiera's widths 144, 288, 576)
-  static constexpr int BA = BN % 64 == 0 ? 64 : 16;
+  static constexpr int BA = 64;  // W's boxes: 64 columns in 128-byte-swizzled rows
   static constexpr int TILE_A = kGBM * kGBK * 2;  // bytes: 128 rows x 128 B
   static constexpr int TILE_B = kGBK * BN * 2;    // bytes: BN / BA boxes of 64 x BA
   static constexpr int STAGE = TILE_A + TILE_B;
@@ -251,8 +252,9 @@ struct GemmCfg {
 
 template <int BN>
 __device__ __forceinline__ void wgmma_gemm(float (&acc)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 144)
-    ufv::hop::wgmma_ss_n144<1>(acc, da, db, 1);
+  static_assert(BN == 128 || BN == 256, "a tile width the GEMM has");
+  if constexpr (BN == 256)
+    ufv::hop::wgmma_ss_n256<1>(acc, da, db, 1);
   else
     ufv::hop::wgmma_ss_n128<1>(acc, da, db, 1);
 }
@@ -365,38 +367,15 @@ __device__ __forceinline__ void store_group16(const float (&v)[16], const float*
 // cache, while a step's 32 independent GELUs keep the one warp a scheduler
 // that runs the epilogue issuing. Fully unrolled, the GELU epilogue outgrew
 // the instruction cache; one group a step ran the ping-pong GEMM's fc1 2-4%
-// slower (both on an H100, PERF.md). Where BN % 32 == 16 (144) the last two
-// blocks go first, a bf16 pair at a time. RS: the residual comes from the
-// tile in shared memory at rs (store_group16).
+// slower (both on an H100, PERF.md). RS: the residual comes from the tile
+// in shared memory at rs (store_group16).
 template <int BN, int ACT, bool RES, int NA, bool RS = false>
 __device__ __forceinline__ void store_rows16(float (&acc)[NA][BN / 2], const float* bs, int row0,
                                              int m0, int n0, const bf16* __restrict__ R,
                                              const unsigned char* rs, bf16* __restrict__ Y,
                                              int M, int N) {
-  static_assert(BN % 16 == 0, "whole 8-column blocks in pairs");
+  static_assert(BN % 32 == 0, "whole groups of four 8-column blocks");
   constexpr int GQ = BN / 32, FLAT = 16 * GQ;  // groups an array, values they hold
-  const int tig = threadIdx.x & 3;
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int j = GQ * 4; j < BN / 8; ++j) {
-      const int col = n0 + j * 8 + 2 * tig;
-      const float2 b = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * tig);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + 64 * a + 8 * half;
-        if (row >= M || col >= N) continue;
-        float v0 = act_apply<ACT>(acc[a][4 * j + 2 * half] + b.x);
-        float v1 = act_apply<ACT>(acc[a][4 * j + 2 * half + 1] + b.y);
-        const long long off = (long long)row * N + col;
-        if (RES) {
-          const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
-          v0 = __bfloat162float(__float2bfloat16(v0)) + r.x;
-          v1 = __bfloat162float(__float2bfloat16(v1)) + r.y;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(Y + off) = __floats2bfloat162_rn(v0, v1);
-      }
-    }
   constexpr int NG = NA * GQ, GPI = ACT == ACT_NONE ? NG : 2;  // groups, groups a step
   static_assert(NG % GPI == 0, "whole steps");
   static_assert(!RS || (RES && BN == 128), "a residual tile in shared memory is 128 wide");
@@ -531,10 +510,10 @@ cudaError_t gemm_tile(const bf16* A, const bf16* W, const float* bias, const bf1
 }
 
 // ------------------------------------------------ ping-pong bf16 GEMM --
-// The same product and epilogues for K >= 1024 (SigLIP's four products,
-// Hiera's stage 4, the probe), where a 128 x 256 tile with both consumer
-// warpgroups on it left the tensor cores idle through every epilogue (one
-// block an SM; PERF.md). Hopper design: a persistent grid (at
+// The same product and epilogues for every bf16 product but Hiera stage
+// 1's (block_gemm_plan), first for K >= 1024 (SigLIP's four products),
+// where a 128 x 256 tile with both consumer warpgroups on it left the tensor
+// cores idle through every epilogue (one block an SM; PERF.md). Hopper design: a persistent grid (at
 // most one block an SM) walks the 128 x 128 output tiles in a fixed order,
 // row bands with column tiles fastest, so the blocks in flight share a few
 // A bands and W in L2; block b takes tiles b, b + G, .... Its two consumer
@@ -555,9 +534,11 @@ cudaError_t gemm_tile(const bf16* A, const bf16* W, const float* bias, const bf1
 // in the epilogue waited behind the ring's TMA traffic for most of a tile's
 // time (clock64 stamps, scripts/torch_gemm_stamps.py, PERF.md). 384 threads:
 // the producer warpgroup at 40 registers (setmaxnreg), the consumers at 232
-// for their 128 accumulators. The f32 epilogue (the probe) stores 8 bytes a
-// lane (store_f32). Every output is summed by one thread in k order, then bias,
-// activation and one rounding: the result repeats bit for bit.
+// for their 128 accumulators. The f32 epilogue stores 8 bytes a lane
+// (store_f32); the plan gives the f32 sum the 128 x 256 tile, which ran the
+// probe's product faster on an H100 (PERF.md). Every output is summed by
+// one thread in k order, then bias, activation and one rounding: the result
+// repeats bit for bit.
 constexpr int kPpThreads = 384, kPpStages = 6;
 constexpr int kPpTileA = kGBM * kGBK * 2;        // bytes: 128 rows x 64 K
 constexpr int kPpStage = kPpTileA + kGBK * 128 * 2;  // + W: 64 K x 128 columns
@@ -576,29 +557,49 @@ struct GemmPlan {
   int route, stages, smem, grid, tiles;
 };
 
-// The plan at M x K into N on a card of `sms` SMs, from the shapes alone;
-// false where the GEMM cannot take them.
-bool block_gemm_plan(int M, int N, int K, int sms, GemmPlan* p) {
+template <int BN>
+void tile_plan(long long tiles, GemmPlan* p) {
+  p->stages = GemmCfg<BN>::STAGES;
+  p->smem = int(GemmCfg<BN>::SMEM);
+  p->grid = int(tiles);
+}
+
+// The rest of a plan on route `route` at M x K into N (f32: the f32 sum) on
+// a card of `sms` SMs; false where that route cannot take the product (the
+// 256-wide tile takes the f32 sum only).
+bool gemm_route_plan(int route, int M, int N, int K, bool f32, int sms, GemmPlan* p) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || sms <= 0) return false;
-  const long long tiles = (M + kGBM - 1LL) / kGBM * ((N + 127) / 128);
+  const int bn = route == 0 ? 128 : route;
+  if (bn != 128 && !(bn == 256 && f32)) return false;
+  const long long tiles = (M + kGBM - 1LL) / kGBM * ((N + bn - 1) / bn);
   if (tiles > INT_MAX) return false;
+  p->route = route;
   p->tiles = int(tiles);
-  if (K >= 1024) {
-    p->route = 0;
+  if (route == 0) {
     p->stages = kPpStages;
     p->smem = kPpSmem;
     p->grid = p->tiles < sms ? p->tiles : sms;
+  } else if (bn == 128) {
+    tile_plan<128>(tiles, p);
   } else {
-    p->route = 128;
-    p->stages = GemmCfg<128>::STAGES;
-    p->smem = int(GemmCfg<128>::SMEM);
-    p->grid = p->tiles;
+    tile_plan<256>(tiles, p);
   }
   return true;
 }
 
-// The plan on `sms` SMs, or on the current device's where sms <= 0
-cudaError_t gemm_plan_on(int M, int N, int K, int sms, GemmPlan* p) {
+// The plan from the shapes alone (f32: the f32 sum), each route where it
+// measured the fastest on an H100 (scripts/torch_gemm_routes.py, PERF.md):
+// the f32 sum on the 128 x 256 tile; the 128 x 128 tile at N <= 144 and at
+// K <= 144 with N < 1024 (Hiera stage 1's proj, fc2 and qkv, 3-22% faster
+// there at two blocks an SM); every other product on the ping-pong kernel.
+bool block_gemm_plan(int M, int N, int K, bool f32, int sms, GemmPlan* p) {
+  const int route = f32 ? 256 : N <= 144 || (K <= 144 && N < 1024) ? 128 : 0;
+  return gemm_route_plan(route, M, N, K, f32, sms, p);
+}
+
+// The plan on `sms` SMs, or on the current device's where sms <= 0; route <
+// 0 takes block_gemm_plan's route, else that one.
+cudaError_t gemm_plan_on(int M, int N, int K, bool f32, int sms, int route, GemmPlan* p) {
   cudaError_t err = cudaSuccess;
   if (sms <= 0) {
     int dev = 0;
@@ -606,11 +607,16 @@ cudaError_t gemm_plan_on(int M, int N, int K, int sms, GemmPlan* p) {
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err != cudaSuccess) return err;
-  return block_gemm_plan(M, N, K, sms, p) ? cudaSuccess : cudaErrorInvalidValue;
+  const bool ok = route < 0 ? block_gemm_plan(M, N, K, f32, sms, p)
+                            : gemm_route_plan(route, M, N, K, f32, sms, p);
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 #ifdef UFV_STAMPS
-__device__ long long ufv_stamps[132 * 2 * 64 * 4];
+// clock64 stamps of gemm_pp_kernel's tiles: [grid][2 warpgroups][tiles a
+// warpgroup takes at most][4], in a buffer sized for the launch by
+// scripts/torch_gemm_stamps.py (ufv_stamps_set)
+__device__ long long* ufv_stamps;
 #endif
 
 template <int ACT, bool RES, bool F32OUT>
@@ -744,8 +750,9 @@ __global__ void __launch_bounds__(kPpThreads, 1) gemm_pp_kernel(
     }
 #ifdef UFV_STAMPS
     ts[3] = clock64();
-    if ((threadIdx.x & 127) == 0 && j / 2 < 64 && blockIdx.x < 132)
-      for (int e = 0; e < 4; ++e) ufv_stamps[((blockIdx.x * 2 + cw) * 64 + j / 2) * 4 + e] = ts[e];
+    const int per = (tiles + 2 * gridDim.x - 1) / (2 * gridDim.x);
+    if ((threadIdx.x & 127) == 0 && ufv_stamps)
+      for (int e = 0; e < 4; ++e) ufv_stamps[((blockIdx.x * 2 + cw) * per + j / 2) * 4 + e] = ts[e];
 #endif
   }
 }
@@ -771,30 +778,46 @@ cudaError_t gemm_pp(const bf16* A, const bf16* W, const float* bias, const bf16*
   return cudaGetLastError();
 }
 
-// Every block product, on the route block_gemm_plan gives its shape
+// A product on the route of plan p
+template <int ACT, bool RES, bool F32OUT>
+cudaError_t gemm_on(const GemmPlan& p, const bf16* A, const bf16* W, const float* bias,
+                    const bf16* R, void* Y, int M, int N, int K, cudaStream_t st) {
+  switch (p.route) {
+    case 0: return gemm_pp<ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, p, st);
+    case 128: return gemm_tile<128, ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, st);
+    case 256:
+      if constexpr (F32OUT) return gemm_tile<256, ACT, RES, true>(A, W, bias, R, Y, M, N, K, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Every block product, on the route block_gemm_plan gives its shape (route
+// < 0), or on `route` (block_gemm_bf16, to test and time each route)
 template <int ACT, bool RES, bool F32OUT = false>
 cudaError_t gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R, void* Y,
-                 int M, int N, int K, cudaStream_t st) {
+                 int M, int N, int K, cudaStream_t st, int route = -1) {
   GemmPlan p;
-  const cudaError_t err = gemm_plan_on(M, N, K, 0, &p);
+  const cudaError_t err = gemm_plan_on(M, N, K, F32OUT, 0, route, &p);
   if (err != cudaSuccess) return err;
-  if (p.route == 0) return gemm_pp<ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, p, st);
-  return gemm_tile<128, ACT, RES, F32OUT>(A, W, bias, R, Y, M, N, K, st);
+  return gemm_on<ACT, RES, F32OUT>(p, A, W, bias, R, Y, M, N, K, st);
 }
 
 // Y = act(A . W + bias) for an activation chosen at run time
 cudaError_t gemm_act(int act, const bf16* A, const bf16* W, const float* bias, bf16* Y, int M,
-                     int N, int K, cudaStream_t st) {
+                     int N, int K, cudaStream_t st, int route = -1) {
   switch (act) {
-    case ACT_GELU_TANH: return gemm<ACT_GELU_TANH, false>(A, W, bias, nullptr, Y, M, N, K, st);
-    case ACT_GELU_EXACT: return gemm<ACT_GELU_EXACT, false>(A, W, bias, nullptr, Y, M, N, K, st);
-    case ACT_GELU_POLY: return gemm<ACT_GELU_POLY, false>(A, W, bias, nullptr, Y, M, N, K, st);
+    case ACT_GELU_TANH:
+      return gemm<ACT_GELU_TANH, false>(A, W, bias, nullptr, Y, M, N, K, st, route);
+    case ACT_GELU_EXACT:
+      return gemm<ACT_GELU_EXACT, false>(A, W, bias, nullptr, Y, M, N, K, st, route);
+    case ACT_GELU_POLY:
+      return gemm<ACT_GELU_POLY, false>(A, W, bias, nullptr, Y, M, N, K, st, route);
     case ACT_GELU_POLY_BF16:
-      return gemm<ACT_GELU_POLY_BF16, false>(A, W, bias, nullptr, Y, M, N, K, st);
+      return gemm<ACT_GELU_POLY_BF16, false>(A, W, bias, nullptr, Y, M, N, K, st, route);
     case ACT_GELU_TANH_POLY:
-      return gemm<ACT_GELU_TANH_POLY, false>(A, W, bias, nullptr, Y, M, N, K, st);
+      return gemm<ACT_GELU_TANH_POLY, false>(A, W, bias, nullptr, Y, M, N, K, st, route);
     case ACT_GELU_TANH_POLY_BF16:
-      return gemm<ACT_GELU_TANH_POLY_BF16, false>(A, W, bias, nullptr, Y, M, N, K, st);
+      return gemm<ACT_GELU_TANH_POLY_BF16, false>(A, W, bias, nullptr, Y, M, N, K, st, route);
   }
   return cudaErrorInvalidValue;
 }
@@ -840,7 +863,6 @@ constexpr int kLnChunk = kLnBM * 128;  // bytes of one 64-column chunk of the ba
 struct LnPlan {
   int bm, bn, stages, cluster;
   int smem;
-  int res_bn;  // the column tile of a block tail's proj and fc2 (N = C)
 };
 
 // The one configuration this file is built for at width C, from C alone (the
@@ -856,10 +878,6 @@ bool ln_gemm_plan(int C, LnPlan* p) {
   const int fit = (kSmemMax - 1024 - band - 64 - 8 * p->bn) / (stage + 24);
   p->stages = fit < kLnMaxStages ? fit : kLnMaxStages;
   p->smem = 1024 + band + p->stages * stage + (8 + 3 * p->stages) * 8 + 8 * p->bn;
-  // proj and fc2: the 144-column tile where it divides C and was the faster
-  // on an H100 (C = 144, 288); at C = 576 the 128-column tile (two blocks an
-  // SM) ran fc2 faster (PERF.md)
-  p->res_bn = C % 144 == 0 && C < 576 ? 144 : 128;
   return true;
 }
 
@@ -1190,8 +1208,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // hmid = GELU(bf16(LN2(x1)) . w1 + b1); out = x1 + bf16(hmid . w2 + b2).
 // A [rows, a_dim], R / x1 / out [rows, C], hmid [rows, mlp]. Three launches
 // where ln_gemm_plan takes C (LN2 inside the fc1 launch; xn unused, may be
-// null; proj and fc2 on the plan's column tile, 144 where it divides C),
-// else four through the scratch xn [rows, C].
+// null), else four through the scratch xn [rows, C]; proj and fc2 on the
+// route block_gemm_plan gives them.
 cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const float* bproj,
                        const float* ln2_s, const float* ln2_b, const bf16* w1,
                        const float* b1, const bf16* w2, const float* b2, bf16* x1, bf16* xn,
@@ -1199,14 +1217,8 @@ cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const fl
                        float eps, cudaStream_t st) {
   LnPlan p;
   const bool banded = ln_gemm_plan(C, &p);
-  // the two products with N = C and a residual, on the plan's column tile
-  auto res_gemm = [&](const bf16* a, const bf16* w, const float* b, const bf16* r, bf16* y,
-                      int K) {
-    return banded && p.res_bn == 144 ? gemm_tile<144, ACT_NONE, true>(a, w, b, r, y, rows, C, K, st)
-                                     : gemm<ACT_NONE, true>(a, w, b, r, y, rows, C, K, st);
-  };
   cudaError_t e;
-  if ((e = res_gemm(A, wproj, bproj, R, x1, a_dim))) return e;
+  if ((e = gemm<ACT_NONE, true>(A, wproj, bproj, R, x1, rows, C, a_dim, st))) return e;
   if (banded) {
     if ((e = ln_gemm(act, x1, ln2_s, ln2_b, w1, b1, hmid, rows, mlp, C, eps, p, st))) return e;
   } else {
@@ -1214,18 +1226,15 @@ cudaError_t block_tail(const bf16* A, const bf16* R, const bf16* wproj, const fl
     if ((e = layernorm(x1, ln2_s, ln2_b, xn, rows, C, eps, st))) return e;
     if ((e = gemm_act(act, xn, w1, b1, hmid, rows, mlp, C, st))) return e;
   }
-  return res_gemm(hmid, w2, b2, x1, out, mlp);
+  return gemm<ACT_NONE, true>(hmid, w2, b2, x1, out, rows, C, mlp, st);
 }
 
-// the plan a caller passed (bm, bn, stages, cluster and, for a block tail,
-// res_bn; all 0 for the pair of launches) is the one this file is built for
-// at width C
-bool plan_is(int C, int bm, int bn, int stages, int cluster, int res_bn = -1) {
+// the plan a caller passed (bm, bn, stages, cluster; all 0 for the pair of
+// launches) is the one this file is built for at width C
+bool plan_is(int C, int bm, int bn, int stages, int cluster) {
   LnPlan p;
-  if (!ln_gemm_plan(C, &p))
-    return bm == 0 && bn == 0 && stages == 0 && cluster == 0 && res_bn <= 0;
-  return bm == p.bm && bn == p.bn && stages == p.stages && cluster == p.cluster &&
-         (res_bn < 0 || res_bn == p.res_bn);
+  if (!ln_gemm_plan(C, &p)) return bm == 0 && bn == 0 && stages == 0 && cluster == 0;
+  return bm == p.bm && bn == p.bn && stages == p.stages && cluster == p.cluster;
 }
 
 // Non-causal attention of Sq queries on Skv keys in each of N windows, q /
@@ -1767,46 +1776,47 @@ extern "C" int gemm_s8_s32(const void* qa, const void* bt, void* y, int M, int K
   return 0;
 }
 
-// The block GEMM alone, on the route block_gemm_plan gives its shape: y [M,
-// N] = act(a [M, K] . w [K, N] + bias) in bf16 (epi 0; act 0 none, 1-6 the
-// GELUs), bf16(bf16(a . w + bias) + r) (epi 1), or the f32 sum + bias (epi
-// 2); bias may be null. K and N multiples of 8. For testing and timing each
-// route apart from the blocks that run it.
+// The block GEMM alone: y [M, N] = act(a [M, K] . w [K, N] + bias) in bf16
+// (epi 0; act 0 none, 1-6 the GELUs), bf16(bf16(a . w + bias) + r) (epi 1),
+// or the f32 sum + bias (epi 2); bias may be null. K and N multiples of 8.
+// On the route block_gemm_plan gives the shape (route < 0), or on `route`
+// (0 the ping-pong kernel, 128 the 128 x 128 tile, 256 the 128 x 256 tile
+// for epi 2 only). For testing and timing each route apart from the blocks that run
+// it.
 extern "C" int block_gemm_bf16(const void* a, const void* w, const void* bias, const void* r,
-                               void* y, int M, int N, int K, int act, int epi, void* stream) {
+                               void* y, int M, int N, int K, int act, int epi, int route,
+                               void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || epi < 0 || epi > 2 ||
       (act != ACT_NONE && (epi != 0 || !act_ok(act))) || (epi == 1 && !r))
     return int(cudaErrorInvalidValue);
   if (!all_aligned16({a, w, y}) || (r && !aligned16(r))) return int(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (epi == 1) UFV_TRY((gemm<ACT_NONE, true>(b16(a), b16(w), f32(bias), b16(r), y, M, N, K, st)));
+  const bf16 *A = b16(a), *W = b16(w);
+  if (epi == 1) UFV_TRY((gemm<ACT_NONE, true>(A, W, f32(bias), b16(r), y, M, N, K, st, route)));
   else if (epi == 2)
-    UFV_TRY((gemm<ACT_NONE, false, true>(b16(a), b16(w), f32(bias), nullptr, y, M, N, K, st)));
+    UFV_TRY((gemm<ACT_NONE, false, true>(A, W, f32(bias), nullptr, y, M, N, K, st, route)));
   else if (act == ACT_NONE)
-    UFV_TRY((gemm<ACT_NONE, false>(b16(a), b16(w), f32(bias), nullptr, y, M, N, K, st)));
+    UFV_TRY((gemm<ACT_NONE, false>(A, W, f32(bias), nullptr, y, M, N, K, st, route)));
   else
-    UFV_TRY(gemm_act(act, b16(a), b16(w), f32(bias), b16(y), M, N, K, st));
+    UFV_TRY(gemm_act(act, A, W, f32(bias), b16(y), M, N, K, st, route));
   return 0;
 }
 
 #ifdef UFV_STAMPS
-extern "C" int ufv_stamps_rw(long long* host, int clear) {
-  const size_t bytes = sizeof(long long) * 132 * 2 * 64 * 4;
-  void* p = nullptr;
-  cudaError_t e = cudaGetSymbolAddress(&p, ufv_stamps);
-  if (e == cudaSuccess)
-    e = clear ? cudaMemset(p, 0, bytes) : cudaMemcpy(host, p, bytes, cudaMemcpyDeviceToHost);
-  return int(e);
+// The stamps' buffer (device memory, sized by the caller for the launch)
+extern "C" int ufv_stamps_set(long long* buf) {
+  return int(cudaMemcpyToSymbol(ufv_stamps, &buf, sizeof(buf)));
 }
 #endif
 
-// block_gemm_plan at M x K into N on a card of `sms` SMs (sms <= 0: the
-// current device's), as out[5] = (route, stages, smem, grid, tiles): what the
-// Python ops/hiera_block.block_gemm_plan must give (tests/test_torch_cuda.py).
-extern "C" int block_gemm_plan_query(int M, int N, int K, int sms, int* out) {
+// block_gemm_plan at M x K into N (f32: the f32 sum) on a card of `sms` SMs
+// (sms <= 0: the current device's), as out[5] = (route, stages, smem, grid,
+// tiles): what the Python ops/hiera_block.block_gemm_plan must give
+// (tests/test_torch_cuda.py).
+extern "C" int block_gemm_plan_query(int M, int N, int K, int f32, int sms, int* out) {
   GemmPlan p;
   if (!out) return int(cudaErrorInvalidValue);
-  UFV_TRY(gemm_plan_on(M, N, K, sms, &p));
+  UFV_TRY(gemm_plan_on(M, N, K, f32 != 0, sms, -1, &p));
   const int v[5] = {p.route, p.stages, p.smem, p.grid, p.tiles};
   for (int i = 0; i < 5; ++i) out[i] = v[i];
   return 0;
@@ -1844,15 +1854,15 @@ extern "C" int ln_matmul_pair_bf16(const void* x, const void* ln_s, const void* 
 
 // shortcut, out [rows, C]; att [rows, A]; wproj [A, C], w1 [C, mlp], w2
 // [mlp, C]. Scratch x1 [rows, C], hmid [rows, mlp], and xn [rows, C] where
-// the plan (bm, bn, stages, cluster, res_bn) is the pair's (all 0); xn may
-// be null otherwise.
+// the plan (bm, bn, stages, cluster) is the pair's (all 0); xn may be null
+// otherwise.
 extern "C" int block_tail_bf16(
     const void* shortcut, const void* att, void* out, const void* wproj, const void* bproj,
     const void* ln2_s, const void* ln2_b, const void* w1, const void* b1, const void* w2,
     const void* b2, void* x1, void* xn, void* hmid, int rows, int C, int A, int mlp, int act,
-    int bm, int bn, int stages, int cluster, int res_bn, float eps, void* stream) {
+    int bm, int bn, int stages, int cluster, float eps, void* stream) {
   if (rows <= 0 || C % 8 || A % 8 || mlp % 8 || !act_ok(act) ||
-      !plan_is(C, bm, bn, stages, cluster, res_bn) || (bn == 0 && !xn))
+      !plan_is(C, bm, bn, stages, cluster) || (bn == 0 && !xn))
     return int(cudaErrorInvalidValue);
   if (!all_aligned16({shortcut, att, out, wproj, w1, w2, x1, hmid}) ||
       (xn && !aligned16(xn)))

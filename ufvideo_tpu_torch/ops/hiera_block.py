@@ -151,7 +151,7 @@ def _lib() -> ctypes.CDLL:
     lib.hiera_block_bf16.argtypes = [p] * 19 + [i] * 7 + [f, p]
     lib.ln_matmul_bf16.argtypes = [p] * 6 + [i] * 7 + [f, p]
     lib.ln_matmul_pair_bf16.argtypes = [p] * 7 + [i] * 3 + [f, p]
-    lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 10 + [f, p]
+    lib.block_tail_bf16.argtypes = [p] * 14 + [i] * 9 + [f, p]
     lib.qpool_block_bf16.argtypes = [p] * 22 + [i] * 10 + [f, p]
     lib.block_w8a8_bf16.argtypes = [p] * 29 + [i] * 7 + [f, p]
     lib.ln_matmul_w8a8_bf16.argtypes = [p] * 10 + [i] * 3 + [f, p]
@@ -161,8 +161,8 @@ def _lib() -> ctypes.CDLL:
     lib.probe_gemm_bf16.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.probe_gemm_s8.argtypes = [p] * 5 + [i] * 3 + [p]
     lib.gemm_s8_s32.argtypes = [p] * 3 + [i] * 3 + [p]
-    lib.block_gemm_plan_query.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_int)]
-    lib.block_gemm_bf16.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.block_gemm_plan_query.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.block_gemm_bf16.argtypes = [p] * 5 + [i] * 6 + [p]
     for fn in (lib.hiera_block_bf16, lib.ln_matmul_bf16, lib.ln_matmul_pair_bf16,
                lib.block_tail_bf16,
                lib.qpool_block_bf16, lib.block_w8a8_bf16, lib.ln_matmul_w8a8_bf16,
@@ -370,9 +370,9 @@ class LnGemmPlan(NamedTuple):
     """How ``fused_ln_matmul`` and the LN2 -> fc1 step of ``fused_block_tail``
     run at a shape: ``route`` "ln_gemm" (one launch) or "pair"; for
     "ln_gemm", the band's rows ``bm``, the column tile ``bn``, the W ring's
-    ``stages``, the dynamic shared memory ``smem`` (bytes), the cluster size,
-    the grid's ``bands``, and ``res_bn``, the column tile of a block tail's
-    proj and fc2 (N = C); 0 for "pair"."""
+    ``stages``, the dynamic shared memory ``smem`` (bytes), the cluster size
+    and the grid's ``bands``; 0 for "pair". A block tail's proj and fc2
+    take the route ``block_gemm_plan`` gives them."""
     route: str
     bm: int
     bn: int
@@ -380,7 +380,6 @@ class LnGemmPlan(NamedTuple):
     smem: int
     cluster: int
     bands: int
-    res_bn: int
 
     @property
     def args(self):
@@ -397,42 +396,39 @@ def ln_gemm_plan(rows: int, c: int, n: int) -> LnGemmPlan:
     16 KB) gets as many stages as the rest of 227 KB holds, at most 8: 5 at
     C = 576, 8 at C <= 288. One band a block, one block an SM. A cluster of
     two bands sharing each W tile by TMA multicast ran slower in a trial on
-    an H100 (PERF.md): the cluster is 1. A block tail's proj and fc2
-    take a 144-column tile, which divides C, at C = 144 and 288, and the
-    GEMM's 128-column tile elsewhere: at C = 576 the 144-column tile (one
-    block an SM: its 72 accumulators do not fit two) ran fc2 slower."""
+    an H100 (PERF.md): the cluster is 1."""
     if rows <= 0 or n <= 0 or n % 8 or c <= 0 or c % 8:
         raise ValueError(f"no plan for rows={rows} C={c} N={n}: C and N multiples of 8")
     if c > LN_MAX_C:
-        return LnGemmPlan("pair", 0, 0, 0, 0, 0, 0, 0)
+        return LnGemmPlan("pair", 0, 0, 0, 0, 0, 0)
     band = -(-c // 64) * LN_BM * 128
     stage = 64 * LN_BN * 2
     stages = min(LN_MAX_STAGES, (SMEM_MAX - 1024 - band - 64 - 8 * LN_BN) // (stage + 24))
     smem = 1024 + band + stages * stage + (8 + 3 * stages) * 8 + 8 * LN_BN
-    return LnGemmPlan("ln_gemm", LN_BM, LN_BN, stages, smem, 1, -(-rows // LN_BM),
-                      144 if c % 144 == 0 and c < 576 else 128)
+    return LnGemmPlan("ln_gemm", LN_BM, LN_BN, stages, smem, 1, -(-rows // LN_BM))
 
 
 # The block GEMM of csrc/hiera_block.cu: every product of a bf16 block (and
 # the probe's bf16 product) runs on the route ``block_gemm_plan`` gives its
 # shape, the C side's ``block_gemm_plan`` computing the same.
-GEMM_BM, GEMM_BK, GEMM_BN = 128, 64, 128
-PP_MIN_K, PP_STAGES = 1024, 6
-GEMM_STAGE = GEMM_BM * GEMM_BK * 2 + GEMM_BK * GEMM_BN * 2  # A 128 x 64 + W 64 x 128, bf16
-PP_TILE_R = GEMM_BM * GEMM_BN * 2  # a residual tile, loaded for the epilogue
+GEMM_BM, GEMM_BK = 128, 64
+PP_STAGES = 6
+PP_STAGE = GEMM_BM * GEMM_BK * 2 + GEMM_BK * 128 * 2  # A 128 x 64 + W 64 x 128, bf16
+PP_TILE_R = GEMM_BM * 128 * 2  # a residual tile, loaded for the epilogue
 # the alignment pad, the residual tile and its three barriers, both
 # warpgroups' bias rows, then the ring's stages and their three barriers each
-PP_SMEM = 1024 + PP_TILE_R + 3 * 8 + 2 * GEMM_BN * 4 + PP_STAGES * (GEMM_STAGE + 24)
-TILE128_STAGES = 3
+PP_SMEM = 1024 + PP_TILE_R + 3 * 8 + 2 * 128 * 4 + PP_STAGES * (PP_STAGE + 24)
+# gemm_kernel's tiles: width -> the ring's stages (two blocks an SM at 128, one at 256)
+TILE_STAGES = {128: 3, 256: 4}
 H100_SMS = 132
 
 
 class BlockGemmPlan(NamedTuple):
     """How the block GEMM runs one product: ``route`` "pp" (the persistent
     ping-pong kernel, two consumer warpgroups on alternate 128 x 128 tiles)
-    or "128" (``gemm_kernel``'s 128 x 128 tile, one block a tile, two blocks
-    an SM); the ring's ``stages``, the dynamic shared memory ``smem``
-    (bytes), the blocks launched (``grid``) and the output ``tiles``."""
+    or "128", "256" (``gemm_kernel``'s 128 x 128 or 128 x 256 tile, one block
+    a tile); the ring's ``stages``, the dynamic shared memory ``smem`` (bytes),
+    the blocks launched (``grid``) and the output ``tiles``."""
     route: str
     stages: int
     smem: int
@@ -443,35 +439,59 @@ class BlockGemmPlan(NamedTuple):
     def code(self):
         """(route, stages, smem, grid, tiles) as the C query gives them
         (route 0 for "pp", else the tile's width)."""
-        return (0 if self.route == "pp" else int(self.route), self.stages, self.smem,
-                self.grid, self.tiles)
+        return (self.route_code, self.stages, self.smem, self.grid, self.tiles)
+
+    @property
+    def route_code(self):
+        """The route as ``block_gemm_bf16`` takes it: 0 for "pp", else the
+        tile's width."""
+        return 0 if self.route == "pp" else int(self.route)
 
 
-@functools.cache
-def block_gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> BlockGemmPlan:
-    """The plan of an [m, k] x [k, n] product on a card of ``sms`` SMs, from
-    shapes alone. K >= 1024 (SigLIP's qkv, proj, fc1 and fc2, Hiera's stage
-    4, the probe) takes the ping-pong kernel: its grid is at most one block
-    an SM, its ring the 6 stages of 32 KB that fit beside a 32 KB residual
-    tile, the barriers and the two warpgroups' bias rows. Shorter K takes
-    the 128 x 128 tile (3 stages of 32 KB, its bias row), a block a tile."""
+def gemm_route_plan(route: str, m: int, n: int, k: int, sms: int = H100_SMS,
+                    f32: bool = False) -> BlockGemmPlan:
+    """The plan of an [m, k] x [k, n] product on ``route`` (``f32``: the f32
+    sum, which alone may take "256"): the ping-pong kernel's grid is at most
+    one block an SM, its ring the 6 stages of 32 KB that fit beside a 32 KB
+    residual tile, the barriers and the two warpgroups' bias rows; a tile of
+    ``gemm_kernel`` is a block a tile, with its ring (``TILE_STAGES``), two
+    barriers a stage and its bias row."""
     if min(m, n, k, sms) <= 0 or n % 8 or k % 8:
         raise ValueError(f"no plan for M={m} N={n} K={k} on {sms} SMs: "
                          "K and N multiples of 8")
-    tiles = -(-m // GEMM_BM) * -(-n // GEMM_BN)
-    if k >= PP_MIN_K:
+    bn = 128 if route == "pp" else int(route)
+    if bn not in TILE_STAGES or (bn == 256 and not f32):
+        raise ValueError(f"no route {route!r} for {'the f32 sum' if f32 else 'a bf16 output'}")
+    tiles = -(-m // GEMM_BM) * -(-n // bn)
+    if route == "pp":
         return BlockGemmPlan("pp", PP_STAGES, PP_SMEM, min(sms, tiles), tiles)
-    smem = TILE128_STAGES * (GEMM_STAGE + 16) + GEMM_BN * 4 + 1024
-    return BlockGemmPlan("128", TILE128_STAGES, smem, tiles, tiles)
+    stages = TILE_STAGES[bn]
+    smem = stages * (GEMM_BM * GEMM_BK * 2 + GEMM_BK * bn * 2 + 16) + bn * 4 + 1024
+    return BlockGemmPlan(route, stages, smem, tiles, tiles)
 
 
-def block_gemm_plan_on_card(m: int, n: int, k: int, sms: int = 0) -> tuple:
+@functools.cache
+def block_gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS,
+                    f32: bool = False) -> BlockGemmPlan:
+    """The plan of an [m, k] x [k, n] product on a card of ``sms`` SMs, from
+    shapes alone (``f32``: the f32 sum), each route where it measured the
+    fastest on an H100 (scripts/torch_gemm_routes.py, PERF.md): the f32 sum
+    on the 128 x 256 tile; the 128 x 128 tile at N <= 144 and at K <= 144
+    with N < 1024 (Hiera stage 1's proj, fc2 and qkv); every other product
+    (SigLIP's four, Hiera's from stage 2 on, the q-pool fronts) on the
+    ping-pong kernel."""
+    route = "256" if f32 else "128" if n <= 144 or (k <= 144 and n < 1024) else "pp"
+    return gemm_route_plan(route, m, n, k, sms, f32)
+
+
+def block_gemm_plan_on_card(m: int, n: int, k: int, sms: int = 0, f32: bool = False) -> tuple:
     """The C side's plan (``block_gemm_plan_query``) as
     ``BlockGemmPlan.code``: on ``sms`` SMs, or the current card's where
     ``sms`` is 0. Builds the kernels' library; needs no card where sms > 0."""
     lib = _lib()
     out = (ctypes.c_int * 5)()
-    _build.check(lib, lib.block_gemm_plan_query(m, n, k, sms, out), "block_gemm_plan_query")
+    _build.check(lib, lib.block_gemm_plan_query(m, n, k, int(f32), sms, out),
+                 "block_gemm_plan_query")
     return tuple(out)
 
 
@@ -495,12 +515,12 @@ def block_gemm_plain(a, w, bias=None, residual=None, act=None, f32=False) -> tor
     return y if f32 else block_gemm_epilogue(y, residual, act)
 
 
-def block_gemm_alone(a, w, bias=None, residual=None, act=None, f32=False) -> torch.Tensor:
+def block_gemm_alone(a, w, bias=None, residual=None, act=None, f32=False,
+                     route=None) -> torch.Tensor:
     """The block GEMM alone on the card, on the route ``block_gemm_plan``
-    gives its shape: ``block_gemm_plain``'s function for bf16 a [M, K] and w
-    [K, N] (K and N multiples of 8), with an activation or a residual or the
-    f32 sum. A measuring instrument: no model path calls it, so it counts
-    nothing."""
+    gives its shape or on ``route`` ("pp", "128"; "256" for the f32 sum): ``block_gemm_plain``'s function for bf16 a [M, K] and w [K, N] (K
+    and N multiples of 8), with an activation or a residual or the f32 sum.
+    A measuring instrument: no model path calls it, so it counts nothing."""
     if a.device.type != "cuda":
         raise ValueError(f"block_gemm_alone: unsupported device {a.device}")
     _check_cuda("block_gemm_alone", a, (w,) + ((residual,) if residual is not None else ()))
@@ -511,6 +531,7 @@ def block_gemm_alone(a, w, bias=None, residual=None, act=None, f32=False) -> tor
             or (act is not None and f32)):
         raise ValueError(f"unsupported block GEMM: a {tuple(a.shape)} w {tuple(w.shape)}, "
                          f"one of act / residual / f32")
+    forced = -1 if route is None else gemm_route_plan(route, m, n, k, f32=f32).route_code
     a, w = a.contiguous(), w.contiguous()
     b = None if bias is None else bias.float().contiguous()
     r = None if residual is None else residual.contiguous()
@@ -519,7 +540,7 @@ def block_gemm_alone(a, w, bias=None, residual=None, act=None, f32=False) -> tor
     code = lib.block_gemm_bf16(
         a.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
         None if r is None else r.data_ptr(), y.data_ptr(), m, n, k,
-        _ACT_CODES[act] if act else 0, 2 if f32 else int(r is not None),
+        _ACT_CODES[act] if act else 0, 2 if f32 else int(r is not None), forced,
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, code, "block_gemm_alone")
     return y
@@ -620,7 +641,7 @@ def fused_block_tail(
     code = lib.block_tail_bf16(
         *_ptrs(shortcut, att, out, wproj, vecs[0], vecs[1], vecs[2], w1, vecs[3], w2,
                vecs[4], x1), xn, hmid.data_ptr(),
-        rows, c, a, mlp, _ACT_CODES[act], *plan.args, plan.res_bn, float(eps),
+        rows, c, a, mlp, _ACT_CODES[act], *plan.args, float(eps),
         torch.cuda.current_stream(shortcut.device).cuda_stream,
     )
     _build.check(lib, code, "fused_block_tail")
