@@ -1297,7 +1297,7 @@ def test_ln_gemm_entry_refuses_another_plan(dev):
 
 
 # The block GEMM (gemm in csrc/hiera_block.cu) on each of its routes. The
-# ping-pong kernel (the plan's route for K >= 1024) at SigLIP's four products
+# ping-pong kernel (the plan's route but at Hiera stage 1) at SigLIP's four products
 # (M = 23328) and off every edge: M = 1, 127, 129; N on and off the
 # 128-column tile (N must be a multiple of 8: 136 for "off"); K = 1152 and
 # 4304; fewer tiles than SMs, a block with a single tile (its second
