@@ -518,9 +518,10 @@ def block_gemm_plain(a, w, bias=None, residual=None, act=None, f32=False) -> tor
 def block_gemm_alone(a, w, bias=None, residual=None, act=None, f32=False,
                      route=None) -> torch.Tensor:
     """The block GEMM alone on the card, on the route ``block_gemm_plan``
-    gives its shape or on ``route`` ("pp", "128"; "256" for the f32 sum): ``block_gemm_plain``'s function for bf16 a [M, K] and w [K, N] (K
-    and N multiples of 8), with an activation or a residual or the f32 sum.
-    A measuring instrument: no model path calls it, so it counts nothing."""
+    gives its shape or on ``route`` ("pp", "128"; "256" for the f32 sum):
+    ``block_gemm_plain``'s function for bf16 a [M, K] and w [K, N] (K and N
+    multiples of 8), with an activation or a residual or the f32 sum. A
+    measuring instrument: no model path calls it, so it counts nothing."""
     if a.device.type != "cuda":
         raise ValueError(f"block_gemm_alone: unsupported device {a.device}")
     _check_cuda("block_gemm_alone", a, (w,) + ((residual,) if residual is not None else ()))
