@@ -1,5 +1,6 @@
 """Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation,
-quantised region-referring and quantised [SEG] paths on one GPU.
+streaming, speculative and batched serving, quantised region-referring and
+quantised [SEG] paths on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
@@ -23,9 +24,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      product (the block GEMM alone) goes first. The quantised kernels
      take int8 / packed-int4 weights, an int8 cache and int8 block weights
      at the same widths, each with its own stated tolerance (the quantised
-     products at rows 1, 2, 8, 17 and 32, each with the grid it launched,
-     its rate on the weight bytes, its ratio to the bound and, at one row,
-     the 2-32-row kernel's time); the W8A8 block
+     products at rows 1, 2, 5 (the verify block of speculative decoding,
+     B = 1 and K = 4), 8, 17 and 32, each with the grid it launched, its
+     rate on the weight bytes, its ratio to the bound and, at one row, the
+     2-32-row kernel's time); the W8A8 block
      also at Hiera-L's four windowed shapes, and the W8A8 q-pool block,
      LN-matmul and block tail at the shapes the quantised trunk gives them.
   3. path: model_init at full width (SigLIP-SO400M + STC-v35 + Qwen2-7B,
@@ -41,6 +43,15 @@ Phases, each printed as it runs; any failure exits non-zero:
      call and held to what the code predicts; masks [4, 480, 640] boolean;
      stage timings; the SAM2 kernel path against the plain path on the same
      [SEG] embedding (FPN level-2 features, low-res mask logits, mask IoU).
+ 4b. serving, on the same model: mm_infer_stream of phase 3's request in
+     chunks of 8 (its ids and joined text equal phase 3's exactly; time to
+     the first ids and delta, ms a token); mm_infer with spec_decode=4 (tokens
+     equal phase 3's but at a near tie; drafted / accepted tokens, verify
+     steps, ms a verify step; generate_stream under speculation gives the
+     same tokens); mm_infer_batch of two questions and a <region> request on
+     phase 3's video and phase 4's [SEG] request (path A's tokens equal each
+     sample's own but at a near tie; path B's masks agree with phase 4's on
+     >= 99% of each frame); each counted and held to what the code predicts.
   5. referring, quantised: a new runtime with quant_llm="int8", quant_kv and
      quant_vision at full width; mm_infer with one annotated uint8 frame, one
      480x640 mask and a <region> in the prompt, 32 new tokens; launch counts
@@ -55,6 +66,13 @@ Phases, each printed as it runs; any failure exits non-zero:
      product at 8 rows), ms a step, tok/s over the batch, peak memory; the
      first 4 decode steps' logits through the kernels against the plain
      versions.
+ 5c. serving, on each phase-5 runtime: the referring request with
+     spec_decode=4 as in 4b (every verify product on the quantised kernel at
+     5 rows; the int8 runtime's verify writes and reads its int8 cache); 5b's
+     batch with prefill_chunk=3 (three chunks, the last clamped; tokens equal
+     5b's but at a near tie; prefill ms and peak memory beside 5b's); on the
+     int8 runtime, mm_infer_stream of the request (ids equal phase 5's). Each
+     counted and held to what the code predicts.
   6. [SEG], quantised: a runtime with quant_llm="int8", quant_kv and
      quant_vision (W8A8 SigLIP and W8A8 Hiera trunk); the request of phase 4
      on it, launch counts held to what the configuration predicts, stage
@@ -679,8 +697,10 @@ def _kernel_entry(name, source, replaces, tol, shapes, headline):
 
 
 # rows phase 2 holds the quantised products at: one decode row, the 2-32-row
-# kernel's edges and its two tile counts, and the serving batch of 8
-QUANT_ROWS = (1, 2, 8, 17, 32)
+# kernel's edges and its two tile counts, the verify block of speculative
+# decoding (B = 1, K = SPEC_K drafts: 5 rows) and the serving batch of 8
+SPEC_K = 4
+QUANT_ROWS = (1, 2, SPEC_K + 1, 8, 17, 32)
 
 
 def kernel_quant_matmul(dev, timer, gen, cfg, bits):
@@ -1367,7 +1387,9 @@ def run_path(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), max_new_tokens=
     compare_paths(kernel_out, plain_out, PATH_COS,
                   "bf16 rounds at other places through 26 SigLIP and 28 Qwen2 layers of "
                   "random weights")
-    return launches, rt, tok
+    request = dict(frames=frames, question=question, region={}, max_new=max_new_tokens,
+                   text=text, ids=out["output"], decode_tps=decode_tps)
+    return launches, rt, tok, request
 
 
 def all_wrappers():
@@ -1587,10 +1609,19 @@ def run_referring(dev, seed: int, cfg, label: str, max_new_tokens: int,
                   "the W8A8 tower re-quantises at other rounding boundaries through 26 blocks"
                   if cfg.quant_vision else "as the bf16 path")
     log(f" 5b [{label}]: batched decode, {BATCH} questions on the request's video")
-    batch_launches = run_batched(dev, rt, tok, feats, label)
+    batch_launches, batch_ref = run_batched(dev, rt, tok, feats, label)
+    request = dict(frames=frames, question=question, max_new=max_new_tokens, text=text,
+                   ids=out["output"],
+                   region=dict(masks=region[1], frame=region[0], ann_indices=region[2]))
+    log(f" 5c [{label}]: speculative decoding, chunked prefill"
+        + (", streaming" if cfg.quant_kv else ""))
+    serving = {"spec": run_spec(dev, rt, tok, label, request),
+               "chunked": run_chunked_prefill(dev, rt, tok, feats, label, batch_ref)}
+    if cfg.quant_kv:
+        serving["stream"] = run_stream(dev, rt, tok, label, request)
     del rt
     torch.cuda.empty_cache()
-    return launches, batch_launches
+    return launches, batch_launches, serving
 
 
 # Phase 5b: the JAX package's serving batch (scripts/serve.py --max-batch 8)
@@ -1691,6 +1722,7 @@ def run_batched(dev, rt, tok, feats, label: str) -> dict:
     log(f"  [{label}] batched decode: prefill + first token {(t1 - t0) * 1e3:.1f} ms, "
         f"{step_ms:.2f} ms a step over {steps} steps, {BATCH * 1e3 / step_ms:.1f} tok/s over "
         f"the batch")
+    ref = dict(tokens=[t for t, _ in out], peak=peak, prefill_ms=(t1 - t0) * 1e3)
 
     plan, embeds = rt._splice_plan(ids, vf)
     lens = torch.as_tensor(plan.seq_lens, device=dev).to(torch.int32)
@@ -1714,6 +1746,341 @@ def run_batched(dev, rt, tok, feats, label: str) -> dict:
         fail("batched kernel path and plain path disagree")
     if flips:
         fail(f"batched greedy tokens differ beyond a near tie at (step, row) {flips}")
+    return launches, ref
+
+
+# ------------------------------------------- phases 4b and 5c: serving --
+
+class LogitsRecorder:
+    """While active, keeps what ``llm.logits`` returns, float32 with the
+    padding ids masked: one [B, T, vocab] entry a call. Recording launches
+    none of the counted kernels."""
+
+    def __init__(self, rt):
+        self.llm, self.vocab = rt.model.llm, rt.cfg.llm.vocab_size
+
+    def __enter__(self):
+        from ufvideo_tpu_torch.models.generate import _mask_vocab_logits
+
+        real, self.calls = self.llm.logits, []
+
+        def logits(h):
+            out = real(h)
+            self.calls.append(_mask_vocab_logits(out.float(), self.vocab))
+            return out
+
+        self.llm.logits = logits
+        return self
+
+    def __exit__(self, *exc):
+        del self.llm.logits
+
+    def steps(self, row: int = 0) -> list:
+        """A decode loop's logits of ``row``, one a call (call j made token j)."""
+        return [c[row, -1] for c in self.calls]
+
+
+def first_near_tie(what, ref_toks, ref_logits, toks, logits):
+    """Tokens against a reference run's: equal, or differing first at a near
+    tie, where the reference's logit gap between its token and this run's
+    lies below the two runs' largest logit difference at that position
+    (``ref_logits[p]`` / ``logits[p]`` made token p). The comparison ends
+    there: the contexts part. Returns (tokens equal before it, the tie
+    position or None)."""
+    for p, (a, b) in enumerate(zip(ref_toks, toks)):
+        if a != b:
+            lr, lg = ref_logits[p], logits[p]
+            gap, diff = float(lr[a] - lr[b]), float((lr - lg).abs().max())
+            log(f"  {what}: first difference at token {p}: logit gap {gap:.4f}, the runs' "
+                f"largest logit difference there {diff:.4f}")
+            if gap >= diff:
+                fail(f"{what}: tokens differ beyond a near tie at token {p}")
+            return p, p
+    if len(ref_toks) != len(toks):
+        fail(f"{what}: {len(toks)} tokens against {len(ref_toks)}, equal where both ran")
+    return len(toks), None
+
+
+def expected_spec_launches(cfg, n_verify: int, calls_to_tower: int) -> dict:
+    """Kernel launches of one speculative request (batch 1, ``n_verify``
+    verify steps): the tower's layers per encode; flash for the LLM's layers
+    in prefill; no decode attention (a verify step attends with the plain
+    masked attention, as the JAX layer does); the quantised products: the
+    first token's lm_head at one row, then each verify step's five
+    projections a layer and lm_head at SPEC_K + 1 rows."""
+    want = expected_referring_launches(cfg, 1, calls_to_tower)
+    if cfg.quant_llm:
+        from ufvideo_tpu_torch.quant import quant_bits
+
+        name = "int4_matmul" if quant_bits(cfg.quant_llm) == 4 else "int8_matvec"
+        want[name] = 1 + n_verify * (5 * cfg.llm.num_layers + 1)
+    return want
+
+
+def expected_batch_launches(cfg, n_generated: int, sam_frames: int) -> dict:
+    """Kernel launches of phase 4b's ``mm_infer_batch``: the tower's layers
+    once for the four videos and once for the annotated frame; flash for the
+    LLM's layers in path A's prefill and in path B's forward; a decode
+    attention a layer for each of path A's decode steps; SAM2 on the path-B
+    sample's frames (one object: frame 0 prompted, the rest tracked)."""
+    want = expected_sam_launches(cfg, sam_frames, 1, sam_frames - 1)
+    want["fused_hiera_block"] += 2 * cfg.vision.num_encode_layers
+    want["flash_attention"] += 2 * cfg.llm.num_layers
+    want["ragged_decode_attention"] += cfg.llm.num_layers * (n_generated - 1)
+    return want
+
+
+def expected_chunked_prefill_launches(cfg, n_generated: int, batch: int, chunk: int) -> dict:
+    """Phase 5b's launches with the prefill's flash once a layer for each of
+    the ceil(batch / chunk) chunks."""
+    want = expected_referring_launches(cfg, n_generated, calls_to_tower=0)
+    want["flash_attention"] = cfg.llm.num_layers * -(-batch // chunk)
+    return want
+
+
+def run_stream(dev, rt, tok, label, req) -> dict:
+    """``mm_infer_stream`` of a request with chunks of 8: the joined deltas
+    are the request's ``mm_infer`` text and its ids the same ids (the same
+    kernels at the same shapes); launches held to the prediction; the time
+    to the first ids and to the first delta (the streamer holds back
+    invalid UTF-8, most of a random model's bytes), ms a token after the
+    first."""
+    from ufvideo_tpu_torch import mm_infer_stream
+
+    ids, first_ids = [], []
+    real = rt.generate_stream
+
+    def recording(*a, **kw):  # the ids and when the first of them surfaced
+        for chunk_ids, hid in real(*a, **kw):
+            if not first_ids:
+                first_ids.append(time.perf_counter())
+            ids.extend(chunk_ids)
+            yield chunk_ids, hid
+
+    def run(frames, n):
+        t0, first, deltas = time.perf_counter(), None, []
+        for d in mm_infer_stream(frames, req["question"], rt, tok, chunk=8, max_new_tokens=n,
+                                 **req["region"]):
+            first = time.perf_counter() - t0 if first is None else first
+            deltas.append(d)
+        return t0, first, deltas
+
+    rt.generate_stream = recording
+    try:
+        run(req["frames"][::-1], 2)  # warm-up, outside the counted run
+        ids.clear()
+        first_ids.clear()
+        (t0, first, deltas), launches, ms = _count(all_wrappers(), lambda: run(
+            req["frames"], req["max_new"]))
+    finally:
+        del rt.generate_stream
+    want = expected_referring_launches(rt.cfg, len(ids), 1 + bool(req["region"]))
+    tok_ms = (ms - (first_ids[0] - t0) * 1e3) / max(len(ids) - 1, 1)
+    log(f"  [{label}] mm_infer_stream, chunk 8: {ms:.1f} ms end to end, {len(ids)} ids, "
+        f"{len(deltas)} deltas; first ids after {(first_ids[0] - t0) * 1e3:.1f} ms, first "
+        f"delta after {first * 1e3 if first is not None else float('nan'):.1f} ms, "
+        f"{tok_ms:.2f} ms a token after the first; launches {launches}")
+    log(f"  [{label}] launches predicted: {want}")
+    if launches != want:
+        fail(f"launch counts of the {label} stream differ from the prediction")
+    if ids != req["ids"] or "".join(deltas).strip() != req["text"]:
+        fail(f"[{label}] the stream's ids or text differ from mm_infer's")
+    log(f"  [{label}] stream ids == mm_infer ids ({len(ids)}), joined deltas == its text")
+    return launches
+
+
+def run_spec(dev, rt, tok, label, req) -> dict:
+    """``mm_infer`` of a request on a runtime sharing ``rt``'s model with
+    ``spec_decode=SPEC_K``: tokens against the request's plain ones but at a
+    near tie (the logits of a verify forward against a decode step's);
+    launches held to the prediction (on a quantised model every verify
+    product at SPEC_K + 1 rows); drafted / accepted tokens, verify steps and
+    ms a verify step; then ``generate_stream`` under speculation gives the
+    same tokens."""
+    from ufvideo_tpu_torch import mm_infer
+    from ufvideo_tpu_torch.api import UFVideoRuntime, _assemble_input_ids, _encode_video_input
+    from ufvideo_tpu_torch.models.speculative import spec_generate
+    from ufvideo_tpu_torch.ops import quant_matmul as qm
+    from ufvideo_tpu_torch.quant import quant_bits
+    from ufvideo_tpu_torch.splicing import plan_lookup_ids
+
+    cfg = rt.cfg
+    srt = UFVideoRuntime(cfg.replace(spec_decode=SPEC_K), rt.model, rt.ids, dev)
+    call = lambda f, n: mm_infer(f, req["question"], srt, tok, max_new_tokens=n, **req["region"])
+    call(req["frames"][::-1], 2)  # warm-up, outside the counted run
+    (_, out), launches, ms = _count(all_wrappers(), lambda: call(req["frames"], req["max_new"]))
+    toks = out["output"]
+
+    # the same prompt staged: the loop's counters and times, the logits
+    ids = _assemble_input_ids(req["question"], 1, "<video>", tok)
+    feats = _encode_video_input(rt, req["frames"], "video")
+    region = (srt.pack_and_encode_regions(req["region"]["frame"], req["region"]["masks"],
+                                          req["region"]["ann_indices"])
+              if req["region"] else (None, None))
+    plan, embeds = srt._splice_plan([ids], feats, region[0], [region[1] or []])
+    lookup = torch.as_tensor(plan_lookup_ids(plan)[:, :embeds.shape[1]], device=dev)
+    kw = dict(stop_ids=(rt.ids.eos,), vocab_size=cfg.llm.vocab_size,
+              cache_max_len=embeds.shape[1] + req["max_new"] + SPEC_K, draft_k=SPEC_K,
+              kv_quant=bool(cfg.quant_kv))
+    lens = torch.as_tensor(plan.seq_lens, device=dev)
+    timed = lambda n: _count({}, lambda: spec_generate(rt.model.llm, embeds, lens, lookup,
+                                                       max_new_tokens=n, **kw))
+    _, _, ms_first = timed(1)
+    res, _, ms_all = timed(req["max_new"])
+    n_verify = res.n_iters - 1
+    want = expected_spec_launches(cfg, n_verify, 1 + bool(req["region"]))
+    wrapper = None
+    if cfg.quant_llm:
+        wrapper = qm.int4_matmul if quant_bits(cfg.quant_llm) == 4 else qm.int8_matvec
+    log(f"  [{label}] mm_infer, spec_decode={SPEC_K}: {ms:.1f} ms end to end, {len(toks)} "
+        f"tokens in {n_verify} verify steps, drafted {int(res.n_drafted[0])}, accepted "
+        f"{int(res.n_accepted[0])}; spec_generate alone {ms_all:.1f} ms, prefill + first "
+        f"token {ms_first:.1f} ms, {(ms_all - ms_first) / max(n_verify, 1):.2f} ms a verify "
+        f"step; launches {launches}"
+        + (f"; last plan {wrapper.last_plan}" if wrapper else ""))
+    log(f"  [{label}] launches predicted: {want}")
+    if launches != want:
+        fail(f"launch counts of the {label} speculative request differ from the prediction")
+    if wrapper and not (isinstance(wrapper.last_plan, qm.RowsPlan)
+                        and wrapper.last_plan.rows == SPEC_K + 1):
+        fail(f"{wrapper.__name__} last ran at {wrapper.last_plan}, not {SPEC_K + 1} rows")
+    if res.tokens[0, :len(toks)].tolist() != toks:
+        fail(f"[{label}] spec_generate differs from the speculative mm_infer")
+
+    # the tokens against the plain run's, the logits of both recorded
+    with LogitsRecorder(rt) as plain:
+        ref, _, _ = rt.generate(ids, feats, *region, max_new_tokens=req["max_new"])
+    if ref != req["ids"]:
+        fail(f"[{label}] the plain request repeated gives other tokens")
+    streamed, logits = [], []
+    with LogitsRecorder(rt) as rec:
+        for chunk_ids, _ in srt.generate_stream(ids, feats, *region,
+                                                max_new_tokens=req["max_new"]):
+            streamed.extend(chunk_ids)
+            logits.extend(rec.calls[-1][0, :len(chunk_ids)])
+    if streamed != toks:
+        fail(f"[{label}] generate_stream under speculation differs from mm_infer's tokens")
+    same, tie = first_near_tie(f"[{label}] speculative vs plain", req["ids"], plain.steps(),
+                               toks, logits)
+    log(f"  [{label}] speculative tokens equal the plain ones {same}/{len(req['ids'])}"
+        + (f", then a near tie at token {tie}" if tie is not None else "")
+        + f"; generate_stream under speculation == mm_infer's {len(toks)} tokens")
+    return launches
+
+
+def run_serving(dev, rt, tok, qa, seg) -> dict:
+    """Phase 4b on the bf16 runtime: the stream and the speculative request
+    of phase 3's request, then ``mm_infer_batch`` of four samples."""
+    return {"stream": run_stream(dev, rt, tok, "bf16", qa),
+            "spec": run_spec(dev, rt, tok, "bf16", qa),
+            "batch": run_serving_batch(dev, rt, tok, qa, seg)}
+
+
+def run_serving_batch(dev, rt, tok, qa, seg) -> dict:
+    """``mm_infer_batch`` (choice 3) of four samples: two questions and a
+    ``<region>`` request (the annotated frame and mask made as phase 5 makes
+    them) on phase 3's video, and phase 4's ``[SEG]``-input request (path
+    B). Path A's tokens against each sample's own ``mm_infer`` but at a near
+    tie (a batch row's logits against the single request's); path B's masks
+    against phase 4's on at least MASK_AGREE of each frame's pixels;
+    launches held to the prediction; ms and peak memory."""
+    from ufvideo_tpu_torch import mm_infer, mm_infer_batch
+
+    frames = qa["frames"]
+    h, w = frames.shape[1:3]
+    mask = np.zeros((1, h, w), np.float32)
+    mask[0, h // 4:3 * h // 4, w // 3:2 * w // 3] = 1.0
+    human = lambda q: [{"from": "human", "value": "<video>\n" + q}]
+    samples = [
+        {"video": frames, "instruct": human(qa["question"])},
+        {"video": frames, "instruct": human("Describe the video.")},
+        {"video": frames, "instruct": human("What is <region> doing in this video?"),
+         "frame": frames[7:8], "masks": mask, "ann_indices": [[0]]},
+        {"video": seg["frames"], "instruct": seg["conv"], "images_sam": seg["images_sam"],
+         "label_size": seg["label_size"]},
+    ]
+    n_new = qa["max_new"]
+    singles = []
+    for s in samples[:3]:  # each path-A sample alone, its logits recorded
+        kw = {k: s[k] for k in ("frame", "masks", "ann_indices") if k in s}
+        with LogitsRecorder(rt) as rec:
+            _, out = mm_infer(s["video"], s["instruct"], rt, tok, choice=3,
+                              max_new_tokens=n_new, **kw)
+        singles.append((out["output"], rec.steps()))
+    if singles[0][0] != qa["ids"]:
+        fail("phase 3's request in choice-3 form gives other tokens")
+    run = lambda n: mm_infer_batch(samples, rt, tok, choice=3, max_new_tokens=n)
+    run(2)  # warm-up, outside the counted run
+    torch.cuda.reset_peak_memory_stats()
+    with LogitsRecorder(rt) as rec:
+        got, launches, ms = _count(all_wrappers(), lambda: run(n_new))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen = [len(o["output"]) for _, o in got[:3]]
+    want = expected_batch_launches(rt.cfg, max(gen), len(seg["images_sam"]))
+    log(f"  mm_infer_batch: {ms:.1f} ms end to end for 3 path-A samples ({gen} tokens) and "
+        f"1 path-B sample, peak {peak:.2f} GiB; launches {launches}")
+    log(f"  launches predicted: {want}")
+    if launches != want:
+        fail("launch counts of mm_infer_batch differ from the prediction")
+    for r, ((toks, lg), (_, out)) in enumerate(zip(singles, got)):
+        same, tie = first_near_tie(f"batch row {r} vs alone", toks, lg, out["output"],
+                                   rec.steps(r))
+        log(f"  batch row {r}: tokens equal its own mm_infer's {same}/{len(toks)}"
+            + (f", then a near tie at token {tie}" if tie is not None else ""))
+    text, out = got[3]
+    masks = out["pred_masks"]
+    if text is not None or len(masks) != 1 or masks[0].shape != seg["masks"].shape:
+        fail(f"path B: text {text!r}, masks {[m.shape for m in masks]}")
+    agree = [float((a == b).mean()) for a, b in zip(masks[0], seg["masks"])]
+    log(f"  path B masks against phase 4's: agreement per frame {[round(a, 5) for a in agree]} "
+        f"(tolerance >= {MASK_AGREE})")
+    if min(agree) < MASK_AGREE:
+        fail("path B's masks disagree with phase 4's")
+    return launches
+
+
+# path B's masks in a batch against the same request's alone: the JAX
+# package's limit between batched and per-sample masks (tests/test_api.py)
+MASK_AGREE = 0.99
+PREFILL_CHUNK = 3
+
+
+def run_chunked_prefill(dev, rt, tok, feats, label, ref) -> dict:
+    """5b's batch through ``generate_batch`` on a runtime sharing ``rt``'s
+    model with ``prefill_chunk=PREFILL_CHUNK``: three chunks, the last one's
+    start clamped. Tokens against 5b's but at a near tie (each row's logits
+    against the unchunked run's); launches held to the prediction; prefill
+    ms and peak memory beside 5b's."""
+    from ufvideo_tpu_torch.api import UFVideoRuntime, _assemble_input_ids
+
+    crt = UFVideoRuntime(rt.cfg.replace(prefill_chunk=PREFILL_CHUNK), rt.model, rt.ids, dev)
+    ids = [_assemble_input_ids(q, 1, "<video>", tok) for q in BATCH_QUESTIONS]
+    vf = feats.expand(BATCH, -1, -1)
+    crt.generate_batch(ids, vf, max_new_tokens=2)  # warm-up, outside the counted run
+    torch.cuda.reset_peak_memory_stats()
+    with LogitsRecorder(rt) as rec:
+        (out, _), launches, _ = _count(all_wrappers(), lambda: crt.generate_batch(
+            ids, vf, max_new_tokens=BATCH_NEW_TOKENS))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, _, prefill_ms = _count({}, lambda: crt.generate_batch(ids, vf, max_new_tokens=1))
+    gen = [len(t) for t, _ in out]
+    want = expected_chunked_prefill_launches(rt.cfg, max(gen), BATCH, PREFILL_CHUNK)
+    log(f"  [{label}] generate_batch B={BATCH}, prefill_chunk={PREFILL_CHUNK}: prefill + first "
+        f"token {prefill_ms:.1f} ms (5b: {ref['prefill_ms']:.1f}), peak {peak:.2f} GiB (5b: "
+        f"{ref['peak']:.2f}); launches {launches}")
+    log(f"  [{label}] launches predicted: {want}")
+    if launches != want:
+        fail(f"launch counts of the {label} chunked prefill differ from the prediction")
+    with LogitsRecorder(rt) as whole:
+        again, _ = rt.generate_batch(ids, vf, max_new_tokens=BATCH_NEW_TOKENS)
+    if [t for t, _ in again] != ref["tokens"]:
+        fail(f"[{label}] 5b's batch repeated gives other tokens")
+    equal = 0
+    for r, (t_ref, (t, _)) in enumerate(zip(ref["tokens"], out)):
+        same, _ = first_near_tie(f"[{label}] chunked row {r}", t_ref, whole.steps(r), t,
+                                 rec.steps(r))
+        equal += same == len(t_ref)
+    log(f"  [{label}] chunked prefill: {equal}/{BATCH} rows' tokens equal 5b's whole")
     return launches
 
 
@@ -1856,7 +2223,8 @@ def run_seg(dev, seed: int, rt, tok, frame_shape=(32, 480, 640, 3), sam_frames=4
         "logits near the threshold)")
     if cos_v < vid_cos or cos_f < feat_cos or min(cos_low) < low_cos:
         fail("SAM2 kernel path and plain path disagree at full width")
-    return launches, dict(video=video, s2=feats.s2, low=low_k,
+    return launches, dict(video=video, s2=feats.s2, low=low_k, conv=conv, frames=frames,
+                          images_sam=images_sam, label_size=label_size, masks=masks[0],
                           weights=weights_fingerprint(rt.model))
 
 
@@ -2216,16 +2584,18 @@ def main() -> int:
         log("stopped after phase 2 (--kernels-only / --match): no result")
         return 0
     log("phase 3: full-width mm_infer on the card")
-    launches, rt, tok = run_path(dev, args.seed, full)
+    launches, rt, tok, qa_request = run_path(dev, args.seed, full)
     log("phase 4: full-width [SEG] segmentation on the card")
     seg_launches, ref_bf16 = run_seg(dev, args.seed, rt, tok)
+    log("phase 4b: streaming, speculative and batched serving on the same model")
+    serving_bf16 = run_serving(dev, rt, tok, qa_request, ref_bf16)
     del rt
     torch.cuda.empty_cache()
     log("phase 5: full-width quantised region referring on the card")
-    int8_launches, batch_int8 = run_referring(
+    int8_launches, batch_int8, serving_int8 = run_referring(
         dev, args.seed, full.replace(quant_llm="int8", quant_kv=True, quant_vision=True),
         "int8 + int8 KV + W8A8 SigLIP", 32)
-    int4_launches, batch_int4 = run_referring(
+    int4_launches, batch_int4, serving_int4 = run_referring(
         dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
     log("phase 6: full-width quantised [SEG] segmentation and SAM2's other predictors")
     qseg_launches, general_launches, batched_launches, ref_int8 = run_quant_seg(
@@ -2248,13 +2618,16 @@ def main() -> int:
     probe_launches = run_probe(dev, smi)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
-        # "launches" is derived: their sum over the thirteen counted calls
+        # "launches" is derived: their sum over the twenty-one counted calls
         by_path = {"qa": launches, "seg": seg_launches, "ref_int8": int8_launches,
                    "ref_int4": int4_launches, "batch_int8": batch_int8,
                    "batch_int4": batch_int4, "seg_int8": qseg_launches,
                    "general_int8": general_launches, "batched_int8": batched_launches,
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
                    "probe": probe_launches}
+        for label, serving in (("bf16", serving_bf16), ("int8", serving_int8),
+                               ("int4", serving_int4)):
+            by_path.update({f"{path}_{label}": counts for path, counts in serving.items()})
         for path, counts in by_path.items():
             k[f"launches_{path}"] = counts[k["name"]]
         k["launches"] = sum(counts[k["name"]] for counts in by_path.values())

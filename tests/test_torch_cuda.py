@@ -17,6 +17,7 @@ the row's RMS (the unfused cuBLAS / SDPA block needs 2.3e-2 against the same
 plain version on an H100).
 """
 
+import dataclasses
 import functools
 
 import pytest
@@ -386,6 +387,8 @@ from ufvideo_tpu_torch.ops.hiera_block import (  # noqa: E402
 QUANT_SHAPES = [
     (1, 256, 128), (3, 512, 132), (8, 3584, 4608), (17, 1024, 260), (32, 3584, 3584),
     (1, 18944, 3584), (2, 3584, 18944), (1, 3584, 152064),
+    # the verify block of speculative decoding (B = 1, K = 4): qkv, down, lm_head
+    (5, 3584, 4608), (5, 18944, 3584), (5, 3584, 152064),
 ]
 
 
@@ -1398,3 +1401,105 @@ def test_block_gemm_plan_on_the_card_equals_python(dev):
             hb.block_gemm_plan(m, n, k)
         with pytest.raises(RuntimeError):
             hb.block_gemm_plan_on_card(m, n, k)
+
+
+# ------------------------------------------------ streaming and speculation --
+# Qwen2-7B's widths at a depth of two layers, random bf16 weights from a
+# seed, on the card: the streamed decode runs the fused loop's kernels at
+# the same shapes, so it must equal it bit for bit; a speculative verify
+# step runs other products (K + 1 rows) and the plain masked attention, so
+# its tokens equal greedy decoding's but where the greedy logits' gap
+# between the two tokens is below the runs' largest logit difference there.
+
+def _card_lm(dev, quant=False, seed=0):
+    from ufvideo_tpu_torch.configs import UFVideoConfig
+    from ufvideo_tpu_torch.models.qwen2 import Qwen2LM
+
+    cfg = dataclasses.replace(UFVideoConfig().llm, num_layers=2)
+    with torch.device("meta"):
+        lm = Qwen2LM(cfg, dtype=torch.bfloat16, quant=quant)
+    lm = lm.to_empty(device=dev)
+    lm.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    return lm.eval()
+
+
+def _card_prompt(dev, lm, lens, seed=1):
+    """Ids with a phrase repeated (so that lookup drafts), their embeddings."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    phrase = torch.randint(3, 150000, (len(lens), 40), generator=g, device=dev)
+    rest = torch.randint(3, 150000, (len(lens), max(lens) - 80), generator=g, device=dev)
+    ids = torch.cat([phrase, rest, phrase], dim=1)
+    with torch.no_grad():
+        return ids, lm.embed(ids)
+
+
+class _Logits:
+    """Keeps what ``lm.logits`` returns (f32) while active."""
+
+    def __init__(self, lm):
+        self.lm = lm
+
+    def __enter__(self):
+        real, self.calls = self.lm.logits, []
+        self.lm.logits = lambda h: self.calls.append(real(h).float()) or self.calls[-1]
+        return self
+
+    def __exit__(self, *exc):
+        del self.lm.logits
+
+
+@pytest.mark.parametrize("quant,kv_quant", [(False, False), (False, True), ("int8", True),
+                                            ("int4", False)],
+                         ids=["bf16", "bf16-kv8", "int8-kv8", "int4"])
+def test_stream_generate_equals_greedy_bit_for_bit(dev, quant, kv_quant):
+    from ufvideo_tpu_torch.models.generate import greedy_generate, stream_generate
+
+    lm = _card_lm(dev, quant)
+    lens = torch.tensor([300, 211], device=dev)
+    _, emb = _card_prompt(dev, lm, [300, 300])
+    kw = dict(max_new_tokens=12, stop_ids=(-1,), cache_max_len=312, vocab_size=152064,
+              kv_quant=kv_quant)
+    fused = greedy_generate(lm, emb, lens, **kw)
+    rows, hid = [[], []], [[], []]
+    for tokens, n, hiddens, _ in stream_generate(lm, emb, lens, chunk=5, **kw):
+        for i, k in enumerate(n.tolist()):
+            rows[i] += tokens[i, :k].tolist()
+            hid[i].append(hiddens[i, :k])
+    for i in range(2):
+        k = int(fused.gen_lens[i])
+        assert rows[i] == fused.tokens[i, :k].tolist()
+        assert torch.equal(torch.cat(hid[i]), fused.hidden[i, :k])
+
+
+@pytest.mark.parametrize("quant,kv_quant", [(False, False), ("int8", True), ("int4", False)],
+                         ids=["bf16", "int8-kv8", "int4"])
+def test_spec_generate_equals_greedy_tokens_but_at_a_near_tie(dev, quant, kv_quant):
+    from ufvideo_tpu_torch.models.generate import greedy_generate
+    from ufvideo_tpu_torch.models.speculative import spec_stream_generate
+    from ufvideo_tpu_torch.ops import quant_matmul as qm
+
+    lm = _card_lm(dev, quant, seed=2)
+    lens = torch.tensor([300], device=dev)
+    ids, emb = _card_prompt(dev, lm, [300], seed=3)
+    kw = dict(max_new_tokens=16, stop_ids=(-1,), vocab_size=152064, kv_quant=kv_quant)
+    with _Logits(lm) as plain:
+        fused = greedy_generate(lm, emb, lens, cache_max_len=320, **kw)
+    toks, logits = [], []
+    with _Logits(lm) as rec:
+        prev = 0
+        for tokens, gen_lens, _, _ in spec_stream_generate(
+                lm, emb, lens, ids, cache_max_len=320, draft_k=4, **kw):
+            n = int(gen_lens[0])
+            toks += tokens[0, prev:n].tolist()
+            logits += list(rec.calls[-1][0, :n - prev])
+            prev = n
+    if quant:
+        wrapper = qm.int4_matmul if quant == "int4" else qm.int8_matvec
+        assert wrapper.last_plan.rows == 5  # the verify block, B = 1 and K = 4
+    want = fused.tokens[0, :int(fused.gen_lens[0])].tolist()
+    assert len(toks) == len(want)
+    for p, (a, b) in enumerate(zip(want, toks)):
+        if a != b:
+            lp, ls = plain.calls[p][0, -1], logits[p]
+            assert float(lp[a] - lp[b]) < float((lp - ls).abs().max()), p
+            break

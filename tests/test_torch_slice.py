@@ -177,18 +177,22 @@ def test_quantised_runtime_uses_the_quantised_modules(quant_runtimes):
 
 
 def test_unported_inputs_raise(runtimes):
-    """What still waits for its slice raises ``NotImplementedError`` naming
-    its ROADMAP item: speculative decoding, chunked prefill. Segmentation on
-    a ``quant_vision`` runtime is served (tests/test_torch_seg_quant.py holds
+    """The serving options that once raised are served: speculative
+    decoding and chunked prefill give JAX's tokens under the same
+    configuration (tests/test_torch_speculative.py and
+    tests/test_torch_batch_api.py hold them in depth). Segmentation on a
+    ``quant_vision`` runtime is served (tests/test_torch_seg_quant.py holds
     its masks against JAX). ``images_sam`` and a ``[SEG]`` in the input are
     served (tests/test_torch_seg.py) and, with nothing to segment, give no
     masks."""
-    _, (rt, tok) = runtimes
+    (jrt, jtok), (rt, tok) = runtimes
     frames = np.zeros((4, 56, 56, 3), np.float32)
     for kw in (dict(spec_decode=4), dict(prefill_chunk=2)):
         held = UFVideoRuntime(rt.cfg.replace(**kw), rt.model, rt.ids, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-            mm_infer(frames, "x", held, tok, max_new_tokens=2)
+        jheld = JRuntime(jrt.cfg.replace(**kw), jrt.params, jrt.ids)
+        text, out = mm_infer(frames, "x", held, tok, max_new_tokens=6)
+        jtext, jout = j_mm_infer(frames, "x", jheld, jtok, max_new_tokens=6)
+        assert out["output"] == jout["output"] and text == jtext, kw
     held = UFVideoRuntime(rt.cfg.replace(quant_vision=True), rt.model, rt.ids, "cpu")
     masks = held.segment_video(np.zeros((2, 128, 128, 3), np.float32), torch.zeros(1, 32), 8, 8)
     assert masks.shape == (1, 2, 8, 8) and masks.dtype == np.bool_

@@ -1,11 +1,12 @@
 """UFVideo in PyTorch and CUDA: the port of ``ufvideo_tpu`` to an NVIDIA
 H100. Imports torch and numpy only (never JAX or ``ufvideo_tpu``).
 
-``model_init`` / ``mm_infer`` are loaded lazily, so importing the package
-builds and loads nothing.
+``model_init`` and the entry points ``mm_infer`` / ``mm_infer_stream`` /
+``mm_infer_batch`` are loaded lazily, so importing the package builds and
+loads nothing.
 """
 
-__all__ = ["model_init", "mm_infer"]
+__all__ = ["model_init", "mm_infer", "mm_infer_stream", "mm_infer_batch"]
 
 
 def __getattr__(name):

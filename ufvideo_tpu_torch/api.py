@@ -9,23 +9,28 @@ raises when CUDA is missing, and the caller passes ``device="cpu"`` to run
 on the CPU (the plain versions of the kernels). The config's ``quant_llm``
 (int8 / int4 weight-only LM), ``quant_kv`` (int8 KV cache) and
 ``quant_vision`` (W8A8 SigLIP tower and W8A8 Hiera trunk of SAM2) build the
-quantised runtime. ``UFVideoRuntime.segment_videos_batched`` segments
-several videos in one walk over their frames. Speculative decoding, chunked
-prefill, checkpoint loading, streaming and batched generation come with
-later slices and raise ``NotImplementedError`` naming their ROADMAP.md item.
+quantised runtime, ``spec_decode`` (prompt-lookup speculation, greedy
+decoding only) and ``prefill_chunk`` (prefill that many sequences at a time)
+the serving options of ``UFVideoRuntime.generate_batch``.
+``UFVideoRuntime.segment_videos_batched`` segments several videos in one
+walk over their frames. ``mm_infer_stream`` yields text deltas as decode
+chunks complete; ``mm_infer_batch`` serves several requests in one
+encode, one generate and one SAM2 propagation. Checkpoint loading comes
+with a later slice and raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .configs import UFVideoConfig, VisionRouting
 from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
-from .mm_utils import tokenizer_multimodal_token, trim_at_stop_strings
-from .models.generate import forward_hidden, greedy_generate
+from .mm_utils import TextDeltaStreamer, tokenizer_multimodal_token, trim_at_stop_strings
+from .models.generate import forward_hidden, greedy_generate, stream_generate
 from .models.region_encoder import resize_mask_to_grid_np
 from .models.sam2.video import (
     encode_video_frames,
@@ -33,11 +38,10 @@ from .models.sam2.video import (
     propagate_video,
     propagate_videos_batched,
 )
+from .models.speculative import spec_generate, spec_stream_generate
 from .models.ufvideo import UFVideoModel
-from .splicing import plan_splice
+from .splicing import plan_lookup_ids, plan_splice
 from .tokenization import SpecialIds, byte_tokenizer_with_ids
-
-_BATCHED_ITEM = "ROADMAP.md queue 1 item 2 (batched and streaming inference)"
 
 
 class UFVideoRuntime:
@@ -169,47 +173,140 @@ class UFVideoRuntime:
         stop_sequences: tuple = (),
     ):
         """Decode B samples together. Returns a list of (ids, hidden
-        [N, hidden]) per sample, plus the shared splice plan."""
+        [N, hidden]) per sample, plus the shared splice plan. With
+        ``cfg.spec_decode`` = K, greedy decoding without multi-token stops
+        runs prompt-lookup speculation with K drafts (the same tokens);
+        ``cfg.prefill_chunk`` prefills that many samples at a time."""
         cfg = self.cfg
-        if cfg.spec_decode or cfg.prefill_chunk:
-            raise NotImplementedError(
-                f"spec_decode / prefill_chunk: {_BATCHED_ITEM}")
         b = len(input_ids_list)
         dev = self.device
         plan, embeds = self._splice_plan(
             input_ids_list, video_feats, region_feats, region_counts_list)
         trim = embeds.shape[1]
-        generator = None
-        if do_sample:
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(seed)
-        res = greedy_generate(
-            self.model.llm,
-            embeds,
-            torch.as_tensor(plan.seq_lens, device=dev),
-            max_new_tokens=max_new_tokens,
-            stop_ids=(self.ids.eos,),
-            cache_max_len=trim + max_new_tokens,
-            vocab_size=cfg.llm.vocab_size,
-            do_sample=do_sample,
-            temperature=temperature,
-            top_p=top_p,
-            generator=generator,
-            stop_sequences=tuple(tuple(s) for s in stop_sequences),
-            kv_quant=bool(cfg.quant_kv),
-        )
+        lens = torch.as_tensor(plan.seq_lens, device=dev)
+        spec_k = int(cfg.spec_decode or 0)
+        if spec_k and not do_sample and not stop_sequences:
+            res = spec_generate(
+                self.model.llm, embeds, lens,
+                torch.as_tensor(plan_lookup_ids(plan)[:, :trim], device=dev),
+                max_new_tokens=max_new_tokens,
+                stop_ids=(self.ids.eos,),
+                cache_max_len=trim + max_new_tokens + spec_k,
+                draft_k=spec_k,
+                vocab_size=cfg.llm.vocab_size,
+                kv_quant=bool(cfg.quant_kv),
+                prefill_chunk=cfg.prefill_chunk,
+            ).as_generate_result()
+        else:
+            res = greedy_generate(
+                self.model.llm,
+                embeds,
+                lens,
+                max_new_tokens=max_new_tokens,
+                stop_ids=(self.ids.eos,),
+                cache_max_len=trim + max_new_tokens,
+                vocab_size=cfg.llm.vocab_size,
+                do_sample=do_sample,
+                temperature=temperature,
+                top_p=top_p,
+                generator=self._generator(do_sample, seed),
+                stop_sequences=tuple(tuple(s) for s in stop_sequences),
+                kv_quant=bool(cfg.quant_kv),
+                prefill_chunk=cfg.prefill_chunk,
+            )
         gen_lens = res.gen_lens.tolist()
         tokens = res.tokens.tolist()
         out = [(tokens[i][: gen_lens[i]], res.hidden[i, : gen_lens[i]]) for i in range(b)]
         return out, plan
+
+    def _generator(self, do_sample: bool, seed: int) -> Optional[torch.Generator]:
+        if not do_sample:
+            return None
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed)
+        return generator
+
+    @torch.no_grad()
+    def generate_stream(
+        self,
+        input_ids: List[int],
+        video_feats: Optional[torch.Tensor],
+        region_feats: Optional[torch.Tensor] = None,
+        region_token_counts: Optional[List[int]] = None,
+        max_new_tokens: int = 128,
+        chunk: int = 16,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        seed: int = 0,
+    ):
+        """Streaming decode of one sample: yields ``(ids, hiddens [n,
+        hidden])`` after the prefill and after each ``chunk`` decode steps,
+        the same tokens as ``generate`` under the same seed. With
+        ``cfg.spec_decode`` set and greedy decoding, each yield is one
+        draft → verify iteration's 1 to K + 1 tokens."""
+        cfg = self.cfg
+        dev = self.device
+        plan, embeds = self._splice_plan(
+            [list(input_ids)], video_feats, region_feats, [region_token_counts or []])
+        trim = embeds.shape[1]
+        lens = torch.as_tensor(plan.seq_lens, device=dev)
+        spec_k = int(cfg.spec_decode or 0)
+        if spec_k and not do_sample:
+            prev = 0
+            for tokens, gen_lens, hiddens, done in spec_stream_generate(
+                self.model.llm, embeds, lens,
+                torch.as_tensor(plan_lookup_ids(plan)[:, :trim], device=dev),
+                max_new_tokens=max_new_tokens,
+                stop_ids=(self.ids.eos,),
+                cache_max_len=trim + max_new_tokens + spec_k,
+                draft_k=spec_k,
+                vocab_size=cfg.llm.vocab_size,
+                kv_quant=bool(cfg.quant_kv),
+                prefill_chunk=cfg.prefill_chunk,
+            ):
+                n = int(gen_lens[0])
+                if n > prev:
+                    yield tokens[0, prev:n].tolist(), hiddens[0, prev:n]
+                    prev = n
+                if bool(done[0]):
+                    return
+            return
+        for tokens, n, hiddens, done in stream_generate(
+            self.model.llm, embeds, lens,
+            max_new_tokens=max_new_tokens,
+            stop_ids=(self.ids.eos,),
+            cache_max_len=trim + max_new_tokens,
+            chunk=chunk,
+            vocab_size=cfg.llm.vocab_size,
+            do_sample=do_sample,
+            temperature=temperature,
+            top_p=top_p,
+            generator=self._generator(do_sample, seed),
+            kv_quant=bool(cfg.quant_kv),
+            prefill_chunk=cfg.prefill_chunk,
+        ):
+            k = int(n[0])
+            if k:
+                yield tokens[0, :k].tolist(), hiddens[0, :k]
+            if bool(done[0]):
+                return
 
     @torch.no_grad()
     def forward_hidden_states(self, input_ids: List[int], video_feats,
                               region_feats=None, region_token_counts=None):
         """One full forward of one sample. Returns (final-layer hidden
         states [1, S, hidden], splice plan)."""
-        plan, embeds = self._splice_plan(
+        return self.forward_hidden_states_batch(
             [input_ids], video_feats, region_feats, [region_token_counts or []])
+
+    @torch.no_grad()
+    def forward_hidden_states_batch(self, input_ids_list: Sequence[List[int]], video_feats,
+                                    region_feats=None, region_counts_list=None):
+        """One full forward of B samples. Returns (final-layer hidden states
+        [B, S, hidden], the shared splice plan)."""
+        plan, embeds = self._splice_plan(
+            input_ids_list, video_feats, region_feats, region_counts_list)
         hidden = forward_hidden(
             self.model.llm, embeds, torch.as_tensor(plan.seq_lens, device=self.device)
         )
@@ -351,12 +448,10 @@ def _assemble_input_ids(instruct, choice, modal_token, tokenizer):
     return tokenizer_multimodal_token(prompt, tokenizer, modal_token)
 
 
-def _encode_video_input(model: UFVideoRuntime, image_or_video, modal: str):
-    """Vision encode for one sample: uint8 input is resized and normalized
-    on the device; the image modal repeats its frame over the frame
-    budget."""
-    if modal == "text":
-        return None
+def _video_pixels(model: UFVideoRuntime, image_or_video, modal: str) -> torch.Tensor:
+    """One sample's frames on the device, ready for the tower: uint8 input
+    is resized and normalized there, float32 is taken in the compute dtype;
+    the image modal repeats its frame over the frame budget."""
     cfg = model.cfg
     pixels = torch.as_tensor(np.ascontiguousarray(image_or_video), device=model.device)
     if pixels.dtype == torch.uint8:
@@ -367,7 +462,42 @@ def _encode_video_input(model: UFVideoRuntime, image_or_video, modal: str):
         pixels = pixels.to(torch.bfloat16)
     if modal == "image":
         pixels = pixels[:1].expand((cfg.budget.num_frames,) + tuple(pixels.shape[1:]))
-    return model.encode_video(pixels[None])
+    return pixels
+
+
+def _encode_video_input(model: UFVideoRuntime, image_or_video, modal: str):
+    """Vision encode for one sample (None for the text modal)."""
+    if modal == "text":
+        return None
+    return model.encode_video(_video_pixels(model, image_or_video, modal)[None])
+
+
+def _sampling(kwargs) -> dict:
+    """The generation keywords of ``mm_infer`` and its siblings: greedy
+    unless ``do_sample`` (then temperature 0.2 and top-p 0.9 unless given)."""
+    do_sample = bool(kwargs.get("do_sample", False))
+    temperature = kwargs.get("temperature")
+    return dict(
+        max_new_tokens=int(kwargs.get("max_new_tokens", 1024)),
+        do_sample=do_sample,
+        temperature=float(0.2 if temperature is None else temperature) if do_sample else 1.0,
+        top_p=float(kwargs.get("top_p", 0.9)),
+        seed=int(kwargs.get("seed", 0)),
+    )
+
+
+def _stop_sequences(tokenizer, stop_strings) -> tuple:
+    return tuple(tuple(tokenizer(s, add_special_tokens=False).input_ids)
+                 for s in stop_strings or [])
+
+
+def _output_text(tokenizer, tokens, stop_strings) -> str:
+    """Decoded text, cut at the first stop string (a string-level backstop:
+    the tokenizer may merge a keyword with the text before it)."""
+    text = tokenizer.decode(tokens, skip_special_tokens=True).strip()
+    if stop_strings:
+        text = trim_at_stop_strings(text, stop_strings).strip()
+    return text
 
 
 def mm_infer(
@@ -427,23 +557,12 @@ def mm_infer(
             pred_masks = model._seg_masks(hidden[0, seg_positions], images_sam, label_size)
         return {"output": None, "pred_masks": pred_masks, "gt_masks": masks}
 
-    do_sample = bool(kwargs.get("do_sample", False))
-    temperature = kwargs.get("temperature")
-    temperature = float(0.2 if temperature is None else temperature) if do_sample else 1.0
     stop_strings = kwargs.get("stop_strings") or []
-    stop_sequences = tuple(
-        tuple(tokenizer(s, add_special_tokens=False).input_ids) for s in stop_strings
-    )
     tokens, hidden, _ = model.generate(
         input_ids, video_feats, region_feats, region_counts,
-        max_new_tokens=int(kwargs.get("max_new_tokens", 1024)),
-        do_sample=do_sample, temperature=temperature,
-        top_p=float(kwargs.get("top_p", 0.9)),
-        stop_sequences=stop_sequences, seed=int(kwargs.get("seed", 0)),
+        stop_sequences=_stop_sequences(tokenizer, stop_strings), **_sampling(kwargs),
     )
-    output_text = tokenizer.decode(tokens, skip_special_tokens=True).strip()
-    if stop_strings:
-        output_text = trim_at_stop_strings(output_text, stop_strings).strip()
+    output_text = _output_text(tokenizer, tokens, stop_strings)
     out = {"output": tokens, "pred_masks": seg_masks_of_generation(
         model, tokens, hidden, images_sam, label_size)}
     if seg:
@@ -460,3 +579,165 @@ def seg_masks_of_generation(model: UFVideoRuntime, tokens, hidden: torch.Tensor,
     if not seg_steps or images_sam is None:
         return []
     return model._seg_masks(hidden[seg_steps], images_sam, label_size)
+
+
+def mm_infer_stream(
+    image_or_video,
+    instruct,
+    model: UFVideoRuntime,
+    tokenizer,
+    modal: str = "video",
+    masks=None,
+    ann_indices=None,
+    frame=None,
+    choice: int = 1,
+    chunk: int = 16,
+    **kwargs,
+):
+    """Streaming QA: yields text deltas as decode chunks complete;
+    ``"".join(deltas).strip()`` is ``mm_infer``'s text under the same
+    sampling state. Path A only: a ``[SEG]`` in the input needs the full
+    forward of ``mm_infer`` and raises ``ValueError``. ``stop_strings`` are
+    honoured on the host between chunks (generation stops at most one chunk
+    after the keyword; the text is cut exactly)."""
+    modal_token = {
+        "image": DEFAULT_IMAGE_TOKEN, "video": DEFAULT_VIDEO_TOKEN, "text": ""
+    }[modal]
+    input_ids = _assemble_input_ids(instruct, choice, modal_token, tokenizer)
+    if model.ids.seg in input_ids:
+        raise ValueError(
+            "streaming covers QA generation only; a [SEG] in the input needs mm_infer")
+    video_feats = _encode_video_input(model, image_or_video, modal)
+    region_feats, region_counts = None, None
+    if frame is not None and masks is not None:
+        region_feats, region_counts = model.pack_and_encode_regions(frame, masks, ann_indices)
+    # the streamer holds back a split multi-byte character and the last
+    # characters a stop string could start in, so the joined deltas equal
+    # the one-shot decode
+    streamer = TextDeltaStreamer(tokenizer, kwargs.get("stop_strings") or [])
+    for ids_chunk, _ in model.generate_stream(
+        input_ids, video_feats, region_feats, region_counts, chunk=chunk, **_sampling(kwargs),
+    ):
+        delta, stopped = streamer.push(ids_chunk)
+        if delta:
+            yield delta
+        if stopped:
+            return
+    delta = streamer.finish()
+    if delta:
+        yield delta
+
+
+def mm_infer_batch(
+    samples: Sequence[Dict[str, Any]],
+    model: UFVideoRuntime,
+    tokenizer,
+    modal: str = "video",
+    choice: int = 1,
+    **kwargs,
+):
+    """Several independent requests in one encode, one generate (or one
+    forward) and one SAM2 propagation, each with ``mm_infer``'s contract.
+
+    Each sample is a dict: ``video`` ([T, H, W, 3] frames, the same T for
+    all, uint8 or preprocessed floats), ``instruct``, and optionally
+    ``masks`` / ``ann_indices`` / ``frame`` (region prompts), ``images_sam``
+    (the same frame count across ``[SEG]`` samples) and ``label_size``.
+    Samples without a ``[SEG]`` in the input take path A: one batched
+    generate, then the hidden state behind each generated ``[SEG]``.
+    Samples with one take path B: one forward over that subset, the hidden
+    state at the position before each input ``[SEG]``. One-object samples
+    of either path share one batched propagation when their frames and mask
+    sizes agree; multi-object samples propagate on their own.
+
+    Returns a list aligned with ``samples``: ``(text, {"output": ids,
+    "pred_masks": [...]})`` for path A, ``(None, {"output": None,
+    "pred_masks": [...], "gt_masks": masks})`` for path B."""
+    cfg = model.cfg
+    dev = model.device
+    modal_token = {
+        "image": DEFAULT_IMAGE_TOKEN, "video": DEFAULT_VIDEO_TOKEN, "text": ""
+    }[modal]
+    b = len(samples)
+    ids_list = [_assemble_input_ids(s["instruct"], choice, modal_token, tokenizer)
+                for s in samples]
+    idx_a = [i for i, ids in enumerate(ids_list) if model.ids.seg not in ids]
+    idx_b = [i for i in range(b) if i not in idx_a]
+
+    video_feats = None
+    if modal != "text":
+        video_feats = model.encode_video(
+            torch.stack([_video_pixels(model, s["video"], modal) for s in samples]))
+
+    # each sample's region tokens, padded to one stream length
+    region_feats, region_counts_list = None, None
+    encoded = [model.pack_and_encode_regions(s["frame"], s["masks"], s.get("ann_indices"))
+               if s.get("frame") is not None and s.get("masks") is not None else None
+               for s in samples]
+    if any(e is not None for e in encoded):
+        first = next(e[0] for e in encoded if e is not None)
+        rt_max = max(e[0].shape[1] for e in encoded if e is not None)
+        region_feats = torch.zeros((b, rt_max, first.shape[-1]), dtype=first.dtype, device=dev)
+        for i, e in enumerate(encoded):
+            if e is not None:
+                region_feats[i, :e[0].shape[1]] = e[0][0]
+        region_counts_list = [e[1] if e is not None else [] for e in encoded]
+
+    rows = lambda x, idx: None if x is None else x[torch.as_tensor(idx, device=dev)]
+    counts = lambda idx: None if region_counts_list is None else [
+        region_counts_list[i] for i in idx]
+    size = cfg.sam.hiera.image_size
+    label = lambda i: tuple(samples[i].get("label_size") or (size, size))
+    images = lambda i: np.asarray(samples[i]["images_sam"])
+
+    def segment(embeds_by_row: Dict[int, torch.Tensor]) -> Dict[int, list]:
+        """[SEG] embeddings [n_obj, dim] by sample → mask stacks by sample:
+        one-object samples in one batched propagation when their frames and
+        mask sizes agree, the rest one sample at a time."""
+        got: Dict[int, list] = {}
+        single = [i for i, e in embeds_by_row.items() if e.shape[0] == 1]
+        if single and len({label(i) for i in single}) == 1 \
+                and len({images(i).shape for i in single}) == 1:
+            m = model.segment_videos_batched(
+                np.stack([images(i) for i in single]),
+                torch.cat([embeds_by_row[i] for i in single]), *label(single[0]))
+            got.update({i: [m[r]] for r, i in enumerate(single)})
+        for i, e in embeds_by_row.items():
+            if i not in got:
+                m = model.segment_video(images(i), e, *label(i))
+                got[i] = [m[j] for j in range(m.shape[0])]
+        return got
+
+    out: List[Any] = [None] * b
+    stop_strings = kwargs.get("stop_strings") or []
+    if idx_a:
+        results, _ = model.generate_batch(
+            [ids_list[i] for i in idx_a], rows(video_feats, idx_a),
+            rows(region_feats, idx_a), counts(idx_a),
+            stop_sequences=_stop_sequences(tokenizer, stop_strings), **_sampling(kwargs))
+        embeds = {}
+        for i, (tokens, hidden) in zip(idx_a, results):
+            steps = [j for j, t in enumerate(tokens) if t == model.ids.seg]
+            if steps and samples[i].get("images_sam") is not None:
+                embeds[i] = model.model.seg_embeddings(hidden[steps])
+        masks = segment(embeds)
+        for i, (tokens, _) in zip(idx_a, results):
+            out[i] = (_output_text(tokenizer, tokens, stop_strings),
+                      {"output": tokens, "pred_masks": masks.get(i, [])})
+    if idx_b:
+        hidden, plan = model.forward_hidden_states_batch(
+            [ids_list[i] for i in idx_b], rows(video_feats, idx_b),
+            rows(region_feats, idx_b), counts(idx_b))
+        embeds = {}
+        for r, i in enumerate(idx_b):
+            # the hidden state at the position before each input [SEG]
+            positions = [int(plan.text_pos_map[r][ti]) - 1
+                         for ti, t in enumerate(ids_list[i]) if t == model.ids.seg]
+            positions = [p for p in positions if p >= 0]
+            if positions and samples[i].get("images_sam") is not None:
+                embeds[i] = model.model.seg_embeddings(hidden[r, positions])
+        masks = segment(embeds)
+        for i in idx_b:
+            out[i] = (None, {"output": None, "pred_masks": masks.get(i, []),
+                             "gt_masks": samples[i].get("masks")})
+    return out

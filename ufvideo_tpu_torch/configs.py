@@ -2,10 +2,8 @@
 segmentation paths (SigLIP + STC-v35 projector + region encoder + Qwen2 +
 SAM2 Hiera-L), mirroring ``ufvideo_tpu/configs.py`` with torch dtypes.
 
-Only the fields this package implements are here, plus ``spec_decode`` and
-``prefill_chunk``, which are accepted and refused at generation time; the
-loss settings come with the training slice (ROADMAP.md queue 1).
-``SAM2HieraConfig`` has no
+Only the fields this package implements are here; the loss settings come
+with the training slice (ROADMAP.md queue 1). ``SAM2HieraConfig`` has no
 ``head_pad``: padding each head to 128 lanes is a TPU layout, and this
 package always runs the native head dim.
 """
@@ -217,9 +215,10 @@ class UFVideoConfig:
     quant_vision: bool = False
     # int8 KV cache with per-position scales (ops.ragged_decode_attention_q8)
     quant_kv: bool = False
-    # accepted for parity with the JAX config; a non-zero value makes
-    # generation raise (ROADMAP.md): chunked prefill, speculative decoding
+    # >0: prefill this many sequences at a time (models/generate.prefill_cache)
     prefill_chunk: int = 0
+    # >0: prompt-lookup speculation with this many drafts a verify step, for
+    # greedy decoding without multi-token stops (models/speculative.py)
     spec_decode: int = 0
 
     @property

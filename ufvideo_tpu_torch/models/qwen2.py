@@ -2,14 +2,17 @@
 
 Layers are an ``nn.ModuleList`` walked by a Python loop; the KV cache is
 one [L, B, Hkv, S, D] tensor per k and v, updated in place (bf16, or int8
-with f32 per-position scales [L, B, Hkv, S]). Three modes:
+with f32 per-position scales [L, B, Hkv, S]). Four modes:
 
   - ``prefill``: causal forward over the prompt that writes k/v into the
     cache (attention: ``ops.flash_attention`` on the unquantised k/v).
   - ``decode``: one token per sequence against the cache, written at
     ``cache_len`` (attention: ``ops.ragged_decode_attention``, or
     ``ops.ragged_decode_attention_q8`` on an int8 cache).
-
+  - ``verify``: a few drafted tokens per sequence written at ``cache_len +
+    i`` and attended with a ragged causal mask over the whole cache (the
+    plain masked attention, as in the JAX layer; an int8 cache is
+    dequantised to the model dtype for it): speculative decoding.
   - ``train``: one causal forward over the whole sequence with no cache
     (attention: ``ops.flash_attention`` with ``kv_lens``): the single
     forward behind ``[SEG]`` hidden states when ``[SEG]`` is in the input.
@@ -21,9 +24,9 @@ weight-only with per-column scales, or packed int4 with group scales. Up to
 a transient and run one ``torch.matmul``. The route is fixed by the tensor's
 device and row count, not read from the environment.
 
-The ``verify`` mode, ring attention and LoRA come with later slices
-(ROADMAP.md). The vocabulary is padded to a multiple of 256; logits of
-padding ids are masked at sampling time.
+Ring attention and LoRA come with later slices (ROADMAP.md). The vocabulary
+is padded to a multiple of 256; logits of padding ids are masked at sampling
+time.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import Qwen2Config
-from ..ops.attention import attention, decode_attention
+from ..ops.attention import attention, decode_attention, xla_attention
 from ..ops.quant_matmul import (
     MAX_ROWS, dequantize_int4, int4_matmul, int4_matmul_plain, int8_matvec,
     int8_matvec_plain)
@@ -235,6 +238,35 @@ class Qwen2DecoderLayer(nn.Module):
             o = attention(
                 q, k, v, causal=True, kv_lens=seq_lens, use_kernel=self.use_kernels
             )
+        elif mode == "verify":
+            # speculative verification (models/speculative.py): the s
+            # drafted tokens' k/v go in place at cache_len + i, and query i
+            # sees the cache up to cache_len + i, the context sequential
+            # decode would give it. Rejected drafts leave entries past the
+            # advanced cache_len, never attended and later overwritten. As in
+            # the JAX layer (ufvideo_tpu/models/qwen2.py:357-364, impl="xla"),
+            # this attention is the plain masked one, not a kernel: s <= ~9
+            # queries over the cache cost little beside the weights the
+            # step reads once for up to s tokens.
+            cache_len = cache_len.long()
+            pidx = cache_len[:, None] + torch.arange(s, device=x.device)  # [B, s]
+            bidx = torch.arange(b, device=x.device)[:, None]
+            if "k_scale" in cache:  # int8 KV cache
+                deq = []
+                for name, val in (("k", k), ("v", v)):
+                    vq, vs = quantize_kv(val)  # [B, s, Hkv, D], [B, s, Hkv]
+                    cache[name][bidx, :, pidx] = vq
+                    cache[name + "_scale"][bidx, :, pidx] = vs
+                    deq.append((cache[name].to(torch.float32)
+                                * cache[name + "_scale"][..., None]).to(x.dtype))
+                kc, vc = deq
+            else:
+                cache["k"][bidx, :, pidx] = k.to(cache["k"].dtype)
+                cache["v"][bidx, :, pidx] = v.to(cache["v"].dtype)
+                kc, vc = cache["k"], cache["v"]
+            smax = kc.shape[2]
+            vmask = torch.arange(smax, device=x.device)[None, None, :] <= pidx[..., None]
+            o = xla_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), mask=vmask)
         elif mode == "decode":
             bidx = torch.arange(b, device=x.device)
             cache_len = cache_len.long()

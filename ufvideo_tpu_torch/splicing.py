@@ -1,10 +1,10 @@
 """Static-shape multimodal splicing.
 
-``plan_splice`` is host numpy, a copy of ``ufvideo_tpu/splicing.py``: every
-sample's spliced sequence is described by ``src_kind`` (0 text, 1 video,
-2 region, 3 pad) and ``src_idx`` (position within that source) over a fixed
-``max_seq_len``. ``apply_splice`` gathers from each source with torch and
-selects by kind.
+``plan_splice`` and ``plan_lookup_ids`` are host numpy, copies of
+``ufvideo_tpu/splicing.py``: every sample's spliced sequence is described by
+``src_kind`` (0 text, 1 video, 2 region, 3 pad) and ``src_idx`` (position
+within that source) over a fixed ``max_seq_len``. ``apply_splice`` gathers
+from each source with torch and selects by kind.
 """
 
 from __future__ import annotations
@@ -116,6 +116,16 @@ def plan_splice(
         labels=out_labels,
         text_pos_map=text_pos_map,
     )
+
+
+def plan_lookup_ids(plan: SplicePlan) -> np.ndarray:
+    """[B, S] token ids at the spliced positions: the text id at text
+    positions, -1 at video, region and pad slots. The history that
+    prompt-lookup drafting (``models/speculative.py``) matches n-grams in:
+    generation positions are spliced positions."""
+    ti = np.clip(plan.src_idx, 0, plan.text_ids.shape[1] - 1)
+    ids = np.take_along_axis(plan.text_ids, ti, axis=1)
+    return np.where(plan.src_kind == KIND_TEXT, ids, -1).astype(np.int32)
 
 
 def apply_splice(
