@@ -1519,6 +1519,43 @@ def expected_referring_launches(cfg, n_generated: int, calls_to_tower: int = 2) 
     return want
 
 
+def expected_spec_launches(cfg, n_verify: int, calls_to_tower: int) -> dict:
+    """Kernel launches of one speculative request (batch 1, ``n_verify``
+    verify steps): the tower's layers per encode; flash for the LLM's layers
+    in prefill; no decode attention (a verify step attends with the plain
+    masked attention, as the JAX layer does); the quantised products: the
+    first token's lm_head at one row, then each verify step's five
+    projections a layer and lm_head at SPEC_K + 1 rows."""
+    want = expected_referring_launches(cfg, 1, calls_to_tower)
+    if cfg.quant_llm:
+        from ufvideo_tpu_torch.quant import quant_bits
+
+        name = "int4_matmul" if quant_bits(cfg.quant_llm) == 4 else "int8_matvec"
+        want[name] = 1 + n_verify * (5 * cfg.llm.num_layers + 1)
+    return want
+
+
+def expected_batch_launches(cfg, n_generated: int, sam_frames: int) -> dict:
+    """Kernel launches of phase 4b's ``mm_infer_batch``: the tower's layers
+    once for the four videos and once for the annotated frame; flash for the
+    LLM's layers in path A's prefill and in path B's forward; a decode
+    attention a layer for each of path A's decode steps; SAM2 on the path-B
+    sample's frames (one object: frame 0 prompted, the rest tracked)."""
+    want = expected_sam_launches(cfg, sam_frames, 1, sam_frames - 1)
+    want["fused_hiera_block"] += 2 * cfg.vision.num_encode_layers
+    want["flash_attention"] += 2 * cfg.llm.num_layers
+    want["ragged_decode_attention"] += cfg.llm.num_layers * (n_generated - 1)
+    return want
+
+
+def expected_chunked_prefill_launches(cfg, n_generated: int, batch: int, chunk: int) -> dict:
+    """Phase 5b's launches with the prefill's flash once a layer for each of
+    the ceil(batch / chunk) chunks."""
+    want = expected_referring_launches(cfg, n_generated, calls_to_tower=0)
+    want["flash_attention"] = cfg.llm.num_layers * -(-batch // chunk)
+    return want
+
+
 # W8A8 kernel path vs plain path: a block alone differs by 7.5e-3 in relative
 # Frobenius norm (re-quantise flips, phase 2); 26 of them in sequence
 QUANT_COS = 0.99
@@ -1801,43 +1838,6 @@ def first_near_tie(what, ref_toks, ref_logits, toks, logits):
     return len(toks), None
 
 
-def expected_spec_launches(cfg, n_verify: int, calls_to_tower: int) -> dict:
-    """Kernel launches of one speculative request (batch 1, ``n_verify``
-    verify steps): the tower's layers per encode; flash for the LLM's layers
-    in prefill; no decode attention (a verify step attends with the plain
-    masked attention, as the JAX layer does); the quantised products: the
-    first token's lm_head at one row, then each verify step's five
-    projections a layer and lm_head at SPEC_K + 1 rows."""
-    want = expected_referring_launches(cfg, 1, calls_to_tower)
-    if cfg.quant_llm:
-        from ufvideo_tpu_torch.quant import quant_bits
-
-        name = "int4_matmul" if quant_bits(cfg.quant_llm) == 4 else "int8_matvec"
-        want[name] = 1 + n_verify * (5 * cfg.llm.num_layers + 1)
-    return want
-
-
-def expected_batch_launches(cfg, n_generated: int, sam_frames: int) -> dict:
-    """Kernel launches of phase 4b's ``mm_infer_batch``: the tower's layers
-    once for the four videos and once for the annotated frame; flash for the
-    LLM's layers in path A's prefill and in path B's forward; a decode
-    attention a layer for each of path A's decode steps; SAM2 on the path-B
-    sample's frames (one object: frame 0 prompted, the rest tracked)."""
-    want = expected_sam_launches(cfg, sam_frames, 1, sam_frames - 1)
-    want["fused_hiera_block"] += 2 * cfg.vision.num_encode_layers
-    want["flash_attention"] += 2 * cfg.llm.num_layers
-    want["ragged_decode_attention"] += cfg.llm.num_layers * (n_generated - 1)
-    return want
-
-
-def expected_chunked_prefill_launches(cfg, n_generated: int, batch: int, chunk: int) -> dict:
-    """Phase 5b's launches with the prefill's flash once a layer for each of
-    the ceil(batch / chunk) chunks."""
-    want = expected_referring_launches(cfg, n_generated, calls_to_tower=0)
-    want["flash_attention"] = cfg.llm.num_layers * -(-batch // chunk)
-    return want
-
-
 def run_stream(dev, rt, tok, label, req) -> dict:
     """``mm_infer_stream`` of a request with chunks of 8: the joined deltas
     are the request's ``mm_infer`` text and its ids the same ids (the same
@@ -1966,14 +1966,6 @@ def run_spec(dev, rt, tok, label, req) -> dict:
         + (f", then a near tie at token {tie}" if tie is not None else "")
         + f"; generate_stream under speculation == mm_infer's {len(toks)} tokens")
     return launches
-
-
-def run_serving(dev, rt, tok, qa, seg) -> dict:
-    """Phase 4b on the bf16 runtime: the stream and the speculative request
-    of phase 3's request, then ``mm_infer_batch`` of four samples."""
-    return {"stream": run_stream(dev, rt, tok, "bf16", qa),
-            "spec": run_spec(dev, rt, tok, "bf16", qa),
-            "batch": run_serving_batch(dev, rt, tok, qa, seg)}
 
 
 def run_serving_batch(dev, rt, tok, qa, seg) -> dict:
@@ -2588,7 +2580,9 @@ def main() -> int:
     log("phase 4: full-width [SEG] segmentation on the card")
     seg_launches, ref_bf16 = run_seg(dev, args.seed, rt, tok)
     log("phase 4b: streaming, speculative and batched serving on the same model")
-    serving_bf16 = run_serving(dev, rt, tok, qa_request, ref_bf16)
+    serving_bf16 = {"stream": run_stream(dev, rt, tok, "bf16", qa_request),
+                    "spec": run_spec(dev, rt, tok, "bf16", qa_request),
+                    "batch": run_serving_batch(dev, rt, tok, qa_request, ref_bf16)}
     del rt
     torch.cuda.empty_cache()
     log("phase 5: full-width quantised region referring on the card")

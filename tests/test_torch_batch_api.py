@@ -1,8 +1,9 @@
 """Batched serving in the port against the JAX package (``tiny_config()``,
 float32, CPU, weights carried by ``load_jax_params``): ``mm_infer_batch`` on
 path A (questions and a ``<region>`` request), path B (a ``[SEG]`` in the
-input) and a mixed batch; ``generate_batch`` under ``cfg.prefill_chunk``;
-and the top-p kept set of ``_sample_token``.
+input), a mixed batch, and uint8 frames on the float, int8 + int8-KV and
+int4 models; ``generate_batch`` under ``cfg.prefill_chunk``; and the top-p
+kept set of ``_sample_token``.
 
 Tolerances: greedy tokens and text exactly. Masks: the share of equal
 pixels at least 0.99, JAX's own limit between batched and per-sample masks
@@ -214,3 +215,29 @@ def test_sample_token_top_p_kept_set_matches_jax(monkeypatch, temperature, top_p
     kept = seen["port"]
     assert 1 <= kept.sum(axis=1).min() and kept.sum(axis=1).max() < 512
     assert kept[np.arange(4), tok.numpy()].all() and kept[np.arange(4), np.asarray(jtok)].all()
+
+
+@pytest.mark.parametrize("kw", [{}, dict(quant_llm="int8", quant_kv=True), dict(quant_llm="int4")],
+                         ids=["float", "int8-kv8", "int4"])
+def test_mm_infer_batch_on_uint8_frames_and_quantised_models(runtimes, kw):
+    """uint8 frames (resized and normalised on the device, as in
+    ``mm_infer``) on the float model and on the LM quantised by the JAX
+    functions: JAX's batch, and each sample's own ``mm_infer``."""
+    from ufvideo_tpu import quant as jq
+
+    (jrt, jtok), (rt, tok) = runtimes
+    if kw:
+        bits = 4 if kw["quant_llm"] == "int4" else 8
+        params = dict(jrt.params, llm=jq.quantize_qwen2_params(jrt.params["llm"], bits=bits))
+        jrt = JRuntime(jrt.cfg.replace(**kw), params, jrt.ids)
+        model = UFVideoModel.empty(rt.cfg.replace(**kw), "cpu")
+        load_jax_params(model, jax.tree.map(np.asarray, params))
+        rt = UFVideoRuntime(rt.cfg.replace(**kw), model, rt.ids, "cpu")
+    rng = np.random.default_rng(13)
+    samples = [{"video": rng.integers(0, 256, (4, 40, 52, 3), dtype=np.uint8),
+                "instruct": q} for q in ("What happens?", "Describe the scene.")]
+    got = mm_infer_batch(samples, rt, tok, max_new_tokens=6)
+    _assert_same(got, j_mm_infer_batch(samples, jrt, jtok, max_new_tokens=6))
+    for s, (text, out) in zip(samples, got):
+        one_text, one = mm_infer(s["video"], s["instruct"], rt, tok, max_new_tokens=6)
+        assert (text, out["output"]) == (one_text, one["output"])

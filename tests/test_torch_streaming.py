@@ -1,8 +1,9 @@
 """Streaming decode in the port against the JAX package (``tiny_config()``,
 float32, CPU): ``stream_generate`` / ``prefill_start`` / ``decode_chunk`` on
-``load_qwen2`` weights against JAX's on the same tree, ``TextDeltaStreamer``
-against its JAX original, and ``mm_infer_stream`` against JAX's and against
-the port's ``mm_infer``.
+``load_qwen2`` weights against JAX's on the same tree (also on the int8 +
+int8-KV and int4 models, quantised by the JAX functions),
+``TextDeltaStreamer`` against its JAX original, and ``mm_infer_stream``
+against JAX's and against the port's ``mm_infer``.
 
 Tolerances: tokens, ``n`` and the loop state exactly; hidden states within
 2e-4, the JAX package's own limit in ``tests/test_streaming.py`` (the same
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from ufvideo_tpu import quant as jq
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.mm_utils import TextDeltaStreamer as JTextDeltaStreamer
 from ufvideo_tpu.models import generate as jgen
@@ -28,15 +30,25 @@ from ufvideo_tpu_torch.weights import load_qwen2
 TOL = 2e-4
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jlm = JQwen2LM(j_tiny_config().llm, dtype=jnp.float32, param_dtype=jnp.float32)
-    params = jlm.init(jax.random.PRNGKey(5), jnp.zeros((1, 8), jnp.int32))["params"]
+def _pair(quant=False):
+    """A JAX LM and the port's LM on one tree, quantised by the JAX
+    functions for ``quant``."""
+    jcfg = j_tiny_config().llm
+    params = JQwen2LM(jcfg, dtype=jnp.float32, param_dtype=jnp.float32).init(
+        jax.random.PRNGKey(5), jnp.zeros((1, 8), jnp.int32))["params"]
+    if quant:
+        params = jq.quantize_qwen2_params(params, bits=4 if quant == "int4" else 8)
+    jlm = JQwen2LM(jcfg, dtype=jnp.float32, param_dtype=jnp.float32, quant=quant)
     with torch.device("meta"):
-        lm = Qwen2LM(tiny_config().llm, dtype=torch.float32)
+        lm = Qwen2LM(tiny_config().llm, dtype=torch.float32, quant=quant)
     lm = lm.to_empty(device="cpu")
     load_qwen2(lm, jax.tree.map(np.asarray, params))
     return (jlm, params), lm.eval()
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair()
 
 
 def _embeds(seed, b=2, s=20):
@@ -83,6 +95,19 @@ def test_stream_matches_jax_and_the_fused_loop(pair, chunk):
     fused = tgen.greedy_generate(lm, torch.from_numpy(embeds), torch.from_numpy(lens), **kw)
     for i, row in enumerate(_rows(got)):
         assert row == fused.tokens[i, :int(fused.gen_lens[i])].tolist()
+
+
+@pytest.mark.parametrize("quant,kv_quant", [("int8", True), ("int4", False)],
+                         ids=["int8-kv8", "int4"])
+def test_stream_matches_jax_on_quantised_models(quant, kv_quant):
+    """The quantised models (weights quantised by the JAX functions), the
+    int8 model on an int8 KV cache: yield for yield JAX's."""
+    (jlm, params), lm = _pair(quant)
+    embeds, lens = _embeds(2), np.asarray([20, 13], np.int32)
+    kw = dict(max_new_tokens=10, stop_ids=(-1,), cache_max_len=30, chunk=3,
+              kv_quant=kv_quant)
+    _assert_yields_equal(_drain(lm, embeds, lens, **kw),
+                         _drain_jax(jlm, params, embeds, lens, **kw))
 
 
 def test_stream_stop_id_mid_chunk(pair):
@@ -279,6 +304,37 @@ def test_mm_infer_stream_matches_jax_and_mm_infer(runtimes):
     assert "".join(sdeltas).strip() == "".join(jsdeltas).strip() == text
     with pytest.raises(ValueError, match="SEG"):
         list(mm_infer_stream(frames, "Segment [SEG].", rt, tok))
+
+
+@pytest.mark.parametrize("kw", [dict(quant_llm="int8", quant_kv=True), dict(quant_llm="int4")],
+                         ids=["int8-kv8", "int4"])
+def test_mm_infer_stream_on_quantised_runtimes(runtimes, kw):
+    """The JAX tree's LM quantised by the JAX functions: the port's stream
+    gives JAX's ``mm_infer`` ids and text, and the port's own."""
+    from ufvideo_tpu.api import UFVideoRuntime as JRuntime
+    from ufvideo_tpu.api import mm_infer as j_mm_infer
+    from ufvideo_tpu_torch.api import UFVideoRuntime, mm_infer, mm_infer_stream
+    from ufvideo_tpu_torch.models.ufvideo import UFVideoModel
+    from ufvideo_tpu_torch.weights import load_jax_params
+
+    (jrt, jtok), (rt, tok) = runtimes
+    bits = 4 if kw["quant_llm"] == "int4" else 8
+    params = dict(jrt.params, llm=jq.quantize_qwen2_params(jrt.params["llm"], bits=bits))
+    jq_rt = JRuntime(jrt.cfg.replace(**kw), params, jrt.ids)
+    model = UFVideoModel.empty(rt.cfg.replace(**kw), "cpu")
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    q_rt = UFVideoRuntime(rt.cfg.replace(**kw), model, rt.ids, "cpu")
+    frames = np.random.default_rng(4).standard_normal((4, 56, 56, 3)).astype(np.float32)
+    jtext, jout = j_mm_infer(frames, "Describe it.", jq_rt, jtok, max_new_tokens=8)
+    text, out = mm_infer(frames, "Describe it.", q_rt, tok, max_new_tokens=8)
+    ids = []
+    for chunk_ids, _ in q_rt.generate_stream(*_request(q_rt, tok, frames, "Describe it."),
+                                             max_new_tokens=8, chunk=3):
+        ids.extend(chunk_ids)
+    deltas = list(mm_infer_stream(frames, "Describe it.", q_rt, tok, chunk=3,
+                                  max_new_tokens=8))
+    assert ids == out["output"] == jout["output"]
+    assert "".join(deltas).strip() == text == jtext
 
 
 def _request(rt, tok, frames, question):
