@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation,
-streaming, speculative and batched serving, quantised region-referring and
-quantised [SEG] paths on one GPU.
+streaming, speculative and batched serving, quantised region-referring,
+quantised [SEG] and HTTP serving paths on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
@@ -81,6 +81,18 @@ Phases, each printed as it runs; any failure exits non-zero:
      propagate_video_general (a language prompt and a box on two frames,
      both directions, stride 2) and segment_videos_batched on two videos,
      each counted, timed and held against the plain path.
+ 6b. serving over HTTP, on the phase-6 runtime: BatchingScheduler
+     (max_batch=8) behind serve_http on 127.0.0.1; nine concurrent requests
+     with 32 uint8 frames of 480x640 as base64 .npy: 6 questions and a
+     <region> request, 32 new tokens (one batch of 7; tokens equal each
+     request's own mm_infer but at a near tie), phase 4's [SEG] request (its
+     RLE masks agree with its mm_infer masks on >= 99% of each frame) and a
+     streamed <region> request (its server-sent deltas join to its mm_infer
+     text); the stats show one batch of 7 and no fallback or error; launches
+     read around the requests and held to the prediction; requests/s, p50 /
+     p95 latency, mean batch, ms from the first request to the last reply,
+     peak memory. Then the first question through submit with its frames
+     as a uint8 tensor on the card: the numpy request's tokens.
 Then one JSON line with every kernel (launches = the sum over the counted
 calls), the card line, and the last line {"ok": true, "device": {...}}.
 """
@@ -2336,9 +2348,10 @@ def run_predictors(dev, seed: int, rt, sam_frames=4, label_size=(480, 640)):
     return launches_g, launches_b
 
 
-def run_quant_seg(dev, seed: int, full):
+def run_quant_seg(dev, seed: int, full, smi: str):
     """Phase 6: the serving configuration (int8 LM, int8 KV cache, W8A8
-    SigLIP and W8A8 Hiera trunk) on a runtime of its own."""
+    SigLIP and W8A8 Hiera trunk) on a runtime of its own; phase 6b serves
+    requests over HTTP on it before it is freed."""
     from ufvideo_tpu_torch import model_init
 
     torch.cuda.reset_peak_memory_stats()
@@ -2354,9 +2367,218 @@ def run_quant_seg(dev, seed: int, full):
     seg, ref = run_seg(dev, seed, rt, tok, feat_cos=SEG_QUANT_FEAT_COS, low_cos=SEG_QUANT_COS,
                        vid_cos=QUANT_COS)
     general, batched = run_predictors(dev, seed, rt)
+    log(" 6b: serving over HTTP on the same runtime")
+    serve = run_http_serving(dev, seed, rt, tok, ref, smi)
     del rt
     torch.cuda.empty_cache()
-    return seg, general, batched, ref
+    return seg, general, batched, ref, serve
+
+
+# Phase 6b: the JAX package's serving configuration (scripts/serve.py
+# --max-batch 8) in the port: BatchingScheduler behind serve_http on the
+# phase-6 runtime. Six questions of different lengths and a <region> request
+# on one video form one path-A batch of 7; phase 4's [SEG] request (path B)
+# and a streamed <region> request ride beside it.
+SERVE_QUESTIONS = (
+    "What happens?",
+    "Describe the video.",
+    "Who is in the video and what are they doing?",
+    "How many people appear?",
+    "What colour is the largest object in the scene, and where does it move?",
+    "Summarise the video in one sentence, then list every object you can see in it.",
+)
+SERVE_REGION_QUESTION = "What is <region> doing in this video?"
+# The window must hold all nine requests' arrival: each handler parses a
+# 39 MB JSON body (base64 .npy of 32 frames) under the GIL, about half a
+# second apiece, so nine arrive over ~4-5 s, and a stream dispatched first
+# shares the GIL with them; twice that, so that the 7 coalesce.
+SERVE_MAX_WAIT_MS = 8000.0
+
+
+def run_http_serving(dev, seed: int, rt, tok, seg, smi: str,
+                     frame_shape=(32, 480, 640, 3), max_new_tokens=32) -> dict:
+    """Phase 6b: concurrent HTTP requests to ``serve_http`` over a
+    ``BatchingScheduler(max_batch=8)`` on ``rt``: the path-A group of 7
+    (tokens against each request's own ``mm_infer`` but at a near tie), the
+    ``[SEG]`` request of ``seg`` (its RLE masks against that request's
+    ``mm_infer`` masks on at least MASK_AGREE of each frame) and a stream
+    (its joined deltas equal the request's ``mm_infer`` text). The stats
+    show one batch of 7 and no fallback or error; launches are counted
+    around the HTTP requests and held to the prediction. Then, through
+    ``submit``, the first question with its frames as a tensor on the card
+    against the same frames as numpy: the same tokens. Returns the launch
+    counts."""
+    import threading
+    import urllib.request
+
+    from ufvideo_tpu_torch import mm_infer, rle
+    from ufvideo_tpu_torch import serve as serve_mod
+
+    cfg = rt.cfg
+    rng = np.random.default_rng(seed + 2)
+    frames = rng.integers(0, 256, frame_shape, dtype=np.uint8)
+    h, w = frame_shape[1:3]
+    mask = np.zeros((1, h, w), np.float32)
+    mask[0, h // 4:3 * h // 4, w // 3:2 * w // 3] = 1.0
+    region = dict(masks=mask, frame=frames[7:8], ann_indices=[[0]])
+    asks = [(q, {}) for q in SERVE_QUESTIONS] + [(SERVE_REGION_QUESTION, region)]
+
+    # each request alone through mm_infer, its logits recorded
+    refs = {}
+    for q, kw in asks:
+        with LogitsRecorder(rt) as rec:
+            text, out = mm_infer(frames, q, rt, tok, max_new_tokens=max_new_tokens, **kw)
+        refs[q] = (text, out["output"], rec.steps())
+
+    video_b64 = serve_mod.np_to_b64(frames)
+    region_body = dict(masks_rle=[rle.encode(mask[0] > 0)],
+                       frame_b64=serve_mod.np_to_b64(region["frame"]), ann_indices=[[0]])
+    bodies = [dict(instruct=q, video_b64=video_b64, max_new_tokens=max_new_tokens,
+                   **(region_body if kw else {})) for q, kw in asks]
+    bodies.append(dict(instruct=seg["conv"], choice=3, video_b64=serve_mod.np_to_b64(seg["frames"]),
+                       images_sam_b64=serve_mod.np_to_b64(seg["images_sam"]),
+                       label_size=list(seg["label_size"])))
+    bodies.append(dict(instruct=SERVE_REGION_QUESTION, video_b64=video_b64,
+                       max_new_tokens=max_new_tokens, stream=True, chunk=8, **region_body))
+    data = [json.dumps(b).encode() for b in bodies]
+    n_a = len(asks)
+
+    batches = []  # the instructs of each mm_infer_batch call, in row order
+    real_batch = serve_mod.mm_infer_batch
+
+    def recording_batch(samples, *a, **kw):
+        batches.append([s["instruct"] for s in samples])
+        return real_batch(samples, *a, **kw)
+
+    serve_mod.mm_infer_batch = recording_batch
+    scheduler = serve_mod.BatchingScheduler(rt, tok, max_batch=8, max_wait_ms=SERVE_MAX_WAIT_MS)
+    server = serve_mod.serve_http(scheduler, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    url = f"http://127.0.0.1:{port}"
+    replies, done_at, errors = [None] * len(data), [0.0] * len(data), []
+
+    def send(i):
+        try:
+            req = urllib.request.Request(url + "/v1/generate", data=data[i],
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                replies[i] = r.read()
+            done_at[i] = time.perf_counter()
+        except Exception as e:  # noqa: BLE001 — reported below, the phase fails
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = all_wrappers()
+        for wr in wrappers.values():
+            wr.launches = 0
+        clients = [threading.Thread(target=send, args=(i,)) for i in range(len(data))]
+        with LogitsRecorder(rt) as rec:
+            t0 = time.perf_counter()
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=900)
+            torch.cuda.synchronize()
+        launches = {k: wr.launches for k, wr in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if errors or any(c.is_alive() for c in clients):
+            fail(f"phase 6b: requests failed or hung: {errors}")
+        with urllib.request.urlopen(url + "/v1/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        wave = list(batches)
+
+        # the first question alone, its frames as numpy and as a tensor on
+        # the card, through the Python API (max_batch 1: no window)
+        with serve_mod.BatchingScheduler(rt, tok, max_batch=1) as solo:
+            q0 = SERVE_QUESTIONS[0]
+            t_np = time.perf_counter()
+            on_host = solo.submit({"video": frames, "instruct": q0},
+                                  max_new_tokens=max_new_tokens).result(timeout=600)
+            t_card = time.perf_counter()
+            on_card = solo.submit({"video": torch.from_numpy(frames).to(dev), "instruct": q0},
+                                  max_new_tokens=max_new_tokens).result(timeout=600)
+            t_end = time.perf_counter()
+            solo_stats = solo.stats()
+    finally:
+        serve_mod.mm_infer_batch = real_batch
+        server.shutdown()
+        server.server_close()
+        scheduler.close()
+
+    wall = max(done_at) - t0
+    lat = stats.get("latency_s", {})
+    log(f"  served {len(data)} HTTP requests ({n_a} path A, 1 [SEG], 1 stream) in "
+        f"{wall * 1e3:.1f} ms from the first sent to the last reply: "
+        f"{len(data) / wall:.3f} requests/s; latency p50 {lat.get('p50')} s, p95 "
+        f"{lat.get('p95')} s (scheduler stats, max_wait {SERVE_MAX_WAIT_MS:.0f} ms); mean batch "
+        f"{stats['mean_batch_size']:.2f}; peak {peak:.2f} GiB; {smi}")
+    log(f"  stats {stats}; batch sizes {[len(b) for b in wave]}; launches {launches}")
+    if (stats["batches"], stats["batched_samples"], stats["streamed"], stats["requests"]) \
+            != (2, n_a + 1, 1, len(data)) or stats["fallback_samples"] or stats["errors"]:
+        fail("phase 6b: the stats do not show one batch of 7, one [SEG] request and one "
+             "stream without fallback or error")
+    rows = next((b for b in wave if len(b) == n_a), None)
+    if rows is None or sorted(len(b) for b in wave) != [1, n_a] \
+            or sorted(rows) != sorted(q for q, _ in asks):
+        fail(f"phase 6b: the path-A requests did not ride one batch: {wave}")
+
+    # path A: each reply against its request alone
+    batch_steps = [c for c in rec.calls if c.shape[0] == n_a]
+    n_gen = []
+    for i, (q, _) in enumerate(asks):
+        got = json.loads(replies[i])
+        text, ids, ref_logits = refs[q]
+        r = rows.index(q)
+        same, tie = first_near_tie(f"served row {r} vs alone", ids, ref_logits, got["tokens"],
+                                   [c[r, -1] for c in batch_steps])
+        n_gen.append(len(got["tokens"]))
+        log(f"  served row {r} ({q[:32]!r}): tokens equal its own mm_infer's {same}/{len(ids)}"
+            + (f", then a near tie at token {tie}" if tie is not None else ""))
+        if got["pred_masks_rle"]:
+            fail(f"phase 6b: path-A request {i} returned masks")
+
+    # path B: the [SEG] reply's masks against the request's mm_infer masks
+    got = json.loads(replies[n_a])
+    masks = [np.stack([rle.decode(f) for f in obj]).astype(bool) for obj in got["pred_masks_rle"]]
+    if got["text"] is not None or len(masks) != 1 or masks[0].shape != seg["masks"].shape:
+        fail(f"phase 6b [SEG]: text {got['text']!r}, masks {[m.shape for m in masks]}")
+    agree = [float((a == b).mean()) for a, b in zip(masks[0], seg["masks"])]
+    log(f"  served [SEG] masks against its mm_infer's: agreement per frame "
+        f"{[round(a, 5) for a in agree]} (tolerance >= {MASK_AGREE})")
+    if min(agree) < MASK_AGREE:
+        fail("phase 6b: the served [SEG] masks disagree with mm_infer's")
+
+    # the stream: server-sent events ending in done, joined to the text
+    events = [json.loads(line[len(b"data: "):]) for line in replies[-1].split(b"\n\n")
+              if line.startswith(b"data: ")]
+    if not events or events[-1] != {"done": True} or not all("delta" in e for e in events[:-1]):
+        fail(f"phase 6b: the stream's events do not end in done: {events[-3:]}")
+    streamed = "".join(e["delta"] for e in events[:-1]).strip()
+    if streamed != refs[SERVE_REGION_QUESTION][0]:
+        fail("phase 6b: the stream's joined deltas differ from mm_infer's text")
+    log(f"  stream: {len(events) - 1} deltas joined == mm_infer's text "
+        f"({len(streamed)} characters)")
+
+    # the card tensor against numpy
+    if on_card[1]["output"] != on_host[1]["output"] or on_card[0] != on_host[0] \
+            or solo_stats["errors"] or solo_stats["fallback_samples"]:
+        fail("phase 6b: frames as a tensor on the card give other tokens than as numpy")
+    log(f"  submit with the frames on the card: {len(on_card[1]['output'])} tokens == the "
+        f"numpy request's ({(t_card - t_np) * 1e3:.1f} ms numpy, {(t_end - t_card) * 1e3:.1f} "
+        f"ms card tensor)")
+
+    want = expected_referring_launches(cfg, max(n_gen), calls_to_tower=2)
+    for extra in (expected_seg_launches(cfg, len(seg["images_sam"])),
+                  expected_referring_launches(cfg, len(refs[SERVE_REGION_QUESTION][1]), 2)):
+        want = {k: want[k] + extra[k] for k in want}
+    log(f"  launches predicted (the batch of {n_a}, the [SEG] request, the stream): {want}")
+    if launches != want:
+        fail("phase 6b: launch counts of the served requests differ from the prediction")
+    return launches
 
 
 # Phase 7: the request of phases 4 and 6 under the vision towers' other
@@ -2592,8 +2814,8 @@ def main() -> int:
     int4_launches, batch_int4, serving_int4 = run_referring(
         dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
     log("phase 6: full-width quantised [SEG] segmentation and SAM2's other predictors")
-    qseg_launches, general_launches, batched_launches, ref_int8 = run_quant_seg(
-        dev, args.seed, full)
+    qseg_launches, general_launches, batched_launches, ref_int8, serve_launches = run_quant_seg(
+        dev, args.seed, full, smi)
     log("phase 7: the vision towers' other routings, the windowed MultiScaleAttention, "
         "the int8-rate probe")
     from ufvideo_tpu_torch.configs import VisionRouting
@@ -2612,11 +2834,12 @@ def main() -> int:
     probe_launches = run_probe(dev, smi)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
-        # "launches" is derived: their sum over the twenty-one counted calls
+        # "launches" is derived: their sum over the twenty-two counted runs
         by_path = {"qa": launches, "seg": seg_launches, "ref_int8": int8_launches,
                    "ref_int4": int4_launches, "batch_int8": batch_int8,
                    "batch_int4": batch_int4, "seg_int8": qseg_launches,
                    "general_int8": general_launches, "batched_int8": batched_launches,
+                   "serve_int8": serve_launches,
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
                    "probe": probe_launches}
         for label, serving in (("bf16", serving_bf16), ("int8", serving_int8),

@@ -1503,3 +1503,27 @@ def test_spec_generate_equals_greedy_tokens_but_at_a_near_tie(dev, quant, kv_qua
             lp, ls = plain.calls[p][0, -1], logits[p]
             assert float(lp[a] - lp[b]) < float((lp - ls).abs().max()), p
             break
+
+
+# ------------------------------------------------------- frames on the card --
+# tests/test_torch_tensor_inputs.py's cases with every input a tensor on the
+# card, against the same inputs as numpy arrays, on a tiny runtime on the
+# card. Its float32 widths are not the kernels' (bf16 at the model's widths),
+# so it runs the plain versions there: what is under test is the input path.
+# chip_smoke.py phase 6b sends card frames through the kernels at full width.
+
+@pytest.fixture
+def card_runtime(dev):
+    from ufvideo_tpu_torch.api import model_init
+    from ufvideo_tpu_torch.configs import tiny_config
+
+    rt, _, tok = model_init(cfg=tiny_config(), device=dev, seed=3)
+    rt.model.set_use_kernels(False)
+    return rt, tok
+
+
+@pytest.mark.parametrize("entry", ["mm_infer", "mm_infer_stream", "mm_infer_batch"])
+def test_entry_points_take_card_tensors(card_runtime, entry):
+    from test_torch_tensor_inputs import CHECKS
+
+    CHECKS[entry](*card_runtime, "cuda")

@@ -126,14 +126,18 @@ def test_model_init_needs_cuda_unless_cpu_is_asked():
 
 def test_port_imports_no_jax():
     """In a fresh interpreter where importing jax / flax fails, the port
-    imports and runs a CPU forward, and loads no ufvideo_tpu module."""
+    imports and runs a CPU forward, and loads no ufvideo_tpu module; with
+    cv2 / PIL / imageio blocked too (the card's machine has none of them),
+    the serving layer, the RLE codec and the host media module import and
+    build a sample from a JSON body."""
     script = textwrap.dedent(
         """
         import sys
-        sys.modules["jax"] = None
-        sys.modules["flax"] = None
+        for name in ("jax", "flax", "cv2", "PIL", "imageio"):
+            sys.modules[name] = None
         import numpy as np
         import ufvideo_tpu_torch
+        from ufvideo_tpu_torch import mm_utils, rle, serve
         from ufvideo_tpu_torch import model_init, mm_infer
         from ufvideo_tpu_torch.configs import tiny_config
         rt, _, tok = model_init(cfg=tiny_config(), device="cpu", seed=1)
@@ -153,6 +157,12 @@ def test_port_imports_no_jax():
             text, out = mm_infer(frames, "Who is <region>?", rt, tok, masks=mask,
                                  frame=frames[:1], max_new_tokens=3)
             assert len(out["output"]) >= 1
+        mask = np.eye(5, dtype=np.uint8)
+        body = {"instruct": "Who is <region>?", "video_b64": serve.np_to_b64(frames),
+                "masks_rle": [rle.encode(mask)], "frame_b64": serve.np_to_b64(frames[:1])}
+        sample, _, _ = serve._build_sample(body, tiny_config())
+        assert (sample["masks"][0] == mask).all() and sample["video"].shape == frames.shape
+        assert mm_utils.frame_sample(10, num_frames=4).tolist() == [1, 3, 6, 8]
         bad = [m for m in sys.modules if m in ("jax", "flax", "ufvideo_tpu")
                or m.startswith(("jax.", "flax.", "ufvideo_tpu."))]
         bad = [m for m in bad if sys.modules[m] is not None]
@@ -167,3 +177,39 @@ def test_port_imports_no_jax():
         text=True, timeout=300,
     )
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr
+
+
+@pytest.mark.parametrize("kw,routing", [
+    ({}, {}),
+    (dict(quant_llm="int8", quant_kv=True, quant_vision=True), {}),
+    (dict(quant_llm="int4"), {}),
+    ({}, dict(siglip_ln_dtype="bf16", qpool_fused=False, hiera_stage_nb=4, hiera_gelu="poly")),
+    (dict(quant_llm="int8", quant_kv=True, quant_vision=True),
+     dict(siglip_int8_fused=False, sam2_int8_special=False)),
+], ids=["float", "int8-kv8-w8a8", "int4", "routing-7a", "int8-routing-7b"])
+def test_model_init_writes_every_parameter(monkeypatch, kw, routing):
+    """Every parameter and buffer ``model_init`` allocates is drawn or set:
+    each fresh allocation starts as a sentinel (NaN, or -128 in int8, which
+    no quantised value takes), and none may survive. A tensor left as
+    allocated holds whatever the memory held, finite on one run and NaN on
+    the next."""
+    from ufvideo_tpu_torch import model_init
+    from ufvideo_tpu_torch.configs import VisionRouting, tiny_config
+
+    real = torch.empty_like
+
+    def sentinel(t, *a, **k):
+        out = real(t, *a, **k)
+        if out.is_floating_point():
+            out.fill_(float("nan"))
+        elif out.dtype == torch.int8:
+            out.fill_(-128)
+        return out
+
+    monkeypatch.setattr(torch, "empty_like", sentinel)
+    rt, _, _ = model_init(cfg=tiny_config().replace(**kw), device="cpu", seed=0,
+                          routing=VisionRouting(**routing))
+    left = [name for name, t in [*rt.model.named_parameters(), *rt.model.named_buffers()]
+            if (t.is_floating_point() and not torch.isfinite(t).all())
+            or (t.dtype == torch.int8 and bool((t == -128).any()))]
+    assert not left

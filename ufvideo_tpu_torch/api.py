@@ -79,12 +79,13 @@ class UFVideoRuntime:
         frames, it gives the same region tokens."""
         cfg = self.cfg
         rt = cfg.region.region_token_num
-        masks = np.asarray(masks)
+        # masks are resized to the patch grid on the host, as in JAX
+        masks = masks.detach().cpu().numpy() if torch.is_tensor(masks) else np.asarray(masks)
         if ann_indices is None:
             ann_indices = [[i] for i in range(len(masks))]
         grid = cfg.vision.image_size // cfg.vision.patch_size
         pow2 = lambda n: 1 << max(n - 1, 0).bit_length()
-        pixels = torch.as_tensor(np.ascontiguousarray(frame_pixels), device=self.device)
+        pixels = _on_device(frame_pixels, self.device)
         if pixels.dtype == torch.uint8:
             from .ops.image_pipeline import siglip_preprocess_device
 
@@ -344,7 +345,7 @@ class UFVideoRuntime:
         video → boolean masks [V, T, H, W]. All V · T frames are encoded in
         chunks; the propagation walks the T frames once with the videos
         riding the object-batch dimension."""
-        images = images_sam if torch.is_tensor(images_sam) else np.asarray(images_sam)
+        images = _frames(images_sam)
         v, t = images.shape[:2]
         sam = self.model.sam
         feats = encode_video_frames(
@@ -359,9 +360,7 @@ class UFVideoRuntime:
     def _sam_images(self, images_sam) -> torch.Tensor:
         """Frames for SAM2 on the device: raw uint8 frames are resized and
         normalised there, floats are taken as preprocessed."""
-        if not torch.is_tensor(images_sam):
-            images_sam = np.ascontiguousarray(images_sam)
-        images = torch.as_tensor(images_sam, device=self.device)
+        images = _on_device(images_sam, self.device)
         if images.dtype == torch.uint8:
             from .ops.image_pipeline import sam_preprocess_device
 
@@ -376,6 +375,21 @@ class UFVideoRuntime:
         h, w = label_size if label_size is not None else (size, size)
         m = self.segment_video(images_sam, embeds, h, w)
         return [m[i] for i in range(m.shape[0])]
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """Frames or masks as a tensor on ``device``: a tensor as it is (on
+    whatever device it lies), anything else through a contiguous numpy
+    array (torch refuses the negative strides of a reversed view)."""
+    if not torch.is_tensor(x):
+        x = np.ascontiguousarray(x)
+    return torch.as_tensor(x, device=device)
+
+
+def _frames(x):
+    """A tensor as it is, anything else as a numpy array: ``.shape`` without
+    copying frames off the card."""
+    return x if torch.is_tensor(x) else np.asarray(x)
 
 
 def _check_device(device) -> torch.device:
@@ -453,7 +467,7 @@ def _video_pixels(model: UFVideoRuntime, image_or_video, modal: str) -> torch.Te
     is resized and normalized there, float32 is taken in the compute dtype;
     the image modal repeats its frame over the frame budget."""
     cfg = model.cfg
-    pixels = torch.as_tensor(np.ascontiguousarray(image_or_video), device=model.device)
+    pixels = _on_device(image_or_video, model.device)
     if pixels.dtype == torch.uint8:
         from .ops.image_pipeline import siglip_preprocess_device
 
@@ -517,8 +531,9 @@ def mm_infer(
 ):
     """Reference-compatible inference entry.
 
-    image_or_video: [T, H, W, 3] frames (numpy or tensor, NHWC), uint8 raw
-    or float preprocessed. ``images_sam``: the frames SAM2 segments
+    image_or_video: [T, H, W, 3] frames (numpy, or a tensor on the CPU or
+    the card, NHWC), uint8 raw or float preprocessed; ``frame``, ``masks``
+    and ``images_sam`` may be tensors too. ``images_sam``: the frames SAM2 segments
     ([T, S, S, 3] preprocessed floats or raw uint8), ``label_size`` the
     (height, width) of the masks.
 
@@ -688,7 +703,7 @@ def mm_infer_batch(
         region_counts_list[i] for i in idx]
     size = cfg.sam.hiera.image_size
     label = lambda i: tuple(samples[i].get("label_size") or (size, size))
-    images = lambda i: np.asarray(samples[i]["images_sam"])
+    images = lambda i: _frames(samples[i]["images_sam"])
 
     def segment(embeds_by_row: Dict[int, torch.Tensor]) -> Dict[int, list]:
         """[SEG] embeddings [n_obj, dim] by sample → mask stacks by sample:
@@ -697,9 +712,9 @@ def mm_infer_batch(
         got: Dict[int, list] = {}
         single = [i for i, e in embeds_by_row.items() if e.shape[0] == 1]
         if single and len({label(i) for i in single}) == 1 \
-                and len({images(i).shape for i in single}) == 1:
+                and len({tuple(images(i).shape) for i in single}) == 1:
             m = model.segment_videos_batched(
-                np.stack([images(i) for i in single]),
+                torch.stack([_on_device(images(i), dev) for i in single]),
                 torch.cat([embeds_by_row[i] for i in single]), *label(single[0]))
             got.update({i: [m[r]] for r, i in enumerate(single)})
         for i, e in embeds_by_row.items():

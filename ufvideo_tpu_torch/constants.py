@@ -1,6 +1,6 @@
-"""Token conventions the video-QA path needs (a copy of the parts of
-``ufvideo_tpu/constants.py`` it uses: same sentinel ids, same special-token
-order, so prompts tokenize identically in both packages)."""
+"""Token conventions and frame budgets the port needs (a copy of the parts
+of ``ufvideo_tpu/constants.py`` it uses: same sentinel ids, same
+special-token order, so prompts tokenize identically in both packages)."""
 
 IGNORE_INDEX = -100
 
@@ -18,6 +18,10 @@ MODAL_INDEX_MAP = {
     "<video>": VIDEO_TOKEN_INDEX,
     "<audio>": AUDIO_TOKEN_INDEX,
 }
+
+# Frame budgets of the host video loaders (``mm_utils.load_frames``).
+NUM_FRAMES = 32
+NUM_FRAMES_PER_SECOND = 1
 
 TEMPORAL_TOKEN_FORMAT = "<TEMP-{:03d}>"
 NUM_TEMPORAL_TOKENS = 100

@@ -138,6 +138,11 @@ class PositionEmbeddingRandom(nn.Module):
             torch.empty(2, num_pos_feats, dtype=dtype)
         )
 
+    def reset_own_parameters(self, gen: torch.Generator) -> None:
+        from .. import init
+
+        init.normal_(self.positional_encoding_gaussian_matrix, 1.0, gen)  # flax normal(1.0)
+
     def forward(self, coords: torch.Tensor) -> torch.Tensor:
         """coords normalized to [0, 1], [..., 2] → [..., 2·feats], float32."""
         c = 2.0 * coords.float() - 1.0
