@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation,
 streaming, speculative and batched serving, quantised region-referring,
-quantised [SEG] and HTTP serving paths on one GPU.
+quantised [SEG], HTTP serving and continuous-batching engine paths and its
+launchers on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
@@ -27,7 +28,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      products at rows 1, 2, 5 (the verify block of speculative decoding,
      B = 1 and K = 4), 8, 17 and 32, each with the grid it launched, its
      rate on the weight bytes, its ratio to the bound and, at one row, the
-     2-32-row kernel's time); the W8A8 block
+     2-32-row kernel's time); both decode kernels also at the engine's
+     step (8 slots of a 4608-position cache, ragged, three at length 1);
+     the W8A8 block
      also at Hiera-L's four windowed shapes, and the W8A8 q-pool block,
      LN-matmul and block tail at the shapes the quantised trunk gives them.
   3. path: model_init at full width (SigLIP-SO400M + STC-v35 + Qwen2-7B,
@@ -93,6 +96,23 @@ Phases, each printed as it runs; any failure exits non-zero:
      p95 latency, mean batch, ms from the first request to the last reply,
      peak memory. Then the first question through submit with its frames
      as a uint8 tensor on the card: the numpy request's tokens.
+ 6c. the continuous-batching engine, on the phase-6 runtime: StreamingEngine
+     (8 slots, chunks of 8, a 512-token cap, 2 admitters) takes 6b's first
+     question alone, its second after the first's first chunk, then six at
+     once from six client threads, one streamed; then a spec_k=4 engine (6
+     slots) two staggered questions; 32 new tokens each. Tokens equal each
+     question's 6b mm_infer tokens but at a near tie; the stream's deltas
+     join to its text; completed = admissions = requests, no error, an
+     admission of several requests, fewer chunks than serialized requests
+     need, spec drafts; launches read around each engine and held to the
+     prediction from its stats; requests/s, p50 / p95, prep / install /
+     step seconds, peak memory.
+ 6d. the launchers, each a process of its own on the card: python -m
+     ufvideo_tpu_torch.loadtest at full width (int8 LLM, uint8 frames, 8
+     clients, 16 requests, 32 tokens; its JSON line printed, labelled
+     synthetic: 16 completed, no error), then python -m
+     ufvideo_tpu_torch.serve --tiny --engine --port 0: one request and one
+     stream over HTTP, then SIGINT and a clean exit.
 Then one JSON line with every kernel (launches = the sum over the counted
 calls), the card line, and the last line {"ok": true, "device": {...}}.
 """
@@ -417,9 +437,14 @@ def kernel_flash(dev, timer, gen):
 
 # (label, B, S, lens) of the decode shapes phase 2 holds: Qwen2-7B's 4 kv
 # heads of 7 query heads at the QA request's cache, batch 1 and a ragged 4;
-# lens None takes the kind's batch-1 length
+# lens None takes the kind's batch-1 length. Then the engine's step (phase
+# 6c): 8 slots of a 4608-position cache (max_seq_len 4096 + a 512-token
+# cap), five live slots at 6b's prompt lengths a few tokens in, two never
+# admitted and one retired (its length reset to 0) at length 1 over rows a
+# former request left
 DECODE_SHAPES = (("B=1 cache 2944 lens {}", 1, 2944, None),
-                 ("B=4 ragged lens", 4, 2944, [2944, 1, 1500, 129]))
+                 ("B=4 ragged lens", 4, 2944, [2944, 1, 1500, 129]),
+                 ("B=8 engine slots lens {}", 8, 4608, [2785, 1, 2794, 2819, 1, 2848, 1, 2851]))
 DECODE_B1_LENS = {"bf16": [2771], "q8": [2800]}
 
 
@@ -2368,10 +2393,14 @@ def run_quant_seg(dev, seed: int, full, smi: str):
                        vid_cos=QUANT_COS)
     general, batched = run_predictors(dev, seed, rt)
     log(" 6b: serving over HTTP on the same runtime")
-    serve = run_http_serving(dev, seed, rt, tok, ref, smi)
-    del rt
+    serve, served = run_http_serving(dev, seed, rt, tok, ref, smi)
+    log(" 6c: the continuous-batching engine on the same runtime")
+    engine = run_engine(dev, rt, tok, served, smi)
+    del rt, served
     torch.cuda.empty_cache()
-    return seg, general, batched, ref, serve
+    log(" 6d: the launchers, each in a process of its own")
+    run_launchers(smi)
+    return seg, general, batched, ref, serve, engine
 
 
 # Phase 6b: the JAX package's serving configuration (scripts/serve.py
@@ -2578,7 +2607,392 @@ def run_http_serving(dev, seed: int, rt, tok, seg, smi: str,
     log(f"  launches predicted (the batch of {n_a}, the [SEG] request, the stream): {want}")
     if launches != want:
         fail("phase 6b: launch counts of the served requests differ from the prediction")
-    return launches
+    return launches, dict(frames=frames, refs=refs)
+
+
+# Phase 6c: the JAX package's continuous-batching engine (scripts/serve.py
+# --engine) in the port, on the phase-6 runtime, with phase 6b's frames and
+# questions: 8 slots, chunks of 8, a 512-token cap (a 4608-position int8
+# cache), 2 admitters, 32 new tokens. The speculative engine takes 6 slots:
+# a verify step's products then have 6 x (SPEC_K + 1) = 30 rows, inside the
+# quantised kernels' 32 (at 8 slots, 40 rows would dequantise every weight).
+ENGINE_NEW_TOKENS = 32
+ENGINE_SPEC_SLOTS = 6
+# the most an engine request's logits may differ, at any of its positions,
+# from the one-row mm_infer path's fed the same tokens: sound runs read
+# 0.056-0.07 at a first difference (8-row against 1-row quantised
+# products); a slot reading another request's cache, or a scratch before its
+# prefill ended, moves the logits by O(1)
+ENGINE_LOGIT_BOUND = 0.2
+
+
+class EngineLogits:
+    """While active, keeps each engine request's logits by token position,
+    keyed by its future: for token 0 the one-row call an admitter made for
+    the prefill row ``_Prepared.src`` names; then the decode worker's calls,
+    through the slot the request holds at that call (a plain step makes the
+    next token; a verify step's K + 1 rows make the tokens from the slot's
+    generated length on). It also keeps each request's tokens as it
+    retires. Recording launches none of the counted kernels."""
+
+    def __init__(self, rt, engine_mod):
+        self.llm, self.vocab, self.mod = rt.model.llm, rt.cfg.llm.vocab_size, engine_mod
+        self.eng = None
+
+    def attach(self, eng):
+        self.eng = eng
+        real_retire = eng._retire
+
+        def retire(slot):
+            st = eng._slots[slot]
+            self.tokens[id(st.req.future)] = st.streamer.ids
+            real_retire(slot)
+
+        eng._retire = retire
+
+    def __enter__(self):
+        import threading
+
+        from ufvideo_tpu_torch.models.generate import _mask_vocab_logits
+
+        self.pos, self.tokens, last = collections.defaultdict(dict), {}, {}
+        real = self.llm.logits
+        real_prep = self._real_prep = self.mod._Prepared
+
+        def logits(h):
+            out = real(h)
+            lg = _mask_vocab_logits(out.float(), self.vocab)
+            name = threading.current_thread().name
+            if name.startswith("ufvideo-admit"):  # first tokens, one row a call
+                rows = last.setdefault(threading.get_ident(), [])
+                rows[:] = rows[-31:] + list(lg[:, -1])
+            elif name == "ufvideo-engine":
+                eng = self.eng
+                gen = eng._spec_state.gen_lens.tolist() if eng.spec_k else None
+                for r, sl in enumerate(eng._slots):
+                    if sl is not None:
+                        d = self.pos[id(sl.req.future)]
+                        if gen is None:
+                            d[len(d)] = lg[r, -1]
+                        else:
+                            d.update({gen[r] + i: lg[r, i] for i in range(lg.shape[1])})
+            return out
+
+        def prepared(req, scratch, src, *rest):
+            g = scratch["k"].shape[1]  # the prefill's rows, their first tokens the last g
+            self.pos[id(req.future)][0] = last[threading.get_ident()][-g:][src]
+            return real_prep(req, scratch, src, *rest)
+
+        self.llm.logits, self.mod._Prepared = logits, prepared
+        return self
+
+    def __exit__(self, *exc):
+        del self.llm.logits
+        self.mod._Prepared = self._real_prep
+
+    def steps(self, fut) -> list:
+        """The request's logits by position (position p made token p)."""
+        d = self.pos[id(fut)]
+        return [d[p] for p in range(len(d))]
+
+
+def forced_logits(rt, tok, frames, q, toks) -> list:
+    """The one-row ``mm_infer`` path fed ``toks`` in place of its own
+    choices (teacher forcing): its logits by position, each made in the
+    context of the tokens before it, as the engine's were."""
+    from ufvideo_tpu_torch import mm_infer
+    from ufvideo_tpu_torch.models import generate as generate_mod
+
+    real, nth = generate_mod._sample_token, iter(toks)
+
+    def forced(logits, *_):
+        return torch.full((logits.shape[0],), next(nth), dtype=torch.int64,
+                          device=logits.device)
+
+    generate_mod._sample_token = forced
+    try:
+        with LogitsRecorder(rt) as rec:
+            _, out = mm_infer(frames, q, rt, tok, max_new_tokens=len(toks))
+    finally:
+        generate_mod._sample_token = real
+    if out["output"] != toks:
+        fail("phase 6c: the forced mm_infer did not take the engine's tokens")
+    return rec.steps()
+
+
+def _wait_until(cond, what, timeout=120.0):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            fail(f"phase 6c: {what} did not happen within {timeout:.0f} s")
+        time.sleep(0.002)
+
+
+def expected_engine_launches(cfg, stats) -> dict:
+    """Kernel launches of an engine run on the int8 serving runtime, from
+    its stats (thread timing decides how many requests an admission takes):
+    the W8A8 tower's layers once an admission dispatch; flash for the LLM's
+    layers once a prefill (one a length bucket); each request's first token's
+    lm_head at one row; a plain step's q8 decode attention a layer and its
+    five products a layer and lm_head at the slot count; a verify step's
+    five products a layer and lm_head at slots x (K + 1) rows and no decode
+    attention (the verify attends with the plain masked attention)."""
+    want = dict.fromkeys(all_wrappers(), 0)
+    layers = cfg.llm.num_layers
+    want["fused_block_w8a8"] = cfg.vision.num_encode_layers * stats["admit_batches"]
+    want["flash_attention"] = layers * stats["prefills"]
+    steps = stats["chunks"] if "spec" in stats else stats["decode_steps"]
+    if "spec" not in stats:
+        want["ragged_decode_attention_q8"] = layers * steps
+    want["int8_matvec"] = stats["admissions"] + steps * (5 * layers + 1)
+    return want
+
+
+def run_engine(dev, rt, tok, served, smi) -> dict:
+    """Phase 6c: ``StreamingEngine`` on the phase-6 runtime with phase 6b's
+    frames (32 uint8 480x640) and questions, 32 new tokens each. The plain
+    engine (8 slots, chunks of 8, 2 admitters) takes one question alone, a
+    second after the first's first chunk, then, once the second is in its
+    slot, six at once from six client threads, one streamed; the six arrive
+    while the harness holds the engine's admission lock, so the two
+    admitters each hold one and the next admission takes the other four
+    (the admission chain is what batches them, not the arrival race).
+    Then a speculative engine (K = SPEC_K, 6 slots) takes two staggered
+    questions. Each request's tokens equal its
+    6b ``mm_infer`` tokens but at a near tie (``first_near_tie`` on the
+    engine's own logits), and at every position its logits lie within
+    ``ENGINE_LOGIT_BOUND`` of the one-row ``mm_infer`` path's fed the same
+    tokens (``forced_logits``); the stream's deltas join to its tokens' text;
+    ``completed`` / ``admissions`` = requests, ``errors`` and
+    ``admit_fallback_requests`` 0, an admission carried several requests,
+    fewer chunks than serialized requests need;
+    spec drafts > 0; launches counted around each engine (wrapper counts
+    from 0 before it is built, read after ``close``) and held to
+    ``expected_engine_launches``. Returns {"plain": ..., "spec": ...}."""
+    import threading
+
+    from ufvideo_tpu_torch import engine as engine_mod
+
+    cfg = rt.cfg
+    frames, refs = served["frames"], served["refs"]
+    qs = SERVE_QUESTIONS
+    wrappers = all_wrappers()
+    sample = lambda q: {"video": frames, "instruct": q}
+    n = ENGINE_NEW_TOKENS
+
+    def counted(label, traffic, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for wr in wrappers.values():
+            wr.launches = 0
+        with EngineLogits(rt, engine_mod) as rec:
+            eng = engine_mod.StreamingEngine(rt, tok, chunk=8, max_new_cap=512, admitters=2,
+                                             **kw)
+            rec.attach(eng)
+            t0 = time.perf_counter()
+            try:
+                asked = traffic(eng)
+            finally:
+                eng.close(timeout=600)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        launches = {k: wr.launches for k, wr in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        st = eng.stats()
+        lat = st.get("latency_s", {})
+        log(f"  [{label}] {len(asked)} requests in {wall * 1e3:.1f} ms from the first submit "
+            f"to close: {len(asked) / wall:.3f} requests/s; latency p50 {lat.get('p50')} s, "
+            f"p95 {lat.get('p95')} s; prep_s {st['prep_s']}, install_s {st['install_s']}, "
+            f"step_s {st['step_s']}; cache {eng.cache_positions} positions; peak {peak:.2f} "
+            f"GiB; {smi}")
+        log(f"  [{label}] stats {st}")
+        for i, (q, fut, reply) in enumerate(asked):
+            toks = rec.tokens.get(id(fut))
+            if toks is None:
+                fail(f"phase 6c [{label}]: request {i} never retired")
+            text, ref_ids, ref_logits = refs[q]
+            same, tie = first_near_tie(f"[{label}] request {i} vs its mm_infer", ref_ids,
+                                       ref_logits, toks, rec.steps(fut))
+            engine_logits = rec.steps(fut)
+            if len(engine_logits) < len(toks):
+                fail(f"phase 6c [{label}]: request {i}'s logits were not all recorded")
+            diffs = [float((a - b).abs().max()) for a, b in
+                     zip(engine_logits, forced_logits(rt, tok, frames, q, toks))]
+            worst = max(range(len(diffs)), key=diffs.__getitem__)
+            log(f"  [{label}] request {i} vs the one-row path fed its {len(toks)} tokens: "
+                f"largest logit difference {diffs[worst]:.4f} at token {worst} (bound "
+                f"{ENGINE_LOGIT_BOUND})")
+            if diffs[worst] > ENGINE_LOGIT_BOUND:
+                fail(f"phase 6c [{label}]: request {i}'s logits at token {worst} differ by "
+                     f"{diffs[worst]:.4f} from the one-row path's on the same tokens")
+            if isinstance(reply, list):  # the stream's deltas
+                joined = "".join(reply).strip()
+                if joined != tok.decode(toks, skip_special_tokens=True).strip():
+                    fail(f"phase 6c [{label}]: the stream's deltas differ from its tokens' text")
+                kind = f"stream, {len(reply)} deltas joined == its text"
+            else:
+                if reply[1]["output"] != toks or reply[1]["pred_masks"]:
+                    fail(f"phase 6c [{label}]: request {i}'s reply differs from its tokens")
+                kind = "reply"
+            log(f"  [{label}] request {i} ({q[:32]!r}, {kind}): tokens equal its mm_infer's "
+                f"{same}/{len(ref_ids)}" + (f", then a near tie at token {tie}"
+                                            if tie is not None else ""))
+        if (st["completed"], st["admissions"], st["errors"], st["admit_fallback_requests"]) \
+                != (len(asked), len(asked), 0, 0):
+            fail(f"phase 6c [{label}]: completed / admissions / errors / fallbacks "
+                 f"{st['completed']} / {st['admissions']} / {st['errors']} / "
+                 f"{st['admit_fallback_requests']} for {len(asked)} requests")
+        want = expected_engine_launches(cfg, st)
+        log(f"  [{label}] launches {launches}; predicted from the stats {want}")
+        if launches != want:
+            fail(f"phase 6c [{label}]: launch counts differ from the prediction")
+        return launches, st
+
+    def plain_traffic(eng):
+        asked = []
+        f0 = eng.submit(sample(qs[0]), max_new_tokens=n)
+        asked.append([qs[0], f0, None])
+        _wait_until(lambda: eng.stats()["chunks"] >= 1, "the first request's first chunk")
+        asked.append([qs[1], eng.submit(sample(qs[1]), max_new_tokens=n), None])
+        _wait_until(lambda: eng.stats()["admissions"] >= 2, "the second request's admission")
+        six = [[q, None, None] for q in qs]
+        submitted, errors = threading.Barrier(len(six) + 1), []
+
+        def client(i):
+            try:
+                if i == 2:
+                    six[i][1] = eng.submit_stream(sample(qs[i]), max_new_tokens=n)
+                    submitted.wait(120)
+                    six[i][2] = list(six[i][1])
+                else:
+                    six[i][1] = eng.submit(sample(qs[i]), max_new_tokens=n)
+                    submitted.wait(120)
+                    six[i][2] = six[i][1].result(timeout=600)
+            except Exception as e:  # noqa: BLE001 — reported below, the phase fails
+                errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(six))]
+        with eng._admit_lock:
+            for c in clients:
+                c.start()
+            submitted.wait(120)
+            _wait_until(lambda: eng._queue.qsize() <= len(six) - eng.n_admitters,
+                        "both admitters taking a request", timeout=10)
+        for c in clients:
+            c.join(timeout=900)
+        if errors or any(c.is_alive() for c in clients):
+            fail(f"phase 6c: client requests failed or hung: {errors}")
+        for a in asked:
+            a[2] = a[1].result(timeout=600)
+        return asked + six
+
+    def spec_traffic(eng):
+        f0 = eng.submit(sample(qs[0]), max_new_tokens=n)
+        _wait_until(lambda: eng.stats()["chunks"] >= 1, "the first request's first step")
+        f1 = eng.submit(sample(qs[1]), max_new_tokens=n)
+        return [[qs[0], f0, f0.result(timeout=600)], [qs[1], f1, f1.result(timeout=600)]]
+
+    plain, st = counted("engine int8", plain_traffic, max_slots=8)
+    serial = 8 * -(-(n - 1) // 8)
+    if st["admit_batched_requests"] <= st["admit_batches"]:
+        fail("phase 6c: no admission carried more than one request")
+    if st["chunks"] >= serial:
+        fail(f"phase 6c: {st['chunks']} chunks, no fewer than {serial} serialized requests need")
+    log(f"  [engine int8] {st['admit_batched_requests']} requests in {st['admit_batches']} "
+        f"admission dispatches; {st['chunks']} chunks against {serial} serialized")
+    spec, st = counted(f"engine spec_k={SPEC_K}", spec_traffic, max_slots=ENGINE_SPEC_SLOTS,
+                       spec_k=SPEC_K)
+    if st["spec"]["drafted"] <= 0:
+        fail("phase 6c: the speculative engine drafted nothing")
+    log(f"  [engine spec_k={SPEC_K}] drafted {st['spec']['drafted']}, accepted "
+        f"{st['spec']['accepted']} in {st['chunks']} verify steps")
+    return {"plain": plain, "spec": spec}
+
+
+# Phase 6d: the launchers through their entry points, each a process of its
+# own on the card: the loadtest at the launchers' default serving
+# configuration (int8 LLM, bf16 cache, bf16 SigLIP), full width, random
+# weights, as a user starts it and again with the engine's two switches
+# turned the other way (the admitters move the frames; a fence after each
+# admission stage splits prep_s); the HTTP server on the tiny model (its
+# float32 widths run the plain versions on the card), one request and one
+# stream, then SIGINT.
+LOADTEST_ARGS = ("--mode", "engine", "--quant", "int8", "--pixel-dtype", "uint8",
+                 "--clients", "8", "--requests", "16", "--max-new", "32")
+LOADTEST_SWITCHED = {"UFVIDEO_ENGINE_PRESTAGE": "0", "UFVIDEO_ENGINE_STAGE_SYNC": "1"}
+
+
+def run_launchers(smi: str) -> None:
+    import os
+    import signal
+    import urllib.request
+
+    from ufvideo_tpu_torch.serve import np_to_b64
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "ufvideo_tpu_torch.loadtest", *LOADTEST_ARGS]
+    stages = [f"stage_{s}_s" for s in ("transfer", "encode", "splice", "prefill")]
+    for switched in ({}, LOADTEST_SWITCHED):
+        env = {k: v for k, v in os.environ.items() if k not in LOADTEST_SWITCHED}
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root,
+                           env=dict(env, **switched))
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"phase 6d: the loadtest {switched} exited {r.returncode}: "
+                 f"{r.stderr[-3000:]}")
+        line = r.stdout.strip().splitlines()[-1]
+        rec = json.loads(line)
+        bs = rec["backend_stats"]
+        log(f"  loadtest {switched or '(defaults)'} (synthetic: random weights, "
+            f"{' '.join(LOADTEST_ARGS)}; {smi}; {wall:.1f} s with the process's start and "
+            f"model_init): {line}")
+        log(f"  loadtest {switched or '(defaults)'}: {bs['step_s'] / bs['decode_steps'] * 1e3:.1f}"
+            f" ms a decode step (step_s / decode_steps, no recorder); prep_s {bs['prep_s']}"
+            + "".join(f", {k} {bs[k]}" for k in stages if k in bs))
+        if rec["completed"] != 16 or rec["errors"] != 0 or rec["zero_llm"] \
+                or rec["name"] != "serve_loadtest" or bs["admit_fallback_requests"] != 0:
+            fail(f"phase 6d: the loadtest {switched} did not complete 16 requests without "
+                 "error or retry")
+        if switched and not all(k in bs for k in stages):
+            fail("phase 6d: UFVIDEO_ENGINE_STAGE_SYNC=1 did not split prep_s")
+
+    cmd = [sys.executable, "-m", "ufvideo_tpu_torch.serve", "--tiny", "--engine", "--port", "0"]
+    server = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=root)
+    try:
+        first = server.stdout.readline()
+        if not first.startswith("serving on http://127.0.0.1:") or "device=cuda" not in first:
+            fail(f"phase 6d: the server did not start on the card: {first!r} "
+                 f"{server.stderr.read()[-3000:] if server.poll() is not None else ''}")
+        url = "http://127.0.0.1:" + first.split()[2].rsplit(":", 1)[1]
+        frames = np.random.default_rng(1).standard_normal((4, 56, 56, 3)).astype(np.float32)
+        post = lambda body: urllib.request.urlopen(urllib.request.Request(
+            url + "/v1/generate", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"}), timeout=300)
+        body = dict(instruct="What happens?", video_b64=np_to_b64(frames), max_new_tokens=8)
+        with post(body) as resp:
+            reply = json.loads(resp.read())
+        with post(dict(body, stream=True)) as resp:
+            events = [json.loads(e[len("data: "):]) for e in resp.read().decode().split("\n\n")
+                      if e.startswith("data: ")]
+        with urllib.request.urlopen(url + "/v1/stats", timeout=60) as resp:
+            stats = json.loads(resp.read())
+        server.send_signal(signal.SIGINT)
+        out, err = server.communicate(timeout=120)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.communicate()
+    streamed = "".join(e.get("delta", "") for e in events[:-1]).strip()
+    log(f"  serve --tiny --engine on the card: reply {len(reply['tokens'])} tokens, stream "
+        f"{len(events) - 1} deltas; stats {stats}; exit {server.returncode}, "
+        f"{out.strip().splitlines()[-1]!r}")
+    if not events or events[-1] != {"done": True} or streamed != reply["text"] \
+            or (stats["completed"], stats["errors"]) != (2, 0):
+        fail("phase 6d: the server's reply and stream disagree, or it counted an error")
+    if server.returncode != 0 or not out.strip().endswith("server stopped"):
+        fail(f"phase 6d: the server did not stop cleanly: {err[-3000:]}")
 
 
 # Phase 7: the request of phases 4 and 6 under the vision towers' other
@@ -2814,8 +3228,8 @@ def main() -> int:
     int4_launches, batch_int4, serving_int4 = run_referring(
         dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
     log("phase 6: full-width quantised [SEG] segmentation and SAM2's other predictors")
-    qseg_launches, general_launches, batched_launches, ref_int8, serve_launches = run_quant_seg(
-        dev, args.seed, full, smi)
+    (qseg_launches, general_launches, batched_launches, ref_int8, serve_launches,
+     engine_launches) = run_quant_seg(dev, args.seed, full, smi)
     log("phase 7: the vision towers' other routings, the windowed MultiScaleAttention, "
         "the int8-rate probe")
     from ufvideo_tpu_torch.configs import VisionRouting
@@ -2839,7 +3253,8 @@ def main() -> int:
                    "ref_int4": int4_launches, "batch_int8": batch_int8,
                    "batch_int4": batch_int4, "seg_int8": qseg_launches,
                    "general_int8": general_launches, "batched_int8": batched_launches,
-                   "serve_int8": serve_launches,
+                   "serve_int8": serve_launches, "engine_int8": engine_launches["plain"],
+                   "engine_spec_int8": engine_launches["spec"],
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
                    "probe": probe_launches}
         for label, serving in (("bf16", serving_bf16), ("int8", serving_int8),

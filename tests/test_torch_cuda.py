@@ -644,6 +644,48 @@ def test_quant_rows_kernel_repeats_bit_for_bit(dev, bits, rows):
     assert torch.equal(first, wrapper(*args))
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_products_on_two_threads_equal_one_thread(dev, bits):
+    """The serving engine's admitters and decode worker launch the quantised
+    products from several threads, each on a stream of its own. At a
+    two-pass plan (the slices' partial sums go through the per-stream
+    scratch), two threads launching at once on their own streams get their
+    single-threaded results bit for bit, and the launch count loses none."""
+    import threading
+
+    wrapper = qm.int8_matvec if bits == 8 else qm.int4_matmul
+    extra = (64,) if bits == 4 else ()
+    inputs = [_rows_inputs(dev, bits, 32, 3584, 4608, seed=70 + 2 * i) for i in range(2)]
+    want = [wrapper(*args, *extra) for args in inputs]
+    plan = wrapper.last_plan
+    assert plan.ksplit > 1 and plan.cluster == 1  # the second pass reads the partials
+    torch.cuda.synchronize()
+    got, errors, n = [[], []], [], 50
+    together = threading.Barrier(2)
+    before = wrapper.launches
+
+    def run(i):
+        try:
+            stream = torch.cuda.Stream(dev)
+            with torch.cuda.stream(stream):
+                together.wait(60)
+                for _ in range(n):
+                    got[i].append(wrapper(*inputs[i], *extra))
+                stream.synchronize()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not errors and all(len(g) == n for g in got)
+    assert wrapper.launches - before == 2 * n
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i]), i
+
+
 @pytest.mark.parametrize(
     "b,hkv,g,s,d,lens",
     [

@@ -128,8 +128,9 @@ def test_port_imports_no_jax():
     """In a fresh interpreter where importing jax / flax fails, the port
     imports and runs a CPU forward, and loads no ufvideo_tpu module; with
     cv2 / PIL / imageio blocked too (the card's machine has none of them),
-    the serving layer, the RLE codec and the host media module import and
-    build a sample from a JSON body."""
+    the serving layer (the scheduler, the engine, both launchers), the RLE
+    codec and the host media module import and build a sample from a JSON
+    body."""
     script = textwrap.dedent(
         """
         import sys
@@ -137,7 +138,7 @@ def test_port_imports_no_jax():
             sys.modules[name] = None
         import numpy as np
         import ufvideo_tpu_torch
-        from ufvideo_tpu_torch import mm_utils, rle, serve
+        from ufvideo_tpu_torch import engine, loadtest, mm_utils, rle, serve
         from ufvideo_tpu_torch import model_init, mm_infer
         from ufvideo_tpu_torch.configs import tiny_config
         rt, _, tok = model_init(cfg=tiny_config(), device="cpu", seed=1)

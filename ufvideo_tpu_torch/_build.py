@@ -6,6 +6,11 @@ loaded with ``ctypes``. The hash covers the source, every ``csrc/*.cuh`` and
 the compiler flags, so an edited source is rebuilt on its next use. Sources
 that need a build are compiled in parallel, one ``nvcc`` each. A failed
 build raises with the compiler's output; nothing falls back to another path.
+
+Threads: ``load`` builds and loads each library once under a lock (the
+serving engine's admitter threads reach their first kernels together), a
+build writes to a temporary path of its own process and thread, and
+``count_launch`` adds to a wrapper's launch count under a lock.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -29,6 +35,15 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. ``+=`` on a function attribute is a
+    read and then a write, so two threads launching at once could lose one."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:
@@ -63,7 +78,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
         if out.exists():
             seconds[name] = 0.0
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (
@@ -88,14 +103,16 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        lib.ufv_error_string.argtypes = [ctypes.c_int]
-        lib.ufv_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+    """The loaded library for ``csrc/<name>.cu``, built first if needed; a
+    second thread asking meanwhile waits for the first one's build."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib.ufv_error_string.argtypes = [ctypes.c_int]
+            lib.ufv_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
 
 

@@ -410,6 +410,7 @@ def model_init(
     seed: int = 0,
     tokenizer_path: Optional[str] = None,
     routing: Optional[VisionRouting] = None,
+    sam_path: Optional[str] = None,
 ):
     """Build (runtime, processor, tokenizer). With ``model_path`` None the
     weights are random, drawn on ``device`` from ``seed`` with the JAX
@@ -420,9 +421,11 @@ def model_init(
     model is the quantisation of the float model of the same seed.
     ``routing`` (``VisionRouting``, default the JAX package's default
     routing) picks the vision towers' kernels and modules; every routing
-    holds the same parameters and draws the same weights from a seed."""
+    holds the same parameters and draws the same weights from a seed.
+    ``model_path``, ``tokenizer_path`` and ``sam_path`` (checkpoints) raise
+    until checkpoint loading is ported."""
     device = _check_device(device)
-    if model_path or tokenizer_path:
+    if model_path or tokenizer_path or sam_path:
         raise NotImplementedError(
             "checkpoint and HF tokenizer loading: ROADMAP.md queue 1 item 4 (checkpoints)"
         )

@@ -82,6 +82,17 @@ def make_kv_cache(
     }
 
 
+def copy_cache_row(cache: Dict[str, torch.Tensor], scratch: Dict[str, torch.Tensor],
+                   slot: int, src: int = 0) -> None:
+    """Write row ``src`` of a scratch cache into row ``slot`` of ``cache``,
+    in place, over the scratch's positions (a scratch may be shorter and
+    hold several rows), on every leaf: ``k`` / ``v`` [L, B, Hkv, S, D] and,
+    on the int8 cache, ``k_scale`` / ``v_scale`` [L, B, Hkv, S]."""
+    for name, c in cache.items():
+        p = scratch[name]
+        c[:, slot, :, :p.shape[3]].copy_(p[:, src])
+
+
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-position symmetric int8: x [..., D] → (int8 values, f32 scales
     [...]); the 1e-12 floor sits inside the division and nothing clips."""

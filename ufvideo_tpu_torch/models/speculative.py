@@ -19,6 +19,9 @@ forward against the cache (k/v written at each row's own positions),
 accepts the matching prefix plus the model's next token, truncates at a
 stop id and advances the row's write position. ``spec_generate`` loops to
 the end; ``spec_stream_generate`` yields after every iteration.
+``spec_slot_admit`` and ``spec_set_done`` are the continuous-batching
+engine's hooks (``engine.py``): they reset one row of a persistent state for
+a new request and retire rows the host decided are finished.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from .generate import GenerateResult, _mask_vocab_logits, prefill_cache
-from .qwen2 import Qwen2LM, make_kv_cache
+from .qwen2 import Qwen2LM, copy_cache_row, make_kv_cache
 
 
 class SpecResult(NamedTuple):
@@ -248,3 +251,40 @@ def spec_stream_generate(
         state = _spec_body(model, state, k=k, stop_ids=stop_ids, vocab_size=vocab_size,
                            max_new_tokens=max_new_tokens, prompt_len=s)
         yield state.tokens, state.gen_lens, state.hiddens, state.done
+
+
+@torch.no_grad()
+def spec_slot_admit(state: SpecState, slot: int, scratch_cache: Dict[str, torch.Tensor],
+                    t0: int, seq_len: int, hist_row: torch.Tensor, src: int = 0) -> SpecState:
+    """Reset row ``slot`` of a persistent loop state, in place, for a newly
+    admitted request: row ``src`` of its prefilled scratch cache (which may
+    hold several requests' rows, and fewer positions than the state's cache)
+    goes into the slot's first positions on every cache leaf; the slot's
+    tokens and hidden states are zeroed, its first token is ``t0``, its
+    history is ``hist_row`` [S + max_new] with ``t0`` at offset S, it is
+    live with one generated token and no drafts. ``it`` and every other row
+    are left as they are: each per-row operation of ``_spec_body`` is
+    row-independent. Returns the state with ``cache_len`` / ``cur`` /
+    ``done`` / ``gen_lens`` / counters updated in place too."""
+    copy_cache_row(state.cache, scratch_cache, slot, src)
+    s = state.hist.shape[1] - state.tokens.shape[1]  # the prompt part's width
+    state.tokens[slot] = 0
+    state.tokens[slot, 0] = t0
+    state.hiddens[slot] = 0
+    state.hist[slot] = hist_row.to(device=state.hist.device, dtype=state.hist.dtype)
+    state.hist[slot, s] = t0
+    state.cache_len[slot] = seq_len
+    state.cur[slot] = t0
+    state.done[slot] = False
+    state.gen_lens[slot] = 1
+    state.n_drafted[slot] = 0
+    state.n_accepted[slot] = 0
+    return state
+
+
+@torch.no_grad()
+def spec_set_done(state: SpecState, mask) -> SpecState:
+    """OR a host mask [B] into ``done``, in place (rows retired between steps
+    by the budget or a stop string)."""
+    state.done.logical_or_(torch.as_tensor(mask, dtype=torch.bool, device=state.done.device))
+    return state

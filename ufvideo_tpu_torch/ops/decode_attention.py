@@ -181,7 +181,7 @@ def _launch(q, k_cache, v_cache, lens, chunk: int, scale: Optional[float],
             v_scale.data_ptr(), lens.data_ptr(), *scratch)
         _build.check(lib, code, "ragged_decode_attention_q8")
         wrapper = ragged_decode_attention_q8
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     wrapper.last_split = (chunk, b * hkv * n)
     return out
 

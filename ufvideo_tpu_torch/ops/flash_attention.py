@@ -228,7 +228,7 @@ def flash_attention(
         scale, int(causal), splits, chunk, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, code, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -278,7 +278,7 @@ def fused_hiera_block(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "fused_hiera_block")
-    fused_hiera_block.launches += 1
+    _build.count_launch(fused_hiera_block)
     return out
 
 
@@ -351,7 +351,7 @@ def fused_hiera_stage(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "fused_hiera_stage")
-    fused_hiera_stage.launches += 1
+    _build.count_launch(fused_hiera_stage)
     return out
 
 
@@ -600,7 +600,7 @@ def fused_ln_matmul(
             *_ptrs(x, vecs[0], vecs[1], w, vecs[2], torch.empty_like(x), out), n * s, c, d,
             float(eps), stream)
     _build.check(lib, code, "fused_ln_matmul")
-    fused_ln_matmul.launches += 1
+    _build.count_launch(fused_ln_matmul)
     return out
 
 
@@ -646,7 +646,7 @@ def fused_block_tail(
         torch.cuda.current_stream(shortcut.device).cuda_stream,
     )
     _build.check(lib, code, "fused_block_tail")
-    fused_block_tail.launches += 1
+    _build.count_launch(fused_block_tail)
     return out
 
 
@@ -750,7 +750,7 @@ def fused_qpool_block(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "fused_qpool_block")
-    fused_qpool_block.launches += 1
+    _build.count_launch(fused_qpool_block)
     return out
 
 
@@ -899,7 +899,7 @@ def fused_block_w8a8(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "fused_block_w8a8")
-    fused_block_w8a8.launches += 1
+    _build.count_launch(fused_block_w8a8)
     return out
 
 
@@ -946,7 +946,7 @@ def fused_ln_matmul_w8a8(
         float(eps), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "fused_ln_matmul_w8a8")
-    fused_ln_matmul_w8a8.launches += 1
+    _build.count_launch(fused_ln_matmul_w8a8)
     return out
 
 
@@ -1007,7 +1007,7 @@ def fused_block_tail_w8a8(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "fused_block_tail_w8a8")
-    fused_block_tail_w8a8.launches += 1
+    _build.count_launch(fused_block_tail_w8a8)
     return out
 
 
@@ -1105,7 +1105,7 @@ def fused_qpool_block_w8a8(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "fused_qpool_block_w8a8")
-    fused_qpool_block_w8a8.launches += 1
+    _build.count_launch(fused_qpool_block_w8a8)
     return out
 
 

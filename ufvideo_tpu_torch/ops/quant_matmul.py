@@ -296,7 +296,7 @@ def _launch_row(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, bits: int, g
     )
     wrapper = int8_matvec if bits == 8 else int4_matmul
     _build.check(lib, code, wrapper.__name__)
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     wrapper.last_plan = plan
     return out
 
@@ -322,7 +322,7 @@ def _launch_rows(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, bits: int, 
     )
     wrapper = int8_matvec if bits == 8 else int4_matmul
     _build.check(lib, code, wrapper.__name__)
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     wrapper.last_plan = plan
     return out
 

@@ -81,7 +81,7 @@ def mha_full_attention_packed(
     code = lib.mha_packed_bf16(qkv.data_ptr(), out.data_ptr(), b, s, num_heads, head_dim,
                                torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, code, "mha_full_attention_packed")
-    mha_full_attention_packed.launches += 1
+    _build.count_launch(mha_full_attention_packed)
     return out
 
 

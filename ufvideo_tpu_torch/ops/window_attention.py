@@ -47,7 +47,7 @@ def fused_window_attention(
         qkv.data_ptr(), out.data_ptr(), nw, s, num_heads, head_dim,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, code, "fused_window_attention")
-    fused_window_attention.launches += 1
+    _build.count_launch(fused_window_attention)
     return out
 
 

@@ -92,7 +92,7 @@ def probe_step(x: torch.Tensor, w: torch.Tensor, quant: bool) -> torch.Tensor:
         y = torch.empty((m, n), dtype=torch.float32, device=x.device)
         code = lib.probe_gemm_bf16(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n, stream)
     _build.check(lib, code, "probe_step")
-    probe_step.launches += 1
+    _build.count_launch(probe_step)
     return y
 
 

@@ -20,10 +20,24 @@ Design notes:
 - A failed batch retries each sample alone, so one poisoned request cannot
   take down its batchmates; ``stats()`` counts the retried samples
   (``fallback_samples``) and the failures (``errors``).
+
+The launcher (the counterpart of ``scripts/serve.py``) loads the model once
+and serves over HTTP through the scheduler, or with ``--engine`` through the
+continuous-batching ``engine.StreamingEngine``::
+
+    python -m ufvideo_tpu_torch.serve --quant int8 --port 8000 --max-batch 8
+    python -m ufvideo_tpu_torch.serve --engine --engine-chunk 8 --max-new-cap 512
+    python -m ufvideo_tpu_torch.serve --tiny --device cpu --engine --port 0
+
+It runs on the card unless ``--device cpu`` is given. Without
+``--model-path`` the weights are random (seed 0); checkpoint loading is
+not ported yet and the path options end in ``model_init``'s error. SIGINT
+(Ctrl-C) stops the server and drains the backend.
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import io
 import json
@@ -551,3 +565,102 @@ def serve_http(
     server = ThreadingHTTPServer((host, port), Handler)
     server.scheduler = scheduler
     return server
+
+
+# --------------------------------------------------------------------------
+# Launcher
+# --------------------------------------------------------------------------
+
+def add_model_args(p: argparse.ArgumentParser, quant: str) -> None:
+    """The model options both launchers take (this one and ``loadtest``)."""
+    p.add_argument("--model-path", default="")
+    p.add_argument("--sam-path", default="")
+    p.add_argument("--tokenizer-path", default="")
+    p.add_argument("--tiny", action="store_true",
+                   help="random tiny-config weights (a smoke mode; on the card its float32 "
+                        "widths are not the kernels' shapes, so it runs the plain versions)")
+    p.add_argument("--quant", default=quant, choices=["none", "int8", "int4"],
+                   help="LLM weight quantisation ('none' = bf16)")
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: the card unless 'cpu' is given")
+
+
+def runtime_from_args(args, **replace):
+    """(runtime, tokenizer) for the model options of ``add_model_args``;
+    ``replace`` goes into the config (quant_kv, prefill_chunk, ...)."""
+    from .api import model_init
+    from .configs import UFVideoConfig, tiny_config
+
+    cfg = tiny_config() if args.tiny else UFVideoConfig()
+    if args.quant != "none":
+        cfg = cfg.replace(quant_llm=args.quant)
+    if replace:
+        cfg = cfg.replace(**replace)
+    rt, _, tok = model_init(args.model_path or None, cfg=cfg, device=args.device,
+                            tokenizer_path=args.tokenizer_path or None,
+                            sam_path=args.sam_path or None)
+    if args.tiny:
+        rt.model.set_use_kernels(False)
+    return rt, tok
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(
+        prog="python -m ufvideo_tpu_torch.serve",
+        description="HTTP inference server over the batching scheduler or the engine")
+    add_model_args(p, quant="int8")
+    p.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunked prefill: sequences per prefill dispatch")
+    p.add_argument("--spec-decode", type=int, default=0,
+                   help="scheduler: prompt-lookup speculation draft length (greedy; 0 = off)")
+    p.add_argument("--engine", action="store_true",
+                   help="slot continuous batching (in-flight admission; greedy QA only)")
+    p.add_argument("--engine-chunk", type=int, default=8, help="decode steps per engine step")
+    p.add_argument("--engine-spec", type=int, default=0,
+                   help="engine speculative draft length (0 = off)")
+    p.add_argument("--max-new-cap", type=int, default=512,
+                   help="engine per-request max_new_tokens cap (sizes its KV cache)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000, help="0 picks a free port")
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-wait-ms", type=float, default=50.0)
+    p.add_argument("--max-queue", type=int, default=256)
+    p.add_argument("--request-timeout-s", type=float, default=600.0)
+    args = p.parse_args(argv)
+
+    extra = {}
+    if args.kv_quant:
+        extra["quant_kv"] = True
+    if args.prefill_chunk:
+        extra["prefill_chunk"] = args.prefill_chunk
+    if args.spec_decode:
+        extra["spec_decode"] = args.spec_decode
+    model, tokenizer = runtime_from_args(args, **extra)
+    if args.engine:
+        from .engine import StreamingEngine
+
+        backend = StreamingEngine(model, tokenizer, max_slots=args.max_batch,
+                                  chunk=args.engine_chunk, max_new_cap=args.max_new_cap,
+                                  max_queue=args.max_queue, spec_k=args.engine_spec)
+    else:
+        backend = BatchingScheduler(model, tokenizer, max_batch=args.max_batch,
+                                    max_wait_ms=args.max_wait_ms, max_queue=args.max_queue)
+    server = serve_http(backend, host=args.host, port=args.port,
+                        request_timeout_s=args.request_timeout_s)
+    mode = "engine" if args.engine else "scheduler"
+    print(f"serving on http://{args.host}:{server.server_address[1]} ({mode}, "
+          f"max_batch={args.max_batch}, quant={args.quant}, device={model.device})", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+        server.server_close()
+        backend.close()
+    print("server stopped", flush=True)
+
+
+if __name__ == "__main__":
+    main()
