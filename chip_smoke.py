@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation,
-streaming, speculative and batched serving, quantised region-referring,
-quantised [SEG], HTTP serving and continuous-batching engine paths and its
-launchers on one GPU.
+streaming, speculative and batched serving, checkpoint export and loading,
+quantised region-referring, quantised [SEG], HTTP serving and
+continuous-batching engine paths and its launchers on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
@@ -55,6 +55,16 @@ Phases, each printed as it runs; any failure exits non-zero:
      phase 3's video and phase 4's [SEG] request (path A's tokens equal each
      sample's own but at a near tie; path B's masks agree with phase 4's on
      >= 99% of each frame); each counted and held to what the code predicts.
+ 3b. checkpoints, on the same model (after 4b): the runtime written by the
+     port's exporter (save_hf_checkpoint: one pytorch_model.bin of bf16 and
+     config.json; SAM2 again as a standalone .gamma .pt) into a temporary
+     directory, after a check that the disk holds it; then loaded back by
+     model_init(model_path=, sam_path=): every parameter equal to phase 3's
+     runtime bit for bit, phase 3's ids and phase 4's masks exactly; and
+     with the serving configuration (int8 LLM, int8 KV, W8A8 towers): every
+     parameter equal to model_init(cfg=that, seed) bit for bit, and phase
+     3's question through the quantised kernels. Bytes, seconds, GB/s, the
+     host's peak RSS and the device's peak; the directory is removed.
   5. referring, quantised: a new runtime with quant_llm="int8", quant_kv and
      quant_vision at full width; mm_infer with one annotated uint8 frame, one
      480x640 mask and a <region> in the prompt, 32 new tokens; launch counts
@@ -2280,6 +2290,138 @@ def _count(wrappers, fn):
     return out, {k: w.launches for k, w in wrappers.items()}, ms
 
 
+def _rss_gib() -> float:
+    """The process's peak resident set so far, GiB (Linux counts KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _differing(got, want) -> list:
+    """Names of the parameters and buffers of two models that are not equal
+    bit for bit (a name the other lacks included)."""
+    g = dict([*got.named_parameters(), *got.named_buffers()])
+    w = dict([*want.named_parameters(), *want.named_buffers()])
+    return sorted(set(g) ^ set(w)) + [
+        k for k in w if k in g and (g[k].dtype != w[k].dtype or not torch.equal(g[k], w[k]))]
+
+
+CKPT_INT8_NEW_TOKENS = 8
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: n for k, n in launches.items() if n}
+
+
+def run_checkpoint(dev, seed: int, rt, tok, qa: dict, seg: dict) -> dict:
+    """Phase 3b: phase 3's runtime written with the port's exporter (one
+    pytorch_model.bin and config.json, and SAM2 again as a standalone
+    .gamma .pt), loaded back by model_init(model_path=, sam_path=) in bf16
+    and with the serving configuration. The bf16 load must equal phase 3's
+    runtime bit for bit and give phase 3's ids and phase 4's masks; the int8
+    load must equal the seeded int8 runtime bit for bit and launch the
+    quantised kernels. Returns the launch counts of its three requests."""
+    import os
+    import shutil
+    import tempfile
+
+    from ufvideo_tpu_torch import mm_infer, model_init
+    from ufvideo_tpu_torch.export import export_sam2, rename_g_weight_to_gamma, save_hf_checkpoint
+
+    t_phase = time.perf_counter()
+    wrappers = all_wrappers()
+    cfg = rt.cfg
+    sync_t = lambda: (torch.cuda.synchronize(), time.perf_counter())[1]
+    tensors = [*rt.model.parameters(), *rt.model.buffers()]
+    sam_bytes = sum(t.numel() * t.element_size() for t in rt.model.sam.parameters())
+    need = sum(t.numel() * t.element_size() for t in tensors) + sam_bytes
+    tmp = tempfile.mkdtemp(prefix="ufvideo_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"  {tmp}: {free / 1e9:.2f} GB free, the checkpoint and the SAM2 .pt need "
+            f"{need / 1e9:.2f} GB")
+        if free < need + 2**30:
+            fail(f"phase 3b needs {need + 2**30} bytes free under {tmp} (the bf16 "
+                 f"checkpoint, the SAM2 .pt and 1 GiB to spare); {free} are free")
+        sam_pt = os.path.join(tmp, "sam2_hiera_large.pt")
+        rss0, t0 = _rss_gib(), sync_t()
+        save_hf_checkpoint(tmp, rt.model, cfg)
+        t1 = time.perf_counter()
+        torch.save({"model": rename_g_weight_to_gamma(export_sam2(rt.model.sam))},
+                   sam_pt)
+        t2 = time.perf_counter()
+        files = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
+        written = sum(files.values())
+        log(f"  export: pytorch_model.bin + config.json in {t1 - t0:.2f} s, the SAM2 .pt in "
+            f"{t2 - t1:.2f} s; {written} bytes ({files}), "
+            f"{written / (t2 - t0) / 1e9:.2f} GB/s; host peak RSS {rss0:.2f} -> "
+            f"{_rss_gib():.2f} GiB")
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rss0, t0 = _rss_gib(), sync_t()
+        rt2, _, tok2 = model_init(tmp, cfg=cfg, sam_path=sam_pt, device=dev)
+        t1 = sync_t()
+        log(f"  bf16 load: model_init(model_path=, sam_path=) in {t1 - t0:.2f} s, "
+            f"{written / (t1 - t0) / 1e9:.2f} GB/s of files; device +"
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB at peak "
+            f"({(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB held); host peak RSS "
+            f"{rss0:.2f} -> {_rss_gib():.2f} GiB")
+        diff = _differing(rt2.model, rt.model)
+        if diff:
+            fail(f"the bf16 load differs from phase 3's runtime in {len(diff)} tensors: "
+                 f"{diff[:8]}")
+        log(f"  bf16 load: all {len(tensors)} parameters equal phase 3's runtime bit for bit")
+        (_, out), qa_launches, ms = _count(wrappers, lambda: mm_infer(
+            qa["frames"], qa["question"], rt2, tok2, max_new_tokens=qa["max_new"]))
+        log(f"  bf16 load, phase 3's request: {ms:.1f} ms, {len(out['output'])} tokens; "
+            f"launches {nonzero(qa_launches)}")
+        if out["output"] != qa["ids"]:
+            fail(f"the bf16 load's ids {out['output']} differ from phase 3's {qa['ids']}")
+        out, seg_launches, ms = _count(wrappers, lambda: mm_infer(
+            seg["frames"], seg["conv"], rt2, tok2, modal="video", choice=3,
+            images_sam=seg["images_sam"], label_size=seg["label_size"], seg=True))
+        log(f"  bf16 load, phase 4's [SEG] request: {ms:.1f} ms; launches {nonzero(seg_launches)}")
+        masks = out["pred_masks"]
+        if len(masks) != 1 or not np.array_equal(masks[0], seg["masks"]):
+            fail("the bf16 load's [SEG] masks differ from phase 4's")
+        log("  bf16 load: phase 3's ids and phase 4's masks, exactly")
+        del rt2, out
+        torch.cuda.empty_cache()
+
+        qcfg = cfg.replace(quant_llm="int8", quant_kv=True, quant_vision=True)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = sync_t()
+        rt8, _, tok8 = model_init(tmp, cfg=qcfg, sam_path=sam_pt, device=dev)
+        t1 = sync_t()
+        log(f"  int8 load (quant_llm int8, quant_kv, quant_vision): {t1 - t0:.2f} s, "
+            f"device +{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB at peak "
+            f"({(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB held)")
+        ref8, _, _ = model_init(cfg=qcfg, seed=seed, device=dev)
+        diff = _differing(rt8.model, ref8.model)
+        if diff:
+            fail(f"the int8 load differs from model_init(cfg=int8, seed={seed}) in "
+                 f"{len(diff)} tensors: {diff[:8]}")
+        n8 = sum(1 for _ in rt8.model.parameters())
+        log(f"  int8 load: all {n8} parameters equal the seeded int8 runtime's bit for bit")
+        del ref8
+        torch.cuda.empty_cache()
+        (text, out), int8_launches, ms = _count(wrappers, lambda: mm_infer(
+            qa["frames"], qa["question"], rt8, tok8, max_new_tokens=CKPT_INT8_NEW_TOKENS))
+        log(f"  int8 load, phase 3's question: {ms:.1f} ms, {len(out['output'])} tokens; "
+            f"launches {nonzero(int8_launches)}")
+        for k in ("int8_matvec", "ragged_decode_attention_q8", "fused_block_w8a8"):
+            if int8_launches[k] <= 0:
+                fail(f"{k} was never launched on the int8 load")
+        del rt8
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 3b: {time.perf_counter() - t_phase:.1f} s")
+    return {"ckpt_bf16": qa_launches, "ckpt_bf16_seg": seg_launches, "ckpt_int8": int8_launches}
+
+
 def run_predictors(dev, seed: int, rt, sam_frames=4, label_size=(480, 640)):
     """The rest of SAM2's predictors at full width on ``rt``'s SAM2:
     ``propagate_video_general`` on one video's features (a language prompt on
@@ -3219,6 +3361,8 @@ def main() -> int:
     serving_bf16 = {"stream": run_stream(dev, rt, tok, "bf16", qa_request),
                     "spec": run_spec(dev, rt, tok, "bf16", qa_request),
                     "batch": run_serving_batch(dev, rt, tok, qa_request, ref_bf16)}
+    log("phase 3b: the runtime exported and loaded back through model_init(model_path=)")
+    ckpt = run_checkpoint(dev, args.seed, rt, tok, qa_request, ref_bf16)
     del rt
     torch.cuda.empty_cache()
     log("phase 5: full-width quantised region referring on the card")
@@ -3248,7 +3392,7 @@ def main() -> int:
     probe_launches = run_probe(dev, smi)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
-        # "launches" is derived: their sum over the twenty-two counted runs
+        # "launches" is derived: their sum over the twenty-five counted runs
         by_path = {"qa": launches, "seg": seg_launches, "ref_int8": int8_launches,
                    "ref_int4": int4_launches, "batch_int8": batch_int8,
                    "batch_int4": batch_int4, "seg_int8": qseg_launches,
@@ -3256,7 +3400,7 @@ def main() -> int:
                    "serve_int8": serve_launches, "engine_int8": engine_launches["plain"],
                    "engine_spec_int8": engine_launches["spec"],
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
-                   "probe": probe_launches}
+                   "probe": probe_launches, **ckpt}
         for label, serving in (("bf16", serving_bf16), ("int8", serving_int8),
                                ("int4", serving_int4)):
             by_path.update({f"{path}_{label}": counts for path, counts in serving.items()})

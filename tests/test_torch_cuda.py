@@ -1569,3 +1569,81 @@ def test_entry_points_take_card_tensors(card_runtime, entry):
     from test_torch_tensor_inputs import CHECKS
 
     CHECKS[entry](*card_runtime, "cuda")
+
+
+@pytest.mark.parametrize("fn", ["quantize_kernel", "quantize_kernel4", "quantize_rows",
+                                "quantize_kv"])
+def test_quantisers_on_the_card_equal_the_cpu(dev, fn):
+    """Each quantiser divides by its constant as the CPU does (a Python
+    divisor would be a product with the reciprocal on the card): 4096
+    amax values give the same scales and int8 steps bit for bit."""
+    f = {"quantize_kernel": tq.quantize_kernel, "quantize_rows": tq.quantize_rows,
+         "quantize_kernel4": lambda w: tq.quantize_kernel4(w, 64),
+         "quantize_kv": quantize_kv}[fn]
+    x = torch.randn(256, 4096, generator=torch.Generator().manual_seed(5)) * 3.0
+    want, got = f(x), f(x.to(dev))
+    for a, b in zip(want.values() if isinstance(want, dict) else want,
+                    got.values() if isinstance(got, dict) else got):
+        assert b.device.type == "cuda" and torch.equal(b.cpu(), a), fn
+
+
+@pytest.mark.parametrize("quant", [{}, dict(quant_llm="int8", quant_kv=True, quant_vision=True)],
+                         ids=["bf16", "int8-kv8-w8a8"])
+def test_checkpoint_loads_to_the_card_as_to_the_cpu(dev, tmp_path, quant):
+    """A tiny bf16 checkpoint loaded by ``model_init(model_path=)`` to the
+    card equals the same loaded to the CPU bit for bit, every parameter and
+    buffer, float and quantised (each layer quantised on the card)."""
+    from ufvideo_tpu_torch.api import model_init
+    from ufvideo_tpu_torch.configs import tiny_config
+    from ufvideo_tpu_torch.export import save_hf_checkpoint
+
+    cfg = tiny_config().replace(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    src, _, _ = model_init(cfg=cfg, device="cpu", seed=3)
+    save_hf_checkpoint(str(tmp_path), src.model)
+    cfg = cfg.replace(**quant)
+    cpu, _, _ = model_init(str(tmp_path), cfg=cfg, device="cpu")
+    card, _, _ = model_init(str(tmp_path), cfg=cfg, device=dev)
+    want = dict([*cpu.model.named_parameters(), *cpu.model.named_buffers()])
+    got = dict([*card.model.named_parameters(), *card.model.named_buffers()])
+    assert got.keys() == want.keys()
+    for k, t in got.items():
+        assert t.device.type == "cuda" and t.dtype == want[k].dtype, k
+        assert torch.equal(t.cpu(), want[k]), k
+
+
+def test_safetensors_views_copy_to_the_card(dev, tmp_path):
+    """The port's ``.safetensors`` reader (the card's machine has no
+    ``safetensors`` package): its read-only views of the file, at offsets
+    that are not multiples of their element size too, copy to the card
+    intact, and convert on the way as on the CPU."""
+    import json
+    import struct
+
+    from ufvideo_tpu_torch.checkpoints import read_safetensors
+
+    g = torch.Generator().manual_seed(0)
+    f = torch.randn(37, 19, generator=g)
+    tensors = {"a_i8": torch.arange(-3, 0, dtype=torch.int8), "b_bf16": f.bfloat16(),
+               "c_f16": f.half(), "d_f32": f, "e_i64": torch.arange(5) - 2,
+               "f_bool": torch.tensor([True, False, True]), "g_u8": torch.arange(7, dtype=torch.uint8)}
+    names = {torch.int8: "I8", torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32", torch.int64: "I64", torch.bool: "BOOL", torch.uint8: "U8"}
+    header, blobs, at = {}, [], 0
+    for k, t in tensors.items():
+        raw = t.contiguous().view(torch.uint8).numpy().tobytes()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [at, at + len(raw)]}
+        blobs.append(raw)
+        at += len(raw)
+    head = json.dumps(header).encode()
+    path = tmp_path / "m.safetensors"
+    path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+    got = read_safetensors(str(path))
+    assert got.keys() == tensors.keys()
+    for k, t in tensors.items():
+        on_card = got[k].to(dev)
+        assert torch.equal(on_card.cpu(), t), k
+        if t.is_floating_point():
+            dst = torch.empty(t.shape, dtype=torch.float32, device=dev)
+            dst.copy_(got[k])
+            assert torch.equal(dst.cpu(), t.float()), k

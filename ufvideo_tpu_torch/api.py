@@ -15,13 +15,14 @@ the serving options of ``UFVideoRuntime.generate_batch``.
 ``UFVideoRuntime.segment_videos_batched`` segments several videos in one
 walk over their frames. ``mm_infer_stream`` yields text deltas as decode
 chunks complete; ``mm_infer_batch`` serves several requests in one
-encode, one generate and one SAM2 propagation. Checkpoint loading comes
-with a later slice and raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+encode, one generate and one SAM2 propagation. ``model_init(model_path=,
+tokenizer_path=, sam_path=)`` loads the reference's checkpoints
+(``checkpoints.py``) and HF tokenizer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -327,7 +328,7 @@ class UFVideoRuntime:
         through Hiera + FPN, frame 0 conditioned on the embeddings, the rest
         propagated through the memory, low-res logits upsampled and
         thresholded at 0."""
-        sam = self.model.sam
+        sam = self._sam()
         feats = encode_video_frames(sam, self._sam_images(images_sam))
         low = propagate_video(sam, feats, seg_embeddings[:, None, :])
         masks = masks_to_video_res(low, out_height, out_width)
@@ -347,7 +348,7 @@ class UFVideoRuntime:
         riding the object-batch dimension."""
         images = _frames(images_sam)
         v, t = images.shape[:2]
-        sam = self.model.sam
+        sam = self._sam()
         feats = encode_video_frames(
             sam, self._sam_images(images.reshape((v * t,) + tuple(images.shape[2:]))))
         per_video = lambda a: a.reshape((v, t) + tuple(a.shape[1:]))
@@ -356,6 +357,13 @@ class UFVideoRuntime:
         low = propagate_videos_batched(sam, vfeats, seg_embeddings[:, None, :])
         masks = masks_to_video_res(low, out_height, out_width)  # [T, V, H, W]
         return masks.permute(1, 0, 2, 3).cpu().numpy()
+
+    def _sam(self):
+        if self.model.sam is None:
+            raise RuntimeError(
+                "this runtime has no SAM2: its checkpoint holds no SAM2 weights; pass "
+                "model_init(sam_path=...) a SAM2 checkpoint to segment")
+        return self.model.sam
 
     def _sam_images(self, images_sam) -> torch.Tensor:
         """Frames for SAM2 on the device: raw uint8 frames are resized and
@@ -414,32 +422,57 @@ def model_init(
 ):
     """Build (runtime, processor, tokenizer). With ``model_path`` None the
     weights are random, drawn on ``device`` from ``seed`` with the JAX
-    package's initialiser distributions, and the tokenizer is the offline
-    byte tokenizer. With ``cfg.quant_llm`` / ``cfg.quant_vision`` each
-    quantised layer draws the float layer's weights in the model's dtype,
-    quantises them on ``device`` and frees the float copy, so the quantised
-    model is the quantisation of the float model of the same seed.
+    package's initialiser distributions; with ``tokenizer_path`` None the
+    tokenizer is the offline byte tokenizer. With ``cfg.quant_llm`` /
+    ``cfg.quant_vision`` each quantised layer draws the float layer's
+    weights in the model's dtype, quantises them on ``device`` and frees the
+    float copy, so the quantised model is the quantisation of the float
+    model of the same seed.
     ``routing`` (``VisionRouting``, default the JAX package's default
     routing) picks the vision towers' kernels and modules; every routing
     holds the same parameters and draws the same weights from a seed.
-    ``model_path``, ``tokenizer_path`` and ``sam_path`` (checkpoints) raise
-    until checkpoint loading is ported."""
+
+    ``tokenizer_path``: an HF tokenizer directory, extended with the
+    UFVideo special tokens (needs ``transformers``); its ids go into the
+    config. ``model_path``: a reference checkpoint (a file, or a directory
+    of ``.safetensors`` or ``pytorch_model*.bin`` shards); the vocabulary
+    size comes from it, and its tensors are written into the model on
+    ``device`` one at a time, a quantised configuration quantising each
+    layer as it is written (the JAX package quantises after loading: the
+    values are the same). ``sam_path``: a standalone SAM2 ``.pt`` whose
+    weights take the place of the checkpoint's own; it needs ``model_path``.
+    A checkpoint with no SAM2 weights and no ``sam_path`` gives a runtime
+    without SAM2, on which a ``[SEG]`` request raises."""
     device = _check_device(device)
-    if model_path or tokenizer_path or sam_path:
-        raise NotImplementedError(
-            "checkpoint and HF tokenizer loading: ROADMAP.md queue 1 item 4 (checkpoints)"
-        )
+    if sam_path and not model_path:
+        raise ValueError("model_init: sam_path needs model_path (a random model has its SAM2)")
     cfg = cfg or UFVideoConfig()
-    tokenizer, ids = byte_tokenizer_with_ids()
+    if tokenizer_path:
+        from .tokenization import load_tokenizer
+
+        tokenizer, ids = load_tokenizer(tokenizer_path)
+    else:
+        tokenizer, ids = byte_tokenizer_with_ids()
     cfg = cfg.replace(
         region_token_id=ids.region,
         seg_token_id=ids.seg,
         temporal_token_start_id=ids.temporal_start,
     )
-    model = UFVideoModel.empty(cfg, device, routing)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    model.reset_parameters(gen)
+    if model_path:
+        from .checkpoints import (
+            convert_full_checkpoint, infer_vocab_size, load_sam2_checkpoint,
+            load_torch_state_dict)
+
+        sd = load_torch_state_dict(model_path)
+        cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, vocab_size=infer_vocab_size(sd)))
+        sam_sd = load_sam2_checkpoint(sam_path) if sam_path else None
+        model = convert_full_checkpoint(sd, cfg, sam_sd, device=device, routing=routing)
+        del sd, sam_sd
+    else:
+        model = UFVideoModel.empty(cfg, device, routing)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        model.reset_parameters(gen)
     return UFVideoRuntime(cfg, model, ids, device), None, tokenizer
 
 

@@ -69,6 +69,8 @@ class Qwen2Config:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 1_000_000.0
     max_position_embeddings: int = 32768
+    # a checkpoint's lm_head is the embedding (the port keeps a copy of it)
+    tie_word_embeddings: bool = False
     eos_token_id: int = 151645  # <|im_end|>
     pad_token_id: int = 151643  # <|endoftext|>
 

@@ -43,7 +43,7 @@ from ..ops.quant_matmul import (
     MAX_ROWS, dequantize_int4, int4_matmul, int4_matmul_plain, int8_matvec,
     int8_matvec_plain)
 from ..ops.rope import apply_rope, rope_cos_sin
-from ..quant import quant_bits, quantize_kernel, quantize_kernel4
+from ..quant import div_exact, quant_bits, quantize_kernel, quantize_kernel4
 from . import init
 
 
@@ -97,7 +97,7 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-position symmetric int8: x [..., D] → (int8 values, f32 scales
     [...]); the 1e-12 floor sits inside the division and nothing clips."""
     xf = x.to(torch.float32)
-    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = div_exact(xf.abs().amax(dim=-1, keepdim=True), 127.0)
     q = torch.round(xf / scale.clamp_min(1e-12)).to(torch.int8)
     return q, scale[..., 0]
 

@@ -32,11 +32,30 @@ def quant_bits(quant) -> int:
     return 4 if quant in (4, "int4", "4bit") else 8
 
 
+# 0-d divisors, one per (device, value), made once: see ``div_exact``
+_DIVISORS: Dict[Tuple[torch.device, float], torch.Tensor] = {}
+
+
+def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a division on every device: with a Python number as the
+    divisor, the card computes a product with its reciprocal, at times one
+    ulp off the division on the CPU and in JAX (a quantised weight's scale,
+    and so its int8 steps, would differ between a load on the card and one
+    on the CPU). A 0-d tensor on ``x``'s device is divided by as any tensor
+    is; it is kept, so that a call launches nothing but the division (the
+    copy that makes it waits for the card, so every stream may read it)."""
+    d = _DIVISORS.get((x.device, c))
+    if d is None:
+        d = _DIVISORS.setdefault(
+            (x.device, c), torch.tensor(c, dtype=torch.float32, device=x.device))
+    return x / d
+
+
 def quantize_kernel(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[..., in, out] float kernel → {'q': int8, 'scale': f32 [..., out]};
     the reduction runs over the contraction (in) axis."""
     wf = w.to(torch.float32)
-    scale = wf.abs().amax(dim=-2) / 127.0
+    scale = div_exact(wf.abs().amax(dim=-2), 127.0)
     scale = scale.clamp_min(1e-8)
     q = torch.round(wf / scale[..., None, :]).clamp(-127, 127).to(torch.int8)
     return {"q": q, "scale": scale}
@@ -69,7 +88,7 @@ def quantize_kernel4(w: torch.Tensor, group: int = 64) -> Dict[str, torch.Tensor
         raise ValueError(f"in dim {din} is not a multiple of group {group} and 2")
     g = din // group
     wg = wf.reshape(*lead, g, group, dout)
-    scale = wg.abs().amax(dim=-2) / 7.0
+    scale = div_exact(wg.abs().amax(dim=-2), 7.0)
     scale = scale.clamp_min(1e-8)
     q = torch.round(wg / scale[..., None, :]).clamp(-7, 7)
     return {"q": pack_int4(q.reshape(*lead, din, dout)), "scale": scale}
@@ -80,9 +99,7 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     [..., d], f32 scales [..., 1])."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    # a tensor divisor: a scalar one becomes a product with its reciprocal on
-    # the card, one ulp off the division here and in JAX
-    scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
+    scale = div_exact(amax, 127.0).clamp_min(1e-8)
     return torch.round(xf / scale).to(torch.int8), scale
 
 

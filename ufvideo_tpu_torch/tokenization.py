@@ -1,8 +1,10 @@
-"""Offline byte-level tokenizer with the UFVideo special tokens (a copy of
-``ufvideo_tpu/tokenization.py`` ``ByteTokenizer`` / ``SpecialIds`` /
-``byte_tokenizer_with_ids``: same vocabulary, same ids), and
-``parse_temporal_tokens``, which reads temporal grounding out of generated
-text."""
+"""Tokenizers (mirrors ``ufvideo_tpu/tokenization.py``): an HF tokenizer
+extended with the UFVideo special tokens (``extend_tokenizer``,
+``load_tokenizer``; ``transformers`` is imported only there, and the card's
+machine has none), the offline byte-level tokenizer (``ByteTokenizer`` /
+``SpecialIds`` / ``byte_tokenizer_with_ids``: same vocabulary, same ids),
+and ``parse_temporal_tokens``, which reads temporal grounding out of
+generated text."""
 
 from __future__ import annotations
 
@@ -20,6 +22,34 @@ class SpecialIds:
     seg: int
     eos: int
     pad: int
+
+
+def extend_tokenizer(tokenizer) -> SpecialIds:
+    """Add the UFVideo special tokens to an HF tokenizer, in the reference's
+    order (``<region>``, the 100 ``<TEMP-xxx>``, ``[SEG]``), and return
+    their ids; the pad id falls back to the eos id."""
+    tokenizer.add_tokens(extra_special_tokens(), special_tokens=True)
+    ids = tokenizer.convert_tokens_to_ids(extra_special_tokens())
+    eos = tokenizer.eos_token_id
+    pad = tokenizer.pad_token_id
+    return SpecialIds(region=ids[0], temporal_start=ids[1], seg=ids[-1], eos=eos,
+                      pad=eos if pad is None else pad)
+
+
+def load_tokenizer(path: str):
+    """An HF tokenizer directory, extended: (tokenizer, SpecialIds). Needs
+    the ``transformers`` package; without it this raises, and the caller
+    that wants the offline byte tokenizer asks for it
+    (``byte_tokenizer_with_ids``)."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            "load_tokenizer needs the 'transformers' package (HF tokenizers), which this "
+            "machine lacks; without tokenizer_path model_init uses the byte tokenizer"
+        ) from e
+    tok = AutoTokenizer.from_pretrained(path)
+    return tok, extend_tokenizer(tok)
 
 
 class _Encoding:

@@ -1,4 +1,7 @@
-"""Fill the port's modules from the JAX package's parameter tree.
+"""Fill the port's modules from the JAX package's parameter tree
+(``load_jax_params``), or from the reference's torch state dicts (the
+converters below ``TensorWriter``; ``checkpoints.convert_full_checkpoint``
+joins them).
 
 ``params`` is the output of
 ``jax.tree.map(np.asarray, UFVideoModel(cfg).init_params(key))`` — nested
@@ -30,16 +33,19 @@ dicts of numpy arrays — so this module needs no JAX. Layout changes:
 
 from __future__ import annotations
 
+import functools
+import math
 import re
-from typing import Any, Dict, Set
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 from .models.projector import RegBottleneck, STCConnector
 from .models.qwen2 import QuantLinear, Qwen2LM
-from .models.siglip import SiglipVisionTower
-from .models.ufvideo import UFVideoModel
+from .models.region_encoder import RegionProjector
+from .models.siglip import SiglipEncoderLayer, SiglipVisionTower
+from .models.ufvideo import TextHiddenFC, UFVideoModel
 
 
 @torch.no_grad()
@@ -244,3 +250,307 @@ def load_jax_params(model: UFVideoModel, params: Dict[str, Any]) -> UFVideoModel
     if "sam" in params:
         load_by_name(model.sam, params["sam"])
     return model
+
+
+# --------------------------------------------------------------------------
+# the reference's state dicts (HF Qwen2 / SigLIP, timm RegStage, SAM2 names)
+# --------------------------------------------------------------------------
+#
+# The converters write each tensor of a state dict into its parameter as
+# they reach it: on the parameter's device, in its dtype (the JAX package
+# casts the converted tree to the param dtype the same way), a quantised
+# layer through its own ``set_kernel`` on the float kernel in that dtype.
+# Layout changes: a Linear's [out, in] into an [in, out] holder (``kernel``,
+# ``kernel_q``) is transposed; q / k / v rows go into the fused qkv;
+# ``embed_tokens`` / ``lm_head`` get zero rows up to the padded vocabulary; a
+# 1x1 convolution [out, in, 1, 1] held as a Linear drops its unit axes;
+# SigLIP's patch convolution [C, 3, p, p] becomes the [C, p·p·3] matmul.
+# Convolutions, transposed ones included, keep torch's layout: the port's
+# modules are torch's. Hiera's qkv and proj stay unpadded (the TPU's
+# ``head_pad`` is a layout of the JAX trunk only).
+#
+# A plan lists (reference key, target, form) for a module tree, so that the
+# converter and the exporter (``export.py``) read one map in both
+# directions: the target is a layer (weight or kernel, and bias, under
+# ``key.weight`` / ``key.bias``) or a bare parameter (under ``key``); the
+# form is None (the layouts above), ``"1x1"`` (a 1x1 convolution held as a
+# Linear), ``"patch"`` (a [C, 3, p, p] convolution held as the [C, p·p·3]
+# matmul over (ph, pw, channel) features), ``"row"`` (an
+# ``nn.Embedding(1, C)`` weight [1, C] held as [C]) or ``"chw"`` ([1, C, H, W]
+# held as [H, W, C]). A tuple of keys names the reference layers whose output
+# rows one fused layer joins (q / k / v into a qkv); its form is their row
+# counts.
+
+Key = Union[str, Tuple[str, ...]]
+Form = Union[None, str, Tuple[int, ...]]
+Plan = List[Tuple[Key, Any, Form]]
+
+
+def _get(sd: Mapping, key: str) -> torch.Tensor:
+    try:
+        return sd[key]
+    except KeyError:
+        raise KeyError(f"the checkpoint has no {key!r}") from None
+
+
+class TensorWriter:
+    """Copies state-dict tensors into a model's parameters, one at a time,
+    and records which parameters it wrote."""
+
+    def __init__(self):
+        self.written: Set[int] = set()
+
+    @torch.no_grad()
+    def put(self, dst: torch.Tensor, src: torch.Tensor, key: str) -> None:
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{key}: shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
+        dst.copy_(src)
+        self.written.add(id(dst))
+
+    @torch.no_grad()
+    def quantise(self, set_kernel, weight: torch.Tensor, shape: Sequence[int],
+                 dtype: torch.dtype, holders: Sequence[torch.Tensor], key: str) -> None:
+        """``set_kernel`` quantises the float [in, out] kernel ``weight.t()``
+        (``weight`` [out, in], the reference's layout) into ``holders``; the
+        weight goes to their device in the model's dtype first, as the JAX
+        package casts before it quantises."""
+        if tuple(weight.shape[::-1]) != tuple(shape):
+            raise ValueError(f"{key}: weight {tuple(weight.shape)} does not fit the "
+                             f"[in, out] kernel {tuple(shape)}")
+        set_kernel(weight.to(device=holders[0].device, dtype=dtype).t())
+        self.written.update(id(h) for h in holders)
+
+    def check_all_written(self, model: torch.nn.Module) -> None:
+        missing = [n for n, t in (*model.named_parameters(), *model.named_buffers())
+                   if id(t) not in self.written]
+        if missing:
+            raise KeyError(f"the checkpoint writes {len(missing)} parameters of the model "
+                           f"nothing: {missing[:8]}")
+
+
+def _write_layer(w: TensorWriter, mod: Any, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor], key: str) -> None:
+    """A layer's reference weight ([out, in] for a dense layer) and bias
+    into ``mod``, whichever holder it keeps them in."""
+    if hasattr(mod, "kernel_q"):  # QuantLinear / W8A8Linear, [in, out]
+        shape = ((mod.in_features, mod.out_features) if hasattr(mod, "in_features")
+                 else tuple(mod.kernel_q.shape))
+        w.quantise(mod.set_kernel, weight, shape, mod.dtype,
+                   (mod.kernel_q, mod.kernel_scale), key)
+    elif isinstance(getattr(mod, "kernel", None), torch.nn.Parameter):  # [in, out] holder
+        w.put(mod.kernel, weight.t(), key)
+    elif isinstance(getattr(mod, "scale", None), torch.nn.Parameter):  # LayerNorm holder
+        w.put(mod.scale, weight, key)
+    else:
+        w.put(mod.weight, weight, key)
+    if getattr(mod, "bias", None) is not None:
+        w.put(mod.bias, bias, key + " bias")
+
+
+def _joined(sd: Mapping, keys: Tuple[str, ...], suffix: str) -> torch.Tensor:
+    parts = [_get(sd, f"{k}.{suffix}") for k in keys]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def plan_from_sd(w: TensorWriter, plan: Plan, sd: Mapping) -> None:
+    """Write every target of ``plan`` from the state dict ``sd``."""
+    for key, target, form in plan:
+        if isinstance(target, torch.Tensor):
+            t = _get(sd, key)
+            if form == "row":
+                t = t[0]
+            elif form == "chw":
+                t = t[0].permute(1, 2, 0)
+            w.put(target, t, key)
+            continue
+        keys = key if isinstance(key, tuple) else (key,)
+        weight = _joined(sd, keys, "weight")
+        if form == "1x1":
+            weight = weight.reshape(weight.shape[:2])
+        elif form == "patch":
+            weight = weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1)
+        bias = _joined(sd, keys, "bias") if getattr(target, "bias", None) is not None else None
+        _write_layer(w, target, weight, bias, "+".join(keys))
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous CPU tensor of its own holding ``t``."""
+    return torch.empty(tuple(t.shape), dtype=t.dtype).copy_(t.detach())
+
+
+def plan_to_sd(plan: Plan) -> Dict[str, torch.Tensor]:
+    """The inverse of ``plan_from_sd``: the state dict the targets hold, each
+    tensor in its parameter's dtype."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, target, form in plan:
+        if isinstance(target, torch.Tensor):
+            t = target
+            if form == "row":
+                t = t[None]
+            elif form == "chw":
+                t = t.permute(2, 0, 1)[None]
+            out[key] = to_host(t)
+            continue
+        if hasattr(target, "kernel_q"):
+            raise ValueError(f"{key}: a quantised layer has no float weights to export")
+        if isinstance(getattr(target, "kernel", None), torch.nn.Parameter):
+            weight = target.kernel.t()
+        elif isinstance(getattr(target, "scale", None), torch.nn.Parameter):
+            weight = target.scale
+        else:
+            weight = target.weight
+        if form == "1x1":
+            weight = weight[:, :, None, None]
+        elif form == "patch":
+            p = math.isqrt(weight.shape[1] // 3)
+            weight = weight.reshape(weight.shape[0], p, p, 3).permute(0, 3, 1, 2)
+        bias = getattr(target, "bias", None)
+        if isinstance(key, tuple):  # a fused layer: its rows back to each layer
+            parts = zip(key, weight.split(form),
+                        bias.split(form) if bias is not None else [None] * len(key))
+        else:
+            parts = [(key, weight, bias)]
+        for k, wt, b in parts:
+            out[f"{k}.weight"] = to_host(wt)
+            if b is not None:
+                out[f"{k}.bias"] = to_host(b)
+    return out
+
+
+def same_names(mod: torch.nn.Module, prefix: str) -> Plan:
+    """Every layer under ``mod`` whose name under the port is its name in
+    the reference (the layers that own parameters directly)."""
+    return [(f"{prefix}.{name}" if name else prefix, m, None)
+            for name, m in mod.named_modules()
+            if next(m.parameters(recurse=False), None) is not None]
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero rows up to ``rows`` (the padded vocabulary)."""
+    if x.shape[0] == rows:
+        return x
+    if x.shape[0] > rows:
+        raise ValueError(f"{x.shape[0]} vocabulary rows do not fit the model's {rows}")
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+_QKV = ("q_proj", "k_proj", "v_proj")
+
+
+def qwen2_plan(lm: Qwen2LM) -> Plan:
+    """Every Qwen2 layer but the vocabulary's two (``convert_qwen2`` pads
+    them, ``export.export_qwen2`` unpads them)."""
+    cfg = lm.cfg
+    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    plan: Plan = [("model.norm", lm.norm, None)]
+    for i, layer in enumerate(lm.layers):
+        lp = f"model.layers.{i}"
+        plan += [
+            (tuple(f"{lp}.self_attn.{n}" for n in _QKV), layer.qkv_proj, (nq, nkv, nkv)),
+            (f"{lp}.self_attn.o_proj", layer.o_proj, None),
+            (f"{lp}.mlp.gate_proj", layer.gate_proj, None),
+            (f"{lp}.mlp.up_proj", layer.up_proj, None),
+            (f"{lp}.mlp.down_proj", layer.down_proj, None),
+            (f"{lp}.input_layernorm", layer.input_layernorm, None),
+            (f"{lp}.post_attention_layernorm", layer.post_attention_layernorm, None),
+        ]
+    return plan
+
+
+def convert_qwen2(w: TensorWriter, lm: Qwen2LM, sd: Mapping) -> None:
+    """HF Qwen2ForCausalLM state dict → ``lm``: q / k / v rows into the
+    fused qkv, the vocabulary padded with zero rows; a checkpoint without
+    ``lm_head.weight``, or a tied configuration, gets a copy of the
+    embedding as its head."""
+    rows = lm.cfg.padded_vocab_size
+    embed = _get(sd, "model.embed_tokens.weight")
+    w.put(lm.embed_tokens.weight, _pad_rows(embed, rows), "model.embed_tokens.weight")
+    tied = lm.cfg.tie_word_embeddings or "lm_head.weight" not in sd
+    head = embed if tied else sd["lm_head.weight"]
+    _write_layer(w, lm.lm_head, _pad_rows(head, rows), None, "lm_head.weight")
+    plan_from_sd(w, qwen2_plan(lm), sd)
+
+
+class _SiglipDense:
+    """A SigLIP layer's dense layer ``name`` (its ``{name}_kernel``,
+    ``{name}_scale`` and ``{name}_bias`` holders) as a plan target."""
+
+    def __init__(self, layer: SiglipEncoderLayer, name: str):
+        kernel = getattr(layer, f"{name}_kernel")
+        self.bias = getattr(layer, f"{name}_bias")
+        if layer.quant:
+            self.kernel_q, self.kernel_scale = kernel, getattr(layer, f"{name}_scale")
+            self.set_kernel = functools.partial(layer.set_kernel, name)
+            self.dtype = layer.dtype
+        else:
+            self.kernel = kernel
+
+
+def siglip_plan(tower: SiglipVisionTower) -> Plan:
+    """HF SiglipVisionModel keys of the ``num_encode_layers`` layers the
+    port holds (the reference never runs the rest either)."""
+    p, c = "vision_model", tower.cfg.hidden_size
+    plan: Plan = [(f"{p}.embeddings.patch_embedding", tower.patch_embedding, "patch"),
+                  (f"{p}.embeddings.position_embedding.weight", tower.position_embedding, None)]
+    for i, layer in enumerate(tower.layers):
+        lp = f"{p}.encoder.layers.{i}"
+        plan += [
+            (f"{lp}.layer_norm1.weight", layer.ln1_scale, None),
+            (f"{lp}.layer_norm1.bias", layer.ln1_bias, None),
+            (f"{lp}.layer_norm2.weight", layer.ln2_scale, None),
+            (f"{lp}.layer_norm2.bias", layer.ln2_bias, None),
+            (tuple(f"{lp}.self_attn.{n}" for n in _QKV), _SiglipDense(layer, "qkv"), (c, c, c)),
+            (f"{lp}.self_attn.out_proj", _SiglipDense(layer, "out"), None),
+            (f"{lp}.mlp.fc1", _SiglipDense(layer, "fc1"), None),
+            (f"{lp}.mlp.fc2", _SiglipDense(layer, "fc2"), None),
+        ]
+    return plan
+
+
+def convert_siglip(w: TensorWriter, tower: SiglipVisionTower, sd: Mapping) -> None:
+    """HF SiglipVisionModel state dict → ``tower``."""
+    plan_from_sd(w, siglip_plan(tower), sd)
+
+
+def projector_plan(proj: STCConnector) -> Plan:
+    """The STC projector's reference keys (timm RegStage naming); the other
+    projector types raise when the port builds them."""
+    plan: Plan = []
+    for name, stage in (("s1", proj.s1), ("s2", proj.s2)):
+        for i, blk in enumerate(stage.blocks):
+            bp = f"{name}.b{i + 1}"
+            plan += [(f"{bp}.conv1.conv", blk.conv1, "1x1"), (f"{bp}.conv1.bn", blk.conv1_ln, None),
+                     (f"{bp}.conv2.conv", blk.conv2, None), (f"{bp}.conv2.bn", blk.conv2_ln, None),
+                     (f"{bp}.se.fc1", blk.se_fc1, "1x1"), (f"{bp}.se.fc2", blk.se_fc2, "1x1"),
+                     (f"{bp}.conv3.conv", blk.conv3, "1x1"), (f"{bp}.conv3.bn", blk.conv3_ln, None)]
+            if blk.downsample is not None:
+                plan += [(f"{bp}.downsample.conv", blk.downsample, "1x1"),
+                         (f"{bp}.downsample.bn", blk.downsample_ln, None)]
+    plan.append(("sampler.0", proj.sampler, None))
+    plan += [(f"readout.{2 * i}", fc, None) for i, fc in enumerate(proj.readout)]
+    return plan
+
+
+def region_plan(region: RegionProjector) -> Plan:
+    """``region_encoder.feat_linear`` Sequential(Linear, GELU, Linear, …)."""
+    return [(f"feat_linear.{2 * i}", getattr(region, f"fc{2 * i}"), None)
+            for i in range(region.cfg.depth)]
+
+
+def text_fcs_plan(text_fcs: TextHiddenFC) -> Plan:
+    """``text_hidden_fcs.0`` Sequential(Linear, ReLU, Linear, Dropout)."""
+    return [("text_hidden_fcs.0.0", text_fcs.fc0, None), ("text_hidden_fcs.0.2", text_fcs.fc1, None)]
+
+
+def convert_projector(w: TensorWriter, proj: STCConnector, sd: Mapping) -> None:
+    """``mm_projector`` state dict (keys may keep the ``mm_projector.``
+    prefix) → ``proj``."""
+    plan_from_sd(w, projector_plan(proj), {k.removeprefix("mm_projector."): v for k, v in sd.items()})
+
+
+def convert_region_encoder(w: TensorWriter, region: RegionProjector, sd: Mapping) -> None:
+    plan_from_sd(w, region_plan(region), sd)
+
+
+def convert_text_hidden_fcs(w: TensorWriter, text_fcs: TextHiddenFC, sd: Mapping) -> None:
+    plan_from_sd(w, text_fcs_plan(text_fcs), sd)
