@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation,
 streaming, speculative and batched serving, checkpoint export and loading,
 quantised region-referring, quantised [SEG], HTTP serving and
-continuous-batching engine paths and its launchers on one GPU.
+continuous-batching engine paths, its launchers and its training on one
+GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
     python3 chip_smoke.py --match w8a8    # phases 0-2 on the kernels so named
+    python3 chip_smoke.py --train-only    # phases 0-1 and 8 (training)
 
 Phases, each printed as it runs; any failure exits non-zero:
   0. device: nvidia-smi name / power limit, torch and CUDA versions; TF32 off.
@@ -123,8 +125,27 @@ Phases, each printed as it runs; any failure exits non-zero:
      synthetic: 16 completed, no error), then python -m
      ufvideo_tpu_torch.serve --tiny --engine --port 0: one request and one
      stream over HTTP, then SIGINT and a clean exit.
+ 8. training, each on a model of its own (random weights from the seed,
+    bf16, one sample built in memory: 32 frames, one <region>, one [SEG]
+    object on 4 SAM frames at 1024², ground truth at 480x640, through the
+    Collator, PrefetchLoader and device_prefetch), three Trainer steps at
+    lr 1e-4 with gradient checkpointing: 8a a LoRA (r 8, alpha 16, dropout
+    0.05) finetune at full width and depth: every trainable gradient finite
+    at each backward, the B factors' in all 28 layers and the projector's,
+    region encoder's and text head's non-zero; launches and the backward's
+    plain attention recomputes against the prediction; the loss falling;
+    the kernel route against the plain route (loss, gradient cosines); a
+    fresh Trainer resumed from checkpoint-2 repeats step 3's loss; the
+    PEFT adapter served through model_init(model_path=, adapter_path=)
+    against merge_for_eval (first logits) and mm_infer. 8b the default
+    policy (full LLM finetune, towers frozen but the mask decoder) with the
+    LLM cut to 4 layers: launches, the frozen towers bit for bit, the LLM
+    and mask decoder moved, keep-1 rotation, a resume at step 3. Each
+    prints step 2's time, trained tokens/s, peak memory and
+    its wall time.
 Then one JSON line with every kernel (launches = the sum over the counted
-calls), the card line, and the last line {"ok": true, "device": {...}}.
+calls; launches_train_lora / _full the training runs'), the card line, and
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -132,6 +153,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3246,6 +3268,475 @@ def run_probe(dev, smi: str, iters: int = 50) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 8 --
+# training at full width: 8a a LoRA [SEG] + <region> finetune of the whole
+# model, 8b the reference's policy (full LLM finetune) with the LLM cut to 4
+# layers. Limits stated before the first card run:
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 3
+TRAIN_LABEL = (480, 640)  # the ground-truth masks' grid, the loss's
+TRAIN_CONV = [
+    {"from": "human", "value": "<video>\nWhat is <region> doing? Please segment it."},
+    {"from": "gpt", "value": "It is [SEG]."},
+]
+# kernel route against plain route on one batch and one set of parameters:
+# the loss in bf16 through 26 + 28 layers either way (phase 3's paths agree
+# to cosine 0.9995) within 1% of itself; the gradients, taken back through
+# 28 layers, by cosine: all of them together >= 0.99, each tensor >= 0.95
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_COS, TRAIN_TENSOR_COS = 0.99, 0.95
+# a resumed step 3 against the unbroken one: the same bf16 computation on the
+# same values, the dropout drawn from (seed, step) alone
+TRAIN_RESUME_REL = 1e-3
+# the served adapter (PEFT merge: W + s·B·A in f32, one rounding) against
+# merge_for_eval (the delta rounded to bf16, then the sum): first logits
+ADAPTER_LOGIT_COS = 0.999
+
+
+def expected_train_launches(cfg, n_sam_frames: int, steps: int) -> dict:
+    """Kernel launches of ``steps`` [SEG] + <region> train steps: the frozen
+    tower's layers on the video and on the annotated frame, the frozen Hiera
+    trunk once on the SAM frames, the mask decoder's seven attentions once
+    on the flat (object × frame) batch, and flash for each LLM layer in the
+    forward and again in its recompute (``cfg.llm.remat``). The backward
+    launches nothing: it recomputes the plain versions."""
+    want = expected_sam_launches(cfg, n_sam_frames, 1, 0)
+    want["fused_hiera_block"] += 2 * cfg.vision.num_encode_layers
+    want["flash_attention"] += (2 if cfg.llm.remat else 1) * cfg.llm.num_layers
+    return {k: steps * n for k, n in want.items()}
+
+
+def train_request(dev, seed: int, cfg, tok, frame_shape=(32, 480, 640, 3), sam_frames=4,
+                  label=TRAIN_LABEL):
+    """One training sample built in memory (the card's machine decodes no
+    files): uint8 frames preprocessed on the card for SigLIP and SAM2, one
+    annotated frame with a box mask as the <region>, the same box as the
+    [SEG] object's ground truth on the SAM frames."""
+    from ufvideo_tpu_torch.ops.image_pipeline import sam_preprocess_device, \
+        siglip_preprocess_device
+    from ufvideo_tpu_torch.train.data import TrainSample, normalize_modal_token, \
+        preprocess_conversation
+
+    frames = np.random.default_rng(seed + 8).integers(0, 256, frame_shape, dtype=np.uint8)
+    on_card = torch.from_numpy(frames).to(dev)
+    pixels = siglip_preprocess_device(on_card, torch.float32)
+    sam = sam_preprocess_device(on_card[:sam_frames], torch.float32)
+    mask = np.zeros(label, np.float32)
+    mask[label[0] // 4:label[0] // 2, label[1] // 3:2 * label[1] // 3] = 1.0
+    ids, labels = preprocess_conversation(
+        normalize_modal_token(TRAIN_CONV, "<video>"), tok, "<video>")
+    sample = TrainSample(
+        ids, labels, pixels.cpu().numpy(), region_frames=pixels[:1].cpu().numpy(),
+        region_masks=mask[None], ann_indices=[[0]], images_sam=sam.cpu().numpy(),
+        gt_masks=np.stack([np.stack([mask] * sam_frames)]))
+    return frames, pixels, sample
+
+
+def _batches(sample, collator, dev, n: int):
+    """``n`` copies of the sample through PrefetchLoader and device_prefetch
+    (pinned host memory, non-blocking copies)."""
+    from ufvideo_tpu_torch.train.prefetch import PrefetchLoader, device_prefetch, to_device
+
+    loader = PrefetchLoader([0] * n, lambda i: sample, collator, batch_size=1, num_workers=1)
+    return device_prefetch(loader, lambda b: to_device(b, dev))
+
+
+def _log_records(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _step_ms(recs) -> float:
+    """Step 2's wall time from the log's cumulative seconds (step 1 warms
+    cuBLAS and the kernel libraries; step 3's time holds the checkpoint
+    written after step 2)."""
+    return (recs[1]["time"] - recs[0]["time"]) * 1e3
+
+
+def _free_space(tmp, need, what):
+    import shutil
+
+    free = shutil.disk_usage(tmp).free
+    log(f"  {tmp}: {free / 1e9:.2f} GB free; {what}: {need / 1e9:.2f} GB")
+    if free < need + 2**30:
+        fail(f"phase 8 needs {need + 2**30} bytes free under {tmp} for {what}; {free} are free")
+
+
+def _plain_flash_counter():
+    """Count the plain attention's calls (the backward's recomputes) by
+    wrapping the name the flash wrapper looks up at each call."""
+    from ufvideo_tpu_torch.ops import flash_attention as fa
+
+    orig = fa.flash_attention_plain
+
+    def counted(*a, **k):
+        counted.calls += 1
+        return orig(*a, **k)
+
+    counted.calls = 0
+    fa.flash_attention_plain = counted
+    return counted, lambda: setattr(fa, "flash_attention_plain", orig)
+
+
+def _union_ms(intervals) -> float:
+    """Length of the union of [start, end) intervals (profiler µs), in ms."""
+    total, start, end = 0.0, None, None
+    for s_, e_ in sorted(intervals):
+        if end is not None and s_ <= end:
+            end = max(end, e_)
+            continue
+        if end is not None:
+            total += end - start
+        start, end = s_, e_
+    if end is not None:
+        total += end - start
+    return total / 1e3
+
+
+def train_step_breakdown(state, optimizer, loss_of) -> dict:
+    """One more train step under ``torch.profiler``, outside every counted
+    run, fenced after the forward, the backward and the update: the device
+    ms of each (the union of the kernels that start inside it), of each
+    kernel family (the port's kernels, libraries, PyTorch's own) and of the
+    backward's plain recomputes (the union of the device spans of the
+    ``plain recompute`` annotations of ``ops/autograd.py``, and their
+    number); the step's wall, device-busy time and idle share. Unions, not
+    sums: a kernel the profiler lists twice counts once."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ufvideo_tpu_torch.train.train_step import grads_of
+
+    for p in state.params.values():
+        p.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("train:forward"):
+            loss, _ = loss_of()
+            torch.cuda.synchronize()
+        with record_function("train:backward"):
+            loss.backward()
+            torch.cuda.synchronize()
+        with record_function("train:update"):
+            optimizer.update(state.params, grads_of(state.params), state.opt_state)
+            torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    for p in state.params.values():
+        p.grad = None
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == cpu and e.name.startswith("train:")}
+    # annotations may also stand on the device's timeline, as spans over
+    # their kernels: they are read apart, not as kernels
+    marks = set(ranges) | {"plain recompute"}
+    recompute = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == cuda and e.name == "plain recompute"]
+    kernels = [(e.time_range.start, e.time_range.end, e.name) for e in events
+               if e.device_type == cuda and e.name not in marks]
+    family = lambda name: ("port kernels" if "ufv::" in name or (
+        "(anonymous namespace)::" in name and "at::native" not in name)
+        else "pytorch elementwise / reduce / copy" if "at::native" in name else "library")
+    fams = {family(n) for _, _, n in kernels}
+    busy = _union_ms((s_, e_) for s_, e_, _ in kernels)
+    return {"wall_ms": round(wall, 1), "device_busy_ms": round(busy, 1),
+            "idle_share": round(1 - busy / wall, 3), "kernels": len(kernels),
+            "device_ms": {n: round(_union_ms((s_, e_) for s_, e_, _ in kernels
+                                             if lo <= s_ < hi), 1)
+                          for n, (lo, hi) in ranges.items()},
+            "family_ms": {f: round(_union_ms((s_, e_) for s_, e_, n in kernels
+                                             if family(n) == f), 1) for f in sorted(fams)},
+            "plain_recompute_ms": round(_union_ms(recompute), 1),
+            "plain_recompute_spans": len(recompute)}
+
+
+def run_train_lora(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), sam_frames=4,
+                   label=TRAIN_LABEL) -> dict:
+    """Phase 8a: a LoRA (r 8, alpha 16, dropout 0.05) [SEG] + <region>
+    finetune at full width and depth with gradient checkpointing: three
+    Trainer steps; every trainable gradient checked at each backward;
+    launches and the backward's plain recomputes against the prediction;
+    the loss falling; kernel route against plain route; a resume from step
+    2; the saved adapter served through model_init(model_path=,
+    adapter_path=) against merge_for_eval."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from ufvideo_tpu_torch import mm_infer, model_init
+    from ufvideo_tpu_torch.api import _assemble_input_ids
+    from ufvideo_tpu_torch.export import save_hf_checkpoint
+    from ufvideo_tpu_torch.models.qwen2 import LoRATerm, fold_in
+    from ufvideo_tpu_torch.train.data import Collator
+    from ufvideo_tpu_torch.train.lora import LoRAConfig, merge_for_eval
+    from ufvideo_tpu_torch.train.seg_step import segmentation_loss_fn
+    from ufvideo_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    wrappers = all_wrappers()
+    cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, remat=True))
+    rt, _, tok = model_init(cfg=cfg, device=dev, seed=seed)
+    cfg = rt.cfg
+    frames, pixels, sample = train_request(dev, seed, cfg, tok, frame_shape, sam_frames, label)
+    collator = Collator(cfg, rt.ids.region, rt.ids.seg)
+    lcfg = LoRAConfig(r=8, alpha=16.0, dropout=0.05)
+    tmp = tempfile.mkdtemp(prefix="ufvideo_train_")
+    try:
+        base_dir, out_dir = os.path.join(tmp, "base"), os.path.join(tmp, "run")
+        need = sum(p.numel() * p.element_size() for p in rt.model.parameters())
+        _free_space(tmp, need, "the base checkpoint")
+        t0 = time.perf_counter()
+        save_hf_checkpoint(base_dir, rt.model)
+        log(f"  the base written (save_hf_checkpoint) in {time.perf_counter() - t0:.1f} s")
+
+        tc = TrainConfig(output_dir=out_dir, learning_rate=TRAIN_LR, total_steps=10,
+                         global_batch_size=1, save_steps=2, save_total_limit=2, lora=lcfg,
+                         seed=seed)
+        trainer = Trainer(rt.model, cfg, tc, loss_fn=segmentation_loss_fn)
+        state = trainer.init_state()
+        n_train = sum(p.numel() for p in state.params.values())
+        layers = cfg.llm.num_layers
+        seen = []
+
+        def check_grads(grads):
+            flat = torch.stack([torch.isfinite(g).all() for g in grads.values()])
+            per_layer = lambda n: int((grads[n].flatten(1).abs().amax(1) > 0).sum())
+            mods = {m: max(float(g.abs().max()) for n, g in grads.items()
+                           if n.startswith(f"non_lora.{m}."))
+                    for m in ("projector", "region", "text_fcs")}
+            seen.append(dict(finite=bool(flat.all()),
+                             **{n: per_layer(f"lora.{n[0]}.{n[1]}") for n in
+                                ("qa", "qb", "va", "vb")}, **mods))
+
+        trainer.grad_hook = check_grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter, restore = _plain_flash_counter()
+        try:
+            state, launches, ms = _count(wrappers, lambda: trainer.train(
+                state, _batches(sample, collator, dev, TRAIN_STEPS), max_steps=TRAIN_STEPS))
+        finally:
+            restore()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        recs = _log_records(os.path.join(out_dir, "train_log.jsonl"))
+        n_tok = int(collator([sample])["seq_lens"][0])
+        step_ms = _step_ms(recs)
+        log(f"  LoRA on q / v (r 8, alpha 16, dropout 0.05), {n_train / 1e6:.2f} M trainable "
+            f"(adapters + projector + region encoder + text head); {TRAIN_STEPS} steps of "
+            f"{n_tok} tokens in {ms:.1f} ms, step 2 {step_ms:.1f} ms, "
+            f"{n_tok / step_ms * 1e3:.1f} trained tokens/s, peak {peak:.2f} GiB")
+        log(f"  losses {[round(r['loss'], 5) for r in recs]}, grad norms "
+            f"{[round(r['grad_norm'], 5) for r in recs]}")
+        log(f"  gradients at each backward: {seen}")
+        want = expected_train_launches(cfg, sam_frames, TRAIN_STEPS)
+        plain_want = TRAIN_STEPS * (layers + 7)
+        log(f"  launches {nonzero(launches)} (predicted {nonzero(want)}); plain attention "
+            f"calls {counter.calls}, all in the backward (predicted {plain_want}: each LLM "
+            f"layer's and the mask decoder's seven recomputed once a step)")
+        if launches != want or counter.calls != plain_want:
+            fail("phase 8a: launch counts differ from the prediction")
+        for i, s in enumerate(seen):
+            if not s["finite"]:
+                fail(f"phase 8a: a non-finite gradient at step {i + 1}")
+            if s["qb"] != layers or s["vb"] != layers:
+                fail(f"phase 8a: the LoRA B factors got no gradient in some layer at step "
+                     f"{i + 1}: q {s['qb']}, v {s['vb']} of {layers}")
+            if min(s["projector"], s["region"], s["text_fcs"]) <= 0:
+                fail(f"phase 8a: a non-LoRA trainable got no gradient at step {i + 1}")
+        if seen[-1]["qa"] != layers or seen[-1]["va"] != layers:
+            fail("phase 8a: the LoRA A factors got no gradient at step 3 (B is non-zero)")
+        if not all(np.isfinite(v) for r in recs for v in r.values()):
+            fail("phase 8a: non-finite metrics in the log")
+        if not recs[-1]["loss"] < recs[0]["loss"]:
+            fail(f"phase 8a: the loss did not fall from step 1 to step {TRAIN_STEPS}")
+
+        # where a step's time goes: one more step, profiled (the state moves on
+        # to step 4; the resume below restores checkpoint-2)
+        batch = next(iter(_batches(sample, collator, dev, 1)))
+        term = LoRATerm(state.lora, lcfg.scale, lcfg.dropout, seed=fold_in(seed, state.step))
+        prof = train_step_breakdown(
+            state, trainer.optimizer, lambda: segmentation_loss_fn(rt.model, batch, lora=term))
+        log(f"  a profiled step: {prof}")
+        del batch, term
+
+        # a fresh Trainer from checkpoint-2 takes step 3 again
+        trainer2 = Trainer(rt.model, cfg, tc, loss_fn=segmentation_loss_fn)
+        state2 = trainer2.maybe_resume(trainer2.init_state())
+        if state2.step != 2:
+            fail(f"phase 8a: resumed at step {state2.step}, not 2")
+        del state
+
+        # kernel route against plain route at the resumed parameters
+        batch = next(iter(_batches(sample, collator, dev, 1)))
+        names = list(state2.params)
+
+        def loss_and_grads(use_kernels):
+            rt.model.set_use_kernels(use_kernels)
+            term = LoRATerm(state2.lora, lcfg.scale, lcfg.dropout,
+                            seed=fold_in(seed, state2.step))
+            loss, _ = segmentation_loss_fn(rt.model, batch, lora=term)
+            grads = torch.autograd.grad(loss, [state2.params[n] for n in names])
+            rt.model.set_use_kernels(True)
+            return float(loss.detach()), grads
+
+        (lk, gk), (lp, gp) = loss_and_grads(True), loss_and_grads(False)
+        flat = lambda gs: torch.cat([g.float().flatten() for g in gs])
+        cos_all = cosine(flat(gk), flat(gp))
+        cos_each = {n: cosine(a, b) for n, a, b in zip(names, gk, gp) if float(b.norm()) > 0}
+        worst = min(cos_each, key=cos_each.get)
+        log(f"  kernel vs plain route: loss {lk:.5f} / {lp:.5f}; gradient cosine "
+            f"{cos_all:.5f} over all {len(names)} trainables, lowest {cos_each[worst]:.5f} "
+            f"({worst}) of {len(cos_each)} with a gradient; tolerance loss within "
+            f"{TRAIN_LOSS_REL} of itself, cosine >= {TRAIN_GRAD_COS} together and >= "
+            f"{TRAIN_TENSOR_COS} each")
+        if abs(lk - lp) > TRAIN_LOSS_REL * abs(lp):
+            fail("phase 8a: the kernel route's loss differs from the plain route's")
+        if cos_all < TRAIN_GRAD_COS or cos_each[worst] < TRAIN_TENSOR_COS:
+            fail("phase 8a: the kernel route's gradients differ from the plain route's")
+        del gk, gp, batch
+
+        state2 = trainer2.train(state2, _batches(sample, collator, dev, 1),
+                                max_steps=TRAIN_STEPS)
+        resumed = float(trainer2.last_metrics["loss"])
+        log(f"  resumed from checkpoint-2: step 3 loss {resumed:.6f} against the unbroken "
+            f"run's {recs[-1]['loss']:.6f} (tolerance {TRAIN_RESUME_REL} of itself)")
+        if abs(resumed - recs[-1]["loss"]) > TRAIN_RESUME_REL * abs(recs[-1]["loss"]):
+            fail("phase 8a: the resumed step differs from the unbroken run's")
+
+        # the adapter written at step 3, served
+        trainer2.save(state2)
+        ckpt = os.path.join(out_dir, f"checkpoint-{TRAIN_STEPS}")
+        kept = sorted(d for d in os.listdir(out_dir) if d.startswith("checkpoint-"))
+        files = sorted(os.listdir(ckpt))
+        log(f"  checkpoints {kept}; {ckpt}: {files}")
+        for f in ("adapter_config.json", "adapter_model.bin", "non_lora_trainables.bin"):
+            if f not in files:
+                fail(f"phase 8a: {f} missing from the adapter checkpoint")
+        t0 = time.perf_counter()
+        rt2, _, tok2 = model_init(base_dir, cfg=cfg, device=dev, adapter_path=ckpt)
+        log(f"  model_init(model_path=base, adapter_path=checkpoint-3) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        merge_for_eval(rt.model, state2, lcfg)
+        question = "What is happening in this video?"
+        ids = _assemble_input_ids(question, 1, "<video>", tok)
+        with torch.no_grad():
+            bf16_pixels = pixels.to(cfg.compute_dtype)
+            ref = staged_path(rt, ids, bf16_pixels, 1, True)
+            got = staged_path(rt2, ids, bf16_pixels, 1, True)
+        cos_lg = cosine(got[2], ref[2])
+        text, out = mm_infer(frames, question, rt2, tok2, max_new_tokens=8)
+        log(f"  the served adapter's first logits against merge_for_eval's: cosine "
+            f"{cos_lg:.6f} (tolerance >= {ADAPTER_LOGIT_COS}), greedy {got[3]} / {ref[3]}; "
+            f"mm_infer: {len(out['output'])} tokens {text[:60]!r}")
+        if cos_lg < ADAPTER_LOGIT_COS or not torch.isfinite(got[2]).all():
+            fail("phase 8a: the served adapter disagrees with merge_for_eval")
+        if not out["output"]:
+            fail("phase 8a: the served adapter generated nothing")
+        del rt2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del rt, trainer, trainer2, state2
+    torch.cuda.empty_cache()
+    log(f"  phase 8a: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def run_train_full(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), sam_frames=4,
+                   label=TRAIN_LABEL) -> dict:
+    """Phase 8b: the Trainer's default policy (full LLM finetune; SigLIP and
+    SAM2 frozen but the mask decoder) at full width with the LLM cut to 4 of
+    its 28 layers (weights, gradients and two moments of all 28 need ~61 GB
+    before activations): three steps, checkpoints at steps 2 and 3 with a
+    keep-1 rotation, a resume; the frozen towers bit for bit, the LLM and
+    the mask decoder moved, the log finite."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from ufvideo_tpu_torch import model_init
+    from ufvideo_tpu_torch.train.data import Collator
+    from ufvideo_tpu_torch.train.seg_step import segmentation_loss_fn
+    from ufvideo_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    wrappers = all_wrappers()
+    cut, depth = 4, cfg.llm.num_layers
+    cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, num_layers=cut, remat=True))
+    rt, _, tok = model_init(cfg=cfg, device=dev, seed=seed)
+    cfg = rt.cfg
+    _, _, sample = train_request(dev, seed, cfg, tok, frame_shape, sam_frames, label)
+    collator = Collator(cfg, rt.ids.region, rt.ids.seg)
+    model = rt.model
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(("vision.", "sam.image_encoder"))}
+    movers = ("llm.layers.0.qkv_proj.weight", "llm.lm_head.weight",
+              "sam.sam_mask_decoder.output_upscaling_0.weight")
+    before = {n: dict(model.named_parameters())[n].detach().clone() for n in movers}
+    tmp = tempfile.mkdtemp(prefix="ufvideo_train_full_")
+    try:
+        tc = TrainConfig(output_dir=tmp, learning_rate=TRAIN_LR, total_steps=10,
+                         global_batch_size=1, save_steps=2, save_total_limit=1, seed=seed)
+        trainer = Trainer(model, cfg, tc, loss_fn=segmentation_loss_fn)
+        state = trainer.init_state()
+        n_train = sum(p.numel() for p in state.params.values())
+        state_bytes = 3 * sum(p.numel() * p.element_size() for p in state.params.values())
+        _free_space(tmp, 2 * state_bytes, "two checkpoints")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, launches, ms = _count(wrappers, lambda: trainer.train(
+            state, _batches(sample, collator, dev, TRAIN_STEPS), max_steps=TRAIN_STEPS))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        trainer.save(state)
+        log(f"  checkpoint-{TRAIN_STEPS} ({state_bytes / 1e9:.2f} GB of parameters and "
+            f"moments) written in {time.perf_counter() - t0:.1f} s")
+        recs = _log_records(os.path.join(tmp, "train_log.jsonl"))
+        n_tok = int(collator([sample])["seq_lens"][0])
+        step_ms = _step_ms(recs)
+        log(f"  default policy, LLM cut to {cut} of {depth} layers (full width): "
+            f"{n_train / 1e9:.3f} B trainable; {TRAIN_STEPS} steps in {ms:.1f} ms (the "
+            f"step-2 checkpoint included), step 2 {step_ms:.1f} ms, "
+            f"{n_tok / step_ms * 1e3:.1f} trained tokens/s, peak {peak:.2f} GiB; losses "
+            f"{[round(r['loss'], 5) for r in recs]}")
+        want = expected_train_launches(cfg, sam_frames, TRAIN_STEPS)
+        log(f"  launches {nonzero(launches)} (predicted {nonzero(want)})")
+        if launches != want:
+            fail("phase 8b: launch counts differ from the prediction")
+        if not all(np.isfinite(v) for r in recs for v in r.values()):
+            fail("phase 8b: non-finite metrics in the log")
+        params = dict(model.named_parameters())
+        moved = [n for n in frozen if not torch.equal(params[n], frozen[n])]
+        if moved:
+            fail(f"phase 8b: frozen parameters moved: {moved[:5]}")
+        still = [n for n in movers if torch.equal(params[n], before[n])]
+        if still:
+            fail(f"phase 8b: trained parameters did not move: {still}")
+        kept = sorted(d for d in os.listdir(tmp) if d.startswith("checkpoint-"))
+        log(f"  {len(frozen)} SigLIP / Hiera tensors bit for bit, {movers} moved; "
+            f"checkpoints {kept}")
+        if kept != [f"checkpoint-{TRAIN_STEPS}"]:
+            fail(f"phase 8b: keep-1 rotation left {kept}")
+        del state
+        torch.cuda.empty_cache()
+        trainer2 = Trainer(model, cfg, tc, loss_fn=segmentation_loss_fn)
+        t0 = time.perf_counter()
+        state2 = trainer2.maybe_resume(trainer2.init_state())
+        log(f"  maybe_resume: step {state2.step} in {time.perf_counter() - t0:.1f} s")
+        if state2.step != TRAIN_STEPS:
+            fail(f"phase 8b: resumed at step {state2.step}")
+        batch = next(iter(_batches(sample, collator, dev, 1)))
+        prof = train_step_breakdown(state2, trainer2.optimizer,
+                                    lambda: segmentation_loss_fn(model, batch))
+        log(f"  a profiled step after the resume: {prof}")
+        del state2, trainer2, batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del rt, model, trainer, frozen
+    torch.cuda.empty_cache()
+    log(f"  phase 8b: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def sass_counts(lib, opcode: str) -> dict:
     """Instructions of ``opcode`` in each kernel of a built library, from
     ``cuobjdump -sass`` (the toolkit's, beside nvcc); kernels without one
@@ -3274,6 +3765,8 @@ def main() -> int:
     ap.add_argument("--match", default="", help="phase 2 on the kernels whose name holds "
                     "one of these comma-separated words, then stop (a new kernel's first "
                     "call on a card)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="phases 0-1 and 8 (training), then stop: no result")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -3306,13 +3799,23 @@ def main() -> int:
     for fn, n in sass_counts(_build._lib_path("quant_matmul"), "HMMA").items():
         log(f"    quant_matmul SASS: {n} HMMA in {fn}")
 
+    from ufvideo_tpu_torch.configs import UFVideoConfig
+
+    full = UFVideoConfig()
+    if args.train_only:
+        log(" 8a: a LoRA [SEG] + <region> finetune at full width and depth")
+        lora = run_train_lora(dev, args.seed, full)
+        log(" 8b: the reference's freezing policy (full LLM finetune), LLM cut to 4 layers")
+        full_policy = run_train_full(dev, args.seed, full)
+        print(json.dumps({"launches_train_lora": nonzero(lora),
+                          "launches_train_full": nonzero(full_policy)}), flush=True)
+        log("stopped after phase 8 (--train-only): no result")
+        return 0
+
     log("phase 2: kernels vs plain (bf16, main-path shapes)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     timer = Timer(dev)
-    from ufvideo_tpu_torch.configs import UFVideoConfig
-
-    full = UFVideoConfig()
     # the int8-rate probe's bf16 product is the block GEMM alone: it goes
     # first, before the blocks built on it
     checks = {
@@ -3390,9 +3893,15 @@ def main() -> int:
     msa_launches = run_window_msa(dev, args.seed)
     log(" 7d: the int8-rate probe")
     probe_launches = run_probe(dev, smi)
+    torch.cuda.empty_cache()
+    log("phase 8: training on the card")
+    log(" 8a: a LoRA [SEG] + <region> finetune at full width and depth")
+    train_lora = run_train_lora(dev, args.seed, full)
+    log(" 8b: the reference's freezing policy (full LLM finetune), LLM cut to 4 layers")
+    train_full = run_train_full(dev, args.seed, full)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
-        # "launches" is derived: their sum over the twenty-five counted runs
+        # "launches" is derived: their sum over the counted runs
         by_path = {"qa": launches, "seg": seg_launches, "ref_int8": int8_launches,
                    "ref_int4": int4_launches, "batch_int8": batch_int8,
                    "batch_int4": batch_int4, "seg_int8": qseg_launches,
@@ -3400,7 +3909,8 @@ def main() -> int:
                    "serve_int8": serve_launches, "engine_int8": engine_launches["plain"],
                    "engine_spec_int8": engine_launches["spec"],
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
-                   "probe": probe_launches, **ckpt}
+                   "probe": probe_launches, "train_lora": train_lora,
+                   "train_full": train_full, **ckpt}
         for label, serving in (("bf16", serving_bf16), ("int8", serving_int8),
                                ("int4", serving_int4)):
             by_path.update({f"{path}_{label}": counts for path, counts in serving.items()})

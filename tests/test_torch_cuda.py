@@ -1647,3 +1647,137 @@ def test_safetensors_views_copy_to_the_card(dev, tmp_path):
             dst = torch.empty(t.shape, dtype=torch.float32, device=dev)
             dst.copy_(got[k])
             assert torch.equal(dst.cpu(), t.float()), k
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels (ops/autograd.py): the eight wrappers with a
+# JAX custom_vjp launch their kernel in the forward and recompute the plain
+# version in the backward; every other wrapper refuses a grad input
+# ---------------------------------------------------------------------------
+
+from ufvideo_tpu_torch.ops.vit_attention import mha_full_attention_packed  # noqa: E402
+from ufvideo_tpu_torch.ops.window_attention import fused_window_attention  # noqa: E402
+
+
+def _grad_cases(dev):
+    """name → (wrapper, plain, args, kwargs, row_rel of the forward)."""
+    p144 = _block_params(dev, 144, 576)
+    return {
+        "flash_attention": (
+            flash_attention, flash_attention_plain,
+            (_randn(dev, 1, 100, 4, 64, seed=80), _randn(dev, 1, 100, 2, 64, seed=81),
+             _randn(dev, 1, 100, 2, 64, seed=82)),
+            dict(causal=True, kv_lens=torch.tensor([90], device=dev)), 1e-2),
+        "fused_hiera_block": (
+            fused_hiera_block, fused_hiera_block_plain,
+            (_randn(dev, 3, 100, 144, seed=83), p144, 2, 72), dict(act="gelu_exact"), 5e-2),
+        "fused_hiera_stage": (
+            hb.fused_hiera_stage, hb.fused_hiera_stage_plain,
+            (_randn(dev, 3, 64, 144, seed=84), [p144, _block_params(dev, 144, 576)], 2, 72),
+            dict(act="gelu_exact"), 5e-2),
+        "fused_ln_matmul": (
+            fused_ln_matmul, fused_ln_matmul_plain,
+            (_randn(dev, 2, 64, 144, seed=85), p144[0], p144[1],
+             _randn(dev, 144, 432, seed=86, scale=144 ** -0.5), p144[3]), {}, 1e-2),
+        "fused_block_tail": (
+            fused_block_tail, fused_block_tail_plain,
+            (_randn(dev, 2, 64, 144, seed=87), _randn(dev, 2, 64, 144, seed=88), p144[4:]),
+            dict(act="gelu_exact"), 5e-2),
+        "fused_qpool_block": (
+            fused_qpool_block, fused_qpool_block_plain,
+            (_randn(dev, 5, 64, 144, seed=89), _qpool_params(dev, 144, 288, 4, 72), 4, 72,
+             (2, 2)), dict(act="gelu_exact"), 5e-2),
+        "fused_window_attention": (
+            fused_window_attention, fused_window_attention_plain,
+            (_randn(dev, 16, 64, 3 * 4 * 72, seed=90), 4, 72), {}, 5e-2),
+        "mha_full_attention_packed": (
+            mha_full_attention_packed, mha_full_attention_packed_plain,
+            (_randn(dev, 2, 50, 3 * 2 * 72, seed=91), 2, 72), {}, 5e-2),
+    }
+
+
+def _float_leaves(tree, out):
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            _float_leaves(t, out)
+    elif torch.is_tensor(tree) and tree.is_floating_point():
+        out.append(tree)
+    return out
+
+
+def _fresh(tree):
+    """The same values as new leaves that require a gradient."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_fresh(t) for t in tree)
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.detach().clone().requires_grad_(True)
+    return tree
+
+
+GRAD_WRAPPERS = ["flash_attention", "fused_hiera_block", "fused_hiera_stage", "fused_ln_matmul",
+                 "fused_block_tail", "fused_qpool_block", "fused_window_attention",
+                 "mha_full_attention_packed"]
+
+
+@pytest.mark.parametrize("name", GRAD_WRAPPERS)
+def test_kernel_route_gradients_equal_the_plain_route(dev, name):
+    """Inputs and weights requiring gradients: the forward launches the
+    kernel once (and agrees with the plain version within the file's
+    limits), and the gradient of every input equals the plain route's
+    within the same limits (the backward is the plain version's,
+    recomputed on the same inputs, so only the upstream gradient's path
+    differs: none here, the loss is linear in the output)."""
+    wrapper, plain, args, kw, row_rel = _grad_cases(dev)[name]
+    ka, pa = _fresh(args), _fresh(args)
+    before = wrapper.launches
+    out = wrapper(*ka, **kw)
+    assert wrapper.launches == before + 1 and out.grad_fn is not None
+    ref = plain(*pa, **kw)
+    _assert_close(out.detach(), ref.detach(), row_rel=row_rel)
+    w = _randn(dev, *out.shape, seed=99)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), _float_leaves(ka, []))
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), _float_leaves(pa, []))
+    assert wrapper.launches == before + 1  # the backward launched nothing
+    for i, (g, r) in enumerate(zip(got, want)):
+        assert g.shape == r.shape, i
+        _assert_close(g.reshape(-1, g.shape[-1]) if g.dim() > 1 else g[None],
+                      r.reshape(-1, r.shape[-1]) if r.dim() > 1 else r[None], row_rel=row_rel)
+
+
+def _no_backward_calls(dev):
+    m = lambda *shape, dt=torch.bfloat16: torch.zeros(*shape, dtype=dt, device=dev)
+    i8 = functools.partial(m, dt=torch.int8)
+    f32 = functools.partial(m, dt=torch.float32)
+    lens = torch.tensor([5], dtype=torch.int32, device=dev)
+    return {
+        "ragged_decode_attention": lambda q: ragged_decode_attention(
+            q(1, 2, 2, 64), m(1, 2, 16, 64), m(1, 2, 16, 64), lens),
+        "ragged_decode_attention_q8": lambda q: da.ragged_decode_attention_q8(
+            q(1, 2, 2, 64), i8(1, 2, 16, 64), i8(1, 2, 16, 64), f32(1, 2, 16), f32(1, 2, 16),
+            lens),
+        "int8_matvec": lambda q: qm.int8_matvec(q(1, 64), i8(64, 32), f32(32)),
+        "int4_matmul": lambda q: qm.int4_matmul(q(1, 64), i8(32, 32), f32(1, 32), 64),
+        "probe_step": lambda q: pr.probe_step(q(8, 64), m(64, 32), False),
+        "fused_block_w8a8": lambda q: hb.fused_block_w8a8(
+            q(1, 16, 64), tuple(f32(1) for _ in range(16)), 2, 32),
+        "fused_ln_matmul_w8a8": lambda q: hb.fused_ln_matmul_w8a8(
+            q(1, 16, 64), f32(64), f32(64), i8(64, 32), f32(32), f32(32)),
+        "fused_block_tail_w8a8": lambda q: hb.fused_block_tail_w8a8(
+            q(1, 16, 64), m(1, 16, 64), tuple(f32(1) for _ in range(11))),
+        "fused_qpool_block_w8a8": lambda q: hb.fused_qpool_block_w8a8(
+            q(1, 16, 64), tuple(f32(1) for _ in range(16)), 2, 32),
+    }
+
+
+@pytest.mark.parametrize("name", ["ragged_decode_attention", "ragged_decode_attention_q8",
+                                  "int8_matvec", "int4_matmul", "probe_step", "fused_block_w8a8",
+                                  "fused_ln_matmul_w8a8", "fused_block_tail_w8a8",
+                                  "fused_qpool_block_w8a8"])
+def test_kernels_without_backward_refuse_a_grad_input(dev, name):
+    """A CUDA input that requires a gradient raises instead of returning a
+    tensor cut off from the graph."""
+    call = _no_backward_calls(dev)[name]
+    grad = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16, device=dev,
+                                      requires_grad=True)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        call(grad)

@@ -130,7 +130,8 @@ def test_port_imports_no_jax():
     cv2 / PIL / imageio blocked too (the card's machine has none of them),
     the serving layer (the scheduler, the engine, both launchers), the RLE
     codec and the host media module import and build a sample from a JSON
-    body."""
+    body, and the training package, its launcher and the logging utilities
+    import and take a step on a sample built in memory."""
     script = textwrap.dedent(
         """
         import sys
@@ -164,6 +165,30 @@ def test_port_imports_no_jax():
         sample, _, _ = serve._build_sample(body, tiny_config())
         assert (sample["masks"][0] == mask).all() and sample["video"].shape == frames.shape
         assert mm_utils.frame_sample(10, num_frames=4).tolist() == [1, 3, 6, 8]
+        # training: the package, its launcher and the logging utilities; a
+        # sample built in memory goes through the Collator and one step
+        import ufvideo_tpu_torch.train.__main__
+        from ufvideo_tpu_torch.train import data, trainer
+        from ufvideo_tpu_torch.train.seg_step import make_seg_loss_fn
+        from ufvideo_tpu_torch.train.prefetch import to_device
+        from ufvideo_tpu_torch.utils import logging as ulog
+        rt, _, tok = model_init(cfg=tiny_config(), device="cpu", seed=1)
+        conv = [{"from": "human", "value": "<video>\\n<region>?"},
+                {"from": "gpt", "value": "[SEG]."}]
+        ids, labels = data.preprocess_conversation(conv, tok, "<video>")
+        m = np.zeros((20, 20), np.float32)
+        m[4:9, 4:9] = 1
+        s = data.TrainSample(ids, labels, frames, region_frames=frames[:1],
+                             region_masks=m[None], ann_indices=[[0]],
+                             images_sam=np.zeros((2, 128, 128, 3), np.float32),
+                             gt_masks=np.stack([np.stack([m, m])]))
+        b = data.Collator(rt.cfg, rt.ids.region, rt.ids.seg)([s, s])
+        import tempfile
+        tr = trainer.Trainer(rt.model, rt.cfg, trainer.TrainConfig(
+            output_dir=tempfile.mkdtemp(), total_steps=1), make_seg_loss_fn())
+        state, metrics = tr.step_fn(tr.init_state(), to_device(b, "cpu"))
+        assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+        ulog.rank0_print("train step ok")
         bad = [m for m in sys.modules if m in ("jax", "flax", "ufvideo_tpu")
                or m.startswith(("jax.", "flax.", "ufvideo_tpu."))]
         bad = [m for m in bad if sys.modules[m] is not None]

@@ -419,6 +419,7 @@ def model_init(
     tokenizer_path: Optional[str] = None,
     routing: Optional[VisionRouting] = None,
     sam_path: Optional[str] = None,
+    adapter_path: Optional[str] = None,
 ):
     """Build (runtime, processor, tokenizer). With ``model_path`` None the
     weights are random, drawn on ``device`` from ``seed`` with the JAX
@@ -442,10 +443,16 @@ def model_init(
     values are the same). ``sam_path``: a standalone SAM2 ``.pt`` whose
     weights take the place of the checkpoint's own; it needs ``model_path``.
     A checkpoint with no SAM2 weights and no ``sam_path`` gives a runtime
-    without SAM2, on which a ``[SEG]`` request raises."""
+    without SAM2, on which a ``[SEG]`` request raises. ``adapter_path``: a
+    PEFT adapter directory (a LoRA run's ``checkpoint-{step}``: the q / v
+    adapters and ``non_lora_trainables``) merged into ``model_path``'s state
+    dict before it is written into the model
+    (``checkpoints.merge_lora_from_dir``); it needs ``model_path``."""
     device = _check_device(device)
     if sam_path and not model_path:
         raise ValueError("model_init: sam_path needs model_path (a random model has its SAM2)")
+    if adapter_path and not model_path:
+        raise ValueError("model_init: adapter_path needs model_path (the base it adapts)")
     cfg = cfg or UFVideoConfig()
     if tokenizer_path:
         from .tokenization import load_tokenizer
@@ -461,9 +468,11 @@ def model_init(
     if model_path:
         from .checkpoints import (
             convert_full_checkpoint, infer_vocab_size, load_sam2_checkpoint,
-            load_torch_state_dict)
+            load_torch_state_dict, merge_lora_from_dir)
 
         sd = load_torch_state_dict(model_path)
+        if adapter_path:
+            sd = merge_lora_from_dir(dict(sd), adapter_path)
         cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, vocab_size=infer_vocab_size(sd)))
         sam_sd = load_sam2_checkpoint(sam_path) if sam_path else None
         model = convert_full_checkpoint(sd, cfg, sam_sd, device=device, routing=routing)

@@ -17,9 +17,13 @@ files are read by the reader below as views of one ``mmap`` of each file (the
 ``safetensors`` package is not needed), ``.bin`` files through
 ``torch.load(mmap=True)``, and each tensor is copied to its parameter, on the
 parameter's device and in its dtype, when the converter reaches it. Nothing
-writes into those views. The orbax functions of the JAX module
-(``save_params``, ``load_params``, ``latest_checkpoint``) come with training
-(ROADMAP.md queue 1 item 4c).
+writes into those views.
+
+``save_params`` / ``load_params`` / ``latest_checkpoint`` keep a training
+run's state (the JAX module's orbax functions; orbax's format cannot be read
+without JAX): a ``checkpoint-{step}`` directory with ``tensors.pt`` (every
+tensor of a nested dict, by its ``/``-joined path, on the host) and
+``meta.json`` (the other leaves: the step, the optimizer's count).
 """
 
 from __future__ import annotations
@@ -306,3 +310,79 @@ def _first_existing(d: str, names, required: bool = True) -> Optional[str]:
     if required:
         raise FileNotFoundError(f"none of {names} in {d}")
     return None
+
+
+# --------------------------------------------------------------------------
+# training state checkpoints
+# --------------------------------------------------------------------------
+
+def _flat(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def save_params(path: str, tree: Mapping) -> None:
+    """Write a nested dict of tensors and plain values (ints, floats,
+    strings, None) to the directory ``path``; tensors are copied to the
+    host as written, in their dtype."""
+    os.makedirs(path, exist_ok=True)
+    flat = _flat(tree)
+    tensors = {k: v.detach().cpu() for k, v in flat.items() if torch.is_tensor(v)}
+    meta = {k: v for k, v in flat.items() if not torch.is_tensor(v)}
+    torch.save(tensors, os.path.join(path, "tensors.pt"))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def load_params(path: str, template: Optional[Mapping] = None) -> Dict[str, Any]:
+    """Read a ``save_params`` directory. With ``template`` (a nested dict of
+    the same paths) each tensor is copied into the template's tensor in
+    place, on its device and in its dtype, and a path the directory lacks
+    raises; the returned dict holds the template's tensors and the read
+    plain values."""
+    tensors = torch.load(os.path.join(path, "tensors.pt"), map_location="cpu",
+                         mmap=True, weights_only=True)
+    with open(os.path.join(path, "meta.json")) as f:
+        flat = {**json.load(f), **tensors}
+    if template is None:
+        return _nest(flat)
+    want = _flat(template)
+    missing = sorted(set(want) - set(flat))
+    if missing:
+        raise KeyError(f"{path} holds no {missing[:8]}")
+    out = {}
+    with torch.no_grad():
+        for k, t in want.items():
+            if torch.is_tensor(t):
+                t.copy_(flat[k])
+                out[k] = t
+            else:
+                out[k] = flat[k]
+    return _nest(out)
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The ``checkpoint-{step}`` directory of the highest step, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    cands = [d for d in os.listdir(ckpt_dir)
+             if d.startswith("checkpoint-") and d.split("-")[-1].isdigit()]
+    if not cands:
+        return None
+    return os.path.join(ckpt_dir, max(cands, key=lambda d: int(d.split("-")[-1])))

@@ -73,6 +73,10 @@ class Qwen2Config:
     tie_word_embeddings: bool = False
     eos_token_id: int = 151645  # <|im_end|>
     pad_token_id: int = 151643  # <|endoftext|>
+    # gradient checkpointing in the train forward: each decoder layer is
+    # recomputed in the backward instead of keeping its activations
+    # (torch.utils.checkpoint, one layer a checkpoint)
+    remat: bool = False
 
     @property
     def padded_vocab_size(self) -> int:
@@ -207,6 +211,11 @@ class UFVideoConfig:
 
     # width of the [SEG] text head's output (SAM2's prompt embedding)
     sam_out_dim: int = 256
+
+    # training loss weights (the reference's train.py defaults)
+    ce_loss_weight: float = 1.0
+    bce_loss_weight: float = 2.0
+    dice_loss_weight: float = 0.5
 
     # bf16 compute and storage; LayerNorm / RMSNorm / softmax in float32
     compute_dtype: torch.dtype = torch.bfloat16

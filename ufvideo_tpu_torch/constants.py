@@ -39,3 +39,19 @@ def extra_special_tokens() -> list:
     """Tokens added on top of the base LLM vocabulary, in order: <region>,
     the 100 temporal tokens, then [SEG]."""
     return [REGION_TOKEN, *temporal_tokens(), SEG_TOKEN]
+
+# templated classic-segmentation prompts (the training data pipeline)
+QUESTION_LIST = [
+    "Can you segment the {class_name} in this image?",
+    "Please segment the {class_name} in this image.",
+    "What is {class_name} in this image? Please respond with segmentation mask.",
+    "What is {class_name} in this image? Please output segmentation mask.",
+]
+
+ANSWER_LIST = [
+    "It is [SEG].",
+    "Sure, [SEG].",
+    "Sure, it is [SEG].",
+    "Sure, the segmentation result is [SEG].",
+    "[SEG].",
+]

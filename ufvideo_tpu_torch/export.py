@@ -30,9 +30,6 @@ from .models.ufvideo import UFVideoModel
 from .weights import plan_to_sd, projector_plan, qwen2_plan, region_plan, siglip_plan, \
     text_fcs_plan, to_host
 
-# the reference's loss weights (its train.py defaults), written to config.json
-# until the port trains (ROADMAP.md queue 1 item 4c)
-_LOSS_WEIGHTS = {"ce_loss_weight": 1.0, "bce_loss_weight": 2.0, "dice_loss_weight": 0.5}
 
 
 def _refuse_quantised(cfg: UFVideoConfig) -> None:
@@ -152,7 +149,9 @@ def save_hf_checkpoint(path: str, model: UFVideoModel,
         "seg_token_id": cfg.seg_token_id,
         "train_mask_decoder": False,
         "sam_out_dim": cfg.sam_out_dim,
-        **_LOSS_WEIGHTS,
+        "ce_loss_weight": cfg.ce_loss_weight,
+        "bce_loss_weight": cfg.bce_loss_weight,
+        "dice_loss_weight": cfg.dice_loss_weight,
     }
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f, indent=2)

@@ -262,7 +262,7 @@ def process_video(
 
 
 def process_image(
-    image_path, aspect_ratio: str = "pad"
+    image_path, aspect_ratio: str = "pad", image_size: int = SIGLIP_SIZE
 ) -> Tuple[np.ndarray, int, int, List[np.ndarray]]:
     """The image branch: one frame for SigLIP, four copies for SAM."""
     if isinstance(image_path, str):
@@ -275,7 +275,7 @@ def process_image(
     frame_list = [img.copy() for _ in range(4)]
     if aspect_ratio == "pad":
         img = expand2square(img, tuple(int(x * 255) for x in SIGLIP_MEAN))
-    return siglip_preprocess([img]), h, w, frame_list
+    return siglip_preprocess([img], image_size), h, w, frame_list
 
 
 # --------------------------------------------------------------------------

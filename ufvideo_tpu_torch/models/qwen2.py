@@ -15,7 +15,11 @@ with f32 per-position scales [L, B, Hkv, S]). Four modes:
     dequantised to the model dtype for it): speculative decoding.
   - ``train``: one causal forward over the whole sequence with no cache
     (attention: ``ops.flash_attention`` with ``kv_lens``): the single
-    forward behind ``[SEG]`` hidden states when ``[SEG]`` is in the input.
+    forward behind ``[SEG]`` hidden states when ``[SEG]`` is in the input,
+    and the training forward. With ``cfg.remat`` and autograd recording,
+    each layer is one ``torch.utils.checkpoint`` (recomputed in the
+    backward); ``lora`` (a ``LoRATerm``) adds the q / v adapters, either
+    merged into the qkv weight or as PEFT's forward term with input dropout.
 
 With ``quant`` the projections and ``lm_head`` are ``QuantLinear``: int8
 weight-only with per-column scales, or packed int4 with group scales. Up to
@@ -24,18 +28,20 @@ weight-only with per-column scales, or packed int4 with group scales. Up to
 a transient and run one ``torch.matmul``. The route is fixed by the tensor's
 device and row count, not read from the environment.
 
-Ring attention and LoRA come with later slices (ROADMAP.md). The vocabulary
+Ring attention comes with a later slice (ROADMAP.md). The vocabulary
 is padded to a multiple of 256; logits of padding ids are masked at sampling
 time.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import hashlib
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import Qwen2Config
 from ..ops.attention import attention, decode_attention, xla_attention
@@ -191,6 +197,45 @@ def _reset_linear(m: nn.Module, gen: torch.Generator) -> None:
         init.linear_(m, gen)
 
 
+class LoRATerm(NamedTuple):
+    """q / v LoRA adapters for the LLM's forward (mirrors the JAX layer's
+    ``lora_term`` and ``train/lora.py`` ``apply_lora``). ``factors`` is
+    ``{"q" | "v": {"a": [L, hidden, r], "b": [L, r, out]}}`` (float32).
+    ``merge``: the layer runs on W + scale·[Aq·Bq | 0 | Av·Bv] cast to W's
+    dtype (the parameter-space merge); else q / v get + scale·(drop(h)·A)·B,
+    PEFT's forward term, with input dropout at ``dropout`` in train mode.
+    Layer l draws its dropout mask from a generator seeded by (``seed``, l)
+    alone, so a recomputed layer (``cfg.remat``) draws the same mask."""
+
+    factors: Dict[str, Dict[str, torch.Tensor]]
+    scale: float
+    dropout: float = 0.0
+    merge: bool = False
+    seed: int = 0
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from (seed, data) alone (the JAX ``fold_in``'s
+    role: the dropout draws of a step, or of a layer, from its number)."""
+    digest = hashlib.blake2b(f"{seed}:{data}".encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def lora_qkv_delta(a_q, b_q, a_v, b_v, nkv: int, scale: float, dtype) -> torch.Tensor:
+    """One layer's LoRA term in the fused qkv weight's layout, [hidden,
+    nq + 2·nkv]: scale·[Aq·Bq | 0 | Av·Bv] cast to ``dtype`` once, the
+    parameter-space merge (training's merged step and ``apply_lora`` alike)."""
+    dq, dv = a_q @ b_q, a_v @ b_v
+    return (torch.cat([dq, dq.new_zeros(dq.shape[0], nkv), dv], dim=-1) * scale).to(dtype)
+
+
+def dropout_keep(shape, rate: float, seed: int, layer: int, device) -> torch.Tensor:
+    """Keep mask (True with probability 1 - rate) of layer ``layer``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(fold_in(seed, layer))
+    return torch.rand(shape, generator=gen, device=device) >= rate
+
+
 class Qwen2DecoderLayer(nn.Module):
     def __init__(self, cfg: Qwen2Config, dtype: torch.dtype, quant=False):
         super().__init__()
@@ -224,16 +269,36 @@ class Qwen2DecoderLayer(nn.Module):
         cache: Optional[Dict[str, torch.Tensor]],  # this layer's k / v [B, Hkv, Smax, D]
         #   (+ k_scale / v_scale [B, Hkv, Smax] when int8), updated in place
         mode: str,
+        lora: Optional[LoRATerm] = None,
+        layer_idx: int = 0,  # this layer's row of the stacked ``lora`` factors
     ) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         nq = cfg.num_heads * cfg.head_dim
         nkv = cfg.num_kv_heads * cfg.head_dim
         h = self.input_layernorm(x)
-        qkv = self.qkv_proj(h)
+        if lora is not None and isinstance(self.qkv_proj, QuantLinear):
+            raise ValueError("LoRA needs the float LLM (cfg.quant_llm is set)")
+        fac = None if lora is None else {
+            n: (f["a"][layer_idx], f["b"][layer_idx]) for n, f in lora.factors.items()}
+        if lora is not None and lora.merge:
+            w = self.qkv_proj.weight
+            delta = lora_qkv_delta(*fac["q"], *fac["v"], nkv, lora.scale, w.dtype)
+            qkv = F.linear(h, w + delta.t(), self.qkv_proj.bias)
+        else:
+            qkv = self.qkv_proj(h)
         q = qkv[..., :nq].reshape(b, s, cfg.num_heads, cfg.head_dim)
         k = qkv[..., nq:nq + nkv].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         v = qkv[..., nq + nkv:].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        if lora is not None and not lora.merge:
+            xr = h
+            if lora.dropout > 0.0 and mode == "train":
+                keep = dropout_keep(h.shape, lora.dropout, lora.seed, layer_idx, h.device)
+                xr = torch.where(keep, h / (1.0 - lora.dropout), 0.0).to(h.dtype)
+            xf = xr.float()
+            dq, dv = ((xf @ fac[n][0]) @ fac[n][1] for n in ("q", "v"))
+            q = q + (lora.scale * dq).to(q.dtype).reshape(q.shape)
+            v = v + (lora.scale * dv).to(v.dtype).reshape(v.shape)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -339,6 +404,7 @@ class Qwen2LM(nn.Module):
         cache: Optional[Dict[str, torch.Tensor]],  # None in train mode
         cache_len: Optional[torch.Tensor],  # [B] write position (decode)
         mode: str,
+        lora: Optional[LoRATerm] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Final hidden states [B, S, hidden]; ``cache`` is updated in place
         and returned."""
@@ -350,9 +416,14 @@ class Qwen2LM(nn.Module):
             cache_len = torch.zeros((b,), dtype=torch.int64, device=dev)
         cos, sin = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         x = input_embeds.to(self.dtype)
+        remat = self.cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             cl = {n: t[i] for n, t in cache.items()} if cache is not None else None
-            x = layer(x, cos, sin, seq_lens, cache_len, cl, mode)
+            if remat:
+                x = checkpoint(layer, x, cos, sin, seq_lens, cache_len, cl, mode, lora, i,
+                               use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, seq_lens, cache_len, cl, mode, lora, i)
         return self.norm(x), cache
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:

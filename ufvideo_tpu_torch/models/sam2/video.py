@@ -17,8 +17,8 @@ selection, and forward / reverse / bidirectional tracking.
 object-batch dimension. The JAX package scans over a traced frame index;
 here the frames are plain integers, and each direction's slot choices and
 validity masks are tabulated on the host and uploaded once, so the loop
-itself never waits for the device. The training decode path is not ported
-yet (ROADMAP.md).
+itself never waits for the device. ``sam_train_masks`` is the training
+decode path (no memory, one prompted frame a row).
 """
 
 from __future__ import annotations
@@ -423,6 +423,26 @@ def propagate_video_general(
     for ci, low in zip(cond_idcs, cond_masks):
         masks[ci] = low.float()
     return masks
+
+
+def sam_train_masks(
+    model: SAM2,
+    s0: torch.Tensor,  # [N, 4H, 4W, C/8] per-row frame features
+    s1: torch.Tensor,  # [N, 2H, 2W, C/4]
+    s2: torch.Tensor,  # [N, H, W, C]
+    language_embd: torch.Tensor,  # [N, 1, C]
+) -> torch.Tensor:
+    """Training decode path (the JAX ``sam_train_masks``): no memory, the
+    language-prompted SAM heads on a flat (sample × object × frame) batch →
+    high-res mask logits [N, 1, 16H, 16W]. Records a graph: gradients reach
+    ``language_embd`` through the mask decoder whether or not its own
+    parameters train."""
+    cfg = model.cfg
+    n = s2.shape[0]
+    h = w = cfg.sam_image_embedding_size
+    c = cfg.sam_embed_dim
+    pix = model.no_memory_features(s2.reshape(n, h * w, c)).reshape(n, h, w, c)
+    return model.forward_sam_heads(pix, [s0, s1], language_embd).high_res_masks
 
 
 def masks_to_video_res(masks: torch.Tensor, height: int, width: int) -> torch.Tensor:

@@ -4,10 +4,12 @@ encoder + Qwen2 LM + the ``[SEG]`` text head + SAM2 (mirrors
 ``splice_embeds`` / ``seg_embeddings``; the JAX runtime keeps SAM2 beside
 the composite, here it is a member). ``cfg.quant_vision`` builds the SigLIP
 tower and SAM2's Hiera trunk in W8A8, ``cfg.quant_llm`` the LM on
-weight-only int8 / int4."""
+weight-only int8 / int4. The ``*_train`` methods are the same functions with
+autograd recording, for ``train/``."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -82,16 +84,22 @@ class UFVideoModel(nn.Module):
             if hasattr(m, "use_kernels"):
                 m.use_kernels = flag
 
-    @torch.no_grad()
-    def encode_video(self, pixels: torch.Tensor) -> torch.Tensor:
+    # The inference methods below run under ``torch.no_grad``; training
+    # calls the ``*_train`` methods, which record a graph. A tower none of
+    # whose parameters is trainable runs under ``no_grad`` there too (its
+    # output is a constant of the step), so only the trained parts keep
+    # activations. The inference methods are the train ones under no_grad:
+    # the same arithmetic, so inference results do not move.
+
+    def encode_video_train(self, pixels: torch.Tensor) -> torch.Tensor:
         """[B, T, H, W, 3] frames → [B, V, hidden] video tokens."""
         b, t, h, w, c = pixels.shape
-        feats = self.vision(pixels.reshape(b * t, h, w, c))
+        with grad_unless_frozen(self.vision):
+            feats = self.vision(pixels.reshape(b * t, h, w, c))
         feats = feats.reshape(b, t, feats.shape[1], feats.shape[2])
         return self.projector(feats)
 
-    @torch.no_grad()
-    def encode_regions(
+    def encode_regions_train(
         self,
         frame_pixels: torch.Tensor,  # [B, F, H, W, 3] annotated frames
         masks: torch.Tensor,  # [B, F, Hm, Wm]
@@ -102,7 +110,8 @@ class UFVideoModel(nn.Module):
         encode of the annotated frames, mask pooling, static token merge,
         the region MLP."""
         b, f, h, w, c = frame_pixels.shape
-        feats = self.vision(frame_pixels.reshape(b * f, h, w, c))
+        with grad_unless_frozen(self.vision):
+            feats = self.vision(frame_pixels.reshape(b * f, h, w, c))
         feats = feats.reshape(b, f, feats.shape[1], feats.shape[2])
         rt = self.cfg.region.region_token_num
         tokens, valid = zip(*(
@@ -112,8 +121,7 @@ class UFVideoModel(nn.Module):
         tokens = torch.stack(tokens).reshape(b, -1, feats.shape[-1])  # [B, R·rt, C]
         return self.region(tokens), torch.stack(valid).reshape(b, -1)
 
-    @torch.no_grad()
-    def splice_embeds(
+    def splice_embeds_train(
         self,
         text_ids: torch.Tensor,  # [B, T] sentinel-free ids
         src_kind: torch.Tensor,  # [B, S]
@@ -124,7 +132,20 @@ class UFVideoModel(nn.Module):
         text_embeds = self.llm.embed(text_ids)
         return apply_splice(text_embeds, video_feats, region_feats, src_kind, src_idx)
 
-    @torch.no_grad()
-    def seg_embeddings(self, hidden: torch.Tensor) -> torch.Tensor:
+    def seg_embeddings_train(self, hidden: torch.Tensor) -> torch.Tensor:
         """Final-layer hidden states → SAM prompt embeddings."""
         return self.text_fcs(hidden)
+
+    encode_video = torch.no_grad()(encode_video_train)
+    encode_regions = torch.no_grad()(encode_regions_train)
+    splice_embeds = torch.no_grad()(splice_embeds_train)
+    seg_embeddings = torch.no_grad()(seg_embeddings_train)
+
+
+def grad_unless_frozen(*modules: nn.Module):
+    """``no_grad`` where none of the modules' parameters is trainable; no
+    scan of the parameters where autograd is off already (inference)."""
+    if not torch.is_grad_enabled():
+        return contextlib.nullcontext()
+    trainable = any(p.requires_grad for m in modules for p in m.parameters())
+    return contextlib.nullcontext() if trainable else torch.no_grad()

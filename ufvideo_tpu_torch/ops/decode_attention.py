@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .autograd import refuse_grad
 from .attention import _NEG_INF, xla_attention
 
 # cache positions a block (csrc/decode_attention.cu takes multiples of its
@@ -203,6 +204,7 @@ def ragged_decode_attention(
     (bf16, G <= 8, D a multiple of 8 up to 128, contiguous aligned cache)."""
     if q.device.type == "cpu":
         return ragged_decode_attention_plain(q, k_cache, v_cache, lens, scale=scale)
+    refuse_grad("ragged_decode_attention", q, k_cache, v_cache)
     _check_cache("ragged_decode_attention", q, k_cache, v_cache, torch.bfloat16, 8)
     return _launch(q, k_cache, v_cache, lens, _plan(q, k_cache.shape[2]), scale)
 
@@ -255,6 +257,7 @@ def ragged_decode_attention_q8(
     if q.device.type == "cpu":
         return ragged_decode_attention_q8_plain(
             q, k_cache, v_cache, k_scale, v_scale, lens, scale=scale)
+    refuse_grad("ragged_decode_attention_q8", q, k_cache, v_cache, k_scale, v_scale)
     _check_cache("ragged_decode_attention_q8", q, k_cache, v_cache, torch.int8, 16)
     b, hkv = q.shape[:2]
     s = k_cache.shape[2]

@@ -30,6 +30,7 @@ import torch
 
 from .. import _build
 from .attention import xla_attention
+from .autograd import kernel_with_plain_backward
 
 
 # The kernel's tiles: 64 query rows a consumer warpgroup, two warpgroups a
@@ -176,11 +177,18 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax attention forward. CPU tensors take the plain
     version; CUDA tensors launch the kernel (bf16, head dim a multiple of
-    8 up to 256)."""
+    8 up to 256), whose gradient is the plain version's, recomputed
+    (``ops.autograd``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, kv_lens=kv_lens, kv_mask=kv_mask, scale=scale
         )
+    return kernel_with_plain_backward(
+        _flash_attention_cuda, flash_attention_plain, q, k, v,
+        causal=causal, kv_lens=kv_lens, kv_mask=kv_mask, scale=scale)
+
+
+def _flash_attention_cuda(q, k, v, *, causal, kv_lens, kv_mask, scale):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, hq, d = q.shape

@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .autograd import kernel_with_plain_backward, refuse_grad
 
 _ACT_CODES = {"gelu_tanh": 1, "gelu_exact": 2, "gelu_poly": 3, "gelu_poly_bf16": 4,
               "gelu_tanh_poly": 5, "gelu_tanh_poly_bf16": 6}
@@ -250,6 +251,11 @@ def fused_hiera_block(
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
         return fused_hiera_block_plain(x, params, num_heads, head_dim, act, eps)
+    return kernel_with_plain_backward(
+        _hiera_block_cuda, fused_hiera_block_plain, x, params, num_heads, head_dim, act, eps)
+
+
+def _hiera_block_cuda(x, params, num_heads, head_dim, act, eps):
     (ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1, b1, w2,
      b2) = params
     _check_cuda("fused_hiera_block", x, (wqkv, wproj, w1, w2))
@@ -318,6 +324,12 @@ def fused_hiera_stage(
         raise ValueError("fused_hiera_stage needs at least one block")
     if x.device.type == "cpu":
         return fused_hiera_stage_plain(x, params_list, num_heads, head_dim, act, eps)
+    return kernel_with_plain_backward(
+        _hiera_stage_cuda, fused_hiera_stage_plain, x, params_list, num_heads, head_dim,
+        act, eps)
+
+
+def _hiera_stage_cuda(x, params_list, num_heads, head_dim, act, eps):
     n, s, c = x.shape
     hw = num_heads * head_dim
     mlp = params_list[0][8].shape[1]
@@ -580,6 +592,11 @@ def fused_ln_matmul(
     launches (``ln_gemm_plan``)."""
     if x.device.type == "cpu":
         return fused_ln_matmul_plain(x, ln_s, ln_b, w, b, eps)
+    return kernel_with_plain_backward(
+        _ln_matmul_cuda, fused_ln_matmul_plain, x, ln_s, ln_b, w, b, eps)
+
+
+def _ln_matmul_cuda(x, ln_s, ln_b, w, b, eps):
     _check_cuda("fused_ln_matmul", x, (w,))
     n, s, c = x.shape
     d = w.shape[1]
@@ -622,6 +639,11 @@ def fused_block_tail(
         raise ValueError(f"unknown activation {act!r}")
     if shortcut.device.type == "cpu":
         return fused_block_tail_plain(shortcut, att, params, act, eps)
+    return kernel_with_plain_backward(
+        _block_tail_cuda, fused_block_tail_plain, shortcut, att, params, act, eps)
+
+
+def _block_tail_cuda(shortcut, att, params, act, eps):
     wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2 = params
     _check_cuda("fused_block_tail", shortcut, (att, wproj, w1, w2))
     n, s, c = shortcut.shape
@@ -718,6 +740,12 @@ def fused_qpool_block(
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
         return fused_qpool_block_plain(x, params, num_heads, head_dim, q_stride, act, eps)
+    return kernel_with_plain_backward(
+        _qpool_block_cuda, fused_qpool_block_plain, x, params, num_heads, head_dim,
+        q_stride, act, eps)
+
+
+def _qpool_block_cuda(x, params, num_heads, head_dim, q_stride, act, eps):
     (ln1_s, ln1_b, wf, bf, wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2) = params
     _check_cuda("fused_qpool_block", x, (wf, wproj, w1, w2))
     n, s, cin = x.shape
@@ -831,6 +859,7 @@ def fused_block_w8a8_plain(
 
 
 def _check_w8a8(name: str, x: torch.Tensor, acts, weights) -> None:
+    refuse_grad(name, x, *acts, *weights)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if not all(t.dtype == torch.bfloat16 for t in (x, *acts)) or not all(

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from .autograd import refuse_grad
 from ..quant import unpack_int4
 
 MAX_ROWS = 32
@@ -351,6 +352,7 @@ def int8_matvec_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> 
 
 
 def _check(name: str, x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
+    refuse_grad(name, x2, s)
     if x2.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x2.device}")
     if q.device != x2.device or s.device != x2.device:

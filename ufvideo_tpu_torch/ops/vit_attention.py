@@ -18,6 +18,7 @@ import functools
 import torch
 
 from .. import _build
+from .autograd import kernel_with_plain_backward
 
 
 @functools.cache
@@ -70,9 +71,14 @@ def mha_full_attention_packed(
 ) -> torch.Tensor:  # [B, S, H·D]
     """Unmasked full attention of each image on itself. CPU tensors take the
     plain version; CUDA tensors launch the kernel (bf16, head dim a multiple
-    of 8 up to 256)."""
+    of 8 up to 256; the gradient is the plain version's, recomputed)."""
     if qkv.device.type == "cpu":
         return mha_full_attention_packed_plain(qkv, num_heads, head_dim)
+    return kernel_with_plain_backward(
+        _mha_packed_cuda, mha_full_attention_packed_plain, qkv, num_heads, head_dim)
+
+
+def _mha_packed_cuda(qkv: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
     check_packed("mha_full_attention_packed", qkv, num_heads, head_dim)
     qkv = qkv.contiguous()
     b, s, _ = qkv.shape

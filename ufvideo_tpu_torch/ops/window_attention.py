@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .autograd import kernel_with_plain_backward
 from .vit_attention import _lib, check_packed, packed_attention_plain
 
 
@@ -35,9 +36,14 @@ def fused_window_attention(
 ) -> torch.Tensor:  # [NW, S, H·D]
     """Unmasked attention of each window on itself. CPU tensors take the
     plain version; CUDA tensors launch the kernel (bf16, head dim a multiple
-    of 8 up to 256)."""
+    of 8 up to 256; the gradient is the plain version's, recomputed)."""
     if qkv.device.type == "cpu":
         return fused_window_attention_plain(qkv, num_heads, head_dim)
+    return kernel_with_plain_backward(
+        _window_attention_cuda, fused_window_attention_plain, qkv, num_heads, head_dim)
+
+
+def _window_attention_cuda(qkv: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
     check_packed("fused_window_attention", qkv, num_heads, head_dim)
     qkv = qkv.contiguous()
     nw, s, _ = qkv.shape

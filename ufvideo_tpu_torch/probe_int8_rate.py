@@ -39,6 +39,7 @@ import sys
 import torch
 
 from . import _build
+from .ops.autograd import refuse_grad
 from .ops.hiera_block import _lib, _pad32
 
 # SigLIP fc1: rows of one 64-image batch of 729 tokens, rounded; (in, out)
@@ -70,6 +71,7 @@ def probe_step(x: torch.Tensor, w: torch.Tensor, quant: bool) -> torch.Tensor:
     of 8, or even with ``quant``)."""
     if x.device.type == "cpu":
         return probe_step_plain(x, w, quant)
+    refuse_grad("probe_step", x, w)
     if x.device.type != "cuda":
         raise ValueError(f"probe_step: unsupported device {x.device}")
     want = torch.int8 if quant else torch.bfloat16

@@ -252,6 +252,19 @@ def load_jax_params(model: UFVideoModel, params: Dict[str, Any]) -> UFVideoModel
     return model
 
 
+def load_jax_lora_state(model: UFVideoModel, state: Dict[str, Any]
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA train state (``{"base": …, "trainable": {"lora": …,
+    "non_lora": …}}``, numpy leaves) → its base and non-LoRA trainables
+    written into ``model``, and its factors ``{"q" | "v": {"a": [L, hidden,
+    r], "b": [L, r, out]}}`` as float32 tensors on the model's device."""
+    load_jax_params(model, {**state["base"], **state["trainable"]["non_lora"]})
+    dev = next(model.parameters()).device
+    lora = state["trainable"]["lora"]
+    return {m: {k: torch.tensor(np.asarray(lora[m][k]), dtype=torch.float32, device=dev)
+                for k in ("a", "b")} for m in ("q", "v")}
+
+
 # --------------------------------------------------------------------------
 # the reference's state dicts (HF Qwen2 / SigLIP, timm RegStage, SAM2 names)
 # --------------------------------------------------------------------------
