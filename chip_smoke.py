@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation,
 streaming, speculative and batched serving, checkpoint export and loading,
 quantised region-referring, quantised [SEG], HTTP serving and
-continuous-batching engine paths, its launchers and its training on one
-GPU.
+continuous-batching engine paths, its launchers, its training and its eval
+harness on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
     python3 chip_smoke.py --match w8a8    # phases 0-2 on the kernels so named
     python3 chip_smoke.py --train-only    # phases 0-1 and 8 (training)
+    python3 chip_smoke.py --eval-only     # phases 0-1, 3 and 9 (eval)
 
 Phases, each printed as it runs; any failure exits non-zero:
   0. device: nvidia-smi name / power limit, torch and CUDA versions; TF32 off.
@@ -57,6 +58,26 @@ Phases, each printed as it runs; any failure exits non-zero:
      phase 3's video and phase 4's [SEG] request (path A's tokens equal each
      sample's own but at a near tie; path B's masks agree with phase 4's on
      >= 99% of each frame); each counted and held to what the code predicts.
+  9. eval, on the same model (after 3b; in --eval-only after phase 3): the
+     benchmark runner (eval.run.run_benchmark, in this process) on synthetic
+     files in a temporary directory: two directories of 32 PNG frames of
+     480x640 written by the port's codec, question files for mvbench, tvg,
+     pixrqa (one RLE region on one frame, its SAM frame) and mevis (a [SEG]
+     conversation, which segments all 32 frames, as the JAX run_benchmark does), 32
+     new tokens, --num-sam-frames 4. mvbench, tvg and pixrqa at --batch 1; mvbench, pixrqa and mevis
+     at --batch 2; mvbench as RANK 0 and 1 of WORLD_SIZE 2. Each run_benchmark call
+     counted and held to what its inputs and outputs predict; no fallback and
+     no traceback; each batch-1 record's text and tokens equal to the port's
+     own mm_infer on the sample, each batch-2 record equal to its batch-1
+     record but at a near tie, mevis's masks against each sample's own
+     mm_infer on >= 99% of each frame; the mask PNGs read back equal to the
+     masks run_benchmark got, bit for bit; the two ranks' merged records equal
+     to the one-rank records; score_mcqa, score_seg --gt rle and score_tvg
+     --durations, and eval_smoke on the card, as processes, each exiting 0.
+     Seconds a sample for each benchmark and batch, the mm_infer calls' and
+     the host's share, peak memory. Then on phase 5's int8 runtime (int8
+     LLM, int8 KV, W8A8), while it lives: mvbench at --batch 1 and 2, the
+     same checks.
  3b. checkpoints, on the same model (after 4b): the runtime written by the
      port's exporter (save_hf_checkpoint: one pytorch_model.bin of bf16 and
      config.json; SAM2 again as a standalone .gamma .pt) into a temporary
@@ -144,8 +165,9 @@ Phases, each printed as it runs; any failure exits non-zero:
     prints step 2's time, trained tokens/s, peak memory and
     its wall time.
 Then one JSON line with every kernel (launches = the sum over the counted
-calls; launches_train_lora / _full the training runs'), the card line, and
-the last line {"ok": true, "device": {...}}.
+calls; launches_train_lora / _full the training runs', launches_eval /
+_eval_int8 phase 9's), the card line, and the last line {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -1631,8 +1653,10 @@ QUANT_COS = 0.99
 
 
 def run_referring(dev, seed: int, cfg, label: str, max_new_tokens: int,
-                  frame_shape=(32, 480, 640, 3)):
-    """Phase 5: one region-referring QA request on a quantised runtime."""
+                  frame_shape=(32, 480, 640, 3), during=None):
+    """Phase 5: one region-referring QA request on a quantised runtime;
+    ``during(rt, tok)``, when given, runs on that runtime before it is freed
+    and its launches go into the serving counts as "eval"."""
     from ufvideo_tpu_torch import mm_infer, model_init
     from ufvideo_tpu_torch.api import _assemble_input_ids
     from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
@@ -1725,6 +1749,8 @@ def run_referring(dev, seed: int, cfg, label: str, max_new_tokens: int,
                "chunked": run_chunked_prefill(dev, rt, tok, feats, label, batch_ref)}
     if cfg.quant_kv:
         serving["stream"] = run_stream(dev, rt, tok, label, request)
+    if during is not None:
+        serving["eval"] = during(rt, tok)
     del rt
     torch.cuda.empty_cache()
     return launches, batch_launches, serving
@@ -3737,6 +3763,371 @@ def run_train_full(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), sam_frame
     return launches
 
 
+# ------------------------------------------------------------ phase 9: eval --
+
+# Phase 9: the eval harness (ufvideo_tpu_torch.eval.run.run_benchmark) on
+# synthetic benchmark files: two directories of 32 PNG frames of 480x640
+# written by the port's codec, 32 new tokens, --num-sam-frames 4. As in the
+# JAX run_benchmark that flag reaches only samples without annotations: pixrqa's
+# SAM frame is its one annotated frame, and mevis segments every frame.
+# Each run is (benchmark, --batch).
+EVAL_NEW_TOKENS = 32
+EVAL_SAM_FRAMES = 4
+EVAL_RUNS_BF16 = (("mvbench", 1), ("tvg", 1), ("pixrqa", 1), ("mvbench", 2), ("pixrqa", 2),
+                  ("mevis", 2))
+EVAL_RUNS_INT8 = (("mvbench", 1), ("mvbench", 2))
+EVAL_QUESTIONS = ("What is the person doing?", "Which color covers most of the frame?")
+
+
+def write_eval_data(root: str, seed: int, frame_shape) -> dict:
+    """Two frame directories (random uint8 frames as PNGs, filter 0) and the
+    question files of mvbench, tvg, pixrqa (one RLE region on frame 5) and
+    mevis (a [SEG] conversation), mevis's RLE ground truth on every frame and
+    tvg's durations, under ``root``. Returns their paths."""
+    from ufvideo_tpu_torch import rle
+    from ufvideo_tpu_torch.eval.png import write_png
+
+    rng = np.random.default_rng(seed + 9)
+    vids = os.path.join(root, "videos")
+    t, h, w, _ = frame_shape
+    for v in range(2):
+        d = os.path.join(vids, f"vid{v}")
+        os.makedirs(d)
+        for f in range(t):
+            write_png(os.path.join(d, f"{f:03d}.png"),
+                      rng.integers(0, 256, frame_shape[1:], dtype=np.uint8), level=1)
+    mask = np.zeros((h, w), np.uint8)
+    mask[h // 4:3 * h // 4, w // 3:2 * w // 3] = 1
+    seg = rle.encode(mask)
+    files = {
+        "mvbench": [{"id": f"q{v}", "task_type": "action",
+                     "data": {"video": f"vid{v}", "question": EVAL_QUESTIONS[v],
+                              "candidates": ["running", "sitting", "red", "blue"],
+                              "answer": "sitting"}} for v in range(2)],
+        "tvg": [{"id": f"t{v}", "video": f"vid{v}", "query": "A person opens the door.",
+                 "timestamps": [0.2, 0.6]} for v in range(2)],
+        "pixrqa": [{"id": f"s{v}", "video": f"vid{v}", "annotation": [{"5": {"segmentation": seg}}],
+                    "caption": f"object in video {v}"} for v in range(2)],
+        "mevis": [{"id": f"m{v}", "video": f"vid{v}", "conversations": [
+            {"from": "human", "value": "<video>\nPlease segment the moving object."},
+            {"from": "gpt", "value": "Sure, it is [SEG]."}]} for v in range(2)],
+        "mevis_gt": [{"id": f"m{v}", "annotation": [seg] * t} for v in range(2)],
+        "durations": {f"vid{v}": 10.0 for v in range(2)},
+    }
+    paths = {"videos": vids}
+    for name, obj in files.items():
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(obj, f)
+    return paths
+
+
+class BenchmarkCalls:
+    """While active, ``mm_infer`` / ``mm_infer_batch`` (the names
+    ``eval.run`` calls) are wrapped: each call's arguments, result, launches
+    (counted from 0 around the call), device-synchronised ms and logits
+    (LogitsRecorder), in call order."""
+
+    def __init__(self, rt):
+        from ufvideo_tpu_torch.eval import run as eval_run
+
+        self.rt, self.mod, self.calls = rt, eval_run, []
+
+    def _wrap(self, kind, real):
+        def call(*args, **kw):
+            with LogitsRecorder(self.rt) as rec:
+                out, launches, ms = _count(all_wrappers(), lambda: real(*args, **kw))
+            self.calls.append(dict(kind=kind, args=args, kw=kw, out=out, launches=launches,
+                                   ms=ms, logits=rec))
+            return out
+        return call
+
+    def __enter__(self):
+        self.real = (self.mod.mm_infer, self.mod.mm_infer_batch)
+        self.mod.mm_infer = self._wrap("single", self.real[0])
+        self.mod.mm_infer_batch = self._wrap("batch", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mm_infer, self.mod.mm_infer_batch = self.real
+
+    def rows(self):
+        """Per sample in run_benchmark's order: (tokens or None, logits by step,
+        masks list, the call's index)."""
+        out = []
+        for i, c in enumerate(self.calls):
+            if c["kind"] == "single":
+                res = c["out"]
+                text, extra = res if isinstance(res, tuple) else (None, res)
+                out.append((extra["output"], c["logits"].steps(0), extra["pred_masks"], i))
+            else:
+                for r, (text, extra) in enumerate(c["out"]):
+                    out.append((extra["output"], c["logits"].steps(r), extra["pred_masks"], i))
+        return out
+
+
+def predicted_call_launches(cfg, call) -> dict:
+    """Kernel launches of one run_benchmark call, from its arguments and outputs:
+    path A (generation): the tower once for the video(s) and once for each
+    sample's annotated frames, flash for the LLM's layers, a decode
+    attention a layer and step (steps: the longest row's tokens - 1), SAM2
+    for each generated [SEG] (one object a sample, frame 0 prompted); path B
+    ([SEG] in the input): the tower once, flash once a layer, SAM2 on each
+    sample's frames (a batch of one-object samples in one propagation)."""
+    from ufvideo_tpu_torch.api import _frames
+
+    if call["kind"] == "single":
+        samples = [dict(video=call["args"][0], instruct=call["args"][1], **call["kw"])]
+        results = [call["out"] if isinstance(call["out"], tuple) else (None, call["out"])]
+    else:
+        samples, results = call["args"][0], call["out"]
+    path_b = [r[1]["output"] is None for r in results]
+    if any(path_b) and not all(path_b):
+        fail("phase 9 predicts launches of calls on one path only")
+    n_regions = sum(s.get("frame") is not None and s.get("masks") is not None for s in samples)
+    segs = [i for i, (s, (_, extra)) in enumerate(zip(samples, results))
+            if s.get("images_sam") is not None and (
+                path_b[i] or cfg.seg_token_id in extra["output"])]
+    if all(path_b):  # one forward: the tower once, flash once a layer
+        want = dict.fromkeys(all_wrappers(), 0)
+        want["fused_block_w8a8" if cfg.quant_vision else "fused_hiera_block"] = \
+            cfg.vision.num_encode_layers
+        want["flash_attention"] = cfg.llm.num_layers
+    else:
+        want = expected_referring_launches(cfg, max(len(r[1]["output"]) for r in results),
+                                           calls_to_tower=1 + n_regions)
+    if segs:
+        t = len(_frames(samples[segs[0]]["images_sam"]))
+        sam = expected_sam_launches(cfg, t * len(segs), 1, t - 1)
+        want = {k: want[k] + sam[k] for k in want}
+    return want
+
+
+def eval_dataset(bench, paths, rt, sam_frames, num_frames):
+    """The dataset ``run_benchmark`` builds for ``bench`` on these files."""
+    from ufvideo_tpu_torch.eval.datasets import MCQABenchmark, SegReferBenchmark, TVGBenchmark
+
+    with open(paths[bench]) as f:
+        questions = json.load(f)
+    kw = dict(image_size=rt.cfg.vision.image_size, **(
+        {"num_frames": num_frames} if num_frames else {}))
+    sam_size = rt.cfg.sam.hiera.image_size
+    if bench == "mvbench":
+        return MCQABenchmark(paths["videos"], questions, **kw)
+    if bench == "tvg":
+        return TVGBenchmark(paths["videos"], questions, **kw)
+    if bench == "pixrqa":
+        return SegReferBenchmark(paths["videos"], questions, num_sam_frames=sam_frames,
+                                 sam_image_size=sam_size, benchmark="pixrqa", **kw)
+    return SegReferBenchmark(paths["videos"], questions, sam_image_size=sam_size, **kw)
+
+
+def direct_infer(bench, sample, rt, tok, max_new):
+    """The port's own ``mm_infer`` on a dataset sample, as the reference
+    script of ``bench`` calls it: (text, output dict)."""
+    from ufvideo_tpu_torch import mm_infer
+    from ufvideo_tpu_torch.eval.run import PIXRQA_QUESTION
+
+    if bench in ("mvbench", "tvg"):
+        return mm_infer(sample["video"], sample["question"], rt, tok, modal="video",
+                        max_new_tokens=max_new)
+    if bench == "pixrqa":
+        return mm_infer(sample["video"], PIXRQA_QUESTION, rt, tok, modal="video",
+                        masks=sample["masks"], ann_indices=sample["ann_indices"],
+                        frame=sample["frame"], choice=1, images_sam=sample["images_sam"],
+                        label_size=(sample["height"], sample["width"]), max_new_tokens=max_new)
+    out = mm_infer(sample["video"], sample["line"]["conversations"], rt, tok, modal="video",
+                   choice=3, images_sam=sample["images_sam"],
+                   label_size=(sample["height"], sample["width"]), seg=True)
+    return None, out
+
+
+def record_text(bench, rec):
+    """The generated text a record holds (None where it holds none)."""
+    return {"mvbench": rec.get("raw"), "tvg": rec.get("pred"),
+            "pixrqa": rec.get("pred")}.get(bench)
+
+
+def drive_benchmark(rt, tok, paths, bench, batch, out, sam_frames, max_new, num_frames=0):
+    """``run_benchmark`` on one benchmark in this process: (records,
+    BenchmarkCalls, wall s). Fails if run_benchmark fell back or printed a
+    traceback."""
+    import contextlib
+    import io
+
+    from ufvideo_tpu_torch.eval import run as eval_run
+    from ufvideo_tpu_torch.eval.util import read_all_ranks
+
+    args = eval_run.build_parser().parse_args([
+        "--benchmark", bench, "--video-folder", paths["videos"], "--question-file",
+        paths[bench], "--output", out, "--max-new-tokens", str(max_new),
+        "--num-sam-frames", str(sam_frames), "--batch", str(batch)]
+        + (["--num-frames", str(num_frames)] if num_frames else []))
+    before = dict(eval_run.FAILURES)
+    err = io.StringIO()
+    with BenchmarkCalls(rt) as calls, contextlib.redirect_stderr(err):
+        t0 = time.perf_counter()
+        eval_run.run_benchmark(args, runtime=(rt, None, tok))
+        wall = time.perf_counter() - t0
+    if dict(eval_run.FAILURES) != before or "Traceback" in err.getvalue():
+        log(err.getvalue()[-3000:])
+        fail(f"phase 9 {bench} --batch {batch}: run_benchmark fell back or failed "
+             f"({dict(eval_run.FAILURES)})")
+    for i, c in enumerate(calls.calls):
+        want = predicted_call_launches(rt.cfg, c)
+        if c["launches"] != want:
+            log(f"  launches {nonzero(c['launches'])}, predicted {nonzero(want)}")
+            fail(f"phase 9 {bench} --batch {batch}: launches of call {i} differ from the "
+                 "prediction")
+    return read_all_ranks(out), calls, wall
+
+
+def summed_launches(calls) -> dict:
+    return {k: sum(c["launches"][k] for c in calls.calls) for k in all_wrappers()}
+
+
+def run_eval(dev, rt, tok, smi, label, runs, frame_shape=(32, 480, 640, 3),
+             sam_frames=EVAL_SAM_FRAMES, max_new=EVAL_NEW_TOKENS, processes=True,
+             seed: int = 0, num_frames: int = 0) -> dict:
+    """Phase 9 on ``rt``: each (benchmark, batch) of ``runs`` through
+    ``run_benchmark``; launches of each of its calls held to the prediction;
+    batch-1 records' text equal to the port's own ``mm_infer`` on the same
+    sample, batch-2 records equal to batch 1's but at a near tie (mevis: the
+    masks against each sample's own ``mm_infer`` on MASK_AGREE of each
+    frame); the mask PNGs read back equal to the masks run_benchmark got; with
+    ``processes``, mvbench as two ranks, the scorers and eval_smoke as
+    processes. Returns the launches summed over run_benchmark's calls."""
+    import shutil
+    import tempfile
+
+    from ufvideo_tpu_torch.eval.util import load_mask_pngs, read_all_ranks
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="ufvideo_eval_")
+    total = dict.fromkeys(all_wrappers(), 0)
+    try:
+        t0 = time.perf_counter()
+        paths = write_eval_data(tmp, seed, frame_shape)
+        log(f"  [{label}] data: 2 directories of {frame_shape[0]} PNG frames "
+            f"{frame_shape[1]}x{frame_shape[2]}, written in {time.perf_counter() - t0:.1f} s")
+        results = {}
+        for bench, batch in runs:
+            out = os.path.join(tmp, f"{bench}_b{batch}.json")
+            records, calls, wall = drive_benchmark(rt, tok, paths, bench, batch, out,
+                                                   sam_frames, max_new, num_frames)
+            if len(records) != 2:
+                fail(f"phase 9 {bench} --batch {batch}: {len(records)} records")
+            launches = summed_launches(calls)
+            total = {k: total[k] + launches[k] for k in total}
+            device_s = sum(c["ms"] for c in calls.calls) / 1e3
+            log(f"  [{label}] {bench} --batch {batch}: {len(records)} records in "
+                f"{len(calls.calls)} calls, {wall:.2f} s, {wall / len(records):.2f} s a sample "
+                f"(mm_infer calls {device_s:.2f} s, the host's load / preprocess / write "
+                f"{wall - device_s:.2f} s; {smi}); launches as predicted {nonzero(launches)}")
+            results[bench, batch] = (records, calls, out)
+
+        # batch 1: each record's text is the port's own mm_infer's on the sample
+        for (bench, batch), (records, calls, out) in results.items():
+            if batch != 1 and (bench, 1) in results:
+                continue
+            ds = eval_dataset(bench, paths, rt, sam_frames, num_frames)
+            for i, (rec, row) in enumerate(zip(records, calls.rows())):
+                text, extra = direct_infer(bench, ds[i], rt, tok, max_new)
+                if batch == 1:
+                    got = record_text(bench, rec)
+                    want = text.split("The segmentation mask")[0] if bench == "pixrqa" else text
+                    if got != want or row[0] != extra["output"]:
+                        fail(f"phase 9 [{label}] {bench} record {rec['id']}: {got!r} is not "
+                             f"mm_infer's {want!r}, or run_benchmark's tokens are not its")
+                else:  # a batch without a batch-1 run: the masks against mm_infer's
+                    mine = calls.rows()[i][2]
+                    agree = [float((a == b).mean()) for a, b in zip(mine[0], extra["pred_masks"][0])]
+                    log(f"  [{label}] {bench} --batch {batch} {rec['id']}: masks against its own "
+                        f"mm_infer's, agreement per frame min {min(agree):.5f} (tolerance >= "
+                        f"{MASK_AGREE})")
+                    if len(mine) != len(extra["pred_masks"]) or min(agree) < MASK_AGREE:
+                        fail(f"phase 9 {bench} --batch {batch}: masks disagree with mm_infer's")
+            if batch == 1:
+                log(f"  [{label}] {bench} --batch 1: every record's text and the tokens behind "
+                    "it == the port's own mm_infer's on the sample")
+
+        # batch 2 against batch 1: equal records, or tokens that part at a near tie
+        for (bench, batch), (records, calls, out) in results.items():
+            if batch == 1 or (bench, 1) not in results:
+                continue
+            ref_records, ref_calls, _ = results[bench, 1]
+            for rec, ref, (toks, lg, _, _), (rtoks, rlg, _, _) in zip(
+                    records, ref_records, calls.rows(), ref_calls.rows()):
+                same, tie = first_near_tie(f"phase 9 [{label}] {bench} {rec['id']} batch 2 vs 1",
+                                           rtoks, rlg, toks, lg)
+                if tie is None and rec != ref:
+                    fail(f"phase 9 {bench} {rec['id']}: equal tokens, different records")
+                log(f"  [{label}] {bench} --batch {batch} {rec['id']}: tokens equal batch 1's "
+                    f"{same}/{len(rtoks)}" + (f", then a near tie at token {tie}"
+                                              if tie is not None else ", record equal"))
+
+        # masks: the PNGs read back are the masks run_benchmark got, bit for bit
+        for (bench, batch), (records, calls, out) in results.items():
+            mask_dir = os.path.splitext(out)[0] + "_masks"
+            for rec, (_, _, masks, _) in zip(records, calls.rows()):
+                png = load_mask_pngs(mask_dir, rec["id"])
+                want = np.asarray(masks[0]) if masks else np.zeros((0,))
+                if (len(png) > 0) != bool(masks) or (masks and not np.array_equal(
+                        np.stack(png).astype(bool), want.astype(bool))):
+                    fail(f"phase 9 {bench} --batch {batch} {rec['id']}: mask PNGs differ from "
+                         "run_benchmark's masks")
+            n = sum(bool(r[2]) for r in calls.rows())
+            if n:
+                log(f"  [{label}] {bench} --batch {batch}: {n} samples' mask PNGs read back == "
+                    "their masks bit for bit")
+        if ("mevis", 2) in results and not all(
+                r[2] for r in results["mevis", 2][1].rows()):
+            fail("phase 9: a mevis sample has no masks")
+
+        if processes:
+            # mvbench as two ranks: the ranks' files merged are the one-rank records
+            out = os.path.join(tmp, "mvbench_ranks.json")
+            for rank in (0, 1):
+                os.environ.update(RANK=str(rank), WORLD_SIZE="2")
+                try:
+                    _, calls, _ = drive_benchmark(rt, tok, paths, "mvbench", 1, out,
+                                                  sam_frames, max_new, num_frames)
+                finally:
+                    del os.environ["RANK"], os.environ["WORLD_SIZE"]
+                launches = summed_launches(calls)
+                total = {k: total[k] + launches[k] for k in total}
+            if read_all_ranks(out) != results["mvbench", 1][0]:
+                fail("phase 9: mvbench as two ranks differs from one rank")
+            log(f"  [{label}] mvbench as RANK 0 / 1 of WORLD_SIZE 2: the ranks' records == the "
+                "one-rank records")
+            root = os.path.dirname(os.path.abspath(__file__))
+            m = "ufvideo_tpu_torch.eval."
+            scorers = [
+                ([m + "score_mcqa", "--pred-path", results["mvbench", 1][2]], "overall accuracy:"),
+                ([m + "score_seg", "--pred-path", results["mevis", 2][2], "--pred-mask-root",
+                  os.path.splitext(results["mevis", 2][2])[0] + "_masks", "--gt", "rle",
+                  "--gt-file", paths["mevis_gt"], "--workers", "2"], "J&F:"),
+                ([m + "score_tvg", "--pred-path", results["tvg", 1][2], "--durations",
+                  paths["durations"]], "mIoU:"),
+                (["ufvideo_tpu_torch.eval_smoke"], '"eval_smoke": "ok"'),
+            ]
+            for cmd, want in scorers:
+                t0 = time.perf_counter()
+                r = subprocess.run([sys.executable, "-m", *cmd], capture_output=True, text=True,
+                                   timeout=600, cwd=root)
+                lines = r.stdout.strip().splitlines()
+                log(f"  python -m {cmd[0]}: exit {r.returncode} in "
+                    f"{time.perf_counter() - t0:.1f} s: {' | '.join(lines[-4:])}")
+                if r.returncode != 0 or want not in r.stdout:
+                    fail(f"phase 9: python -m {cmd[0]} failed: {r.stderr[-3000:]}")
+        log(f"  [{label}] phase 9: {time.perf_counter() - t_phase:.1f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on the card; {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def sass_counts(lib, opcode: str) -> dict:
     """Instructions of ``opcode`` in each kernel of a built library, from
     ``cuobjdump -sass`` (the toolkit's, beside nvcc); kernels without one
@@ -3767,6 +4158,8 @@ def main() -> int:
                     "call on a card)")
     ap.add_argument("--train-only", action="store_true",
                     help="phases 0-1 and 8 (training), then stop: no result")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="phases 0-1, 3 and 9 (eval), then stop: no result")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -3810,6 +4203,26 @@ def main() -> int:
         print(json.dumps({"launches_train_lora": nonzero(lora),
                           "launches_train_full": nonzero(full_policy)}), flush=True)
         log("stopped after phase 8 (--train-only): no result")
+        return 0
+
+    int8_cfg = full.replace(quant_llm="int8", quant_kv=True, quant_vision=True)
+    eval_int8 = lambda rt, tok: run_eval(dev, rt, tok, smi, "int8", EVAL_RUNS_INT8,
+                                         processes=False, seed=args.seed)
+    if args.eval_only:
+        from ufvideo_tpu_torch import model_init
+
+        log("phase 3: full-width mm_infer on the card")
+        _, rt, tok, _ = run_path(dev, args.seed, full)
+        log("phase 9: the eval harness on the bf16 runtime")
+        ev = run_eval(dev, rt, tok, smi, "bf16", EVAL_RUNS_BF16, seed=args.seed)
+        del rt
+        torch.cuda.empty_cache()
+        log("phase 9: the eval harness on the int8 serving runtime (int8 LLM, int8 KV, W8A8)")
+        rt, _, tok = model_init(cfg=int8_cfg, device=dev, seed=args.seed)
+        ev8 = eval_int8(rt, tok)
+        print(json.dumps({"launches_eval": nonzero(ev), "launches_eval_int8": nonzero(ev8)}),
+              flush=True)
+        log("stopped after phase 9 (--eval-only): no result")
         return 0
 
     log("phase 2: kernels vs plain (bf16, main-path shapes)")
@@ -3866,12 +4279,13 @@ def main() -> int:
                     "batch": run_serving_batch(dev, rt, tok, qa_request, ref_bf16)}
     log("phase 3b: the runtime exported and loaded back through model_init(model_path=)")
     ckpt = run_checkpoint(dev, args.seed, rt, tok, qa_request, ref_bf16)
+    log("phase 9: the eval harness on the same model")
+    eval_bf16 = run_eval(dev, rt, tok, smi, "bf16", EVAL_RUNS_BF16, seed=args.seed)
     del rt
     torch.cuda.empty_cache()
     log("phase 5: full-width quantised region referring on the card")
     int8_launches, batch_int8, serving_int8 = run_referring(
-        dev, args.seed, full.replace(quant_llm="int8", quant_kv=True, quant_vision=True),
-        "int8 + int8 KV + W8A8 SigLIP", 32)
+        dev, args.seed, int8_cfg, "int8 + int8 KV + W8A8 SigLIP", 32, during=eval_int8)
     int4_launches, batch_int4, serving_int4 = run_referring(
         dev, args.seed, full.replace(quant_llm="int4"), "int4", 8)
     log("phase 6: full-width quantised [SEG] segmentation and SAM2's other predictors")
@@ -3910,7 +4324,7 @@ def main() -> int:
                    "engine_spec_int8": engine_launches["spec"],
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
                    "probe": probe_launches, "train_lora": train_lora,
-                   "train_full": train_full, **ckpt}
+                   "train_full": train_full, "eval": eval_bf16, **ckpt}
         for label, serving in (("bf16", serving_bf16), ("int8", serving_int8),
                                ("int4", serving_int4)):
             by_path.update({f"{path}_{label}": counts for path, counts in serving.items()})

@@ -1781,3 +1781,97 @@ def test_kernels_without_backward_refuse_a_grad_input(dev, name):
                                       requires_grad=True)
     with pytest.raises(RuntimeError, match="has no backward"):
         call(grad)
+
+
+# ------------------------------------------------------------------- eval --
+# The eval harness's host pieces (the PNG codec, the boundary dilation) on
+# data that went through the card, and a tiny run_benchmark on the card
+# against the same on the CPU; chip_smoke.py phase 9 drives the harness at
+# full width through the kernels.
+
+def test_png_and_dilation_on_frames_staged_to_the_card(dev, tmp_path):
+    """Frames read by the PNG codec, staged to the card and back, are the
+    written frames bit for bit; masks thresholded on the card, written as
+    PNGs and read back, give the CPU's masks, dilations and J&F."""
+    import numpy as np
+
+    from ufvideo_tpu_torch.eval import metrics, png, util
+
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 256, (3, 48, 64, 3), np.uint8)
+    for i, f in enumerate(frames):
+        png.write_png(str(tmp_path / f"{i}.png"), f)
+    card = torch.from_numpy(np.stack([png.read_png(str(tmp_path / f"{i}.png"))
+                                      for i in range(3)])).to(dev)
+    assert torch.equal(card.cpu(), torch.from_numpy(frames))
+    on_card = (card.float().mean(-1) > 127.5).cpu().numpy()
+    on_cpu = frames.astype(np.float32).mean(-1) > 127.5
+    util.save_mask_pngs(str(tmp_path / "masks"), "v", on_card)
+    back = np.stack(util.load_mask_pngs(str(tmp_path / "masks"), "v"))
+    np.testing.assert_array_equal(back, on_cpu.astype(np.uint8))
+    kernel = metrics._disk(3)
+    for a, b in zip(back, on_cpu):
+        np.testing.assert_array_equal(metrics.dilate(a, kernel), metrics.dilate(b, kernel))
+        assert metrics.j_and_f(a, b[::-1]) == metrics.j_and_f(b, b[::-1])
+
+
+def test_run_benchmark_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch):
+    """A tiny float32 runtime loaded from one checkpoint on the CPU and on
+    the card (plain versions: the tiny widths are not the kernels' shapes):
+    mvbench at --batch 1 and 2 gives the same records on both; mevis at
+    --batch 2 the same records, its mask PNGs agreeing on >= 99% of each
+    frame's pixels (float32 sums in another order near the threshold)."""
+    import json
+
+    import numpy as np
+
+    from ufvideo_tpu_torch.api import model_init
+    from ufvideo_tpu_torch.configs import tiny_config
+    from ufvideo_tpu_torch.eval import run as eval_run
+    from ufvideo_tpu_torch.eval.png import write_png
+    from ufvideo_tpu_torch.eval.util import load_mask_pngs, read_all_ranks
+    from ufvideo_tpu_torch.export import save_hf_checkpoint
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.delenv("RANK", raising=False)
+    cfg = tiny_config()
+    cfg = cfg.replace(budget=dataclasses.replace(cfg.budget, max_seq_len=512, max_text_len=384))
+    src, _, _ = model_init(cfg=cfg, device="cpu", seed=3)
+    save_hf_checkpoint(str(tmp_path / "ckpt"), src.model)
+    rng = np.random.default_rng(8)
+    for v in range(2):
+        (tmp_path / "videos" / f"vid{v}").mkdir(parents=True)
+        for f in range(6):
+            write_png(str(tmp_path / "videos" / f"vid{v}" / f"{f}.png"),
+                      rng.integers(0, 256, (48, 64, 3), np.uint8))
+    files = {
+        "mvbench": [{"id": f"q{v}", "data": {"video": f"vid{v}", "question": "Which color?",
+                                             "candidates": ["red", "green"], "answer": "red"}}
+                    for v in range(2)],
+        "mevis": [{"id": f"m{v}", "video": f"vid{v}", "conversations": [
+            {"from": "human", "value": "<video>\nSegment it."},
+            {"from": "gpt", "value": "It is [SEG]."}]} for v in range(2)],
+    }
+    for name, obj in files.items():
+        (tmp_path / f"{name}.json").write_text(json.dumps(obj))
+    outs = {}
+    for where in ("cpu", dev):
+        bundle = model_init(str(tmp_path / "ckpt"), cfg=cfg, device=where)
+        bundle[0].model.set_use_kernels(False)
+        for bench, batch in (("mvbench", 1), ("mvbench", 2), ("mevis", 2)):
+            out = str(tmp_path / f"{torch.device(where).type}_{bench}_{batch}.json")
+            eval_run.run_benchmark(eval_run.build_parser().parse_args([
+                "--benchmark", bench, "--video-folder", str(tmp_path / "videos"),
+                "--question-file", str(tmp_path / f"{bench}.json"), "--output", out,
+                "--num-frames", "4", "--max-new-tokens", "6", "--batch", str(batch)]),
+                runtime=bundle)
+            outs[torch.device(where).type, bench, batch] = out
+    for bench, batch in (("mvbench", 1), ("mvbench", 2), ("mevis", 2)):
+        cpu, card = outs["cpu", bench, batch], outs["cuda", bench, batch]
+        assert read_all_ranks(card) == read_all_ranks(cpu) and len(read_all_ranks(cpu)) == 2
+    for v in range(2):
+        root = lambda d: outs[d, "mevis", 2].replace(".json", "_masks")
+        a, b = load_mask_pngs(root("cuda"), f"m{v}"), load_mask_pngs(root("cpu"), f"m{v}")
+        assert len(a) == len(b) == 4
+        assert min(float((x == y).mean()) for x, y in zip(a, b)) >= 0.99

@@ -3,16 +3,21 @@ stop-string trimming and streamed text deltas: a copy of
 ``ufvideo_tpu/mm_utils.py``.
 
 The loaders decode videos (cv2), gifs (imageio) and frame directories
-(PIL), sample frames at segment midpoints or one a second, pad to square
-and preprocess for SigLIP or SAM on the host; their pixel outputs are
-float32 NHWC numpy arrays, as in the JAX package. The serving path's
-device preprocessing is ``ops/image_pipeline.py`` (uint8 frames in). PIL,
-cv2 and imageio are imported inside the functions that need them, so the
-module imports on a machine that has none of them.
+(``.png`` frames through ``eval/png.py``, other images through PIL), sample
+frames at segment midpoints or one a second, pad to square and preprocess
+for SigLIP or SAM on the host with PIL's bicubic filter written out in
+``resize_bicubic`` (the same pixels as PIL); their pixel outputs are float32
+NHWC numpy arrays, as in the JAX package. The serving path's device
+preprocessing is ``ops/image_pipeline.py`` (uint8 frames in). PIL, cv2 and
+imageio are imported inside the functions that need them, so the module
+imports on a machine that has none of them, and a directory of PNG frames
+is loaded and preprocessed there.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 import sys
 from typing import List, Optional, Sequence, Tuple, Union
@@ -111,19 +116,95 @@ def expand2square(img: np.ndarray, fill: Sequence[int]) -> np.ndarray:
     return out
 
 
-def _resize(img: np.ndarray, size: int) -> np.ndarray:
-    from PIL import Image
+# PIL's bicubic resampling (Pillow's Resample.c), written out so that the
+# host preprocessing needs no PIL: a separable filter whose taps are rounded
+# to fixed point with 22 fraction bits, a horizontal pass rounded to uint8,
+# then a vertical pass. The sums are integers below 2**53, so float64
+# products give them exactly, and the pixels equal PIL's.
+_RESAMPLE_BITS = 22
 
-    return np.asarray(
-        Image.fromarray(img.astype(np.uint8)).resize((size, size), Image.BICUBIC)
-    )
+
+def _bicubic_taps(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    a = -0.5
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+@functools.lru_cache(maxsize=16)
+def _bicubic_matrix(in_size: int, out_size: int) -> "torch.Tensor":
+    """[in_size, out_size] float64: PIL's fixed-point taps of each output
+    pixel, in its input columns."""
+    import torch
+
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    count = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    k = np.arange(ksize)
+    valid = k[None, :] < count[:, None]
+    cols = k[None, :] + xmin[:, None]
+    w = np.where(valid, _bicubic_taps((cols - center[:, None] + 0.5) * (1.0 / filterscale)),
+                 0.0)
+    total = np.zeros(out_size)
+    for j in range(ksize):  # summed in PIL's order
+        total = total + w[:, j]
+    w = np.where(total[:, None] != 0.0, w / np.where(total == 0.0, 1.0, total)[:, None], w)
+    one = float(1 << _RESAMPLE_BITS)
+    fixed = np.where(w < 0, np.trunc(-0.5 + w * one), np.trunc(0.5 + w * one))
+    mat = np.zeros((in_size, out_size))
+    mat[cols[valid], np.broadcast_to(np.arange(out_size)[:, None], cols.shape)[valid]] = \
+        fixed[valid]
+    return torch.from_numpy(mat)
+
+
+def _round_resampled(acc: "torch.Tensor") -> "torch.Tensor":
+    one = float(1 << _RESAMPLE_BITS)
+    return acc.add_(one / 2).div_(one).floor_().clamp_(0, 255)
+
+
+def resize_bicubic(frames: np.ndarray, size: int, chunk: int = 8) -> np.ndarray:
+    """uint8 [T, H, W, 3] → uint8 [T, size, size, 3], equal to PIL's
+    ``Image.resize((size, size), Image.BICUBIC)`` frame by frame; ``chunk``
+    frames at a time (float64 on the host)."""
+    import torch
+
+    frames = np.asarray(frames, np.uint8)
+    t, h, w, c = frames.shape
+    out = np.empty((t, size, size, c), np.uint8)
+    for i in range(0, t, chunk):
+        x = torch.from_numpy(frames[i:i + chunk]).permute(0, 1, 3, 2).to(torch.float64)
+        if w != size:
+            x = _round_resampled(x @ _bicubic_matrix(w, size))  # [t, H, C, size]
+        if h != size:
+            n = x.shape[0]
+            x = _round_resampled(_bicubic_matrix(h, size).T @ x.reshape(n, h, -1))
+            x = x.reshape(n, size, c, size)
+        out[i:i + chunk] = x.permute(0, 1, 3, 2).to(torch.uint8).numpy()
+    return out
+
+
+def _resize_frames(frames: Sequence[np.ndarray], size: int) -> np.ndarray:
+    """Each frame bicubic-resized to size x size (frames of one shape go
+    through ``resize_bicubic`` together)."""
+    frames = [np.asarray(f).astype(np.uint8, copy=False) for f in frames]
+    out = np.empty((len(frames), size, size, 3), np.uint8)
+    by_shape = {}
+    for i, f in enumerate(frames):
+        by_shape.setdefault(f.shape, []).append(i)
+    for idx in by_shape.values():
+        out[idx] = resize_bicubic(np.stack([frames[i] for i in idx]), size)
+    return out
 
 
 def siglip_preprocess(
     frames: Sequence[np.ndarray], size: int = SIGLIP_SIZE
 ) -> np.ndarray:
     """uint8 RGB frames → [T, size, size, 3] float32, SigLIP-normalized."""
-    out = np.stack([_resize(f, size) for f in frames]).astype(np.float32)
+    out = _resize_frames(frames, size).astype(np.float32)
     return (out / 255.0 - SIGLIP_MEAN) / SIGLIP_STD
 
 
@@ -132,7 +213,7 @@ def sam_preprocess(
 ) -> np.ndarray:
     """uint8 RGB frames → [T, size, size, 3] float32 for SAM2: direct resize
     (no padding), then the ImageNet-style normalisation."""
-    out = np.stack([_resize(f, size) for f in frames]).astype(np.float32)
+    out = _resize_frames(frames, size).astype(np.float32)
     return (out - SAM_MEAN) / SAM_STD
 
 
@@ -161,14 +242,10 @@ def load_frames(
                 e = s + 1
 
         if os.path.isdir(video_path):
-            from PIL import Image
-
             files = sorted(os.listdir(video_path))
             fps, n = 3.0, len(files)
-            read = lambda idxs: [
-                np.asarray(Image.open(os.path.join(video_path, files[i])).convert("RGB"))
-                for i in idxs
-            ]
+            read = lambda idxs: [_read_frame_file(os.path.join(video_path, files[i]))
+                                 for i in idxs]
         elif video_path.endswith(".gif"):
             import imageio
 
@@ -221,6 +298,20 @@ def load_frames(
 
     h, w = frames[0].shape[:2]
     return frames, dense, h, w
+
+
+def _read_frame_file(path: str) -> np.ndarray:
+    """One frame of a frame directory as uint8 RGB: a ``.png`` through the
+    port's own codec (no PIL needed), anything else through PIL; the pixels
+    are what PIL's ``convert("RGB")`` gives (gray repeated, alpha dropped)."""
+    if path.lower().endswith(".png"):
+        from .eval.png import read_png
+
+        img = read_png(path)
+        return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img[..., :3]
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
 
 
 def _pil_or_array(f) -> np.ndarray:
