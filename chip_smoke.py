@@ -1,14 +1,15 @@
 """Build the port's CUDA kernels and drive its video-QA, [SEG] segmentation,
 streaming, speculative and batched serving, checkpoint export and loading,
 quantised region-referring, quantised [SEG], HTTP serving and
-continuous-batching engine paths, its launchers, its training and its eval
-harness on one GPU.
+continuous-batching engine paths, its launchers, its training, its eval
+harness, its other projectors and the CLIP tower on one GPU.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 0-2: build + kernel checks
     python3 chip_smoke.py --match w8a8    # phases 0-2 on the kernels so named
     python3 chip_smoke.py --train-only    # phases 0-1 and 8 (training)
     python3 chip_smoke.py --eval-only     # phases 0-1, 3 and 9 (eval)
+    python3 chip_smoke.py --projectors-only  # phases 0-2 and 10
 
 Phases, each printed as it runs; any failure exits non-zero:
   0. device: nvidia-smi name / power limit, torch and CUDA versions; TF32 off.
@@ -164,6 +165,21 @@ Phases, each printed as it runs; any failure exits non-zero:
     and mask decoder moved, keep-1 rotation, a resume at step 3. Each
     prints step 2's time, trained tokens/s, peak memory and
     its wall time.
+10. the other projectors, CLIP and the W8A8 backward (after phase 8; with
+    --projectors-only after phase 2), at full width from the seed: 10a
+    phase 3's QA request on model_init runtimes with the stc_connector
+    (3332 video tokens) and the mlp2x_gelu projector (729), under phase 3's
+    checks, launches held to the prediction; 10b linear, stp_connector,
+    spatial_conv and spatial_pool alone on phase 3's SigLIP features [1, 32,
+    729, 1152]: output shapes equal token_grid's count and the tabled one,
+    finite, ms; export_projector -> convert_projector bit for bit for all
+    six types; 10c the CLIP-L/14-336 tower (23 of 24 layers) on 32 frames of
+    336²: kernel path against use_kernel=False at cosine >= 0.999, 23
+    flash launches, encode ms and peak, its features through an
+    stc_connector of width 1024 to 2873 tokens; 10d a backward through each
+    W8A8 kernel at SigLIP's and Hiera-L's windowed shapes, the kernel
+    forward against the plain W8A8 forward, both with the straight-through
+    backward: gradient cosine >= 0.99 together, >= 0.95 a tensor.
 Then one JSON line with every kernel (launches = the sum over the counted
 calls; launches_train_lora / _full the training runs', launches_eval /
 _eval_int8 phase 9's), the card line, and the last line {"ok": true,
@@ -174,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import statistics
@@ -486,7 +503,26 @@ def kernel_flash(dev, timer, gen):
                 max_abs_err=max(errs), tol=tol_text(REL), ms=ms, plain_ms=plain,
                 bound_ms=t_b, bound_by=by, library_ms=lib,
                 shape="q [1,2816,28,128] k/v [1,2816,4,128] causal kv_lens [2770]",
-                shapes=flash_sam_shapes(dev, timer, gen))
+                shapes=flash_sam_shapes(dev, timer, gen) + [flash_clip_shape(dev, timer)])
+
+
+def flash_clip_shape(dev, timer):
+    """flash_attention at the CLIP-L/14-336 tower's shape (phase 10c): 32
+    frames of 577 tokens, 16 heads of 64, no mask: head dim 64 takes the
+    128-key tile, and 577 fills neither the query block nor the key tile,
+    so both tails are masked. Its inputs come from a generator of their own,
+    so the draws of the other kernels do not move."""
+    from ufvideo_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(577)
+    q, k, v = (torch.randn(CLIP_FRAMES, 577, 16, 64, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return bench(timer, f"flash_attention [CLIP-L/14-336 q=k=v [{CLIP_FRAMES},577,16,64]]",
+                 lambda: flash_attention(q, k, v), lambda: flash_attention_plain(q, k, v),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                 nbytes(q, k, v, q), 4 * CLIP_FRAMES * 16 * 577 * 577 * 64)
 
 
 # (label, B, S, lens) of the decode shapes phase 2 holds: Qwen2-7B's 4 kv
@@ -4128,6 +4164,252 @@ def run_eval(dev, rt, tok, smi, label, runs, frame_shape=(32, 480, 640, 3),
     return total
 
 
+# ------------------------------------- phase 10: projectors, CLIP, W8A8 --
+# video tokens of each projector type for 32 frames of SigLIP's 27 x 27 grid
+# (the JAX token_grid's formula; every mlpNx_gelu emits one frame's grid)
+PROJECTOR_TOKENS = {"linear": 729, "mlp2x_gelu": 729, "stc_connector": 3332,
+                    "stc_connector_v35": 2704, "stp_connector": 2704, "spatial_conv": 6664,
+                    "spatial_pool": 5408}
+PROJECTORS_10A = ("stc_connector", "mlp2x_gelu")  # VideoLLaMA2's and LLaVA's connector
+PROJECTORS_10B = ("linear", "stp_connector", "spatial_conv", "spatial_pool")
+CLIP_FRAMES = 32
+CLIP_STC_TOKENS = 2873  # (17, 13, 13) from CLIP-L/14-336's 24 x 24 grid
+# training limits (section 2 of PERF.md): gradient cosine over all tensors
+# together, and of each tensor
+GRAD_COS, GRAD_COS_TENSOR = 0.99, 0.95
+
+
+def run_projector_paths(dev, seed: int, full) -> tuple:
+    """10a: phase 3's QA request on a model_init runtime with the
+    stc_connector and with the mlp2x_gelu projector, under phase 3's checks
+    (run_path) and with the launches held to the prediction. Returns
+    ({path: launches}, the SigLIP features of phase 3's frames [1, 32, 729,
+    1152], read on the first runtime)."""
+    from ufvideo_tpu_torch.ops.image_pipeline import siglip_preprocess_device
+
+    counts, feats = {}, None
+    for t in PROJECTORS_10A:
+        log(f" 10a: projector {t}")
+        cfg = full.replace(projector=dataclasses.replace(full.projector, projector_type=t))
+        launches, rt, tok, req = run_path(dev, seed, cfg)
+        want = expected_referring_launches(rt.cfg, len(req["ids"]), calls_to_tower=1)
+        if launches != want:
+            fail(f"projector {t}: launches {nonzero(launches)}, predicted {nonzero(want)}")
+        log(f"  [{t}] {rt.cfg.num_video_tokens} video tokens; launches as predicted "
+            f"{nonzero(want)}")
+        if feats is None:
+            with torch.no_grad():
+                px = siglip_preprocess_device(torch.from_numpy(req["frames"]).to(dev),
+                                              rt.cfg.compute_dtype)
+                feats = rt.model.vision(px)[None]
+        counts[f"proj_{t}"] = launches
+        del rt
+        torch.cuda.empty_cache()
+    return counts, feats
+
+
+def _projector(cfg, dev, seed: int):
+    from ufvideo_tpu_torch.models.projector import build_projector
+
+    with torch.device("meta"):
+        proj = build_projector(cfg, torch.bfloat16)
+    proj = proj.to_empty(device=dev).eval().requires_grad_(False)
+    proj.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    return proj
+
+
+def run_projector_types(dev, seed: int, feats, timer) -> None:
+    """10b: each other projector type alone at full width on the SigLIP
+    features: output shape = token_grid's count = the tabled count, finite;
+    ms; then the export → convert round trip of all six types bit for bit."""
+    from ufvideo_tpu_torch.configs import ProjectorConfig
+    from ufvideo_tpu_torch.export import export_projector
+    from ufvideo_tpu_torch.weights import TensorWriter, convert_projector
+
+    t_frames, grid = feats.shape[1], int(round(feats.shape[2] ** 0.5))
+    for t in PROJECTORS_10B:
+        cfg = ProjectorConfig(projector_type=t)
+        proj = _projector(cfg, dev, seed)
+        with torch.no_grad():
+            out = proj(feats)
+            ms = timer.ms(lambda: proj(feats), n=5)
+        n = cfg.num_video_tokens(t_frames, grid)
+        log(f"  10b {t}: {tuple(out.shape)} ({cfg.token_grid(t_frames, grid)}), {ms:.3f} ms, "
+            f"{sum(p.numel() for p in proj.parameters()) / 1e6:.1f} M params")
+        if tuple(out.shape) != (1, n, cfg.hidden_size) or n != PROJECTOR_TOKENS[t]:
+            fail(f"projector {t}: output {tuple(out.shape)}, token_grid {n}, tabled "
+                 f"{PROJECTOR_TOKENS[t]}")
+        if not torch.isfinite(out).all():
+            fail(f"projector {t}: non-finite output")
+        del proj, out
+    for t in PROJECTORS_10A + PROJECTORS_10B:
+        cfg = ProjectorConfig(projector_type=t)
+        proj = _projector(cfg, dev, seed)
+        sd = export_projector(proj)
+        back = _projector(cfg, dev, seed + 1)
+        w = TensorWriter()
+        convert_projector(w, back, sd)
+        w.check_all_written(back)
+        same = all(torch.equal(a, b) for a, b in zip(proj.state_dict().values(),
+                                                     back.state_dict().values()))
+        log(f"  10b {t}: export_projector -> convert_projector, {len(sd)} tensors, "
+            f"bit for bit {same}")
+        if not same:
+            fail(f"projector {t}: the export / convert round trip is not bit for bit")
+        del proj, back, sd
+    torch.cuda.empty_cache()
+
+
+def run_clip(dev, seed: int, timer) -> dict:
+    """10c: the CLIP-L/14-336 tower (24 layers, the -2 tap: 23 computed) on
+    32 frames at 336² (normalised pixels from the seed): the kernel path
+    against use_kernel=False; flash launches counted; encode ms and peak;
+    its features through an stc_connector of encoder width 1024."""
+    from ufvideo_tpu_torch.configs import ProjectorConfig
+    from ufvideo_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
+
+    ccfg = CLIPVisionConfig()
+    with torch.device("meta"):
+        tower = CLIPVisionTower(ccfg, torch.bfloat16)
+    tower = tower.to_empty(device=dev).eval().requires_grad_(False)
+    tower.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    px = torch.randn(CLIP_FRAMES, ccfg.image_size, ccfg.image_size, 3, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got, launches, wall = _count(all_wrappers(), lambda: tower(px))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = tower(px, use_kernel=False)
+        ms = timer.ms(lambda: tower(px), n=5)
+        plain_ms = timer.ms(lambda: tower(px, use_kernel=False), n=3)
+    cos = cosine(got, want)
+    log(f"  10c CLIP-L/14-336, {len(tower.layers)} layers on [{CLIP_FRAMES},577,1024]: encode "
+        f"{ms:.2f} ms (plain {plain_ms:.2f} ms; first call {wall:.1f} ms), peak {peak:.2f} GiB; "
+        f"kernel vs plain cosine {cos:.6f} (limit {PATH_COS}); launches {nonzero(launches)}")
+    if tuple(got.shape) != (CLIP_FRAMES, ccfg.num_patches, ccfg.hidden_size) or \
+            not torch.isfinite(got).all():
+        fail(f"CLIP tower: output {tuple(got.shape)} or non-finite")
+    if cos < PATH_COS:
+        fail("CLIP tower: kernel path and plain path disagree")
+    split = collections.Counter()
+    for name, t in timer.launches(lambda: tower(px), n=3):
+        low = name.lower()
+        split["flash_attention" if "flash" in low else
+              "products (cuBLAS)" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
+              else "the rest (LayerNorm, GELU, adds, copies)"] += t
+    parts = ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+    log(f"  10c device time by family, one encode: {parts or 'lost (trace dropped events)'}")
+    if launches != dict(dict.fromkeys(launches, 0), flash_attention=ccfg.num_encode_layers):
+        fail(f"CLIP tower: launches {nonzero(launches)}, predicted "
+             f"{{'flash_attention': {ccfg.num_encode_layers}}}")
+    pcfg = ProjectorConfig(projector_type="stc_connector", encoder_hidden_size=ccfg.hidden_size)
+    proj = _projector(pcfg, dev, seed)
+    with torch.no_grad():
+        tokens = proj(got[None])
+    n = pcfg.num_video_tokens(CLIP_FRAMES, ccfg.grid_size)
+    log(f"  10c CLIP features -> stc_connector: {tuple(tokens.shape)} "
+        f"({pcfg.token_grid(CLIP_FRAMES, ccfg.grid_size)})")
+    if tuple(tokens.shape) != (1, CLIP_STC_TOKENS, pcfg.hidden_size) or n != CLIP_STC_TOKENS \
+            or not torch.isfinite(tokens).all():
+        fail(f"CLIP -> stc_connector: {tuple(tokens.shape)}, expected {CLIP_STC_TOKENS} tokens")
+    del tower, proj, got, want, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _w8a8_grad_cases(dev, gen):
+    """(label, wrapper, args, kwargs) of each W8A8 kernel at SigLIP's shape
+    and Hiera-L's windowed shapes; float leaves require gradients."""
+    from ufvideo_tpu_torch.ops import hiera_block as hb
+
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
+    cases = [("fused_block_w8a8 SigLIP [32,729,1152]", hb.fused_block_w8a8,
+              (mk(32, 729, 1152), w8a8_params(dev, gen, 1152, 4304), 16, 72),
+              dict(act="gelu_tanh"))]
+    for n, s, c, heads in HIERA_BLOCK_SHAPES:
+        cases.append((f"fused_block_w8a8 Hiera [{n},{s},{c}]", hb.fused_block_w8a8,
+                      (mk(n, s, c), w8a8_params(dev, gen, c, 4 * c), heads, c // heads),
+                      dict(act="gelu_exact")))
+    for n, s, cin, heads in HIERA_QPOOL_SHAPES:
+        cout = 2 * cin
+        p = w8a8_params(dev, gen, cout, 4 * cout, cin=cin, front_extra=cout)
+        cases.append((f"fused_qpool_block_w8a8 [{n},{s},{cin}]->{cout}",
+                      hb.fused_qpool_block_w8a8, (mk(n, s, cin), p, heads, cout // heads,
+                                                  (2, 2)), {}))
+    p = w8a8_params(dev, gen, 576, 2304)
+    cases.append(("fused_ln_matmul_w8a8 [4,4096,576] x [576,1728]", hb.fused_ln_matmul_w8a8,
+                  (mk(4, 4096, 576), *p[:5]), {}))
+    cases.append(("fused_block_tail_w8a8 [4,4096,576] MLP 2304", hb.fused_block_tail_w8a8,
+                  (mk(4, 4096, 576), mk(4, 4096, 576), p[5:]), {}))
+    return cases
+
+
+def _grad_leaves(args):
+    """Fresh copies of ``args`` whose float tensors require gradients, and
+    those tensors."""
+    leaves = []
+
+    def copy(t):
+        if isinstance(t, (tuple, list)):
+            return type(t)(copy(x) for x in t)
+        if torch.is_tensor(t) and t.is_floating_point():
+            t = t.detach().clone().requires_grad_(True)
+            leaves.append(t)
+        return t
+
+    return copy(args), leaves
+
+
+def run_w8a8_backward(dev, seed: int) -> None:
+    """10d: a backward through each W8A8 kernel on the card (the kernel's
+    forward, the straight-through backward) against the same backward taken
+    with the plain W8A8 forward (use_kernel=False): the gradient of every
+    float input, cosine over all together and over each tensor."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for label, fn, args, kw in _w8a8_grad_cases(dev, gen):
+        g, grads = None, {}
+        for use_kernel in (True, False):
+            a, leaves = _grad_leaves(args)
+            before = fn.launches
+            out = fn(*a, **kw, use_kernel=use_kernel)
+            if out.grad_fn is None:
+                fail(f"{label}: no graph through the W8A8 wrapper")
+            if g is None:
+                g = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+            grads[use_kernel] = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            if fn.launches - before != int(use_kernel):
+                fail(f"{label}: {fn.launches - before} launches with use_kernel={use_kernel}")
+        k, p = grads[True], grads[False]
+        whole = cosine(torch.cat([t.float().flatten() for t in k]),
+                       torch.cat([t.float().flatten() for t in p]))
+        each = [cosine(a, b) for a, b in zip(k, p)]
+        finite = all(torch.isfinite(t).all() for t in k)
+        log(f"  10d {label}: {len(k)} gradients, cosine {whole:.5f} together, min "
+            f"{min(each):.5f} a tensor (limits {GRAD_COS} / {GRAD_COS_TENSOR})")
+        if not finite or whole < GRAD_COS or min(each) < GRAD_COS_TENSOR:
+            fail(f"{label}: the kernel route's gradients disagree with the plain route's")
+        del grads, k, p
+    torch.cuda.empty_cache()
+
+
+def run_phase10(dev, seed: int, full) -> dict:
+    """Phase 10 (10a-10d); returns the counted paths' launches."""
+    counts, feats = run_projector_paths(dev, seed, full)
+    timer = Timer(dev)
+    log(" 10b: the other projector types alone at full width")
+    run_projector_types(dev, seed, feats, timer)
+    del feats
+    log(" 10c: the CLIP-L/14-336 tower")
+    counts["clip"] = run_clip(dev, seed, timer)
+    del timer
+    log(" 10d: the W8A8 kernels' straight-through backward on the card")
+    run_w8a8_backward(dev, seed)
+    return counts
+
+
 def sass_counts(lib, opcode: str) -> dict:
     """Instructions of ``opcode`` in each kernel of a built library, from
     ``cuobjdump -sass`` (the toolkit's, beside nvcc); kernels without one
@@ -4160,6 +4442,9 @@ def main() -> int:
                     help="phases 0-1 and 8 (training), then stop: no result")
     ap.add_argument("--eval-only", action="store_true",
                     help="phases 0-1, 3 and 9 (eval), then stop: no result")
+    ap.add_argument("--projectors-only", action="store_true",
+                    help="phases 0-2 and 10 (the other projectors, CLIP, the W8A8 "
+                         "backward), then stop: no result")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -4269,6 +4554,14 @@ def main() -> int:
         print(json.dumps({"kernels": kernels}), flush=True)
         log("stopped after phase 2 (--kernels-only / --match): no result")
         return 0
+    if args.projectors_only:
+        log("phase 10: the other projectors, the CLIP tower, the W8A8 backward")
+        proj = run_phase10(dev, args.seed, full)
+        print(json.dumps({"kernels": kernels,
+                          **{f"launches_{k}": nonzero(v) for k, v in proj.items()}}),
+              flush=True)
+        log("stopped after phase 10 (--projectors-only): no result")
+        return 0
     log("phase 3: full-width mm_infer on the card")
     launches, rt, tok, qa_request = run_path(dev, args.seed, full)
     log("phase 4: full-width [SEG] segmentation on the card")
@@ -4313,6 +4606,9 @@ def main() -> int:
     train_lora = run_train_lora(dev, args.seed, full)
     log(" 8b: the reference's freezing policy (full LLM finetune), LLM cut to 4 layers")
     train_full = run_train_full(dev, args.seed, full)
+    torch.cuda.empty_cache()
+    log("phase 10: the other projectors, the CLIP tower, the W8A8 backward")
+    proj = run_phase10(dev, args.seed, full)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
         # "launches" is derived: their sum over the counted runs
@@ -4324,7 +4620,7 @@ def main() -> int:
                    "engine_spec_int8": engine_launches["spec"],
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
                    "probe": probe_launches, "train_lora": train_lora,
-                   "train_full": train_full, "eval": eval_bf16, **ckpt}
+                   "train_full": train_full, "eval": eval_bf16, **ckpt, **proj}
         for label, serving in (("bf16", serving_bf16), ("int8", serving_int8),
                                ("int4", serving_int4)):
             by_path.update({f"{path}_{label}": counts for path, counts in serving.items()})

@@ -1,9 +1,10 @@
 """Gradients through the hand-written kernels (``ops/autograd.py``), on the
 CPU: a recording stand-in takes the kernel's place. The forward calls the
 stand-in once and nothing else; the backward calls only the plain version,
-and its gradients equal plain autograd's. Each of the eight wrappers with a
+and its gradients equal plain autograd's. Each of the twelve wrappers with a
 JAX ``custom_vjp`` routes a CUDA call through the helper with its own kernel
-and plain version; each wrapper without one raises on an input that
+and plain version (the four W8A8 ones with their straight-through function,
+the float block on dequantised weights); each wrapper without one raises on an input that
 requires a gradient (checked on meta tensors: the check comes before any
 device work) and not under ``torch.no_grad``. The card cases are in
 ``tests/test_torch_cuda.py``."""
@@ -31,6 +32,19 @@ def _block_params(gen, c, hw, mlp, front=None):
             1 + 0.1 * _rand(gen, cout), 0.1 * _rand(gen, cout),
             _rand(gen, cout, mlp) / cout ** 0.5, 0.1 * _rand(gen, mlp),
             _rand(gen, mlp, cout) / mlp ** 0.5, 0.1 * _rand(gen, cout))
+
+
+def _w8a8(params, dense):
+    """``params`` with the float weight at each index in ``dense`` rounded
+    to int8 and followed by its f32 column scales."""
+    out = []
+    for i, t in enumerate(params):
+        if i in dense:
+            s = t.abs().amax(dim=0) / 127
+            out += [torch.round(t / s).to(torch.int8), s]
+        else:
+            out.append(t)
+    return tuple(out)
 
 
 def _cases():
@@ -61,6 +75,24 @@ def _cases():
             hiera_block, "_qpool_block_cuda", hiera_block.fused_qpool_block_plain,
             lambda g: (_rand(g, 2, 16, 16), _block_params(g, 16, 16, 32, front=72), 2, 8,
                        (2, 2), "gelu_exact", 1e-6), {}),
+        "fused_block_w8a8": (
+            hiera_block, "_block_w8a8_cuda", hiera_block.fused_block_w8a8_ste,
+            lambda g: (_rand(g, 2, 4, 16), _w8a8(_block_params(g, 16, 16, 32), (2, 4, 8, 10)),
+                       2, 8, "gelu_tanh", 1e-6), {}),
+        "fused_qpool_block_w8a8": (
+            hiera_block, "_qpool_block_w8a8_cuda", hiera_block.fused_qpool_block_w8a8_ste,
+            lambda g: (_rand(g, 2, 16, 16),
+                       _w8a8(_block_params(g, 16, 16, 32, front=72), (2, 4, 8, 10)), 2, 8,
+                       (2, 2), "gelu_exact", 1e-6), {}),
+        "fused_ln_matmul_w8a8": (
+            hiera_block, "_ln_matmul_w8a8_cuda", hiera_block.fused_ln_matmul_w8a8_ste,
+            lambda g: (_rand(g, 2, 4, 16), 1 + 0.1 * _rand(g, 16), 0.1 * _rand(g, 16),
+                       *_w8a8((_rand(g, 16, 24) / 4,), (0,)), 0.1 * _rand(g, 24), 1e-6), {}),
+        "fused_block_tail_w8a8": (
+            hiera_block, "_block_tail_w8a8_cuda", hiera_block.fused_block_tail_w8a8_ste,
+            lambda g: (_rand(g, 2, 4, 16), _rand(g, 2, 4, 16),
+                       _w8a8(_block_params(g, 16, 16, 32)[4:], (0, 4, 6)), "gelu_exact",
+                       1e-6), {}),
         "fused_window_attention": (
             window_attention, "_window_attention_cuda",
             window_attention.fused_window_attention_plain,
@@ -178,14 +210,6 @@ NO_BACKWARD = {
     "int4_matmul": lambda g: quant_matmul.int4_matmul(
         _m(1, 16, grad=g), _m(8, 8, dtype=torch.int8), _m(2, 8), 8),
     "probe_step": lambda g: probe_int8_rate.probe_step(_m(4, 16, grad=g), _m(16, 8), False),
-    "fused_block_w8a8": lambda g: hiera_block.fused_block_w8a8(
-        _m(1, 4, 16, grad=g), tuple(_m(1) for _ in range(16)), 2, 8),
-    "fused_ln_matmul_w8a8": lambda g: hiera_block.fused_ln_matmul_w8a8(
-        _m(1, 4, 16, grad=g), _m(16), _m(16), _m(16, 8, dtype=torch.int8), _m(8), _m(8)),
-    "fused_block_tail_w8a8": lambda g: hiera_block.fused_block_tail_w8a8(
-        _m(1, 4, 16, grad=g), _m(1, 4, 16), tuple(_m(1) for _ in range(11))),
-    "fused_qpool_block_w8a8": lambda g: hiera_block.fused_qpool_block_w8a8(
-        _m(1, 16, 16, grad=g), tuple(_m(1) for _ in range(16)), 2, 8),
 }
 
 

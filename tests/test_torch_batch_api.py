@@ -18,12 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from ufvideo_tpu.api import UFVideoRuntime as JRuntime
 from ufvideo_tpu.api import mm_infer_batch as j_mm_infer_batch
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.models import generate as jgen
-from ufvideo_tpu.models.sam2 import SAM2 as JSAM2
-from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel
 from ufvideo_tpu.tokenization import byte_tokenizer_with_ids as j_byte_tokenizer
 from ufvideo_tpu_torch.api import UFVideoRuntime, _assemble_input_ids, mm_infer, mm_infer_batch
 from ufvideo_tpu_torch.configs import tiny_config
@@ -47,11 +47,8 @@ def runtimes():
     runtime loaded from the same tree."""
     jtok, jids = j_byte_tokenizer()
     jcfg = _with_ids(j_tiny_config(), jids)
-    params = dict(jax.jit(JUFVideoModel(jcfg).init_params)(jax.random.PRNGKey(0)))
-    sam = JSAM2(jcfg.sam, dtype=jnp.float32, param_dtype=jnp.float32)
-    size = jcfg.sam.hiera.image_size
-    params["sam"] = jax.jit(lambda k: sam.init(k, jnp.zeros((1, size, size, 3)))["params"])(
-        jax.random.PRNGKey(1))
+    params = dict(jax_init.model_params(jcfg, 0))
+    params["sam"] = jax_init.sam2_params(jcfg.sam, 1)
     jrt = JRuntime(jcfg, params, jids)
     tok, ids = byte_tokenizer_with_ids()
     cfg = _with_ids(tiny_config(), ids)

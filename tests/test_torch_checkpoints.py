@@ -131,7 +131,7 @@ def test_converter_equals_jax_conversion(port, source):
             dataclasses.replace(jcfg, llm=dataclasses.replace(jcfg.llm, vocab_size=500)))
         sam_sd = px.export_sam2(rt.model.sam)
         cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, vocab_size=500))
-    got = pc.convert_full_checkpoint(sd, cfg, sam_sd)
+    got = pc.convert_full_checkpoint(sd, cfg, sam_sd, device="cpu")
     _assert_models_equal(got, _jax_model(sd, cfg, sam_sd))
     if source != "port-export":
         assert not got.llm.embed_tokens.weight[500:].any()
@@ -143,7 +143,7 @@ def test_quantised_load_equals_jax_quantise_after_load(port, quant):
     int8 / int4 leaves equal JAX's ``quantize_*_params`` after conversion."""
     _, _, sd = port
     cfg = tiny_config().replace(**quant)
-    _assert_models_equal(pc.convert_full_checkpoint(sd, cfg), _jax_model(sd, cfg, quant=quant))
+    _assert_models_equal(pc.convert_full_checkpoint(sd, cfg, device="cpu"), _jax_model(sd, cfg, quant=quant))
 
 
 def _ids(rt, tok):
@@ -232,17 +232,18 @@ def test_converter_refuses_an_incomplete_checkpoint(monkeypatch, port):
     _, _, sd = port
     short = {k: v for k, v in sd.items() if not k.endswith("layers.1.mlp.up_proj.weight")}
     with pytest.raises(KeyError, match="up_proj"):
-        pc.convert_full_checkpoint(short, tiny_config())
+        pc.convert_full_checkpoint(short, tiny_config(), device="cpu")
     plan = sam2_convert.sam2_plan
     monkeypatch.setattr(sam2_convert, "sam2_plan", lambda sam: plan(sam)[:-1])
     with pytest.raises(KeyError, match="sam.no_obj_ptr"):
-        pc.convert_full_checkpoint(sd, tiny_config())
+        pc.convert_full_checkpoint(sd, tiny_config(), device="cpu")
     monkeypatch.undo()
     bad = dict(sd, **{"model.norm.weight": torch.ones(3)})
     with pytest.raises(ValueError, match="model.norm"):
-        pc.convert_full_checkpoint(bad, tiny_config())
+        pc.convert_full_checkpoint(bad, tiny_config(), device="cpu")
     with pytest.raises(ValueError, match="quantised"):
-        px.export_full_checkpoint(pc.convert_full_checkpoint(sd, tiny_config().replace(**INT8)))
+        px.export_full_checkpoint(pc.convert_full_checkpoint(sd, tiny_config().replace(**INT8),
+                                                             device="cpu"))
 
 
 def _every_dtype():
@@ -335,7 +336,7 @@ def test_sam2_checkpoint_and_adapters_equal_jax(port, saved, tmp_path):
     proj, reg = str(tmp_path / "mm_projector.bin"), str(tmp_path / "region_encoder.bin")
     for path in (proj, reg):
         _assert_sd_equal(pc.load_adapter_weights(path), jc.load_adapter_weights(path))
-    got = pc.convert_base_plus_adapters(sd, tiny_config(), proj, reg)
+    got = pc.convert_base_plus_adapters(sd, tiny_config(), proj, reg, device="cpu")
     jcfg = j_tiny_config()
     params = jc.convert_base_plus_adapters(sd, jcfg, proj, reg)
     want = load_jax_params(UFVideoModel.empty(tiny_config(), "cpu"),
@@ -485,3 +486,15 @@ def test_checkpoint_io_needs_neither_safetensors_nor_transformers(tmp_path):
     res = subprocess.run([sys.executable, "-c", script], cwd=repo, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-2000:]
+
+
+def test_converters_build_on_the_card_by_default():
+    """As every entry point: the card unless the caller asks for the CPU
+    (the tests above pass ``device="cpu"``)."""
+    import inspect
+
+    for fn in (pc.convert_full_checkpoint, pc.convert_base_plus_adapters):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            pc.convert_full_checkpoint({}, tiny_config())

@@ -1758,21 +1758,11 @@ def _no_backward_calls(dev):
         "int8_matvec": lambda q: qm.int8_matvec(q(1, 64), i8(64, 32), f32(32)),
         "int4_matmul": lambda q: qm.int4_matmul(q(1, 64), i8(32, 32), f32(1, 32), 64),
         "probe_step": lambda q: pr.probe_step(q(8, 64), m(64, 32), False),
-        "fused_block_w8a8": lambda q: hb.fused_block_w8a8(
-            q(1, 16, 64), tuple(f32(1) for _ in range(16)), 2, 32),
-        "fused_ln_matmul_w8a8": lambda q: hb.fused_ln_matmul_w8a8(
-            q(1, 16, 64), f32(64), f32(64), i8(64, 32), f32(32), f32(32)),
-        "fused_block_tail_w8a8": lambda q: hb.fused_block_tail_w8a8(
-            q(1, 16, 64), m(1, 16, 64), tuple(f32(1) for _ in range(11))),
-        "fused_qpool_block_w8a8": lambda q: hb.fused_qpool_block_w8a8(
-            q(1, 16, 64), tuple(f32(1) for _ in range(16)), 2, 32),
     }
 
 
 @pytest.mark.parametrize("name", ["ragged_decode_attention", "ragged_decode_attention_q8",
-                                  "int8_matvec", "int4_matmul", "probe_step", "fused_block_w8a8",
-                                  "fused_ln_matmul_w8a8", "fused_block_tail_w8a8",
-                                  "fused_qpool_block_w8a8"])
+                                  "int8_matvec", "int4_matmul", "probe_step"])
 def test_kernels_without_backward_refuse_a_grad_input(dev, name):
     """A CUDA input that requires a gradient raises instead of returning a
     tensor cut off from the graph."""
@@ -1781,6 +1771,88 @@ def test_kernels_without_backward_refuse_a_grad_input(dev, name):
                                       requires_grad=True)
     with pytest.raises(RuntimeError, match="has no backward"):
         call(grad)
+
+
+def _w8a8_backward_cases(dev):
+    """name → (wrapper, args, kwargs) at Hiera-L's smallest windowed shapes."""
+    p = _w8a8_block_params(dev, 144, 144, 576, seed=93)
+    return {
+        "fused_block_w8a8": (hb.fused_block_w8a8, (_randn(dev, 8, 64, 144, seed=94), p, 2, 72),
+                             dict(act="gelu_exact")),
+        "fused_qpool_block_w8a8": (
+            hb.fused_qpool_block_w8a8,
+            (_randn(dev, 8, 64, 144, seed=95), _w8a8_qpool_params(dev, 144, 288, 288, 1152, 96),
+             4, 72, (2, 2)), {}),
+        "fused_ln_matmul_w8a8": (hb.fused_ln_matmul_w8a8,
+                                 (_randn(dev, 2, 64, 144, seed=97), *p[:5]), {}),
+        "fused_block_tail_w8a8": (
+            hb.fused_block_tail_w8a8,
+            (_randn(dev, 2, 64, 144, seed=98), _randn(dev, 2, 64, 144, seed=99), p[5:]),
+            dict(act="gelu_exact")),
+    }
+
+
+def _w8a8_grads(fn, args, kw, use_kernel, g=None):
+    leaves = []
+
+    def copy(t):
+        if isinstance(t, (tuple, list)):
+            return type(t)(copy(x) for x in t)
+        if torch.is_tensor(t) and t.is_floating_point():
+            t = t.detach().clone().requires_grad_(True)
+            leaves.append(t)
+        return t
+
+    out = fn(*copy(args), **kw, use_kernel=use_kernel)
+    g = _randn(out.device, *out.shape, seed=100) if g is None else g
+    return torch.autograd.grad(out, leaves, g), g
+
+
+@pytest.mark.parametrize("name", ["fused_block_w8a8", "fused_qpool_block_w8a8",
+                                  "fused_ln_matmul_w8a8", "fused_block_tail_w8a8"])
+def test_w8a8_backward_on_the_card(dev, name):
+    """The kernel forward with the straight-through backward against the
+    plain W8A8 forward with the same backward: every float input's gradient
+    within the training limits (cosine 0.99 together, 0.95 a tensor); one
+    launch in the forward, none in the backward, none on the plain route."""
+    fn, args, kw = _w8a8_backward_cases(dev)[name]
+    before = fn.launches
+    got, g = _w8a8_grads(fn, args, kw, True)
+    assert fn.launches == before + 1
+    want, _ = _w8a8_grads(fn, args, kw, False, g)
+    assert fn.launches == before + 1
+    cos = lambda a, b: float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+    assert len(got) == len(want) >= 5
+    assert all(torch.isfinite(t).all() for t in got)
+    assert cos(torch.cat([t.flatten() for t in got]), torch.cat([t.flatten() for t in want])) \
+        >= 0.99
+    assert min(cos(a, b) for a, b in zip(got, want)) >= 0.95
+
+
+def test_flash_attention_at_the_clip_shape(dev):
+    """CLIP-L/14-336's attention (32 frames of 577 tokens, 16 heads of 64):
+    the 128-key tile and masked tails of both the query block and the key
+    tile; the tower launches it once a layer."""
+    from ufvideo_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
+
+    q, k, v = (_randn(dev, 32, 577, 16, 64, seed=101 + i) for i in range(3))
+    n = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == n + 1
+    _assert_close(got, flash_attention_plain(q, k, v), row_rel=1e-2)
+    cfg = dataclasses.replace(CLIPVisionConfig(), num_layers=4)
+    tower = CLIPVisionTower(cfg).to(dev)
+    tower.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    px = _randn(dev, 2, 336, 336, 3, seed=104)
+    with torch.no_grad():
+        n = flash_attention.launches
+        out = tower(px)
+        assert flash_attention.launches == n + cfg.num_encode_layers
+        want = tower(px, use_kernel=False)
+    cos = torch.nn.functional.cosine_similarity(out.float().flatten(), want.float().flatten(),
+                                                dim=0)
+    assert out.shape == (2, 576, 1024) and float(cos) >= 0.999
 
 
 # ------------------------------------------------------------------- eval --

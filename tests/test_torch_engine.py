@@ -27,11 +27,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from test_torch_tensor_inputs import no_numpy_view  # noqa: F401  (a fixture)
 from ufvideo_tpu.api import UFVideoRuntime as JRuntime
 from ufvideo_tpu.api import mm_infer as j_mm_infer
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
-from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel
 from ufvideo_tpu.tokenization import byte_tokenizer_with_ids as j_byte_tokenizer
 from ufvideo_tpu_torch import _build
 from ufvideo_tpu_torch import engine as engine_mod
@@ -67,8 +68,7 @@ def params():
     """The JAX tree of ``UFVideoModel.init_params`` (no SAM2 weights: the QA
     path needs none)."""
     _, jids = j_byte_tokenizer()
-    return dict(jax.jit(JUFVideoModel(_with_ids(j_tiny_config(), jids)).init_params)(
-        jax.random.PRNGKey(0)))
+    return dict(jax_init.model_params(_with_ids(j_tiny_config(), jids), 0))
 
 
 @pytest.fixture(scope="module")

@@ -251,28 +251,123 @@ def test_png_encode_round_trips(tmp_path):
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
+    """What is no PNG, or a corrupt one, raises and names the file (cv2 reads
+    none of these either)."""
+    header = lambda depth, color: png._chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, depth,
+                                                                  color, 0, 0, 0))
+    sig = b"\x89PNG\r\n\x1a\n"
     cases = {
-        "gray16.png": lambda p: cv2.imwrite(p, np.arange(600, dtype=np.uint16).reshape(20, 30)),
-        "palette.png": lambda p: Image.fromarray(np.zeros((8, 8), np.uint8)).convert("P").save(p),
-        "interlaced.png": lambda p: open(p, "wb").write(  # an Adam7 header
-            b"\x89PNG\r\n\x1a\n" + png._chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 8, 0, 0,
-                                                                        0, 1))
-            + png._chunk(b"IDAT", zlib.compress(bytes(80))) + png._chunk(b"IEND", b"")),
-        "corrupt.png": lambda p: open(p, "wb").write(
-            b"\x89PNG\r\n\x1a\n" + png._chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 8, 0, 0,
-                                                                        0, 0))[:-1] + b"x"),
+        "corrupt.png": lambda p: open(p, "wb").write(sig + header(8, 0)[:-1] + b"x"),
         "notpng.png": lambda p: open(p, "wb").write(b"GIF89a..."),
+        "depth3.png": lambda p: open(p, "wb").write(
+            sig + header(3, 0) + png._chunk(b"IDAT", zlib.compress(bytes(32)))
+            + png._chunk(b"IEND", b"")),
+        "rgb4bit.png": lambda p: open(p, "wb").write(
+            sig + header(4, 2) + png._chunk(b"IDAT", zlib.compress(bytes(104)))
+            + png._chunk(b"IEND", b"")),
+        "noplte.png": lambda p: open(p, "wb").write(
+            sig + header(8, 3) + png._chunk(b"IDAT", zlib.compress(bytes(72)))
+            + png._chunk(b"IEND", b"")),
+        "short.png": lambda p: open(p, "wb").write(
+            sig + header(8, 0) + png._chunk(b"IDAT", zlib.compress(bytes(40)))
+            + png._chunk(b"IEND", b"")),
+        "badzlib.png": lambda p: open(p, "wb").write(
+            sig + header(8, 0) + png._chunk(b"IDAT", b"not zlib") + png._chunk(b"IEND", b"")),
     }
     for name, make in cases.items():
         p = str(tmp_path / name)
         make(p)
-        with pytest.raises(ValueError, match=name):
-            png.read_png(p)
+        assert cv2.imread(p, cv2.IMREAD_GRAYSCALE) is None, name
+        for read in (png.read_png, png.read_gray_png, png.read_rgb_png):
+            with pytest.raises(ValueError, match=name):
+                read(p)
     with pytest.raises(ValueError):
         png.write_png(str(tmp_path / "f.png"), np.zeros((4, 4), np.float32))
-    png.write_png(str(tmp_path / "rgb.png"), np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(ValueError, match="grayscale"):
-        u.read_gray_png(str(tmp_path / "rgb.png"))
+
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _raw_png(path, samples, depth, color, plte=None, trns=None, interlace=0):
+    """A PNG written from its samples [H, W, C] as stored (filter 0), for the
+    forms PIL does not write: Adam7, 2/4-bit gray, 16-bit colour."""
+    h, w = samples.shape[:2]
+    body = []
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        for row in sub.reshape(sub.shape[0], -1) if sub.size else ():
+            if depth == 16:
+                b = row.astype(">u2").tobytes()
+            elif depth == 8:
+                b = row.astype(np.uint8).tobytes()
+            else:
+                bits = np.unpackbits(row.astype(np.uint8)[:, None], axis=1)[:, 8 - depth:]
+                b = np.packbits(bits.reshape(-1)).tobytes()
+            body.append(b"\0" + b)
+    chunks = png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
+    if plte is not None:
+        chunks += png._chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        chunks += png._chunk(b"tRNS", trns)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunks + png._chunk(b"IDAT", zlib.compress(
+            b"".join(body))) + png._chunk(b"IEND", b""))
+
+
+def _pil_mode(mode, rng, h, w):
+    """A PIL image of ``mode`` and its save options."""
+    if mode == "1":
+        return Image.fromarray(rng.integers(0, 2, (h, w)).astype(bool)), {}
+    if mode == "I;16":
+        return Image.fromarray(rng.integers(0, 65536, (h, w)).astype(np.uint16)), {}
+    if mode.startswith("P"):
+        im = Image.fromarray(rng.integers(0, 200, (h, w)).astype(np.uint8), "L").convert("P")
+        im.putpalette(rng.integers(0, 256, 768).astype(np.uint8).tobytes())
+        return im, ({"transparency": bytes(range(0, 250, 5))} if mode == "P-tRNS" else {})
+    ch = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}[mode]
+    a = rng.integers(0, 256, (h, w, ch)).astype(np.uint8)
+    return Image.fromarray(a[..., 0] if ch == 1 else a, mode), {}
+
+
+PIL_MODES = ["L", "LA", "P", "P-tRNS", "RGB", "RGBA", "1", "I;16"]
+# (colour type, bit depth, interlace): the forms PIL does not write
+RAW_FORMS = [(0, 2, 0), (0, 4, 0), (3, 2, 0), (3, 4, 1), (2, 16, 0), (6, 16, 1), (4, 16, 0),
+             (0, 16, 1), (0, 1, 1), (2, 8, 1), (6, 8, 1), (4, 8, 1), (0, 8, 1)]
+
+
+def _raw_form(path, color, depth, interlace, rng, h, w):
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    top = (1 << depth) if color != 3 else min(1 << depth, 40)
+    samples = rng.integers(0, top, (h, w, ch))
+    plte = rng.integers(0, 256, (40, 3)) if color == 3 else None
+    trns = bytes(range(0, 200, 10)) if color == 3 and interlace else None
+    _raw_png(path, samples, depth, color, plte, trns, interlace)
+
+
+@pytest.mark.parametrize("form", PIL_MODES + [f"raw-{c}-{d}-{i}" for c, d, i in RAW_FORMS])
+def test_png_modes_read_as_cv2_and_pil(tmp_path, form):
+    """Every colour type, bit depth and interlace: the mask reader equals
+    cv2's ``IMREAD_GRAYSCALE``, the frame reader PIL's ``convert("RGB")``
+    (the two libraries read 16-bit gray otherwise: each is its reader's
+    oracle), at an odd size that leaves Adam7 passes partial."""
+    rng = np.random.default_rng(sum(map(ord, form)))
+    p = str(tmp_path / "f.png")
+    h, w = 19, 27
+    if form.startswith("raw-"):
+        _raw_form(p, *map(int, form.split("-")[1:]), rng, h, w)
+    else:
+        im, opts = _pil_mode(form, rng, h, w)
+        im.save(p, **opts)
+    gray = png.read_gray_png(p)
+    want = cv2.imread(p, cv2.IMREAD_GRAYSCALE)
+    assert gray.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(gray, want)
+    rgb = mm_utils._read_frame_file(p)
+    with Image.open(p) as im:
+        want = np.asarray(im.convert("RGB"))
+    assert rgb.dtype == np.uint8 and rgb.shape == (h, w, 3)
+    np.testing.assert_array_equal(rgb, want)
 
 
 def test_mask_pngs_cross_packages(tmp_path):
@@ -322,6 +417,27 @@ def _run_main(main, argv, monkeypatch, jax_side):
     return buf.getvalue()
 
 
+def _ground_truth_in_other_modes(d, i, gts):
+    """The same ground-truth masks as a palette image with ``tRNS``, RGB,
+    16-bit gray, Adam7 gray + alpha and a 1-bit image, and a corrupt file in
+    place of one frame (cv2 reads it as None, and so must the port)."""
+    d.mkdir(exist_ok=True)
+    for f, g in enumerate(gts):
+        p, k = str(d / f"m{i}_{f}.png"), (3 * i + f) % 5
+        if i == 2 and f == 1:
+            open(p, "wb").write(b"\x89PNG\r\n\x1a\n broken")
+        elif k == 0:
+            Image.fromarray(g * 255).convert("P").save(p, transparency=0)
+        elif k == 1:
+            Image.fromarray(np.repeat(g[..., None] * 200, 3, axis=2)).save(p)
+        elif k == 2:
+            Image.fromarray(g.astype(np.uint16) * 40000).save(p)
+        elif k == 3:
+            _raw_png(p, np.stack([g * 255, np.full_like(g, 7)], -1), 8, 4, interlace=1)
+        else:
+            Image.fromarray(g.astype(bool)).save(p)
+
+
 @pytest.fixture(scope="module")
 def scored(tmp_path_factory):
     """Two ranks' records of mvbench, q-bench, tvg and mevis outputs, and
@@ -361,12 +477,14 @@ def scored(tmp_path_factory):
             cv2.imwrite(str(gt_png / names[-1]), g * 255)
         gt.append({"id": f"m{i}", "annotation": [jrle.encode(g) for g in gts[:2]] + [None],
                    "file_names": names[:2] + ["absent.png"]})
+        _ground_truth_in_other_modes(root / "gtmodes", i, gts)
     (root / "gt.json").write_text(json.dumps(gt))
     (root / "durations.json").write_text(json.dumps({"v0": 10.0, "v1": 30.0}))
     return root
 
 
-@pytest.mark.parametrize("case", ["mvbench", "qbench", "tvg", "seg-rle", "seg-png", "seg-empty"])
+@pytest.mark.parametrize("case", ["mvbench", "qbench", "tvg", "seg-rle", "seg-png",
+                                  "seg-png-modes", "seg-empty"])
 def test_scorers_print_what_jax_prints(scored, case, monkeypatch):
     r = str(scored)
     argv, mains = {
@@ -380,6 +498,9 @@ def test_scorers_print_what_jax_prints(scored, case, monkeypatch):
         "seg-png": (["--pred-path", f"{r}/seg.json", "--pred-mask-root", f"{r}/masks",
                      "--gt", "png", "--gt-mask-root", f"{r}/gtpng", "--gt-file", f"{r}/gt.json"],
                     (ss.main, jss.main)),
+        "seg-png-modes": (["--pred-path", f"{r}/seg.json", "--pred-mask-root", f"{r}/masks",
+                           "--gt", "png", "--gt-mask-root", f"{r}/gtmodes", "--gt-file",
+                           f"{r}/gt.json"], (ss.main, jss.main)),
         "seg-empty": (["--pred-path", f"{r}/seg.json", "--pred-mask-root", f"{r}/none"],
                       (ss.main, jss.main)),
     }[case]

@@ -29,13 +29,14 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from ufvideo_tpu import quant as jq
 from ufvideo_tpu.api import UFVideoRuntime as JRuntime
 from ufvideo_tpu.api import mm_infer as j_mm_infer
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.models.sam2 import SAM2 as JSAM2
 from ufvideo_tpu.models.sam2 import video as jvideo
-from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel
 from ufvideo_tpu.ops import hiera_block as jhb
 from ufvideo_tpu.tokenization import byte_tokenizer_with_ids as j_byte_tokenizer
 from ufvideo_tpu_torch.api import UFVideoRuntime, mm_infer
@@ -175,9 +176,7 @@ def quant_sam_pair():
     """(JAX quantised SAM2 and tree, the port's SAM2 on the same tree under
     ``hiera_gelu="poly_bf16"``)."""
     jcfg = j_tiny_config().sam
-    jm = JSAM2(jcfg, dtype=jnp.float32, param_dtype=jnp.float32)
-    params = jax.jit(lambda k: jm.init(k, jnp.zeros((1, 128, 128, 3)))["params"])(
-        jax.random.PRNGKey(1))
+    params = jax_init.sam2_params(jcfg, 1)
     leaves, treedef = jax.tree.flatten(params)
     rng = np.random.default_rng(1)
     params = jax.tree.unflatten(treedef, [
@@ -233,7 +232,7 @@ def _with_ids(cfg, ids):
 def float_runtimes():
     jtok, jids = j_byte_tokenizer()
     jcfg = _with_ids(j_tiny_config(), jids)
-    params = jax.jit(JUFVideoModel(jcfg).init_params)(jax.random.PRNGKey(0))
+    params = jax_init.model_params(jcfg, 0)
     jrt = JRuntime(jcfg, dict(params), jids)
     tok, ids = byte_tokenizer_with_ids()
     cfg = _with_ids(tiny_config(), ids)

@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from ufvideo_tpu.api import UFVideoRuntime as JRuntime
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.models import region_encoder as jre
-from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel
 from ufvideo_tpu.tokenization import byte_tokenizer_with_ids as j_byte_tokenizer
 from ufvideo_tpu.tokenization import parse_temporal_tokens as j_parse_temporal_tokens
 from ufvideo_tpu_torch.api import UFVideoRuntime
@@ -114,7 +115,7 @@ def _with_ids(cfg, ids):
 def runtimes():
     _, jids = j_byte_tokenizer()
     jcfg = _with_ids(j_tiny_config(), jids)
-    params = jax.jit(JUFVideoModel(jcfg).init_params)(jax.random.PRNGKey(0))
+    params = jax_init.model_params(jcfg, 0)
     jrt = JRuntime(jcfg, dict(params), jids)
     _, ids = byte_tokenizer_with_ids()
     cfg = _with_ids(tiny_config(), ids)

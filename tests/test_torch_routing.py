@@ -31,12 +31,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from ufvideo_tpu import quant as jq
 from ufvideo_tpu.api import UFVideoRuntime as JRuntime
 from ufvideo_tpu.api import mm_infer as j_mm_infer
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.models import siglip as j_siglip
-from ufvideo_tpu.models.sam2 import SAM2 as JSAM2
 from ufvideo_tpu.models.sam2 import hiera as j_hiera
 from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel
 from ufvideo_tpu.tokenization import byte_tokenizer_with_ids as j_byte_tokenizer
@@ -247,10 +248,8 @@ def jax_tree():
     byte tokenizer's ids."""
     jtok, jids = j_byte_tokenizer()
     jcfg = _with_ids(j_tiny_config(), jids)
-    params = dict(jax.jit(JUFVideoModel(jcfg).init_params)(jax.random.PRNGKey(0)))
-    sam = JSAM2(jcfg.sam, dtype=jnp.float32, param_dtype=jnp.float32)
-    params["sam"] = _noisy(jax.jit(lambda k: sam.init(k, jnp.zeros((1, 128, 128, 3)))["params"])(
-        jax.random.PRNGKey(1)), 1)
+    params = dict(jax_init.model_params(jcfg, 0))
+    params["sam"] = _noisy(jax_init.sam2_params(jcfg.sam, 1), 1)
     return jcfg, jtok, jids, params
 
 

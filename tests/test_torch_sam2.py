@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.models.sam2 import SAM2 as JSAM2
 from ufvideo_tpu.models.sam2 import hiera as j_hiera
@@ -62,10 +64,7 @@ def pair():
     """(JAX SAM2, its variables, the port's SAM2 with the same weights)."""
     jcfg = j_tiny_config().sam
     jm = JSAM2(jcfg, dtype=jnp.float32, param_dtype=jnp.float32)
-    size = jcfg.hiera.image_size
-    params = jax.jit(lambda k: jm.init(k, jnp.zeros((1, size, size, 3)))["params"])(
-        jax.random.PRNGKey(1)
-    )
+    params = jax_init.sam2_params(jcfg, 1)
     leaves, treedef = jax.tree.flatten(params)
     rng = np.random.default_rng(1)
     leaves = [

@@ -28,12 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from ufvideo_tpu import quant as jq
 from ufvideo_tpu.api import UFVideoRuntime as JRuntime
 from ufvideo_tpu.api import mm_infer as j_mm_infer
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.models.sam2 import SAM2 as JSAM2
-from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel
 from ufvideo_tpu.tokenization import byte_tokenizer_with_ids as j_byte_tokenizer
 from ufvideo_tpu_torch import quant as tq
 from ufvideo_tpu_torch.api import UFVideoRuntime, _assemble_input_ids, mm_infer
@@ -71,9 +72,7 @@ def _noisy_sam_params(jcfg):
     """SAM2's random init plus seeded noise on every leaf, so that leaves
     that start at zero take part."""
     jm = JSAM2(jcfg, dtype=jnp.float32, param_dtype=jnp.float32)
-    size = jcfg.hiera.image_size
-    params = jax.jit(lambda k: jm.init(k, jnp.zeros((1, size, size, 3)))["params"])(
-        jax.random.PRNGKey(1))
+    params = jax_init.sam2_params(jcfg, 1)
     leaves, treedef = jax.tree.flatten(params)
     rng = np.random.default_rng(1)
     leaves = [np.asarray(leaf) + 0.05 * rng.standard_normal(leaf.shape).astype(np.float32)
@@ -272,14 +271,23 @@ RUNTIME_CASES = {
 }
 
 
+@pytest.fixture(scope="module")
+def float_model_params():
+    """The composite's float parameters, initialised (and so compiled) once
+    for both runtime cases."""
+    _, jids = j_byte_tokenizer()
+    jcfg = _with_ids(j_tiny_config(), jids)
+    return dict(jax_init.model_params(jcfg, 0))
+
+
 @pytest.fixture(scope="module", params=list(RUNTIME_CASES))
-def quant_runtimes(request, float_pair):
+def quant_runtimes(request, float_pair, float_model_params):
     """JAX float parameters quantised by the JAX functions, a JAX runtime on
     them and the port's runtime loaded from the same tree."""
     kw = RUNTIME_CASES[request.param]
     jtok, jids = j_byte_tokenizer()
     jcfg = _with_ids(j_tiny_config(), jids)
-    params = dict(jax.jit(JUFVideoModel(jcfg).init_params)(jax.random.PRNGKey(0)))
+    params = dict(float_model_params)
     params["sam"] = jq.quantize_sam2_params(float_pair[1])
     params["vision"] = jq.quantize_vision_params(params["vision"])
     if kw.get("quant_llm"):

@@ -17,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from ufvideo_tpu import quant as jq
 from ufvideo_tpu.api import UFVideoRuntime as JRuntime
 from ufvideo_tpu.api import mm_infer as j_mm_infer
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
-from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel
 from ufvideo_tpu.tokenization import byte_tokenizer_with_ids as j_byte_tokenizer
 from ufvideo_tpu_torch.api import UFVideoRuntime, _assemble_input_ids, mm_infer
 from ufvideo_tpu_torch.configs import tiny_config
@@ -39,7 +40,7 @@ def _with_ids(cfg, ids):
 def runtimes():
     jtok, jids = j_byte_tokenizer()
     jcfg = _with_ids(j_tiny_config(), jids)
-    params = jax.jit(JUFVideoModel(jcfg).init_params)(jax.random.PRNGKey(0))
+    params = jax_init.model_params(jcfg, 0)
     jrt = JRuntime(jcfg, dict(params), jids)
     tok, ids = byte_tokenizer_with_ids()
     cfg = _with_ids(tiny_config(), ids)
@@ -122,7 +123,7 @@ def quant_runtimes(request):
     kw = QUANT_CASES[request.param]
     jtok, jids = j_byte_tokenizer()
     jcfg = _with_ids(j_tiny_config(), jids)
-    params = dict(jax.jit(JUFVideoModel(jcfg).init_params)(jax.random.PRNGKey(0)))
+    params = dict(jax_init.model_params(jcfg, 0))
     if kw.get("quant_llm"):
         params["llm"] = jq.quantize_qwen2_params(
             params["llm"], bits=4 if kw["quant_llm"] == "int4" else 8)

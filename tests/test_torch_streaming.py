@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_init as jax_init
+
 from ufvideo_tpu import quant as jq
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.mm_utils import TextDeltaStreamer as JTextDeltaStreamer
@@ -254,7 +256,6 @@ def runtimes():
     """A JAX runtime on ``init_params`` (no SAM2 weights: the QA path needs
     none) and the port's runtime loaded from the same tree."""
     from ufvideo_tpu.api import UFVideoRuntime as JRuntime
-    from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel
     from ufvideo_tpu.tokenization import byte_tokenizer_with_ids as j_byte_tokenizer
     from ufvideo_tpu_torch.api import UFVideoRuntime
     from ufvideo_tpu_torch.models.ufvideo import UFVideoModel
@@ -266,7 +267,7 @@ def runtimes():
         region_token_id=ids.region, seg_token_id=ids.seg,
         temporal_token_start_id=ids.temporal_start)
     jcfg = with_ids(j_tiny_config(), jids)
-    params = jax.jit(JUFVideoModel(jcfg).init_params)(jax.random.PRNGKey(0))
+    params = jax_init.model_params(jcfg, 0)
     tok, ids = byte_tokenizer_with_ids()
     cfg = with_ids(tiny_config(), ids)
     model = UFVideoModel.empty(cfg, "cpu")

@@ -194,13 +194,13 @@ def convert_full_checkpoint(
     sam_sd: Optional[Mapping] = None,
     model: Optional[UFVideoModel] = None,
     *,
-    device="cpu",
+    device="cuda",
     routing: Optional[VisionRouting] = None,
 ) -> UFVideoModel:
     """A full reference state dict → ``model`` (by default
-    ``UFVideoModel.empty(cfg, device, routing)``), written in place and
-    returned. The LLM is at the top level, the tower under
-    ``model.vision_tower.vision_tower.``, the projector under
+    ``UFVideoModel.empty(cfg, device, routing)``, on the card unless
+    ``device`` says otherwise), written in place and returned. The LLM is at
+    the top level, the tower under ``model.vision_tower.vision_tower.``, the projector under
     ``model.mm_projector.``, the region encoder and ``text_hidden_fcs`` under
     their ``model.`` paths. SAM2 comes from ``sam_sd`` (a standalone SAM2
     state dict, ``load_sam2_checkpoint``), else from the checkpoint's
@@ -234,7 +234,7 @@ def convert_base_plus_adapters(
     sam_sd: Optional[Mapping] = None,
     model: Optional[UFVideoModel] = None,
     *,
-    device="cpu",
+    device="cuda",
     routing: Optional[VisionRouting] = None,
 ) -> UFVideoModel:
     """The reference's pretrain loading path: a base checkpoint plus the

@@ -1,6 +1,7 @@
 """Typed configuration for the video-QA, region-referring and ``[SEG]``
-segmentation paths (SigLIP + STC-v35 projector + region encoder + Qwen2 +
-SAM2 Hiera-L), mirroring ``ufvideo_tpu/configs.py`` with torch dtypes.
+segmentation paths (SigLIP + a projector of any type, STC-v35 by default +
+region encoder + Qwen2 + SAM2 Hiera-L), mirroring ``ufvideo_tpu/configs.py``
+with torch dtypes.
 
 Only the fields this package implements are here; the loss settings come
 with the training slice (ROADMAP.md queue 1). ``SAM2HieraConfig`` has no
@@ -11,6 +12,7 @@ package always runs the native head dim.
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Any, Tuple
 
@@ -84,10 +86,17 @@ class Qwen2Config:
         return _round_up(self.vocab_size, 256)
 
 
+# the projector types that ``STCConnector`` builds
+STC_TYPES = ("stc_connector", "stc_connector_v35", "stp_connector", "spatial_conv",
+             "spatial_pool")
+
+
 @dataclass(frozen=True)
 class ProjectorConfig:
-    """STC-v35 connector: RegStage(4) → Conv3d (2,2,2) stride 2 pad 0 →
-    RegStage(4) → 2-layer MLP readout."""
+    """The vision-language connector (``models/projector.build_projector``):
+    ``linear`` / ``mlpNx_gelu`` (the frames' mean, then a dense stack) or the
+    STC family, ``stc_connector_v35`` by default: RegStage(4) → Conv3d
+    (2,2,2) stride 2 pad 0 → RegStage(4) → 2-layer MLP readout."""
 
     projector_type: str = "stc_connector_v35"
     encoder_hidden_size: int = 1152
@@ -96,18 +105,35 @@ class ProjectorConfig:
     mlp_depth: int = 2
     downsample: Tuple[int, int, int] = (2, 2, 2)  # (t, h, w)
 
+    @property
+    def linear_layers(self) -> int:
+        """Dense layers of a ``linear`` (1) / ``mlpNx_gelu`` (N) projector; 0
+        for the STC family; unknown types raise."""
+        t = self.projector_type
+        m = re.fullmatch(r"mlp(\d+)x_gelu", t)
+        if m or t == "linear":
+            return int(m.group(1)) if m else 1
+        if t not in STC_TYPES:
+            raise ValueError(f"Unknown projector type: {t}")
+        return 0
+
     def token_grid(self, num_frames: int, vis_grid: int) -> Tuple[int, int, int]:
-        """Output grid (t, h, w); padding 0, so dims floor-divide."""
-        if self.projector_type != "stc_connector_v35":
-            raise NotImplementedError(
-                f"projector {self.projector_type!r}: only stc_connector_v35 "
-                "is ported (ROADMAP.md queue 1)"
-            )
+        """Output grid (t, h, w) of every type. ``linear`` and every
+        ``mlpNx_gelu`` emit one frame's grid (the JAX formula tests only
+        ``mlp2x_gelu``, and so miscounts ``mlp3x_gelu``); ``spatial_*`` keep
+        every frame (dt 1); the samplers of ``stc_connector`` and
+        ``spatial_conv`` pad each axis by 1, the pools and v35 by 0."""
+        if self.linear_layers:
+            return (1, vis_grid, vis_grid)
+        t = self.projector_type
         dt, dh, dw = self.downsample
+        if t in ("spatial_conv", "spatial_pool"):
+            dt = 1
+        pad = 1 if t in ("stc_connector", "spatial_conv") else 0
         return (
-            (num_frames - dt) // dt + 1,
-            (vis_grid - dh) // dh + 1,
-            (vis_grid - dw) // dw + 1,
+            (num_frames + 2 * pad - dt) // dt + 1,
+            (vis_grid + 2 * pad - dh) // dh + 1,
+            (vis_grid + 2 * pad - dw) // dw + 1,
         )
 
     def num_video_tokens(self, num_frames: int, vis_grid: int) -> int:

@@ -38,12 +38,16 @@ def resize_nearest(mask: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def _gt_masks_png(record: Dict, gt_root: str) -> List[np.ndarray]:
-    """The record's ground-truth PNGs (8-bit grayscale), None for a missing
-    file."""
+    """The record's ground-truth PNGs read as cv2's ``IMREAD_GRAYSCALE``
+    reads them (any colour type and depth), None for a file cv2 would not
+    read: a missing, unreadable, corrupt or non-PNG one."""
     out = []
     for name in record.get("file_names", []):
-        p = os.path.join(gt_root, name)
-        out.append((read_gray_png(p) > 127).astype(np.uint8) if os.path.exists(p) else None)
+        try:
+            m = read_gray_png(os.path.join(gt_root, name))
+        except (OSError, ValueError):
+            m = None
+        out.append((m > 127).astype(np.uint8) if m is not None else None)
     return out
 
 

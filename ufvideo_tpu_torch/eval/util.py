@@ -16,7 +16,7 @@ from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
-from .png import read_png, write_png
+from .png import read_gray_png, write_png
 
 
 def get_rank_world() -> tuple:
@@ -76,15 +76,6 @@ def save_mask_pngs(out_dir: str, sample_id, masks: np.ndarray) -> None:
     os.makedirs(d, exist_ok=True)
     for i, m in enumerate(masks):
         write_png(os.path.join(d, f"{i}.png"), (np.asarray(m) > 0).astype(np.uint8) * 255)
-
-
-def read_gray_png(path: str) -> np.ndarray:
-    """A mask PNG's pixels; masks are 8-bit grayscale files."""
-    img = read_png(path)
-    if img.ndim != 2:
-        raise ValueError(f"{path}: a mask PNG must be 8-bit grayscale, not {img.shape[2]} "
-                         "channels")
-    return img
 
 
 def load_mask_pngs(pred_dir: str, sample_id) -> List[np.ndarray]:

@@ -62,9 +62,8 @@ def export_siglip(tower) -> Dict[str, torch.Tensor]:
 
 
 def export_projector(proj) -> Dict[str, torch.Tensor]:
-    """Inverse of ``weights.convert_projector`` (timm RegStage naming). The
-    port builds only the STC projector (the other types raise when built,
-    ROADMAP.md queue 1 item 7)."""
+    """Inverse of ``weights.convert_projector``, for every projector type
+    (``weights.projector_plan``)."""
     return plan_to_sd(projector_plan(proj))
 
 

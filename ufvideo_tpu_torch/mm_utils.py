@@ -303,12 +303,12 @@ def load_frames(
 def _read_frame_file(path: str) -> np.ndarray:
     """One frame of a frame directory as uint8 RGB: a ``.png`` through the
     port's own codec (no PIL needed), anything else through PIL; the pixels
-    are what PIL's ``convert("RGB")`` gives (gray repeated, alpha dropped)."""
+    are what PIL's ``convert("RGB")`` gives, in every PNG mode
+    (``eval.png.read_rgb_png``)."""
     if path.lower().endswith(".png"):
-        from .eval.png import read_png
+        from .eval.png import read_rgb_png
 
-        img = read_png(path)
-        return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img[..., :3]
+        return read_rgb_png(path)
     from PIL import Image
 
     return np.asarray(Image.open(path).convert("RGB"))

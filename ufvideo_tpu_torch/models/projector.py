@@ -1,12 +1,19 @@
-"""STC-v35 spatio-temporal connector (mirrors the ``stc_connector_v35``
-path of ``ufvideo_tpu/models/projector.py``): RegStage(4) → Conv3d
-(t, h, w) = (2, 2, 2) stride 2, padding 0 → SiLU → RegStage(4) → 2-layer MLP
-readout with exact-erf GELU.
+"""The vision-language connectors (mirrors ``ufvideo_tpu/models/projector.py``),
+built by ``build_projector`` from the configuration's ``projector_type``:
+
+- ``STCConnector``, the STC family: RegStage(depth) → a (t, h, w) sampler →
+  SiLU → RegStage(depth) → MLP readout with exact-erf GELU. The sampler is a
+  Conv3d, stride = kernel, padded by 1 on each axis for ``stc_connector`` and
+  ``spatial_conv`` and by 0 for ``stc_connector_v35`` (the default: (2, 2, 2));
+  ``stp_connector`` and ``spatial_pool`` average-pool the window instead (no
+  padding). ``spatial_*`` keep every frame (dt 1) and have no RegStages.
+- ``LinearProjector`` for ``linear`` / ``mlpNx_gelu``: the frames' mean, then
+  ``fc0`` and [GELU, ``fc{2i}``] for i < N.
 
 Activations stay NHWC / NDHWC, as in JAX. 1x1 convolutions are
 ``nn.Linear`` over channels; the depthwise 3x3 and the sampler are
 ``nn.Conv2d`` / ``nn.Conv3d`` (torch weight layouts) applied on permuted
-views. The other projector types come with a later slice.
+views.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..configs import ProjectorConfig
+from ..configs import STC_TYPES, ProjectorConfig
 from . import init
 
 
@@ -96,33 +103,58 @@ class RegStage(nn.Module):
         return x
 
 
+def _readout(fcs: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    """fc0, then [exact GELU, fc] for each further layer (torch
+    ``Sequential(Linear, [GELU, Linear]*)``; ``nn.GELU()`` is erf's)."""
+    x = fcs[0](x)
+    for fc in fcs[1:]:
+        x = fc(F.gelu(x, approximate="none"))
+    return x
+
+
+def _dense_stack(depth: int, d_in: int, d: int, dtype: torch.dtype) -> nn.ModuleList:
+    return nn.ModuleList(nn.Linear(d_in if i == 0 else d, d, dtype=dtype) for i in range(depth))
+
+
 class STCConnector(nn.Module):
-    """[B, T, N, D_enc] (N = grid² tokens per frame) → [B, T'·H'·W', D_llm]."""
+    """[B, T, N, D_enc] (N = grid² tokens per frame) → [B, T'·H'·W', D_llm]
+    for every STC-family type (``configs.STC_TYPES``)."""
 
     def __init__(self, cfg: ProjectorConfig, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if cfg.projector_type != "stc_connector_v35":
-            raise NotImplementedError(
-                f"projector {cfg.projector_type!r}: only stc_connector_v35 is "
-                "ported (ROADMAP.md queue 1)"
-            )
+        t = cfg.projector_type
+        if t not in STC_TYPES:
+            raise ValueError(f"STCConnector builds {STC_TYPES}, not {t!r}")
         self.cfg = cfg
         self.dtype = dtype
-        d = cfg.hidden_size
-        self.s1 = RegStage(cfg.depth, cfg.encoder_hidden_size, d, dtype)
-        self.sampler = nn.Conv3d(d, d, cfg.downsample, stride=cfg.downsample, dtype=dtype)
-        self.s2 = RegStage(cfg.depth, d, d, dtype)
-        self.readout = nn.ModuleList(
-            nn.Linear(d, d, dtype=dtype) for _ in range(cfg.mlp_depth)
-        )
+        spatial = t in ("spatial_conv", "spatial_pool")
+        depth = 0 if spatial else cfg.depth
+        dt, dh, dw = cfg.downsample
+        self.window = (1 if spatial else dt, dh, dw)
+        self.pool = t in ("stp_connector", "spatial_pool")
+        d, enc = cfg.hidden_size, cfg.encoder_hidden_size
+        # the RegStages exist only where depth > 0
+        self.s1 = RegStage(depth, enc, d, dtype) if depth else None
+        width = d if depth else enc
+        self.sampler = None
+        if not self.pool:
+            pad = 1 if t in ("stc_connector", "spatial_conv") else 0
+            self.sampler = nn.Conv3d(width, d, self.window, stride=self.window, padding=pad,
+                                     dtype=dtype)
+            width = d
+        self.s2 = RegStage(depth, d, d, dtype) if depth else None
+        self.readout = _dense_stack(cfg.mlp_depth, width, d, dtype)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        self.s1.reset_parameters(gen)
-        w = self.sampler.weight
-        init.lecun_normal_(w, w[0].numel(), gen)
-        with torch.no_grad():
-            self.sampler.bias.zero_()
-        self.s2.reset_parameters(gen)
+        if self.s1 is not None:
+            self.s1.reset_parameters(gen)
+        if self.sampler is not None:
+            w = self.sampler.weight
+            init.lecun_normal_(w, w[0].numel(), gen)
+            with torch.no_grad():
+                self.sampler.bias.zero_()
+        if self.s2 is not None:
+            self.s2.reset_parameters(gen)
         for fc in self.readout:
             init.linear_(fc, gen)
 
@@ -131,14 +163,48 @@ class STCConnector(nn.Module):
         hw = int(round(n ** 0.5))
         if hw * hw != n:
             raise ValueError(f"{n} tokens per frame is not a square grid")
-        x = self.s1(x.reshape(b * t, hw, hw, c).to(self.dtype))
-        x = x.reshape(b, t, hw, hw, -1)
-        # Conv3d stride = kernel, padding 0: trailing odd rows are dropped
-        x = self.sampler(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
-        x = F.silu(x)
+        x = x.reshape(b * t, hw, hw, c).to(self.dtype)
+        if self.s1 is not None:
+            x = self.s1(x)
+        x = x.reshape(b, t, hw, hw, -1).permute(0, 4, 1, 2, 3)
+        # stride = window: trailing rows that fill no window are dropped
+        if self.pool:  # the window's mean in f32, rounded once
+            x = F.avg_pool3d(x.float(), self.window, stride=self.window).to(self.dtype)
+        else:
+            x = self.sampler(x)
+        x = F.silu(x).permute(0, 2, 3, 4, 1)
         _, nt, nh, nw, d = x.shape
-        x = self.s2(x.reshape(b * nt, nh, nw, d)).reshape(b, nt * nh * nw, d)
-        x = self.readout[0](x)
-        for fc in self.readout[1:]:
-            x = fc(F.gelu(x, approximate="none"))  # torch nn.GELU(): exact erf
-        return x
+        x = x.reshape(b * nt, nh, nw, d)
+        if self.s2 is not None:
+            x = self.s2(x)
+        return _readout(self.readout, x.reshape(b, nt * nh * nw, d))
+
+
+class LinearProjector(nn.Module):
+    """``linear`` / ``mlpNx_gelu``: [B, T, N, D_enc] → the mean over T (f32
+    sums of the working-type values, as JAX's mean of bf16 accumulates) →
+    ``fc0`` and [exact GELU, ``fc{2i}``] → [B, N, D_llm]."""
+
+    def __init__(self, cfg: ProjectorConfig, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if not cfg.linear_layers:
+            raise ValueError(f"LinearProjector builds linear / mlpNx_gelu, not "
+                             f"{cfg.projector_type!r}")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.fcs = _dense_stack(cfg.linear_layers, cfg.encoder_hidden_size, cfg.hidden_size,
+                                dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for fc in self.fcs:
+            init.linear_(fc, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).float().mean(dim=1).to(self.dtype)
+        return _readout(self.fcs, x)
+
+
+def build_projector(cfg: ProjectorConfig, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """The connector of ``cfg.projector_type`` (the JAX ``build_projector``;
+    an unknown type raises)."""
+    return (LinearProjector if cfg.linear_layers else STCConnector)(cfg, dtype)

@@ -71,7 +71,8 @@ from .common import ConvNHWC, position_embedding_sine
 
 _EPS = 1e-6
 # the wrapper of each part of a block in ``ops.hiera_block``; its plain
-# version carries the suffix ``_plain``
+# version carries the suffix ``_plain`` (the W8A8 wrappers take
+# ``use_kernel=False`` instead, which keeps their backward)
 _KERNELS = {"block": "fused_hiera_block", "qpool": "fused_qpool_block",
             "front": "fused_ln_matmul", "tail": "fused_block_tail"}
 _W8A8_KERNELS = {"block": "fused_block_w8a8", "qpool": "fused_qpool_block_w8a8",
@@ -262,8 +263,11 @@ class MultiScaleBlock(nn.Module):
         params = self._kernel_params()
         if self.route != "split" and x.shape[1] != self.window_side ** 2:
             raise ValueError(f"{x.shape[1]} tokens a window, built for {self.window_side ** 2}")
-        names = _W8A8_KERNELS if self.quant else _KERNELS
-        pick = lambda part: getattr(hb, names[part] + ("" if k else "_plain"))
+        if self.quant:  # the plain forward keeps the W8A8 kernels' backward
+            pick = lambda part: functools.partial(getattr(hb, _W8A8_KERNELS[part]),
+                                                  use_kernel=k)
+        else:
+            pick = lambda part: getattr(hb, _KERNELS[part] + ("" if k else "_plain"))
         n_front = 5 if self.quant else 4  # (ln1_s, ln1_b, wfront, [sfront,] bfront)
         if self.route == "block":
             fn = pick("block")

@@ -32,8 +32,7 @@ from torch import nn
 
 from ..configs import SiglipVisionConfig, VisionRouting
 from ..ops.hiera_block import (
-    fused_block_w8a8, fused_block_w8a8_plain, fused_hiera_block, fused_hiera_block_plain,
-    layer_norm_flax)
+    fused_block_w8a8, fused_hiera_block, fused_hiera_block_plain, layer_norm_flax)
 from ..ops.vit_attention import mha_full_attention_packed, mha_full_attention_packed_plain
 from ..quant import int8_kernel, quantize_kernel, w8a8_linear
 from . import init
@@ -121,14 +120,13 @@ class SiglipEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N, S, C]
         if not self.fused:
             return self._unfused(x)
-        if self.quant:
-            fn = fused_block_w8a8 if self.use_kernels else fused_block_w8a8_plain
-        else:
-            fn = fused_hiera_block if self.use_kernels else fused_hiera_block_plain
-        return fn(
-            x, self.params(), self.cfg.num_heads, self.cfg.head_dim,
-            act=self.act, eps=self.cfg.layer_norm_eps,
-        )
+        cfg = self.cfg
+        if self.quant:  # the plain forward keeps the W8A8 block's backward
+            return fused_block_w8a8(x, self.params(), cfg.num_heads, cfg.head_dim, act=self.act,
+                                    eps=cfg.layer_norm_eps, use_kernel=self.use_kernels)
+        fn = fused_hiera_block if self.use_kernels else fused_hiera_block_plain
+        return fn(x, self.params(), cfg.num_heads, cfg.head_dim, act=self.act,
+                  eps=cfg.layer_norm_eps)
 
 
 class SiglipVisionTower(nn.Module):

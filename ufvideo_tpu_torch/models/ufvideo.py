@@ -1,8 +1,8 @@
-"""Composite UFVideo model: SigLIP tower + STC-v35 projector + region
-encoder + Qwen2 LM + the ``[SEG]`` text head + SAM2 (mirrors
-``ufvideo_tpu/models/ufvideo.py`` ``encode_video`` / ``encode_regions`` /
-``splice_embeds`` / ``seg_embeddings``; the JAX runtime keeps SAM2 beside
-the composite, here it is a member). ``cfg.quant_vision`` builds the SigLIP
+"""Composite UFVideo model: SigLIP tower + projector (any type of
+``build_projector``; STC-v35 by default) + region encoder + Qwen2 LM + the
+``[SEG]`` text head + SAM2 (mirrors ``ufvideo_tpu/models/ufvideo.py``
+``encode_video`` / ``encode_regions`` / ``splice_embeds`` / ``seg_embeddings``;
+the JAX runtime keeps SAM2 beside the composite, here it is a member). ``cfg.quant_vision`` builds the SigLIP
 tower and SAM2's Hiera trunk in W8A8, ``cfg.quant_llm`` the LM on
 weight-only int8 / int4. The ``*_train`` methods are the same functions with
 autograd recording, for ``train/``."""
@@ -17,7 +17,7 @@ from torch import nn
 
 from ..configs import UFVideoConfig, VisionRouting
 from ..splicing import apply_splice
-from .projector import STCConnector
+from .projector import build_projector
 from . import init
 from .qwen2 import Qwen2LM
 from .region_encoder import RegionProjector, extract_region_tokens
@@ -50,7 +50,7 @@ class UFVideoModel(nn.Module):
         dt = cfg.param_dtype
         self.vision = SiglipVisionTower(
             cfg.vision, dtype=dt, quant=bool(cfg.quant_vision), routing=self.routing)
-        self.projector = STCConnector(cfg.projector, dtype=dt)
+        self.projector = build_projector(cfg.projector, dtype=dt)
         self.region = RegionProjector(cfg.region, dtype=dt)
         self.llm = Qwen2LM(cfg.llm, dtype=dt, quant=cfg.quant_llm)
         self.text_fcs = TextHiddenFC(cfg.llm.hidden_size, cfg.sam_out_dim, dt)

@@ -8,12 +8,16 @@ the function through XLA (``ufvideo_tpu/ops/attention.py`` and the blocks of
 ``kernel_with_plain_backward`` is the same rule here: the forward launches
 the kernel, the backward recomputes the wrapper's plain PyTorch version
 under ``torch.enable_grad()`` and differentiates that. No backward kernel
-exists, as none exists in the JAX package.
+exists, as none exists in the JAX package. The W8A8 blocks pass, in place of
+the plain version, the float block on their dequantised weights: the JAX
+package's straight-through estimator (``ops/hiera_block.py``, the ``*_ste``
+functions); they route CPU calls through the helper too, so that the plain
+W8A8 forward gets the same backward.
 
 The wrappers that have no such rule in the JAX package (the decode pair,
-the quantised products, the probe, the W8A8 blocks) call
-``refuse_grad``: on a CUDA input that requires a gradient they raise,
-rather than return a tensor cut off from the graph.
+the quantised products, the probe) call ``refuse_grad``: on a CUDA input
+that requires a gradient they raise, rather than return a tensor cut off
+from the graph.
 """
 
 from __future__ import annotations
@@ -77,7 +81,8 @@ def kernel_with_plain_backward(kernel: Callable, plain: Callable, *args, **kwarg
     """``kernel(*args, **kwargs)``; when autograd records a graph through any
     tensor in the arguments (nested tuples and lists of tensors included),
     the call becomes one node whose backward is that of ``plain`` (same
-    arguments, same function) recomputed from the saved inputs."""
+    arguments; the same function, or the function whose gradient the
+    kernel takes) recomputed from the saved inputs."""
     if not torch.is_grad_enabled():  # inference: no tree walk on the hot path
         return kernel(*args, **kwargs)
     leaves: List[Any] = []

@@ -63,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .autograd import kernel_with_plain_backward, refuse_grad
+from .autograd import kernel_with_plain_backward
 
 _ACT_CODES = {"gelu_tanh": 1, "gelu_exact": 2, "gelu_poly": 3, "gelu_poly_bf16": 4,
               "gelu_tanh_poly": 5, "gelu_tanh_poly_bf16": 6}
@@ -830,6 +830,55 @@ def _tail_w8a8(shortcut, att32, params, act, eps):
     return x1 + mlp.reshape(n, s, c).to(dtype)
 
 
+def _deq(w: torch.Tensor, s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An int8 [in, out] weight dequantised by its column scales into
+    ``dtype`` (the JAX backward's ``deq``)."""
+    return (w.float() * s.float()[None, :]).to(dtype)
+
+
+def _ste_tail_params(params: tuple, dtype: torch.dtype) -> tuple:
+    """W8A8 tail parameters → the float tail's, weights dequantised and
+    biases in ``dtype``."""
+    wproj, sproj, bproj, ln2_s, ln2_b, w1, s1, b1, w2, s2, b2 = params
+    return (_deq(wproj, sproj, dtype), bproj.to(dtype), ln2_s, ln2_b, _deq(w1, s1, dtype),
+            b1.to(dtype), _deq(w2, s2, dtype), b2.to(dtype))
+
+
+def _ste_block_params(params: tuple, dtype: torch.dtype) -> tuple:
+    """W8A8 block (or q-pool block) parameters → the float block's."""
+    ln1_s, ln1_b, wf, sf, bf = params[:5]
+    return (ln1_s, ln1_b, _deq(wf, sf, dtype), bf.to(dtype),
+            *_ste_tail_params(params[5:], dtype))
+
+
+# The W8A8 family's backward is a straight-through estimator, as the JAX
+# ``custom_vjp`` of each W8A8 kernel has it (``_w8a8_bwd``,
+# ``_qpool_w8a8_bwd``, ``_ln_matmul_w8a8_bwd``, ``_tail_w8a8_bwd``): the
+# gradient of the float function on the dequantised weights, since the
+# rounding's own is zero almost everywhere. The int8 weights get none; the
+# activations, LayerNorm parameters, biases and scales get theirs. The
+# ``*_ste`` functions are what that backward differentiates.
+
+def fused_block_w8a8_ste(x, params, num_heads, head_dim, act="gelu_tanh", eps=1e-6):
+    return fused_hiera_block_plain(x, _ste_block_params(params, x.dtype), num_heads,
+                                   head_dim, act, eps)
+
+
+def fused_qpool_block_w8a8_ste(x, params, num_heads, head_dim, q_stride=(2, 2),
+                               act="gelu_exact", eps=1e-6):
+    return fused_qpool_block_plain(x, _ste_block_params(params, x.dtype), num_heads,
+                                   head_dim, q_stride, act, eps)
+
+
+def fused_ln_matmul_w8a8_ste(x, ln_s, ln_b, w, s, b, eps=1e-6):
+    return fused_ln_matmul_plain(x, ln_s, ln_b, _deq(w, s, x.dtype), b.to(x.dtype), eps)
+
+
+def fused_block_tail_w8a8_ste(shortcut, att, params, act="gelu_exact", eps=1e-6):
+    return fused_block_tail_plain(shortcut, att, _ste_tail_params(params, shortcut.dtype),
+                                  act, eps)
+
+
 def fused_block_w8a8_plain(
     x: torch.Tensor,  # [N, S, C]
     params: tuple,
@@ -859,7 +908,6 @@ def fused_block_w8a8_plain(
 
 
 def _check_w8a8(name: str, x: torch.Tensor, acts, weights) -> None:
-    refuse_grad(name, x, *acts, *weights)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if not all(t.dtype == torch.bfloat16 for t in (x, *acts)) or not all(
@@ -890,14 +938,20 @@ def fused_block_w8a8(
     head_dim: int,
     act: str = "gelu_tanh",
     eps: float = 1e-6,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
-    """The whole block in W8A8 → [N, S, C]. CPU tensors take the plain
-    version; CUDA tensors launch the kernels (bf16 activations, int8 weights,
-    f32 scales; C and head dim multiples of 8, mlp even)."""
+    """The whole block in W8A8 → [N, S, C]. CPU tensors (or ``use_kernel``
+    False) take the plain version; CUDA tensors launch the kernels (bf16
+    activations, int8 weights, f32 scales; C and head dim multiples of 8, mlp
+    even). The backward is the straight-through estimator above."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
-    if x.device.type == "cpu":
-        return fused_block_w8a8_plain(x, params, num_heads, head_dim, act, eps)
+    fwd = _block_w8a8_cuda if use_kernel and x.device.type != "cpu" else fused_block_w8a8_plain
+    return kernel_with_plain_backward(
+        fwd, fused_block_w8a8_ste, x, params, num_heads, head_dim, act, eps)
+
+
+def _block_w8a8_cuda(x, params, num_heads, head_dim, act, eps):
     (ln1_s, ln1_b, wqkv, sqkv, bqkv, wproj, sproj, bproj, ln2_s, ln2_b,
      w1, s1, b1, w2, s2, b2) = params
     _check_w8a8("fused_block_w8a8", x, (), (wqkv, wproj, w1, w2))
@@ -951,12 +1005,19 @@ def fused_ln_matmul_w8a8(
     s: torch.Tensor,  # f32 [D] column scales
     b: torch.Tensor,
     eps: float = 1e-6,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """LayerNorm → rows to int8 → s8 × s8 → ``acc · xs · ws + b`` → [N, S, D].
-    CPU tensors take the plain version; CUDA tensors launch the kernels (bf16
-    activations, int8 weights; D even)."""
-    if x.device.type == "cpu":
-        return fused_ln_matmul_w8a8_plain(x, ln_s, ln_b, w, s, b, eps)
+    CPU tensors (or ``use_kernel`` False) take the plain version; CUDA
+    tensors launch the kernels (bf16 activations, int8 weights; D even). The
+    backward is the straight-through estimator above."""
+    fwd = (_ln_matmul_w8a8_cuda if use_kernel and x.device.type != "cpu"
+           else fused_ln_matmul_w8a8_plain)
+    return kernel_with_plain_backward(
+        fwd, fused_ln_matmul_w8a8_ste, x, ln_s, ln_b, w, s, b, eps)
+
+
+def _ln_matmul_w8a8_cuda(x, ln_s, ln_b, w, s, b, eps):
     _check_w8a8("fused_ln_matmul_w8a8", x, (), (w,))
     n, sl, c = x.shape
     d = w.shape[1]
@@ -1000,15 +1061,22 @@ def fused_block_tail_w8a8(
     #                 w2_q [mlp, C], s2, b2)
     act: str = "gelu_exact",
     eps: float = 1e-6,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """Rows of ``att`` to int8 → proj + residual → LN2 → int8 → fc1 → GELU →
-    int8 → fc2 + residual → [N, S, C]. CPU tensors take the plain version;
-    CUDA tensors launch the kernels (bf16 activations, int8 weights, f32
-    scales; C and mlp even)."""
+    int8 → fc2 + residual → [N, S, C]. CPU tensors (or ``use_kernel`` False)
+    take the plain version; CUDA tensors launch the kernels (bf16
+    activations, int8 weights, f32 scales; C and mlp even). The backward is
+    the straight-through estimator above."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
-    if shortcut.device.type == "cpu":
-        return fused_block_tail_w8a8_plain(shortcut, att, params, act, eps)
+    fwd = (_block_tail_w8a8_cuda if use_kernel and shortcut.device.type != "cpu"
+           else fused_block_tail_w8a8_plain)
+    return kernel_with_plain_backward(
+        fwd, fused_block_tail_w8a8_ste, shortcut, att, params, act, eps)
+
+
+def _block_tail_w8a8_cuda(shortcut, att, params, act, eps):
     wproj, sproj, bproj, ln2_s, ln2_b, w1, s1, b1, w2, s2, b2 = params
     _check_w8a8("fused_block_tail_w8a8", shortcut, (att,), (wproj, w1, w2))
     n, s, c = shortcut.shape
@@ -1087,15 +1155,22 @@ def fused_qpool_block_w8a8(
     q_stride: tuple = (2, 2),
     act: str = "gelu_exact",
     eps: float = 1e-6,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """One q-pooling stage-transition block in W8A8 → [N, S/(sy·sx), Cout].
-    CPU tensors take the plain version; CUDA tensors launch the kernels (bf16
-    activations, int8 weights, f32 scales; Cout and head dim multiples of 8,
-    head dim up to 128, mlp even)."""
+    CPU tensors (or ``use_kernel`` False) take the plain version; CUDA
+    tensors launch the kernels (bf16 activations, int8 weights, f32 scales;
+    Cout and head dim multiples of 8, head dim up to 128, mlp even). The
+    backward is the straight-through estimator above."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
-    if x.device.type == "cpu":
-        return fused_qpool_block_w8a8_plain(x, params, num_heads, head_dim, q_stride, act, eps)
+    fwd = (_qpool_block_w8a8_cuda if use_kernel and x.device.type != "cpu"
+           else fused_qpool_block_w8a8_plain)
+    return kernel_with_plain_backward(
+        fwd, fused_qpool_block_w8a8_ste, x, params, num_heads, head_dim, q_stride, act, eps)
+
+
+def _qpool_block_w8a8_cuda(x, params, num_heads, head_dim, q_stride, act, eps):
     (ln1_s, ln1_b, wf, sf, bf, wproj, sproj, bproj, ln2_s, ln2_b,
      w1, s1, b1, w2, s2, b2) = params
     _check_w8a8("fused_qpool_block_w8a8", x, (), (wf, wproj, w1, w2))

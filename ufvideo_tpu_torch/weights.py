@@ -41,7 +41,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Set, Tuple, Uni
 import numpy as np
 import torch
 
-from .models.projector import RegBottleneck, STCConnector
+from .models.clip import CLIPVisionTower
+from .models.projector import LinearProjector, RegBottleneck
 from .models.qwen2 import QuantLinear, Qwen2LM
 from .models.region_encoder import RegionProjector
 from .models.siglip import SiglipEncoderLayer, SiglipVisionTower
@@ -91,6 +92,23 @@ def load_siglip(tower: SiglipVisionTower, p: Dict[str, Any]) -> None:
             _set(getattr(layer, f"{name}_bias"), pick(*path, "bias"))
 
 
+def load_jax_clip_params(tower: CLIPVisionTower, p: Dict[str, Any]) -> CLIPVisionTower:
+    """The JAX ``CLIPVisionTower``'s parameter tree (numpy leaves, layers
+    stacked) into ``tower``; returns it."""
+    k = np.asarray(p["patch_embedding_kernel"])  # [p, p, 3, C]
+    _set(tower.patch_embedding.weight, k.reshape(-1, k.shape[-1]).T)
+    _set(tower.class_embedding, p["class_embedding"])
+    _set(tower.position_embedding, p["position_embedding"])
+    _ln(tower.pre_layrnorm, p["pre_layrnorm"])
+    lp = p["layers"]
+    for i, layer in enumerate(tower.layers):
+        for name in ("layer_norm1", "layer_norm2"):
+            _ln(getattr(layer, name), {k: np.asarray(v)[i] for k, v in lp[name].items()})
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+            _dense(getattr(layer, name), {k: np.asarray(v)[i] for k, v in lp[name].items()})
+    return tower
+
+
 def _pick(tree, path):
     for key in path:
         tree = tree[key]
@@ -118,13 +136,21 @@ def _bottleneck(blk: RegBottleneck, p) -> None:
         _ln(blk.downsample_ln, p["downsample_ln"])
 
 
-def load_projector(proj: STCConnector, p: Dict[str, Any]) -> None:
+def load_projector(proj, p: Dict[str, Any]) -> None:
+    """A JAX projector tree of any type into ``proj`` (``build_projector``'s
+    module for the same configuration)."""
+    if isinstance(proj, LinearProjector):
+        for i, fc in enumerate(proj.fcs):
+            _dense(fc, p[f"fc{2 * i}"])
+        return
     for stage, name in ((proj.s1, "s1"), (proj.s2, "s2")):
-        for i, blk in enumerate(stage.blocks):
-            _bottleneck(blk, p[name][f"b{i + 1}"])
-    k = np.asarray(p["sampler"]["kernel"])  # [kt, kh, kw, in, out]
-    _set(proj.sampler.weight, k.transpose(4, 3, 0, 1, 2))
-    _set(proj.sampler.bias, p["sampler"]["bias"])
+        if stage is not None:
+            for i, blk in enumerate(stage.blocks):
+                _bottleneck(blk, p[name][f"b{i + 1}"])
+    if proj.sampler is not None:
+        k = np.asarray(p["sampler"]["kernel"])  # [kt, kh, kw, in, out]
+        _set(proj.sampler.weight, k.transpose(4, 3, 0, 1, 2))
+        _set(proj.sampler.bias, p["sampler"]["bias"])
     for i, fc in enumerate(proj.readout):
         _dense(fc, p["readout"][f"fc{2 * i}"])
 
@@ -525,12 +551,42 @@ def convert_siglip(w: TensorWriter, tower: SiglipVisionTower, sd: Mapping) -> No
     plan_from_sd(w, siglip_plan(tower), sd)
 
 
-def projector_plan(proj: STCConnector) -> Plan:
-    """The STC projector's reference keys (timm RegStage naming); the other
-    projector types raise when the port builds them."""
+def clip_plan(tower: CLIPVisionTower) -> Plan:
+    """HF CLIPVisionModel keys of the ``num_encode_layers`` layers the tower
+    holds (the JAX ``convert_clip`` keeps the same)."""
+    p = "vision_model"
+    plan: Plan = [(f"{p}.embeddings.patch_embedding", tower.patch_embedding, "patch"),
+                  (f"{p}.embeddings.class_embedding", tower.class_embedding, None),
+                  (f"{p}.embeddings.position_embedding.weight", tower.position_embedding, None),
+                  (f"{p}.pre_layrnorm", tower.pre_layrnorm, None)]
+    for i, layer in enumerate(tower.layers):
+        lp = f"{p}.encoder.layers.{i}"
+        plan += [(f"{lp}.layer_norm1", layer.layer_norm1, None),
+                 (f"{lp}.layer_norm2", layer.layer_norm2, None),
+                 *((f"{lp}.self_attn.{n}", getattr(layer, n), None)
+                   for n in ("q_proj", "k_proj", "v_proj", "out_proj")),
+                 (f"{lp}.mlp.fc1", layer.fc1, None), (f"{lp}.mlp.fc2", layer.fc2, None)]
+    return plan
+
+
+def convert_clip(w: TensorWriter, tower: CLIPVisionTower, sd: Mapping) -> None:
+    """HF CLIPVisionModel state dict → ``tower``."""
+    plan_from_sd(w, clip_plan(tower), sd)
+
+
+def projector_plan(proj) -> Plan:
+    """The projector's reference keys, routed on its type as the JAX
+    ``convert_projector`` routes: ``linear`` / ``mlpNx_gelu`` under the
+    ``Sequential`` indices 0, 2, …; the STC family in timm's RegStage naming,
+    the sampler under ``sampler.0`` and the readout under ``readout.{2i}``.
+    Only the layers the type has are listed (a pooling sampler and the
+    ``spatial_*`` types' absent RegStages have no keys; the JAX converter
+    asks for them all the same and so raises on those types)."""
+    if isinstance(proj, LinearProjector):
+        return [(str(2 * i), fc, None) for i, fc in enumerate(proj.fcs)]
     plan: Plan = []
     for name, stage in (("s1", proj.s1), ("s2", proj.s2)):
-        for i, blk in enumerate(stage.blocks):
+        for i, blk in enumerate(stage.blocks if stage is not None else ()):
             bp = f"{name}.b{i + 1}"
             plan += [(f"{bp}.conv1.conv", blk.conv1, "1x1"), (f"{bp}.conv1.bn", blk.conv1_ln, None),
                      (f"{bp}.conv2.conv", blk.conv2, None), (f"{bp}.conv2.bn", blk.conv2_ln, None),
@@ -539,7 +595,8 @@ def projector_plan(proj: STCConnector) -> Plan:
             if blk.downsample is not None:
                 plan += [(f"{bp}.downsample.conv", blk.downsample, "1x1"),
                          (f"{bp}.downsample.bn", blk.downsample_ln, None)]
-    plan.append(("sampler.0", proj.sampler, None))
+    if proj.sampler is not None:
+        plan.append(("sampler.0", proj.sampler, None))
     plan += [(f"readout.{2 * i}", fc, None) for i, fc in enumerate(proj.readout)]
     return plan
 
@@ -555,9 +612,9 @@ def text_fcs_plan(text_fcs: TextHiddenFC) -> Plan:
     return [("text_hidden_fcs.0.0", text_fcs.fc0, None), ("text_hidden_fcs.0.2", text_fcs.fc1, None)]
 
 
-def convert_projector(w: TensorWriter, proj: STCConnector, sd: Mapping) -> None:
-    """``mm_projector`` state dict (keys may keep the ``mm_projector.``
-    prefix) → ``proj``."""
+def convert_projector(w: TensorWriter, proj, sd: Mapping) -> None:
+    """``mm_projector`` state dict of the projector's type (keys may keep the
+    ``mm_projector.`` prefix) → ``proj``."""
     plan_from_sd(w, projector_plan(proj), {k.removeprefix("mm_projector."): v for k, v in sd.items()})
 
 
