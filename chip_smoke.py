@@ -10,6 +10,7 @@ harness, its other projectors and the CLIP tower on one GPU.
     python3 chip_smoke.py --train-only    # phases 0-1 and 8 (training)
     python3 chip_smoke.py --eval-only     # phases 0-1, 3 and 9 (eval)
     python3 chip_smoke.py --projectors-only  # phases 0-2 and 10
+    python3 chip_smoke.py --parallel-only    # phases 0-1 and 11
 
 Phases, each printed as it runs; any failure exits non-zero:
   0. device: nvidia-smi name / power limit, torch and CUDA versions; TF32 off.
@@ -180,10 +181,25 @@ Phases, each printed as it runs; any failure exits non-zero:
     W8A8 kernel at SigLIP's and Hiera-L's windowed shapes, the kernel
     forward against the plain W8A8 forward, both with the straight-through
     backward: gradient cosine >= 0.99 together, >= 0.95 a tensor.
+11. parallelism (after phase 10; with --parallel-only after phase 1), at
+    world 1 over NCCL (the card's machine has one card; several ranks are
+    held to the JAX package on the CPU over gloo): 11a phase 8b's setting
+    through maybe_initialize_distributed -> create_mesh(1, 1, 1) ->
+    shard_params (FSDP2 units) -> make_train_step(mesh=) -> Trainer(mesh=),
+    three steps against an unsharded Trainer from the same seed (bit for bit
+    expected; else losses within 1e-3 and each trained tensor's change at
+    cosine >= 0.999), launches held to the prediction, step 2's ms, peak
+    GiB and the NCCL calls of a step (profiler); 11b ring_attention at
+    Qwen2-7B's train shape against the plain attention (output and
+    gradient cosines >= 0.999); 11c python -m torch.distributed.run
+    --nproc_per_node 1 -m ufvideo_tpu_torch.train --tiny for two steps on
+    PNG frames (one rank of layout 1: the unsharded step), and the same with --fsdp 2 refused naming the world and the
+    card; 11d per_chip_state_bytes of the 7B full finetune at (1, 4, 1),
+    (1, 8, 1) and (1, 4, 2).
 Then one JSON line with every kernel (launches = the sum over the counted
 calls; launches_train_lora / _full the training runs', launches_eval /
-_eval_int8 phase 9's), the card line, and the last line {"ok": true,
-"device": {...}}.
+_eval_int8 phase 9's, launches_parallel phase 11a's), the card line, and
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -4410,6 +4426,256 @@ def run_phase10(dev, seed: int, full) -> dict:
     return counts
 
 
+# ------------------------------------------------------ phase 11: parallelism --
+
+# Phase 11: the parallelism layer on the one card, world 1 over NCCL (NCCL puts
+# no two ranks on one card; several ranks are held to the JAX package on the
+# CPU over gloo, tests/test_torch_parallel.py). 11a: phase 8b's setting
+# through maybe_initialize_distributed -> create_mesh(1, 1, 1) -> shard_params
+# (FSDP2 units) -> make_train_step(mesh=) -> Trainer(mesh=), three steps, held
+# against an unsharded Trainer from the same seed: bit for bit is expected at
+# world 1 (the same arithmetic on gathered copies); else each loss within
+# PAR_LOSS_REL and each trained tensor's change within PAR_COS of cosine.
+PAR_LOSS_REL, PAR_COS = 1e-3, 0.999
+# 11b: ring attention at Qwen2-7B's train shape of phase 8b's sample (2807
+# positions, 28 query heads, 4 kv heads of 128), causal, padded keys, one rank:
+# the ring's f32 online softmax against the plain f32 masked softmax
+RING_SHAPE = (1, 2807, 28, 4, 128)
+RING_COS = 0.999
+# 11c: the training launcher under torch.distributed.run on PNG frames
+PAR_LAUNCH_FRAMES = (6, 40, 56, 3)
+
+
+def _cos_change(a, b, start) -> float:
+    return cosine((a - start).float(), (b - start).float())
+
+
+def _nccl_calls(prof) -> dict:
+    """c10d's collective calls of a profiled run by name (its ``nccl:``
+    ranges; ``gloo:`` on the CPU)."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith(("nccl:", "gloo:"))}
+
+
+def run_parallel_train(dev, seed: int, cfg, frame_shape=(32, 480, 640, 3), sam_frames=4,
+                       label=TRAIN_LABEL) -> dict:
+    """11a (see above); returns the sharded run's launches."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ufvideo_tpu_torch import model_init
+    from ufvideo_tpu_torch.parallel.mesh import create_mesh, maybe_initialize_distributed
+    from ufvideo_tpu_torch.parallel.partition import full_param
+    from ufvideo_tpu_torch.train.data import Collator
+    from ufvideo_tpu_torch.train.seg_step import segmentation_loss_fn
+    from ufvideo_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    wrappers = all_wrappers()
+    cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, num_layers=4, remat=True))
+    tmp = tempfile.mkdtemp(prefix="ufvideo_parallel_")
+    runs = {}
+    try:
+        for name in ("unsharded", "sharded"):
+            rt, _, tok = model_init(cfg=cfg, device=dev, seed=seed)
+            _, _, sample = train_request(dev, seed, rt.cfg, tok, frame_shape, sam_frames, label)
+            collator = Collator(rt.cfg, rt.ids.region, rt.ids.seg)
+            tc = TrainConfig(output_dir=os.path.join(tmp, name), learning_rate=TRAIN_LR,
+                             total_steps=10, global_batch_size=1, save_steps=100, seed=seed)
+            mesh = None
+            if name == "sharded":
+                t0 = time.perf_counter()
+                multi = maybe_initialize_distributed()
+                mesh = create_mesh(1, 1, 1)
+                log(f"  maybe_initialize_distributed() -> {multi}; create_mesh(1, 1, 1) -> "
+                    f"{mesh} over {torch.distributed.get_backend()} in "
+                    f"{time.perf_counter() - t0:.2f} s")
+            trainer = Trainer(rt.model, rt.cfg, tc, loss_fn=segmentation_loss_fn, mesh=mesh)
+            state = trainer.init_state()
+            start = {n: full_param(rt.model, n, p).detach().clone()
+                     for n, p in state.params.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, launches, ms = _count(wrappers, lambda: trainer.train(
+                state, _batches(sample, collator, dev, TRAIN_STEPS), max_steps=TRAIN_STEPS))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            recs = _log_records(os.path.join(tc.output_dir, "train_log.jsonl"))
+            after = {n: full_param(rt.model, n, p).detach().clone()
+                     for n, p in state.params.items()}
+            nccl = None
+            if mesh is not None:
+                batch = next(iter(_batches(sample, collator, dev, 1)))
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    trainer.step_fn(state, batch)
+                    torch.cuda.synchronize()
+                nccl = _nccl_calls(prof)
+            runs[name] = dict(losses=[r["loss"] for r in recs],
+                              norms=[r["grad_norm"] for r in recs],
+                              step_ms=_step_ms(recs), peak=peak, launches=launches, ms=ms,
+                              start=start, after=after, nccl=nccl)
+            log(f"  {name}: {TRAIN_STEPS} steps in {ms:.1f} ms, step 2 {_step_ms(recs):.1f} ms, "
+                f"peak {peak:.2f} GiB, losses {runs[name]['losses']}, grad norms "
+                f"{runs[name]['norms']}" + ("" if nccl is None else
+                                           f", collective calls in a (fourth) step: "
+                                           f"{sum(nccl.values())} {nccl}"))
+            del rt, trainer, state
+            gc.collect()  # the sharded root and its model hold each other
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = runs["unsharded"], runs["sharded"]
+    want = expected_train_launches(cfg, sam_frames, TRAIN_STEPS)
+    log(f"  sharded launches {nonzero(b['launches'])} (predicted {nonzero(want)})")
+    if b["launches"] != want:
+        fail("phase 11a: the sharded steps' launches differ from the prediction")
+    same = (a["losses"] == b["losses"] and a["norms"] == b["norms"]
+            and all(torch.equal(a["after"][n], b["after"][n]) for n in a["after"]))
+    if same:
+        log(f"  bit for bit: every loss, grad norm and all {len(a['after'])} trained tensors "
+            "after step 3 equal the unsharded Trainer's")
+    else:
+        rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"]))
+        cos = min(_cos_change(b["after"][n], a["after"][n], a["start"][n]) for n in a["after"])
+        log(f"  not bit for bit: losses within {rel:.2e} relative (limit {PAR_LOSS_REL}), "
+            f"least cosine of a trained tensor's change {cos:.6f} (limit {PAR_COS})")
+        if rel > PAR_LOSS_REL or cos < PAR_COS:
+            fail("phase 11a: the sharded steps differ from the unsharded ones")
+    return b["launches"]
+
+
+def run_ring(dev, seed: int) -> None:
+    """11b (see above), over the mesh of 11a's process group."""
+    from ufvideo_tpu_torch.ops.ring_attention import ring_attention, ring_attention_plain
+    from ufvideo_tpu_torch.parallel.mesh import create_mesh
+
+    b, s, hq, hkv, d = RING_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    mk = lambda h: torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = mk(hq), mk(hkv), mk(hkv)
+    lens = torch.tensor([s - s // 26], device=dev)  # 2700 of 2807 valid keys
+    mesh = create_mesh(1, 1, 1)
+    outs = {}
+    for name, fn in (("ring", lambda *x: ring_attention(*x, mesh, "fsdp", causal=True,
+                                                        kv_lens=lens)),
+                     ("plain", lambda *x: ring_attention_plain(*x, causal=True, kv_lens=lens))):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*ins)
+        (o.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        outs[name] = (o.detach(), [t.grad for t in ins], (time.perf_counter() - t0) * 1e3)
+    (o1, g1, ms1), (o2, g2, ms2) = outs["ring"], outs["plain"]
+    cos = [cosine(o1, o2)] + [cosine(x, y) for x, y in zip(g1, g2)]
+    log(f"  ring_attention q {tuple(q.shape)} k / v {tuple(k.shape)} causal, kv_lens "
+        f"{lens.tolist()}, one rank: output cosine {cos[0]:.6f}, dq / dk / dv "
+        f"{', '.join(f'{c:.6f}' for c in cos[1:])} (limit {RING_COS}); forward + backward "
+        f"{ms1:.1f} ms, plain {ms2:.1f} ms (first calls)")
+    if min(cos) < RING_COS:
+        fail("phase 11b: ring attention differs from the plain attention")
+
+
+def run_parallel_launcher(seed: int) -> None:
+    """11c: ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    ufvideo_tpu_torch.train --tiny --dp 1 --fsdp 1 --tp 1`` for two steps on
+    PNG frame directories ([SEG] + <region> records with RLE masks): one
+    rank of layout 1 trains the unsharded step; then the same with
+    ``--fsdp 2``, which must be refused naming the world and the card."""
+    import shutil
+    import tempfile
+
+    from ufvideo_tpu_torch import rle
+    from ufvideo_tpu_torch.eval.png import write_png
+
+    tmp = tempfile.mkdtemp(prefix="ufvideo_launch_")
+    try:
+        rng = np.random.default_rng(seed + 12)
+        t, h, w, _ = PAR_LAUNCH_FRAMES
+        records = []
+        for v in range(2):
+            d = os.path.join(tmp, f"vid{v}")
+            os.makedirs(d)
+            for f in range(t):
+                write_png(os.path.join(d, f"{f:03d}.png"),
+                          rng.integers(0, 256, PAR_LAUNCH_FRAMES[1:], dtype=np.uint8), level=1)
+            mask = np.zeros((h, w), np.uint8)
+            mask[8 + v:24, 10:30 + v] = 1
+            records.append({"id": v, "video": f"vid{v}",
+                            "annotation": [{"1": {"segmentation": rle.encode(mask)}}],
+                            "conversations": [
+                                {"from": "human", "value": "<video>\n<region>: segment."},
+                                {"from": "gpt", "value": "Sure, [SEG]."}]})
+        data = os.path.join(tmp, "data.json")
+        with open(data, "w") as f:
+            json.dump(records * 2, f)
+        base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m", "ufvideo_tpu_torch.train", "--tiny",
+                "--data-paths", data, "--video-root", tmp, "--global-batch-size", "2",
+                "--total-steps", "2", "--num-workers", "1", "--dp", "1", "--tp", "1"]
+        for fsdp, ok in (("1", True), ("2", False)):
+            t0 = time.perf_counter()
+            res = subprocess.run(base + ["--fsdp", fsdp, "--output-dir",
+                                         os.path.join(tmp, f"out{fsdp}")],
+                                 cwd=os.path.dirname(os.path.abspath(__file__)),
+                                 capture_output=True, text=True, timeout=300)
+            secs = time.perf_counter() - t0
+            lines = [ln for ln in res.stdout.splitlines() if ln.startswith(("rank ", "done"))]
+            refusal = [ln for ln in res.stderr.splitlines() if "needs 2 ranks" in ln]
+            log(f"  --fsdp {fsdp}: rc {res.returncode} in {secs:.1f} s; "
+                f"{lines + refusal[:1]}")
+            if ok and (res.returncode != 0 or "rank 0 of 1 on cuda:0, unsharded" not in res.stdout
+                       or not any(ln.startswith("done at step 2") for ln in lines)):
+                fail(f"phase 11c: the launcher failed under torch.distributed.run:\n"
+                     f"{res.stderr[-3000:]}")
+            if not ok and (res.returncode == 0 or not any(
+                    "world of 1 over 1 visible card" in ln for ln in refusal)):
+                fail(f"phase 11c: --fsdp 2 on one card was not refused as it should be:\n"
+                     f"{res.stderr[-3000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_deployment_bytes(cfg) -> None:
+    """11d: the 7B full finetune's parameters and two moments a chip."""
+    from ufvideo_tpu_torch.models.ufvideo import UFVideoModel
+    from ufvideo_tpu_torch.parallel.mesh import MeshShape
+    from ufvideo_tpu_torch.parallel.partition import audit_shardings, per_chip_state_bytes
+    from ufvideo_tpu_torch.train.train_step import abstract_train_state
+
+    state = abstract_train_state(UFVideoModel.empty(cfg, "meta"))
+    total = per_chip_state_bytes(state, MeshShape())
+    parts = [f"(1, 1, 1) {total / 2**30:.2f} GiB"]
+    for layout in ((1, 4, 1), (1, 8, 1), (1, 4, 2)):
+        m = MeshShape(*layout)
+        n = per_chip_state_bytes(state, m)
+        parts.append(f"{layout} {n / 2**30:.2f} GiB ({n} B; {len(audit_shardings(state, m))} "
+                     "replicated >= 100 MB)")
+    log(f"  per_chip_state_bytes, 7B full finetune (bf16 parameters + Adam mu / nu): "
+        f"{'; '.join(parts)}")
+
+
+def run_phase11(dev, seed: int, full) -> dict:
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    log(" 11a: phase 8b's setting through the sharded path, world 1 over NCCL")
+    launches = run_parallel_train(dev, seed, full)
+    log(" 11b: ring attention at Qwen2-7B's train shape")
+    run_ring(dev, seed)
+    log(" 11c: the training launcher under torch.distributed.run")
+    run_parallel_launcher(seed)
+    log(" 11d: deployment arithmetic")
+    run_deployment_bytes(full)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def sass_counts(lib, opcode: str) -> dict:
     """Instructions of ``opcode`` in each kernel of a built library, from
     ``cuobjdump -sass`` (the toolkit's, beside nvcc); kernels without one
@@ -4445,6 +4711,8 @@ def main() -> int:
     ap.add_argument("--projectors-only", action="store_true",
                     help="phases 0-2 and 10 (the other projectors, CLIP, the W8A8 "
                          "backward), then stop: no result")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="phases 0-1 and 11 (parallelism), then stop: no result")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -4480,6 +4748,12 @@ def main() -> int:
     from ufvideo_tpu_torch.configs import UFVideoConfig
 
     full = UFVideoConfig()
+    if args.parallel_only:
+        log("phase 11: parallelism on the card")
+        par = run_phase11(dev, args.seed, full)
+        print(json.dumps({"launches_parallel": nonzero(par)}), flush=True)
+        log("stopped after phase 11 (--parallel-only): no result")
+        return 0
     if args.train_only:
         log(" 8a: a LoRA [SEG] + <region> finetune at full width and depth")
         lora = run_train_lora(dev, args.seed, full)
@@ -4609,6 +4883,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 10: the other projectors, the CLIP tower, the W8A8 backward")
     proj = run_phase10(dev, args.seed, full)
+    torch.cuda.empty_cache()
+    log("phase 11: parallelism on the card")
+    parallel = run_phase11(dev, args.seed, full)
     for k in kernels:
         # each path's counts were read around its own call, from zero;
         # "launches" is derived: their sum over the counted runs
@@ -4620,7 +4897,8 @@ def main() -> int:
                    "engine_spec_int8": engine_launches["spec"],
                    "seg_7a": seg_7a, "seg_7b": seg_7b, "window_msa": msa_launches,
                    "probe": probe_launches, "train_lora": train_lora,
-                   "train_full": train_full, "eval": eval_bf16, **ckpt, **proj}
+                   "train_full": train_full, "eval": eval_bf16, "parallel": parallel,
+                   **ckpt, **proj}
         for label, serving in (("bf16", serving_bf16), ("int8", serving_int8),
                                ("int4", serving_int4)):
             by_path.update({f"{path}_{label}": counts for path, counts in serving.items()})

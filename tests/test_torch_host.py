@@ -130,8 +130,9 @@ def test_port_imports_no_jax():
     cv2 / PIL / imageio blocked too (the card's machine has none of them),
     the serving layer (the scheduler, the engine, both launchers), the RLE
     codec and the host media module import and build a sample from a JSON
-    body, and the training package, its launcher and the logging utilities
-    import and take a step on a sample built in memory."""
+    body, the training package, its launcher and the logging utilities
+    import and take a step on a sample built in memory, and the parallelism
+    package and ring attention import."""
     script = textwrap.dedent(
         """
         import sys
@@ -189,6 +190,11 @@ def test_port_imports_no_jax():
         state, metrics = tr.step_fn(tr.init_state(), to_device(b, "cpu"))
         assert state.step == 1 and np.isfinite(float(metrics["loss"]))
         ulog.rank0_print("train step ok")
+        # parallelism: the mesh, the partition rules, ring attention
+        import ufvideo_tpu_torch.parallel
+        from ufvideo_tpu_torch.ops import ring_attention
+        from ufvideo_tpu_torch.parallel import mesh, partition
+        assert ring_attention.ring_attention and mesh.create_mesh and partition.shard_params
         bad = [m for m in sys.modules if m in ("jax", "flax", "ufvideo_tpu")
                or m.startswith(("jax.", "flax.", "ufvideo_tpu."))]
         bad = [m for m in bad if sys.modules[m] is not None]

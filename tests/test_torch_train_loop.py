@@ -255,19 +255,64 @@ def test_killed_save_is_passed_over_on_resume(tmp_path, monkeypatch):
 
 def test_launcher_trains_one_step(root, tmp_path, capsys):
     """``python -m ufvideo_tpu_torch.train`` in-process on the tiny model:
-    one step from the JSON root, a checkpoint, the final line; the JAX
-    launcher's mesh options are refused."""
+    one step from the JSON root, a checkpoint, the final line; a mesh larger
+    than the world (one process here) is refused naming both, and LoRA
+    with a pipeline is refused."""
     out = tmp_path / "run"
     args = ["--tiny", "--device", "cpu", "--data-paths", str(root / "data.json"),
             "--video-root", str(root), "--output-dir", str(out), "--global-batch-size", "2",
             "--total-steps", "1", "--num-workers", "1"]
     assert train_main(args) == 0
-    last = capsys.readouterr().out.strip().splitlines()[-1]
-    assert last.startswith("done at step 1 ")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "rank 0 of 1 on cpu, unsharded" in lines
+    assert lines[-1].startswith("done at step 1 ")
     assert latest_checkpoint(str(out)) == str(out / "checkpoint-1")
+    for opt in ("--tp", "--pp"):
+        with pytest.raises(SystemExit, match="needs 2 ranks; this run has a world of 1"):
+            train_main(args + [opt, "2"])
     with pytest.raises(SystemExit):
-        train_main(args + ["--tp", "2"])
-    assert "item 5" in capsys.readouterr().err
+        train_main(args + ["--pp", "2", "--lora"])
+    assert "--lora trains on the dense stack" in capsys.readouterr().err
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+
+
+def test_launcher_under_torchrun_matches_one_process(root, tmp_path, capsys):
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    ufvideo_tpu_torch.train --fsdp 2`` over gloo: each rank collates its row
+    of every global batch of 2 and the two steps' global losses are the
+    one-process launcher's (within tests/test_multihost.py's 2e-5)."""
+    import subprocess
+    import sys
+
+    records = json.loads((root / "data.json").read_text())[:2] * 2  # [SEG] batches only
+    data = tmp_path / "seg.json"
+    data.write_text(json.dumps(records))
+    common = ["--tiny", "--device", "cpu", "--data-paths", str(data), "--video-root", str(root),
+              "--global-batch-size", "2", "--total-steps", "2", "--num-workers", "1",
+              "--save-steps", "2"]
+    assert train_main(common + ["--output-dir", str(tmp_path / "one")]) == 0
+    capsys.readouterr()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+               OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "-m", "ufvideo_tpu_torch.train", *common, "--fsdp", "2",
+         "--output-dir", str(tmp_path / "two")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "rank 0 of 2" in res.stdout and "rank 1 of 2" in res.stdout
+    logs = {}
+    for name in ("one", "two"):
+        with open(tmp_path / name / "train_log.jsonl") as f:
+            logs[name] = [json.loads(line) for line in f]
+    assert [r["step"] for r in logs["two"]] == [1, 2]
+    for a, b in zip(logs["two"], logs["one"]):
+        for key in ("loss", "grad_norm"):
+            assert abs(a[key] - b[key]) <= 2e-5 * max(abs(b[key]), 1.0), (key, a, b)
+    assert latest_checkpoint(str(tmp_path / "two")) == str(tmp_path / "two" / "checkpoint-2")
 
 
 def test_launcher_trains_one_lora_step(root, tmp_path, capsys):

@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import torch_cores  # noqa: F401  (one share of the cores a test worker)
+
 from ufvideo_tpu.configs import tiny_config as j_tiny_config
 from ufvideo_tpu.models.sam2 import SAM2 as JSAM2
 from ufvideo_tpu.models.ufvideo import UFVideoModel as JUFVideoModel

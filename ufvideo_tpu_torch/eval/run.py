@@ -7,7 +7,9 @@ sample (``--batch`` > 1: ``mm_infer_batch`` on groups, each sample of a
 failed group retried alone, none emitted twice) and writes one JSONL row a
 sample to ``{output}_rank{r}.json`` and each sample's masks as PNGs under
 ``{output}_masks/{id}/``, the masks before the row. The rank comes from
-``RANK`` / ``WORLD_SIZE``; there are no collectives. ``FAILURES`` counts every
+``RANK`` / ``WORLD_SIZE``; there are no collectives (run as ``python -m``,
+the module first joins the rendezvous those variables name, over gloo, as
+the reference's eval did). ``FAILURES`` counts every
 fallback and every sample that failed, beside the traceback each prints.
 
     python -m ufvideo_tpu_torch.eval.run --benchmark pixrqa \
@@ -457,6 +459,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 if __name__ == "__main__":
-    # rank identity only (RANK / WORLD_SIZE, LOCAL_RANK for the card): each
-    # process evaluates its chunk and writes its own files
+    # the rendezvous (the reference's gloo init_process_group): rank
+    # identity only, no collectives; each process then evaluates its chunk
+    # (RANK / WORLD_SIZE, LOCAL_RANK for the card) and writes its own files
+    from ..parallel.mesh import maybe_initialize_distributed
+
+    maybe_initialize_distributed(backend="gloo")
     run_benchmark(build_parser().parse_args())

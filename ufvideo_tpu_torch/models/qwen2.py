@@ -28,7 +28,14 @@ weight-only with per-column scales, or packed int4 with group scales. Up to
 a transient and run one ``torch.matmul``. The route is fixed by the tensor's
 device and row count, not read from the environment.
 
-Ring attention comes with a later slice (ROADMAP.md). The vocabulary
+``train`` mode shards three ways (``parallel/partition.shard_params``, the
+train step's mesh): under tensor parallelism each layer holds ``tp``-th of
+the heads (``layer.tp``); with ``ring`` set (``set_ring``) the sequence is
+split over a mesh axis: each rank runs the layers on its own block of
+positions (global RoPE positions, global ``kv_lens``) and attention is
+``ops.ring_attention``, and ``backbone`` returns that block; with ``pipe``
+set (``set_pipeline``) the layers run as a GPipe pipeline over a mesh axis
+(``parallel/pipeline.py``). Ring and pipeline exclude each other. The vocabulary
 is padded to a multiple of 256; logits of padding ids are masked at sampling
 time.
 """
@@ -48,6 +55,7 @@ from ..ops.attention import attention, decode_attention, xla_attention
 from ..ops.quant_matmul import (
     MAX_ROWS, dequantize_int4, int4_matmul, int4_matmul_plain, int8_matvec,
     int8_matvec_plain)
+from ..ops.ring_attention import ring_attention
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..quant import div_exact, quant_bits, quantize_kernel, quantize_kernel4
 from . import init
@@ -205,13 +213,17 @@ class LoRATerm(NamedTuple):
     dtype (the parameter-space merge); else q / v get + scale·(drop(h)·A)·B,
     PEFT's forward term, with input dropout at ``dropout`` in train mode.
     Layer l draws its dropout mask from a generator seeded by (``seed``, l)
-    alone, so a recomputed layer (``cfg.remat``) draws the same mask."""
+    alone, so a recomputed layer (``cfg.remat``) draws the same mask.
+    ``rows`` (offset, global rows) places a rank's rows in the global batch:
+    the mask is drawn for the global batch (the whole sequence under
+    ``ring``) and sliced, so a sharded step draws what one process draws."""
 
     factors: Dict[str, Dict[str, torch.Tensor]]
     scale: float
     dropout: float = 0.0
     merge: bool = False
     seed: int = 0
+    rows: Tuple[int, int] = (0, 0)
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -229,11 +241,20 @@ def lora_qkv_delta(a_q, b_q, a_v, b_v, nkv: int, scale: float, dtype) -> torch.T
     return (torch.cat([dq, dq.new_zeros(dq.shape[0], nkv), dv], dim=-1) * scale).to(dtype)
 
 
-def dropout_keep(shape, rate: float, seed: int, layer: int, device) -> torch.Tensor:
-    """Keep mask (True with probability 1 - rate) of layer ``layer``."""
+def dropout_keep(shape, rate: float, seed: int, layer: int, device,
+                 rows: Tuple[int, int] = (0, 0), seq: Tuple[int, int] = (0, 0)
+                 ) -> torch.Tensor:
+    """Keep mask (True with probability 1 - rate) of layer ``layer`` for a
+    [B, S, ...] block: the mask of the global batch is drawn and this block
+    cut from it, rows [offset, offset + B) of ``rows`` = (offset, global
+    rows) and positions [offset, offset + S) of ``seq`` = (offset, global
+    length) (a total of 0: the block's own)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(fold_in(seed, layer))
-    return torch.rand(shape, generator=gen, device=device) >= rate
+    (r0, nr), (s0, ns) = rows, seq
+    full = torch.rand((nr or shape[0], ns or shape[1]) + tuple(shape[2:]),
+                      generator=gen, device=device)
+    return full[r0:r0 + shape[0], s0:s0 + shape[1]] >= rate
 
 
 class Qwen2DecoderLayer(nn.Module):
@@ -252,6 +273,17 @@ class Qwen2DecoderLayer(nn.Module):
         self.up_proj = lin(cfg.hidden_size, cfg.intermediate_size, False)
         self.down_proj = lin(cfg.intermediate_size, cfg.hidden_size, False)
         self.use_kernels = True
+        self.tp = 1  # tensor-parallel ranks: this layer holds 1/tp of the heads
+        self.ring = None  # (mesh, seq_axis): train-mode attention over the ring
+
+    def seq_span(self, s: int) -> Tuple[int, int]:
+        """(offset, global length) of this rank's ``s`` positions under
+        ``ring``; (0, s) without it."""
+        if self.ring is None:
+            return 0, s
+        mesh, axis = self.ring
+        n, r = mesh.size(mesh.mesh_dim_names.index(axis)), mesh.get_local_rank(axis)
+        return r * s, n * s
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         for m in (self.qkv_proj, self.o_proj, self.gate_proj, self.up_proj, self.down_proj):
@@ -274,11 +306,15 @@ class Qwen2DecoderLayer(nn.Module):
     ) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
-        nq = cfg.num_heads * cfg.head_dim
-        nkv = cfg.num_kv_heads * cfg.head_dim
+        hq, hkv = cfg.num_heads // self.tp, cfg.num_kv_heads // self.tp
+        nq = hq * cfg.head_dim
+        nkv = hkv * cfg.head_dim
         h = self.input_layernorm(x)
         if lora is not None and isinstance(self.qkv_proj, QuantLinear):
             raise ValueError("LoRA needs the float LLM (cfg.quant_llm is set)")
+        if lora is not None and self.tp > 1:
+            raise ValueError("LoRA under tensor parallelism is not supported: shard LoRA "
+                             "over data / fsdp only")
         fac = None if lora is None else {
             n: (f["a"][layer_idx], f["b"][layer_idx]) for n, f in lora.factors.items()}
         if lora is not None and lora.merge:
@@ -287,13 +323,14 @@ class Qwen2DecoderLayer(nn.Module):
             qkv = F.linear(h, w + delta.t(), self.qkv_proj.bias)
         else:
             qkv = self.qkv_proj(h)
-        q = qkv[..., :nq].reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = qkv[..., nq:nq + nkv].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = qkv[..., nq + nkv:].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = qkv[..., :nq].reshape(b, s, hq, cfg.head_dim)
+        k = qkv[..., nq:nq + nkv].reshape(b, s, hkv, cfg.head_dim)
+        v = qkv[..., nq + nkv:].reshape(b, s, hkv, cfg.head_dim)
         if lora is not None and not lora.merge:
             xr = h
             if lora.dropout > 0.0 and mode == "train":
-                keep = dropout_keep(h.shape, lora.dropout, lora.seed, layer_idx, h.device)
+                keep = dropout_keep(h.shape, lora.dropout, lora.seed, layer_idx, h.device,
+                                    lora.rows, self.seq_span(s))
                 xr = torch.where(keep, h / (1.0 - lora.dropout), 0.0).to(h.dtype)
             xf = xr.float()
             dq, dv = ((xf @ fac[n][0]) @ fac[n][1] for n in ("q", "v"))
@@ -302,7 +339,10 @@ class Qwen2DecoderLayer(nn.Module):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-        if mode in ("prefill", "train"):
+        if mode == "train" and self.ring is not None:
+            mesh, seq_axis = self.ring
+            o = ring_attention(q, k, v, mesh, seq_axis, causal=True, kv_lens=seq_lens)
+        elif mode in ("prefill", "train"):
             if mode == "prefill" and "k_scale" in cache:  # int8 KV cache
                 for name, val in (("k", k), ("v", v)):
                     vq, vs = quantize_kv(val.transpose(1, 2))
@@ -384,6 +424,45 @@ class Qwen2LM(nn.Module):
         )
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
         self.lm_head = _linear(cfg.hidden_size, cfg.padded_vocab_size, False, dtype, quant)
+        self.ring = None
+        self.pipe = None
+
+    def set_ring(self, mesh, seq_axis: str = "fsdp") -> None:
+        """Split train-mode sequences over ``mesh[seq_axis]`` (ring
+        attention); ``mesh`` None turns it off."""
+        if mesh is not None and self.pipe is not None:
+            raise ValueError("pp and ring are mutually exclusive: the pipelined layers do "
+                             "not carry ring (sequence-parallel) attention")
+        self.ring = None if mesh is None else (mesh, seq_axis)
+        for layer in self.layers:
+            layer.ring = self.ring
+
+    def set_pipeline(self, mesh, pipe_axis: str = "pipe", num_microbatches: int = 2) -> None:
+        """Run the train-mode backbone (no cache, no LoRA) as the GPipe
+        schedule over ``mesh[pipe_axis]`` in ``num_microbatches``
+        microbatches (``parallel/pipeline.py``); ``mesh`` None turns it off."""
+        if mesh is not None and self.ring is not None:
+            raise ValueError("pp and ring are mutually exclusive: the pipelined layers do "
+                             "not carry ring (sequence-parallel) attention")
+        if mesh is not None:
+            from ..parallel.pipeline import stage_range
+
+            stages = mesh.size(mesh.mesh_dim_names.index(pipe_axis))
+            stage_range(len(self.layers), stages, 0)  # L must divide the stages
+        self.pipe = None if mesh is None else (mesh, pipe_axis, num_microbatches)
+
+    def seq_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a [B, S, ...] tensor under ``ring`` (the
+        whole tensor without it); S must divide the axis."""
+        if self.ring is None:
+            return t
+        mesh, axis = self.ring
+        n, r = mesh.size(mesh.mesh_dim_names.index(axis)), mesh.get_local_rank(axis)
+        if t.shape[1] % n:
+            raise ValueError(f"sequence length {t.shape[1]} does not divide the "
+                             f"{axis!r} axis of size {n}")
+        c = t.shape[1] // n
+        return t[:, r * c:(r + 1) * c]
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         # nn.Embed's default: normal with std 1/sqrt(features)
@@ -407,7 +486,17 @@ class Qwen2LM(nn.Module):
         lora: Optional[LoRATerm] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Final hidden states [B, S, hidden]; ``cache`` is updated in place
-        and returned."""
+        and returned. Under ``ring`` (train mode) the inputs are the whole
+        sequence and the result is this rank's block of it."""
+        if mode == "train" and self.pipe is not None and cache is None and lora is None:
+            from ..parallel.pipeline import pipeline_backbone
+
+            mesh, axis, n_mb = self.pipe
+            return pipeline_backbone(self, input_embeds, positions, seq_lens, mesh,
+                                     pipe_axis=axis, num_microbatches=n_mb,
+                                     remat=self.cfg.remat), cache
+        if mode == "train" and self.ring is not None:
+            input_embeds, positions = self.seq_block(input_embeds), self.seq_block(positions)
         b, s, _ = input_embeds.shape
         dev = input_embeds.device
         if seq_lens is None:

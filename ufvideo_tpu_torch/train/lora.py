@@ -32,7 +32,7 @@ import torch
 from ..configs import UFVideoConfig
 from ..models.qwen2 import LoRATerm, fold_in, lora_qkv_delta
 from ..models.ufvideo import UFVideoModel
-from .train_step import AdamW, TrainState, language_model_loss_fn, run_step
+from .train_step import AdamW, MeshStep, TrainState, language_model_loss_fn, run_step
 
 # the non-LoRA modules that stay trainable in a LoRA finetune
 NON_LORA_TRAINABLE = ("projector", "region", "text_fcs")
@@ -102,12 +102,20 @@ def merge_for_eval(model: UFVideoModel, state: TrainState, lcfg: LoRAConfig) -> 
 
 
 def make_lora_train_step(model: UFVideoModel, optimizer: AdamW, lcfg: LoRAConfig,
-                         loss_fn=None, seed: int = 0):
+                         loss_fn=None, seed: int = 0, *, mesh=None, batch_spec=None):
     """(init, step) like ``make_train_step``, but the optimizer sees only
     the LoRA factors and the non-LoRA trainables. ``init(gen, lora=None)``
     freezes the rest of the model and draws the factors from ``gen`` (or
     takes ``lora``). Dropout 0 trains through the merge, dropout > 0 the
-    forward term with the step's masks drawn from ``fold_in(seed, step)``."""
+    forward term with the step's masks drawn from ``fold_in(seed, step)``
+    for the global batch.
+
+    With ``mesh`` it returns (init, step, shard_state) as
+    ``make_train_step`` does: the frozen base and the non-LoRA trainables
+    are sharded over data / fsdp, the factors stay whole on every rank with
+    their gradients summed over the data ranks (tensor and pipeline
+    parallelism are refused: the merge adds to whole qkv rows, and the
+    adapters run on the dense stack)."""
     loss_fn = loss_fn or language_model_loss_fn
 
     def init(gen: Optional[torch.Generator] = None, lora: Optional[Factors] = None) -> TrainState:
@@ -120,12 +128,30 @@ def make_lora_train_step(model: UFVideoModel, optimizer: AdamW, lcfg: LoRAConfig
             p.requires_grad_(True)
         return TrainState(0, params, optimizer.init(params), lora)
 
-    def step(state: TrainState, batch, grad_hook=None):
-        term = LoRATerm(state.lora, lcfg.scale, lcfg.dropout, merge=lcfg.dropout == 0.0,
-                        seed=fold_in(seed, state.step))
-        return run_step(state, optimizer, lambda: loss_fn(model, batch, lora=term), grad_hook)
+    def term(state: TrainState, rows=(0, 0)) -> LoRATerm:
+        return LoRATerm(state.lora, lcfg.scale, lcfg.dropout, merge=lcfg.dropout == 0.0,
+                        seed=fold_in(seed, state.step), rows=rows)
 
-    return init, step
+    if mesh is None:
+        def step(state: TrainState, batch, grad_hook=None):
+            return run_step(state, optimizer, lambda: loss_fn(model, batch, lora=term(state)),
+                            grad_hook)
+
+        return init, step
+
+    placed = MeshStep(model, mesh, batch_spec)
+    if placed.replicas > 1:
+        raise ValueError("LoRA over a mesh shards over data / fsdp only: tensor and pipe "
+                         "must be 1")
+
+    def sharded_step(state: TrainState, batch, grad_hook=None):
+        placed.check_rows(batch)
+        b = batch[0].shape[0]
+        lora = term(state, (placed.data_rank * b, placed.data_size * b))
+        return placed.run(state, optimizer, lambda root: root(loss_fn, batch, lora=lora),
+                          grad_hook)
+
+    return init, sharded_step, placed.shard_state
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,9 @@ def segmentation_loss_fn(
     lora: Optional[LoRATerm] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     cfg = model.cfg
+    if model.llm.ring is not None:
+        raise ValueError("the [SEG] loss reads hidden states across the whole sequence: "
+                         "train it without ring attention")
     sam = model.sam
     b = batch.pixels.shape[0]
     n_obj = batch.obj_valid.shape[1]

@@ -1,7 +1,14 @@
-"""The train step on one device (mirrors ``ufvideo_tpu/train/train_step.py``
+"""The train step (mirrors ``ufvideo_tpu/train/train_step.py``:
 ``make_optimizer`` / ``freeze_mask`` / ``Batch`` / ``language_model_loss_fn``
-/ ``_build_step``; the mesh placement of ``make_train_step`` and the
-lowering helpers wait for the parallelism slice, ROADMAP.md).
+/ ``_build_step`` / ``make_train_step`` / ``abstract_train_state`` /
+``lower_train_step``), on one device or over a mesh.
+
+Over a mesh (``make_train_step(..., mesh=)``) each rank feeds its own rows
+of the global batch (``trainer.shard_order_for_process``), the model is
+placed by ``parallel.partition.shard_params`` (FSDP2 units, tensor
+parallelism), the losses divide by counts summed over the data ranks and
+the gradients are summed over them, so R ranks take exactly the step one
+process takes on the same global batch; the metrics are the global ones.
 
 The optimizer is optax's ``chain(clip_by_global_norm(c), adamw(schedule))``
 written out in PyTorch, so that a step here and a step there move the same
@@ -20,7 +27,9 @@ parameters by the same amounts:
 
 Frozen parameters (``requires_grad`` False, set by ``apply_freeze``) are not
 the optimizer's and keep their values; ``grad_norm`` is the norm of the
-trainable gradients only.
+trainable gradients only. Over a mesh the norm sums each rank's squares of
+the elements it holds (an element held by several ranks counted once) over
+every rank before the root, so the clip is optax's.
 """
 
 from __future__ import annotations
@@ -30,10 +39,15 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..models.qwen2 import LoRATerm
 from ..models.ufvideo import UFVideoModel
-from .losses import causal_lm_loss
+from ..parallel.mesh import (BATCH_SPEC, PIPE_AXIS, TENSOR_AXIS, axis_coordinate, axis_sizes,
+                             spec_axes)
+from ..parallel.partition import (DEFAULT_RULES, ShapeDtype, is_dtensor, jax_shapes, load_full,
+                                  local, replication, shard_params, shardings_for)
+from .losses import causal_lm_loss, global_counts, lm_targets, token_ce
 
 Params = Dict[str, torch.Tensor]
 
@@ -99,16 +113,25 @@ class AdamW:
         """One step, in place on ``params`` and ``state``; returns the global
         norm of ``grads`` (before the clip)."""
         gs = [grads[n] for n in params]
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in gs))
+        # each rank's elements, those held by several ranks counted once
+        # (another pipeline stage's layers are held there, not here)
+        sq = sum((local(g).float() ** 2).sum() / replication(p)
+                 for p, g in zip(params.values(), gs) if not p.is_meta)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.all_reduce(sq)
+        norm = torch.sqrt(sq)
         clip = norm >= self.grad_clip
         count = state["count"]
         inc = count + 1
         b1c, b2c = 1.0 - self.b1 ** inc, 1.0 - self.b2 ** inc
         lrs = {k: s(count) for k, s in self.schedules.items()}
         for (name, p), g in zip(params.items(), gs):
+            if p.is_meta:  # another pipeline stage's layer
+                continue
+            p, g = local(p), local(g)
             g = torch.where(clip, (g / norm.to(g.dtype)) * self.grad_clip, g)
-            mu = state["mu"][name]
-            nu = state["nu"][name]
+            mu = local(state["mu"][name])
+            nu = local(state["nu"][name])
             mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
             nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
             u = (mu / b1c) / (torch.sqrt(nu / b2c) + self.eps)
@@ -181,7 +204,8 @@ class Batch(NamedTuple):
 
 def llm_forward(model: UFVideoModel, embeds: torch.Tensor, seq_lens: torch.Tensor,
                 lora: Optional[LoRATerm] = None) -> torch.Tensor:
-    """The train-mode backbone over spliced embeddings → final hidden."""
+    """The train-mode backbone over spliced embeddings → final hidden (this
+    rank's block of the sequence under ring attention)."""
     b, s, _ = embeds.shape
     positions = torch.arange(s, dtype=torch.int32, device=embeds.device).expand(b, s)
     hidden, _ = model.llm.backbone(embeds, positions, seq_lens, None, None, "train", lora)
@@ -197,9 +221,19 @@ def language_model_loss_fn(
     embeds = model.splice_embeds_train(
         batch.text_ids, batch.src_kind, batch.src_idx, video_feats, None)
     hidden = llm_forward(model, embeds, batch.seq_lens, lora)
-    ce = causal_lm_loss(model.llm.logits(hidden), batch.labels, cfg.llm.vocab_size)
+    if model.llm.ring is None:
+        ce = causal_lm_loss(model.llm.logits(hidden), batch.labels, cfg.llm.vocab_size)
+    else:  # this rank's block of the positions and of their targets
+        ce = token_ce(model.llm.logits(hidden), model.llm.seq_block(lm_targets(batch.labels)),
+                      cfg.llm.vocab_size)
     loss = cfg.ce_loss_weight * ce
     return loss, {"ce_loss": ce, "loss": loss}
+
+
+def model_param_name(name: str) -> str:
+    """The model's parameter behind a trainable's name (a LoRA state names
+    the non-LoRA trainables ``non_lora.<name>``)."""
+    return name.split(".", 1)[1] if name.startswith("non_lora.") else name
 
 
 def grads_of(params: Params) -> Params:
@@ -230,22 +264,144 @@ def run_step(state: TrainState, optimizer: AdamW, loss_of, grad_hook=None
     return state, metrics
 
 
+class MeshStep:
+    """The step's placement over a mesh: the model sharded once
+    (``shard_state``), this rank's rows checked, counts and metrics summed
+    over the data ranks (a tensor-parallel group and the pipeline stages
+    hold the same rows, so world sums are divided by their size). Under a
+    pipeline another stage's layers are ``meta`` tensors here: no gradient,
+    no moment, no update."""
+
+    def __init__(self, model: UFVideoModel, mesh, batch_spec=None):
+        self.model, self.mesh = model, mesh
+        self.spec = BATCH_SPEC if batch_spec is None else batch_spec
+        sizes = axis_sizes(mesh)
+        self.tp = sizes.get(TENSOR_AXIS, 1)
+        # ranks holding the same rows: a tensor-parallel group, pipeline stages
+        self.replicas = self.tp * sizes.get(PIPE_AXIS, 1)
+        self.data_rank, self.data_size = axis_coordinate(mesh, spec_axes(self.spec))
+        self.root = None
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """Shard the model (once) and move ``state`` onto its parameters:
+        each trainable tensor becomes the sharded parameter of that name and
+        each moment this rank's part of it (LoRA factors stay whole on
+        every rank)."""
+        if self.root is None:
+            self.root = shard_params(self.model, self.mesh)
+        named = dict(self.model.named_parameters())
+        params, mu, nu = {}, {}, {}
+        for n, old in state.params.items():
+            key = model_param_name(n)
+            params[n] = named.get(key, old)
+            for dst, src in ((mu, state.opt_state["mu"]), (nu, state.opt_state["nu"])):
+                dst[n] = torch.zeros_like(params[n])
+                if params[n] is not old:
+                    load_full(self.model, key, dst[n], src[n])
+                else:
+                    dst[n].copy_(src[n])
+        state.params = params
+        state.opt_state.update(mu=mu, nu=nu)
+        return state
+
+    def sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        if dist.get_world_size() == 1:
+            return x
+        y = x.clone()
+        dist.all_reduce(y)
+        if self.replicas == 1:
+            return y
+        return y // self.replicas if not y.is_floating_point() else y / self.replicas
+
+    def check_rows(self, batch) -> None:
+        """Every row-leading leaf holds this rank's rows, the same count in
+        each (their global count is that times the data ranks)."""
+        rows = {t.shape[0] for t in batch if torch.is_tensor(t) and t.ndim >= 1}
+        if len(rows) > 1:
+            raise ValueError(f"this rank's batch leaves hold different row counts "
+                             f"{sorted(rows)}; each must hold the rank's rows of the "
+                             f"global batch ({self.data_size} data ranks)")
+
+    def run(self, state: TrainState, optimizer: AdamW, loss_of, grad_hook=None):
+        """``run_step`` with ``loss_of(root)`` under global counts, the
+        replicated trainables' gradients summed, the metrics made global."""
+        if self.root is None:
+            raise RuntimeError("shard_state(state) first: the model is not placed on the mesh")
+        for p in state.params.values():
+            p.grad = None
+        with global_counts(self.sum_over_data):
+            loss, metrics = loss_of(self.root)
+        loss.backward()
+        grads = grads_of(state.params)
+        for n, g in grads.items():
+            if not is_dtensor(state.params[n]) and not g.is_meta:
+                grads[n] = self.sum_over_data(g)
+        if grad_hook is not None:
+            grad_hook(grads)
+        norm = optimizer.update(state.params, grads, state.opt_state)
+        for p in state.params.values():
+            p.grad = None
+        metrics = {k: self.sum_over_data(v.detach()) for k, v in metrics.items()}
+        metrics["grad_norm"] = norm
+        state.step += 1
+        return state, metrics
+
+
 def make_train_step(
     model: UFVideoModel,
     optimizer: AdamW,
     loss_fn=language_model_loss_fn,
+    *,
+    mesh=None,
+    batch_spec=None,
 ):
     """(init, step) on the model's device. ``init(params=None)`` takes the
     trainable tensors by name (default: the parameters with
     ``requires_grad``); ``step(state, batch, grad_hook=None)`` is
-    ``run_step`` on ``loss_fn(model, batch)``."""
+    ``run_step`` on ``loss_fn(model, batch)``.
+
+    With ``mesh`` (a ``DeviceMesh`` from ``parallel.create_mesh``) it
+    returns (init, step, shard_state), as the JAX package does: freeze,
+    ``init``, then ``shard_state`` places the model and the state, and
+    ``step`` takes this rank's rows. ``batch_spec`` names the axes that
+    split the rows (default ``BATCH_SPEC``, over data and fsdp; ``P('data')``
+    when fsdp splits the sequence for ring attention)."""
 
     def init(params: Optional[Params] = None) -> TrainState:
         if params is None:
             params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         return TrainState(0, params, optimizer.init(params))
 
-    def step(state: TrainState, batch, grad_hook=None):
-        return run_step(state, optimizer, lambda: loss_fn(model, batch), grad_hook)
+    if mesh is None:
+        def step(state: TrainState, batch, grad_hook=None):
+            return run_step(state, optimizer, lambda: loss_fn(model, batch), grad_hook)
 
-    return init, step
+        return init, step
+
+    placed = MeshStep(model, mesh, batch_spec)
+
+    def sharded_step(state: TrainState, batch, grad_hook=None):
+        placed.check_rows(batch)
+        return placed.run(state, optimizer, lambda root: root(loss_fn, batch), grad_hook)
+
+    return init, sharded_step, placed.shard_state
+
+
+def abstract_train_state(model: UFVideoModel) -> dict:
+    """The train state in the JAX package's tree and layout, as shapes:
+    ``step``, ``params`` (``partition.jax_shapes``) and AdamW's two moments
+    of every parameter. Build ``model`` on the ``meta`` device
+    (``UFVideoModel.empty(cfg, "meta")``) and nothing is allocated, so this
+    runs at 7B widths on any host."""
+    params = jax_shapes(model)
+    return {"step": ShapeDtype((), torch.int32), "params": params,
+            "opt_state": {"mu": params, "nu": params}}
+
+
+def lower_train_step(model: UFVideoModel, mesh, rules=DEFAULT_RULES) -> Tuple[dict, dict]:
+    """The state's placement at the model's real widths over ``mesh`` (a
+    ``DeviceMesh`` or a ``MeshShape``), without running it: (abstract
+    state, spec of each leaf). A rule that does not divide a real width of
+    100 MB or more warns here, before any card is asked for it."""
+    state = abstract_train_state(model)
+    return state, shardings_for(state, mesh, rules)
