@@ -3154,14 +3154,14 @@ def run_engine(dev, rt, tok, served, smi) -> dict:
 # Phase 6d: the launchers through their entry points, each a process of its
 # own on the card: the loadtest at the launchers' default serving
 # configuration (int8 LLM, bf16 cache, bf16 SigLIP), full width, random
-# weights, as a user starts it and again with the engine's two switches
-# turned the other way (the admitters move the frames; a fence after each
-# admission stage splits prep_s); the HTTP server on the tiny model (its
-# float32 widths run the plain versions on the card), one request and one
-# stream, then SIGINT.
+# weights, as a user starts it and again with the engine's staging switch
+# turned the other way (the admitters move the frames), each reporting the
+# admission stages' device seconds and the decode step's split; the HTTP
+# server on the tiny model (its float32 widths run the plain versions on the
+# card), one request and one stream, then SIGINT.
 LOADTEST_ARGS = ("--mode", "engine", "--quant", "int8", "--pixel-dtype", "uint8",
                  "--clients", "8", "--requests", "16", "--max-new", "32")
-LOADTEST_SWITCHED = {"UFVIDEO_ENGINE_PRESTAGE": "0", "UFVIDEO_ENGINE_STAGE_SYNC": "1"}
+LOADTEST_SWITCHED = {"UFVIDEO_ENGINE_PRESTAGE": "0"}
 
 
 def run_launchers(smi: str) -> None:
@@ -3173,7 +3173,7 @@ def run_launchers(smi: str) -> None:
 
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "ufvideo_tpu_torch.loadtest", *LOADTEST_ARGS]
-    stages = [f"stage_{s}_s" for s in ("transfer", "encode", "splice", "prefill")]
+    stages = [f"admit_{s}_device_s" for s in ("transfer", "encode", "splice", "prefill")]
     for switched in ({}, LOADTEST_SWITCHED):
         env = {k: v for k, v in os.environ.items() if k not in LOADTEST_SWITCHED}
         t0 = time.perf_counter()
@@ -3190,14 +3190,15 @@ def run_launchers(smi: str) -> None:
             f"{' '.join(LOADTEST_ARGS)}; {smi}; {wall:.1f} s with the process's start and "
             f"model_init): {line}")
         log(f"  loadtest {switched or '(defaults)'}: {bs['step_s'] / bs['decode_steps'] * 1e3:.1f}"
-            f" ms a decode step (step_s / decode_steps, no recorder); prep_s {bs['prep_s']}"
-            + "".join(f", {k} {bs[k]}" for k in stages if k in bs))
+            f" ms a decode step (step_s / decode_steps, no recorder; launch / wait / emit "
+            f"{bs['launch_s']} / {bs['wait_s']} / {bs['emit_s']} s); prep_s {bs['prep_s']}"
+            + "".join(f", {k} {bs[k]}" for k in stages))
         if rec["completed"] != 16 or rec["errors"] != 0 or rec["zero_llm"] \
                 or rec["name"] != "serve_loadtest" or bs["admit_fallback_requests"] != 0:
             fail(f"phase 6d: the loadtest {switched} did not complete 16 requests without "
                  "error or retry")
-        if switched and not all(k in bs for k in stages):
-            fail("phase 6d: UFVIDEO_ENGINE_STAGE_SYNC=1 did not split prep_s")
+        if not bs["admit_device_s"] > 0 or not bs["admit_encode_device_s"] > 0:
+            fail(f"phase 6d: the loadtest {switched} read no admission stage on the card")
 
     cmd = [sys.executable, "-m", "ufvideo_tpu_torch.serve", "--tiny", "--engine", "--port", "0"]
     server = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,

@@ -19,6 +19,7 @@ plain version on an H100).
 
 import dataclasses
 import functools
+import time
 
 import pytest
 import torch
@@ -1947,3 +1948,41 @@ def test_run_benchmark_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch):
         a, b = load_mask_pngs(root("cuda"), f"m{v}"), load_mask_pngs(root("cpu"), f"m{v}")
         assert len(a) == len(b) == 4
         assert min(float((x == y).mean()) for x, y in zip(a, b)) >= 0.99
+
+
+def test_span_holds_its_kernels_device_interval(dev):
+    """The program's spans and the device trace share one clock: a span
+    around a product's launch and ``torch.cuda.synchronize()`` contains the
+    product's kineto device interval within 50 µs, for each of five spans,
+    under the profiler the benchmark's traced window runs (CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ufvideo_tpu_torch.utils import tracing
+
+    a = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
+    a @ a  # cuBLAS's handle and workspace
+    torch.cuda.synchronize(dev)
+    ids = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            with tracing.Split("product", "launch") as sp:
+                a @ a
+                with tracing.wait():
+                    torch.cuda.synchronize(dev)
+            ids.append(sp.id)
+            time.sleep(0.01)
+    spans = {s.id: s for s in tracing.RECORDER.spans() if s.id in ids}
+    assert len(spans) == 5
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == cuda and e.duration_ns() > 0)
+    assert len(kernels) >= 5
+    slack = 50_000
+    for s in spans.values():
+        inside = [(k0, k1) for k0, k1 in kernels if s.start_ns - slack <= k0 <= s.end_ns + slack]
+        assert inside, (s, kernels)
+        assert all(s.start_ns - slack <= k0 and k1 <= s.end_ns + slack for k0, k1 in inside), \
+            (s, inside)
+    for k0, k1 in kernels:  # and every kernel lies in a span
+        assert any(s.start_ns - slack <= k0 and k1 <= s.end_ns + slack for s in spans.values())

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import torch_jax_init as jax_init
 
@@ -43,6 +44,7 @@ from ufvideo_tpu_torch.engine import StreamingEngine
 from ufvideo_tpu_torch.models.ufvideo import UFVideoModel
 from ufvideo_tpu_torch.serve import ServeFuture
 from ufvideo_tpu_torch.tokenization import byte_tokenizer_with_ids
+from ufvideo_tpu_torch.utils import tracing
 from ufvideo_tpu_torch.weights import load_jax_params
 
 
@@ -330,20 +332,34 @@ def test_engine_takes_cpu_tensors(runtimes, no_numpy_view):  # noqa: F811
     assert got == expect
 
 
-def test_engine_stage_sync_splits_prep(runtimes, monkeypatch):
-    """``UFVIDEO_ENGINE_STAGE_SYNC=1``: a fence after each admission stage
-    adds its seconds to ``stage_<name>_s``; the text stays JAX's."""
+def test_engine_stage_sync_splits_prep(runtimes):
+    """The admission stages without a fence: inside a profiler session the
+    dispatch is an ``admit`` span with one ``admit.<stage>`` child a stage,
+    in the chain's order, and each stage's device seconds (on the CPU its
+    host interval) go to ``admit_<stage>_device_s`` and their sum to
+    ``admit_device_s``; the text stays JAX's."""
     (jrt, jtok), (rt, tok) = runtimes
-    monkeypatch.setenv("UFVIDEO_ENGINE_STAGE_SYNC", "1")
     v = _video(13)
-    with StreamingEngine(rt, tok, max_slots=2, chunk=2, max_new_cap=8) as eng:
+    t0 = time.time_ns()
+    with StreamingEngine(rt, tok, max_slots=2, chunk=2, max_new_cap=8) as eng, \
+            profile(activities=[ProfilerActivity.CPU]):
         got = eng.submit({"video": v, "instruct": "What is shown?"},
                          max_new_tokens=5).result(timeout=600)
         st = eng.stats()
     assert got[0] == _jax_text(jrt, jtok, v, "What is shown?", 5)
-    stages = {k for k in st if k.startswith("stage_")}
-    assert stages == {f"stage_{s}_s" for s in ("transfer", "encode", "splice", "prefill")}
-    assert all(st[k] >= 0 for k in stages)
+    stages = ("transfer", "encode", "splice", "prefill")
+    assert not any(k.startswith("stage_") for k in st)
+    spans = tracing.RECORDER.spans(t0)
+    admit = next(s for s in spans if s.name == "admit")
+    kids = [s for s in spans if s.parent == admit.id]
+    assert [s.name for s in kids] == [f"admit.{n}" for n in stages]
+    assert all(admit.start_ns <= s.start_ns <= s.end_ns <= admit.end_ns for s in kids)
+    assert all(s.requests == admit.requests for s in kids) and len(admit.requests) == 1
+    assert all(st[f"admit_{n}_device_s"] >= 0 for n in stages)
+    assert st["admit_encode_device_s"] > 0 and st["admit_prefill_device_s"] > 0
+    assert st["admit_device_s"] == pytest.approx(
+        sum(st[f"admit_{n}_device_s"] for n in stages), abs=3e-3)
+    assert st["admit_device_s"] <= st["prep_s"] + 1e-3
 
 
 def test_engine_failed_dispatch_retries_alone(runtimes, monkeypatch):

@@ -54,11 +54,25 @@ no CPU fallback):
   (``UFVIDEO_ENGINE_PRESTAGE``, default on; ``0`` leaves the transfer to the
   admitter), at most ``max_slots`` payloads at once, counted under a lock;
   float32 frames are cast to bf16 on the host first when the model computes
-  in bf16 (the tower's own cast: half the bytes to move);
-- ``UFVIDEO_ENGINE_STAGE_SYNC=1`` synchronizes the admitter's stream after
-  each stage, so ``stats()`` splits ``prep_s`` into ``stage_<name>_s``
-  (transfer, encode, splice, prefill); the fences serialize the chain they
-  measure.
+  in bf16 (the tower's own cast: half the bytes to move).
+
+Counters and spans (``stats()``, so ``GET /v1/stats``; always on): each
+admission stage's device seconds, ``admit_<stage>_device_s`` and their sum
+``admit_device_s``, from a pair of timing events on the admitter's stream
+read without blocking (on the CPU, where each operation runs as it is
+issued, the stage's host seconds); ``ready_wait_s``, prepared requests
+waiting in ``_ready`` for the worker; a decode step's host seconds split
+into ``launch_s`` (Python issuing work), ``wait_s`` (its host syncs) and
+``emit_s`` (the text deltas and retirements), with ``launch_cpu_s``, the
+worker's thread CPU seconds inside ``launch``; ``decode_rows`` (tokens the
+decode steps made, row by row) and ``kv_live_pos_steps`` /
+``kv_reserved_pos_steps`` (live slots' cache positions against the whole
+cache, summed over steps; plain mode). While a ``torch.profiler`` session
+runs, the same boundaries are spans (``utils.tracing``): ``request`` with
+its ``queue``, ``slot_wait``, ``ready_wait``, ``install`` and ``retire``;
+``admit`` with ``admit.transfer`` / ``.encode`` / ``.splice`` /
+``.prefill``; ``step`` with its ``launch``, ``wait`` and ``emit`` phases. A
+request's id is its ``request`` span's.
 
 Not carried over from the JAX engine: ``_pow2pad``, which padded each
 admission dispatch to a power-of-two batch to bound compile variants. The
@@ -99,6 +113,7 @@ from .models.qwen2 import make_kv_cache
 from .models.speculative import SpecState, _spec_body, spec_set_done, spec_slot_admit
 from .serve import ServeFuture, StreamFuture
 from .splicing import plan_lookup_ids
+from .utils import tracing
 
 __all__ = ["StreamingEngine"]
 
@@ -108,6 +123,8 @@ __all__ = ["StreamingEngine"]
 ADMIT_CHUNK = 4
 
 _MODAL_TOKEN = {"image": DEFAULT_IMAGE_TOKEN, "video": DEFAULT_VIDEO_TOKEN, "text": ""}
+
+ADMIT_STAGES = ("transfer", "encode", "splice", "prefill")
 
 
 @dataclass
@@ -122,6 +139,12 @@ class _EngineRequest:
     # events on the streams that made the sample's tensors on the card
     events: List[Any] = field(default_factory=list)
     prestaged: bool = False  # holds one of the staging budget's payloads
+    # the request's id, its ``request`` span's; its submission on the spans'
+    # clock; when it was put in ``_ready`` (host clock, and spans' clock)
+    rid: int = field(default_factory=tracing.RECORDER.new_id)
+    t_ns: int = field(default_factory=time.time_ns)
+    t_ready: float = 0.0
+    ready_ns: int = 0
 
 
 class _SlotState:
@@ -149,6 +172,47 @@ class _Prepared:
     real_len: int  # unpadded prompt length
     lookup_ids: Optional[np.ndarray]  # spec mode: [max_seq_len] prompt-lookup row
     ready: Any  # CUDA event after the prefill on the admitter's stream (None on the CPU)
+
+
+class _Stages:
+    """The stages of one admission dispatch, one after another on the
+    admitter's thread and stream. Each stage ends at ``end``: on the card a
+    timing event recorded there closes its device interval, read later
+    without blocking (``StreamingEngine._read_stage_events``); on the CPU its
+    host interval is its device time. While spans are recorded the dispatch
+    is an ``admit`` span and each stage an ``admit.<stage>`` child."""
+
+    def __init__(self, engine: "StreamingEngine", rids: List[int]):
+        self.engine = engine
+        self.rids = rids
+        self.t = time.perf_counter()
+        self.event = engine._timing_event()
+        self.rec = tracing.on()
+        if self.rec:
+            self.id = tracing.RECORDER.new_id()
+            self.ns = self.ns0 = time.time_ns()
+
+    def end(self, stage: str, rids: Optional[List[int]] = None) -> None:
+        eng = self.engine
+        t = time.perf_counter()
+        if eng._cuda:
+            event = eng._timing_event()
+            with eng._stage_events_lock:
+                eng._stage_events.append((stage, self.event, event))
+            self.event = event
+        else:
+            eng._add_stage(stage, t - self.t)
+        self.t = t
+        if self.rec:
+            ns = time.time_ns()
+            tracing.RECORDER.add(f"admit.{stage}", self.ns, ns, parent=self.id,
+                                 requests=rids or self.rids)
+            self.ns = ns
+
+    def close(self) -> None:
+        if self.rec:
+            tracing.RECORDER.add("admit", self.ns0, self.ns, requests=self.rids,
+                                 span_id=self.id)
 
 
 def _dtype_name(x) -> str:
@@ -179,7 +243,6 @@ class StreamingEngine:
         self.n_admitters = max(
             int(admitters) or int(os.environ.get("UFVIDEO_ENGINE_ADMITTERS", "2") or 2), 1)
         self._prestage_dev = os.environ.get("UFVIDEO_ENGINE_PRESTAGE", "1") != "0"
-        self._stage_sync = os.environ.get("UFVIDEO_ENGINE_STAGE_SYNC", "") == "1"
         self.spec_k = int(spec_k)
         cfg = model.cfg
         self.cache_positions = -(
@@ -201,7 +264,18 @@ class StreamingEngine:
             # readback), of slot copies and of decode steps
             "admit_batches": 0, "admit_batched_requests": 0, "admit_fallback_requests": 0,
             "prefills": 0, "decode_steps": 0, "prep_s": 0.0, "install_s": 0.0, "step_s": 0.0,
+            # the layers' split (module docstring): admission stages on the
+            # device, the wait for the worker, a decode step's phases, the
+            # batch's and the cache's use
+            **{f"admit_{st}_device_s": 0.0 for st in ADMIT_STAGES}, "admit_device_s": 0.0,
+            "ready_wait_s": 0.0, "launch_s": 0.0, "wait_s": 0.0, "emit_s": 0.0,
+            "launch_cpu_s": 0.0, "decode_rows": 0, "kv_live_pos_steps": 0,
+            "kv_reserved_pos_steps": 0,
         }
+        # (stage, start event, end event) of admission stages on the card
+        # whose end has not been seen yet
+        self._stage_events: List[tuple] = []
+        self._stage_events_lock = threading.Lock()
         # the per-slot spec counters as of the last step; a row adds into the
         # cumulative stats when it retires (admission resets the device row)
         self._slot_spec_counts = None
@@ -321,6 +395,7 @@ class StreamingEngine:
         return self._submit(sample, modal, choice, gen, stream=True)
 
     def stats(self) -> Dict[str, Any]:
+        self._read_stage_events()
         with self.stats_lock:
             s = dict(self._stats)
             lat = sorted(self._lat[-512:])
@@ -368,7 +443,14 @@ class StreamingEngine:
         with self._admit_lock:
             self._reserved.discard(slot)
 
+    @staticmethod
+    def _end_request(req: _EngineRequest) -> None:
+        if tracing.on():
+            tracing.RECORDER.add("request", req.t_ns, time.time_ns(), requests=(req.rid,),
+                                 span_id=req.rid)
+
     def _deliver_error(self, req: _EngineRequest, exc: BaseException) -> None:
+        self._end_request(req)
         with self.stats_lock:
             self._stats["errors"] += 1
         if req.stream:
@@ -392,6 +474,7 @@ class StreamingEngine:
                     if self._closing and self._queue.empty():
                         return
                     continue
+                taken_ns = time.time_ns() if tracing.on() else 0
                 # wait for a free slot, so prepared scratch caches stay
                 # within the slot budget; claim the slots and take batchmates
                 # atomically, so two admitters never book one slot
@@ -409,6 +492,13 @@ class StreamingEngine:
                             self._reserved.update(slots)
                             break
                     time.sleep(0.002)
+                if tracing.on():
+                    claimed_ns = time.time_ns()
+                    for r in reqs:  # batchmates leave the queue as the slots are claimed
+                        t = taken_ns if r is req and taken_ns else claimed_ns
+                        tracing.RECORDER.add("queue", r.t_ns, t, parent=r.rid, requests=(r.rid,))
+                        tracing.RECORDER.add("slot_wait", t, claimed_ns, parent=r.rid,
+                                             requests=(r.rid,))
                 with self.stats_lock:
                     self._stats["requests"] += len(reqs)
                 try:
@@ -420,6 +510,8 @@ class StreamingEngine:
                         self._deliver_error(r, res)
                         self._unreserve(slot)
                     else:
+                        r.t_ready = time.perf_counter()
+                        r.ready_ns = time.time_ns() if tracing.on() else 0
                         self._ready.put((slot, res))
 
     def _enter_inputs(self, req: _EngineRequest) -> None:
@@ -479,18 +571,30 @@ class StreamingEngine:
             self._release(req)
         return results
 
-    def _stage_mark(self, name: str, t_prev: float) -> float:
-        """With ``UFVIDEO_ENGINE_STAGE_SYNC=1``: wait for the current
-        stream's work and add the elapsed time to ``stage_<name>_s``."""
-        if not self._stage_sync:
-            return t_prev
-        if self._cuda:
-            torch.cuda.current_stream(self._device).synchronize()
-        now = time.perf_counter()
+    def _timing_event(self):
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self._device))
+        return ev
+
+    def _add_stage(self, stage: str, seconds: float) -> None:
         with self.stats_lock:
-            key = f"stage_{name}_s"
-            self._stats[key] = self._stats.get(key, 0.0) + (now - t_prev)
-        return now
+            self._stats[f"admit_{stage}_device_s"] += seconds
+            self._stats["admit_device_s"] += seconds
+
+    def _read_stage_events(self) -> None:
+        """Add the device seconds of every admission stage whose end event
+        has completed to its counter; ``query`` never blocks."""
+        if not self._cuda:
+            return
+        ended, pending = [], []
+        with self._stage_events_lock:
+            for e in self._stage_events:
+                (ended if e[2].query() else pending).append(e)
+            self._stage_events = pending
+        for stage, start, end in ended:
+            self._add_stage(stage, start.elapsed_time(end) / 1e3)
 
     def _prepare_video_group(self, reqs, members, results) -> None:
         """Same-shaped video requests in sub-batches of at most
@@ -542,18 +646,19 @@ class StreamingEngine:
     def _prepare_video_subgroup(self, reqs, members, results) -> None:
         model, cfg = self.model, self.model.cfg
         t_start = time.perf_counter()
+        stages = _Stages(self, [reqs[i].rid for i, _, _ in members])
         vids = [arr for _, _, arr in members]
         if all(isinstance(v, np.ndarray) for v in vids):
             px = _on_device(np.stack(vids), self._device)  # one host → card copy
         else:
             px = torch.stack([_on_device(v, self._device) for v in vids])
-        t_stage = self._stage_mark("transfer", t_start)
+        stages.end("transfer")
         feats = self._encode(px)  # [G, V, d]
         del px
-        t_stage = self._stage_mark("encode", t_stage)
+        stages.end("encode")
         plan, embeds = model._splice_plan([ids for _, ids, _ in members], feats)
         del feats
-        t_stage = self._stage_mark("splice", t_stage)
+        stages.end("splice")
         real_lens = [int(n) for n in plan.seq_lens]
         buckets: Dict[int, List[int]] = {}
         for j, rl in enumerate(real_lens):
@@ -564,12 +669,13 @@ class StreamingEngine:
             scratch, t0 = self._prefill(
                 embeds[torch.as_tensor(rows, device=self._device), :trim],
                 [real_lens[j] for j in rows])
-            t_stage = self._stage_mark("prefill", t_stage)
+            stages.end("prefill", [reqs[members[j][0]].rid for j in rows])
             ready = self._ready_event()
             for rj, j in enumerate(rows):
                 i = members[j][0]
                 results[i] = _Prepared(reqs[i], scratch, rj, int(t0[rj]), real_lens[j],
                                        lookup_rows[j] if self.spec_k else None, ready)
+        stages.close()
         with self.stats_lock:
             self._stats["admit_batches"] += 1
             self._stats["admit_batched_requests"] += len(members)
@@ -577,8 +683,10 @@ class StreamingEngine:
 
     def _prepare_one(self, req: _EngineRequest, input_ids) -> _Prepared:
         """The chain for one request (text, image and region requests, or a
-        member of a failed group). Its tensors stay on their device."""
+        member of a failed group). Its tensors stay on their device. Its
+        stages are encode (the frames' transfer inside), splice, prefill."""
         t_start = time.perf_counter()
+        stages = _Stages(self, [req.rid])
         model = self.model
         s = req.sample
         video_feats = _encode_video_input(model, s.get("video"), req.modal)
@@ -586,9 +694,13 @@ class StreamingEngine:
         if s.get("frame") is not None and s.get("masks") is not None:
             region_feats, region_counts = model.pack_and_encode_regions(
                 s["frame"], s["masks"], s.get("ann_indices"))
+        stages.end("encode")
         plan, embeds = model._splice_plan([input_ids], video_feats, region_feats,
                                           [region_counts or []])
+        stages.end("splice")
         scratch, t0 = self._prefill(embeds, plan.seq_lens)
+        stages.end("prefill")
+        stages.close()
         lookup = plan_lookup_ids(plan)[0] if self.spec_k else None
         prep = _Prepared(req, scratch, 0, int(t0[0]), int(plan.seq_lens[0]), lookup,
                          self._ready_event())
@@ -603,6 +715,12 @@ class StreamingEngine:
         that touches the decode state, between chunks, on the worker's
         stream after the prefill's event."""
         t_start = time.perf_counter()
+        start_ns = time.time_ns() if tracing.on() else 0
+        req = prep.req
+        if start_ns and req.ready_ns:
+            tracing.RECORDER.add("ready_wait", req.ready_ns, start_ns, parent=req.rid,
+                                 requests=(req.rid,))
+        self._read_stage_events()
         cfg = self.model.cfg
         if self._cuda:
             cur = torch.cuda.current_stream(self._device)
@@ -637,6 +755,10 @@ class StreamingEngine:
         with self.stats_lock:
             self._stats["admissions"] += 1
             self._stats["install_s"] += time.perf_counter() - t_start
+            self._stats["ready_wait_s"] += t_start - req.t_ready
+        if start_ns:
+            tracing.RECORDER.add("install", start_ns, time.time_ns(), parent=req.rid,
+                                 requests=(req.rid,))
         self._emit(slot, [prep.t0])
 
     def _init_spec_state(self) -> SpecState:
@@ -679,6 +801,7 @@ class StreamingEngine:
     def _retire(self, slot: int) -> None:
         st = self._slots[slot]
         st.finished = True
+        start_ns = time.time_ns() if tracing.on() else 0
         try:
             final = st.streamer.finish()  # the held tail
             if st.req.stream:
@@ -708,39 +831,58 @@ class StreamingEngine:
             # spec mode: the loop state's done flag follows before the next
             # step, or the row keeps verifying
             self._forced_done[slot] = True
+            if start_ns:
+                rid = st.req.rid
+                tracing.RECORDER.add("retire", start_ns, time.time_ns(), parent=rid,
+                                     requests=(rid,))
+            self._end_request(st.req)
 
     def _step(self) -> None:
         """One decode dispatch over every slot: up to ``chunk`` steps of
-        ``decode_chunk``, or one draft → verify iteration in spec mode."""
+        ``decode_chunk``, or one draft → verify iteration in spec mode. Its
+        host time splits into ``launch``, ``wait`` (each host sync) and
+        ``emit`` (``tracing.Split``)."""
         t_start = time.perf_counter()
+        rids = [sl.req.rid for sl in self._slots if sl is not None] if tracing.on() else ()
+        with tracing.Split("step", "launch", rids) as split:
+            counts = self._spec_chunk(split) if self.spec_k else self._plain_chunk(split)
+        with self.stats_lock:
+            self._stats["chunks"] += 1
+            for key, value in counts.items():
+                self._stats[key] += value
+            for kind in ("launch", "wait", "emit"):
+                self._stats[f"{kind}_s"] += split.seconds(kind)
+            self._stats["launch_cpu_s"] += split.cpu_seconds("launch")
+            self._stats["step_s"] += time.perf_counter() - t_start
+
+    def _spec_chunk(self, split: tracing.Split) -> Dict[str, int]:
         cfg = self.model.cfg
-        eos = (self.model.ids.eos,)
-        if self.spec_k:
-            if self._forced_done.any():
-                spec_set_done(self._spec_state, self._forced_done)
-                self._forced_done[:] = False
-            st = self._spec_state = _spec_body(
-                self._llm, self._spec_state, k=self.spec_k, stop_ids=eos,
-                vocab_size=cfg.llm.vocab_size, max_new_tokens=self.max_new_cap,
-                prompt_len=cfg.budget.max_seq_len)
+        if self._forced_done.any():
+            spec_set_done(self._spec_state, self._forced_done)
+            self._forced_done[:] = False
+        st = self._spec_state = _spec_body(
+            self._llm, self._spec_state, k=self.spec_k, stop_ids=(self.model.ids.eos,),
+            vocab_size=cfg.llm.vocab_size, max_new_tokens=self.max_new_cap,
+            prompt_len=cfg.budget.max_seq_len)
+        with tracing.wait():
             tokens = st.tokens.cpu().numpy()
             gen_lens = st.gen_lens.cpu().numpy()
             self._done = st.done.cpu().numpy().copy()
             self._slot_spec_counts = (st.n_drafted.cpu().numpy().copy(),
                                       st.n_accepted.cpu().numpy().copy())
-            with self.stats_lock:
-                self._stats["chunks"] += 1
-            for slot, sl in enumerate(self._slots):
-                if sl is None:
-                    continue
-                new, prev = int(gen_lens[slot]), sl.n_tokens
-                if new > prev:
-                    self._emit(slot, tokens[slot, prev:new].tolist())
-                if self._slots[slot] is not None and self._done[slot]:
-                    self._retire(slot)
-            with self.stats_lock:
-                self._stats["step_s"] += time.perf_counter() - t_start
-            return
+        split.switch("emit")
+        for slot, sl in enumerate(self._slots):
+            if sl is None:
+                continue
+            new, prev = int(gen_lens[slot]), sl.n_tokens
+            if new > prev:
+                self._emit(slot, tokens[slot, prev:new].tolist())
+            if self._slots[slot] is not None and self._done[slot]:
+                self._retire(slot)
+        return {}
+
+    def _plain_chunk(self, split: tracing.Split) -> Dict[str, int]:
+        cfg = self.model.cfg
         live = ~self._done
         # a step writes each row's k/v at its cache_len: the chunk ends
         # before the fullest live row runs off the cache
@@ -750,15 +892,21 @@ class StreamingEngine:
         as_dev = lambda a: torch.as_tensor(a, device=self._device)
         tokens, n, _hiddens, self._cache, cache_len, cur, done = decode_chunk(
             self._llm, self._cache, as_dev(self._cache_len), as_dev(self._cur),
-            as_dev(self._done), chunk=chunk, stop_ids=eos, vocab_size=cfg.llm.vocab_size)
-        tokens = tokens.cpu().numpy()
-        n = n.cpu().numpy()
-        self._cache_len = cache_len.cpu().numpy().copy()
-        self._cur = cur.cpu().numpy().copy()
-        self._done = done.cpu().numpy().copy()
-        with self.stats_lock:
-            self._stats["chunks"] += 1
-            self._stats["decode_steps"] += int(n.max(initial=0))
+            as_dev(self._done), chunk=chunk, stop_ids=(self.model.ids.eos,),
+            vocab_size=cfg.llm.vocab_size)
+        held = self._cache_len
+        with tracing.wait():
+            tokens = tokens.cpu().numpy()
+            n = n.cpu().numpy()
+            self._cache_len = cache_len.cpu().numpy().copy()
+            self._cur = cur.cpu().numpy().copy()
+            self._done = done.cpu().numpy().copy()
+        steps = int(n.max(initial=0))
+        counts = {"decode_steps": steps, "decode_rows": int(n.sum()),
+                  # a row live for n steps holds held + 1 .. held + n positions
+                  "kv_live_pos_steps": int((n * held + n * (n + 1) // 2).sum()),
+                  "kv_reserved_pos_steps": self.max_slots * self.cache_positions * steps}
+        split.switch("emit")
         for slot, sl in enumerate(self._slots):
             if sl is None:
                 continue
@@ -769,8 +917,7 @@ class StreamingEngine:
                 # eos landed in the chunk but the slot is still held (no
                 # budget or stop string hit): retire on the card's verdict
                 self._retire(slot)
-        with self.stats_lock:
-            self._stats["step_s"] += time.perf_counter() - t_start
+        return counts
 
     def _run(self) -> None:
         with torch.no_grad():
@@ -811,6 +958,7 @@ class StreamingEngine:
         for slot, st in enumerate(self._slots):
             if st is None:
                 continue
+            self._end_request(st.req)
             try:
                 if st.req.stream:
                     st.req.future.finish(exc)

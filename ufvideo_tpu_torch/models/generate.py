@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import tracing
 from .qwen2 import Qwen2LM, make_kv_cache
 
 
@@ -248,7 +249,9 @@ def decode_chunk(
     n = torch.zeros((b,), dtype=torch.int64, device=dev)
     cache_len = cache_len.to(torch.int64)
     for step in range(chunk):
-        if bool(done.all()):
+        with tracing.wait():  # a host sync a step (the engine's ``wait_s``)
+            finished = bool(done.all())
+        if finished:
             break
         h = _decode_step(model, cur, cache, cache_len)
         nxt = sample(h)

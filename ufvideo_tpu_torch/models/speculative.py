@@ -30,6 +30,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
+from ..utils import tracing
 from .generate import GenerateResult, _mask_vocab_logits, prefill_cache
 from .qwen2 import Qwen2LM, copy_cache_row, make_kv_cache
 
@@ -99,12 +100,17 @@ def spec_generate(
                        cache_max_len=cache_max_len, max_new_tokens=max_new_tokens,
                        stop_ids=stop_ids, vocab_size=vocab_size, kv_quant=kv_quant,
                        prefill_chunk=prefill_chunk)
-    while state.it < max_new_tokens and not bool(state.done.all()):
+    while state.it < max_new_tokens and not _all_done(state):
         state = _spec_body(model, state, k=k, stop_ids=stop_ids, vocab_size=vocab_size,
                            max_new_tokens=max_new_tokens, prompt_len=s)
     return SpecResult(tokens=state.tokens, gen_lens=state.gen_lens, hidden=state.hiddens,
                       n_iters=state.it, n_drafted=state.n_drafted,
                       n_accepted=state.n_accepted)
+
+
+def _all_done(state: SpecState) -> bool:
+    with tracing.wait():
+        return bool(state.done.all())
 
 
 def _argmax_tokens(model: Qwen2LM, h: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -197,7 +203,8 @@ def _spec_body(model, st: SpecState, *, k, stop_ids, vocab_size, max_new_tokens,
     count = torch.where(st.done, torch.zeros_like(count),
                         torch.minimum(count, max_new_tokens - st.gen_lens))
 
-    rows, cols = (kidx < count[:, None]).nonzero(as_tuple=True)
+    with tracing.wait():  # ``nonzero`` reads its count back
+        rows, cols = (kidx < count[:, None]).nonzero(as_tuple=True)
     wpos = st.gen_lens[rows] + cols
     st.tokens[rows, wpos] = preds[rows, cols]
     st.hiddens[rows, wpos] = h[rows, cols].to(st.hiddens.dtype)
@@ -247,7 +254,7 @@ def spec_stream_generate(
                        stop_ids=stop_ids, vocab_size=vocab_size, kv_quant=kv_quant,
                        prefill_chunk=prefill_chunk)
     yield state.tokens, state.gen_lens, state.hiddens, state.done
-    while state.it < max_new_tokens and not bool(state.done.all()):
+    while state.it < max_new_tokens and not _all_done(state):
         state = _spec_body(model, state, k=k, stop_ids=stop_ids, vocab_size=vocab_size,
                            max_new_tokens=max_new_tokens, prompt_len=s)
         yield state.tokens, state.gen_lens, state.hiddens, state.done

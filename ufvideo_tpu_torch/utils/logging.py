@@ -3,7 +3,8 @@
 - ``build_logger``: stdout/stderr capture into a daily-rotating file, with
   the reference's interface.
 - ``profile_trace``: a ``torch.profiler`` trace scope (CPU and CUDA
-  activities), written as a Chrome trace into ``log_dir``.
+  activities), written as a Chrome trace into ``log_dir`` with the program's
+  spans (``utils.tracing``) of the scope beside kineto's events.
 - ``rank0_print``: print on rank 0 of a ``torch.distributed`` group, or
   always when there is none.
 """
@@ -11,10 +12,12 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import logging.handlers
 import os
 import sys
+import time
 from typing import Optional
 
 _handler: Optional[logging.Handler] = None
@@ -83,17 +86,28 @@ def rank0_print(*args) -> None:
 def profile_trace(log_dir: str, enabled: bool = True):
     """``torch.profiler`` scope over CPU and (when present) CUDA activity;
     on exit the trace goes to ``log_dir/trace.json`` (chrome://tracing,
-    Perfetto)."""
+    Perfetto), with the spans the program recorded in the scope on the same
+    clock, one row a thread under the process ``ufvideo spans``."""
     if not enabled:
         yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from . import tracing
+
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    t0 = time.time_ns()
     with profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"] += tracing.chrome_events(tracing.RECORDER.spans(t0, time.time_ns()),
+                                                  trace.get("baseTimeNanoseconds", 0))
+    with open(path, "w") as f:
+        json.dump(trace, f)
